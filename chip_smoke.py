@@ -11,9 +11,13 @@ of the Lafida cam0 working configuration (754x480 fisheye, 650^2 faces, a
 included; ``device_ms``: the same calls replayed from a CUDA graph, the
 device's time alone), then drives the per-frame tracking step
 (``FrameTracker``) on a seeded synthetic fisheye frame and checks the
-recovered pose. It then runs the same step under ``torch.profiler`` with one
-range per stage, for the device's busy time and idle share, and holds the
-card's frame step against the same step on the CPU at a small size.
+recovered pose, and that each kernel was launched once a frame (kernel D's
+two passes once each). It then runs the same step under ``torch.profiler``
+with one range per stage, for the device's busy time and idle share, the
+five device operations with the most time in each stage, each kernel's
+device time, and a check that the card's extract makes no product with the
+dense descriptor operator; and it holds the card's frame step against the
+same step on the CPU at a small size.
 
 Output: progress lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and as the last
@@ -52,17 +56,28 @@ N_FRAMES = 6                  # the first is a warm-up frame
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
 TIMING_REPS, TIMING_BATCH = 7, 20
-SOURCES = ("warp_remap.cu", "orb_detect.cu", "patch_gather.cu")
+SOURCES = ("warp_remap.cu", "orb_detect.cu", "orb_describe.cu")
+# launches of each kernel entry in one frame step
+LAUNCHES_PER_FRAME = 1
 
 # float operations per valid pixel of kernel W, counted from its source: 2
 # floors, 4 subtractions, 8 products and 3 sums (the u8 loads and their
 # conversions are not counted)
 WARP_OPS_PER_PIXEL = 2 + 4 + 8 + 3
-# operations per pixel of kernel D, counted from its source: 16
-# differences, 16 negations, 2 x (4 x 16 min + 15 max) for the two FAST
-# runs, 1 max, 2 for the fallback merge, 10 for NMS, 4 border compares and
-# 4 key compares of the per-cell top-4
-DETECT_OPS_PER_PIXEL = 16 + 16 + 2 * (4 * 16 + 15) + 1 + 2 + 10 + 4 + 4
+# float operations of kernel D, counted from its source. Every pixel: the
+# compass test (4 differences, 6 min/max, 2 compares), the fallback merge (a
+# compare and a select), the merged-zero test and one key compare. A pixel that
+# passes the compass test: two FAST runs of 42 + 15 min/max, 2 differences,
+# 1 max and the any-strong compare. A pixel whose merged response is > 0:
+# NMS (9 max, 1 compare), 4 border compares.
+DETECT_OPS_PIXEL = 4 + 8 + 2 + 1 + 1
+DETECT_OPS_PASSING = 2 * (42 + 15) + 2 + 1 + 1
+DETECT_OPS_POSITIVE = 10 + 4
+# columns of the dense descriptor+moment operator: 32 bins x 256 bits + 2
+DESC_OP_COLS = TE.N_ROT * 256 + 2
+# the port's __global__ kernels, as the profiler names them
+PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
+                "select_levels_kernel", "orb_describe_kernel")
 
 
 def log(msg: str) -> None:
@@ -167,79 +182,165 @@ def check_warp(tracker, frame_u8):
     return row, out
 
 
-def check_detect_and_gather(tracker, cube):
-    """Kernels D and G against their plain versions on the 8 levels of the
-    frame's pyramid; times and bounds are summed over the levels."""
+def detect_work(levels, lo, cell, ini, mn):
+    """What kernel D's work depends on in these levels: the pixels, those
+    that pass its compass test at ``lo`` (two neighbouring compass points of
+    the FAST circle both brighter than c + lo or both darker than c - lo),
+    and those whose merged response is > 0 (plain versions, on the card)."""
+    n_pix = n_pass = n_pos = 0
+    for img in levels:
+        d = [torch.roll(img, shifts=(-dy, -dx), dims=(0, 1)) - img
+             for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0))]
+        hit = torch.zeros_like(img, dtype=torch.bool)
+        for i in range(4):
+            a, b = d[i], d[(i + 1) % 4]
+            hit |= ((a > lo) & (b > lo)) | ((a < -lo) & (b < -lo))
+        n_pix += img.numel()
+        n_pass += int(hit.sum())
+        n_pos += int((TE._fast_adaptive(img, ini, mn, cell) > 0).sum())
+    return n_pix, n_pass, n_pos
+
+
+def check_detect(tracker, levels):
+    """Kernel D, one launch pair for all levels, against its plain version
+    level by level: candidates bitwise, subpixel offsets within 1e-6."""
     p, cfg = tracker.params, tracker.cfg
     ini, mn = cfg.ini_th_fast, cfg.min_th_fast
-    levels = [cube] + [TE.pyramid_level(cube, A, Bt)
-                       for A, Bt in tracker.extractor.pyr_ops]
-    d = dict(err=0.0, ms=0.0, dev=0.0, plain=0.0, bytes=0.0, ops=0.0)
-    g = dict(ms=0.0, dev=0.0, plain=0.0, bytes=0.0, k=0)
+    kern = TE.detect_cells_levels(levels, p.cell, ini, mn)
+    start, err = 0, 0.0
     for lv, img in enumerate(levels):
-        img = img.contiguous()
-        Hl, Wl = img.shape
-        kern = TE.detect_cells(img, p.cell, ini, mn)
         plain = TE._detect_cells_plain(img, p.cell, ini, mn)
-        for name, a, b in zip(("resp", "y", "x"), kern[:3], plain[:3]):
+        n = plain[0].shape[0]
+        part = [t[start:start + n] for t in kern]
+        for name, a, b in zip(("resp", "y", "x"), part[:3], plain[:3]):
             if not torch.equal(a, b):
                 raise AssertionError(f"kernel D level {lv}: {name} differs "
                                      f"at {int((a != b).sum())} entries")
-        err = max(float((kern[3] - plain[3]).abs().max()),
-                  float((kern[4] - plain[4]).abs().max()))
-        if not err <= 1e-6:
-            raise AssertionError(f"kernel D level {lv}: subpixel err {err}")
-        t_k = time_ms(lambda: TE.detect_cells(img, p.cell, ini, mn))
-        t_kd = graph_ms(lambda: TE.detect_cells(img, p.cell, ini, mn))
-        t_p = time_ms(lambda: TE._detect_cells_plain(img, p.cell, ini, mn))
-        n_cells = kern[0].shape[0]
-        d["err"] = max(d["err"], err)
-        d["ms"] += t_k
-        d["dev"] += t_kd
-        d["plain"] += t_p
-        d["bytes"] += 4 * Hl * Wl + n_cells * 4 * 20
-        d["ops"] += DETECT_OPS_PER_PIXEL * Hl * Wl
+        e = max(float((part[3] - plain[3]).abs().max()),
+                float((part[4] - plain[4]).abs().max()))
+        if not e <= 1e-6:
+            raise AssertionError(f"kernel D level {lv}: subpixel err {e}")
+        err = max(err, e)
+        start += n
+        log(f"[D] level {lv} {tuple(img.shape)}: {n} cells, candidates "
+            f"bitwise equal, subpixel err {e:.3g}")
+    if start != kern[0].shape[0]:
+        raise AssertionError(f"kernel D gave {kern[0].shape[0]} cells, the "
+                             f"levels have {start}")
+    n_pix, n_pass, n_pos = detect_work(levels, min(ini, mn), p.cell, ini,
+                                       mn)
+    b_ms, b_by = bound(4 * n_pix + start * TE.PER_CELL * 20,
+                       DETECT_OPS_PIXEL * n_pix + DETECT_OPS_PASSING * n_pass
+                       + DETECT_OPS_POSITIVE * n_pos)
+    log(f"[D] {n_pix} pixels, {n_pass} pass the compass test, {n_pos} "
+        f"merge to a response > 0")
+    row = dict(
+        name="orb_detect", route="cuda",
+        source="cubemapslam_tpu_torch/csrc/orb_detect.cu",
+        replaces="cubemapslam_tpu/features/extractor.py:369",
+        max_abs_err=err,
+        ms=time_ms(lambda: TE.detect_cells_levels(levels, p.cell, ini, mn)),
+        device_ms=graph_ms(
+            lambda: TE.detect_cells_levels(levels, p.cell, ini, mn)),
+        plain_ms=time_ms(lambda: [TE._detect_cells_plain(img, p.cell, ini, mn)
+                                  for img in levels]),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, calls_per_frame=2)
+    log(f"[D] {len(levels)} levels, {start} cells in one launch pair: kernel "
+        f"{row['ms']:.5f} ms (device {row['device_ms']:.5f} ms), plain "
+        f"{row['plain_ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return row, kern
 
-        ys, xs, _, _, _ = TE._detect_level(img, p.level_k[lv], p.cell, ini,
-                                           mn)
-        gk = TE.gather_patches(img, ys, xs)
-        gp = TE._gather_patches_plain(img, ys, xs)
-        if not torch.equal(gk, gp):
-            raise AssertionError(f"kernel G level {lv} differs at "
-                                 f"{int((gk != gp).sum())} entries")
-        t_g = time_ms(lambda: TE.gather_patches(img, ys, xs))
-        t_gd = graph_ms(lambda: TE.gather_patches(img, ys, xs))
-        t_gp = time_ms(lambda: TE._gather_patches_plain(img, ys, xs))
-        K = ys.shape[0]
-        g["ms"] += t_g
-        g["dev"] += t_gd
-        g["plain"] += t_gp
-        g["bytes"] += K * 48 * 48 * 4 + min(K * 48 * 48, Hl * Wl) * 4 + 16 * K
-        g["k"] += K
-        log(f"[D] level {lv} {Hl}x{Wl}: {n_cells} cells, candidates bitwise "
-            f"equal, subpixel err {err:.3g}; kernel {t_k:.4f} ms "
-            f"(device {t_kd:.4f} ms), plain {t_p:.4f} ms")
-        log(f"[G] level {lv}: {K} patches bitwise equal; kernel "
-            f"{t_g:.4f} ms (device {t_gd:.4f} ms), plain {t_gp:.4f} ms")
-    if g["k"] != p.n_features:
-        raise AssertionError(f"gathered {g['k']} patches, want "
-                             f"{p.n_features}")
-    d_ms, d_by = bound(d["bytes"], d["ops"])
-    g_ms, g_by = bound(g["bytes"], 0.0)
-    return [
-        dict(name="orb_detect", route="cuda",
-             source="cubemapslam_tpu_torch/csrc/orb_detect.cu",
-             replaces="cubemapslam_tpu/features/extractor.py:369",
-             max_abs_err=d["err"], ms=d["ms"], device_ms=d["dev"],
-             plain_ms=d["plain"], bound_ms=d_ms, bound_by=d_by,
-             library_ms=None, calls_per_frame=2 * len(levels)),
-        dict(name="patch_gather", route="cuda",
-             source="cubemapslam_tpu_torch/csrc/patch_gather.cu",
-             replaces="cubemapslam_tpu/features/extractor.py:257",
-             max_abs_err=0.0, ms=g["ms"], device_ms=g["dev"],
-             plain_ms=g["plain"],
-             bound_ms=g_ms, bound_by=g_by, library_ms=None,
-             calls_per_frame=len(levels))]
+
+def unpack_bits(desc):
+    """(K, 8) int64 words -> (K, 256) bits (bit j of word w = bit 32w+j)."""
+    shifts = torch.arange(32, device=desc.device)
+    return ((desc[:, :, None] >> shifts) & 1).reshape(desc.shape[0], 256)
+
+
+def rot_bin(ang):
+    return torch.remainder(torch.round(
+        ang * (TE.N_ROT / (2.0 * math.pi))).to(torch.int64), TE.N_ROT)
+
+
+def check_describe(tracker, levels, cands):
+    """The describe kernel, one launch for all keypoints, against its plain
+    version (raw patches, then the dense product with the descriptor+moment
+    operator) on the frame's keypoints. Both sum in float32 in different
+    orders, so: angles within 1e-4 rad (mod 2 pi), bins equal on >= 99.5%
+    of keypoints, and on those, bits equal wherever the plain score is
+    farther than 1e-2 from 0."""
+    p, ops = tracker.params, tracker.extractor.ops
+    ys, xs, _, _, _ = TE._select_levels(cands, ops.sel_index, ops.sel_take)
+    args = (levels, ys, xs, p.level_k, ops.desc_table)
+    ang_k, desc_k = TE.describe_keypoints(*args)
+    ang_p, desc_p = TE._describe_plain(*args)
+    K = ys.shape[0]
+    # the dense product the kernel removes, on the plain version's operands
+    bnd = np.concatenate([[0], np.cumsum(p.level_k)])
+    flat = TE._bf16_round(torch.cat([
+        TE._gather_patches_plain(img, ys[bnd[i]:bnd[i + 1]],
+                                 xs[bnd[i]:bnd[i + 1]])
+        for i, img in enumerate(levels)]).reshape(K, -1))
+    desc_op = TE.desc_operator(flat.device)
+    fused = flat @ desc_op
+    d_ang = torch.remainder(ang_k - ang_p + math.pi, 2 * math.pi) - math.pi
+    err = float(d_ang.abs().max())
+    bin_k, bin_p = rot_bin(ang_k), rot_bin(ang_p)
+    same_bin = bin_k == bin_p
+    scores = fused[:, :TE.N_ROT * 256].reshape(K, TE.N_ROT, 256)[
+        torch.arange(K, device=flat.device), bin_p]
+    bits_k, bits_p = unpack_bits(desc_k), unpack_bits(desc_p)
+    firm = (scores.abs() > 1e-2) & same_bin[:, None]
+    bad_firm = int(((bits_k != bits_p) & firm).sum())
+    bins_equal = float(same_bin.float().mean())
+    bits_equal = float((bits_k == bits_p).float().mean())
+    log(f"[describe] {K} keypoints: angle err {err:.3g} rad, bins equal on "
+        f"{bins_equal:.5f}, bits equal {bits_equal:.6f} ({bad_firm} firm "
+        f"bits differ)")
+    if not (err <= 1e-4 and bins_equal >= 0.995 and bad_firm == 0):
+        raise AssertionError("the describe kernel disagrees with its plain "
+                             "version")
+    # bound: each keypoint's window read once (at most the level), the
+    # chosen bins' table rows, the coordinates and the outputs; operations:
+    # the two moments over the disc and the chosen bins' non-zero taps
+    nnz = (ops.desc_table != 0).sum(dim=1)            # (N_ROT, 256)
+    win = TE._WIN * TE._WIN
+    n_bytes = sum(min(k * win, img.numel()) * 4
+                  for k, img in zip(p.level_k, levels))
+    n_bytes += int(torch.unique(bin_k).numel()) * ops.desc_table.shape[1] \
+        * 256 * 4 + K * (8 + 4 + 64)
+    n_mom = int((TE._moment_operator() != 0).sum())
+    n_ops = 2 * (K * n_mom + int(nnz[bin_k].sum()))
+    b_ms, b_by = bound(n_bytes, n_ops)
+    row = dict(
+        name="orb_describe", route="cuda",
+        source="cubemapslam_tpu_torch/csrc/orb_describe.cu",
+        replaces="cubemapslam_tpu/features/extractor.py:257",
+        max_abs_err=err, bins_equal=bins_equal, bits_equal=bits_equal,
+        ms=time_ms(lambda: TE.describe_keypoints(*args)),
+        device_ms=graph_ms(lambda: TE.describe_keypoints(*args)),
+        plain_ms=time_ms(lambda: TE._describe_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by,
+        # the dense product of all 32 bins (a superset of the work)
+        library_ms=time_ms(lambda: flat @ desc_op),
+        library_device_ms=graph_ms(lambda: flat @ desc_op),
+        calls_per_frame=1)
+    log(f"[describe] kernel {row['ms']:.5f} ms (device "
+        f"{row['device_ms']:.5f} ms), plain {row['plain_ms']:.5f} ms, dense "
+        f"product {row['library_ms']:.5f} ms (device "
+        f"{row['library_device_ms']:.5f} ms), bound {b_ms:.5f} ms ({b_by})")
+    return row
+
+
+def check_kernels(tracker, frame):
+    """Every kernel against its plain version at the frame's shapes: the
+    kernels' JSON rows, without their main-path launches. What the checks
+    allocate is freed on return, before the main path is measured."""
+    w_row, cube = check_warp(tracker, frame)
+    levels = [cube] + [TE.pyramid_level(cube, A, Bt)
+                       for A, Bt in tracker.extractor.ops.pyr]
+    d_row, cands = check_detect(tracker, levels)
+    return [w_row, d_row, check_describe(tracker, levels, cands)]
 
 
 def drive_main_path(tracker, frame_u8, lms, rng):
@@ -281,8 +382,10 @@ def profiled_frames(tracker, frame_u8, lms, rng):
     frame synchronised at its end. Returns the per-frame medians of the
     wall time (profiler on), the device's busy time (summed kernel and copy
     time) and the device operations, and per stage the host time, device
-    busy time, device operations and host waits (a synchronisation, or a
-    copy that returns a value to the host), all per frame."""
+    busy time, device operations, host waits (a synchronisation, or a copy
+    that returns a value to the host) and the five device operations with
+    the most time, all per frame; and the count of matrix products with the
+    dense descriptor operator (its 8194 columns), which must be 0."""
     R0, t0 = perturbed_pose(rng, tracker.device)
     stages = ("warp", "extract", "match", "optimize")
 
@@ -297,8 +400,8 @@ def profiled_frames(tracker, frame_u8, lms, rng):
             tracker.optimize(kp, assoc, lms[0], R0, t0)
 
     walls = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         for _ in range(N_FRAMES):
             torch.cuda.synchronize()
             a = time.perf_counter()
@@ -322,17 +425,34 @@ def profiled_frames(tracker, frame_u8, lms, rng):
                  if e.name == st]
         inside = [k for k in kernels
                   if any(a <= k.time_range.start < b for a, b in spans)]
+        by_name = {}
+        for k in inside:
+            t, c = by_name.get(k.name, (0.0, 0))
+            by_name[k.name] = (t + k.time_range.elapsed_us() / 1e3 / n,
+                               c + 1 / n)
         per_stage[st] = dict(
             host_ms=sum(b - a for a, b in host) / 1e3 / n,
             device_busy_ms=sum(k.time_range.elapsed_us()
                                for k in inside) / 1e3 / n,
             device_ops=len(inside) / n,
             host_waits=sum(any(a <= w.time_range.start < b for a, b in host)
-                           for w in waits) / n)
+                           for w in waits) / n,
+            top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5])
+    port = {}
+    for k in kernels:
+        name = next((n for n in PORT_KERNELS if n in k.name), None)
+        if name:
+            port[name] = port.get(name, 0.0) + \
+                k.time_range.elapsed_us() / 1e3 / n
+    dense_products = sum(
+        1 for e in events if e.device_type == DeviceType.CPU
+        and e.name in ("aten::mm", "aten::matmul", "aten::addmm")
+        and any(DESC_OP_COLS in s for s in (e.input_shapes or []) if s))
     wall = float(np.median(walls))
     return dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
                 idle_share=1.0 - busy / float(np.mean(walls)),
-                device_ops=len(kernels) / n, stages=per_stage)
+                device_ops=len(kernels) / n, stages=per_stage,
+                port_kernels=port, dense_products=dense_products)
 
 
 def small_reference_check():
@@ -394,12 +514,11 @@ def main() -> int:
         f"{time.perf_counter() - t_s:.1f} s")
     frame = torch.as_tensor(synthetic_fisheye(cfg, SEED), device="cuda")
 
-    w_row, cube = check_warp(tracker, frame)
-    rows = [w_row] + check_detect_and_gather(tracker, cube)
+    rows = check_kernels(tracker, frame)
     # kernel D is two launches, each counted by its own wrapper
     counters = {"warp_remap": (warp_cuda.WARP_REMAP,),
                 "orb_detect": (TE.ORB_FAST, TE.ORB_SELECT),
-                "patch_gather": (TE.PATCH_GATHER,)}
+                "orb_describe": (TE.ORB_DESCRIBE,)}
 
     rng = np.random.default_rng(SEED)
     kp0 = tracker.extract(tracker.warp(frame))
@@ -423,9 +542,9 @@ def main() -> int:
     for name, by_kernel in launches.items():
         log(f"[path] {name}: launches in {N_FRAMES} frames {by_kernel}")
         for sym, n in by_kernel.items():
-            if n == 0:
-                raise AssertionError(f"{name} ({sym}) was not launched on "
-                                     f"the main path")
+            if n != LAUNCHES_PER_FRAME * N_FRAMES:
+                raise AssertionError(f"{name} ({sym}) was launched {n} times "
+                                     f"in {N_FRAMES} frames on the main path")
     prof = profiled_frames(tracker, frame, lms, rng)
     # the profiler slows the host, so the idle share is also given against
     # the wall time of the unprofiled frames above (after the warm-up)
@@ -440,6 +559,15 @@ def main() -> int:
         log(f"[profile] stage {st:9s}: host {v['host_ms']:.3f} ms, device "
             f"busy {v['device_busy_ms']:.3f} ms, {v['device_ops']:.0f} "
             f"device operations, {v['host_waits']:.0f} host waits per frame")
+        for name, (ms, cnt) in v["top"]:
+            log(f"[profile]   {ms:.5f} ms in {cnt:.0f} x {name[:110]}")
+    log(f"[profile] the port's kernels, device ms per frame: "
+        f"{', '.join(f'{k} {v:.5f}' for k, v in prof['port_kernels'].items())}")
+    log(f"[profile] matrix products with the dense descriptor operator: "
+        f"{prof['dense_products']}")
+    if prof["dense_products"]:
+        raise AssertionError("the card's extract made a dense descriptor "
+                             "product")
 
     small_reference_check()
 

@@ -1,5 +1,5 @@
 """ORB feature extraction in PyTorch (counterpart of
-``cubemapslam_tpu.features``), with the detect and patch-gather kernels."""
+``cubemapslam_tpu.features``), with kernel D and the describe kernel."""
 
 from cubemapslam_tpu_torch.features.extractor import (  # noqa: F401
     OrbExtractor,

@@ -1,4 +1,5 @@
-"""Batched fixed-shape ORB extractor in PyTorch, with kernels D and G.
+"""Batched fixed-shape ORB extractor in PyTorch, with kernel D and the
+describe kernel.
 
 Counterpart of ``cubemapslam_tpu/features/extractor.py``: an 8-level x1.2
 pyramid, FAST-9/16 with per-cell adaptive ini/min thresholds 20/7,
@@ -9,20 +10,26 @@ culling.
 
 The port follows the JAX package's CPU path, which is exact; the TPU detect
 kernel's slab-halo and fixed-cell approximations are layout artefacts of the
-TPU and are not reproduced. Two TPU kernels become CUDA kernels here:
+TPU and are not reproduced. Two TPU kernels become CUDA kernels here, each
+launched once for all pyramid levels:
 
 * kernel D (``csrc/orb_detect.cu``, replaces ``_detect_kernel``): FAST
   strength with the per-cell fallback flags, then merge, 3x3 NMS, border
-  mask, per-cell top-4 and subpixel offsets. ``_detect_cells_plain`` is its
-  plain version.
-* kernel G (``csrc/patch_gather.cu``, replaces ``_gather_kernel``): the
-  48x48 raw-patch gather around each keypoint from the edge-replicated level
-  image. ``_gather_patches_plain`` is its plain version.
+  mask, per-cell top-4 and subpixel offsets (``detect_cells_levels``).
+  ``_detect_cells_plain`` is its plain version, level by level.
+* the describe kernel (``csrc/orb_describe.cu``, replaces ``_gather_kernel``
+  and the dense descriptor product after it): per keypoint, the raw-window
+  gather from the edge-replicated level image, the IC angle and the rBRIEF
+  bits of the chosen rotation bin only, from a sparse table of the
+  descriptor operator (``describe_keypoints``). ``_describe_plain`` is its
+  plain version: the 48x48 patch gather and one dense product with the
+  descriptor+moment operator.
 
-The pyramid and the descriptor+moment operator are plain matrix products
-(``torch.matmul``), as the JAX package leaves them to XLA. They reproduce
-its bf16 operand rounding with float32 accumulation and float32 output: the
-operands are rounded to bf16 and multiplied as float32 with TF32 off.
+The pyramid and the plain descriptor+moment product are plain matrix
+products (``torch.matmul``), as the JAX package leaves them to XLA. They
+reproduce its bf16 operand rounding with float32 accumulation and float32
+output: the operands are rounded to bf16 and multiplied as float32 with
+TF32 off.
 """
 
 from __future__ import annotations
@@ -53,20 +60,26 @@ BLUR_R = 3                # 7x7 sigma-2 Gaussian
 RAW_R = PATCH_R + BLUR_R  # 21: raw-patch radius covering blurred desc reach
 _RAWP = 48                # raw patch side; rows/cols >= 43 are junk and
                           # zeroed in the flat operators
+_WIN = 2 * RAW_R + 1      # 43: the part of a raw patch the operators read
 N_ROT = 32                # steered-BRIEF rotation bins (11.25 deg)
 PER_CELL = 4              # detection survivors per cell
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+MAX_LEVELS = 16           # levels one kernel launch takes (csrc kMaxLevels)
+DETECT_CELLS = (16, 32)   # cell sizes kernel D is instantiated for
 
-_F = ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LLS = ctypes.POINTER(ctypes.c_longlong)     # host array of device pointers
+_INTS = ctypes.POINTER(ctypes.c_int)         # host array of sizes
 
-# kernel D is two launches, each with its own counter
-ORB_FAST = CudaKernel("orb_detect.cu", "fast_strength_launch",
-                      [_P, _P, _P, _I, _I, _I, _F])
-ORB_SELECT = CudaKernel("orb_detect.cu", "detect_select_launch",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F])
-PATCH_GATHER = CudaKernel("patch_gather.cu", "patch_gather_launch",
-                          [_P, _P, _P, _P, _I, _I, _I])
+# kernel D is two launches over all levels, each with its own counter
+ORB_FAST = CudaKernel("orb_detect.cu", "orb_fast_launch",
+                      [_I, _LLS, _INTS, _INTS, _I, _F, _F, _P, _P])
+ORB_SELECT = CudaKernel("orb_detect.cu", "orb_select_launch",
+                        [_I, _LLS, _INTS, _INTS, _I, _F, _F, _P, _P, _P, _P,
+                         _P, _P, _P])
+ORB_DESCRIBE = CudaKernel("orb_describe.cu", "orb_describe_launch",
+                          [_I, _LLS, _INTS, _INTS, _INTS, _P, _P, _P, _I, _P,
+                           _P])
 
 
 class OrbParams(NamedTuple):
@@ -203,6 +216,10 @@ def _cell_topk(score: torch.Tensor, cell: int, per_cell: int = PER_CELL):
     return val, ys, xs
 
 
+def _n_cells(hw: Tuple[int, int], cell: int) -> int:
+    return (-(-hw[0] // cell)) * (-(-hw[1] // cell))
+
+
 def _global_topk(vals: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest values, ties to the lower index (the order
     lax.top_k gives); never torch.topk, whose tie order is unspecified."""
@@ -269,36 +286,86 @@ def _detect_cells_plain(img: torch.Tensor, cell: int, ini_th: int,
     return val, ys.to(torch.int32), xs.to(torch.int32), dy, dx
 
 
-def detect_cells(img: torch.Tensor, cell: int, ini_th: int, min_th: int):
-    """Per-cell detection candidates of one level image (H, W) float32 (see
-    ``_detect_cells_plain``). A CPU tensor takes the plain version; a CUDA
-    tensor launches kernel D (two passes: FAST strength with per-cell
-    any-strong flags, then merge/NMS/border/top-4/subpixel per cell)."""
-    if img.dim() != 2 or img.dtype != torch.float32:
-        raise ValueError(f"level image must be 2-D float32, got "
-                         f"{tuple(img.shape)} {img.dtype}")
-    if img.device.type == "cpu":
-        return _detect_cells_plain(img, cell, ini_th, min_th)
-    img = img.contiguous()
-    require_cuda("detect_cells", img)
-    H, W = img.shape
-    if not 4 <= cell <= 64:
-        raise ValueError(f"kernel D supports cells of 4..64 px, got {cell}")
-    nc = (-(-H // cell)) * (-(-W // cell))
-    dev = img.device
-    strength = torch.empty((H, W), dtype=torch.float32, device=dev)
+def _check_levels(name: str, levels) -> list:
+    """The level images as a list: 2-D float32 tensors on one device."""
+    levels = list(levels)
+    if not levels:
+        raise ValueError(f"{name}: no level images")
+    for img in levels:
+        if img.dim() != 2 or img.dtype != torch.float32:
+            raise ValueError(f"{name}: level images must be 2-D float32, "
+                             f"got {tuple(img.shape)} {img.dtype}")
+        if img.device != levels[0].device:
+            raise ValueError(f"{name}: level images on {img.device} and "
+                             f"{levels[0].device}")
+    return levels
+
+
+def _level_arrays(levels):
+    """The host arrays a kernel's C entry takes for its level table: the
+    count, the device pointers, the heights and the widths."""
+    n = len(levels)
+    return (n, (ctypes.c_longlong * n)(*[t.data_ptr() for t in levels]),
+            (ctypes.c_int * n)(*[t.shape[0] for t in levels]),
+            (ctypes.c_int * n)(*[t.shape[1] for t in levels]))
+
+
+def _cuda_levels(name: str, levels) -> list:
+    """Contiguous CUDA level images that one launch of a kernel takes."""
+    levels = [img.contiguous() for img in levels]
+    require_cuda(name, *levels)
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"{name}: at most {MAX_LEVELS} levels a launch, "
+                         f"got {len(levels)}")
+    if min(min(img.shape) for img in levels) < 3:
+        raise ValueError(f"{name}: level images must be at least 3x3")
+    return levels
+
+
+def detect_cells_levels(levels, cell: int, ini_th: int, min_th: int):
+    """Per-cell detection candidates of every level image ((H, W) float32
+    each), concatenated in level order: (resp f32, ys i32, xs i32, dy f32,
+    dx f32), each (sum of the levels' cells, PER_CELL), as
+    ``_detect_cells_plain`` gives them level by level.
+
+    CPU tensors take that plain version. CUDA tensors launch kernel D
+    twice for all levels: FAST strength with per-cell any-strong flags,
+    then merge/NMS/border/top-4/subpixel per cell (cells of 16 or 32 px,
+    thresholds >= 0)."""
+    levels = _check_levels("detect_cells_levels", levels)
+    if levels[0].device.type == "cpu":
+        outs = [_detect_cells_plain(img, cell, ini_th, min_th)
+                for img in levels]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    if cell not in DETECT_CELLS:
+        raise ValueError(f"kernel D is built for cells of {DETECT_CELLS} "
+                         f"px, got {cell}")
+    if ini_th < 0 or min_th < 0:
+        raise ValueError("kernel D takes thresholds >= 0")
+    levels = _cuda_levels("detect_cells_levels", levels)
+    dev = levels[0].device
+    nc = sum(_n_cells(img.shape, cell) for img in levels)
+    strength = torch.empty((sum(img.numel() for img in levels),),
+                           dtype=torch.float32, device=dev)
     flags = torch.empty((nc,), dtype=torch.int32, device=dev)
     resp = torch.empty((nc, PER_CELL), dtype=torch.float32, device=dev)
     ys = torch.empty((nc, PER_CELL), dtype=torch.int32, device=dev)
     xs = torch.empty_like(ys)
     dy = torch.empty_like(resp)
     dx = torch.empty_like(resp)
-    ORB_FAST(img.data_ptr(), strength.data_ptr(), flags.data_ptr(), H, W,
-             cell, float(ini_th))
-    ORB_SELECT(strength.data_ptr(), flags.data_ptr(), resp.data_ptr(),
-               ys.data_ptr(), xs.data_ptr(), dy.data_ptr(), dx.data_ptr(), H,
-               W, cell, float(ini_th), float(min_th))
+    table = _level_arrays(levels)
+    ORB_FAST(*table, cell, float(ini_th), float(min_th), strength.data_ptr(),
+             flags.data_ptr())
+    ORB_SELECT(*table, cell, float(ini_th), float(min_th),
+               strength.data_ptr(), flags.data_ptr(), resp.data_ptr(),
+               ys.data_ptr(), xs.data_ptr(), dy.data_ptr(), dx.data_ptr())
     return resp, ys, xs, dy, dx
+
+
+def detect_cells(img: torch.Tensor, cell: int, ini_th: int, min_th: int):
+    """Per-cell detection candidates of one level image (H, W) float32:
+    ``detect_cells_levels`` of that one level."""
+    return detect_cells_levels([img], cell, ini_th, min_th)
 
 
 def _detect_level(img: torch.Tensor, k: int, cell: int, ini_th: int,
@@ -316,16 +383,53 @@ def _detect_level(img: torch.Tensor, k: int, cell: int, ini_th: int,
             _pad_to(xs_f, k), _pad_to(vals[top], k))
 
 
+def _selection_index(level_cells: Tuple[int, ...],
+                     level_k: Tuple[int, ...]):
+    """Static indices of ``_select_levels`` for one plan: ``index`` (L, M)
+    int64, the position of each level's candidates in the concatenated
+    candidate vector, -1 past the level's own (M: the most candidates of a
+    level, or the largest k if that is more); ``take`` (sum k,) int64, the
+    positions of each level's first k in that matrix, flattened."""
+    n = np.array([PER_CELL * c for c in level_cells])
+    M = max(int(n.max()), max(level_k))
+    col = np.arange(M)
+    start = np.concatenate([[0], np.cumsum(n)[:-1]])
+    index = np.where(col[None, :] < n[:, None], start[:, None] + col, -1)
+    take = np.concatenate([lv * M + np.arange(k)
+                           for lv, k in enumerate(level_k)])
+    return index.astype(np.int64), take.astype(np.int64)
+
+
+def _select_levels(cands, index: torch.Tensor, take: torch.Tensor):
+    """Every level's global top-k of the concatenated per-cell candidates
+    (``detect_cells_levels``), in level order: one stable descending sort
+    of the (L, M) candidate matrix padded with -1 (``_selection_index``),
+    so ties go to the lower index as in ``_global_topk``. Returns (ys, xs)
+    int64 integer winners, (ys_f, xs_f) refined positions and responses,
+    each (sum k,); unfilled slots (k > 4 x cells) are zero, as in
+    ``_detect_level``."""
+    resp, ys, xs, dy, dx = (t.reshape(-1) for t in cands)
+    vals = torch.where(index >= 0, resp[index.clamp(min=0)], -1.0)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    cid = index.gather(1, order).reshape(-1)[take]
+    ok = cid >= 0
+    c = cid.clamp(min=0)
+    yi = torch.where(ok, ys[c], 0).long()
+    xi = torch.where(ok, xs[c], 0).long()
+    ys_f = torch.where(ok, yi.to(torch.float32) + dy[c], 0.0)
+    xs_f = torch.where(ok, xi.to(torch.float32) + dx[c], 0.0)
+    return yi, xi, ys_f, xs_f, torch.where(ok, resp[c], 0.0)
+
+
 # ---------------------------------------------------------------------------
-# Kernel G: raw-patch gather
+# The describe kernel: window gather + IC angle + rBRIEF of one bin
 # ---------------------------------------------------------------------------
 
 def _gather_patches_plain(img: torch.Tensor, ys: torch.Tensor,
                           xs: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel G: (K, 48, 48) raw patches whose [:43,:43]
-    block is the 43x43 patch centred at integer (clamped) (ys, xs), with the
-    image edge-replicated: patch[i, j] = img[clamp(y-21+i), clamp(x-21+j)].
-    """
+    """(K, 48, 48) raw patches whose [:43,:43] block is the 43x43 patch
+    centred at integer (clamped) (ys, xs), with the image edge-replicated:
+    patch[i, j] = img[clamp(y-21+i), clamp(x-21+j)]."""
     H, W = img.shape
     off = torch.arange(_RAWP, device=img.device) - RAW_R
     yt = ys.long().clamp(0, H - 1)
@@ -337,26 +441,68 @@ def _gather_patches_plain(img: torch.Tensor, ys: torch.Tensor,
 
 def gather_patches(img: torch.Tensor, ys: torch.Tensor,
                    xs: torch.Tensor) -> torch.Tensor:
-    """(K, 48, 48) float32 raw patches of one level image (see
-    ``_gather_patches_plain``). A CPU tensor takes the plain version; a CUDA
-    tensor launches kernel G."""
+    """(K, 48, 48) float32 raw patches of one level image on the CPU (see
+    ``_gather_patches_plain``). On the card the gather is part of the
+    describe kernel (``describe_keypoints``), so a CUDA tensor raises."""
     if img.dim() != 2 or img.dtype != torch.float32:
         raise ValueError("level image must be 2-D float32")
     if ys.shape != xs.shape or ys.dim() != 1:
         raise ValueError("ys and xs must be matching 1-D index vectors")
-    if img.device.type == "cpu":
-        return _gather_patches_plain(img, ys, xs)
-    img = img.contiguous()
-    ys32 = ys.to(torch.int32).contiguous()
-    xs32 = xs.to(torch.int32).contiguous()
-    require_cuda("gather_patches", img, ys32, xs32)
-    H, W = img.shape
-    K = ys.shape[0]
-    out = torch.empty((K, _RAWP, _RAWP), dtype=torch.float32,
-                      device=img.device)
-    PATCH_GATHER(img.data_ptr(), ys32.data_ptr(), xs32.data_ptr(),
-                 out.data_ptr(), K, H, W)
-    return out
+    if img.device.type != "cpu":
+        raise ValueError("gather_patches takes CPU tensors; on the card "
+                         "describe_keypoints gathers inside its kernel")
+    return _gather_patches_plain(img, ys, xs)
+
+
+def _describe_plain(levels, ys: torch.Tensor, xs: torch.Tensor, level_k,
+                    table: torch.Tensor):
+    """Plain version of the describe kernel: the 48x48 raw patches of every
+    level, then one dense product with the descriptor+moment operator
+    (scattered back from ``table``), which scores all 32 rotation bins and
+    keeps the chosen one (``_angle_and_desc``)."""
+    b = np.concatenate([[0], np.cumsum(level_k)])
+    patches = torch.cat([_gather_patches_plain(img, ys[b[i]:b[i + 1]],
+                                               xs[b[i]:b[i + 1]])
+                         for i, img in enumerate(levels)])
+    return _angle_and_desc(patches, _operator_from_table(table))
+
+
+def describe_keypoints(levels, ys: torch.Tensor, xs: torch.Tensor, level_k,
+                       table: torch.Tensor):
+    """IC angle (K,) float32 and 256-bit rBRIEF (K, 8) int64 of keypoints at
+    integer level coordinates (ys, xs), each (K,): the first level_k[0] on
+    levels[0], the next level_k[1] on levels[1], and so on. ``table`` is
+    the sparse descriptor operator (``desc_table``).
+
+    CPU tensors take the plain version (``_describe_plain``). CUDA tensors
+    launch the describe kernel once for all levels: per keypoint, the window
+    gather, the angle and the bits of the chosen rotation bin only."""
+    levels = _check_levels("describe_keypoints", levels)
+    level_k = [int(k) for k in level_k]
+    K = sum(level_k)
+    if len(level_k) != len(levels) or min(level_k) < 0:
+        raise ValueError("level_k must give a count for every level")
+    if ys.shape != (K,) or xs.shape != (K,):
+        raise ValueError(f"ys and xs must be ({K},), got {tuple(ys.shape)} "
+                         f"and {tuple(xs.shape)}")
+    if table.dim() != 3 or table.shape[0] != N_ROT or table.shape[2] != 256 \
+            or table.dtype != torch.int32:
+        raise ValueError("table must be (32, nnz, 256) int32 (desc_table)")
+    if levels[0].device.type == "cpu":
+        return _describe_plain(levels, ys, xs, level_k, table)
+    levels = _cuda_levels("describe_keypoints", levels)
+    ys = ys.to(torch.int64).contiguous()
+    xs = xs.to(torch.int64).contiguous()
+    table = table.contiguous()
+    require_cuda("describe_keypoints", levels[0], ys, xs, table)
+    dev = levels[0].device
+    ang = torch.empty((K,), dtype=torch.float32, device=dev)
+    desc = torch.empty((K, 8), dtype=torch.int64, device=dev)
+    n, ptrs, hs, ws = _level_arrays(levels)
+    ORB_DESCRIBE(n, ptrs, hs, ws, (ctypes.c_int * n)(*level_k),
+                 ys.data_ptr(), xs.data_ptr(), table.data_ptr(),
+                 table.shape[1], ang.data_ptr(), desc.data_ptr())
+    return ang, desc
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +615,53 @@ def desc_operator(device) -> torch.Tensor:
                                        device=device))
 
 
+@functools.lru_cache(maxsize=1)
+def _desc_table() -> np.ndarray:
+    """(N_ROT, nnz, 256) uint32 sparse form of the bf16-rounded descriptor
+    operator: for each (bin, bit), its non-zero entries in increasing
+    offset, each one word (bf16 bits of the coefficient << 16 | offset in
+    the 43x43 window), padded with zero words to the largest count."""
+    dense = _bf16_round(torch.as_tensor(_descriptor_operator())).numpy()
+    cols = dense.T.reshape(N_ROT, 256, _RAWP * _RAWP)    # (bin, bit, offset)
+    nz = cols != 0
+    nnz = int(nz.sum(axis=-1).max())
+    order = np.argsort(~nz, axis=-1, kind="stable")[..., :nnz]
+    coef = np.take_along_axis(cols, order, axis=-1).view(np.uint32)
+    keep = np.take_along_axis(nz, order, axis=-1)
+    row, col = np.divmod(order, _RAWP)
+    if (row[keep] >= _WIN).any() or (col[keep] >= _WIN).any() \
+            or (coef & 0xFFFF).any():
+        raise AssertionError("descriptor operator outside the 43x43 window "
+                             "or not bf16")
+    words = np.where(keep, coef | (row * _WIN + col).astype(np.uint32), 0)
+    return np.ascontiguousarray(words.transpose(0, 2, 1), dtype=np.uint32)
+
+
+def desc_table(device) -> torch.Tensor:
+    """The sparse descriptor operator (``_desc_table``) as (N_ROT, nnz, 256)
+    int32 on ``device``: what the describe kernel reads."""
+    return torch.tensor(_desc_table().view(np.int32), device=device)
+
+
+def _operator_from_table(table: torch.Tensor) -> torch.Tensor:
+    """The dense (2304, 8194) descriptor+moment operator from its sparse
+    table: equal to ``desc_operator`` (the moment columns are integers,
+    exact in bf16)."""
+    dev = table.device
+    off = (table & 0xFFFF).long()
+    coef = (table & -0x10000).view(torch.float32)
+    rows = (off // _WIN) * _RAWP + off % _WIN
+    cols = (torch.arange(N_ROT, device=dev)[:, None, None] * 256
+            + torch.arange(256, device=dev)).expand_as(rows)
+    dense = torch.zeros((_RAWP * _RAWP, N_ROT * 256), dtype=torch.float32,
+                        device=dev)
+    # zero padding words add +0 at offset 0, which leaves any entry there
+    dense.index_put_((rows.reshape(-1), cols.reshape(-1)), coef.reshape(-1),
+                     accumulate=True)
+    return torch.cat([dense, torch.as_tensor(_moment_operator(),
+                                             device=dev)], dim=1)
+
+
 def pyramid_operators(level_hw, device):
     """Per-level (A, B^T) pyramid operators, bf16-rounded, float32, on
     ``device``."""
@@ -513,38 +706,56 @@ def pyramid_level(image: torch.Tensor, A: torch.Tensor, Bt: torch.Tensor
     return _bf16_round(A @ _bf16_round(image)) @ Bt
 
 
+class OrbOperators(NamedTuple):
+    """The static operators of one extractor plan, on one device
+    (``orb_operators``)."""
+
+    pyr: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # levels 1..: (A, B^T)
+    desc_table: torch.Tensor   # (N_ROT, nnz, 256) int32 (``desc_table``)
+    sel_index: torch.Tensor    # (L, M) int64 (``_selection_index``)
+    sel_take: torch.Tensor     # (n_features,) int64
+    kp_level: torch.Tensor     # (n_features,) int64 pyramid level of a row
+    kp_scale: torch.Tensor     # (n_features,) float32 level -> level 0
+
+
+def orb_operators(params: OrbParams, device) -> OrbOperators:
+    """Build the operators of ``params`` on ``device``."""
+    cells = tuple(_n_cells(hw, params.cell) for hw in params.level_hw)
+    index, take = _selection_index(cells, params.level_k)
+    scale = [params.scale_factor ** lv for lv in range(params.n_levels)]
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return OrbOperators(
+        pyr=pyramid_operators(params.level_hw, device),
+        desc_table=desc_table(device), sel_index=dev(index),
+        sel_take=dev(take),
+        kp_level=dev(np.repeat(np.arange(params.n_levels), params.level_k)),
+        kp_scale=dev(np.repeat(np.array(scale, np.float32), params.level_k)))
+
+
 def extract_orb(params: OrbParams, cam: CubemapCamera, image: torch.Tensor,
                 mask: Optional[torch.Tensor], ini_th: int, min_th: int,
-                desc_op: torch.Tensor, pyr_ops) -> Keypoints:
+                ops: OrbOperators) -> Keypoints:
     """Extract ORB keypoints+descriptors from a cubemap-cross image.
 
     image: (H, W) float32. mask: optional (H, W) {0,1}; keypoints on zero
-    pixels are culled. desc_op / pyr_ops: the operators on the image's
-    device (``desc_operator`` / ``pyramid_operators``); ``OrbExtractor``
-    builds them once.
-    """
-    dev = image.device
-    uv_all, resp_all, lvl_all, patches = [], [], [], []
-    for lv in range(params.n_levels):
-        if lv == 0:
-            img_l = image
-        else:
-            A, Bt = pyr_ops[lv - 1]
-            img_l = pyramid_level(image, A, Bt)
-        k = params.level_k[lv]
-        ys, xs, ys_f, xs_f, resp = _detect_level(img_l, k, params.cell,
-                                                 ini_th, min_th)
-        patches.append(gather_patches(img_l, ys, xs))
-        s = params.scale_factor ** lv
-        uv_all.append(torch.stack([xs_f * s, ys_f * s], dim=-1))
-        resp_all.append(resp)
-        lvl_all.append(torch.full((k,), lv, dtype=torch.int64, device=dev))
+    pixels are culled. ops: the plan's operators on the image's device
+    (``orb_operators``); ``OrbExtractor`` builds them once.
 
-    # one descriptor product for all levels (rows are independent)
-    ang, desc = _angle_and_desc(torch.cat(patches), desc_op)
-    uv = torch.cat(uv_all)
-    resp = torch.cat(resp_all)
-    lvl = torch.cat(lvl_all)
+    The pyramid first (it depends only on level 0), then kernel D over all
+    levels, the per-level global top-k, and the describe kernel over all
+    keypoints; CPU tensors take the kernels' plain versions.
+    """
+    levels = [image] + [pyramid_level(image, A, Bt) for A, Bt in ops.pyr]
+    cands = detect_cells_levels(levels, params.cell, ini_th, min_th)
+    ys, xs, ys_f, xs_f, resp = _select_levels(cands, ops.sel_index,
+                                              ops.sel_take)
+    ang, desc = describe_keypoints(levels, ys, xs, params.level_k,
+                                   ops.desc_table)
+    uv = torch.stack([xs_f * ops.kp_scale, ys_f * ops.kp_scale], dim=-1)
+    lvl = ops.kp_level.clone()
 
     valid = resp > 0
     face = C.face_from_cubemap_uv(cam, uv)
@@ -562,31 +773,32 @@ def extract_orb(params: OrbParams, cam: CubemapCamera, image: torch.Tensor,
 
 class OrbExtractor(nn.Module):
     """``extract_orb`` bound to one image geometry and its thresholds, with
-    the descriptor and pyramid operators built once as buffers on the
-    camera's device. ``forward(image, mask=None)`` -> ``Keypoints``."""
+    its operators (``orb_operators``) built once as buffers on the camera's
+    device. ``forward(image, mask=None)`` -> ``Keypoints``."""
 
     def __init__(self, params: OrbParams, cam: CubemapCamera, ini_th: int,
                  min_th: int):
         super().__init__()
         self.params, self.cam = params, cam
         self.ini_th, self.min_th = ini_th, min_th
-        self.register_buffer("desc_op", desc_operator(cam.device))
-        for lv, (A, Bt) in enumerate(
-                pyramid_operators(params.level_hw, cam.device), start=1):
+        ops = orb_operators(params, cam.device)
+        for lv, (A, Bt) in enumerate(ops.pyr, start=1):
             self.register_buffer(f"pyr_a{lv}", A)
             self.register_buffer(f"pyr_bt{lv}", Bt)
+        for name in OrbOperators._fields[1:]:
+            self.register_buffer(name, getattr(ops, name))
 
     @property
-    def pyr_ops(self):
-        """Per-level (A, B^T) for levels 1 .. n_levels-1."""
-        return tuple((getattr(self, f"pyr_a{lv}"),
-                      getattr(self, f"pyr_bt{lv}"))
-                     for lv in range(1, self.params.n_levels))
+    def ops(self) -> OrbOperators:
+        pyr = tuple((getattr(self, f"pyr_a{lv}"), getattr(self, f"pyr_bt{lv}"))
+                    for lv in range(1, self.params.n_levels))
+        return OrbOperators(pyr, *(getattr(self, name)
+                                   for name in OrbOperators._fields[1:]))
 
     def forward(self, image: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> Keypoints:
         return extract_orb(self.params, self.cam, image, mask, self.ini_th,
-                           self.min_th, self.desc_op, self.pyr_ops)
+                           self.min_th, self.ops)
 
 
 def build_extractor(cfg, cam: CubemapCamera, n_features: int,

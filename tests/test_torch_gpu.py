@@ -7,8 +7,9 @@ This file imports nothing of JAX, so it also runs on a machine without JAX:
 
 Tolerances: kernel W within 1e-3 of the plain resampler (it rounds each
 product and sum as the plain version does, so it is bitwise in practice);
-kernel D's candidates bitwise, subpixel offsets within
-1e-6; kernel G bitwise.
+kernel D's candidates bitwise, subpixel offsets within 1e-6; the describe
+kernel's angles within 1e-4 rad, bins on >= 99.5% of keypoints, bits where
+the plain score is farther than 1e-2 from 0 (it sums in another order).
 """
 
 import numpy as np
@@ -68,38 +69,90 @@ def test_warp_kernel(cuda):
         warp_cuda.warp_to_cross(img, wm._replace(xy=wm.xy.cpu()))
 
 
+def pyramid(img, n_levels, device):
+    """The level images of ``img`` as the extractor makes them."""
+    plan = TE.plan_levels(256, n_levels, 1.2, img.shape)
+    t = torch.as_tensor(img, device=device)
+    return [t] + [TE.pyramid_level(t, A, Bt)
+                  for A, Bt in TE.pyramid_operators(plan.level_hw, device)]
+
+
 @pytest.mark.parametrize("shape,cell,kind", [
     ((157, 201), 32, "textured"), ((150, 203), 32, "tied"),
     ((96, 130), 16, "textured"), ((1950, 1950), 32, "textured")])
 def test_detect_kernel(cuda, shape, cell, kind):
     img = textured(*shape, seed=1) if kind == "textured" else tied(*shape)
-    t = torch.as_tensor(img, device=cuda)
+    levels = pyramid(img, 8 if shape[0] > 1000 else 4, cuda)
     n0 = (TE.ORB_FAST.launches, TE.ORB_SELECT.launches)
-    kern = TE.detect_cells(t, cell, 20, 7)
-    plain = TE._detect_cells_plain(t, cell, 20, 7)
+    kern = TE.detect_cells_levels(levels, cell, 20, 7)
     torch.cuda.synchronize()
     assert (TE.ORB_FAST.launches, TE.ORB_SELECT.launches) == (n0[0] + 1,
                                                               n0[1] + 1)
-    for a, b in zip(kern[:3], plain[:3]):
-        assert a.dtype == b.dtype
-        assert torch.equal(a, b)
-    for a, b in zip(kern[3:], plain[3:]):
-        assert float((a - b).abs().max()) <= 1e-6
+    start = 0
+    for lv in levels:
+        plain = TE._detect_cells_plain(lv, cell, 20, 7)
+        n = plain[0].shape[0]
+        for a, b in zip(kern[:3], plain[:3]):
+            assert a.dtype == b.dtype
+            assert torch.equal(a[start:start + n], b)
+        for a, b in zip(kern[3:], plain[3:]):
+            assert float((a[start:start + n] - b).abs().max()) <= 1e-6
+        start += n
+    assert start == kern[0].shape[0]
     assert (kern[0] > 0).sum() > 10
+    with pytest.raises(ValueError):               # no kernel for this cell
+        TE.detect_cells_levels(levels, 8, 20, 7)
 
 
-def test_gather_kernel(cuda):
-    img = textured(157, 201, seed=2)
-    H, W = img.shape
+def unpack_bits(desc):
+    shifts = torch.arange(32, device=desc.device)
+    return ((desc[:, :, None] >> shifts) & 1).reshape(desc.shape[0], 256)
+
+
+@pytest.mark.parametrize("case", ["edges", "levels"])
+def test_describe_kernel(cuda, case):
+    """Angles within 1e-4 rad (mod 2 pi), bins equal on >= 99.5% of the
+    keypoints, and on those, bits equal wherever the plain score is farther
+    than 1e-2 from 0: the kernel sums in another order than the plain
+    version's dense product."""
     rng = np.random.default_rng(3)
-    ys = np.concatenate([rng.integers(0, H, 300), [-5, 0, H - 1, H + 7]])
-    xs = np.concatenate([rng.integers(0, W, 300), [2, -9, W + 3, W - 1]])
-    t = torch.as_tensor(img, device=cuda)
-    y = torch.as_tensor(ys, device=cuda)
-    x = torch.as_tensor(xs, device=cuda)
-    out = TE.gather_patches(t, y, x)
+    if case == "edges":        # keypoints clamped at the image's edges
+        levels = [torch.as_tensor(textured(157, 201, seed=2), device=cuda)]
+        H, W = levels[0].shape
+        ys = np.concatenate([rng.integers(0, H, 300), [-5, 0, H - 1, H + 7]])
+        xs = np.concatenate([rng.integers(0, W, 300), [2, -9, W + 3, W - 1]])
+        level_k = [len(ys)]
+    else:
+        levels = pyramid(textured(400, 520, seed=5), 4, cuda)
+        level_k = [200, 150, 100, 60]
+        ys = np.concatenate([rng.integers(0, lv.shape[0], k)
+                             for lv, k in zip(levels, level_k)])
+        xs = np.concatenate([rng.integers(0, lv.shape[1], k)
+                             for lv, k in zip(levels, level_k)])
+    table = TE.desc_table(cuda)
+    args = (levels, torch.as_tensor(ys, device=cuda),
+            torch.as_tensor(xs, device=cuda), level_k, table)
+    n0 = TE.ORB_DESCRIBE.launches
+    ang, desc = TE.describe_keypoints(*args)
     torch.cuda.synchronize()
-    assert torch.equal(out, TE._gather_patches_plain(t, y, x))
+    assert TE.ORB_DESCRIBE.launches == n0 + 1
+    ang_p, desc_p = TE._describe_plain(*args)
+    d = torch.remainder(ang - ang_p + np.pi, 2 * np.pi) - np.pi
+    assert float(d.abs().max()) <= 1e-4
+    bins = [torch.remainder(torch.round(a * (32 / (2 * np.pi))).long(), 32)
+            for a in (ang, ang_p)]
+    same = bins[0] == bins[1]
+    assert float(same.float().mean()) >= 0.995
+    K = len(ys)
+    b = np.concatenate([[0], np.cumsum(level_k)])
+    flat = TE._bf16_round(torch.cat([
+        TE._gather_patches_plain(lv, args[1][b[i]:b[i + 1]],
+                                 args[2][b[i]:b[i + 1]])
+        for i, lv in enumerate(levels)]).reshape(K, -1))
+    scores = (flat @ TE.desc_operator(cuda))[:, :32 * 256].reshape(
+        K, 32, 256)[torch.arange(K, device=cuda), bins[1]]
+    firm = (scores.abs() > 1e-2) & same[:, None]
+    assert torch.equal(unpack_bits(desc)[firm], unpack_bits(desc_p)[firm])
 
 
 def test_frame_tracker_card_against_cpu(cuda):
