@@ -19,6 +19,17 @@ device time, and a check that the card's extract makes no product with the
 dense descriptor operator; and it holds the card's frame step against the
 same step on the CPU at a small size.
 
+Then the tracking path against the map arena, at ``SlamConfig()`` defaults
+(an arena of 512 keyframes x 2000 features and 65536 landmarks): it builds
+a map (``build_map``: 6 keyframes rendered along a forward trajectory
+through a seeded world of 1500 billboards), drives ``MapTracker`` over the
+8 frames that follow a warm-up frame, checking that every frame tracks
+within the stated pose bound of the ground truth, that TrackLocalMap adds
+matches on most frames and that each kernel launches once a frame (kernel
+D's passes once each) on this path; profiles 4 more frames with one range
+per stage; forces the fallback, velocity-gate and blank-frame branches; and
+holds ``MapTracker`` on the card against the CPU on a small map.
+
 Output: progress lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -45,10 +56,12 @@ from cubemapslam_tpu_torch import SlamConfig, _build
 from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
 from cubemapslam_tpu_torch.features import extractor as TE
-from cubemapslam_tpu_torch.geometry import so3_log
+from cubemapslam_tpu_torch.geometry import se3_log, so3_exp, so3_log
 from cubemapslam_tpu_torch.runtime import FrameTracker
+from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.synthetic import (
     landmarks_from_keypoints, perturbed_pose, synthetic_fisheye)
+from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 
 SEED = 0
 N_LANDMARKS = 8192
@@ -75,6 +88,25 @@ DETECT_OPS_PASSING = 2 * (42 + 15) + 2 + 1 + 1
 DETECT_OPS_POSITIVE = 10 + 4
 # columns of the dense descriptor+moment operator: 32 bins x 256 bits + 2
 DESC_OP_COLS = TE.N_ROT * 256 + 2
+# the tracking path against the map arena (MapTracker), at SlamConfig()
+# defaults: an arena of K=512 keyframes x N=2000 features, L=65536 landmarks
+MAP_BILLBOARDS = 1500
+MAP_KEYFRAMES = 6
+KF_STRIDE = 3                 # keyframes at frames 0, 3, ..., 15
+TRAJ_STEP, TRAJ_YAW = 0.04, 0.003   # per frame: map units, radians
+TRACK_FRAMES = 8              # after one warm-up frame
+TRACK_PROFILE_FRAMES = 4
+# the map build_map must reach: live landmarks per feature of a keyframe,
+# and landmarks the newest keyframe shares with each other keyframe
+MAP_MIN_LANDMARKS_PER_FEATURE = 2
+MAP_MIN_COVIS = 50
+# bounds on every tracked frame: the pose against the ground truth, and
+# TrackLocalMap adding matches on most frames
+POSE_BOUND_DEG, POSE_BOUND_M = 0.1, 0.015
+LOCAL_MIN_FRAMES = 6          # of TRACK_FRAMES with local_matched > 0
+GATE_ROT_RAD = 0.3            # a velocity above the 0.2 rad gate
+TRACK_STAGES = ("warp", "extract", "motion", "local.select", "local.search",
+                "local.optimize", "local.counters", "epilogue")
 # the port's __global__ kernels, as the profiler names them
 PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
                 "select_levels_kernel", "orb_describe_kernel")
@@ -377,50 +409,67 @@ def check_results(results, cfg):
             raise AssertionError("pose not recovered")
 
 
-def profiled_frames(tracker, frame_u8, lms, rng):
-    """N_FRAMES frame steps under torch.profiler, one range per stage, each
-    frame synchronised at its end. Returns the per-frame medians of the
-    wall time (profiler on), the device's busy time (summed kernel and copy
-    time) and the device operations, and per stage the host time, device
-    busy time, device operations, host waits (a synchronisation, or a copy
-    that returns a value to the host) and the five device operations with
-    the most time, all per frame; and the count of matrix products with the
+def wait_source(e):
+    """The outermost aten operation around a host wait, else its own name."""
+    src, p = e.name, e.cpu_parent
+    while p is not None:
+        if p.name.startswith("aten::"):
+            src = p.name
+        p = p.cpu_parent
+    return src
+
+
+def waits_in(waits, spans, n):
+    """Host waits that start inside ``spans``, per frame: their count and
+    their count by source (``wait_source``), most first."""
+    inside = [w for w in waits
+              if any(a <= w.time_range.start < b for a, b in spans)]
+    by_src = {}
+    for w in inside:
+        src = wait_source(w)
+        by_src[src] = by_src.get(src, 0) + 1 / n
+    return len(inside) / n, sorted(by_src.items(), key=lambda kv: -kv[1])
+
+
+def profile_stages(step, stages, n):
+    """``n`` calls of ``step`` under torch.profiler, each in a ``frame``
+    range and synchronised after it, with one range per stage
+    (``record_function``) inside. Returns the per-frame medians of the wall
+    time (profiler on), the device's busy time (summed kernel and copy time)
+    and the device operations; the host waits of a frame (a call that waits
+    for the device: a synchronisation, which every blocking copy between
+    host and card makes, or a blocking ``cudaMemcpy``) with their sources;
+    per stage the host time, device busy time, device operations, host waits
+    and the five device operations with the most time, all per frame; each
+    port kernel's device time; and the count of matrix products with the
     dense descriptor operator (its 8194 columns), which must be 0."""
-    R0, t0 = perturbed_pose(rng, tracker.device)
-    stages = ("warp", "extract", "match", "optimize")
-
-    def step():
-        with record_function("warp"):
-            cube = tracker.warp(frame_u8)
-        with record_function("extract"):
-            kp = tracker.extract(cube)
-        with record_function("match"):
-            assoc = tracker.match(kp, *lms, R0, t0)
-        with record_function("optimize"):
-            tracker.optimize(kp, assoc, lms[0], R0, t0)
-
     walls = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        for _ in range(N_FRAMES):
+        for _ in range(n):
             torch.cuda.synchronize()
             a = time.perf_counter()
-            step()
+            with record_function("frame"):
+                step()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - a) * 1e3)
-    n = N_FRAMES
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in dev if e.name not in stages]
+    kernels = [e for e in dev if e.name not in stages and e.name != "frame"]
     if not kernels:
         raise AssertionError("the profiler recorded no device operation")
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
     waits = [e for e in events if e.device_type == DeviceType.CPU
-             and ("Synchronize" in e.name or e.name.startswith("cudaMemcpy"))]
+             and ("Synchronize" in e.name or e.name == "cudaMemcpy")]
+
+    def host_spans(name):
+        return [(e.time_range.start, e.time_range.end) for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+
+    frame_waits, frame_sources = waits_in(waits, host_spans("frame"), n)
     per_stage = {}
     for st in stages:
-        host = [(e.time_range.start, e.time_range.end) for e in events
-                if e.name == st and e.device_type == DeviceType.CPU]
+        host = host_spans(st)
         spans = [(e.time_range.start, e.time_range.end) for e in dev
                  if e.name == st]
         inside = [k for k in kernels
@@ -435,8 +484,7 @@ def profiled_frames(tracker, frame_u8, lms, rng):
             device_busy_ms=sum(k.time_range.elapsed_us()
                                for k in inside) / 1e3 / n,
             device_ops=len(inside) / n,
-            host_waits=sum(any(a <= w.time_range.start < b for a, b in host)
-                           for w in waits) / n,
+            host_waits=waits_in(waits, host, n)[0],
             top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5])
     port = {}
     for k in kernels:
@@ -451,8 +499,56 @@ def profiled_frames(tracker, frame_u8, lms, rng):
     wall = float(np.median(walls))
     return dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
                 idle_share=1.0 - busy / float(np.mean(walls)),
-                device_ops=len(kernels) / n, stages=per_stage,
+                device_ops=len(kernels) / n, host_waits=frame_waits,
+                wait_sources=frame_sources, stages=per_stage,
                 port_kernels=port, dense_products=dense_products)
+
+
+def log_profile(tag, prof, unprofiled_walls):
+    """Print a profile_stages result; fail on a dense descriptor product.
+    The profiler slows the host, so the idle share is also given against
+    the mean wall time of unprofiled frames."""
+    n = len(prof["walls_ms"])
+    idle_off = 1.0 - prof["device_busy_ms"] / float(np.mean(unprofiled_walls))
+    log(f"[{tag}] {n} frames under torch.profiler: wall ms "
+        f"{', '.join(f'{w:.3f}' for w in prof['walls_ms'])} (median "
+        f"{prof['wall_ms']:.3f}); device busy {prof['device_busy_ms']:.3f} "
+        f"ms per frame; idle share {prof['idle_share']:.4f} of the profiled "
+        f"wall, {idle_off:.4f} of the unprofiled wall; "
+        f"{prof['device_ops']:.0f} device operations per frame")
+    log(f"[{tag}] host waits a frame {prof['host_waits']:.2f}, by source: "
+        + ", ".join(f"{src} {c:.2f}" for src, c in prof["wait_sources"]))
+    for st, v in prof["stages"].items():
+        log(f"[{tag}] stage {st:14s}: host {v['host_ms']:.3f} ms, device "
+            f"busy {v['device_busy_ms']:.3f} ms, {v['device_ops']:.0f} "
+            f"device operations, {v['host_waits']:.0f} host waits per frame")
+        for name, (ms, cnt) in v["top"]:
+            log(f"[{tag}]   {ms:.5f} ms in {cnt:.0f} x {name[:110]}")
+    log(f"[{tag}] the port's kernels, device ms per frame: "
+        f"{', '.join(f'{k} {v:.5f}' for k, v in prof['port_kernels'].items())}")
+    log(f"[{tag}] matrix products with the dense descriptor operator: "
+        f"{prof['dense_products']}")
+    if prof["dense_products"]:
+        raise AssertionError("the card's extract made a dense descriptor "
+                             "product")
+
+
+def profiled_frames(tracker, frame_u8, lms, rng):
+    """N_FRAMES frame steps of FrameTracker under profile_stages."""
+    R0, t0 = perturbed_pose(rng, tracker.device)
+
+    def step():
+        with record_function("warp"):
+            cube = tracker.warp(frame_u8)
+        with record_function("extract"):
+            kp = tracker.extract(cube)
+        with record_function("match"):
+            assoc = tracker.match(kp, *lms, R0, t0)
+        with record_function("optimize"):
+            tracker.optimize(kp, assoc, lms[0], R0, t0)
+
+    return profile_stages(step, ("warp", "extract", "match", "optimize"),
+                          N_FRAMES)
 
 
 def small_reference_check():
@@ -485,6 +581,223 @@ def small_reference_check():
     if not (dR < 1e-3 and dt < 1e-3 and agree >= 0.98
             and int(matched.sum()) > 50):
         raise AssertionError("card and CPU frame steps disagree")
+
+
+# ---------------------------------------------------------------------------
+# The tracking path against the map arena
+# ---------------------------------------------------------------------------
+
+def gt_error(T, pose):
+    """(degrees, map units) between a 4x4 world->camera pose and the
+    ground-truth (R, t)."""
+    R, t = pose
+    dR = torch.as_tensor(T[:3, :3] @ R.T, dtype=torch.float32)
+    return (math.degrees(float(torch.linalg.norm(so3_log(dR)))),
+            float(np.linalg.norm(T[:3, 3] - t)))
+
+
+def build_map_phase(cfg):
+    """A seeded world and trajectory, and the map that build_map makes from
+    MAP_KEYFRAMES rendered keyframes, on the card at full width. Returns
+    the tracker, the poses and the rendered frames that follow the last
+    keyframe (by trajectory index)."""
+    first = (MAP_KEYFRAMES - 1) * KF_STRIDE + 1
+    n_after = 1 + TRACK_FRAMES + TRACK_PROFILE_FRAMES
+    poses = S.forward_trajectory(first + n_after, step=TRAJ_STEP,
+                                 yaw_rate=TRAJ_YAW)
+    world = S.make_world(np.random.default_rng(SEED), n=MAP_BILLBOARDS,
+                         centers=S.camera_centres(poses),
+                         fx=cfg.cube_face_w / 2.0)
+    mt = MapTracker(cfg)                    # the card, by default
+    a = mt.arena
+    arena_mib = sum(t.numel() * t.element_size() for t in a) / 2 ** 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = S.build_map(mt, world, poses, MAP_KEYFRAMES, kf_stride=KF_STRIDE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_kf, n_lm = int(a.kf_valid.sum()), int(a.lm_valid.sum())
+    newest = MAP_KEYFRAMES - 1
+    weights = mt.covis[newest, :MAP_KEYFRAMES].tolist()
+    log(f"[map] arena K={a.n_kf_cap} N={a.n_feat} L={a.n_lm_cap} "
+        f"({arena_mib:.1f} MiB); {MAP_BILLBOARDS} billboards; keyframes at "
+        f"frames {built.frames}: {n_kf} live keyframes, {n_lm} live "
+        f"landmarks; keypoints linked to landmarks {built.linked}, new "
+        f"landmarks {built.created}; covisibility of the newest keyframe "
+        f"{weights}; built in {secs:.2f} s (rendering included)")
+    if not (n_kf == MAP_KEYFRAMES
+            and n_lm >= MAP_MIN_LANDMARKS_PER_FEATURE * a.n_feat
+            and min(weights[:newest]) >= MAP_MIN_COVIS):
+        raise AssertionError("the map was not built")
+    render = S.Renderer(mt.cam, cfg)
+    frames = {i: S.to_u8(render.render(*world, *poses[i])[0])
+              for i in range(first, first + n_after)}
+    return mt, poses, frames, first
+
+
+def track_row_line(i, row, err, extra=""):
+    counts = {k: row[k] for k in ("matches", "inliers_mm", "inliers",
+                                  "n_ref", "live_kf", "first_free",
+                                  "track_ok", "new_ref", "local_frustum",
+                                  "local_queried", "local_matched")}
+    e = "lost" if err is None else f"{err[0]:.4f} deg / {err[1] * 1e3:.2f} mm"
+    return (f"frame {i}: {extra}counts {counts}; path {'>'.join(row['path'])}"
+            f"; host reads {row['host_reads']}; pose error {e}")
+
+
+def check_tracked(mt, T, i, poses):
+    row = mt.metrics[-1]
+    err = None if T is None else gt_error(T, poses[i])
+    if T is None or not row["track_ok"] \
+            or row["inliers"] < mt.cfg.min_track_inliers:
+        raise AssertionError(f"frame {i} did not track: {row}")
+    if not (err[0] < POSE_BOUND_DEG and err[1] < POSE_BOUND_M):
+        raise AssertionError(f"frame {i}: pose error {err} beyond the bound")
+    return row, err
+
+
+def drive_tracking_path(mt, poses, frames, first, counters):
+    """One warm-up frame, then TRACK_FRAMES frames of MapTracker with the
+    launch counters set to 0 just before them. Per frame: the synchronised
+    wall time and the host thread's CPU time (ms)."""
+    T = mt.track_fisheye(frames[first], first / mt.cfg.fps)
+    row, err = check_tracked(mt, T, first, poses)
+    log("[track] warm-up " + track_row_line(first, row, err))
+    for group in counters.values():
+        for c in group:
+            c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls, cpus, rows = [], [], []
+    for i in range(first + 1, first + 1 + TRACK_FRAMES):
+        torch.cuda.synchronize()
+        t_start, c_start = time.perf_counter(), time.thread_time()
+        T = mt.track_fisheye(frames[i], i / mt.cfg.fps)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t_start) * 1e3)
+        cpus.append((time.thread_time() - c_start) * 1e3)
+        row, err = check_tracked(mt, T, i, poses)
+        rows.append(row)
+        log(f"[track] " + track_row_line(i, row, err) + f"; wall "
+            f"{walls[-1]:.3f} ms, host CPU {cpus[-1]:.3f} ms")
+    launches = {name: {c.symbol: c.launches for c in group}
+                for name, group in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"[track] {TRACK_FRAMES} frames: wall ms median "
+        f"{float(np.median(walls)):.3f}, host CPU ms median "
+        f"{float(np.median(cpus)):.3f}; host reads a frame "
+        f"{sorted(set(r['host_reads'] for r in rows))}; peak memory "
+        f"{peak:.1f} MiB")
+    for name, by_kernel in launches.items():
+        log(f"[track] {name}: launches in {TRACK_FRAMES} frames {by_kernel}")
+        for sym, n in by_kernel.items():
+            if n != LAUNCHES_PER_FRAME * TRACK_FRAMES:
+                raise AssertionError(f"{name} ({sym}) was launched {n} times "
+                                     f"in {TRACK_FRAMES} tracked frames")
+    n_local = sum(r["local_matched"] > 0 for r in rows)
+    if n_local < LOCAL_MIN_FRAMES:
+        raise AssertionError(f"TrackLocalMap added matches on only {n_local} "
+                             f"of {TRACK_FRAMES} frames")
+    return walls, launches
+
+
+def profiled_tracking(mt, poses, frames, start):
+    """TRACK_PROFILE_FRAMES frames of MapTracker under profile_stages."""
+    it = iter(range(start, start + TRACK_PROFILE_FRAMES))
+    got = []
+
+    def step():
+        i = next(it)
+        got.append((i, mt.track_fisheye(frames[i], i / mt.cfg.fps)))
+
+    prof = profile_stages(step, TRACK_STAGES, TRACK_PROFILE_FRAMES)
+    for i, T in got:
+        check_tracked(mt, T, i, poses)
+    return prof
+
+
+def forced_branches(mt, poses, frames, first, seed):
+    """Three frames that force the fallbacks, from the map's last keyframe
+    again (``seed``, the tracker's state when the map was built): an emptied
+    last association (widen -> zero velocity -> reference keyframe, and
+    still tracks), a velocity above the 0.2 rad gate (predicts from the last
+    pose, so the 15 px match suffices), and a blank frame (lost, None, no
+    exception)."""
+    fps = mt.cfg.fps
+    i = first
+    mt.seed(mt.arena, seed.kp, torch.full_like(seed.assoc, -1),
+            seed.outlier, seed.R, seed.t, seed.ref_kf,
+            frame_id=seed.frame_id)
+    T = mt.track_fisheye(frames[i], i / fps)
+    row, err = check_tracked(mt, T, i, poses)
+    log("[branch] emptied last association: " + track_row_line(i, row, err))
+    if row["path"] != ("motion", "widen", "zero_velocity", "reference_kf",
+                       "local"):
+        raise AssertionError(f"frame {i} took {row['path']}")
+    i += 1
+    vel = (so3_exp(torch.tensor([0.0, GATE_ROT_RAD, 0.0], device=mt.device)),
+           torch.zeros(3, device=mt.device))
+    rot = float(torch.linalg.norm(se3_log(*vel)[3:])) \
+        * mt.cfg.motion_model_damping
+    mt.velocity = vel
+    T = mt.track_fisheye(frames[i], i / fps)
+    row, err = check_tracked(mt, T, i, poses)
+    log(f"[branch] velocity of {rot:.3f} rad (gate 0.2): "
+        + track_row_line(i, row, err))
+    if not (rot >= 0.2 and row["path"] == ("motion", "local")):
+        raise AssertionError(f"the velocity gate did not hold: {row['path']}")
+    blank = np.zeros_like(frames[i])
+    T = mt.track_fisheye(blank, (i + 1) / fps)
+    row = mt.metrics[-1]
+    log("[branch] blank frame: " + track_row_line("blank", row, None)
+        + f"; returned {T}")
+    if T is not None or row["track_ok"] or row["path"][-1] != "skip_local":
+        raise AssertionError("the blank frame was not lost")
+
+
+def small_map_reference_check():
+    """MapTracker on the card against MapTracker(device="cpu") on one map
+    built on the CPU at a small size (128^2 faces, 256 features, 4 levels,
+    K=16, L=2048), same warp map and mask, over 2 frames: poses within
+    1e-3, associations equal on >= 98% of matched rows, packed counts
+    within 2%."""
+    cfg = SlamConfig(cube_face_w=128, cube_face_h=128, n_features=256,
+                     n_levels=4, max_keyframes=16, max_landmarks=2048)
+    ref = MapTracker(cfg, device="cpu")
+    poses = S.forward_trajectory(12, step=TRAJ_STEP, yaw_rate=TRAJ_YAW)
+    world = S.make_world(np.random.default_rng(SEED + 3), n=500,
+                         centers=S.camera_centres(poses), fx=64.0)
+    S.build_map(ref, world, poses, 4, kf_stride=3)
+    card = MapTracker(cfg, device="cuda")
+    card.set_warp_map(ref.warp_map)
+    card.mask = ref.mask.to("cuda")
+    last = ref.last
+    card.seed(ref.arena, last.kp, last.assoc, last.outlier, last.R, last.t,
+              last.ref_kf, frame_id=last.frame_id)
+    render = S.Renderer(ref.cam, cfg)
+    worst = (0.0, 1.0, 0.0)
+    for i in (10, 11):
+        img = S.to_u8(render.render(*world, *poses[i])[0])
+        T_c = ref.track_fisheye(img, i / cfg.fps)
+        T_g = card.track_fisheye(img, i / cfg.fps)
+        if T_c is None or T_g is None:
+            raise AssertionError(f"small map check: frame {i} lost")
+        r_c, r_g = ref.metrics[-1], card.metrics[-1]
+        a_c, a_g = ref.last.assoc, card.last.assoc.cpu()
+        matched = (a_c >= 0) | (a_g >= 0)
+        agree = float((a_c == a_g)[matched].float().mean())
+        dpose = float(np.abs(T_c - T_g).max())
+        dcount = max(abs(r_c[k] - r_g[k]) / max(r_c[k], 1)
+                     for k in ("matches", "inliers_mm", "inliers",
+                               "local_matched"))
+        worst = (max(worst[0], dpose), min(worst[1], agree),
+                 max(worst[2], dcount))
+        log(f"[ref-map] frame {i}: |dpose| {dpose:.3g}, associations agree "
+            f"on {agree:.4f} of {int(matched.sum())} matched rows, counts "
+            f"card {r_g['matches']}/{r_g['inliers']} vs CPU "
+            f"{r_c['matches']}/{r_c['inliers']}, paths {r_g['path']} / "
+            f"{r_c['path']}")
+    if not (worst[0] < 1e-3 and worst[1] >= 0.98 and worst[2] <= 0.02):
+        raise AssertionError(f"card and CPU MapTrackers disagree: {worst}")
 
 
 def main() -> int:
@@ -546,34 +859,33 @@ def main() -> int:
                 raise AssertionError(f"{name} ({sym}) was launched {n} times "
                                      f"in {N_FRAMES} frames on the main path")
     prof = profiled_frames(tracker, frame, lms, rng)
-    # the profiler slows the host, so the idle share is also given against
-    # the wall time of the unprofiled frames above (after the warm-up)
-    idle_off = 1.0 - prof["device_busy_ms"] / float(np.mean(walls[1:]))
-    log(f"[profile] {N_FRAMES} frames under torch.profiler: wall ms "
-        f"{', '.join(f'{w:.3f}' for w in prof['walls_ms'])} (median "
-        f"{prof['wall_ms']:.3f}); device busy {prof['device_busy_ms']:.3f} "
-        f"ms per frame; idle share {prof['idle_share']:.4f} of the profiled "
-        f"wall, {idle_off:.4f} of the unprofiled wall; "
-        f"{prof['device_ops']:.0f} device operations per frame")
-    for st, v in prof["stages"].items():
-        log(f"[profile] stage {st:9s}: host {v['host_ms']:.3f} ms, device "
-            f"busy {v['device_busy_ms']:.3f} ms, {v['device_ops']:.0f} "
-            f"device operations, {v['host_waits']:.0f} host waits per frame")
-        for name, (ms, cnt) in v["top"]:
-            log(f"[profile]   {ms:.5f} ms in {cnt:.0f} x {name[:110]}")
-    log(f"[profile] the port's kernels, device ms per frame: "
-        f"{', '.join(f'{k} {v:.5f}' for k, v in prof['port_kernels'].items())}")
-    log(f"[profile] matrix products with the dense descriptor operator: "
-        f"{prof['dense_products']}")
-    if prof["dense_products"]:
-        raise AssertionError("the card's extract made a dense descriptor "
-                             "product")
+    log_profile("profile", prof, walls[1:])
 
     small_reference_check()
+
+    mt, poses, frames, first = build_map_phase(cfg)
+    seed = mt.last
+    t_walls, t_launches = drive_tracking_path(mt, poses, frames, first,
+                                              counters)
+    start = first + 1 + TRACK_FRAMES
+    t_prof = profiled_tracking(mt, poses, frames, start)
+    log_profile("track-profile", t_prof, t_walls)
+    reads = [r["host_reads"] for r in mt.metrics[-TRACK_PROFILE_FRAMES:]]
+    log(f"[track] host reads a frame, counted by the tracker: "
+        f"{sorted(set(reads))}; host waits a frame, from the profiler: "
+        f"{t_prof['host_waits']:.2f}")
+    # every read is a wait, so the profiler must see at least as many
+    if t_prof["host_waits"] < max(reads):
+        raise AssertionError("the profiler saw fewer host waits than the "
+                             "tracker's own reads")
+    forced_branches(mt, poses, frames, first, seed)
+    small_map_reference_check()
 
     for r in rows:
         r["launches"] = sum(launches[r["name"]].values())
         r["launches_by_kernel"] = launches[r["name"]]
+        r["launches_tracking"] = sum(t_launches[r["name"]].values())
+        r["launches_tracking_by_kernel"] = t_launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ pinhole intrinsics fx=fy=cx=cy=W/2.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -57,6 +58,13 @@ _CELL_FACE_NP = np.array(
     [[UNKNOWN_FACE, LEFT, UNKNOWN_FACE],
      [UPPER, FRONT, LOWER],
      [UNKNOWN_FACE, RIGHT, UNKNOWN_FACE]], dtype=np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_face(device: torch.device) -> torch.Tensor:
+    """``_CELL_FACE_NP`` on ``device``, copied there once: a copy from the
+    host on every call would wait for the device's queue to drain."""
+    return torch.as_tensor(_CELL_FACE_NP, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +195,7 @@ def face_from_cubemap_uv(cam: CubemapCamera, uv: torch.Tensor
     """Cubemap-cross pixel -> face id by 2D cell. (...,2) -> (...,) int64."""
     i = torch.floor(uv[..., 0] / cam.face_wh[0]).long()
     j = torch.floor(uv[..., 1] / cam.face_wh[1]).long()
-    cell_face = torch.as_tensor(_CELL_FACE_NP, device=uv.device)
+    cell_face = _cell_face(uv.device)
     inside = (i >= 0) & (i < 3) & (j >= 0) & (j < 3)
     f = cell_face[i.clamp(0, 2), j.clamp(0, 2)]
     return torch.where(inside, f, torch.full_like(f, UNKNOWN_FACE))

@@ -126,7 +126,8 @@ def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Inverse of se3_exp -> (...,6)."""
     phi = so3_log(R)
     V = _so3_left_jacobian(phi)
-    rho = torch.linalg.solve(V, t[..., None])[..., 0]
+    # solve_ex: no error check, so no host synchronisation on the card
+    rho = torch.linalg.solve_ex(V, t[..., None])[0][..., 0]
     return torch.cat([rho, phi], -1)
 
 

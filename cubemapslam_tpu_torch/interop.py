@@ -1,10 +1,10 @@
 """Carry state across from the JAX package, given as numpy arrays.
 
 The parity tests hand the JAX package's camera, warp-map coordinates,
-keypoints and landmarks to the port through these functions, so that both
-packages compute on identical maps and operators. Nothing here imports JAX: callers
-pass numpy arrays (for a JAX NamedTuple, ``{k: np.asarray(v) for k, v in
-nt._asdict().items()}``).
+keypoints, landmarks and map arena to the port through these functions (and
+the arena back), so that both packages compute on identical maps and
+operators. Nothing here imports JAX: callers pass numpy arrays (for a JAX
+NamedTuple, ``{k: np.asarray(v) for k, v in nt._asdict().items()}``).
 
 Descriptors cross as (N, 8) uint32 on the JAX side and (N, 8) int64 words
 in the port.
@@ -19,7 +19,10 @@ import torch
 
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.features.extractor import Keypoints
+from cubemapslam_tpu_torch.slam_map import MapArena
 from cubemapslam_tpu_torch.warp import WarpMap, warp_map_from_coords
+
+_ARENA_DESC = ("kf_desc", "lm_desc")
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -76,6 +79,36 @@ def keypoints_to_numpy(kp: Keypoints) -> Dict[str, np.ndarray]:
     out["level"] = out["level"].astype(np.int32)
     out["face"] = out["face"].astype(np.int32)
     out["desc"] = desc_to_numpy(kp.desc)
+    return out
+
+
+def arena_from_numpy(fields: Mapping[str, np.ndarray],
+                     device="cpu") -> MapArena:
+    """The JAX ``MapArena`` leaves (by field name) -> the port's arena:
+    uint32 descriptors become int64 words, int32 tables int64."""
+    out = {}
+    for name in MapArena._fields:
+        a = np.asarray(fields[name])
+        if name in _ARENA_DESC:
+            out[name] = desc_from_numpy(a.reshape(-1, 8), device).reshape(
+                a.shape)
+        elif a.dtype == np.int32:
+            out[name] = _t(a, device, torch.int64)
+        else:
+            out[name] = _t(a, device)
+    return MapArena(**out)
+
+
+def arena_to_numpy(arena: MapArena) -> Dict[str, np.ndarray]:
+    """The port's arena -> numpy arrays in the JAX package's dtypes."""
+    out = {}
+    for name, t in arena._asdict().items():
+        a = t.detach().cpu().numpy()
+        if name in _ARENA_DESC:
+            a = a.astype(np.uint32)
+        elif a.dtype == np.int64:
+            a = a.astype(np.int32)
+        out[name] = a
     return out
 
 

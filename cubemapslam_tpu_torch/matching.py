@@ -136,8 +136,9 @@ def _masked_top2(dist: torch.Tensor, gate: torch.Tensor
     best_idx = torch.argmin(d, dim=1)
     rows = torch.arange(d.shape[0], device=d.device)
     best = d[rows, best_idx]
-    d2 = d.clone()
-    d2[rows, best_idx] = BIG
+    # a scatter of a Python scalar: an index_put_ of one would copy it from
+    # the host and wait for the device's queue to drain
+    d2 = d.scatter(1, best_idx[:, None], BIG)
     second_idx = torch.argmin(d2, dim=1)
     second = d2[rows, second_idx]
     return best_idx, best, second_idx, second
@@ -184,9 +185,11 @@ def search_by_projection(query_rays_cam: torch.Tensor,
                           unpack_descriptors(kp.desc))
 
     lv = query_levels.long()
-    r_eff = torch.as_tensor(radius_px, dtype=torch.float32,
-                            device=qn.device) * scale_factors[
-        lv.clamp(0, scale_factors.shape[0] - 1)]
+    # a Python radius stays a scalar: a tensor made from it on the card
+    # would be a copy that waits for the device's queue to drain
+    r = (radius_px.to(qn.device, torch.float32) if torch.is_tensor(radius_px)
+         else float(radius_px))
+    r_eff = r * scale_factors[lv.clamp(0, scale_factors.shape[0] - 1)]
     cos_win = _window_cos(r_eff, cam.fxycxy[0])        # (Q,)
     ray_dot = qn @ kp.rays.T                            # (Q, N)
     gate = ray_dot >= cos_win[:, None]

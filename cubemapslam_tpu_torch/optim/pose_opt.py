@@ -72,7 +72,7 @@ def pose_optimization(cam: CubemapCamera, R0: torch.Tensor, t0: torch.Tensor,
     for r in range(n_rounds):
         robust = r < 2  # rounds 3-4 drop the Huber kernel
         cost = rho_cost(chi2, robust, inl)
-        lm_lambda = torch.tensor(1e-3, dtype=dt_, device=dev)
+        lm_lambda = torch.full((), 1e-3, dtype=dt_, device=dev)
         active = torch.ones((), dtype=torch.bool, device=dev)
         for _ in range(n_iters):
             w = inv_sigma2 * (_huber_weight(chi2) if robust else 1.0)

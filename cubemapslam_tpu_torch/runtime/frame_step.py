@@ -43,15 +43,11 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-class FrameTracker(nn.Module):
-    """One tracking step per call, for one calibration and landmark set.
-
-    ``forward(fisheye_u8, lm_pos, lm_desc, lm_level, lm_valid, R0, t0)``
-    returns ``(kp, assoc, R, t, inliers, n_inliers)``: the frame's
-    keypoints, the landmark associated with each keypoint (-1 if none), the
-    optimised world->camera pose, the inlier mask over keypoints and its
-    count. ``warp``, ``extract``, ``match`` and ``optimize`` are its stages.
-    """
+class FrameFrontend(nn.Module):
+    """What every tracker builds once for one calibration, on the device:
+    the camera, the warp map, the FOV mask and the ORB extractor, with the
+    ``warp`` and ``extract`` stages. ``FrameTracker`` and ``MapTracker``
+    (``runtime/tracking.py``) build on it."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None, device=None):
         super().__init__()
@@ -91,6 +87,17 @@ class FrameTracker(nn.Module):
     def extract(self, cube: torch.Tensor) -> Keypoints:
         """ORB keypoints of the cross, culled by the FOV mask."""
         return self.extractor(cube, self.mask)
+
+
+class FrameTracker(FrameFrontend):
+    """One tracking step per call, for one calibration and landmark set.
+
+    ``forward(fisheye_u8, lm_pos, lm_desc, lm_level, lm_valid, R0, t0)``
+    returns ``(kp, assoc, R, t, inliers, n_inliers)``: the frame's
+    keypoints, the landmark associated with each keypoint (-1 if none), the
+    optimised world->camera pose, the inlier mask over keypoints and its
+    count. ``warp``, ``extract``, ``match`` and ``optimize`` are its stages.
+    """
 
     def match(self, kp: Keypoints, lm_pos: torch.Tensor,
               lm_desc: torch.Tensor, lm_level: torch.Tensor,

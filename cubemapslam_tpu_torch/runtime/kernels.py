@@ -1,0 +1,429 @@
+"""The tracking stages of the steady-state frame, against the map arena.
+
+Counterpart of the tracking half of ``cubemapslam_tpu/runtime/kernels.py``
+(``TrackingKernels``), with the same method names. Each method is plain
+PyTorch on the arena's device; none holds a kernel of its own (the JAX
+package computes them without Pallas).
+
+Where the JAX package resolves a branch with ``lax.cond`` on the device,
+``track_frame_full`` reads the deciding counts to the host and branches
+there. On the steady path one read after the motion-model match decides
+every branch; each fallback that runs adds one read. The caller reads the
+packed result once more. A 0-d device tensor is never used as an index
+(PyTorch would read it to the host): such indices go in as 1-element
+tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from cubemapslam_tpu_torch import camera as C
+from cubemapslam_tpu_torch import geometry as G
+from cubemapslam_tpu_torch import matching as M
+from cubemapslam_tpu_torch import slam_map as SM
+from cubemapslam_tpu_torch.camera import CubemapCamera
+from cubemapslam_tpu_torch.config import SlamConfig
+from cubemapslam_tpu_torch.features.extractor import Keypoints
+from cubemapslam_tpu_torch.optim.pose_opt import pose_optimization
+
+MIN_MATCHES = 20             # widen / fall back below this (Tracking.cpp:641)
+VELOCITY_GATE_RAD = 0.2      # implausible rotations predict from the last pose
+
+
+class FrameTrack(NamedTuple):
+    """What ``track_frame_full`` returns: the JAX tuple (``arena, assoc,
+    outlier, R, t, packed, vel_R, vel_t, rel_R, rel_t``) and the host's
+    record of the branches taken and of its reads of the device."""
+
+    arena: SM.MapArena
+    assoc: torch.Tensor
+    outlier: torch.Tensor
+    R: torch.Tensor
+    t: torch.Tensor
+    packed: torch.Tensor     # (23,) float32, see track_frame_full
+    vel_R: torch.Tensor
+    vel_t: torch.Tensor
+    rel_R: torch.Tensor
+    rel_t: torch.Tensor
+    path: Tuple[str, ...]    # branches taken, in order
+    host_reads: int          # device -> host reads made inside
+
+
+def _row(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a 0-d device index, without a host read."""
+    return table.index_select(0, idx.reshape(1))[0]
+
+
+class TrackingKernels:
+    """The per-frame tracking stages for one camera geometry
+    (``cubemapslam_tpu/runtime/kernels.py:28-41``)."""
+
+    def __init__(self, cfg: SlamConfig, cam: CubemapCamera):
+        self.cfg = cfg
+        self.cam = cam
+        dev = cam.device
+        self.scale_factors = torch.tensor(cfg.scale_factors,
+                                          dtype=torch.float32, device=dev)
+        self.level_sigma2 = torch.tensor(cfg.level_sigma2,
+                                         dtype=torch.float32, device=dev)
+        self.inv_level_sigma2 = 1.0 / self.level_sigma2
+        self.log_scale = float(torch.log(torch.tensor(
+            cfg.scale_factor, dtype=torch.float32)))
+        self.th_low = float(cfg.th_low)
+        self.th_high = float(cfg.th_high)
+        self.histo_bin = float(cfg.histo_length)
+
+    # ------------------------------------------------------------------
+    # Motion-model tracking (TrackWithMotionModel, Tracking.cpp:620-677)
+    # ------------------------------------------------------------------
+
+    def track_last_frame(self, arena: SM.MapArena, kp_cur: Keypoints,
+                         last_assoc, last_outlier, last_kp_level,
+                         last_kp_angle, R_pred, t_pred,
+                         radius: float = 15.0):
+        """Project the last frame's landmarks at the predicted pose and
+        match, with the rotation histogram (``kernels.py:96-125``). Returns
+        (assoc (N,) landmark per current keypoint or -1, count)."""
+        lm = last_assoc
+        lm0 = lm.clamp(min=0)
+        has = (lm >= 0) & ~last_outlier & arena.lm_valid[lm0]
+        Xc = G.se3_apply(R_pred, t_pred, arena.lm_pos[lm0])
+        res = M.search_by_projection(
+            Xc, arena.lm_desc[lm0], last_kp_level, has, kp_cur, self.cam,
+            self.scale_factors, radius, level_lo_off=-1, level_hi_off=1,
+            th=self.th_high, query_angles=last_kp_angle,
+            check_orientation=True)
+        assoc = _assoc_max(kp_cur.n, res, lm)
+        return assoc, (assoc >= 0).sum()
+
+    def track_reference_kf(self, arena: SM.MapArena, kp_cur: Keypoints,
+                           ref_kf):
+        """Match the frame against a keyframe's landmark-bearing features by
+        full Hamming search, ratio 0.7 and the rotation histogram
+        (``kernels.py:127-152``). ``ref_kf`` is a slot (int)."""
+        kf_lm = arena.kf_obs_lm[ref_kf]
+        kf_has = ((kf_lm >= 0) & arena.kf_kp_valid[ref_kf]
+                  & arena.lm_valid[kf_lm.clamp(min=0)])
+        dist = M.hamming_matrix(M.unpack_descriptors(arena.kf_desc[ref_kf]),
+                                M.unpack_descriptors(kp_cur.desc))
+        gate = kf_has[:, None] & kp_cur.valid[None, :]
+        best_idx, best, _, second = M._masked_top2(dist, gate)
+        ok = (best <= self.th_low) & (best < 0.7 * second)
+        ok = M.rotation_consistency(arena.kf_angle[ref_kf],
+                                    kp_cur.angle[best_idx], ok,
+                                    bin_deg=self.histo_bin)
+        ok = M.resolve_one_to_one(best_idx, best, ok, kp_cur.n)
+        assoc = _assoc_max(kp_cur.n, M.MatchResult(best_idx, ok, best),
+                           kf_lm)
+        return assoc, (assoc >= 0).sum()
+
+    def optimize_pose(self, arena: SM.MapArena, kp_cur: Keypoints, assoc,
+                      R0, t0):
+        """Pose-only LM on the current associations (``kernels.py:154-169``).
+        Returns (R, t, outlier mask, n_inliers): the OUTLIERS are the
+        associated keypoints that the solve rejected."""
+        has = ((assoc >= 0) & kp_cur.valid
+               & arena.lm_valid[assoc.clamp(min=0)])
+        Xw = arena.lm_pos[assoc.clamp(min=0)]
+        uv_face = C.cubemap_uv_to_in_face(self.cam, kp_cur.uv)
+        inv_s2 = self.inv_level_sigma2[
+            kp_cur.level.clamp(0, self.cfg.n_levels - 1)]
+        R, t, inl, n = pose_optimization(self.cam, R0, t0, Xw, kp_cur.face,
+                                         uv_face, inv_s2, has)
+        return R, t, has & ~inl, n
+
+    # ------------------------------------------------------------------
+    # Local map tracking (TrackLocalMap, Tracking.cpp:679-719)
+    # ------------------------------------------------------------------
+
+    def select_local_landmarks(self, arena: SM.MapArena, assoc,
+                               max_local: int = 8192, covis=None):
+        """Local keyframes by observation voting, expanded by covisibility
+        and capped at the top ``max_local_keyframes``, then their landmarks
+        compacted to ``max_local`` indices (``kernels.py:175-231``).
+        Returns (sel, sel_ok, local_mask, pkf_max, pkf_votes)."""
+        K, L = arena.n_kf_cap, arena.n_lm_cap
+        member = _members(assoc, L)
+        obs = arena.kf_obs_lm
+        obs_ok = (obs >= 0) & arena.kf_kp_valid & arena.kf_valid[:, None]
+        votes = (obs_ok & member[obs.clamp(min=0)]).sum(dim=1)
+        if covis is None:
+            covis = SM.covisibility_matrix(arena)
+        votersf = (votes > 0).float()
+        nb_strength = (covis.float() * votersf[:, None]).amax(dim=0)
+        expanded = ((votes > 0)
+                    | (nb_strength >= self.cfg.covisibility_weight_th))
+        expanded &= arena.kf_valid
+        k_eff = min(self.cfg.max_local_keyframes, K)
+        prio = torch.where(expanded, votes.float() * 1e6 + nb_strength,
+                           torch.full_like(nb_strength, -1.0))
+        # lax.top_k puts the lower index first among ties: a stable sort
+        top_p, local_kfs = torch.sort(prio, descending=True, stable=True)
+        local_mask = torch.zeros(K, dtype=torch.bool, device=obs.device)
+        local_mask[local_kfs[:k_eff]] = top_p[:k_eff] > 0
+        in_local = local_mask[:, None] & obs_ok
+        lm_local = _members(torch.where(in_local, obs,
+                                        torch.full_like(obs, L)), L)
+        lm_local &= arena.lm_valid
+        P = min(max_local, L)
+        sel = SM.compact_mask(lm_local, P, 0)
+        n_can = torch.clamp(lm_local.sum(), max=P)
+        sel_ok = torch.arange(P, device=obs.device) < n_can
+        pkf_max = torch.argmax(votes)        # the first maximum
+        return sel, sel_ok, local_mask, pkf_max, _row(votes, pkf_max)
+
+    def search_local_points(self, arena: SM.MapArena, kp_cur: Keypoints,
+                            assoc, sel, sel_ok, R, t, radius_scale=1.0):
+        """Frustum gates and a windowed projection match of the selected
+        local landmarks, merged into ``assoc`` (``kernels.py:233-288``).
+        Returns (assoc, vis_add (L,), diag [in-frustum, queried, matched])."""
+        L = arena.n_lm_cap
+        Xw = arena.lm_pos[sel]
+        Xc = G.se3_apply(R, t, Xw)
+        dist = torch.linalg.norm(Xc, dim=-1)
+        Ow = -(R.T @ t)
+        view_cos = ((Xw - Ow) * arena.lm_normal[sel]).sum(dim=-1) \
+            / dist.clamp(min=1e-12)
+        in_range = ((dist >= 0.8 * arena.lm_min_dist[sel])
+                    & (dist <= 1.2 * arena.lm_max_dist[sel]))
+        ray_n = Xc / dist.clamp(min=1e-12)[:, None]
+        in_fov = ray_n[:, 2] >= self.cam.cos_fov_th
+        _, face = C.ray_to_cubemap(self.cam, ray_n)
+        frustum = (sel_ok & in_fov & (face != C.UNKNOWN_FACE) & in_range
+                   & (view_cos > 0.5))
+        query_ok = frustum & ~_members(assoc, L)[sel]
+        lvl = SM.predict_scale(dist, arena.lm_max_dist[sel], self.log_scale,
+                               self.cfg.n_levels)
+        radius = torch.where(view_cos > 0.998, 2.5, 4.0) * radius_scale
+        res = M.search_by_projection(
+            Xc, arena.lm_desc[sel], lvl, query_ok, kp_cur, self.cam,
+            self.scale_factors, radius, level_lo_off=-1, level_hi_off=0,
+            th=self.th_high, nn_ratio=0.8, target_free=assoc < 0)
+        cand = torch.where(res.ok, sel, torch.full_like(sel, SM.NO_LM))
+        assoc_new = assoc.scatter_reduce(0, res.idx, cand, reduce="amax",
+                                         include_self=True)
+        vis_add = torch.zeros(L, dtype=torch.int64, device=sel.device)
+        vis_add.index_add_(0, sel, frustum.to(torch.int64))
+        diag = torch.stack([frustum.sum(), query_ok.sum(), res.ok.sum()])
+        return assoc_new, vis_add, diag
+
+    # ------------------------------------------------------------------
+    # Fused stages (kernels.py:295-339)
+    # ------------------------------------------------------------------
+
+    def track_motion_fused(self, arena: SM.MapArena, kp_cur: Keypoints,
+                           last_assoc, last_outlier, last_kp_level,
+                           last_kp_angle, R_pred, t_pred,
+                           radius: float = 15.0):
+        """track_last_frame + optimize_pose. Returns (assoc, n, R, t,
+        outlier, n_inl)."""
+        assoc, n = self.track_last_frame(
+            arena, kp_cur, last_assoc, last_outlier, last_kp_level,
+            last_kp_angle, R_pred, t_pred, radius=radius)
+        R, t, outlier, n_inl = self.optimize_pose(arena, kp_cur, assoc,
+                                                  R_pred, t_pred)
+        return assoc, n, R, t, outlier, n_inl
+
+    def graph_cache(self, arena: SM.MapArena):
+        """(covisibility, observation counts) from one incidence build
+        (``kernels.py:309-320``); refreshed only when the graph changes."""
+        O = SM.incidence_matrix(arena)
+        return (SM.covisibility_matrix(arena, O=O),
+                SM.observation_counts(arena, O=O))
+
+    def track_local_fused(self, arena: SM.MapArena, kp_cur: Keypoints,
+                          assoc, outlier, R, t, covis=None,
+                          radius_scale=1.0):
+        """TrackLocalMap: local selection, projection search, pose solve and
+        the visible/found counters, which are updated in place
+        (``kernels.py:322-339``)."""
+        assoc = torch.where(outlier, torch.full_like(assoc, SM.NO_LM), assoc)
+        with record_function("local.select"):
+            sel, sel_ok, _, pkf_max, pkf_votes = self.select_local_landmarks(
+                arena, assoc, covis=covis)
+        with record_function("local.search"):
+            assoc, vis_add, diag = self.search_local_points(
+                arena, kp_cur, assoc, sel, sel_ok, R, t,
+                radius_scale=radius_scale)
+        with record_function("local.optimize"):
+            R, t, outlier, n_final = self.optimize_pose(arena, kp_cur, assoc,
+                                                        R, t)
+        with record_function("local.counters"):
+            arena = self.update_found_counters(arena, assoc, outlier,
+                                               vis_add)
+        return (arena, assoc, outlier, R, t, n_final, pkf_max, pkf_votes,
+                diag)
+
+    def _motion_stage(self, arena, kp_cur, last, R_pred, t_pred, R_last,
+                      t_last, ref_kf, path):
+        """The motion-model match and its fallbacks, in the JAX order
+        (``kernels.py:389-426``), branching on counts read to the host.
+        Returns (stage tuple, n, n_inl, host reads)."""
+        def motion(R0, t0, radius):
+            st = self.track_motion_fused(arena, kp_cur, *last, R0, t0,
+                                         radius=radius)
+            n, n_inl = torch.stack([st[1], st[5]]).tolist()
+            return st, n, n_inl
+
+        st, n, n_inl = motion(R_pred, t_pred, 15.0)
+        path.append("motion")
+        reads = 1
+        if n < MIN_MATCHES:
+            st, n, n_inl = motion(R_pred, t_pred, 30.0)
+            path.append("widen")
+            reads += 1
+            if n < MIN_MATCHES:
+                st2, n2, n_inl2 = motion(R_last, t_last, 30.0)
+                path.append("zero_velocity")
+                reads += 1
+                if n_inl2 > n_inl:
+                    st, n, n_inl = st2, n2, n_inl2
+        if n < MIN_MATCHES:
+            assoc2, n2 = self.track_reference_kf(arena, kp_cur, ref_kf)
+            R2, t2, out2, ni2 = self.optimize_pose(arena, kp_cur, assoc2,
+                                                   R_last, t_last)
+            st = (assoc2, n2, R2, t2, out2, ni2)
+            n, n_inl = torch.stack([n2, ni2]).tolist()
+            path.append("reference_kf")
+            reads += 1
+        return st, n, n_inl, reads
+
+    def track_frame_full(self, arena: SM.MapArena, kp_cur: Keypoints,
+                         last_assoc, last_outlier, last_kp_level,
+                         last_kp_angle, rel_R, rel_t, last_ref: int,
+                         vel_R, vel_t, vel_gain, ref_kf: int, covis,
+                         cnt) -> FrameTrack:
+        """The whole per-frame tracking step (``kernels.py:341-490``):
+        motion-model match at 15 px, widened to 30 px below 20 matches, a
+        zero-velocity retry, the reference-keyframe fallback, then
+        TrackLocalMap when the frame tracks (>= 15 matches and >= 10
+        inliers). The arena's visible/found counters are updated in place.
+
+        The last pose arrives relative to keyframe ``last_ref`` and is
+        re-anchored on the current keyframe table; the motion model is
+        ``(vel_R, vel_t)`` scaled by ``vel_gain`` and dropped when it turns
+        by 0.2 rad or more. ``packed`` is (23,) float32: [n_matches,
+        n_inliers, n_final, n_ref_obs, live_kf, first_free_slot, track_ok,
+        new_ref_kf, local_frustum, local_queried, local_matched,
+        R.ravel(9), t(3)].
+        """
+        dev = arena.device
+        path = []
+        with record_function("motion"):
+            R_last, t_last = G.se3_compose(rel_R, rel_t, arena.kf_R[last_ref],
+                                           arena.kf_t[last_ref])
+            tw = G.se3_log(vel_R, vel_t) * vel_gain
+            rot_mag = torch.linalg.norm(tw[3:6])
+            tw = torch.where(rot_mag < VELOCITY_GATE_RAD, tw,
+                             torch.zeros_like(tw))
+            Rv, tv = G.se3_exp(tw)
+            R_pred, t_pred = G.se3_compose(Rv, tv, R_last, t_last)
+            last = (last_assoc, last_outlier, last_kp_level, last_kp_angle)
+            st, n, n_inl, reads = self._motion_stage(
+                arena, kp_cur, last, R_pred, t_pred, R_last, t_last, ref_kf,
+                path)
+        assoc, n_t, R, t, outlier, n_inl_t = st
+        track_ok = n >= 15 and n_inl >= 10
+        ref_t = torch.full((), ref_kf, dtype=torch.int64, device=dev)
+        if track_ok:
+            rs = 3.0 if n_inl < 100 else 1.0
+            (arena, assoc_f, outlier_f, R_f, t_f, n_final, pkf_max,
+             pkf_votes, diag) = self.track_local_fused(
+                arena, kp_cur, assoc, outlier, R, t, covis=covis,
+                radius_scale=rs)
+            path.append("local")
+        else:
+            assoc_f, outlier_f, R_f, t_f = assoc, outlier, R, t
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            n_final, pkf_max, pkf_votes = zero, ref_t, zero
+            diag = torch.zeros(3, dtype=torch.int64, device=dev)
+            path.append("skip_local")
+        with record_function("epilogue"):
+            new_ref = torch.where(pkf_votes > 0, pkf_max, ref_t)
+            live_kf = arena.kf_valid.sum()
+            row = _row(arena.kf_obs_lm, new_ref)
+            row0 = row.clamp(min=0)
+            row_ok = ((row >= 0) & _row(arena.kf_kp_valid, new_ref)
+                      & arena.lm_valid[row0])
+            min_obs = torch.where(live_kf > 2, 3, 2)
+            n_ref_obs = (row_ok & (cnt[row0] >= min_obs)).sum()
+            free = (~arena.kf_valid).to(torch.int64)
+            first_free = torch.where(free.any(), torch.argmax(free),
+                                     torch.full_like(live_kf, -1))
+            ok_t = (n_t >= 15) & (n_inl_t >= 10)
+            scalars = torch.cat([
+                torch.stack([n_t, n_inl_t, n_final, n_ref_obs, live_kf,
+                             first_free, ok_t.to(torch.int64), new_ref]),
+                diag]).float()
+            R_li, t_li = G.se3_inverse(R_last, t_last)
+            vel_R, vel_t = G.se3_compose(R_f, t_f, R_li, t_li)
+            R_ri, t_ri = G.se3_inverse(_row(arena.kf_R, new_ref),
+                                       _row(arena.kf_t, new_ref))
+            rel_R, rel_t = G.se3_compose(R_f, t_f, R_ri, t_ri)
+            packed = torch.cat([scalars, R_f.reshape(-1), t_f])
+        return FrameTrack(arena, assoc_f, outlier_f, R_f, t_f, packed,
+                          vel_R, vel_t, rel_R, rel_t, tuple(path), reads)
+
+    # ------------------------------------------------------------------
+    # Keyframe creation and counters
+    # ------------------------------------------------------------------
+
+    def insert_keyframe(self, arena: SM.MapArena, slot: int, kp: Keypoints,
+                        assoc, outlier, R, t, frame_id: int,
+                        timestamp: float) -> SM.MapArena:
+        """Write a frame into arena row ``slot`` in place and refresh the
+        statistics of the landmarks it observes (``kernels.py:545-576``)."""
+        N, L = arena.n_feat, arena.n_lm_cap
+        good = torch.where(outlier, torch.full_like(assoc, SM.NO_LM), assoc)
+        arena.kf_R[slot] = R
+        arena.kf_t[slot] = t
+        arena.kf_valid[slot] = True
+        arena.kf_frame_id[slot] = frame_id
+        arena.kf_timestamp[slot] = timestamp
+        arena.kf_uv[slot] = kp.uv
+        arena.kf_rays[slot] = kp.rays
+        arena.kf_face[slot] = kp.face
+        arena.kf_level[slot] = kp.level
+        arena.kf_angle[slot] = kp.angle
+        arena.kf_desc[slot] = kp.desc
+        arena.kf_kp_valid[slot] = kp.valid
+        arena.kf_obs_lm[slot] = good
+        return SM.update_landmark_stats_touched(
+            arena, self.scale_factors, _members(good, L),
+            max_touched=N, max_obs=min(32 * N, arena.n_kf_cap * N))
+
+    def update_found_counters(self, arena: SM.MapArena, assoc, outlier,
+                              vis_add) -> SM.MapArena:
+        """IncreaseVisible / IncreaseFound, in place
+        (``kernels.py:578-586``)."""
+        ok = (assoc >= 0) & ~outlier
+        arena.lm_visible.add_(vis_add)
+        arena.lm_found.index_add_(0, torch.where(ok, assoc, 0),
+                                  ok.to(torch.int64))
+        return arena
+
+
+def _members(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) bool: which of 0..n-1 appear in ``ids`` (entries < 0 or >= n
+    are ignored), the ``zeros(n+1).at[where(ok, ids, n)].set(True)[:-1]`` of
+    the JAX package."""
+    flat = ids.reshape(-1)
+    out = torch.zeros(n + 1, dtype=torch.bool, device=ids.device)
+    # index_fill_ takes the value as a scalar, with no copy from the host
+    out.index_fill_(0, torch.where(flat >= 0, flat, torch.full_like(flat, n)),
+                    True)
+    return out[:-1]
+
+
+def _assoc_max(n_kp: int, res: M.MatchResult, lm: torch.Tensor
+               ) -> torch.Tensor:
+    """Per-keypoint landmark association by scatter-max, so that a losing
+    query (-1) never overwrites a winner."""
+    cand = torch.where(res.ok, lm, torch.full_like(lm, SM.NO_LM))
+    assoc = torch.full((n_kp,), SM.NO_LM, dtype=torch.int64, device=lm.device)
+    return assoc.scatter_reduce(0, res.idx, cand, reduce="amax",
+                                include_self=True)

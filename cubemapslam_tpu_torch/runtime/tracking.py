@@ -1,0 +1,148 @@
+"""The steady-state tracked frame against the map arena.
+
+``MapTracker`` is the port's counterpart of the fused steady-state frame of
+the JAX package (``CubemapSLAM._build_fused_step`` and
+``_track_fisheye_fused``, ``cubemapslam_tpu/runtime/system.py:278-332``):
+warp -> extract -> ``TrackingKernels.track_frame_full`` -> one read of the
+packed (23,) result, then the tracking half of ``_consume_track_outputs``
+(``system.py:578-609``). It holds the arena, the cached covisibility and
+observation-count views, the last frame and the motion model.
+
+The keyframe decision, keyframe creation and deferred BA wait for the
+mapping slice (``first_free_slot`` is in the packed result for it), and so
+do the reset of a small map and relocalization after a lost frame: a lost
+frame here leaves the last tracked state as it was.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from cubemapslam_tpu_torch import geometry as G
+from cubemapslam_tpu_torch import slam_map as SM
+from cubemapslam_tpu_torch.config import SlamConfig
+from cubemapslam_tpu_torch.features.extractor import Keypoints
+from cubemapslam_tpu_torch.runtime.frame_step import FrameFrontend
+from cubemapslam_tpu_torch.runtime.kernels import TrackingKernels
+
+PACKED_NAMES = ("matches", "inliers_mm", "inliers", "n_ref", "live_kf",
+                "first_free", "track_ok", "new_ref", "local_frustum",
+                "local_queried", "local_matched")
+
+
+class LastFrame(NamedTuple):
+    """The last tracked frame (``FrameState``, ``system.py:44-63``): its
+    pose is kept relative to keyframe ``ref_kf`` so that it follows the
+    keyframe when mapping moves it."""
+
+    kp: Keypoints
+    assoc: torch.Tensor
+    outlier: torch.Tensor
+    R: torch.Tensor
+    t: torch.Tensor
+    rel_R: torch.Tensor
+    rel_t: torch.Tensor
+    ref_kf: int
+    frame_id: int
+    timestamp: float
+
+
+class MapTracker(FrameFrontend):
+    """Tracks fisheye frames against a map arena, one ``track_fisheye`` call
+    a frame. Seed it with ``seed`` (an arena and a last frame) first.
+
+    ``metrics`` holds a row per tracked frame: the packed counts
+    (``PACKED_NAMES``), the branches taken and the host reads made."""
+
+    def __init__(self, cfg: Optional[SlamConfig] = None, device=None):
+        super().__init__(cfg, device)
+        cfg = self.cfg
+        self.kernels = TrackingKernels(cfg, self.cam)
+        self.arena = SM.make_arena(cfg.max_keyframes, cfg.n_features,
+                                   cfg.max_landmarks, self.device)
+        self.covis: Optional[torch.Tensor] = None
+        self.cnt: Optional[torch.Tensor] = None
+        self.last: Optional[LastFrame] = None
+        self.velocity = None          # (R, t) frame-to-frame motion
+        self.ref_kf = 0
+        self.frame_id = 0
+        self.metrics = []
+
+    def refresh_graph_cache(self) -> None:
+        """Recompute the cached (covisibility, observation count) views
+        (``system.py:933-937``); call it whenever the graph changes."""
+        self.covis, self.cnt = self.kernels.graph_cache(self.arena)
+
+    def seed(self, arena: SM.MapArena, kp: Keypoints, assoc, outlier, R, t,
+             ref_kf: int, frame_id: int = 0, timestamp: float = 0.0
+             ) -> None:
+        """Start from ``arena`` (copied to this tracker's device if it lies
+        elsewhere) with a last frame (keypoints, associations, outliers and
+        world->camera pose) that refers to keyframe slot ``ref_kf``, and no
+        motion model."""
+        dev = self.device
+        self.arena = arena if arena.device == dev else arena.to(dev)
+        kp = Keypoints(*(x.to(dev) for x in kp))
+        R, t = R.to(dev), t.to(dev)
+        R_ri, t_ri = G.se3_inverse(self.arena.kf_R[ref_kf],
+                                   self.arena.kf_t[ref_kf])
+        rel_R, rel_t = G.se3_compose(R, t, R_ri, t_ri)
+        self.last = LastFrame(kp, assoc.to(dev), outlier.to(dev), R, t,
+                              rel_R, rel_t, int(ref_kf), frame_id,
+                              timestamp)
+        self.ref_kf = int(ref_kf)
+        self.velocity = None
+        self.frame_id = frame_id + 1
+        self.refresh_graph_cache()
+
+    def _velocity_args(self):
+        """(vel_R, vel_t, gain) of ``system.py:552-556``."""
+        if self.velocity is not None:
+            return (*self.velocity, float(self.cfg.motion_model_damping))
+        return (torch.eye(3, device=self.device),
+                torch.zeros(3, device=self.device), 0.0)
+
+    def track_fisheye(self, fisheye_u8, timestamp: float
+                      ) -> Optional[np.ndarray]:
+        """Track one (H, W) uint8 fisheye frame. Returns the 4x4 float64
+        world->camera pose, or ``None`` when the frame is lost (fewer than
+        15 matches or 10 inliers, or fewer than ``min_track_inliers`` after
+        the local map)."""
+        if self.last is None:
+            raise RuntimeError("seed the tracker with a map first")
+        fid = self.frame_id
+        self.frame_id += 1
+        with record_function("warp"):
+            img = torch.as_tensor(fisheye_u8, device=self.device)
+            cube = self.warp(img)
+        with record_function("extract"):
+            kp = self.extract(cube)
+        if self.covis is None:
+            self.refresh_graph_cache()
+        last = self.last
+        out = self.kernels.track_frame_full(
+            self.arena, kp, last.assoc, last.outlier, last.kp.level,
+            last.kp.angle, last.rel_R, last.rel_t, last.ref_kf,
+            *self._velocity_args(), self.ref_kf, self.covis, self.cnt)
+        with record_function("epilogue"):
+            pk = out.packed.tolist()
+            counts = dict(zip(PACKED_NAMES, (int(x) for x in pk[:11])))
+            row = dict(frame=fid, **counts, path=out.path,
+                       host_reads=out.host_reads + 1)
+            self.metrics.append(row)
+            if (not counts["track_ok"]
+                    or counts["inliers"] < self.cfg.min_track_inliers):
+                return None
+            self.ref_kf = counts["new_ref"]
+            self.velocity = (out.vel_R, out.vel_t)
+            self.last = LastFrame(kp, out.assoc, out.outlier, out.R, out.t,
+                                  out.rel_R, out.rel_t, self.ref_kf, fid,
+                                  timestamp)
+            T = np.eye(4)
+            T[:3, :3] = np.asarray(pk[11:20]).reshape(3, 3)
+            T[:3, 3] = pk[20:23]
+            return T

@@ -34,6 +34,7 @@ from cubemapslam_tpu.optim.pose_opt import pose_optimization
 from cubemapslam_tpu_torch import interop
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
 from cubemapslam_tpu_torch.runtime import FrameTracker, resolve_device
+from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SMALL = dict(cube_face_w=128, cube_face_h=128, n_features=256, n_levels=4)
@@ -154,6 +155,8 @@ def test_default_device_is_the_card():
     else:
         with pytest.raises(RuntimeError):
             FrameTracker(TConfig(**SMALL))
+        with pytest.raises(RuntimeError):
+            MapTracker(TConfig(**SMALL))
 
 
 def _imported_modules(path: pathlib.Path):
@@ -181,7 +184,8 @@ def test_port_sources_import_no_jax():
 
 def test_port_runs_without_jax_loaded():
     """In a fresh interpreter: import the port and chip_smoke, run a tiny
-    frame step on the CPU, and find no JAX module loaded."""
+    frame step, map build and tracked frame on the CPU, and find no JAX
+    module loaded."""
     code = """
 import sys
 import numpy as np, torch
@@ -199,6 +203,20 @@ if not torch.cuda.is_available():
     assert chip_smoke.main() == 2      # without a card nothing is run
 out = tr(img, *lms, torch.eye(3), torch.zeros(3))
 assert out[2].shape == (3, 3)
+# the map arena and the tracked frame against it
+from cubemapslam_tpu_torch import interop, slam_map
+from cubemapslam_tpu_torch.runtime.kernels import TrackingKernels
+from cubemapslam_tpu_torch.runtime.tracking import MapTracker
+cfg = SlamConfig(cube_face_w=64, cube_face_h=64, n_features=64, n_levels=2,
+                 max_keyframes=4, max_landmarks=256)
+mt = MapTracker(cfg, device="cpu")
+poses = synthetic.forward_trajectory(4, step=0.04)
+world = synthetic.make_world(rng, n=200, fx=32.0)
+synthetic.build_map(mt, world, poses, 2, kf_stride=2)
+ren = synthetic.Renderer(mt.cam, cfg)
+mt.track_fisheye(synthetic.to_u8(ren.render(*world, *poses[3])[0]), 0.1)
+assert len(mt.metrics) == 1 and isinstance(mt.kernels, TrackingKernels)
+assert interop.arena_to_numpy(mt.arena)["kf_desc"].dtype == np.uint32
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cubemapslam_tpu"))
 print("FOREIGN", bad)

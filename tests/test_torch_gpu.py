@@ -10,6 +10,8 @@ product and sum as the plain version does, so it is bitwise in practice);
 kernel D's candidates bitwise, subpixel offsets within 1e-6; the describe
 kernel's angles within 1e-4 rad, bins on >= 99.5% of keypoints, bits where
 the plain score is farther than 1e-2 from 0 (it sums in another order).
+``MapTracker`` on the card against the CPU on one map: poses within 1e-3,
+associations equal on >= 98% of matched rows, packed counts within 2%.
 """
 
 import numpy as np
@@ -22,6 +24,8 @@ from cubemapslam_tpu_torch import warp_cuda
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.features import extractor as TE
 from cubemapslam_tpu_torch.runtime import FrameTracker
+from cubemapslam_tpu_torch.runtime import synthetic as S
+from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 
 pytestmark = pytest.mark.gpu
 
@@ -179,3 +183,42 @@ def test_frame_tracker_card_against_cpu(cuda):
     matched = (a_c >= 0) | (a_g.cpu() >= 0)
     assert int(matched.sum()) > 50
     assert float((a_c == a_g.cpu())[matched].float().mean()) >= 0.98
+
+
+@pytest.mark.parametrize("path", ["steady", "reference_kf"])
+def test_map_tracker_card_against_cpu(cuda, path):
+    """One map, built on the CPU, tracked over 2 frames by MapTracker on
+    the CPU and on the card (same warp map and mask); ``reference_kf``
+    empties the last association first, so both take the fallbacks."""
+    cfg = SlamConfig(**SMALL, max_keyframes=16, max_landmarks=2048)
+    ref = MapTracker(cfg, device="cpu")
+    poses = S.forward_trajectory(12, step=0.04, yaw_rate=0.003)
+    world = S.make_world(np.random.default_rng(11), n=500,
+                         centers=S.camera_centres(poses), fx=64.0)
+    S.build_map(ref, world, poses, 4, kf_stride=3)
+    card = MapTracker(cfg)                         # default: the card
+    assert card.device == cuda
+    card.set_warp_map(ref.warp_map)
+    card.mask = ref.mask.to(cuda)
+    last = ref.last
+    assoc = last.assoc if path == "steady" else torch.full_like(last.assoc,
+                                                                -1)
+    for tr in (ref, card):
+        tr.seed(ref.arena, last.kp, assoc, last.outlier, last.R, last.t,
+                last.ref_kf, frame_id=last.frame_id)
+    render = S.Renderer(ref.cam, cfg)
+    for i in (10, 11):
+        img = S.to_u8(render.render(*world, *poses[i])[0])
+        T_c, T_g = ref.track_fisheye(img, i / 30.0), card.track_fisheye(
+            img, i / 30.0)
+        assert T_c is not None and T_g is not None
+        assert np.abs(T_c - T_g).max() < 1e-3
+        r_c, r_g = ref.metrics[-1], card.metrics[-1]
+        assert r_c["path"] == r_g["path"]
+        for k in ("matches", "inliers_mm", "inliers", "local_matched"):
+            assert abs(r_c[k] - r_g[k]) <= 0.02 * r_c[k]
+        a_c, a_g = ref.last.assoc, card.last.assoc.cpu()
+        matched = (a_c >= 0) | (a_g >= 0)
+        assert float((a_c == a_g)[matched].float().mean()) >= 0.98
+    if path == "reference_kf":
+        assert "reference_kf" in card.metrics[0]["path"]
