@@ -30,6 +30,19 @@ D's passes once each) on this path; profiles 4 more frames with one range
 per stage; forces the fallback, velocity-gate and blank-frame branches; and
 holds ``MapTracker`` on the card against the CPU on a small map.
 
+Then the whole system from its first frame, the ``slam`` phase:
+``CubemapSLAM`` at ``SlamConfig()`` defaults (2000 features, 6000 at init)
+over a rendered 30-frame sequence through a seeded world of 1500
+billboards, one line a frame (state, counts, keyframe, deferred BA, host
+reads, the wall ms of each stage), checked for initialization within 10
+frames, every later frame tracked, 3 keyframes beyond the first 2, new
+landmarks triangulated, a deferred BA, the launches of each kernel (one a
+frame, kernel D's passes once each) and the ATE of the Sim3-aligned
+trajectory; then one keyframe frame and one deferred-BA frame under the
+profiler, whose host waits may not exceed their stated reads and the
+upload; and ``mapping_step`` / ``local_ba`` on the card against the CPU on
+a small arena.
+
 Output: progress lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -52,7 +65,7 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from cubemapslam_tpu_torch import SlamConfig, _build
+from cubemapslam_tpu_torch import CubemapCamera, SlamConfig, _build
 from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
 from cubemapslam_tpu_torch.features import extractor as TE
@@ -61,7 +74,10 @@ from cubemapslam_tpu_torch.runtime import FrameTracker
 from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.synthetic import (
     landmarks_from_keypoints, perturbed_pose, synthetic_fisheye)
+from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
 from cubemapslam_tpu_torch.runtime.tracking import MapTracker
+from cubemapslam_tpu_torch.solvers import horn_alignment
 
 SEED = 0
 N_LANDMARKS = 8192
@@ -107,6 +123,17 @@ LOCAL_MIN_FRAMES = 6          # of TRACK_FRAMES with local_matched > 0
 GATE_ROT_RAD = 0.3            # a velocity above the 0.2 rad gate
 TRACK_STAGES = ("warp", "extract", "motion", "local.select", "local.search",
                 "local.optimize", "local.counters", "epilogue")
+# the whole system from its first frame (CubemapSLAM) at SlamConfig()
+# defaults, over a rendered sequence of SLAM_FRAMES frames: the cut against
+# the 220 frames of the working-scale run
+SLAM_FRAMES = 30
+SLAM_BILLBOARDS = 1500
+SLAM_INIT_BY = 10             # initialized within the first 10 frames
+SLAM_MIN_NEW_KF = 3           # keyframes by the cadence beyond the first 2
+SLAM_ATE_FRAC = 0.01          # ATE bound, as a fraction of the path length
+SLAM_PROFILE_MAX = 8          # frames profiled to find a keyframe frame and
+                              # a deferred-BA frame
+SLAM_STAGES = TRACK_STAGES + ("insert+mapping", "local_ba")
 # the port's __global__ kernels, as the profiler names them
 PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
                 "select_levels_kernel", "orb_describe_kernel")
@@ -294,14 +321,13 @@ def rot_bin(ang):
         ang * (TE.N_ROT / (2.0 * math.pi))).to(torch.int64), TE.N_ROT)
 
 
-def check_describe(tracker, levels, cands):
+def check_describe(p, ops, levels, cands, tag="describe"):
     """The describe kernel, one launch for all keypoints, against its plain
     version (raw patches, then the dense product with the descriptor+moment
-    operator) on the frame's keypoints. Both sum in float32 in different
-    orders, so: angles within 1e-4 rad (mod 2 pi), bins equal on >= 99.5%
-    of keypoints, and on those, bits equal wherever the plain score is
-    farther than 1e-2 from 0."""
-    p, ops = tracker.params, tracker.extractor.ops
+    operator) on the frame's keypoints, for an extractor plan ``p`` and its
+    operators. Both sum in float32 in different orders, so: angles within
+    1e-4 rad (mod 2 pi), bins equal on >= 99.5% of keypoints, and on those,
+    bits equal wherever the plain score is farther than 1e-2 from 0."""
     ys, xs, _, _, _ = TE._select_levels(cands, ops.sel_index, ops.sel_take)
     args = (levels, ys, xs, p.level_k, ops.desc_table)
     ang_k, desc_k = TE.describe_keypoints(*args)
@@ -326,7 +352,7 @@ def check_describe(tracker, levels, cands):
     bad_firm = int(((bits_k != bits_p) & firm).sum())
     bins_equal = float(same_bin.float().mean())
     bits_equal = float((bits_k == bits_p).float().mean())
-    log(f"[describe] {K} keypoints: angle err {err:.3g} rad, bins equal on "
+    log(f"[{tag}] {K} keypoints: angle err {err:.3g} rad, bins equal on "
         f"{bins_equal:.5f}, bits equal {bits_equal:.6f} ({bad_firm} firm "
         f"bits differ)")
     if not (err <= 1e-4 and bins_equal >= 0.995 and bad_firm == 0):
@@ -357,7 +383,7 @@ def check_describe(tracker, levels, cands):
         library_ms=time_ms(lambda: flat @ desc_op),
         library_device_ms=graph_ms(lambda: flat @ desc_op),
         calls_per_frame=1)
-    log(f"[describe] kernel {row['ms']:.5f} ms (device "
+    log(f"[{tag}] kernel {row['ms']:.5f} ms (device "
         f"{row['device_ms']:.5f} ms), plain {row['plain_ms']:.5f} ms, dense "
         f"product {row['library_ms']:.5f} ms (device "
         f"{row['library_device_ms']:.5f} ms), bound {b_ms:.5f} ms ({b_by})")
@@ -366,13 +392,29 @@ def check_describe(tracker, levels, cands):
 
 def check_kernels(tracker, frame):
     """Every kernel against its plain version at the frame's shapes: the
-    kernels' JSON rows, without their main-path launches. What the checks
-    allocate is freed on return, before the main path is measured."""
+    kernels' JSON rows, without their main-path launches. The describe
+    kernel is also held at the init extractor's shape (3x the features):
+    its row's ``init`` entry. Kernel D's work does not depend on the
+    feature budget (it scores every cell of every level; the budget
+    applies in the selection after it), so its one check covers both
+    extractors. What the checks allocate is freed on return, before the
+    main path is measured."""
     w_row, cube = check_warp(tracker, frame)
     levels = [cube] + [TE.pyramid_level(cube, A, Bt)
                        for A, Bt in tracker.extractor.ops.pyr]
     d_row, cands = check_detect(tracker, levels)
-    return [w_row, d_row, check_describe(tracker, levels, cands)]
+    g_row = check_describe(tracker.params, tracker.extractor.ops, levels,
+                           cands)
+    cfg = tracker.cfg
+    ext, plan = TE.build_extractor(cfg, tracker.cam,
+                                   cfg.n_features * cfg.init_features_factor,
+                                   (cfg.cube_h, cfg.cube_w))
+    init = check_describe(plan, ext.ops, levels, cands, tag="describe-init")
+    g_row["init"] = {k: init[k] for k in (
+        "max_abs_err", "bins_equal", "bits_equal", "ms", "device_ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    g_row["init"]["keypoints"] = sum(plan.level_k)
+    return [w_row, d_row, g_row]
 
 
 def drive_main_path(tracker, frame_u8, lms, rng):
@@ -800,6 +842,237 @@ def small_map_reference_check():
         raise AssertionError(f"card and CPU MapTrackers disagree: {worst}")
 
 
+# ---------------------------------------------------------------------------
+# The whole system from the first frame (CubemapSLAM)
+# ---------------------------------------------------------------------------
+
+def slam_sequence(cfg):
+    """A seeded world and a forward trajectory of SLAM_FRAMES frames and the
+    profiled ones after them, rendered on the host before any timing."""
+    n = SLAM_FRAMES + SLAM_PROFILE_MAX
+    poses = S.forward_trajectory(n, step=TRAJ_STEP, yaw_rate=TRAJ_YAW)
+    world = S.make_world(np.random.default_rng(SEED + 4), n=SLAM_BILLBOARDS,
+                         centers=S.camera_centres(poses),
+                         fx=cfg.cube_face_w / 2.0)
+    render = S.Renderer(CubemapCamera.from_config(cfg, "cpu"), cfg)
+    t0 = time.perf_counter()
+    frames = [S.to_u8(render.render(*world, *p)[0]) for p in poses]
+    log(f"[slam] {n} frames rendered in {time.perf_counter() - t0:.1f} s "
+        f"({SLAM_BILLBOARDS} billboards, {TRAJ_STEP} map units and "
+        f"{TRAJ_YAW} rad of yaw a frame)")
+    return poses, frames
+
+
+def slam_row_line(i, row, wall):
+    keys = ("inliers", "matches", "init_matches", "host_reads", "svd_waits")
+    counts = {k: row[k] for k in keys if k in row}
+    st = ", ".join(f"{k} {v:.3f}" for k, v in row.get("stage_ms", {}).items())
+    return (f"frame {i}: {row['state']}; {counts}; keyframe "
+            f"{bool(row.get('keyframe'))}, deferred BA "
+            f"{bool(row.get('ba'))}; stage ms: {st}; wall {wall:.3f} ms")
+
+
+def drive_slam(slam, poses, frames, counters):
+    """CubemapSLAM over SLAM_FRAMES frames from the first, with stage
+    timing (each stage synchronises) and the launch counters set to 0 just
+    before. Checks: initialized within SLAM_INIT_BY frames, every frame
+    after it tracked, SLAM_MIN_NEW_KF keyframes beyond the first 2, new
+    landmarks triangulated, a deferred BA run, the launches, and the ATE of
+    the Sim3-aligned trajectory."""
+    cfg = slam.cfg
+    for group in counters.values():
+        for c in group:
+            c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    slam.stage_times = {}
+    walls, n_new, first_ok = [], [], None
+    for i in range(SLAM_FRAMES):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        T = slam.track_fisheye(frames[i], i / cfg.fps)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t_start) * 1e3)
+        row = slam.metrics[-1]
+        log("[slam] " + slam_row_line(i, row, walls[-1]))
+        if T is not None and first_ok is None:
+            first_ok = i
+        if first_ok is not None and T is None:
+            raise AssertionError(f"frame {i} after initialization was lost")
+        if row.get("keyframe") and row.get("stage") != "init":
+            n_new.append(int(slam._last_mapping_info[2]))
+    launches = {name: {c.symbol: c.launches for c in group}
+                for name, group in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    times, slam.stage_times = slam.stage_times, None
+    for name, by_kernel in launches.items():
+        log(f"[slam] {name}: launches in {SLAM_FRAMES} frames {by_kernel}")
+        for sym, n in by_kernel.items():
+            if n != LAUNCHES_PER_FRAME * SLAM_FRAMES:
+                raise AssertionError(f"{name} ({sym}) was launched {n} times "
+                                     f"in {SLAM_FRAMES} frames of CubemapSLAM")
+    stages = ", ".join(f"{k} {float(np.median(v)):.3f} (x{len(v)})"
+                       for k, v in times.items())
+    log(f"[slam] stage wall ms, median (count): {stages}; peak memory "
+        f"{peak:.1f} MiB")
+    live = int(slam.arena.kf_valid.sum())
+    log(f"[slam] initialized at frame {first_ok}; {slam.n_kf} keyframes "
+        f"created, {live} live; new landmarks by mapping step {n_new}; "
+        f"deferred BAs {slam.ba_runs}; "
+        f"{int(slam.arena.lm_valid.sum())} live landmarks")
+    if first_ok is None or first_ok >= SLAM_INIT_BY:
+        raise AssertionError(f"not initialized within {SLAM_INIT_BY} frames")
+    if slam.n_kf < 2 + SLAM_MIN_NEW_KF:
+        raise AssertionError(f"only {slam.n_kf} keyframes")
+    if not n_new or max(n_new) <= 0:
+        raise AssertionError("mapping triangulated no landmark")
+    if slam.ba_runs < 1:
+        raise AssertionError("no deferred BA ran")
+    err, path = trajectory_ate(slam, poses)
+    log(f"[slam] ATE {err:.5f} over a path of {path:.5f} ({err / path:.5f} "
+        f"of it; bound {SLAM_ATE_FRAC}), {slam.tracked_frames} frames "
+        f"tracked")
+    if not err < SLAM_ATE_FRAC * path:
+        raise AssertionError("the trajectory is beyond the ATE bound")
+    return walls, launches, first_ok
+
+
+def trajectory_ate(slam, poses):
+    """RMS distance of the tracked camera centres to the ground truth after
+    a Sim3 alignment by the port's horn_alignment, and the path length."""
+    fps = slam.cfg.fps
+    idx = [int(round(ts * fps)) for ts, _, _ in slam.trajectory]
+    est = np.stack([-R.T @ t for _, R, t in slam.trajectory])
+    gt = S.camera_centres(poses)[idx]
+    s, Ra, ta = horn_alignment(torch.as_tensor(gt, dtype=torch.float32),
+                               torch.as_tensor(est, dtype=torch.float32))
+    al = float(s) * (Ra.numpy() @ est.T).T + ta.numpy()
+    err = float(np.sqrt(np.mean(np.sum((al - gt) ** 2, axis=1))))
+    return err, float(np.linalg.norm(gt[-1] - gt[0]))
+
+
+def profiled_slam(slam, frames, walls):
+    """Frames after the driven ones, each under profile_stages on its own,
+    until one keyframe frame (insert + mapping_step) and one deferred-BA
+    frame are found; the host waits of each may be no more than its stated
+    reads and the frame's upload."""
+    want = {"keyframe": None, "ba": None}
+    for i in range(SLAM_FRAMES, SLAM_FRAMES + SLAM_PROFILE_MAX):
+        prof = profile_stages(
+            lambda: slam.track_fisheye(frames[i], i / slam.cfg.fps),
+            SLAM_STAGES, 1)
+        row = slam.metrics[-1]
+        kind = ("keyframe" if row.get("keyframe")
+                else "ba" if row.get("ba") else None)
+        log(f"[slam-profile] frame {i}: {kind or 'tracked'}; host reads "
+            f"{row.get('host_reads')}; host waits {prof['host_waits']:.0f}; "
+            f"wall {prof['wall_ms']:.3f} ms")
+        if row["state"] != "OK":
+            raise AssertionError(f"profiled frame {i} was not tracked")
+        if kind and want[kind] is None:
+            want[kind] = prof
+            log_profile(f"slam-profile-{kind}", prof, walls)
+            if prof["host_waits"] > row["host_reads"] + 1:
+                raise AssertionError(
+                    f"the {kind} frame waited {prof['host_waits']:.0f} "
+                    f"times; its stated reads are {row['host_reads']} and "
+                    f"the upload")
+        if all(want.values()):
+            return want
+    raise AssertionError(f"no keyframe frame and deferred-BA frame among "
+                         f"{SLAM_PROFILE_MAX} profiled frames: {want}")
+
+
+def profiled_init(cfg, frames, first_ok, walls):
+    """A second CubemapSLAM over the same frames up to the one that
+    initialized the first, that frame under profile_stages: its device
+    time, operations and host waits (reads, the SVDs' waits and the
+    upload), reported beside its stated reads."""
+    slam = CubemapSLAM(cfg, seed=SEED)
+    for i in range(first_ok):
+        slam.track_fisheye(frames[i], i / cfg.fps)
+    prof = profile_stages(
+        lambda: slam.track_fisheye(frames[first_ok], first_ok / cfg.fps),
+        ("warp", "extract", "init"), 1)
+    row = slam.metrics[-1]
+    if row["state"] != "OK":
+        raise AssertionError("the profiled initialization did not succeed")
+    log(f"[init-profile] frame {first_ok}: host reads {row['host_reads']}, "
+        f"SVD waits {row['svd_waits']}, host waits {prof['host_waits']:.0f}")
+    log_profile("init-profile", prof, walls)
+
+
+INTEGER_VIEWS = ("kf_valid", "kf_frame_id", "kf_face", "kf_level", "kf_desc",
+                 "kf_kp_valid", "kf_obs_lm", "lm_valid", "lm_desc",
+                 "lm_visible", "lm_found", "lm_first_kf", "lm_birth",
+                 "lm_first_frame")
+
+
+def small_mapping_reference_check():
+    """mapping_step (without BA) and local_ba on one small arena on the card
+    and on the CPU (plain PyTorch): the integer views exactly equal, poses
+    within 1e-4, the landmarks that 2 or more keyframes observe within 2e-3
+    for 99% and 2e-2 for all. The arena is CubemapSLAM's on the CPU over 9
+    rendered frames (160^2 faces, 600 features), just before its last
+    mapping step."""
+    cfg = SlamConfig(cube_face_w=160, cube_face_h=160, n_features=600,
+                     n_levels=3, max_keyframes=24, max_landmarks=4096,
+                     min_init_keypoints=80, min_init_matches=60,
+                     min_track_inliers=20, fps=5.0)
+    poses = S.forward_trajectory(9)
+    world = S.make_world(np.random.default_rng(5), n=600,
+                         centers=S.camera_centres(poses), fx=80.0)
+    arena, slot, n_kf, fid = S.arena_before_last_mapping(
+        CubemapSLAM(cfg, device="cpu"), world, poses)
+    for stage in ("mapping_step", "local_ba"):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            mk = MappingKernels(cfg, device=dev)
+            a = arena.to(dev)
+            if stage == "mapping_step":
+                a, info = mk.mapping_step(a, slot, n_kf, fid, max_cams=5,
+                                          run_ba=False)
+                outs.append((a.to("cpu"), info.tolist()))
+            else:
+                a, _ = mk.local_ba(a, slot, 5)
+                outs.append((a.to("cpu"), None))
+        (c, info_c), (g, info_g) = outs
+        bad = [k for k in INTEGER_VIEWS
+               if not torch.equal(getattr(c, k), getattr(g, k))]
+        dpose = max(float((c.kf_R - g.kf_R).abs().max()),
+                    float((c.kf_t - g.kf_t).abs().max()))
+        obs = c.kf_obs_lm[c.kf_valid]
+        held = (torch.bincount(obs[obs >= 0], minlength=c.n_lm_cap) >= 2) \
+            & c.lm_valid
+        d = (c.lm_pos - g.lm_pos).abs().amax(dim=1)[held]
+        q99, dmax = float(torch.quantile(d, 0.99)), float(d.max())
+        log(f"[ref-mapping] {stage}, card vs CPU: integer views differing "
+            f"{bad}; |dpose| {dpose:.3g}; landmarks seen twice or more "
+            f"({int(held.sum())}): 99% within {q99:.3g}, max {dmax:.3g}; "
+            f"diagnostics card {info_g} vs CPU {info_c}")
+        if bad or info_c != info_g or not (dpose < 1e-4 and q99 < 2e-3
+                                           and dmax < 2e-2):
+            raise AssertionError(f"card and CPU {stage} disagree")
+
+
+def slam_phase(cfg, counters):
+    """The whole system at full width from its first frame: the driven
+    frames, the profiled keyframe and deferred-BA frames, and the small
+    card-against-CPU mapping check. Returns the launches of the drive."""
+    poses, frames = slam_sequence(cfg)
+    t0 = time.perf_counter()
+    slam = CubemapSLAM(cfg, seed=SEED)          # the card, by default
+    torch.cuda.synchronize()
+    log(f"[slam] CubemapSLAM at {cfg.cube_w}x{cfg.cube_h}, {cfg.n_features} "
+        f"features ({cfg.n_features * cfg.init_features_factor} at init), "
+        f"arena K={slam.arena.n_kf_cap} N={slam.arena.n_feat} "
+        f"L={slam.arena.n_lm_cap}, built in {time.perf_counter() - t0:.1f} s")
+    walls, launches, first_ok = drive_slam(slam, poses, frames, counters)
+    profiled_slam(slam, frames, walls)
+    profiled_init(cfg, frames, first_ok, walls)
+    small_mapping_reference_check()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -880,12 +1153,16 @@ def main() -> int:
                              "tracker's own reads")
     forced_branches(mt, poses, frames, first, seed)
     small_map_reference_check()
+    del mt, seed
+    s_launches = slam_phase(cfg, counters)
 
     for r in rows:
         r["launches"] = sum(launches[r["name"]].values())
         r["launches_by_kernel"] = launches[r["name"]]
         r["launches_tracking"] = sum(t_launches[r["name"]].values())
         r["launches_tracking_by_kernel"] = t_launches[r["name"]]
+        r["launches_slam"] = sum(s_launches[r["name"]].values())
+        r["launches_slam_by_kernel"] = s_launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Descriptor matching: batched and masked, in PyTorch.
 
-Counterpart of the projection-matching part of ``cubemapslam_tpu/matching.py``:
+Counterpart of ``cubemapslam_tpu/matching.py``: the projection search, the
+two-view bootstrap search and the epipolar search for triangulation.
 
 * Hamming distance is one matrix product on {0,1} bit matrices,
   ``rowsum(A) + rowsum(B) - 2 A Bᵀ`` (exact in float32 with TF32 off).
@@ -43,7 +44,10 @@ WINDOW_FLOOR_PX = 6.0
 def _window_cos(r_px, fx: torch.Tensor) -> torch.Tensor:
     """cos of the effective angular search radius for a reference-pixel
     window r_px on a face with focal fx."""
-    r = torch.as_tensor(r_px, dtype=torch.float32, device=fx.device)
+    # a Python radius becomes a fill on the device, not a copy from the host
+    r = (r_px.to(fx.device, torch.float32) if torch.is_tensor(r_px)
+         else torch.full((), float(r_px), dtype=torch.float32,
+                         device=fx.device))
     ang = torch.maximum(torch.atan(r / WINDOW_REF_FOCAL),
                         torch.atan(WINDOW_FLOOR_PX / fx))
     return torch.cos(ang)
@@ -209,4 +213,86 @@ def search_by_projection(query_rays_cam: torch.Tensor,
     if check_orientation and query_angles is not None:
         ok = rotation_consistency(query_angles, kp.angle[best_idx], ok)
     ok = resolve_one_to_one(best_idx, best, ok, kp.n)
+    return MatchResult(idx=best_idx, ok=ok, dist=best)
+
+
+def search_for_initialization(kp1, kp2, cam: CubemapCamera,
+                              window_px: float = 100.0,
+                              nn_ratio: float = 0.9,
+                              check_orientation: bool = True,
+                              center_rays: Optional[torch.Tensor] = None,
+                              th_low: float = TH_LOW,
+                              histo_bin_deg: float = 12.0) -> MatchResult:
+    """Two-view bootstrap matching (``matching.py:183-213``): level-0
+    keypoints only, an angular window around ``center_rays`` (each kp1
+    feature's last matched direction; kp1's own rays by default), NN ratio,
+    TH_LOW, one-to-one, rotation histogram."""
+    dist = hamming_matrix(unpack_descriptors(kp1.desc),
+                          unpack_descriptors(kp2.desc))
+    cos_win = _window_cos(window_px, cam.fxycxy[0])
+    centers = kp1.rays if center_rays is None else center_rays
+    gate = (centers @ kp2.rays.T) >= cos_win
+    gate &= (kp1.level[:, None] == 0) & (kp2.level[None, :] == 0)
+    gate &= kp1.valid[:, None] & kp2.valid[None, :]
+    best_idx, best, _, second = _masked_top2(dist, gate)
+    ok = (best <= th_low) & (best < nn_ratio * second)
+    ok = resolve_one_to_one(best_idx, best, ok, kp2.n)
+    if check_orientation:
+        ok = rotation_consistency(kp1.angle, kp2.angle[best_idx], ok,
+                                  bin_deg=histo_bin_deg)
+    return MatchResult(idx=best_idx, ok=ok, dist=best)
+
+
+def epipolar_chi2(cam: CubemapCamera, E12: torch.Tensor,
+                  rays1: torch.Tensor, rays2: torch.Tensor,
+                  uv2: torch.Tensor, level_sigma2_2: torch.Tensor
+                  ) -> torch.Tensor:
+    """Pairwise ray-epipolar chi-square (``matching.py:279-296``): (N1,N2)
+    of num^2 / (|n|^2 sigma^2 levelSigma2), with the anisotropic sigma of
+    the epipolar-plane normal n = E12ᵀ ray1 at each frame-2 keypoint."""
+    n = rays1 @ E12                                     # (N1,3) normals
+    num = n @ rays2.T                                   # (N1,N2)
+    den = (n * n).sum(dim=-1, keepdim=True)             # (N1,1)
+    sig = C.vector_sigma_along_normal_pairwise(cam, uv2, n)
+    chi2 = num * num / torch.clamp(
+        den * sig * sig * level_sigma2_2[None, :], min=1e-20)
+    return torch.where(den > 0, chi2, torch.full_like(chi2, float("inf")))
+
+
+def search_for_triangulation(kp1, kp2, cam: CubemapCamera,
+                             E12: torch.Tensor,
+                             level_sigma2: torch.Tensor,
+                             free1: Optional[torch.Tensor] = None,
+                             free2: Optional[torch.Tensor] = None,
+                             epipole_ray2: Optional[torch.Tensor] = None,
+                             epipole_guard_deg: float = 3.0,
+                             check_orientation: bool = True,
+                             th_low: float = TH_LOW,
+                             histo_bin_deg: float = 12.0,
+                             chi2_th: float = 7.68) -> MatchResult:
+    """Epipolar-gated matching for new-point triangulation
+    (``matching.py:299-345``): the full gated Hamming matrix, the epipolar
+    chi2 gate, frame-2 keypoints within the guard cone of the epipole
+    rejected, ``free1``/``free2`` masking keypoints not yet bound to a
+    landmark, TH_LOW, the rotation histogram and one-to-one."""
+    dist = hamming_matrix(unpack_descriptors(kp1.desc),
+                          unpack_descriptors(kp2.desc))
+    chi2 = epipolar_chi2(cam, E12, kp1.rays, kp2.rays, kp2.uv, level_sigma2)
+    gate = (chi2 < chi2_th) & kp1.valid[:, None] & kp2.valid[None, :]
+    if epipole_ray2 is not None:
+        # in float32, as the JAX package rounds it
+        cos_guard = float(torch.cos(torch.deg2rad(
+            torch.tensor(epipole_guard_deg, dtype=torch.float32))))
+        near_epipole = (kp2.rays @ epipole_ray2).abs() >= cos_guard
+        gate &= ~near_epipole[None, :]
+    if free1 is not None:
+        gate &= free1[:, None]
+    if free2 is not None:
+        gate &= free2[None, :]
+    best_idx, best, _, _ = _masked_top2(dist, gate)
+    ok = best <= th_low
+    if check_orientation:
+        ok = rotation_consistency(kp1.angle, kp2.angle[best_idx], ok,
+                                  bin_deg=histo_bin_deg)
+    ok = resolve_one_to_one(best_idx, best, ok, kp2.n)
     return MatchResult(idx=best_idx, ok=ok, dist=best)

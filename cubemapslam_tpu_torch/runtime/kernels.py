@@ -1,9 +1,10 @@
-"""The tracking stages of the steady-state frame, against the map arena.
+"""The tracking stages: the two-view bootstrap and the steady-state frame
+against the map arena.
 
-Counterpart of the tracking half of ``cubemapslam_tpu/runtime/kernels.py``
-(``TrackingKernels``), with the same method names. Each method is plain
-PyTorch on the arena's device; none holds a kernel of its own (the JAX
-package computes them without Pallas).
+Counterpart of the initialization and tracking parts of
+``cubemapslam_tpu/runtime/kernels.py`` (``TrackingKernels``), with the same
+method names. Each method is plain PyTorch on the arena's device; none holds
+a kernel of its own (the JAX package computes them without Pallas).
 
 Where the JAX package resolves a branch with ``lax.cond`` on the device,
 ``track_frame_full`` reads the deciding counts to the host and branches
@@ -29,6 +30,7 @@ from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.optim.pose_opt import pose_optimization
+from cubemapslam_tpu_torch.solvers import TwoViewResult, initialize_two_view
 
 MIN_MATCHES = 20             # widen / fall back below this (Tracking.cpp:641)
 VELOCITY_GATE_RAD = 0.2      # implausible rotations predict from the last pose
@@ -76,6 +78,45 @@ class TrackingKernels:
         self.th_low = float(cfg.th_low)
         self.th_high = float(cfg.th_high)
         self.histo_bin = float(cfg.histo_length)
+
+    # ------------------------------------------------------------------
+    # Initialization (CubemapInitialization + CreateInitialMapCubemap,
+    # Tracking.cpp:391-565)
+    # ------------------------------------------------------------------
+
+    def match_for_initialization(self, kp_ref: Keypoints, kp_cur: Keypoints,
+                                 prev_rays):
+        """The bootstrap match (``kernels.py:48-59``). Matched reference
+        features re-center their window on the matched current direction.
+        Returns (idx, ok, count, new prev_rays)."""
+        res = M.search_for_initialization(
+            kp_ref, kp_cur, self.cam, window_px=100.0, nn_ratio=0.9,
+            center_rays=prev_rays, th_low=self.th_low,
+            histo_bin_deg=self.histo_bin)
+        new_prev = torch.where(res.ok[:, None], kp_cur.rays[res.idx],
+                               prev_rays)
+        return res.idx, res.ok, res.count, new_prev
+
+    def two_view_init(self, generator: torch.Generator, kp_ref: Keypoints,
+                      kp_cur: Keypoints, m_idx, m_ok) -> TwoViewResult:
+        """Ray RANSAC initialization over the matched pairs
+        (``kernels.py:61-75``); the samples come from ``generator``."""
+        return initialize_two_view(
+            self.cam, generator, kp_ref.rays, kp_cur.rays[m_idx], kp_ref.uv,
+            kp_cur.uv[m_idx], m_ok, n_iters=self.cfg.init_ransac_iters,
+            min_parallax=self.cfg.init_min_parallax_deg,
+            min_triangulated=self.cfg.init_min_triangulated,
+            good_ratio=self.cfg.init_good_ratio)
+
+    def downselect_keypoints(self, kp: Keypoints, priority, n_keep: int):
+        """Reduce an init-extractor keypoint set to the arena's feature
+        width, keeping the highest-priority valid rows, ties to the lower
+        index (``kernels.py:77-90``). Returns (reduced Keypoints, selected
+        indices)."""
+        p = torch.where(kp.valid, priority,
+                        torch.full_like(priority, float("-inf")))
+        sel = torch.sort(p, descending=True, stable=True)[1][:n_keep]
+        return Keypoints(*(x[sel] for x in kp)), sel
 
     # ------------------------------------------------------------------
     # Motion-model tracking (TrackWithMotionModel, Tracking.cpp:620-677)
@@ -381,9 +422,10 @@ class TrackingKernels:
         good = torch.where(outlier, torch.full_like(assoc, SM.NO_LM), assoc)
         arena.kf_R[slot] = R
         arena.kf_t[slot] = t
-        arena.kf_valid[slot] = True
-        arena.kf_frame_id[slot] = frame_id
-        arena.kf_timestamp[slot] = timestamp
+        # fills: a Python scalar assigned by index would be a host copy
+        arena.kf_valid[slot].fill_(True)
+        arena.kf_frame_id[slot].fill_(frame_id)
+        arena.kf_timestamp[slot].fill_(timestamp)
         arena.kf_uv[slot] = kp.uv
         arena.kf_rays[slot] = kp.rays
         arena.kf_face[slot] = kp.face

@@ -370,3 +370,26 @@ def build_map(tracker, world, poses, n_keyframes: int,
     tracker.seed(arena, kp, assoc, outlier, R, t, ref_kf=n_keyframes - 1,
                  frame_id=frames[-1], timestamp=frames[-1] / cfg.fps)
     return BuiltMap(tuple(frames), n_lm, tuple(linked), tuple(created))
+
+
+def arena_before_last_mapping(slam, world, poses):
+    """Drive ``slam`` (a ``CubemapSLAM``) over fisheye frames rendered at
+    ``poses`` from the first, and return what its last mapping step was
+    given: (a copy of the arena on the CPU, the new keyframe's slot, the
+    keyframe counter, the keyframe's frame id). For the mapping checks of
+    the tests and ``chip_smoke.py``."""
+    got = []
+    step = slam._local_mapping
+
+    def record(slot):
+        got.append((slam.arena.to("cpu"), slot, slam.n_kf,
+                    slam.last_kf_frame_id))
+        step(slot)
+
+    slam._local_mapping = record
+    render = Renderer(slam.cam, slam.cfg)
+    for k, (R, t) in enumerate(poses):
+        slam.track_fisheye(to_u8(render.render(*world, R, t)[0]),
+                           k / slam.cfg.fps)
+    del slam._local_mapping
+    return got[-1]

@@ -1,0 +1,448 @@
+"""The SLAM system: initialization, tracking, keyframes and local mapping.
+
+``CubemapSLAM`` is the port's counterpart of the JAX package's system object
+(``cubemapslam_tpu/runtime/system.py:65-987``), built on ``MapTracker``'s
+steady frame: a sequence goes in from its first frame, one
+``track_fisheye`` or ``track_cubemap`` call a frame, and the system
+initializes from two views, tracks, inserts keyframes on the cadence of
+``_need_new_keyframe``, runs the local-mapping step on each and the
+deferred local BA on the next frame without an insertion.
+
+Host reads. A tracked frame reads the card twice, as ``MapTracker``'s does
+(the motion-match counts and the packed result); a keyframe insertion, its
+mapping step and a deferred BA add none, because the mapping kernels mask
+where the JAX package branches on the device. An initialization attempt
+reads its keypoint count, its match count and the RANSAC verdict, and the
+SVDs of the essential solver wait 6 times more (``essential.SVD_WAITS``);
+building the initial map reads the triangulated points once, the
+landmark statistics once and the first pose once. Each frame's count is in
+``metrics`` (``host_reads``, and ``svd_waits`` on initialization attempts).
+
+Not in this slice: the vocabulary and bag of words, relocalization,
+localization mode and loop closing. Until relocalization comes, a LOST
+state with more than 5 live keyframes stays lost: ``track_cubemap`` returns
+``None`` for every later frame (with 5 or fewer the system resets and
+initializes again, as the JAX package does).
+"""
+
+from __future__ import annotations
+
+import enum
+import time
+import warnings
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from cubemapslam_tpu_torch import geometry as G
+from cubemapslam_tpu_torch import slam_map as SM
+from cubemapslam_tpu_torch.config import SlamConfig
+from cubemapslam_tpu_torch.features.extractor import (Keypoints,
+                                                       build_extractor)
+from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+from cubemapslam_tpu_torch.runtime.tracking import LastFrame, MapTracker
+from cubemapslam_tpu_torch.solvers.essential import SVD_WAITS, TwoViewResult
+
+
+class TrackState(enum.Enum):
+    """Tracking.h:87-93."""
+
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    OK = 2
+    LOST = 3
+
+
+class InitRef(NamedTuple):
+    """The initialization reference frame (``FrameState`` of the JAX
+    package, the fields initialization uses)."""
+
+    kp: Keypoints
+    frame_id: int
+    timestamp: float
+
+
+class CubemapSLAM(MapTracker):
+    """Monocular cubemap SLAM from the first frame of a sequence
+    (``system.py:65-160``), on ``device`` (the card by default; without one
+    it raises; pass ``"cpu"`` for the plain versions). RANSAC draws from a
+    ``torch.Generator`` on that device, seeded with ``seed``.
+
+    ``track_fisheye(img_u8, t)`` / ``track_cubemap(cross, t)`` return the
+    4x4 world->camera pose of a tracked frame, else ``None``. ``metrics``
+    has a row per frame; ``trajectory`` holds (timestamp, R, t) of each
+    tracked frame; ``keyframe_trajectory()`` the live keyframes in time
+    order. With ``stage_times`` set to a dict, each stage (``extract``,
+    ``init``, ``track``, ``insert+mapping``, ``local_ba``) synchronizes the
+    card and records its wall ms there and in the frame's row."""
+
+    def __init__(self, cfg: Optional[SlamConfig] = None, device=None,
+                 seed: int = 0):
+        super().__init__(cfg, device)
+        cfg = self.cfg
+        self.mapping = MappingKernels(cfg, self.cam)
+        self.ba_cams = min(48, cfg.max_keyframes)
+        # the init-mode extractor: 3x the features (Tracking.cpp:96),
+        # downselected to the arena's width after the bootstrap
+        self.extractor_init, self.params_init = build_extractor(
+            cfg, self.cam, cfg.n_features * cfg.init_features_factor,
+            (cfg.cube_h, cfg.cube_w))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.state = TrackState.NO_IMAGES_YET
+        # n_kf is the monotonic keyframe counter; arena slots are recycled
+        self.n_kf = 0
+        self.arena_full_refusals = 0
+        self.init_ref: Optional[InitRef] = None
+        self.init_prev_rays = None
+        self.last_kf_frame_id = 0
+        # deferred local BA: dispatched on the first frame after a keyframe
+        # that inserts none, superseded by a newer keyframe (at most twice)
+        self._ba_pending_slot: Optional[int] = None
+        self._ba_superseded = 0
+        self._last_mapping_info = None   # mapping_step diagnostics (device)
+        self._kf_inlier_peak = 0
+        self._row: dict = {}
+        self.ba_runs = 0
+        self.trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
+        self.tracked_frames = 0
+        self.total_frames = 0
+        self.stage_times: Optional[dict] = None
+        self._stage_t0 = 0.0
+
+    # ------------------------------------------------------------------
+    # Stage timing (system.py:162-186)
+    # ------------------------------------------------------------------
+
+    def _stage_start(self) -> None:
+        if self.stage_times is not None:
+            self._stage_t0 = time.perf_counter()
+
+    def _stage(self, name: str) -> None:
+        if self.stage_times is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        ms = (now - self._stage_t0) * 1e3
+        self.stage_times.setdefault(name, []).append(ms)
+        self._row.setdefault("stage_ms", {})[name] = ms
+        self._stage_t0 = now
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+
+    def track_cubemap(self, cube: torch.Tensor, timestamp: float
+                      ) -> Optional[np.ndarray]:
+        """Track one cubemap-cross frame, dispatching to initialization,
+        tracking or the lost state (``system.py:334-369``)."""
+        self.total_frames += 1
+        pre_init = self.state in (TrackState.NO_IMAGES_YET,
+                                  TrackState.NOT_INITIALIZED)
+        self._row = {}
+        self._stage_start()
+        with record_function("extract"):
+            cube = torch.as_tensor(cube, device=self.device)
+            extract = self.extractor_init if pre_init else self.extractor
+            kp = extract(cube, self.mask)
+        self._stage("extract")
+        fid = self.frame_id
+        self.frame_id += 1
+        pose_np = None
+        if pre_init:
+            with record_function("init"):
+                pose_np = self._try_initialize(kp, fid, timestamp)
+            self._stage("init")
+        elif self.state == TrackState.LOST:
+            self._row.update(frame=fid, host_reads=0)
+            self.metrics.append(self._row)
+        else:
+            pose_np = self._track_frame(kp, fid, timestamp)
+        self._row.update(state=self.state.name)
+        if self.state != TrackState.OK:
+            return None
+        self.tracked_frames += 1
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = pose_np
+        self.trajectory.append((timestamp, T[:3, :3].copy(),
+                                T[:3, 3].copy()))
+        return T
+
+    # ------------------------------------------------------------------
+    # Initialization (Tracking.cpp:391-565)
+    # ------------------------------------------------------------------
+
+    def _enough_kp(self, kp: Keypoints) -> bool:
+        self._row["host_reads"] += 1
+        return int(kp.valid.sum()) > self.cfg.min_init_keypoints
+
+    def _try_initialize(self, kp: Keypoints, fid: int, ts: float):
+        """``system.py:387-410``. Returns the host pose (R, t) when the
+        initial map was made, else None."""
+        row = self._row
+        row.update(frame=fid, stage="init", host_reads=0, svd_waits=0)
+        self.metrics.append(row)
+        if self.state == TrackState.NO_IMAGES_YET or self.init_ref is None:
+            if self._enough_kp(kp):
+                self.init_ref = InitRef(kp, fid, ts)
+                self.init_prev_rays = kp.rays
+                self.state = TrackState.NOT_INITIALIZED
+            return None
+        if not self._enough_kp(kp):
+            self.init_ref = None
+            return None
+        m_idx, m_ok, n, self.init_prev_rays = \
+            self.kernels.match_for_initialization(self.init_ref.kp, kp,
+                                                  self.init_prev_rays)
+        row["host_reads"] += 1
+        row["init_matches"] = int(n)
+        if row["init_matches"] < self.cfg.min_init_matches:
+            self.init_ref = None          # retry with a new reference
+            return None
+        res = self.kernels.two_view_init(self.generator, self.init_ref.kp,
+                                         kp, m_idx, m_ok)
+        row["svd_waits"] += SVD_WAITS
+        row["host_reads"] += 1
+        if not bool(res.success):
+            return None
+        return self._create_initial_map(kp, fid, ts, m_idx, res)
+
+    def _create_initial_map(self, kp: Keypoints, fid: int, ts: float,
+                            m_idx: torch.Tensor, res: TwoViewResult):
+        """CreateInitialMapCubemap (``system.py:412-491``): two keyframes,
+        landmarks from the triangulated inliers, the scale normalized to a
+        median depth of 1, then a local BA around the second keyframe."""
+        row, dev = self._row, self.device
+        host = torch.cat([res.p3d, res.good[:, None].float()], 1).cpu()
+        row["host_reads"] += 1
+        p3d = host[:, :3].numpy()
+        good = host[:, 3].numpy() > 0
+        if good.sum() < self.cfg.min_init_matches:
+            return None
+        # median-depth normalization (KeyFrame::ComputeSceneMedianDepth)
+        med = float(np.median(np.linalg.norm(p3d[good], axis=1)))
+        if med <= 0:
+            return None
+        inv = 1.0 / med
+        R1, t1 = res.R21, res.t21 * inv
+        Xw = res.p3d * inv
+
+        ref, N = self.init_ref, self.cfg.n_features
+        k = self.kernels
+        # downselect the 3x init keypoint sets to the arena width, the
+        # triangulated features first, then by response
+        big = res.good.float() * 1e9
+        ref_prio = big + ref.kp.response
+        cur_prio = torch.zeros(kp.n, device=dev).scatter_reduce(
+            0, m_idx, big, reduce="amax", include_self=True) + kp.response
+        ref_red, sel_ref = k.downselect_keypoints(ref.kp, ref_prio, N)
+        cur_red, sel_cur = k.downselect_keypoints(kp, cur_prio, N)
+        inv_cur = torch.full((kp.n,), -1, dtype=torch.int64, device=dev)
+        inv_cur[sel_cur] = torch.arange(N, device=dev)
+        idx2_red = inv_cur[m_idx[sel_ref]]
+        good_red = res.good[sel_ref] & (idx2_red >= 0)
+
+        no_assoc = torch.full((N,), SM.NO_LM, dtype=torch.int64, device=dev)
+        no_out = torch.zeros(N, dtype=torch.bool, device=dev)
+        a = self.arena
+        k.insert_keyframe(a, 0, ref_red, no_assoc, no_out,
+                          torch.eye(3, device=dev),
+                          torch.zeros(3, device=dev), ref.frame_id,
+                          ref.timestamp)
+        k.insert_keyframe(a, 1, cur_red, no_assoc, no_out, R1, t1, fid, ts)
+        self.n_kf = 2
+        self.mapping.commit_new_landmarks(a, 0, 1, Xw[sel_ref], good_red,
+                                          idx2_red.clamp(min=0), 0,
+                                          ref.frame_id)
+        SM.update_landmark_stats(a, k.scale_factors)
+        row["host_reads"] += 1
+        self.mapping.local_ba(a, 1, self.ba_cams)
+        self.ref_kf = 1
+        R, t = a.kf_R[1].clone(), a.kf_t[1].clone()
+        rel_R, rel_t = G.se3_compose(R, t, *G.se3_inverse(R, t))
+        self.last = LastFrame(cur_red, a.kf_obs_lm[1].clone(),
+                              torch.zeros(N, dtype=torch.bool, device=dev),
+                              R, t, rel_R, rel_t, 1, fid, ts)
+        self.last_kf_frame_id = fid
+        self.velocity = None
+        self.state = TrackState.OK
+        self.refresh_graph_cache()
+        self.init_ref = None
+        row["keyframe"] = True
+        row["host_reads"] += 1
+        pose = torch.cat([R.reshape(-1), t]).tolist()
+        return (np.asarray(pose[:9]).reshape(3, 3), np.asarray(pose[9:]))
+
+    # ------------------------------------------------------------------
+    # Per-frame tracking and its keyframe half (system.py:574-618)
+    # ------------------------------------------------------------------
+
+    def _track_frame(self, kp: Keypoints, fid: int, ts: float):
+        T, out, row = self._track_steady(kp, fid, ts)
+        row.update(self._row, keyframe=False, ba=False)
+        self._row = row
+        self._stage("track")
+        if T is None:
+            self._set_lost(live_kf=row["live_kf"])
+            return None
+        n_final = row["inliers"]
+        self._kf_inlier_peak = max(self._kf_inlier_peak, n_final)
+        if self._need_new_keyframe(n_final, row["n_ref"], row["first_free"]):
+            with record_function("insert+mapping"):
+                self._create_keyframe(kp, out.assoc, out.outlier, out.R,
+                                      out.t, fid, ts, slot=row["first_free"])
+            row["keyframe"] = True
+            self._stage("insert+mapping")
+        elif self._ba_pending_slot is not None:
+            # no keyframe this frame: run the deferred local BA
+            with record_function("local_ba"):
+                self._dispatch_deferred_ba()
+            self._stage("local_ba")
+        return T[:3, :3], T[:3, 3]
+
+    def _set_lost(self, live_kf: Optional[int] = None) -> None:
+        """``system.py:709-718``: reset when 5 or fewer keyframes are
+        live."""
+        self.state = TrackState.LOST
+        if live_kf is None:
+            self._row["host_reads"] = self._row.get("host_reads", 0) + 1
+            live_kf = int(self.arena.kf_valid.sum())
+        if live_kf <= 5:
+            self.reset()
+
+    def reset(self) -> None:
+        """System reset (``system.py:720-738``)."""
+        cfg = self.cfg
+        self.arena = SM.make_arena(cfg.max_keyframes, cfg.n_features,
+                                   cfg.max_landmarks, self.device)
+        self.n_kf = 0
+        self.state = TrackState.NO_IMAGES_YET
+        self.last = None
+        self.init_ref = None
+        self.velocity = None
+        self.ref_kf = 0
+        self._ba_pending_slot = None
+        self._ba_superseded = 0
+        self._kf_inlier_peak = 0
+        self.covis = None
+        self.cnt = None
+
+    # ------------------------------------------------------------------
+    # Keyframe decision and creation (Tracking.cpp:721-792)
+    # ------------------------------------------------------------------
+
+    def _free_kf_slot(self) -> int:
+        """First free arena slot, or -1 when the arena is full (one read)."""
+        free = np.nonzero(~self.arena.kf_valid.cpu().numpy())[0]
+        return int(free[0]) if len(free) else -1
+
+    def _need_new_keyframe(self, n_inliers: int, n_ref: int,
+                           first_free: int) -> bool:
+        """NeedNewKeyFrame (``system.py:827-864``), on the counts of the
+        packed result: no read."""
+        cfg = self.cfg
+        frames_since = self.frame_id - self.last_kf_frame_id
+        if frames_since < 2 + cfg.min_keyframe_gap:
+            return False
+        c1a = frames_since >= cfg.fps
+        c2_decay = n_inliers < cfg.keyframe_inlier_decay * self._kf_inlier_peak
+        c2_weak = n_inliers < max(
+            2 * cfg.min_track_inliers,
+            int(cfg.keyframe_health_floor_frac * cfg.n_features))
+        c2_young = n_ref < cfg.keyframe_mature_floor
+        want = bool((c1a or c2_decay or c2_weak or c2_young)
+                    and n_inliers > 15)
+        if want and first_free < 0:
+            # the arena is truly full (culling freed nothing): refuse loudly
+            self.arena_full_refusals += 1
+            if self.arena_full_refusals == 1:
+                warnings.warn(
+                    f"keyframe arena full ({cfg.max_keyframes} slots, none "
+                    f"culled) — refusing new keyframes; raise max_keyframes",
+                    RuntimeWarning)
+            return False
+        return want
+
+    def _create_keyframe(self, kp: Keypoints, assoc, outlier, R, t,
+                         fid: int, ts: float, slot: Optional[int] = None):
+        """``system.py:866-898`` without the BoW and loop closing: insert,
+        re-anchor the live frame on the new keyframe, run local mapping,
+        then take the frame's associations from the keyframe's row."""
+        if slot is None:
+            slot = self._free_kf_slot()
+        assert slot >= 0
+        self.kernels.insert_keyframe(self.arena, slot, kp, assoc, outlier,
+                                     R, t, fid, ts)
+        self.n_kf += 1
+        self.ref_kf = slot
+        self.last_kf_frame_id = fid
+        self._kf_inlier_peak = 0
+        dev = self.device
+        self.last = self.last._replace(ref_kf=slot,
+                                       rel_R=torch.eye(3, device=dev),
+                                       rel_t=torch.zeros(3, device=dev))
+        self._local_mapping(slot)
+        self.last = self.last._replace(
+            assoc=self.arena.kf_obs_lm[slot].clone(),
+            outlier=torch.zeros_like(self.last.outlier))
+        self.refresh_graph_cache()
+
+    def _local_mapping(self, slot: int) -> None:
+        """``system.py:904-931``: the mapping step without BA, then the
+        rule by which a newer keyframe supersedes a pending deferred BA."""
+        _, self._last_mapping_info = self.mapping.mapping_step(
+            self.arena, slot, self.n_kf, self.last_kf_frame_id,
+            max_cams=self.ba_cams, run_ba=False, run_cull=True)
+        if self._ba_pending_slot is not None:
+            self._ba_superseded += 1
+            if self._ba_superseded >= 2:
+                self._dispatch_deferred_ba()
+        if self.n_kf > 2:
+            self._ba_pending_slot = slot
+
+    def _dispatch_deferred_ba(self) -> None:
+        """``system.py:939-953``: local BA around the pending keyframe (a
+        no-op on the device if it was culled meanwhile)."""
+        slot = self._ba_pending_slot
+        self._ba_pending_slot = None
+        self._ba_superseded = 0
+        if slot is None:
+            return
+        self.mapping.ba_step(self.arena, slot, max_cams=self.ba_cams)
+        self.ba_runs += 1
+        self._row["ba"] = True
+        self.refresh_graph_cache()
+
+    # ------------------------------------------------------------------
+    # Output (System::SaveKeyFrameTrajectoryTUM, system.py:959-984)
+    # ------------------------------------------------------------------
+
+    def keyframe_trajectory(self) -> List[Tuple[float, np.ndarray,
+                                                np.ndarray]]:
+        """(timestamp, quat_xyzw, t_wc) of each live keyframe in temporal
+        order (slots are recycled, so ordered by frame id), camera to
+        world."""
+        a = self.arena
+        valid = a.kf_valid.cpu().numpy()
+        Rs, ts_ = a.kf_R.cpu().numpy(), a.kf_t.cpu().numpy()
+        stamps, fids = a.kf_timestamp.cpu().numpy(), \
+            a.kf_frame_id.cpu().numpy()
+        order = np.argsort(np.where(valid, fids, np.iinfo(np.int64).max),
+                           kind="stable")
+        out = []
+        for k in order:
+            if not valid[k]:
+                continue
+            Rwc = Rs[k].T
+            q = G.rot_to_quat(torch.as_tensor(Rwc)).numpy()
+            out.append((float(stamps[k]), q, -Rwc @ ts_[k]))
+        return out
+
+    def save_keyframe_trajectory_tum(self, path: str) -> None:
+        with open(path, "w") as f:
+            for ts, q, t in self.keyframe_trajectory():
+                f.write(f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+                        f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}\n")

@@ -8,10 +8,9 @@ packed (23,) result, then the tracking half of ``_consume_track_outputs``
 (``system.py:578-609``). It holds the arena, the cached covisibility and
 observation-count views, the last frame and the motion model.
 
-The keyframe decision, keyframe creation and deferred BA wait for the
-mapping slice (``first_free_slot`` is in the packed result for it), and so
-do the reset of a small map and relocalization after a lost frame: a lost
-frame here leaves the last tracked state as it was.
+The keyframe decision, keyframe creation, deferred BA and the reset of a
+small map are ``CubemapSLAM``'s (``runtime/system.py``), which builds on
+this class; here a lost frame leaves the last tracked state as it was.
 """
 
 from __future__ import annotations
@@ -108,19 +107,31 @@ class MapTracker(FrameFrontend):
 
     def track_fisheye(self, fisheye_u8, timestamp: float
                       ) -> Optional[np.ndarray]:
-        """Track one (H, W) uint8 fisheye frame. Returns the 4x4 float64
-        world->camera pose, or ``None`` when the frame is lost (fewer than
-        15 matches or 10 inliers, or fewer than ``min_track_inliers`` after
-        the local map)."""
+        """Track one (H, W) uint8 fisheye frame: the warp on the device, then
+        ``track_cubemap``."""
+        with record_function("warp"):
+            img = torch.as_tensor(fisheye_u8, device=self.device)
+            cube = self.warp(img)
+        return self.track_cubemap(cube, timestamp)
+
+    def track_cubemap(self, cube: torch.Tensor, timestamp: float
+                      ) -> Optional[np.ndarray]:
+        """Track one cubemap cross. Returns the 4x4 float64 world->camera
+        pose, or ``None`` when the frame is lost (fewer than 15 matches or
+        10 inliers, or fewer than ``min_track_inliers`` after the local
+        map)."""
         if self.last is None:
             raise RuntimeError("seed the tracker with a map first")
         fid = self.frame_id
         self.frame_id += 1
-        with record_function("warp"):
-            img = torch.as_tensor(fisheye_u8, device=self.device)
-            cube = self.warp(img)
         with record_function("extract"):
             kp = self.extract(cube)
+        return self._track_steady(kp, fid, timestamp)[0]
+
+    def _track_steady(self, kp: Keypoints, fid: int, timestamp: float):
+        """``track_frame_full``, the one read of its packed result and the
+        tracking half of ``_consume_track_outputs``. Returns (pose or None,
+        the ``FrameTrack``, the frame's metrics row)."""
         if self.covis is None:
             self.refresh_graph_cache()
         last = self.last
@@ -136,7 +147,7 @@ class MapTracker(FrameFrontend):
             self.metrics.append(row)
             if (not counts["track_ok"]
                     or counts["inliers"] < self.cfg.min_track_inliers):
-                return None
+                return None, out, row
             self.ref_kf = counts["new_ref"]
             self.velocity = (out.vel_R, out.vel_t)
             self.last = LastFrame(kp, out.assoc, out.outlier, out.R, out.t,
@@ -145,4 +156,4 @@ class MapTracker(FrameFrontend):
             T = np.eye(4)
             T[:3, :3] = np.asarray(pk[11:20]).reshape(3, 3)
             T[:3, 3] = pk[20:23]
-            return T
+            return T, out, row

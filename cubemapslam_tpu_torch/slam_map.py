@@ -126,7 +126,7 @@ def _flat_obs(arena: MapArena):
     entry points at the dump slot L (``slam_map.py:112-121``)."""
     lm = arena.kf_obs_lm.reshape(-1)
     kp_ok = arena.kf_kp_valid.reshape(-1)
-    kf_ok = arena.kf_valid.repeat_interleave(arena.n_feat)
+    kf_ok = arena.kf_valid[:, None].expand(-1, arena.n_feat).reshape(-1)
     live = (lm >= 0) & kp_ok & kf_ok
     live &= (lm >= 0) & arena.lm_valid[lm.clamp(min=0)]
     seg = torch.where(live, lm, torch.full_like(lm, arena.n_lm_cap))
@@ -350,3 +350,14 @@ def predict_scale(dist: torch.Tensor, max_dist: torch.Tensor,
     ratio = max_dist.clamp(min=1e-12) / dist.clamp(min=1e-12)
     lvl = torch.ceil(torch.log(ratio) / log_scale_factor).to(torch.int64)
     return lvl.clamp(0, n_levels - 1)
+
+
+def apply_redirect(arena: MapArena, redirect: torch.Tensor) -> MapArena:
+    """Rewrite every observation link through a forwarding table, in place
+    (``slam_map.py:360-366``, MapPoint::Replace in one gather). redirect:
+    (L,) with redirect[l] = l for live landmarks, the target id for fused
+    ones."""
+    lm = arena.kf_obs_lm
+    arena.kf_obs_lm.copy_(torch.where(lm >= 0, redirect[lm.clamp(min=0)],
+                                      lm))
+    return arena

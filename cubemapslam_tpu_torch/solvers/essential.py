@@ -1,0 +1,219 @@
+"""Ray-based two-view initialization: batched 8-point essential RANSAC.
+
+Counterpart of ``cubemapslam_tpu/solvers/essential.py:33-206``: the
+essential matrix on bearing rays, scored by a symmetric angular-epipolar
+chi-square with per-keypoint anisotropic sigma, decomposed into 4 (R,t)
+hypotheses and disambiguated by triangulation cheirality, reprojection and
+parallax. The JAX ``vmap``s over hypotheses are batch dimensions here; the
+4 hypotheses keep the JAX order (R1, R2, R1, R2) / (t, t, -t, -t) and
+``argmax`` takes the first maximum.
+
+``torch.linalg.svd`` waits for the card twice a call on a CUDA tensor (the
+profiler reads 6 waits for the 3 calls): ``compute_e21`` makes two calls
+and ``decompose_e`` one (``SVD_WAITS``). They run only on the
+initialization frames.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from cubemapslam_tpu_torch import camera as C
+from cubemapslam_tpu_torch.camera import CubemapCamera
+from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
+from cubemapslam_tpu_torch.solvers.triangulate import triangulate_rays
+
+CHI2_TH = 3.841
+SCORE_TH = 5.991
+PARALLAX_COS_TH = 0.99998
+# host waits of one initialize_two_view call on a CUDA tensor: two for each
+# SVD, of compute_e21 (2 calls) and decompose_e (1)
+SVD_WAITS = 6
+
+
+def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d device index, without reading it to the host."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def _det3(R: torch.Tensor) -> torch.Tensor:
+    """Determinant of (...,3,3) by cofactors (``linalg.det`` factorizes)."""
+    return (R[..., 0, 0] * (R[..., 1, 1] * R[..., 2, 2]
+                            - R[..., 1, 2] * R[..., 2, 1])
+            - R[..., 0, 1] * (R[..., 1, 0] * R[..., 2, 2]
+                              - R[..., 1, 2] * R[..., 2, 0])
+            + R[..., 0, 2] * (R[..., 1, 0] * R[..., 2, 1]
+                              - R[..., 1, 1] * R[..., 2, 0]))
+
+
+def compute_e21(rays1: torch.Tensor, rays2: torch.Tensor) -> torch.Tensor:
+    """8-point essential on rays, batched over hypothesis sets.
+
+    rays1/rays2: (B,8,3). Returns (B,3,3) with the rank-2 projection of a
+    second SVD. Constraint: ray2ᵀ E21 ray1 = 0."""
+    x1 = rays1[..., None, :]                   # (B,8,1,3)
+    x2 = rays2[..., :, None]                   # (B,8,3,1)
+    A = (x2 * x1).reshape(*rays1.shape[:-2], 8, 9)   # kron(ray2, ray1)
+    vt = torch.linalg.svd(A, full_matrices=True)[2]
+    E = vt[..., 8, :].reshape(*rays1.shape[:-2], 3, 3)
+    U, S, Vt = torch.linalg.svd(E)
+    S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
+    return U @ (S[..., :, None] * Vt)
+
+
+def check_essential(cam: CubemapCamera, E21: torch.Tensor,
+                    rays1: torch.Tensor, rays2: torch.Tensor,
+                    uv1: torch.Tensor, uv2: torch.Tensor,
+                    valid: torch.Tensor, sigma: float = 1.0):
+    """Symmetric angular epipolar score of each hypothesis.
+
+    E21: (B,3,3); rays/uv: (N,...). Returns (inliers (B,N) bool, score
+    (B,))."""
+    n2 = rays1 @ E21.transpose(-1, -2)         # (B,N,3): E21 ray1
+    num2 = (n2 * rays2).sum(dim=-1)
+    d2 = (n2 * n2).sum(dim=-1)
+    sq1 = num2 * num2 / torch.clamp(d2, min=1e-20)
+    s2 = sigma * C.vector_sigma_along_normal(cam, uv2, n2)
+    chi1 = sq1 / torch.clamp(s2 * s2, min=1e-20)
+
+    n1 = rays2 @ E21                           # (B,N,3): E21ᵀ ray2
+    num1 = (n1 * rays1).sum(dim=-1)
+    d1 = (n1 * n1).sum(dim=-1)
+    sq2 = num1 * num1 / torch.clamp(d1, min=1e-20)
+    s1 = sigma * C.vector_sigma_along_normal(cam, uv1, n1)
+    chi2_ = sq2 / torch.clamp(s1 * s1, min=1e-20)
+
+    zero = torch.zeros_like(chi1)
+    inl = (chi1 <= CHI2_TH) & (chi2_ <= CHI2_TH) & valid
+    score = (torch.where((chi1 <= CHI2_TH) & valid, SCORE_TH - chi1, zero)
+             + torch.where((chi2_ <= CHI2_TH) & valid, SCORE_TH - chi2_,
+                           zero))
+    return inl, score.sum(dim=-1)
+
+
+def find_essential(cam: CubemapCamera, generator: torch.Generator,
+                   rays1: torch.Tensor, rays2: torch.Tensor,
+                   uv1: torch.Tensor, uv2: torch.Tensor,
+                   valid: torch.Tensor, n_iters: int = 200,
+                   sigma: float = 1.0):
+    """RANSAC over all iterations at once. Returns (E21 (3,3), inliers
+    (N,), score)."""
+    sets = sample_minimal_sets(generator, valid, n_iters, 8)
+    E = compute_e21(rays1[sets], rays2[sets])
+    inl, score = check_essential(cam, E, rays1, rays2, uv1, uv2, valid,
+                                 sigma)
+    best = torch.argmax(score)
+    return _take(E, best), _take(inl, best), _take(score, best)
+
+
+def decompose_e(E: torch.Tensor):
+    """E -> (R1, R2, t unit)."""
+    U, _, Vt = torch.linalg.svd(E)
+    t = U[:, 2]
+    t = t / torch.linalg.norm(t)
+    # U W and U Wᵀ for W = [[0,-1,0],[1,0,0],[0,0,1]]: column moves, which
+    # is what the products compute (without a copy of W from the host)
+    UW = torch.stack([U[:, 1], -U[:, 0], U[:, 2]], dim=1)
+    UWt = torch.stack([-U[:, 1], U[:, 0], U[:, 2]], dim=1)
+    R1 = UW @ Vt
+    R1 = torch.where(_det3(R1) < 0, -R1, R1)
+    R2 = UWt @ Vt
+    R2 = torch.where(_det3(R2) < 0, -R2, R2)
+    return R1, R2, t
+
+
+def check_rt(cam: CubemapCamera, R: torch.Tensor, t: torch.Tensor,
+             rays1: torch.Tensor, rays2: torch.Tensor,
+             uv1: torch.Tensor, uv2: torch.Tensor,
+             inliers: torch.Tensor, th2: float):
+    """Triangulate and gate one (R,t) hypothesis. Returns (n_good, p3d (N,3)
+    in frame 1, good (N,), parallax_deg)."""
+    p3d = triangulate_rays(rays1, rays2, R, t)
+    finite = torch.isfinite(p3d).all(dim=-1)
+    O2 = -(R.T @ t)
+    d1 = torch.linalg.norm(p3d, dim=-1)
+    n2 = p3d - O2
+    d2 = torch.linalg.norm(n2, dim=-1)
+    cos_par = (p3d * n2).sum(dim=-1) / torch.clamp(d1 * d2, min=1e-12)
+    low_par = cos_par >= PARALLAX_COS_TH
+    # FOV cheirality in both frames, waived at about zero parallax
+    cheir1 = (p3d[:, 2] / torch.clamp(d1, min=1e-12)) > cam.cos_fov_th
+    p3d2 = p3d @ R.T + t
+    cheir2 = (p3d2[:, 2] / torch.clamp(d2, min=1e-12)) > cam.cos_fov_th
+    ok = finite & inliers & (cheir1 | low_par) & (cheir2 | low_par)
+    uvp1, f1 = C.ray_to_cubemap(cam, p3d)
+    uvp2, f2 = C.ray_to_cubemap(cam, p3d2)
+    e1 = ((uvp1 - uv1) ** 2).sum(dim=-1)
+    e2 = ((uvp2 - uv2) ** 2).sum(dim=-1)
+    ok &= (f1 != C.UNKNOWN_FACE) & (e1 <= th2)
+    ok &= (f2 != C.UNKNOWN_FACE) & (e2 <= th2)
+    n_good = ok.sum()
+    # parallax of the 50th-smallest cos among the good points
+    cp = torch.where(ok, cos_par, torch.full_like(cos_par, 2.0))
+    cp_sorted = torch.sort(cp)[0]
+    idx = torch.clamp(n_good - 1, min=0, max=50)
+    parallax = torch.rad2deg(torch.arccos(
+        torch.clamp(_take(cp_sorted, idx), -1.0, 1.0)))
+    parallax = torch.where(n_good > 0, parallax, torch.zeros_like(parallax))
+    good = ok & (cos_par < PARALLAX_COS_TH)
+    return n_good, p3d, good, parallax
+
+
+class TwoViewResult(NamedTuple):
+    success: torch.Tensor    # () bool
+    R21: torch.Tensor        # (3,3)
+    t21: torch.Tensor        # (3,)
+    p3d: torch.Tensor        # (N,3) in frame 1
+    good: torch.Tensor       # (N,) triangulated inlier mask
+    n_good: torch.Tensor     # () int64
+    inliers: torch.Tensor    # (N,) epipolar inliers of the best E
+
+
+def reconstruct_e(cam: CubemapCamera, E: torch.Tensor,
+                  rays1, rays2, uv1, uv2, inliers,
+                  sigma2: float = 1.0,
+                  min_parallax: float = 1.0,
+                  min_triangulated: int = 50,
+                  good_ratio: float = 0.9) -> TwoViewResult:
+    """Disambiguate the 4 (R,t) hypotheses. ``good_ratio`` of the epipolar
+    inliers must survive the cheirality and reprojection gates."""
+    R1, R2, t = decompose_e(E)
+    th2 = 4.0 * sigma2
+    Rs = torch.stack([R1, R2, R1, R2])
+    ts = torch.stack([t, t, -t, -t])
+    outs = [check_rt(cam, Rs[h], ts[h], rays1, rays2, uv1, uv2, inliers,
+                     th2) for h in range(4)]
+    n_good = torch.stack([o[0] for o in outs])
+    p3d = torch.stack([o[1] for o in outs])
+    good = torch.stack([o[2] for o in outs])
+    parallax = torch.stack([o[3] for o in outs])
+    max_good = n_good.max()
+    n_inl = inliers.sum()
+    n_min_good = torch.clamp((good_ratio * n_inl).to(torch.int64),
+                             min=min_triangulated)
+    n_similar = (n_good > 0.7 * max_good).sum()
+    best = torch.argmax(n_good)                       # the first maximum
+    ok = ((max_good >= n_min_good) & (n_similar == 1)
+          & (_take(parallax, best) > min_parallax))
+    return TwoViewResult(success=ok, R21=_take(Rs, best),
+                         t21=_take(ts, best), p3d=_take(p3d, best),
+                         good=_take(good, best) & ok,
+                         n_good=_take(n_good, best), inliers=inliers)
+
+
+def initialize_two_view(cam: CubemapCamera, generator: torch.Generator,
+                        rays1, rays2, uv1, uv2, valid,
+                        n_iters: int = 200, sigma: float = 1.0,
+                        min_parallax: float = 1.0,
+                        min_triangulated: int = 50,
+                        good_ratio: float = 0.9) -> TwoViewResult:
+    """The whole two-view bootstrap on aligned match pairs (fixed length,
+    with validity)."""
+    E, inl, _ = find_essential(cam, generator, rays1, rays2, uv1, uv2, valid,
+                               n_iters, sigma)
+    return reconstruct_e(cam, E, rays1, rays2, uv1, uv2, inl,
+                         sigma * sigma, min_parallax, min_triangulated,
+                         good_ratio)
+

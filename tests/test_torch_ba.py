@@ -1,0 +1,298 @@
+"""Port parity: the direct bundle adjustment (dense Schur + Cholesky) and
+its scale gauge.
+
+One seeded local problem is given to both packages as numpy arrays: 8
+cameras (5 in the free block, slot 0 and the 3 anchors fixed, one
+invalid), 150 points, each camera's row of 120 observation slots with
+0.5 px noise, 6% gross outliers and padding, compacted to 100 live
+entries a row. Tolerances: poses within 1e-4 of JAX's (LM in float32, 15
+iterations), the points that 3 or more optimized inlier edges observe
+within 1e-4 (a point seen by 1 or 2 is free or nearly free along its ray,
+where both packages' rounding moves it apart), the inlier mask of the
+edges exactly equal. The building blocks (chi2, robust cost, updates,
+lanes, the 3x3 inverse, one LM step) within 1e-4 relative, or the stated
+absolute bound. The gauge retraction alone within 1e-5.
+A problem whose reduced camera system is not positive definite (negative
+edge weights) makes the Cholesky factor fail: both packages reject every
+step and return the state they were given, within 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cubemapslam_tpu import camera as JC
+from cubemapslam_tpu import geometry as JG
+from cubemapslam_tpu.camera import CubemapCamera as JCam
+from cubemapslam_tpu.config import SlamConfig
+from cubemapslam_tpu.optim import ba as JB
+from cubemapslam_tpu_torch.camera import CubemapCamera as TCam
+from cubemapslam_tpu_torch.optim import ba as TB
+
+CFG = SlamConfig(cube_face_w=128, cube_face_h=128)
+M, N_FREE, P, N = 8, 5, 150, 120
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its operations are small
+    and many, and the test workers share the host's cores, where more
+    threads each only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
+def make_problem(rng, inv_sigma_sign=1.0):
+    """(numpy fields of a BAProblem, the true R, t, X)."""
+    jcam = JCam.from_config(CFG)
+    X = rng.uniform(-3, 3, (P, 3)).astype(np.float32)
+    X[:, 2] = rng.uniform(4, 8, P)
+    Rs, ts = [], []
+    for m in range(M):
+        R = np.asarray(JG.so3_exp(jnp.asarray(
+            [0.0, 0.03 * m, 0.01 * np.sin(m)], jnp.float32)))
+        c = np.array([0.15 * m, 0.02 * m, 0.05 * np.cos(m)], np.float32)
+        Rs.append(R)
+        ts.append(-R @ c)
+    R_true, t_true = np.stack(Rs), np.stack(ts).astype(np.float32)
+    obs_pt = np.zeros((M, N), np.int32)
+    obs_uv = np.zeros((M, N, 2), np.float32)
+    obs_face = np.zeros((M, N), np.int32)
+    obs_valid = np.zeros((M, N), bool)
+    for m in range(M):
+        pc = X @ R_true[m].T + t_true[m]
+        uv, face = (np.asarray(v) for v in JC.ray_to_face_uv(
+            jcam, jnp.asarray(pc)))
+        vis = np.nonzero(face >= 0)[0]
+        pick = rng.choice(vis, min(len(vis), N - 10), replace=False)
+        k = len(pick)
+        obs_pt[m, :k] = pick
+        obs_uv[m, :k] = uv[pick] + rng.normal(0, 0.5, (k, 2))
+        out = rng.uniform(size=k) < 0.06
+        obs_uv[m, :k][out] += rng.uniform(15, 30, (out.sum(), 2))
+        obs_face[m, :k] = face[pick]
+        obs_valid[m, :k] = True
+    # perturbed start: free cameras and all points
+    R0, t0 = R_true.copy(), t_true.copy()
+    for m in range(1, N_FREE):
+        dR = np.asarray(JG.so3_exp(jnp.asarray(
+            rng.normal(0, 0.004, 3), jnp.float32)))
+        R0[m] = dR @ R0[m]
+        t0[m] += rng.normal(0, 0.02, 3)
+    X0 = (X + rng.normal(0, 0.03, X.shape)).astype(np.float32)
+    cam_fixed = np.zeros(M, bool)
+    cam_fixed[0] = True
+    cam_fixed[N_FREE:] = True
+    cam_valid = np.ones(M, bool)
+    cam_valid[3] = False
+    inv_s2 = inv_sigma_sign * np.where(rng.uniform(size=(M, N)) < 0.3,
+                                       1.0 / 1.44, 1.0).astype(np.float32)
+    fields = dict(
+        R=R0, t=t0, cam_fixed=cam_fixed, cam_valid=cam_valid, X=X0,
+        pt_valid=np.ones(P, bool),
+        obs_cam=np.repeat(np.arange(M, dtype=np.int32), N),
+        obs_pt=obs_pt.reshape(-1), obs_face=obs_face.reshape(-1),
+        obs_uv=obs_uv.reshape(-1, 2),
+        obs_inv_sigma2=inv_s2.reshape(-1).astype(np.float32),
+        obs_valid=obs_valid.reshape(-1))
+    return fields, (R_true, t_true, X)
+
+
+def jprob(f):
+    return JB.BAProblem(**{k: jnp.asarray(v) for k, v in f.items()})
+
+
+def tprob(f):
+    return TB.BAProblem(**{
+        k: torch.as_tensor(np.array(v).astype(np.int64)
+                           if np.asarray(v).dtype == np.int32
+                           else np.array(v)) for k, v in f.items()})
+
+
+@pytest.fixture(scope="module")
+def solved():
+    f, truth = make_problem(np.random.default_rng(0))
+    jout, jinl = JB.bundle_adjust(JCam.from_config(CFG), jprob(f),
+                                  solver="direct", n_free=N_FREE,
+                                  max_obs_per_cam=100)
+    tout, tinl = TB.bundle_adjust(TCam.from_config(CFG, "cpu"), tprob(f),
+                                  solver="direct", n_free=N_FREE,
+                                  max_obs_per_cam=100)
+    return f, truth, (jout, np.asarray(jinl)), (tout, tinl.numpy())
+
+
+def test_direct_ba_poses_points_inliers(solved):
+    f, _, (jout, jinl), (tout, tinl) = solved
+    for name in ("R", "t"):
+        a = getattr(tout, name).numpy()
+        b = np.asarray(getattr(jout, name))
+        np.testing.assert_allclose(a, b, atol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(tinl, jinl)
+    # the edges the solve used: compacted, of a valid camera, inliers
+    ctx = JB._make_direct_ctx(JCam.from_config(CFG), jprob(f), 100)
+    used = np.zeros((M, N), bool)
+    for m in range(M):
+        used[m, np.asarray(ctx.sel)[m][np.asarray(ctx.valid0)[m]]] = True
+    used = (used.reshape(-1) & jinl
+            & f["cam_valid"][f["obs_cam"]])
+    held = np.bincount(f["obs_pt"][used], minlength=P) >= 3
+    assert held.mean() > 0.85
+    np.testing.assert_allclose(tout.X.numpy()[held],
+                               np.asarray(jout.X)[held], atol=1e-4)
+    # the solve did something: fixed cameras kept, the reprojection error
+    # of the used edges down, the outliers cut
+    free = f["cam_valid"] & ~f["cam_fixed"]
+    np.testing.assert_array_equal(tout.R.numpy()[~free], f["R"][~free])
+    tcam = TCam.from_config(CFG, "cpu")
+    before = TB._chi2(tcam, tprob(f)).numpy()[used]
+    after = TB._chi2(tcam, tout).numpy()[used]
+    assert after.sum() < 0.5 * before.sum()
+    assert 0 < (f["obs_valid"] & ~tinl).sum() < 0.15 * f["obs_valid"].sum()
+
+
+def test_make_direct_ctx(solved):
+    f = solved[0]
+    jctx = JB._make_direct_ctx(JCam.from_config(CFG), jprob(f), 100)
+    tctx = TB._make_direct_ctx(TCam.from_config(CFG, "cpu"), tprob(f), 100)
+    for name in TB._DirectCtx._fields:
+        np.testing.assert_array_equal(getattr(tctx, name).numpy(),
+                                      np.asarray(getattr(jctx, name)),
+                                      err_msg=name)
+
+
+def test_gauge_retraction():
+    """A problem with one fixed camera, its free state scaled about the
+    anchor by 1.3: the retraction restores the entry scale."""
+    f, _ = make_problem(np.random.default_rng(1))
+    f = dict(f)
+    f["cam_fixed"] = np.zeros(M, bool)
+    f["cam_fixed"][0] = True
+    jp, tp = jprob(f), tprob(f)
+    ja, ta = JB._gauge_entry(jp), TB._gauge_entry(tp)
+    for a, b in zip(ta, ja):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    c = -np.einsum("mji,mj->mi", f["R"], f["t"])
+    c1 = c[0] + 1.3 * (c - c[0])
+    t1 = -np.einsum("mij,mj->mi", f["R"], c1).astype(np.float32)
+    X1 = (c[0] + 1.3 * (f["X"] - c[0])).astype(np.float32)
+    jr = JB._gauge_retract(jp._replace(t=jnp.asarray(t1),
+                                       X=jnp.asarray(X1)), ja)
+    tr = TB._gauge_retract(tp._replace(t=torch.as_tensor(t1),
+                                       X=torch.as_tensor(X1)), ta)
+    np.testing.assert_allclose(tr.t.numpy(), np.asarray(jr.t), atol=1e-5)
+    np.testing.assert_allclose(tr.X.numpy(), np.asarray(jr.X), atol=1e-5)
+    free = f["cam_valid"] & ~f["cam_fixed"]
+    np.testing.assert_allclose(tr.t.numpy()[free], f["t"][free], atol=1e-4)
+    np.testing.assert_allclose(tr.X.numpy(), f["X"], atol=1e-4)
+
+
+def test_failed_cholesky_rejects_the_step():
+    f, _ = make_problem(np.random.default_rng(2), inv_sigma_sign=-1.0)
+    jcam, tcam = JCam.from_config(CFG), TCam.from_config(CFG, "cpu")
+    jp, tp = jprob(f), tprob(f)
+    # one step: the factor fails, the candidate is NaN in both
+    jctx = JB._make_direct_ctx(jcam, jp, 100)
+    tctx = TB._make_direct_ctx(tcam, tp, 100)
+    jc = JB._lm_step_direct(jcam, jp, jctx, jctx.valid0, True,
+                            jnp.float32(1e-4), N_FREE)
+    tc = TB._lm_step_direct(tcam, tp, tctx, tctx.valid0, True,
+                            torch.tensor(1e-4), N_FREE)
+    free = f["cam_valid"] & ~f["cam_fixed"]
+    assert np.isnan(np.asarray(jc[0])[free]).all()
+    assert torch.isnan(tc[0][torch.as_tensor(free)]).all()
+    # the whole solve keeps the state it was given
+    jout, _ = JB.bundle_adjust(jcam, jp, solver="direct", n_free=N_FREE,
+                               max_obs_per_cam=100)
+    tout, _ = TB.bundle_adjust(tcam, tp, solver="direct", n_free=N_FREE,
+                               max_obs_per_cam=100)
+    for name in ("R", "t", "X"):
+        a = getattr(tout, name).numpy()
+        np.testing.assert_allclose(a, f[name], atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(a, np.asarray(getattr(jout, name)),
+                                   atol=1e-5, err_msg=name)
+
+
+def test_cg_solver_not_in_this_port_yet():
+    f, _ = make_problem(np.random.default_rng(3))
+    with pytest.raises(NotImplementedError):
+        TB.bundle_adjust(TCam.from_config(CFG, "cpu"), tprob(f), solver="cg")
+
+
+@pytest.mark.parametrize("piece", ["chi2_cost", "apply_updates", "lanes",
+                                   "inv3", "lm_step"])
+def test_direct_pieces(piece):
+    """The building blocks on one problem, within 1e-4 relative of JAX:
+    edge chi2 and the robust cost, the pose/point update, the residual and
+    Jacobian lanes, the damped 3x3 inverse and one LM step (robust, with
+    lambda 1e-4) of the free cameras and the points seen 3 or more times."""
+    f, _ = make_problem(np.random.default_rng(4))
+    jcam, tcam = JCam.from_config(CFG), TCam.from_config(CFG, "cpu")
+    jp, tp = jprob(f), tprob(f)
+
+    def close(a, b, rtol=1e-4, atol=1e-4):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol,
+                                   atol=atol)
+
+    if piece == "chi2_cost":
+        cj, ct = JB._chi2(jcam, jp), TB._chi2(tcam, tp)
+        close(ct.numpy(), cj, atol=1e-3)
+        act = f["obs_valid"] & f["cam_valid"][f["obs_cam"]]
+        for robust in (True, False):
+            close(float(TB._robust_cost(ct, torch.as_tensor(act), robust)),
+                  float(JB._robust_cost(cj, jnp.asarray(act), robust)))
+    elif piece == "apply_updates":
+        rng = np.random.default_rng(5)
+        dc = rng.normal(0, 0.01, (M, 6)).astype(np.float32)
+        dp = rng.normal(0, 0.01, (P, 3)).astype(np.float32)
+        for a, b in zip(TB._apply_updates(tp, torch.as_tensor(dc),
+                                          torch.as_tensor(dp)),
+                        JB._apply_updates(jp, jnp.asarray(dc),
+                                          jnp.asarray(dp))):
+            close(a.numpy(), b, rtol=1e-6, atol=1e-6)
+    elif piece == "lanes":
+        jctx = JB._make_direct_ctx(jcam, jp, 100)
+        tctx = TB._make_direct_ctx(tcam, tp, 100)
+        ev_j = JB._lanes_eval(jcam, jctx, jp.R, jp.t, jp.X)
+        ev_t = TB._lanes_eval(tcam, tctx, tp.R, tp.t, tp.X)
+        for a, b in zip(ev_t[:2], ev_j[:2]):
+            for x, y in zip(a, b):
+                close(x.numpy(), y)
+        for x, y in zip(ev_t[2:], ev_j[2:]):
+            close(x.numpy(), y, atol=1e-3)
+        jac_j = JB._lanes_jac(jcam, jctx, jp.R, ev_j[0], ev_j[1])
+        jac_t = TB._lanes_jac(tcam, tctx, tp.R, ev_t[0], ev_t[1])
+        for a, b in zip(jac_t, jac_j):
+            for row_t, row_j in zip(a, b):
+                for x, y in zip(row_t, row_j):
+                    close(x.numpy(), y, atol=1e-2)
+    elif piece == "inv3":
+        rng = np.random.default_rng(6)
+        A = rng.normal(size=(P, 3, 3)).astype(np.float32)
+        H = np.einsum("pij,pkj->pik", A, A)
+        valid = rng.uniform(size=P) < 0.9
+        lanes = [[H[:, a, b] for b in range(3)] for a in range(3)]
+        it = TB._inv3_lanes([[torch.as_tensor(x) for x in r] for r in lanes],
+                            torch.tensor(1e-3), torch.as_tensor(valid))
+        ij = JB._inv3_lanes([[jnp.asarray(x) for x in r] for r in lanes],
+                            jnp.float32(1e-3), jnp.asarray(valid))
+        for rt, rj in zip(it, ij):
+            for x, y in zip(rt, rj):
+                close(x.numpy(), y, rtol=1e-5, atol=1e-5)
+    else:
+        jctx = JB._make_direct_ctx(jcam, jp, 100)
+        tctx = TB._make_direct_ctx(tcam, tp, 100)
+        sj = JB._lm_step_direct(jcam, jp, jctx, jctx.valid0, True,
+                                jnp.float32(1e-4), N_FREE)
+        st = TB._lm_step_direct(tcam, tp, tctx, tctx.valid0, True,
+                                torch.tensor(1e-4), N_FREE)
+        close(st[0].numpy(), sj[0], atol=1e-5)
+        close(st[1].numpy(), sj[1], atol=1e-5)
+        cnt = np.bincount(f["obs_pt"][f["obs_valid"]
+                                      & f["cam_valid"][f["obs_cam"]]],
+                          minlength=P)
+        held = cnt >= 3
+        close(st[2].numpy()[held], np.asarray(sj[2])[held], atol=1e-4)

@@ -35,6 +35,8 @@ from cubemapslam_tpu_torch import interop
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
 from cubemapslam_tpu_torch.runtime import FrameTracker, resolve_device
 from cubemapslam_tpu_torch.runtime.tracking import MapTracker
+from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SMALL = dict(cube_face_w=128, cube_face_h=128, n_features=256, n_levels=4)
@@ -157,6 +159,10 @@ def test_default_device_is_the_card():
             FrameTracker(TConfig(**SMALL))
         with pytest.raises(RuntimeError):
             MapTracker(TConfig(**SMALL))
+        with pytest.raises(RuntimeError):
+            CubemapSLAM(TConfig(**SMALL))
+        with pytest.raises(RuntimeError):
+            MappingKernels(TConfig(**SMALL))
 
 
 def _imported_modules(path: pathlib.Path):
@@ -184,8 +190,8 @@ def test_port_sources_import_no_jax():
 
 def test_port_runs_without_jax_loaded():
     """In a fresh interpreter: import the port and chip_smoke, run a tiny
-    frame step, map build and tracked frame on the CPU, and find no JAX
-    module loaded."""
+    frame step, map build, tracked frame and two frames of CubemapSLAM on
+    the CPU, and find no JAX module loaded."""
     code = """
 import sys
 import numpy as np, torch
@@ -217,6 +223,14 @@ ren = synthetic.Renderer(mt.cam, cfg)
 mt.track_fisheye(synthetic.to_u8(ren.render(*world, *poses[3])[0]), 0.1)
 assert len(mt.metrics) == 1 and isinstance(mt.kernels, TrackingKernels)
 assert interop.arena_to_numpy(mt.arena)["kf_desc"].dtype == np.uint32
+# the whole system from its first frame, and the mapping stages
+from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+slam = CubemapSLAM(cfg, device="cpu")
+for k in range(2):
+    slam.track_fisheye(synthetic.to_u8(ren.render(*world, *poses[k])[0]),
+                       k / 10)
+assert slam.total_frames == 2 and isinstance(slam.mapping, MappingKernels)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cubemapslam_tpu"))
 print("FOREIGN", bad)

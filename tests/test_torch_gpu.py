@@ -12,6 +12,11 @@ kernel's angles within 1e-4 rad, bins on >= 99.5% of keypoints, bits where
 the plain score is farther than 1e-2 from 0 (it sums in another order).
 ``MapTracker`` on the card against the CPU on one map: poses within 1e-3,
 associations equal on >= 98% of matched rows, packed counts within 2%.
+Kernels D and describe also at the init extractor's shape (6000
+features), with the same tolerances. ``mapping_step`` and ``local_ba`` on
+the card against the CPU on one small arena: integer views exactly equal,
+poses within 1e-4, landmarks observed twice or more within 2e-3 for 99%
+and 2e-2 for all.
 """
 
 import numpy as np
@@ -222,3 +227,93 @@ def test_map_tracker_card_against_cpu(cuda, path):
         assert float((a_c == a_g)[matched].float().mean()) >= 0.98
     if path == "reference_kf":
         assert "reference_kf" in card.metrics[0]["path"]
+
+
+def test_init_extractor_shape(cuda):
+    """Kernels D and describe at the init extractor's shape
+    (``n_features * init_features_factor`` = 6000 at ``SlamConfig()``),
+    on a textured full-size cross, against their plain versions, with the
+    tolerances above."""
+    cfg = SlamConfig()
+    cam = CubemapCamera.from_config(cfg, cuda)
+    ext, plan = TE.build_extractor(cfg, cam,
+                                   cfg.n_features * cfg.init_features_factor,
+                                   (cfg.cube_h, cfg.cube_w))
+    assert sum(plan.level_k) == 6000
+    img = torch.as_tensor(textured(cfg.cube_h, cfg.cube_w, seed=6),
+                          device=cuda)
+    ops = ext.ops
+    levels = [img] + [TE.pyramid_level(img, A, Bt) for A, Bt in ops.pyr]
+    cands = TE.detect_cells_levels(levels, plan.cell, cfg.ini_th_fast,
+                                   cfg.min_th_fast)
+    start = 0
+    for lv in levels:
+        plain = TE._detect_cells_plain(lv, plan.cell, cfg.ini_th_fast,
+                                       cfg.min_th_fast)
+        n = plain[0].shape[0]
+        for a, b in zip(cands[:3], plain[:3]):
+            assert torch.equal(a[start:start + n], b)
+        start += n
+    ys, xs, _, _, _ = TE._select_levels(cands, ops.sel_index, ops.sel_take)
+    assert ys.shape[0] == 6000
+    args = (levels, ys, xs, plan.level_k, ops.desc_table)
+    ang, desc = TE.describe_keypoints(*args)
+    ang_p, desc_p = TE._describe_plain(*args)
+    d = torch.remainder(ang - ang_p + np.pi, 2 * np.pi) - np.pi
+    assert float(d.abs().max()) <= 1e-4
+    bins = [torch.remainder(torch.round(a * (32 / (2 * np.pi))).long(), 32)
+            for a in (ang, ang_p)]
+    assert float((bins[0] == bins[1]).float().mean()) >= 0.995
+
+
+def mapping_snapshot():
+    """A small map of the port's own (CubemapSLAM on the CPU over 9
+    rendered frames, 160^2 faces, 600 features) just before its last
+    mapping step: (config, arena on the CPU, slot, keyframe counter,
+    frame id)."""
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    cfg = SlamConfig(cube_face_w=160, cube_face_h=160, n_features=600,
+                     n_levels=3, max_keyframes=24, max_landmarks=4096,
+                     min_init_keypoints=80, min_init_matches=60,
+                     min_track_inliers=20, fps=5.0)
+    poses = S.forward_trajectory(9)
+    world = S.make_world(np.random.default_rng(5), n=600,
+                         centers=S.camera_centres(poses), fx=80.0)
+    return (cfg,) + S.arena_before_last_mapping(
+        CubemapSLAM(cfg, device="cpu"), world, poses)
+
+
+INTEGER = ("kf_valid", "kf_frame_id", "kf_face", "kf_level", "kf_desc",
+           "kf_kp_valid", "kf_obs_lm", "lm_valid", "lm_desc", "lm_visible",
+           "lm_found", "lm_first_kf", "lm_birth", "lm_first_frame")
+
+
+@pytest.mark.parametrize("stage", ["mapping_step", "local_ba"])
+def test_mapping_card_against_cpu(cuda, stage):
+    """``mapping_step`` (without BA) and ``local_ba`` on the same small
+    arena on the card and on the CPU: the integer views exactly equal,
+    poses within 1e-4, landmarks observed twice or more within 2e-3 for 99%
+    and 2e-2 for all (float32 LM rounds differently on the two devices)."""
+    from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+    cfg, arena, slot, n_kf, fid = mapping_snapshot()
+    outs = []
+    for dev in ("cpu", cuda):
+        mk = MappingKernels(cfg, device=dev)
+        a = arena.to(dev)
+        if stage == "mapping_step":
+            a, info = mk.mapping_step(a, slot, n_kf, fid, max_cams=5,
+                                      run_ba=False)
+            assert int(info[2]) > 50
+        else:
+            a, _ = mk.local_ba(a, slot, 5)
+        outs.append(a.to("cpu"))
+    c, g = outs
+    for k in INTEGER:
+        assert torch.equal(getattr(c, k), getattr(g, k)), k
+    assert float((c.kf_R - g.kf_R).abs().max()) < 1e-4
+    assert float((c.kf_t - g.kf_t).abs().max()) < 1e-4
+    obs = c.kf_obs_lm[c.kf_valid]
+    cnt = torch.bincount(obs[obs >= 0], minlength=c.n_lm_cap)
+    held = (cnt >= 2) & c.lm_valid
+    d = (c.lm_pos - g.lm_pos).abs().amax(dim=1)[held]
+    assert float(torch.quantile(d, 0.99)) < 2e-3 and float(d.max()) < 2e-2

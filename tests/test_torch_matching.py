@@ -1,4 +1,5 @@
-"""Port parity: matching, exact against JAX.
+"""Port parity: matching, exact against JAX (the epipolar chi2 within
+1e-4 relative).
 
 Hamming distances are exact ({0,1} products), and every selection
 reproduces JAX's tie order: argmin takes the first minimum, the one-to-one
@@ -10,6 +11,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from cubemapslam_tpu import camera as JC
 from cubemapslam_tpu import matching as JM
 from cubemapslam_tpu.camera import CubemapCamera as JCam
 from cubemapslam_tpu.config import SlamConfig
@@ -147,3 +149,126 @@ def test_search_by_projection(nn_ratio, extras):
     eq(tres.idx, jres.idx)
     eq(tres.dist, jres.dist)
     assert int(tres.count) == int(jres.count)
+
+
+def two_view_keypoints(rng, n=220, noise=0.002):
+    """Keypoints of n world points seen from two poses (the second turned
+    and moved), as the JAX package's numpy fields: rays, cross uv and
+    faces from the JAX camera, level 0 for most, descriptors of kp2 noisy
+    copies of kp1's. Returns (cfg, jcam, tcam, kp1, kp2, R21, t21)."""
+    cfg = SlamConfig(cube_face_w=128, cube_face_h=128, n_features=256,
+                     n_levels=4)
+    jcam = JCam.from_config(cfg)
+    tcam = TCam.from_config(cfg, "cpu")
+    X = rng.normal(size=(n, 3)).astype(np.float32)
+    X[:, 2] = np.abs(X[:, 2]) + 1.0
+    X *= rng.uniform(2, 6, (n, 1)).astype(np.float32)
+    a = 0.06
+    R21 = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                    [-np.sin(a), 0, np.cos(a)]], np.float32)
+    t21 = np.array([0.25, 0.02, 0.05], np.float32)
+    desc = random_desc(rng, n)
+    kps = []
+    for P in (X, X @ R21.T + t21):
+        r = P / np.linalg.norm(P, axis=1, keepdims=True)
+        r = r + rng.normal(0, noise, r.shape).astype(np.float32)
+        r = (r / np.linalg.norm(r, axis=1, keepdims=True)).astype(np.float32)
+        uv, face = (np.asarray(v) for v in JC.ray_to_cubemap(
+            jcam, jnp.asarray(r)))
+        flip = (rng.uniform(size=(n, 8)) < 0.04).astype(np.uint32)
+        kps.append(dict(
+            uv=uv.astype(np.float32), response=np.ones(n, np.float32),
+            angle=rng.normal(0.3, 0.02, n).astype(np.float32),
+            level=(rng.uniform(size=n) < 0.15).astype(np.int32),
+            face=face.astype(np.int32),
+            desc=desc ^ (flip * rng.integers(0, 2 ** 32, (n, 8),
+                                             dtype=np.uint32)),
+            rays=r, valid=(face >= 0) & (rng.uniform(size=n) < 0.95)))
+    # kp2 in another order, so matches are not the identity
+    perm = rng.permutation(n)
+    kps[1] = {k: v[perm] for k, v in kps[1].items()}
+    return cfg, jcam, tcam, kps[0], kps[1], R21, t21
+
+
+def jkp(kp):
+    return JKp(**{k: jnp.asarray(v) for k, v in kp.items()})
+
+
+def eq_result(tres, jres, n_min):
+    assert int(np.asarray(jres.ok).sum()) > n_min
+    eq(tres.ok, jres.ok)
+    ok = np.asarray(jres.ok)
+    np.testing.assert_array_equal(tres.idx.numpy()[ok],
+                                  np.asarray(jres.idx)[ok])
+    eq(tres.dist, jres.dist)
+
+
+@pytest.mark.parametrize("centers", [False, True])
+def test_search_for_initialization(centers):
+    """Exactly equal: the match mask, the matched index of every match and
+    the distances; ``centers`` moves the windows to jittered rays."""
+    rng = np.random.default_rng(7)
+    cfg, jcam, tcam, kp1, kp2, _, _ = two_view_keypoints(rng, noise=0.001)
+    c = None
+    if centers:
+        c = (kp1["rays"] + rng.normal(0, 0.01, kp1["rays"].shape)
+             ).astype(np.float32)
+    jres = JM.search_for_initialization(
+        jkp(kp1), jkp(kp2), jcam,
+        center_rays=None if c is None else jnp.asarray(c))
+    tres = TM.search_for_initialization(
+        interop.keypoints_from_numpy(kp1), interop.keypoints_from_numpy(kp2),
+        tcam, center_rays=None if c is None else torch.as_tensor(c))
+    eq_result(tres, jres, 50)
+
+
+def test_epipolar_chi2():
+    """Within 1e-4 relative (the pairwise sigma sums in its own order)."""
+    rng = np.random.default_rng(8)
+    cfg, jcam, tcam, kp1, kp2, R21, t21 = two_view_keypoints(rng)
+    hat = np.array([[0, -t21[2], t21[1]], [t21[2], 0, -t21[0]],
+                    [-t21[1], t21[0], 0]], np.float32)
+    E12 = (hat @ R21).T.astype(np.float32)
+    ls2 = np.asarray(cfg.level_sigma2, np.float32)[kp2["level"]]
+    j = np.asarray(JM.epipolar_chi2(jcam, jnp.asarray(E12),
+                                    jnp.asarray(kp1["rays"]),
+                                    jnp.asarray(kp2["rays"]),
+                                    jnp.asarray(kp2["uv"]),
+                                    jnp.asarray(ls2)))
+    t = TM.epipolar_chi2(tcam, torch.as_tensor(E12),
+                         torch.as_tensor(kp1["rays"]),
+                         torch.as_tensor(kp2["rays"]),
+                         torch.as_tensor(kp2["uv"]),
+                         torch.as_tensor(ls2)).numpy()
+    fin = np.isfinite(j)
+    np.testing.assert_array_equal(fin, np.isfinite(t))
+    np.testing.assert_allclose(t[fin], j[fin], rtol=1e-4, atol=1e-6)
+    assert (j[fin] < 7.68).sum() > 100
+
+
+@pytest.mark.parametrize("masks", [False, True])
+def test_search_for_triangulation(masks):
+    """Exactly equal, with the free masks and the epipole guard
+    (``masks``) or without."""
+    rng = np.random.default_rng(9)
+    cfg, jcam, tcam, kp1, kp2, R21, t21 = two_view_keypoints(rng)
+    hat = np.array([[0, -t21[2], t21[1]], [t21[2], 0, -t21[0]],
+                    [-t21[1], t21[0], 0]], np.float32)
+    E12 = (hat @ R21).T.astype(np.float32)
+    ls2 = np.asarray(cfg.level_sigma2, np.float32)[kp2["level"]]
+    opts_j, opts_t = {}, {}
+    if masks:
+        f1 = rng.uniform(size=len(kp1["uv"])) < 0.8
+        f2 = rng.uniform(size=len(kp2["uv"])) < 0.8
+        e2 = (t21 / np.linalg.norm(t21)).astype(np.float32)
+        opts_j = dict(free1=jnp.asarray(f1), free2=jnp.asarray(f2),
+                      epipole_ray2=jnp.asarray(e2), epipole_guard_deg=1.0)
+        opts_t = dict(free1=torch.as_tensor(f1), free2=torch.as_tensor(f2),
+                      epipole_ray2=torch.as_tensor(e2), epipole_guard_deg=1.0)
+    jres = JM.search_for_triangulation(jkp(kp1), jkp(kp2), jcam,
+                                       jnp.asarray(E12), jnp.asarray(ls2),
+                                       **opts_j)
+    tres = TM.search_for_triangulation(
+        interop.keypoints_from_numpy(kp1), interop.keypoints_from_numpy(kp2),
+        tcam, torch.as_tensor(E12), torch.as_tensor(ls2), **opts_t)
+    eq_result(tres, jres, 50)

@@ -46,6 +46,18 @@ NEXT = 10                         # the first frame after the last keyframe
 MATCH_COUNTS = (0, 1, 2, 8, 9, 10)   # packed entries that count matches
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its operations are small
+    and many, and the test workers share the host's cores, where more
+    threads each only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 @pytest.fixture(scope="module")
 def scene():
     tcfg, jcfg = TConfig(**SMALL), JConfig(**SMALL)
