@@ -26,7 +26,7 @@ through a seeded world of 1500 billboards), drives ``MapTracker`` over the
 8 frames that follow a warm-up frame, checking that every frame tracks
 within the stated pose bound of the ground truth, that TrackLocalMap adds
 matches on most frames and that each kernel launches once a frame (kernel
-D's passes once each) on this path; profiles 4 more frames with one range
+D's passes once each) on this path; profiles 2 more frames with one range
 per stage; forces the fallback, velocity-gate and blank-frame branches; and
 holds ``MapTracker`` on the card against the CPU on a small map.
 
@@ -41,7 +41,20 @@ frame, kernel D's passes once each) and the ATE of the Sim3-aligned
 trajectory; then one keyframe frame and one deferred-BA frame under the
 profiler, whose host waits may not exceed their stated reads and the
 upload; and ``mapping_step`` / ``local_ba`` on the card against the CPU on
-a small arena.
+a small arena. The ``slam`` phase loads the repo's pretrained vocabulary
+(``artifacts/vocab_synth_10k.npz``), and each keyframe gets its BoW row.
+
+Then, on the ``slam`` phase's map: the ``reloc`` phase (2 blank frames make
+the system LOST without a reset; the frame at the ground-truth pose of a
+mid-sequence frame relocalizes, within the stated bound of the ground truth
+through the ATE's Sim3 alignment; once more under the profiler, whose host
+waits may not exceed the frame's stated reads, its eigen-solve waits and the
+upload); the ``localization`` phase (6 frames tracked in localization mode
+with the map unchanged, perturbed landmarks engage mbVO, restored ones
+relocalize and clear it); a save/load check (``save_map``, ``load_map`` into
+a fresh ``CubemapSLAM``, whose next frame relocalizes); and ``word_ids`` /
+``bow_vector``, ``detect_candidates`` and ``pnp_ransac`` on the card against
+the CPU on seeded inputs.
 
 Output: progress lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and as the last
@@ -53,10 +66,13 @@ This script imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -66,6 +82,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from cubemapslam_tpu_torch import CubemapCamera, SlamConfig, _build
+from cubemapslam_tpu_torch import camera as TC
+from cubemapslam_tpu_torch import interop, serialize
+from cubemapslam_tpu_torch import place as PL
 from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
 from cubemapslam_tpu_torch.features import extractor as TE
@@ -75,13 +94,16 @@ from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.synthetic import (
     landmarks_from_keypoints, perturbed_pose, synthetic_fisheye)
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
-from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
 from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 from cubemapslam_tpu_torch.solvers import horn_alignment
+from cubemapslam_tpu_torch.solvers import pnp as PNP
+from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
 
 SEED = 0
 N_LANDMARKS = 8192
 N_FRAMES = 6                  # the first is a warm-up frame
+PROFILE_FRAMES = 3            # frame steps under the profiler
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
 TIMING_REPS, TIMING_BATCH = 7, 20
@@ -111,7 +133,7 @@ MAP_KEYFRAMES = 6
 KF_STRIDE = 3                 # keyframes at frames 0, 3, ..., 15
 TRAJ_STEP, TRAJ_YAW = 0.04, 0.003   # per frame: map units, radians
 TRACK_FRAMES = 8              # after one warm-up frame
-TRACK_PROFILE_FRAMES = 4
+TRACK_PROFILE_FRAMES = 2
 # the map build_map must reach: live landmarks per feature of a keyframe,
 # and landmarks the newest keyframe shares with each other keyframe
 MAP_MIN_LANDMARKS_PER_FEATURE = 2
@@ -134,6 +156,26 @@ SLAM_ATE_FRAC = 0.01          # ATE bound, as a fraction of the path length
 SLAM_PROFILE_MAX = 8          # frames profiled to find a keyframe frame and
                               # a deferred-BA frame
 SLAM_STAGES = TRACK_STAGES + ("insert+mapping", "local_ba")
+# the pretrained vocabulary the slam phase loads (k=10, depth 4)
+VOCAB_PATH = pathlib.Path(__file__).resolve().parent / "artifacts" / \
+    "vocab_synth_10k.npz"
+# relocalization and localization mode on the slam phase's map: blank frames
+# (a constant-20 image) make it LOST, then the frame at the ground-truth pose
+# of RELOC_FRAME relocalizes; LOC_FRAMES frames after it in localization
+# mode; landmark noise of LOC_SIGMA map units (a quarter of the median depth,
+# which the initialization sets to 1: about 80 px at 650^2 faces, far
+# outside the chi2 gate of every level) leaves fewer than 10 inliers
+RELOC_BLANK = 2
+RELOC_FRAME = 15
+LOC_FRAMES = 6
+LOC_SIGMA = 0.25
+SAVELOAD_FRAME = 10
+# bound on a relocalized or localization-mode pose against the ground
+# truth, through the ATE's Sim3 alignment: degrees, and the camera centre as
+# a fraction of the path length
+RELOC_BOUND_DEG, RELOC_BOUND_FRAC = 0.5, SLAM_ATE_FRAC
+RELOC_STAGES = ("warp", "extract", "reloc", "reloc.detect",
+                "reloc.candidates", "reloc.widen")
 # the port's __global__ kernels, as the profiler names them
 PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
                 "select_levels_kernel", "orb_describe_kernel")
@@ -576,7 +618,7 @@ def log_profile(tag, prof, unprofiled_walls):
 
 
 def profiled_frames(tracker, frame_u8, lms, rng):
-    """N_FRAMES frame steps of FrameTracker under profile_stages."""
+    """PROFILE_FRAMES frame steps of FrameTracker under profile_stages."""
     R0, t0 = perturbed_pose(rng, tracker.device)
 
     def step():
@@ -590,7 +632,7 @@ def profiled_frames(tracker, frame_u8, lms, rng):
             tracker.optimize(kp, assoc, lms[0], R0, t0)
 
     return profile_stages(step, ("warp", "extract", "match", "optimize"),
-                          N_FRAMES)
+                          PROFILE_FRAMES)
 
 
 def small_reference_check():
@@ -927,18 +969,22 @@ def drive_slam(slam, poses, frames, counters):
         raise AssertionError("mapping triangulated no landmark")
     if slam.ba_runs < 1:
         raise AssertionError("no deferred BA ran")
-    err, path = trajectory_ate(slam, poses)
+    err, path, align = trajectory_ate(slam, poses)
     log(f"[slam] ATE {err:.5f} over a path of {path:.5f} ({err / path:.5f} "
         f"of it; bound {SLAM_ATE_FRAC}), {slam.tracked_frames} frames "
         f"tracked")
     if not err < SLAM_ATE_FRAC * path:
         raise AssertionError("the trajectory is beyond the ATE bound")
-    return walls, launches, first_ok
+    return walls, launches, first_ok, (align, path)
 
 
 def trajectory_ate(slam, poses):
     """RMS distance of the tracked camera centres to the ground truth after
-    a Sim3 alignment by the port's horn_alignment, and the path length."""
+    a Sim3 alignment by the port's horn_alignment, the path length, and the
+    alignment from map to world coordinates: (s, R, t) of the centres, and
+    the rotation Q with R_map @ Q nearest R_world over the tracked frames
+    (the centres of a near-straight path leave the rotation about it
+    free)."""
     fps = slam.cfg.fps
     idx = [int(round(ts * fps)) for ts, _, _ in slam.trajectory]
     est = np.stack([-R.T @ t for _, R, t in slam.trajectory])
@@ -947,7 +993,27 @@ def trajectory_ate(slam, poses):
                                torch.as_tensor(est, dtype=torch.float32))
     al = float(s) * (Ra.numpy() @ est.T).T + ta.numpy()
     err = float(np.sqrt(np.mean(np.sum((al - gt) ** 2, axis=1))))
-    return err, float(np.linalg.norm(gt[-1] - gt[0]))
+    m = sum(R.T @ np.asarray(poses[i][0], np.float64)
+            for i, (_, R, _) in zip(idx, slam.trajectory))
+    u, _, vt = np.linalg.svd(m)
+    q = u @ np.diag([1.0, 1.0, np.linalg.det(u @ vt)]) @ vt
+    return (err, float(np.linalg.norm(gt[-1] - gt[0])),
+            (float(s), Ra.numpy().astype(np.float64),
+             ta.numpy().astype(np.float64), q))
+
+
+def aligned_error(T, pose, align):
+    """(degrees, world units) between a 4x4 world->camera pose in map
+    coordinates and the ground-truth (R, t), through the Sim3 ``align``
+    (s, Ra, ta, Q) of ``trajectory_ate``: the rotation, and the distance
+    of the camera centres."""
+    s, Ra, ta, q = align
+    R, t = T[:3, :3], T[:3, 3]
+    R_gt, t_gt = pose
+    centre = s * Ra @ (-R.T @ t) + ta
+    dR = torch.as_tensor((R @ q) @ np.asarray(R_gt, np.float64).T)
+    ang = math.degrees(float(torch.linalg.norm(so3_log(dR))))
+    return ang, float(np.linalg.norm(centre - (-R_gt.T @ t_gt)))
 
 
 def profiled_slam(slam, frames, walls):
@@ -1055,9 +1121,12 @@ def small_mapping_reference_check():
 
 
 def slam_phase(cfg, counters):
-    """The whole system at full width from its first frame: the driven
-    frames, the profiled keyframe and deferred-BA frames, and the small
-    card-against-CPU mapping check. Returns the launches of the drive."""
+    """The whole system at full width from its first frame, with the
+    pretrained vocabulary: the driven frames, the profiled keyframe and
+    deferred-BA frames, and the small card-against-CPU mapping check.
+    Returns the system, the poses and frames, the drive's launches and the
+    ATE's (alignment, path length)."""
+    cfg = dataclasses.replace(cfg, vocab_path=str(VOCAB_PATH))
     poses, frames = slam_sequence(cfg)
     t0 = time.perf_counter()
     slam = CubemapSLAM(cfg, seed=SEED)          # the card, by default
@@ -1065,18 +1134,360 @@ def slam_phase(cfg, counters):
     log(f"[slam] CubemapSLAM at {cfg.cube_w}x{cfg.cube_h}, {cfg.n_features} "
         f"features ({cfg.n_features * cfg.init_features_factor} at init), "
         f"arena K={slam.arena.n_kf_cap} N={slam.arena.n_feat} "
-        f"L={slam.arena.n_lm_cap}, built in {time.perf_counter() - t0:.1f} s")
-    walls, launches, first_ok = drive_slam(slam, poses, frames, counters)
+        f"L={slam.arena.n_lm_cap}, vocabulary of {slam.vocab.n_words} words "
+        f"({VOCAB_PATH.name}), built in {time.perf_counter() - t0:.1f} s")
+    walls, launches, first_ok, ate = drive_slam(slam, poses, frames,
+                                                counters)
     profiled_slam(slam, frames, walls)
     profiled_init(cfg, frames, first_ok, walls)
     small_mapping_reference_check()
+    return slam, poses, frames, launches, ate
+
+
+# ---------------------------------------------------------------------------
+# Relocalization, localization mode and map save/load on the slam map
+# ---------------------------------------------------------------------------
+
+def zero_launches(counters):
+    for group in counters.values():
+        for c in group:
+            c.launches = 0
+
+
+def read_launches(counters, tag, n_frames):
+    """The launches since ``zero_launches``; each kernel entry must have
+    launched once a frame."""
+    launches = {name: {c.symbol: c.launches for c in group}
+                for name, group in counters.items()}
+    for name, by_kernel in launches.items():
+        log(f"[{tag}] {name}: launches in {n_frames} frames {by_kernel}")
+        for sym, n in by_kernel.items():
+            if n != LAUNCHES_PER_FRAME * n_frames:
+                raise AssertionError(f"{name} ({sym}) was launched {n} times "
+                                     f"in {n_frames} frames of the {tag} "
+                                     f"path")
     return launches
+
+
+def timed_frame(slam, frame, ts):
+    """One synchronised ``track_fisheye``: (pose or None, its row, wall
+    ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T = slam.track_fisheye(frame, ts)
+    torch.cuda.synchronize()
+    return T, slam.metrics[-1], (time.perf_counter() - t0) * 1e3
+
+
+def reloc_row_line(row, wall):
+    keys = ("state", "stage", "reloc_candidates", "relocalized",
+            "reloc_inliers", "inliers", "matches", "vo", "host_reads",
+            "eigh_waits")
+    counts = {k: row[k] for k in keys if k in row}
+    st = ", ".join(f"{k} {v:.3f}" for k, v in row.get("stage_ms", {}).items())
+    return f"{counts}; stage ms: {st}; wall {wall:.3f} ms"
+
+
+def check_near_truth(tag, T, pose, align, path):
+    ang, dist = aligned_error(T, pose, align)
+    log(f"[{tag}] against the ground truth (Sim3-aligned): {ang:.4f} deg, "
+        f"{dist:.5f} ({dist / path:.5f} of the path; bounds "
+        f"{RELOC_BOUND_DEG} deg, {RELOC_BOUND_FRAC})")
+    if not (ang < RELOC_BOUND_DEG and dist < RELOC_BOUND_FRAC * path):
+        raise AssertionError(f"{tag}: pose beyond the bound of the ground "
+                             f"truth")
+
+
+def go_lost(slam, n, ts):
+    """``n`` blank frames: each is lost, and the map keeps its keyframes."""
+    n_kf = slam.n_kf
+    blank = np.full((slam.cfg.fisheye_height, slam.cfg.fisheye_width), 20,
+                    np.uint8)
+    for k in range(n):
+        T, row, wall = timed_frame(slam, blank, ts + k)
+        log(f"[reloc] blank frame: " + reloc_row_line(row, wall))
+        if T is not None or slam.state != TrackState.LOST \
+                or slam.n_kf != n_kf:
+            raise AssertionError("a blank frame did not leave the system "
+                                 "LOST with its keyframes")
+
+
+def reloc_phase(slam, poses, frames, ate, counters):
+    """Blank frames make the system LOST (more than 5 live keyframes, so no
+    reset); the frame at the ground-truth pose of RELOC_FRAME relocalizes
+    within the bound, with the launch counters set to 0 just before it; a
+    blank frame again, and the same frame relocalizes under the profiler,
+    whose host waits may be no more than the frame's stated reads, its
+    eigen-solve waits and the upload. Returns the launches."""
+    align, path = ate
+    live = int(slam.arena.kf_valid.sum())
+    fids = slam.arena.kf_frame_id[slam.arena.kf_valid].tolist()
+    log(f"[reloc] {live} live keyframes (frames {sorted(fids)}), "
+        f"{slam.n_kf} created")
+    if live <= 5:
+        raise AssertionError("5 or fewer live keyframes: LOST would reset")
+    ts = 100.0
+    go_lost(slam, RELOC_BLANK, ts)
+    zero_launches(counters)
+    T, row, wall = timed_frame(slam, frames[RELOC_FRAME], ts + 10)
+    launches = read_launches(counters, "reloc", 1)
+    log(f"[reloc] frame {RELOC_FRAME} replayed: " + reloc_row_line(row, wall))
+    if T is None or slam.state != TrackState.OK or not row["relocalized"]:
+        raise AssertionError("the replayed frame did not relocalize")
+    near = min(fids, key=lambda f: abs(f - RELOC_FRAME))
+    slot = int(torch.nonzero(slam.arena.kf_valid
+                             & (slam.arena.kf_frame_id == near))[0])
+    d_kf = float(np.linalg.norm(T[:3, 3] - slam.arena.kf_t[slot].cpu().numpy()))
+    log(f"[reloc] {d_kf:.5f} map units from the keyframe of frame {near}, "
+        f"the live keyframe nearest frame {RELOC_FRAME}")
+    check_near_truth("reloc", T, poses[RELOC_FRAME], align, path)
+    go_lost(slam, 1, ts + 20)
+    prof = profile_stages(
+        lambda: slam.track_fisheye(frames[RELOC_FRAME], ts + 30),
+        RELOC_STAGES, 1)
+    row = slam.metrics[-1]
+    log(f"[reloc-profile] frame {RELOC_FRAME}: " + reloc_row_line(
+        row, prof["wall_ms"]))
+    log_profile("reloc-profile", prof, [wall])
+    if slam.state != TrackState.OK or not row["relocalized"]:
+        raise AssertionError("the profiled frame did not relocalize")
+    allowed = row["host_reads"] + row.get("eigh_waits", 0) + 1
+    if prof["host_waits"] > allowed:
+        raise AssertionError(f"the reloc frame waited "
+                             f"{prof['host_waits']:.0f} times; its stated "
+                             f"reads, eigen-solve waits and the upload are "
+                             f"{allowed}")
+    return launches
+
+
+def map_counts(slam):
+    a = slam.arena
+    return slam.n_kf, int(a.kf_valid.sum()), int(a.lm_valid.sum())
+
+
+def localization_phase(slam, poses, frames, ate, counters):
+    """LOC_FRAMES frames after RELOC_FRAME in localization mode, with the
+    launch counters set to 0 just before: each tracked within the bound, no
+    mbVO, the map's keyframe and landmark counts unchanged. Then landmarks
+    perturbed by LOC_SIGMA engage mbVO (a ``vo`` row), and restored, the
+    next frame relocalizes and clears it. Returns the launches."""
+    align, path = ate
+    slam.activate_localization_mode()
+    before = map_counts(slam)
+    zero_launches(counters)
+    walls = []
+    first = RELOC_FRAME + 1
+    for i in range(first, first + LOC_FRAMES):
+        T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
+        walls.append(wall)
+        log(f"[localization] frame {i}: " + reloc_row_line(row, wall))
+        if T is None or row.get("stage") != "localization" or row["vo"]:
+            raise AssertionError(f"localization frame {i} was not tracked "
+                                 f"against the map")
+        check_near_truth("localization", T, poses[i], align, path)
+    launches = read_launches(counters, "localization", LOC_FRAMES)
+    after = map_counts(slam)
+    log(f"[localization] {LOC_FRAMES} frames: wall ms median "
+        f"{float(np.median(walls)):.3f}; (keyframes created, live, live "
+        f"landmarks) before {before}, after {after}")
+    if after != before:
+        raise AssertionError("localization mode changed the map")
+    a = slam.arena
+    clean = a.lm_pos.clone()
+    gen = torch.Generator(device=a.lm_pos.device).manual_seed(SEED)
+    a.lm_pos.add_(LOC_SIGMA * torch.randn(clean.shape, generator=gen,
+                                          device=clean.device))
+    i = first + LOC_FRAMES
+    T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
+    log(f"[localization] frame {i}, landmarks perturbed by sigma "
+        f"{LOC_SIGMA}: mbVO {slam.mb_vo}; " + reloc_row_line(row, wall))
+    if not (slam.mb_vo and row.get("vo")):
+        raise AssertionError("mbVO did not engage on perturbed landmarks")
+    a.lm_pos.copy_(clean)
+    i += 1
+    T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
+    log(f"[localization] frame {i}, landmarks restored: mbVO {slam.mb_vo}; "
+        + reloc_row_line(row, wall))
+    if T is None or slam.mb_vo or not row.get("relocalized"):
+        raise AssertionError("the restored map did not relocalize and clear "
+                             "mbVO")
+    check_near_truth("localization", T, poses[i], align, path)
+    if map_counts(slam) != before:
+        raise AssertionError("localization mode changed the map")
+    slam.deactivate_localization_mode()
+    return launches
+
+
+def save_load_check(slam, poses, frames, ate):
+    """``save_map`` the map to a file under the checkout's ``build/``,
+    ``load_map`` it into a fresh CubemapSLAM on the card: the arena equal
+    table by table, LOST, and the next frame relocalizes within the
+    bound."""
+    align, path = ate
+    out = pathlib.Path(__file__).resolve().parent / "build"
+    out.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out) as d:
+        f = pathlib.Path(d) / "map.npz"
+        t0 = time.perf_counter()
+        serialize.save_map(slam, str(f))
+        t_save = time.perf_counter() - t0
+        size = f.stat().st_size / 2 ** 20
+        fresh = CubemapSLAM(slam.cfg, device=slam.device, seed=SEED + 1)
+        t0 = time.perf_counter()
+        serialize.load_map(fresh, str(f))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    bad = [k for k in slam.arena._fields
+           if not torch.equal(getattr(slam.arena, k),
+                              getattr(fresh.arena, k))]
+    bad += [] if torch.equal(slam.bow_table, fresh.bow_table) else ["bow"]
+    log(f"[saveload] map saved in {t_save:.2f} s ({size:.1f} MiB), loaded "
+        f"in {t_load:.2f} s; tables differing {bad}; state "
+        f"{fresh.state.name}")
+    if bad or fresh.state != TrackState.LOST \
+            or fresh.vocab.n_words != slam.vocab.n_words:
+        raise AssertionError("the loaded map differs from the saved one")
+    T, row, wall = timed_frame(fresh, frames[SAVELOAD_FRAME], 300.0)
+    log(f"[saveload] frame {SAVELOAD_FRAME} on the loaded map: "
+        + reloc_row_line(row, wall))
+    if T is None or not row.get("relocalized"):
+        raise AssertionError("the loaded map did not relocalize")
+    check_near_truth("saveload", T, poses[SAVELOAD_FRAME], align, path)
+
+
+def perturbed_copies(desc, rng, flips):
+    """(N, 8) uint32 descriptors with ``flips`` random bits flipped each."""
+    out = desc.copy()
+    rows = np.repeat(np.arange(len(out)), flips)
+    words = rng.integers(0, 8, len(rows))
+    bits = rng.integers(0, 32, len(rows)).astype(np.uint32)
+    np.bitwise_xor.at(out, (rows, words), np.uint32(1) << bits)
+    return out
+
+
+def pnp_scene(cam, rng, n=150, n_out=0):
+    """``n`` points in front of ``cam`` at a known pose, their bearings
+    and cross pixels (noise-free), ``n_out`` of the matches scrambled:
+    (R, t, pts, rays, uv, valid) on the CPU."""
+    pts = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    pts[:, 2] += 5.0
+    R = so3_exp(torch.tensor([0.2, -0.3, 0.1]))
+    t = torch.tensor([0.4, -0.2, 0.6])
+    pw = torch.as_tensor(pts)
+    pc = pw @ R.T + t
+    rays = pc / torch.linalg.norm(pc, dim=1, keepdim=True)
+    uv, face = TC.ray_to_cubemap(cam, rays)
+    valid = face != TC.UNKNOWN_FACE
+    if n_out:
+        idx = rng.choice(np.nonzero(valid.numpy())[0], n_out, replace=False)
+        perm = torch.as_tensor(rng.permutation(idx))
+        idx = torch.as_tensor(idx)
+        rays[idx], uv[idx] = rays[perm].clone(), uv[perm].clone()
+    return R, t, pw, rays, uv, valid
+
+
+def small_reloc_reference_check(card="cuda"):
+    """Place recognition and PnP on the card against the CPU (plain
+    PyTorch) on seeded inputs: ``word_ids`` exactly equal and
+    ``bow_vector`` rows within 1e-6 (the pretrained vocabulary, 500
+    descriptors); ``detect_candidates`` the same candidates and flags (a
+    K=32 table, 4 keyframes near the query, covisibility with ties);
+    ``pnp_ransac`` with the same CPU-drawn minimal sets on noise-free
+    scenes: both succeed with inlier counts within 5%, each pose within 1
+    deg and 50 mm of the truth (the bounds of the JAX package's PnP test),
+    and with no scrambled match the two poses within 0.05 deg and 1 mm.
+    With 30% of the matches scrambled the two are held to the outcome
+    only: each hypothesis starts from a null basis of its own (cuSOLVER's,
+    LAPACK's), so the best inlier set can differ, and its linear refit
+    moves with a scrambled match that lands near its true pixel."""
+    rng = np.random.default_rng(SEED + 6)
+    voc = PL.load_vocabulary(str(VOCAB_PATH), "cpu")
+    voc_g = voc.to(card)
+    desc = rng.integers(0, 2 ** 32, (500, 8), dtype=np.uint32)
+    valid = torch.as_tensor(rng.uniform(size=500) < 0.9)
+    d_c = interop.desc_from_numpy(desc)
+    w_c, w_g = PL.word_ids(voc, d_c), PL.word_ids(voc_g, d_c.to(card))
+    b_c = PL.bow_vector(voc, d_c, valid)
+    b_g = PL.bow_vector(voc_g, d_c.to(card), valid.to(card))
+    ids_equal = torch.equal(w_c, w_g.cpu())
+    d_bow = float((b_c - b_g.cpu()).abs().max())
+    # a K=32 table: 4 keyframes near the query, two covisible pairs
+    K = 32
+    query = rng.integers(0, 2 ** 32, (300, 8), dtype=np.uint32)
+    kf = [rng.integers(0, 2 ** 32, (300, 8), dtype=np.uint32)
+          for _ in range(K)]
+    for s, flips in ((5, 1), (6, 2), (17, 1), (23, 2)):
+        kf[s] = perturbed_copies(query, rng, flips)
+    ones = torch.ones(K, 300, dtype=torch.bool)
+    table = PL.bow_vectors(voc, interop.desc_from_numpy(np.stack(kf)), ones)
+    qb = PL.bow_vector(voc, interop.desc_from_numpy(
+        perturbed_copies(query, rng, 1)), ones[0])
+    kf_valid = torch.ones(K, dtype=torch.bool)
+    kf_valid[[11, 30, 31]] = False
+    covis = np.triu(rng.integers(0, 4, (K, K)), 1)
+    covis = covis + covis.T
+    covis[5, 6] = covis[6, 5] = covis[17, 23] = covis[23, 17] = 40
+    args = (qb, table, kf_valid, torch.zeros(K, dtype=torch.bool),
+            torch.as_tensor(covis))
+    i_c, ok_c = PL.detect_candidates(*args, 0.0)
+    i_g, ok_g = PL.detect_candidates(*(x.to(card) for x in args), 0.0)
+    cand_equal = torch.equal(ok_c, ok_g.cpu()) and torch.equal(
+        i_c[ok_c], i_g.cpu()[ok_c])
+    # PnP RANSAC with the same minimal sets: a clean scene, where every
+    # hypothesis and the refit are exact, and one with scrambled matches
+    cfg = SlamConfig()
+    cams = {"cpu": CubemapCamera.from_config(cfg, "cpu"),
+            "card": CubemapCamera.from_config(cfg, card)}
+
+    def apart(R1, t1, R2, t2):
+        return (math.degrees(float(torch.linalg.norm(so3_log(R1 @ R2.T)))),
+                float(torch.linalg.norm(t1 - t2)) * 1e3)
+
+    ok_pnp = True
+    for n_out in (0, 45):
+        R, t, pw, rays, uv, pvalid = pnp_scene(cams["cpu"], rng, n_out=n_out)
+        sets = sample_minimal_sets(torch.Generator().manual_seed(SEED),
+                                   pvalid, cfg.pnp_ransac_iters, PNP.MIN_SET)
+        res = {}
+        for d, cam in cams.items():
+            r = PNP.pnp_ransac(cam, None, *(x.to(cam.device) for x in (
+                pw, rays, uv, torch.ones(pw.shape[0]), pvalid)),
+                n_iters=cfg.pnp_ransac_iters, sets=sets)
+            res[d] = (bool(r.success), int(r.n_inliers), r.R.cpu(),
+                      r.t.cpu())
+        pair = apart(res["cpu"][2], res["cpu"][3], res["card"][2],
+                     res["card"][3])
+        truth = [apart(r[2], r[3], R, t) for r in res.values()]
+        n_c, n_g = res["cpu"][1], res["card"][1]
+        log(f"[ref-reloc] pnp_ransac, {n_out} of 150 matches scrambled: "
+            f"success and inliers card {res['card'][:2]} vs CPU "
+            f"{res['cpu'][:2]}, poses apart {pair[0]:.4g} deg / "
+            f"{pair[1]:.4g} mm, from the truth "
+            + ", ".join(f"{a:.4g} deg / {m:.4g} mm" for a, m in truth))
+        ok_pnp &= res["cpu"][0] and res["card"][0] \
+            and abs(n_c - n_g) <= 0.05 * n_c
+        if n_out == 0:
+            ok_pnp &= pair[0] < 0.05 and pair[1] < 1.0
+        ok_pnp &= all(a < 1.0 and m < 50.0 for a, m in truth)
+    log(f"[ref-reloc] card vs CPU: word ids equal {ids_equal}, BoW rows "
+        f"within {d_bow:.3g}; candidates {i_g[ok_g].tolist()} vs "
+        f"{i_c[ok_c].tolist()}, equal {cand_equal}")
+    if not (ids_equal and d_bow <= 1e-6 and cand_equal and ok_c.any()):
+        raise AssertionError("card and CPU place recognition disagree")
+    if not ok_pnp:
+        raise AssertionError("card and CPU pnp_ransac disagree")
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] {phase} done, {time.perf_counter() - t_run:.1f} s into "
+            f"the run")
+
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log(f"[device] {kind}; torch {torch.__version__} cuda "
@@ -1101,6 +1512,7 @@ def main() -> int:
     frame = torch.as_tensor(synthetic_fisheye(cfg, SEED), device="cuda")
 
     rows = check_kernels(tracker, frame)
+    done("kernel checks")
     # kernel D is two launches, each counted by its own wrapper
     counters = {"warp_remap": (warp_cuda.WARP_REMAP,),
                 "orb_detect": (TE.ORB_FAST, TE.ORB_SELECT),
@@ -1135,6 +1547,7 @@ def main() -> int:
     log_profile("profile", prof, walls[1:])
 
     small_reference_check()
+    done("frame step")
 
     mt, poses, frames, first = build_map_phase(cfg)
     seed = mt.last
@@ -1153,8 +1566,18 @@ def main() -> int:
                              "tracker's own reads")
     forced_branches(mt, poses, frames, first, seed)
     small_map_reference_check()
+    done("map tracking")
     del mt, seed
-    s_launches = slam_phase(cfg, counters)
+    slam, s_poses, s_frames, s_launches, ate = slam_phase(cfg, counters)
+    done("slam")
+    r_launches = reloc_phase(slam, s_poses, s_frames, ate, counters)
+    done("reloc")
+    l_launches = localization_phase(slam, s_poses, s_frames, ate, counters)
+    done("localization")
+    save_load_check(slam, s_poses, s_frames, ate)
+    del slam
+    small_reloc_reference_check()
+    done("save/load and the reloc reference check")
 
     for r in rows:
         r["launches"] = sum(launches[r["name"]].values())
@@ -1163,6 +1586,8 @@ def main() -> int:
         r["launches_tracking_by_kernel"] = t_launches[r["name"]]
         r["launches_slam"] = sum(s_launches[r["name"]].values())
         r["launches_slam_by_kernel"] = s_launches[r["name"]]
+        r["launches_reloc"] = sum(r_launches[r["name"]].values())
+        r["launches_localization"] = sum(l_launches[r["name"]].values())
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

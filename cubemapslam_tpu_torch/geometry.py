@@ -39,6 +39,16 @@ def _eye_like(K: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
 
 
+def so3_project(R: torch.Tensor) -> torch.Tensor:
+    """The rotation nearest a near-orthonormal (...,3,3) ``R``: two
+    Newton-Schulz steps R <- R (3I - R^T R) / 2, each squaring the distance
+    from SO(3)."""
+    eye = _eye_like(R)
+    for _ in range(2):
+        R = 0.5 * R @ (3.0 * eye - R.transpose(-1, -2) @ R)
+    return R
+
+
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (...,3) axis-angle -> (...,3,3) rotation."""
     theta = _safe_norm(phi)[..., None, None]

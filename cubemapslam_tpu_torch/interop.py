@@ -1,9 +1,10 @@
 """Carry state across from the JAX package, given as numpy arrays.
 
 The parity tests hand the JAX package's camera, warp-map coordinates,
-keypoints, landmarks and map arena to the port through these functions (and
-the arena back), so that both packages compute on identical maps and
-operators. Nothing here imports JAX: callers pass numpy arrays (for a JAX
+keypoints, landmarks, map arena and vocabulary to the port through these
+functions (and the arena and vocabulary back), so that both packages compute
+on identical maps and operators; ``serialize`` writes maps in the JAX
+package's dtypes through them. Nothing here imports JAX: callers pass numpy arrays (for a JAX
 NamedTuple, ``{k: np.asarray(v) for k, v in nt._asdict().items()}``).
 
 Descriptors cross as (N, 8) uint32 on the JAX side and (N, 8) int64 words
@@ -19,6 +20,7 @@ import torch
 
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.features.extractor import Keypoints
+from cubemapslam_tpu_torch.place import Vocabulary, vocabulary_from_numpy
 from cubemapslam_tpu_torch.slam_map import MapArena
 from cubemapslam_tpu_torch.warp import WarpMap, warp_map_from_coords
 
@@ -110,6 +112,23 @@ def arena_to_numpy(arena: MapArena) -> Dict[str, np.ndarray]:
             a = a.astype(np.int32)
         out[name] = a
     return out
+
+
+def vocab_from_numpy(fields: Mapping, device="cpu") -> Vocabulary:
+    """The JAX ``Vocabulary`` leaves (by field name: per-level (.., 8)
+    uint32 ``centers``, ``idf``, ``k``, ``depth``) -> the port's, with int64
+    words."""
+    return vocabulary_from_numpy(fields["centers"], fields["idf"],
+                                 int(fields["k"]), int(fields["depth"]),
+                                 device)
+
+
+def vocab_to_numpy(vocab: Vocabulary) -> Dict:
+    """The port's vocabulary -> the JAX ``Vocabulary`` leaves, uint32
+    words."""
+    return dict(centers=tuple(desc_to_numpy(c) for c in vocab.centers),
+                idf=vocab.idf.detach().cpu().numpy(), k=vocab.k,
+                depth=vocab.depth)
 
 
 def landmarks_from_numpy(lm_pos: np.ndarray, lm_desc: np.ndarray,

@@ -17,7 +17,7 @@ tensors.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -31,6 +31,7 @@ from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.optim.pose_opt import pose_optimization
 from cubemapslam_tpu_torch.solvers import TwoViewResult, initialize_two_view
+from cubemapslam_tpu_torch.solvers.pnp import pnp_ransac
 
 MIN_MATCHES = 20             # widen / fall back below this (Tracking.cpp:641)
 VELOCITY_GATE_RAD = 0.2      # implausible rotations predict from the last pose
@@ -408,6 +409,62 @@ class TrackingKernels:
             packed = torch.cat([scalars, R_f.reshape(-1), t_f])
         return FrameTrack(arena, assoc_f, outlier_f, R_f, t_f, packed,
                           vel_R, vel_t, rel_R, rel_t, tuple(path), reads)
+
+    # ------------------------------------------------------------------
+    # Relocalization (Tracking::Relocalization, Tracking.cpp:990-1151)
+    # ------------------------------------------------------------------
+
+    def reloc_candidates_fused(self, arena: SM.MapArena, kp_cur: Keypoints,
+                               cand_idx: Sequence[int],
+                               cand_ok: Sequence[bool],
+                               generator: torch.Generator, sets=None):
+        """Per candidate keyframe slot: the reference-keyframe match (>= 15),
+        bearing-EPnP RANSAC, then pose-only LM (>= 10 inliers)
+        (``kernels.py:499-526``). The JAX package maps over the candidates
+        on the device; here the host loops over them, and a candidate that
+        is not ok is skipped. ``sets`` optionally gives each candidate's
+        (n_iters, 4) minimal sets. Returns the stacked (assoc, R, t,
+        outlier, score): score is the LM inlier count of a candidate that
+        passes, else -1."""
+        n_kp, dev = kp_cur.n, kp_cur.uv.device
+        lvl_sig2 = self.level_sigma2[kp_cur.level.clamp(0,
+                                                        self.cfg.n_levels - 1)]
+        outs = []
+        for i, (c, ok_c) in enumerate(zip(cand_idx, cand_ok)):
+            if not ok_c:
+                outs.append((
+                    torch.full((n_kp,), SM.NO_LM, dtype=torch.int64,
+                               device=dev),
+                    torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                    torch.zeros(n_kp, dtype=torch.bool, device=dev),
+                    torch.full((), -1, dtype=torch.int64, device=dev)))
+                continue
+            assoc, n = self.track_reference_kf(arena, kp_cur, int(c))
+            has = (assoc >= 0) & kp_cur.valid
+            res = pnp_ransac(self.cam, generator,
+                             arena.lm_pos[assoc.clamp(min=0)], kp_cur.rays,
+                             kp_cur.uv, lvl_sig2, has,
+                             n_iters=self.cfg.pnp_ransac_iters,
+                             sets=None if sets is None else sets[i])
+            R, t, outlier, n2 = self.optimize_pose(arena, kp_cur, assoc,
+                                                   res.R, res.t)
+            good = (n >= 15) & res.success & (n2 >= 10)
+            outs.append((assoc, R, t, outlier,
+                         torch.where(good, n2, torch.full_like(n2, -1))))
+        return tuple(torch.stack(x) for x in zip(*outs))
+
+    def reloc_widen_fused(self, arena: SM.MapArena, kp_cur: Keypoints,
+                          assoc, outlier, R, t, covis=None):
+        """The widening pass of the accepted candidate: local-landmark
+        projection search, then pose-only LM (``kernels.py:528-539``).
+        Returns (assoc, R, t, outlier, n_inliers)."""
+        assoc = torch.where(outlier, torch.full_like(assoc, SM.NO_LM), assoc)
+        sel, sel_ok, _, _, _ = self.select_local_landmarks(arena, assoc,
+                                                           covis=covis)
+        assoc2, _, _ = self.search_local_points(arena, kp_cur, assoc, sel,
+                                                sel_ok, R, t)
+        R, t, outlier, n3 = self.optimize_pose(arena, kp_cur, assoc2, R, t)
+        return assoc2, R, t, outlier, n3
 
     # ------------------------------------------------------------------
     # Keyframe creation and counters

@@ -1,28 +1,40 @@
-"""The SLAM system: initialization, tracking, keyframes and local mapping.
+"""The SLAM system: initialization, tracking, keyframes, local mapping,
+relocalization and localization mode.
 
 ``CubemapSLAM`` is the port's counterpart of the JAX package's system object
 (``cubemapslam_tpu/runtime/system.py:65-987``), built on ``MapTracker``'s
 steady frame: a sequence goes in from its first frame, one
 ``track_fisheye`` or ``track_cubemap`` call a frame, and the system
 initializes from two views, tracks, inserts keyframes on the cadence of
-``_need_new_keyframe``, runs the local-mapping step on each and the
-deferred local BA on the next frame without an insertion.
+``_need_new_keyframe`` (each with its BoW row), runs the local-mapping step
+on each and the deferred local BA on the next frame without an insertion.
+A LOST frame relocalizes against the map: BoW candidates, the
+reference-keyframe match, bearing-EPnP RANSAC and pose-only LM per
+candidate, then the widening pass. With 5 or fewer live keyframes a lost
+system resets and initializes again, as the JAX package does. In
+localization mode (``activate_localization_mode``) the map is frozen and a
+frame with little map support is tracked as visual odometry (mbVO) while
+relocalization is tried on every frame. ``serialize.save_map`` /
+``load_map`` store and restore the map; a loaded system starts LOST.
+
+The vocabulary comes from ``cfg.vocab_path`` or is trained on the host from
+the two initialization frames, and trained once more when
+``vocab_retrain_keyframes`` keyframes are live.
 
 Host reads. A tracked frame reads the card twice, as ``MapTracker``'s does
 (the motion-match counts and the packed result); a keyframe insertion, its
-mapping step and a deferred BA add none, because the mapping kernels mask
-where the JAX package branches on the device. An initialization attempt
-reads its keypoint count, its match count and the RANSAC verdict, and the
-SVDs of the essential solver wait 6 times more (``essential.SVD_WAITS``);
-building the initial map reads the triangulated points once, the
-landmark statistics once and the first pose once. Each frame's count is in
-``metrics`` (``host_reads``, and ``svd_waits`` on initialization attempts).
-
-Not in this slice: the vocabulary and bag of words, relocalization,
-localization mode and loop closing. Until relocalization comes, a LOST
-state with more than 5 live keyframes stays lost: ``track_cubemap`` returns
-``None`` for every later frame (with 5 or fewer the system resets and
-initializes again, as the JAX package does).
+BoW row, its mapping step and a deferred BA add none, because the mapping
+kernels mask where the JAX package branches on the device. An
+initialization attempt reads its keypoint count, its match count and the
+RANSAC verdict, and the SVDs of the essential solver wait 6 times more
+(``essential.SVD_WAITS``); building the initial map reads the triangulated
+points once, the landmark statistics once, the first pose once and, to
+train a vocabulary, the descriptors once. A relocalization reads the
+candidates once, their scores once and each widened candidate's count and
+pose once; each candidate's PnP waits ``pnp.EIGH_WAITS`` times more. A
+localization-mode frame reads each stage's counts with its pose. Each
+frame's count is in ``metrics`` (``host_reads``; ``svd_waits`` on
+initialization attempts, ``eigh_waits`` where PnP ran).
 """
 
 from __future__ import annotations
@@ -37,13 +49,21 @@ import torch
 from torch.profiler import record_function
 
 from cubemapslam_tpu_torch import geometry as G
+from cubemapslam_tpu_torch import place as PL
 from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import (Keypoints,
                                                        build_extractor)
+from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
 from cubemapslam_tpu_torch.runtime.tracking import LastFrame, MapTracker
 from cubemapslam_tpu_torch.solvers.essential import SVD_WAITS, TwoViewResult
+from cubemapslam_tpu_torch.solvers.pnp import EIGH_WAITS
+
+RELOC_CANDIDATES = 5     # BoW candidates tried per relocalization
+# keyframe slots per batch when all BoW rows are recomputed: a word_ids
+# level of one slot is (2000, 10, 256) float32 at full width, 20 MB
+BOW_CHUNK_SLOTS = 8
 
 
 class TrackState(enum.Enum):
@@ -75,8 +95,9 @@ class CubemapSLAM(MapTracker):
     has a row per frame; ``trajectory`` holds (timestamp, R, t) of each
     tracked frame; ``keyframe_trajectory()`` the live keyframes in time
     order. With ``stage_times`` set to a dict, each stage (``extract``,
-    ``init``, ``track``, ``insert+mapping``, ``local_ba``) synchronizes the
-    card and records its wall ms there and in the frame's row."""
+    ``init``, ``track``, ``insert+mapping``, ``local_ba``, ``reloc``,
+    ``localization``) synchronizes the card and records its wall ms there
+    and in the frame's row."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None, device=None,
                  seed: int = 0):
@@ -104,6 +125,18 @@ class CubemapSLAM(MapTracker):
         self._ba_superseded = 0
         self._last_mapping_info = None   # mapping_step diagnostics (device)
         self._kf_inlier_peak = 0
+        # the vocabulary (the reference's VOC argument, or trained at the
+        # initial map) and the (K, n_words) BoW rows of the keyframe slots
+        self.vocab: Optional[PL.Vocabulary] = None
+        self._vocab_is_bootstrap = False
+        if cfg.vocab_path:
+            self.vocab = PL.load_vocabulary(cfg.vocab_path, self.device)
+        self.bow_table: Optional[torch.Tensor] = None
+        self.localization_only = False
+        # mbVO (Tracking.cpp:207-277): in localization mode, the last frame
+        # tracked fewer than 10 map landmarks; the frame is tracked as
+        # visual odometry and relocalization is tried on every frame
+        self.mb_vo = False
         self._row: dict = {}
         self.ba_runs = 0
         self.trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
@@ -138,7 +171,7 @@ class CubemapSLAM(MapTracker):
     def track_cubemap(self, cube: torch.Tensor, timestamp: float
                       ) -> Optional[np.ndarray]:
         """Track one cubemap-cross frame, dispatching to initialization,
-        tracking or the lost state (``system.py:334-369``)."""
+        tracking or relocalization (``system.py:334-369``)."""
         self.total_frames += 1
         pre_init = self.state in (TrackState.NO_IMAGES_YET,
                                   TrackState.NOT_INITIALIZED)
@@ -157,8 +190,11 @@ class CubemapSLAM(MapTracker):
                 pose_np = self._try_initialize(kp, fid, timestamp)
             self._stage("init")
         elif self.state == TrackState.LOST:
-            self._row.update(frame=fid, host_reads=0)
+            self._row.update(frame=fid, stage="reloc", host_reads=0)
             self.metrics.append(self._row)
+            with record_function("reloc"):
+                pose_np = self._relocalize(kp, fid, timestamp)
+            self._stage("reloc")
         else:
             pose_np = self._track_frame(kp, fid, timestamp)
         self._row.update(state=self.state.name)
@@ -170,6 +206,15 @@ class CubemapSLAM(MapTracker):
         self.trajectory.append((timestamp, T[:3, :3].copy(),
                                 T[:3, 3].copy()))
         return T
+
+    def activate_localization_mode(self) -> None:
+        """Freeze the map and track against it
+        (System::ActivateLocalizationMode, ``system.py:371-374``)."""
+        self.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.localization_only = False
+        self.mb_vo = False
 
     # ------------------------------------------------------------------
     # Initialization (Tracking.cpp:391-565)
@@ -270,6 +315,20 @@ class CubemapSLAM(MapTracker):
         self.velocity = None
         self.state = TrackState.OK
         self.refresh_graph_cache()
+        if self.vocab is None:
+            # train on the two frames' valid descriptors (system.py:479-486)
+            both = torch.cat([torch.cat([x.desc, x.valid[:, None].long()], 1)
+                              for x in (ref_red, cur_red)]).cpu().numpy()
+            row["host_reads"] += 1
+            self.vocab = PL.train_vocabulary(
+                both[both[:, 8] > 0, :8].astype(np.uint32),
+                k=self.cfg.vocab_branching, depth=self.cfg.vocab_depth,
+                device=dev)
+            self._vocab_is_bootstrap = True
+        self.bow_table = torch.zeros(self.cfg.max_keyframes,
+                                     self.vocab.n_words, device=dev)
+        self._update_bow(0, ref_red)
+        self._update_bow(1, cur_red)
         self.init_ref = None
         row["keyframe"] = True
         row["host_reads"] += 1
@@ -281,6 +340,11 @@ class CubemapSLAM(MapTracker):
     # ------------------------------------------------------------------
 
     def _track_frame(self, kp: Keypoints, fid: int, ts: float):
+        if self.localization_only:
+            with record_function("localization"):
+                pose_np = self._track_frame_localization(kp, fid, ts)
+            self._stage("localization")
+            return pose_np
         T, out, row = self._track_steady(kp, fid, ts)
         row.update(self._row, keyframe=False, ba=False)
         self._row = row
@@ -293,7 +357,8 @@ class CubemapSLAM(MapTracker):
         if self._need_new_keyframe(n_final, row["n_ref"], row["first_free"]):
             with record_function("insert+mapping"):
                 self._create_keyframe(kp, out.assoc, out.outlier, out.R,
-                                      out.t, fid, ts, slot=row["first_free"])
+                                      out.t, fid, ts, slot=row["first_free"],
+                                      live_kf=row["live_kf"] + 1)
             row["keyframe"] = True
             self._stage("insert+mapping")
         elif self._ba_pending_slot is not None:
@@ -329,6 +394,223 @@ class CubemapSLAM(MapTracker):
         self._kf_inlier_peak = 0
         self.covis = None
         self.cnt = None
+        self.bow_table = None
+        self.mb_vo = False
+
+    # ------------------------------------------------------------------
+    # Localization mode (system.py:497-557, 620-707)
+    # ------------------------------------------------------------------
+
+    def _read(self, counts, R, t):
+        """One read of 0-d ``counts`` and the pose (R, t): (the counts as
+        ints, (R, t) as float64 numpy)."""
+        self._row["host_reads"] += 1
+        k = len(counts)
+        h = torch.cat([torch.stack([c.to(torch.float32) for c in counts]),
+                       R.reshape(-1), t]).tolist()
+        return ([int(x) for x in h[:k]],
+                (np.asarray(h[k:k + 9]).reshape(3, 3), np.asarray(h[k + 9:])))
+
+    def _record_frame(self, kp: Keypoints, assoc, outlier, R, t, fid: int,
+                      ts: float) -> None:
+        """The last frame, with its pose relative to ``ref_kf``."""
+        R_ri, t_ri = G.se3_inverse(self.arena.kf_R[self.ref_kf],
+                                   self.arena.kf_t[self.ref_kf])
+        rel_R, rel_t = G.se3_compose(R, t, R_ri, t_ri)
+        self.last = LastFrame(kp, assoc, outlier, R, t, rel_R, rel_t,
+                              self.ref_kf, fid, ts)
+
+    def _predicted_pose(self):
+        """The last pose re-anchored on its keyframe, and the motion-model
+        prediction (``system.py:528-550``): the velocity's twist scaled by
+        ``motion_model_damping``. Returns (R_last, t_last, R_pred,
+        t_pred).
+
+        Both rotations are projected onto SO(3), where the JAX package
+        keeps them as composed. With the map frozen no keyframe re-anchors
+        the chain, and each frame's composition, with transposes taken as
+        inverses, about triples the distance from SO(3) that pose-only LM
+        then keeps (ROADMAP Queue 3, "Rotation drift")."""
+        last = self.last
+        R_last, t_last = G.se3_compose(last.rel_R, last.rel_t,
+                                       self.arena.kf_R[last.ref_kf],
+                                       self.arena.kf_t[last.ref_kf])
+        R_last = G.so3_project(R_last)
+        a = float(self.cfg.motion_model_damping)
+        if self.velocity is None or a <= 0.0:
+            return R_last, t_last, R_last, t_last
+        Rv, tv = self.velocity
+        if a < 1.0:
+            Rv, tv = G.se3_exp(a * G.se3_log(Rv, tv))
+        R_pred, t_pred = G.se3_compose(Rv, tv, R_last, t_last)
+        return R_last, t_last, G.so3_project(R_pred), t_pred
+
+    def _vo_frame(self, kp, assoc, outlier, R, t, R_last, t_last, fid, ts,
+                  n: int, n_inl: int) -> None:
+        """Keep a frame tracked on frame-to-frame matches only (mbVO)."""
+        self.velocity = G.se3_compose(R, t, *G.se3_inverse(R_last, t_last))
+        self._record_frame(kp, assoc, outlier, R, t, fid, ts)
+        self._row.update(inliers=n_inl, matches=n, vo=True)
+
+    def _track_frame_localization(self, kp: Keypoints, fid: int, ts: float):
+        """A frame against the frozen map (``system.py:620-707``): the
+        motion-model match (widened below 20 matches), the mbVO dual
+        hypothesis, the reference-keyframe fallback, then TrackLocalMap. No
+        keyframe is inserted and no BA runs. Returns the host pose or
+        None."""
+        k, cfg, last = self.kernels, self.cfg, self.last
+        row = self._row
+        row.update(frame=fid, stage="localization", host_reads=0, vo=False)
+        self.metrics.append(row)
+        R_last, t_last, R_pred, t_pred = self._predicted_pose()
+
+        def motion(radius):
+            st = k.track_motion_fused(self.arena, kp, last.assoc,
+                                      last.outlier, last.kp.level,
+                                      last.kp.angle, R_pred, t_pred,
+                                      radius=radius)
+            (n, n_inl), pose = self._read((st[1], st[5]), st[2], st[3])
+            return st, n, n_inl, pose
+
+        (assoc, _, R, t, outlier, _), n, n_inl, pose = motion(15.0)
+        if n < MIN_MATCHES:
+            (assoc, _, R, t, outlier, _), n, n_inl, pose = motion(30.0)
+        if self.mb_vo:
+            # the VO hypothesis is kept while relocalization is tried; the
+            # relocalized pose wins when both succeed
+            pose_r = self._relocalize(kp, fid, ts)
+            if pose_r is not None:
+                return pose_r
+            if n < MIN_MATCHES:
+                self._set_lost()
+                return None
+            self._vo_frame(kp, assoc, outlier, R, t, R_last, t_last, fid, ts,
+                           n, n_inl)
+            self.mb_vo = n_inl < 10
+            return pose
+        if n < MIN_MATCHES:                # the reference keyframe
+            assoc, n_t = k.track_reference_kf(self.arena, kp, self.ref_kf)
+            R, t, outlier, n_inl_t = k.optimize_pose(self.arena, kp, assoc,
+                                                     R_last, t_last)
+            (n, n_inl), pose = self._read((n_t, n_inl_t), R, t)
+            if n < 15:
+                self._set_lost()
+                return None
+        if n < 15 or n_inl < 10:
+            if n >= MIN_MATCHES:
+                # weak map support, live frame-to-frame tracking: VO mode
+                self.mb_vo = True
+                self._vo_frame(kp, assoc, outlier, R, t, R_last, t_last, fid,
+                               ts, n, n_inl)
+                return pose
+            self._set_lost()
+            return None
+        self.mb_vo = False
+        (self.arena, assoc, outlier, R, t, n_final, pkf_max, pkf_votes,
+         _) = k.track_local_fused(self.arena, kp, assoc, outlier, R, t,
+                                  covis=self.covis)
+        (n_final, pkf_max, pkf_votes), pose = self._read(
+            (n_final, pkf_max, pkf_votes), R, t)
+        row.update(inliers=n_final, matches=n)
+        if n_final < cfg.min_track_inliers:
+            self._set_lost()
+            return None
+        if pkf_votes > 0:
+            self.ref_kf = pkf_max
+        self.velocity = G.se3_compose(R, t, *G.se3_inverse(R_last, t_last))
+        self._record_frame(kp, assoc, outlier, R, t, fid, ts)
+        return pose
+
+    # ------------------------------------------------------------------
+    # Relocalization (Tracking::Relocalization, system.py:777-813)
+    # ------------------------------------------------------------------
+
+    def _relocalize(self, kp: Keypoints, fid: int, ts: float):
+        """Relocalize the frame against the map: BoW candidates, then per
+        candidate the match, PnP RANSAC and pose-only LM, then the widening
+        pass for the candidates in score order until one keeps
+        ``min_track_inliers_after_reloc`` inliers. Returns the host pose
+        (R, t), or None when no candidate holds."""
+        row = self._row
+        row.update(reloc_candidates=0, relocalized=False)
+        if self.vocab is None or self.bow_table is None:
+            return None
+        k, a = self.kernels, self.arena
+        with record_function("reloc.detect"):
+            qbow = PL.bow_vector(self.vocab, kp.desc, kp.valid)
+            if self.covis is None:
+                self.refresh_graph_cache()
+            cand_idx, cand_ok = PL.detect_candidates(
+                qbow, self.bow_table, a.kf_valid,
+                torch.zeros_like(a.kf_valid), self.covis, 0.0)
+            n_c = min(RELOC_CANDIDATES, cand_idx.shape[0])
+            host = torch.cat([cand_idx[:n_c],
+                              cand_ok[:n_c].to(torch.int64)]).tolist()
+        row["host_reads"] += 1
+        idx, ok = host[:n_c], [bool(x) for x in host[n_c:]]
+        row["reloc_candidates"] = sum(ok)
+        if not any(ok):
+            return None
+        with record_function("reloc.candidates"):
+            assoc_c, R_c, t_c, out_c, score_c = k.reloc_candidates_fused(
+                a, kp, idx, ok, self.generator)
+            scores = score_c.tolist()
+        row["host_reads"] += 1
+        row["eigh_waits"] = row.get("eigh_waits", 0) + EIGH_WAITS * sum(ok)
+        for i in sorted(range(n_c), key=lambda j: -scores[j]):   # stable
+            if scores[i] < 0:
+                break
+            with record_function("reloc.widen"):
+                assoc, R, t, outlier, n3 = k.reloc_widen_fused(
+                    a, kp, assoc_c[i], out_c[i], R_c[i], t_c[i],
+                    covis=self.covis)
+                (n3,), pose = self._read((n3,), R, t)
+            if n3 < self.cfg.min_track_inliers_after_reloc:
+                continue
+            self.ref_kf = idx[i]
+            self._record_frame(kp, assoc, outlier, R, t, fid, ts)
+            self.velocity = None
+            self.state = TrackState.OK
+            self.mb_vo = False
+            self._kf_inlier_peak = 0
+            row.update(relocalized=True, reloc_inliers=n3)
+            return pose
+        return None
+
+    # ------------------------------------------------------------------
+    # The bag of words (system.py:740-771)
+    # ------------------------------------------------------------------
+
+    def _update_bow(self, slot: int, kp: Keypoints) -> None:
+        self.bow_table[slot] = PL.bow_vector(self.vocab, kp.desc, kp.valid)
+
+    def _maybe_retrain_vocab(self, live_kf: int) -> None:
+        """Train a bootstrap vocabulary once more on the live keyframes'
+        descriptors when ``vocab_retrain_keyframes`` are live, then
+        recompute every BoW row. ``live_kf`` is the count after the
+        insertion (the JAX package reads ``kf_valid`` for it)."""
+        if (not self._vocab_is_bootstrap
+                or live_kf < self.cfg.vocab_retrain_keyframes):
+            return
+        a = self.arena
+        data = torch.cat([a.kf_desc, a.kf_kp_valid[..., None].long()],
+                         -1)[a.kf_valid].reshape(-1, 9).cpu().numpy()
+        self._row["host_reads"] += 2     # the mask's count, then the copy
+        self.vocab = PL.train_vocabulary(
+            data[data[:, 8] > 0, :8].astype(np.uint32),
+            k=self.cfg.vocab_branching, depth=self.cfg.vocab_depth,
+            device=self.device)
+        self._vocab_is_bootstrap = False
+        self.bow_table = self._recompute_bow_table()
+
+    def _recompute_bow_table(self) -> torch.Tensor:
+        """Every slot's BoW row, in batches of ``BOW_CHUNK_SLOTS`` slots;
+        the rows of invalid slots are 0."""
+        a, n = self.arena, BOW_CHUNK_SLOTS
+        rows = torch.cat([PL.bow_vectors(self.vocab, a.kf_desc[s:s + n],
+                                         a.kf_kp_valid[s:s + n])
+                          for s in range(0, a.n_kf_cap, n)])
+        return torch.where(a.kf_valid[:, None], rows, torch.zeros_like(rows))
 
     # ------------------------------------------------------------------
     # Keyframe decision and creation (Tracking.cpp:721-792)
@@ -367,12 +649,12 @@ class CubemapSLAM(MapTracker):
         return want
 
     def _create_keyframe(self, kp: Keypoints, assoc, outlier, R, t,
-                         fid: int, ts: float, slot: Optional[int] = None):
-        """``system.py:866-898`` without the BoW and loop closing: insert,
-        re-anchor the live frame on the new keyframe, run local mapping,
-        then take the frame's associations from the keyframe's row."""
-        if slot is None:
-            slot = self._free_kf_slot()
+                         fid: int, ts: float, slot: int, live_kf: int):
+        """``system.py:866-898`` without loop closing: insert into the free
+        ``slot``, write the BoW row, re-anchor the live frame on the new
+        keyframe, retrain a bootstrap vocabulary when due (``live_kf``: the
+        live keyframes after the insertion), run local mapping, then take
+        the frame's associations from the keyframe's row."""
         assert slot >= 0
         self.kernels.insert_keyframe(self.arena, slot, kp, assoc, outlier,
                                      R, t, fid, ts)
@@ -380,10 +662,12 @@ class CubemapSLAM(MapTracker):
         self.ref_kf = slot
         self.last_kf_frame_id = fid
         self._kf_inlier_peak = 0
+        self._update_bow(slot, kp)
         dev = self.device
         self.last = self.last._replace(ref_kf=slot,
                                        rel_R=torch.eye(3, device=dev),
                                        rel_t=torch.zeros(3, device=dev))
+        self._maybe_retrain_vocab(live_kf)
         self._local_mapping(slot)
         self.last = self.last._replace(
             assoc=self.arena.kf_obs_lm[slot].clone(),

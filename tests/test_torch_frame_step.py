@@ -191,7 +191,8 @@ def test_port_sources_import_no_jax():
 def test_port_runs_without_jax_loaded():
     """In a fresh interpreter: import the port and chip_smoke, run a tiny
     frame step, map build, tracked frame and two frames of CubemapSLAM on
-    the CPU, and find no JAX module loaded."""
+    the CPU, train a tiny vocabulary and make a BoW row, and find no JAX
+    module loaded."""
     code = """
 import sys
 import numpy as np, torch
@@ -231,6 +232,14 @@ for k in range(2):
     slam.track_fisheye(synthetic.to_u8(ren.render(*world, *poses[k])[0]),
                        k / 10)
 assert slam.total_frames == 2 and isinstance(slam.mapping, MappingKernels)
+# the vocabulary, the bag of words, PnP and map save/load
+from cubemapslam_tpu_torch import place, serialize
+from cubemapslam_tpu_torch.solvers import pnp
+voc = place.train_vocabulary(
+    rng.integers(0, 2 ** 32, (64, 8), dtype=np.uint32), k=2, depth=2,
+    device="cpu")
+assert place.bow_vector(voc, kp.desc, kp.valid).shape == (4,)
+assert callable(pnp.pnp_ransac) and callable(serialize.load_map)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cubemapslam_tpu"))
 print("FOREIGN", bad)

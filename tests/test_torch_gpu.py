@@ -16,8 +16,16 @@ Kernels D and describe also at the init extractor's shape (6000
 features), with the same tolerances. ``mapping_step`` and ``local_ba`` on
 the card against the CPU on one small arena: integer views exactly equal,
 poses within 1e-4, landmarks observed twice or more within 2e-3 for 99%
-and 2e-2 for all.
+and 2e-2 for all. Place recognition on the card against the CPU:
+``word_ids`` exactly equal, ``bow_vector`` rows within 1e-6 and
+``detect_candidates`` the same candidates and flags; ``pnp_ransac`` with
+the same CPU-drawn minimal sets: both succeed, inlier counts within 5%,
+poses within 1 deg / 0.05 of the truth, and within 0.05 deg and 1e-3 of
+each other when no match is scrambled.
 """
+
+import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -317,3 +325,101 @@ def test_mapping_card_against_cpu(cuda, stage):
     held = (cnt >= 2) & c.lm_valid
     d = (c.lm_pos - g.lm_pos).abs().amax(dim=1)[held]
     assert float(torch.quantile(d, 0.99)) < 2e-3 and float(d.max()) < 2e-2
+
+
+VOCAB = pathlib.Path(__file__).resolve().parents[1] / "artifacts" / \
+    "vocab_synth_10k.npz"
+
+
+def flipped(desc, rng, n):
+    """(N, 8) uint32 descriptors with ``n`` random bits flipped in each."""
+    out = desc.copy()
+    rows = np.repeat(np.arange(len(out)), n)
+    np.bitwise_xor.at(out, (rows, rng.integers(0, 8, len(rows))),
+                      np.uint32(1) << rng.integers(0, 32, len(rows))
+                      .astype(np.uint32))
+    return out
+
+
+def test_place_card_against_cpu(cuda):
+    from cubemapslam_tpu_torch import interop
+    from cubemapslam_tpu_torch import place as PL
+    rng = np.random.default_rng(8)
+    voc = PL.load_vocabulary(str(VOCAB), "cpu")
+    voc_g = voc.to(cuda)
+    d = interop.desc_from_numpy(rng.integers(0, 2 ** 32, (500, 8),
+                                             dtype=np.uint32))
+    valid = torch.as_tensor(rng.uniform(size=500) < 0.9)
+    assert torch.equal(PL.word_ids(voc, d), PL.word_ids(voc_g, d.to(cuda))
+                       .cpu())
+    b_c = PL.bow_vector(voc, d, valid)
+    b_g = PL.bow_vector(voc_g, d.to(cuda), valid.to(cuda)).cpu()
+    assert float((b_c - b_g).abs().max()) <= 1e-6
+    K = 32
+    query = rng.integers(0, 2 ** 32, (300, 8), dtype=np.uint32)
+    kf = [rng.integers(0, 2 ** 32, (300, 8), dtype=np.uint32)
+          for _ in range(K)]
+    for slot, n in ((5, 1), (6, 2), (17, 1), (23, 2)):
+        kf[slot] = flipped(query, rng, n)
+    ones = torch.ones(K, 300, dtype=torch.bool)
+    table = PL.bow_vectors(voc, interop.desc_from_numpy(np.stack(kf)), ones)
+    qb = PL.bow_vector(voc, interop.desc_from_numpy(flipped(query, rng, 1)),
+                       ones[0])
+    kf_valid = torch.ones(K, dtype=torch.bool)
+    kf_valid[[11, 30, 31]] = False
+    covis = np.triu(rng.integers(0, 4, (K, K)), 1)
+    covis = covis + covis.T
+    covis[5, 6] = covis[6, 5] = covis[17, 23] = covis[23, 17] = 40
+    args = (qb, table, kf_valid, torch.zeros(K, dtype=torch.bool),
+            torch.as_tensor(covis))
+    i_c, ok_c = PL.detect_candidates(*args, 0.0)
+    i_g, ok_g = PL.detect_candidates(*(x.to(cuda) for x in args), 0.0)
+    assert ok_c.any() and torch.equal(ok_c, ok_g.cpu())
+    assert torch.equal(i_c[ok_c], i_g.cpu()[ok_c])
+
+
+@pytest.mark.parametrize("n_out", [0, 45, 90])
+def test_pnp_ransac_card_against_cpu(cuda, n_out):
+    """With no scrambled match the two poses agree; with scrambled ones each
+    hypothesis starts from a null basis of its own (cuSOLVER's, LAPACK's),
+    so both are held to the outcome: success, inlier counts within 5%, the
+    truth within 1 deg / 0.05."""
+    from cubemapslam_tpu_torch import camera as C
+    from cubemapslam_tpu_torch.geometry import so3_exp, so3_log
+    from cubemapslam_tpu_torch.solvers import pnp as PNP
+    from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
+    cfg = SlamConfig()
+    rng = np.random.default_rng(n_out)
+    pw = torch.as_tensor(rng.uniform(-3.0, 3.0, (150, 3)).astype(np.float32))
+    pw[:, 2] += 5.0
+    R = so3_exp(torch.tensor([0.15, 0.25, -0.2]))
+    t = torch.tensor([-0.3, 0.1, 0.5])
+    pc = pw @ R.T + t
+    rays = pc / torch.linalg.norm(pc, dim=1, keepdim=True)
+    cams = [CubemapCamera.from_config(cfg, d) for d in ("cpu", cuda)]
+    uv, face = C.ray_to_cubemap(cams[0], rays)
+    valid = face != C.UNKNOWN_FACE
+    if n_out:
+        idx = rng.choice(np.nonzero(valid.numpy())[0], n_out, replace=False)
+        perm = torch.as_tensor(rng.permutation(idx))
+        idx = torch.as_tensor(idx)
+        rays[idx], uv[idx] = rays[perm].clone(), uv[perm].clone()
+    sets = sample_minimal_sets(torch.Generator().manual_seed(0), valid, 300,
+                               PNP.MIN_SET)
+    out = []
+    for cam in cams:
+        r = PNP.pnp_ransac(cam, None, *(x.to(cam.device) for x in (
+            pw, rays, uv, torch.ones(150), valid)), sets=sets)
+        assert bool(r.success)
+        out.append((r.R.cpu(), r.t.cpu(), int(r.n_inliers)))
+    assert abs(out[0][2] - out[1][2]) <= 0.05 * out[0][2]
+    pairs = [(out[0], (R, t)), (out[1], (R, t))]
+    if not n_out:
+        pairs.append((out[0], out[1]))
+    for (R1, t1, *_), (R2, t2, *_) in pairs:
+        ang = math.degrees(float(torch.linalg.norm(so3_log(R1 @ R2.T))))
+        dist = float(torch.linalg.norm(t1 - t2))
+        if R2 is R:
+            assert ang < 1.0 and dist < 0.05
+        else:
+            assert ang < 0.05 and dist < 1e-3

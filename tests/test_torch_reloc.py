@@ -1,0 +1,324 @@
+"""Port parity: relocalization, localization mode and map save/load.
+
+One small map is made once by the port's ``CubemapSLAM`` on the CPU (160^2
+faces, 600 features, 3 levels, K=24, L=4096, the repo's pretrained
+vocabulary ``artifacts/vocab_synth_10k.npz``) over 12 cubemap frames that
+the JAX package's renderer draws along ``forward_trajectory`` through a
+seeded world, and saved with ``serialize.save_map``; the tests share it.
+
+* ``reloc_candidates_fused`` on the map carried to JAX
+  (``interop.arena_to_numpy``), for the live keyframes as candidates and
+  the port's keypoints of a replayed frame, each candidate's PnP fed the
+  minimal sets JAX draws with its keys: the same candidates pass, and each
+  passing candidate's pose agrees within 1e-3 (rad, map units), its LM
+  inlier count within 2%. ``reloc_widen_fused`` from the same input:
+  associations equal on >= 98% of matched rows, pose within 1e-3, ``n3``
+  within 2%.
+* The port of ``tests/test_loop.py``'s relocalization: blackout -> LOST
+  (no reset, the keyframe count unchanged) -> the replayed frame
+  relocalizes, within 0.2 map units of the keyframe nearest it; the
+  frame's host reads and eigh waits as stated.
+* The port of ``tests/test_localization_mode.py``'s mbVO case: localization
+  mode on a loaded map tracks frames with the map unchanged; landmarks
+  perturbed by sigma 0.12 engage mbVO (a ``vo`` row); restored, the next
+  frame relocalizes and clears it.
+* 8 localization-mode frames keep every pose a rotation; without the
+  projection of the predicted rotations onto SO(3) (the JAX package's
+  numerics) the distance from SO(3) grows about 3x a frame.
+* The vocabulary retrain on the live keyframes is bit-identical to JAX's
+  training on the same descriptors, and the recomputed BoW table within
+  1e-6 of JAX's rows.
+* A map saved by JAX's ``save_map`` relocalizes in the port after
+  ``load_map``; a map saved by the port loads in JAX's, equal table by
+  table.
+"""
+
+import pathlib
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cubemapslam_tpu import place as JPL
+from cubemapslam_tpu import serialize as JSER
+from cubemapslam_tpu import slam_map as JSM
+from cubemapslam_tpu.config import SlamConfig as JConfig
+from cubemapslam_tpu.features.extractor import Keypoints as JKeypoints
+from cubemapslam_tpu.runtime.kernels import TrackingKernels as JKernels
+from cubemapslam_tpu.solvers import sampling as JS
+from cubemapslam_tpu.synth import Renderer, forward_trajectory, make_world
+from cubemapslam_tpu.camera import CubemapCamera as JCam
+from cubemapslam_tpu_torch import interop, serialize
+from cubemapslam_tpu_torch.config import SlamConfig as TConfig
+from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
+from cubemapslam_tpu_torch.solvers.pnp import EIGH_WAITS
+
+VOCAB = str(pathlib.Path(__file__).resolve().parents[1] / "artifacts"
+            / "vocab_synth_10k.npz")
+SMALL = dict(cube_face_w=160, cube_face_h=160, n_features=600, n_levels=3,
+             max_keyframes=24, max_landmarks=4096, min_init_keypoints=80,
+             min_init_matches=60, min_track_inliers=20,
+             min_track_inliers_after_reloc=30, fps=5.0, vocab_path=VOCAB)
+N_FRAMES = 12
+REPLAY = 6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread while this module runs: its operations are small
+    and many, and the test workers share the host's cores, where more
+    threads each only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def mapped(tmp_path_factory):
+    jcfg = JConfig(**SMALL)
+    pts, patches = make_world(np.random.default_rng(42), n=600)
+    ren = Renderer(JCam.from_config(jcfg), jcfg, "cubemap")
+    poses = forward_trajectory(N_FRAMES)
+    imgs = [np.asarray(ren.render(pts, patches, R, t)) for R, t in poses]
+    slam = CubemapSLAM(TConfig(**SMALL), device="cpu")
+    for k, img in enumerate(imgs):
+        slam.track_cubemap(torch.as_tensor(img), k / 10.0)
+    assert slam.state == TrackState.OK
+    snap = str(tmp_path_factory.mktemp("map") / "map.npz")
+    serialize.save_map(slam, snap)
+    # a copy: the arena's tensors change in place as later tests track
+    arena_np = {k: v.copy()
+                for k, v in interop.arena_to_numpy(slam.arena).items()}
+    return dict(slam=slam, imgs=imgs, snap=snap, jcfg=jcfg,
+                arena_np=arena_np)
+
+
+def fresh(mapped, path=None):
+    """A new port system with the saved map loaded (LOST)."""
+    s = CubemapSLAM(TConfig(**SMALL), device="cpu")
+    serialize.load_map(s, path or mapped["snap"])
+    assert s.state == TrackState.LOST
+    return s
+
+
+def jarena(f):
+    return JSM.MapArena(**{k: jnp.asarray(v) for k, v in f.items()})
+
+
+def jkp(kp):
+    return JKeypoints(**{k: jnp.asarray(v)
+                         for k, v in interop.keypoints_to_numpy(kp).items()})
+
+
+def j2t(x):
+    a = np.array(x)
+    return torch.as_tensor(a.astype(np.int64) if a.dtype == np.int32 else a)
+
+
+def pose_close(Rt, tt, Rj, tj, tol=1e-3):
+    dR = np.asarray(Rt) @ np.asarray(Rj).T
+    ang = np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))
+    return ang < tol and np.abs(np.asarray(tt) - np.asarray(tj)).max() < tol
+
+
+def within_2pct(a, b):
+    return abs(int(a) - int(b)) <= 0.02 * abs(int(b))
+
+
+@pytest.fixture(scope="module")
+def candidates(mapped):
+    """The JAX reloc_candidates_fused over 5 live keyframes for the replayed
+    frame, the port's keypoints and the JAX-drawn minimal sets."""
+    slam = mapped["slam"]
+    kp = slam.extract(torch.as_tensor(mapped["imgs"][REPLAY]))
+    live = np.nonzero(mapped["arena_np"]["kf_valid"])[0]
+    cand = np.asarray(live[:5], np.int32)
+    ok = np.ones(5, bool)
+    ok[1] = False                                  # one skipped candidate
+    jk = JKernels(mapped["jcfg"], JCam.from_config(mapped["jcfg"]))
+    ja, jkpt = jarena(mapped["arena_np"]), jkp(kp)
+    keys = jax.random.split(jax.random.PRNGKey(7), 5)
+    out_j = jk.reloc_candidates_fused(ja, jkpt, jnp.asarray(cand),
+                                      jnp.asarray(ok), keys)
+    sets = []
+    for c, key in zip(cand, keys):
+        assoc, _ = jk.track_reference_kf(ja, jkpt, jnp.int32(c))
+        has = (assoc >= 0) & jkpt.valid
+        sets.append(j2t(JS.sample_minimal_sets(
+            key, has, mapped["jcfg"].pnp_ransac_iters, 4)))
+    return dict(kp=kp, cand=cand, ok=ok, out_j=out_j, sets=sets, jk=jk,
+                ja=ja)
+
+
+def test_reloc_candidates_fused(mapped, candidates):
+    c = candidates
+    tk = mapped["slam"].kernels
+    ta = interop.arena_from_numpy(mapped["arena_np"])
+    out_t = tk.reloc_candidates_fused(ta, c["kp"], c["cand"].tolist(),
+                                      c["ok"].tolist(), None, sets=c["sets"])
+    score_j = np.asarray(c["out_j"][4])
+    score_t = out_t[4].numpy()
+    np.testing.assert_array_equal(score_t >= 0, score_j >= 0)
+    assert score_j[1] == -1 and (score_j >= 0).sum() >= 2
+    for i in np.nonzero(score_j >= 0)[0]:
+        assert pose_close(out_t[1][i], out_t[2][i], c["out_j"][1][i],
+                          c["out_j"][2][i]), i
+        assert within_2pct(score_t[i], score_j[i]), (score_t, score_j)
+
+
+def test_reloc_widen_fused(mapped, candidates):
+    c = candidates
+    tk = mapped["slam"].kernels
+    score_j = np.asarray(c["out_j"][4])
+    i = int(np.argmax(score_j))
+    assoc, R, t, outl = (c["out_j"][k][i] for k in range(4))
+    a_j, R_j, t_j, _, n3_j = c["jk"].reloc_widen_fused(c["ja"], jkp(c["kp"]),
+                                                       assoc, outl, R, t)
+    a_t, R_t, t_t, _, n3_t = tk.reloc_widen_fused(
+        interop.arena_from_numpy(mapped["arena_np"]), c["kp"], j2t(assoc),
+        j2t(outl), j2t(R), j2t(t))
+    a_j = np.asarray(a_j)
+    matched = (a_t.numpy() >= 0) | (a_j >= 0)
+    assert (a_t.numpy() == a_j)[matched].mean() >= 0.98
+    assert pose_close(R_t, t_t, R_j, t_j)
+    assert within_2pct(n3_t, n3_j) and int(n3_j) > \
+        SMALL["min_track_inliers_after_reloc"]
+
+
+def test_blackout_lost_replay(mapped):
+    """``tests/test_loop.py:35-74`` on the port."""
+    slam = mapped["slam"]
+    live = int(slam.arena.kf_valid.sum())
+    n_kf = slam.n_kf
+    assert live > 5
+    black = np.full(mapped["imgs"][0].shape, 20.0, np.float32)
+    for k in range(2):
+        assert slam.track_cubemap(torch.as_tensor(black), 2.0 + k) is None
+    assert slam.state == TrackState.LOST and slam.n_kf == n_kf
+    assert slam.metrics[-1]["reloc_candidates"] == 0
+    T = slam.track_cubemap(torch.as_tensor(mapped["imgs"][REPLAY]), 4.0)
+    assert slam.state == TrackState.OK and T is not None
+    row = slam.metrics[-1]
+    assert row["relocalized"] and row["stage"] == "reloc"
+    assert row["host_reads"] == 3          # candidates, scores, one widening
+    assert row["eigh_waits"] == EIGH_WAITS * row["reloc_candidates"]
+    np.testing.assert_allclose(T[:3, 3], slam.last.t.numpy(), atol=1e-6)
+    fids = slam.arena.kf_frame_id.numpy()
+    valid = slam.arena.kf_valid.numpy()
+    k_near = int(np.argmin(np.where(valid, np.abs(fids - REPLAY), 1e9)))
+    assert np.linalg.norm(slam.last.t.numpy()
+                          - slam.arena.kf_t[k_near].numpy()) < 0.2
+    # tracking goes on from the relocalized pose
+    assert slam.track_cubemap(torch.as_tensor(mapped["imgs"][REPLAY + 1]),
+                              4.1) is not None
+
+
+def test_localization_mode_and_mbvo(mapped):
+    """``tests/test_localization_mode.py:98-147`` on the port, on the loaded
+    map."""
+    slam = fresh(mapped)
+    imgs = mapped["imgs"]
+    assert slam.track_cubemap(torch.as_tensor(imgs[7]), 0.0) is not None
+    slam.activate_localization_mode()
+    a = slam.arena
+    before = (slam.n_kf, int(a.kf_valid.sum()), int(a.lm_valid.sum()))
+    for k in (8, 9, 10):
+        assert slam.track_cubemap(torch.as_tensor(imgs[k]), k) is not None
+        row = slam.metrics[-1]
+        assert row["stage"] == "localization" and not row["vo"]
+    a = slam.arena
+    assert (slam.n_kf, int(a.kf_valid.sum()), int(a.lm_valid.sum())) \
+        == before
+    clean = a.lm_pos.clone()
+    a.lm_pos.add_(0.12 * torch.randn(clean.shape,
+                                     generator=torch.Generator().manual_seed(0)))
+    slam.track_cubemap(torch.as_tensor(imgs[10]), 11.0)
+    assert slam.mb_vo and slam.metrics[-1]["vo"]
+    a.lm_pos.copy_(clean)
+    slam.track_cubemap(torch.as_tensor(imgs[10]), 12.0)
+    assert slam.state == TrackState.OK and not slam.mb_vo
+    assert slam.metrics[-1]["relocalized"]
+    slam.deactivate_localization_mode()
+    assert not slam.localization_only
+
+
+@pytest.mark.parametrize("projected", [True, False])
+def test_localization_poses_stay_rotations(mapped, monkeypatch, projected):
+    """8 localization-mode frames on the loaded map: each pose's rotation is
+    orthonormal to float32 rounding. Without the projection of the
+    predicted rotations onto SO(3) (the JAX package's numerics), its
+    distance from SO(3) grows about 3x a frame (ROADMAP Queue 3)."""
+    from cubemapslam_tpu_torch import geometry
+    if not projected:
+        monkeypatch.setattr(geometry, "so3_project", lambda R: R)
+    s = fresh(mapped)
+    assert s.track_cubemap(torch.as_tensor(mapped["imgs"][3]), 0.0) \
+        is not None
+    s.activate_localization_mode()
+    errs = []
+    for k in range(4, 12):
+        T = s.track_cubemap(torch.as_tensor(mapped["imgs"][k]), float(k))
+        assert T is not None
+        errs.append(np.abs(T[:3, :3].T @ T[:3, :3] - np.eye(3)).max())
+    if projected:
+        assert max(errs) < 1e-6, errs
+    else:
+        assert errs[-1] > 1e-4 and errs[-1] > 100 * errs[0], errs
+
+
+def test_vocabulary_retrain_and_bow_table(mapped):
+    """``_maybe_retrain_vocab`` on the loaded map (as if its vocabulary were
+    the bootstrap one): the vocabulary JAX trains on the same live
+    keyframes' descriptors (``system.py:757-766``), bit for bit, and every
+    slot's BoW row within 1e-6 of JAX's ``vmap`` of ``bow_vector``."""
+    s = fresh(mapped)
+    s._vocab_is_bootstrap = True
+    s._row = dict(host_reads=0)
+    s._maybe_retrain_vocab(live_kf=s.cfg.vocab_retrain_keyframes - 1)
+    assert s._vocab_is_bootstrap                  # below the gate
+    s._maybe_retrain_vocab(live_kf=s.cfg.vocab_retrain_keyframes)
+    assert not s._vocab_is_bootstrap and s._row["host_reads"] == 2
+    a = mapped["arena_np"]
+    train = a["kf_desc"][a["kf_valid"]].reshape(-1, 8)[
+        a["kf_kp_valid"][a["kf_valid"]].reshape(-1)]
+    vj = JPL.train_vocabulary(train, k=s.cfg.vocab_branching,
+                              depth=s.cfg.vocab_depth)
+    vt = interop.vocab_to_numpy(s.vocab)
+    for cj, ct in zip(vj.centers, vt["centers"]):
+        np.testing.assert_array_equal(ct, np.asarray(cj))
+    rows = jax.vmap(lambda d, v: JPL.bow_vector(vj, d, v))(
+        jnp.asarray(a["kf_desc"]), jnp.asarray(a["kf_kp_valid"]))
+    rows = np.where(a["kf_valid"][:, None], np.asarray(rows), 0.0)
+    np.testing.assert_allclose(s.bow_table.numpy(), rows, atol=1e-6)
+
+
+def test_map_files_cross(mapped, tmp_path):
+    slam = mapped["slam"]
+    snap = np.load(mapped["snap"])
+    # the port's file in JAX's load_map, table by table
+    sys_j = types.SimpleNamespace()
+    JSER.load_map(sys_j, mapped["snap"])
+    for k, v in sys_j.arena._asdict().items():
+        np.testing.assert_array_equal(np.asarray(v), snap[f"arena_{k}"], k)
+        assert np.asarray(v).dtype == snap[f"arena_{k}"].dtype
+    assert np.asarray(sys_j.arena.kf_desc).dtype == np.uint32
+    assert sys_j.vocab.n_words == 10000 and sys_j.n_kf == int(snap["n_kf"])
+    np.testing.assert_array_equal(np.asarray(sys_j.bow_table),
+                                  snap["bow_table"])
+    # JAX's save_map of the same map relocalizes in the port
+    v = interop.vocab_to_numpy(slam.vocab)
+    src = types.SimpleNamespace(
+        arena=jarena(mapped["arena_np"]), n_kf=slam.n_kf,
+        frame_id=slam.frame_id, bow_table=jnp.asarray(snap["bow_table"]),
+        vocab=JPL.Vocabulary(tuple(jnp.asarray(c) for c in v["centers"]),
+                             jnp.asarray(v["idf"]), v["k"], v["depth"]))
+    path = str(tmp_path / "jax_map.npz")
+    JSER.save_map(src, path)
+    port = fresh(mapped, path)
+    assert port.track_cubemap(torch.as_tensor(mapped["imgs"][8]), 0.0) \
+        is not None
+    assert port.metrics[-1]["relocalized"]
