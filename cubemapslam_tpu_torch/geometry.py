@@ -285,5 +285,6 @@ def sim3_log(s, R, t) -> torch.Tensor:
     sigma = torch.log(s)
     phi = so3_log(R)
     W = _sim3_W(phi, sigma)
-    rho = torch.linalg.solve(W, t[..., None])[..., 0]
+    # solve_ex: no error check, so no host synchronisation on the card
+    rho = torch.linalg.solve_ex(W, t[..., None])[0][..., 0]
     return torch.cat([rho, phi, sigma[..., None]], -1)

@@ -1,6 +1,7 @@
 """Nonlinear least squares in PyTorch (counterpart of
-``cubemapslam_tpu.optim``): reprojection residuals, pose-only LM and the
-direct (dense Schur + Cholesky) bundle adjustment."""
+``cubemapslam_tpu.optim``): reprojection residuals, pose-only LM, the
+bundle adjustment (dense Schur + Cholesky, or matrix-free Schur + CG), the
+Sim3 refinement and the essential-graph pose graph."""
 
 from cubemapslam_tpu_torch.optim.residuals import (  # noqa: F401
     project_to_face, reproj_residual, reproj_jacobians,

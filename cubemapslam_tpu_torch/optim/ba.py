@@ -1,6 +1,7 @@
-"""Bundle adjustment with Schur-complement reduction: the direct path.
+"""Bundle adjustment with Schur-complement reduction: the direct and the
+matrix-free CG paths.
 
-Counterpart of ``cubemapslam_tpu/optim/ba.py:36-426`` and ``:527-566``:
+Counterpart of ``cubemapslam_tpu/optim/ba.py:36-640`` (``axis_name=None``):
 Levenberg-Marquardt over a fixed-shape problem (camera table, point table,
 COO observations), Huber kernel in the first phase, a chi2 and FOV cut
 between phases, points marginalized by the Schur complement, the reduced
@@ -17,7 +18,13 @@ does. The Schur product runs in float32 with TF32 off (set at package
 import).
 
 The matrix-free CG path (``_lm_step``, ``ba.py:429-524``) serves the global
-BA of loop closing and the distributed BA; it comes with those slices.
+BA of loop closing: per-edge normal blocks, the reduced camera system
+S = Hcc - W Hpp^-1 Wᵀ applied matrix-free (two gathers, two ``index_add_``
+and batched small products a matvec) inside a block-Jacobi preconditioned
+CG of a fixed number of iterations, the point blocks inverted by the 3x3
+closed form and the 6x6 preconditioner by ``torch.linalg.inv_ex`` (neither
+waits). It runs on one device; the collective hooks of the JAX code
+(``_psum``, ``_psum_pts``) come with the distributed BA.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.geometry import mat3_apply, se3_compose, se3_exp
 from cubemapslam_tpu_torch.optim.pose_opt import (CHI2_TH, HUBER_DELTA,
                                                   _huber_weight)
-from cubemapslam_tpu_torch.optim.residuals import reproj_residual
+from cubemapslam_tpu_torch.optim.residuals import (reproj_jacobians,
+                                                   reproj_residual)
 
 
 class BAProblem(NamedTuple):
@@ -354,6 +362,161 @@ def _bundle_adjust_direct(cam: CubemapCamera, prob: BAProblem, phase_iters,
 
 
 # ---------------------------------------------------------------------------
+# Matrix-free Schur + preconditioned CG (ba.py:77-91, 429-524), one device
+# ---------------------------------------------------------------------------
+
+def _edge_terms(cam: CubemapCamera, prob: BAProblem, w: torch.Tensor):
+    """Residuals and weighted normal-equation blocks of all edges."""
+    Rc = prob.R[prob.obs_cam]
+    tc = prob.t[prob.obs_cam]
+    Xp = prob.X[prob.obs_pt]
+    e = reproj_residual(cam, Rc, tc, Xp, prob.obs_face, prob.obs_uv)
+    Jc, Jp = reproj_jacobians(cam, Rc, tc, Xp, prob.obs_face)
+    JcT = Jc.transpose(1, 2) * w[:, None, None]          # (E,6,2)
+    JpT = Jp.transpose(1, 2) * w[:, None, None]          # (E,3,2)
+    Hcc_e = JcT @ Jc                                     # (E,6,6)
+    Hpp_e = JpT @ Jp                                     # (E,3,3)
+    W_e = JcT @ Jp                                       # (E,6,3)
+    bc_e = -(JcT @ e[..., None])[..., 0]                 # (E,6) = -JᵀWe
+    bp_e = -(JpT @ e[..., None])[..., 0]                 # (E,3)
+    return e, Hcc_e, Hpp_e, W_e, bc_e, bp_e
+
+
+def _segsum(n: int, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``zeros((n,) + v.shape[1:]).at[idx].add(v)``."""
+    return torch.zeros((n,) + tuple(v.shape[1:]), dtype=v.dtype,
+                       device=v.device).index_add_(0, idx, v)
+
+
+def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product (..., m, n) x (..., n), as a product
+    and a sum: a batched GEMM of a million 3x6 blocks runs one tiny matrix
+    a thread block on the card."""
+    return (A * x[..., None, :]).sum(-1)
+
+
+def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
+             lm_lambda, cg_iters: int):
+    """One damped Gauss-Newton step via the Schur complement and a
+    matrix-free, block-Jacobi preconditioned CG of ``cg_iters`` iterations
+    (``ba.py:429-524`` with ``axis_name=None``). Returns the candidate
+    (R, t, X)."""
+    M = prob.R.shape[0]
+    P = prob.X.shape[0]
+    dev, f32 = prob.X.device, prob.X.dtype
+    chi2 = _chi2(cam, prob)
+    w = prob.obs_inv_sigma2 * (_huber_weight(chi2) if robust else 1.0)
+    w = torch.where(active, w, torch.zeros_like(w))
+    _, Hcc_e, Hpp_e, W_e, bc_e, bp_e = _edge_terms(cam, prob, w)
+    Hcc = _segsum(M, prob.obs_cam, Hcc_e)
+    Hpp = _segsum(P, prob.obs_pt, Hpp_e)
+    bc = _segsum(M, prob.obs_cam, bc_e)
+    bp = _segsum(P, prob.obs_pt, bp_e)
+
+    # damped point blocks, inverted by the 3x3 closed form (the same damped
+    # matrix as the JAX code's jnp.linalg.inv; zero for invalid points)
+    Hinv = _inv3_lanes([[Hpp[:, a, b] for b in range(3)] for a in range(3)],
+                       lm_lambda, prob.pt_valid)
+    Hpp_inv = torch.stack([torch.stack(r, -1) for r in Hinv], -2)  # (P,3,3)
+
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    tr_c = torch.diagonal(Hcc, dim1=1, dim2=2).sum(-1)
+    Hcc_d = Hcc + (lm_lambda * eye6)[None] * torch.clamp(
+        tr_c[:, None, None] / 6.0, min=1e-6)
+    Hcc_d = Hcc_d + 1e-8 * eye6[None]
+
+    free = prob.cam_valid & ~prob.cam_fixed               # (M,)
+    fr = free[:, None]
+    W_eT = W_e.transpose(1, 2)                            # (E,3,6)
+
+    def schur_matvec(x):
+        """x: (M,6) -> S x, with fixed cameras projected out."""
+        x = torch.where(fr, x, torch.zeros_like(x))
+        hx = _bmv(Hcc_d, x)
+        s = _segsum(P, prob.obs_pt, _bmv(W_eT, x[prob.obs_cam]))
+        y = _bmv(Hpp_inv, s)
+        coup = _segsum(M, prob.obs_cam, _bmv(W_e, y[prob.obs_pt]))
+        return torch.where(fr, hx - coup, x)
+
+    # reduced rhs: bc - W Hpp^-1 bp
+    yb = _bmv(Hpp_inv, bp)
+    rhs = bc - _segsum(M, prob.obs_cam, _bmv(W_e, yb[prob.obs_pt]))
+    rhs = torch.where(fr, rhs, torch.zeros_like(rhs))
+
+    # block-Jacobi preconditioner (inv_ex: no error check, no host wait)
+    Pinv = torch.linalg.inv_ex(Hcc_d)[0]
+
+    def precond(r):
+        return torch.where(fr, _bmv(Pinv, r), r)
+
+    x = torch.zeros(M, 6, dtype=f32, device=dev)
+    r = rhs
+    z = precond(r)
+    p = z
+    for _ in range(cg_iters):
+        Ap = schur_matvec(p)
+        rz = (r * z).sum()
+        alpha = rz / torch.clamp((p * Ap).sum(), min=1e-20)
+        x = x + alpha * p
+        r_new = r - alpha * Ap
+        z_new = precond(r_new)
+        beta = (r_new * z_new).sum() / torch.clamp(rz, min=1e-20)
+        p = z_new + beta * p
+        r, z = r_new, z_new
+    dc = x
+
+    # back-substitute the point updates
+    s = _segsum(P, prob.obs_pt, _bmv(W_eT, dc[prob.obs_cam]))
+    dp = _bmv(Hpp_inv, bp - s)
+    dp = torch.where(prob.pt_valid[:, None], dp, torch.zeros_like(dp))
+    dR, dt = se3_exp(dc)
+    R_new, t_new = se3_compose(dR, dt, prob.R, prob.t)
+    R_new = torch.where(free[:, None, None], R_new, prob.R)
+    t_new = torch.where(fr, t_new, prob.t)
+    return R_new, t_new, prob.X + dp
+
+
+def _bundle_adjust_cg(cam: CubemapCamera, prob: BAProblem, phase_iters,
+                      chi2_cut: float, cg_iters: int):
+    """The CG-solver BA loop (``ba.py:601-640``). Returns (updated problem,
+    per-edge inlier mask)."""
+    active = prob.obs_valid
+    dev, f32 = prob.X.device, prob.X.dtype
+
+    def lm_loop(prob, active, robust, n_iters):
+        lm_lambda = torch.full((), 1e-4, dtype=f32, device=dev)
+        for _ in range(n_iters):
+            cost = _robust_cost(_chi2(cam, prob), active, robust)
+            R_n, t_n, X_n = _lm_step(cam, prob, active, robust, lm_lambda,
+                                     cg_iters)
+            cand = prob._replace(R=R_n, t=t_n, X=X_n)
+            cost_n = _robust_cost(_chi2(cam, cand), active, robust)
+            improved = cost_n < cost
+            prob = prob._replace(R=_select(improved, cand.R, prob.R),
+                                 t=_select(improved, cand.t, prob.t),
+                                 X=_select(improved, cand.X, prob.X))
+            # lambda floor 1e-6: the damping bounds the motion along
+            # near-null gauge directions in the CG solve
+            lm_lambda = torch.clamp(torch.where(improved, lm_lambda * 0.5,
+                                                lm_lambda * 4.0), 1e-6, 1e4)
+        return prob
+
+    anchor_state = _gauge_entry(prob)
+    for phase, n in enumerate(phase_iters):
+        robust = phase == 0
+        prob = lm_loop(prob, active, robust, n)
+        chi2 = _chi2(cam, prob)
+        # outlier cut + FOV cheirality (behind-camera points)
+        Xc = mat3_apply(prob.R[prob.obs_cam], prob.X[prob.obs_pt]) \
+            + prob.t[prob.obs_cam]
+        d = torch.linalg.norm(Xc, dim=-1)
+        in_fov = Xc[..., 2] / torch.clamp(d, min=1e-12) > cam.cos_fov_th
+        active = active & (chi2 <= chi2_cut) & in_fov
+    prob = _gauge_retract(prob, anchor_state)
+    return prob, active
+
+
+# ---------------------------------------------------------------------------
 # Scale gauge (ba.py:527-566)
 # ---------------------------------------------------------------------------
 
@@ -403,21 +566,22 @@ def bundle_adjust(cam: CubemapCamera, prob: BAProblem,
                   chi2_cut: float = CHI2_TH,
                   solver: str = "direct",
                   max_obs_per_cam: int = 1024,
-                  n_free: int = None) -> Tuple[BAProblem, torch.Tensor]:
+                  n_free: int = None,
+                  cg_iters: int = 30) -> Tuple[BAProblem, torch.Tensor]:
     """Two-phase LM BA (``ba.py:569-640``): 5 robust iterations, the chi2
     and FOV cut, 10 plain iterations, the final cut, then the scale-gauge
     retraction. ``solver="direct"`` is the dense-Schur Cholesky path for
     compact local problems: the edges are row-major (M, N), each camera's
     row compacted to ``max_obs_per_cam`` live entries, and the cameras at
-    index >= ``n_free`` fixed anchors. ``solver="cg"`` comes with the loop
-    closing and distributed BA slices.
+    index >= ``n_free`` fixed anchors. ``solver="cg"`` is the matrix-free
+    Schur-CG path (``cg_iters`` CG iterations an LM step) for any COO
+    problem, as the global BA after a loop closure uses it. The default
+    stays ``"direct"``, where the JAX package's is ``"cg"``.
 
     Returns (updated problem, per-edge inlier mask)."""
+    assert solver in ("cg", "direct"), solver
     if solver == "cg":
-        raise NotImplementedError(
-            "the matrix-free CG solver comes with the loop-closing and "
-            "distributed BA slices; use solver='direct'")
-    assert solver == "direct", solver
+        return _bundle_adjust_cg(cam, prob, phase_iters, chi2_cut, cg_iters)
     nf = prob.R.shape[0] if n_free is None else n_free
     return _bundle_adjust_direct(cam, prob, phase_iters, chi2_cut,
                                  max_obs_per_cam, nf)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -84,9 +85,32 @@ class FrameFrontend(nn.Module):
         """(H, W) uint8 fisheye -> (3Hf, 3Wf) float32 cubemap cross."""
         return warp_to_cross(fisheye_u8, self.warp_map)
 
-    def extract(self, cube: torch.Tensor) -> Keypoints:
-        """ORB keypoints of the cross, culled by the FOV mask."""
-        return self.extractor(cube, self.mask)
+    def as_mask(self, mask=None) -> torch.Tensor:
+        """The mask that ``extract`` applies: the registered FOV mask when
+        ``mask`` is None, else the caller's (3Hf, 3Wf) array or tensor on
+        this device (a tensor already there is not copied)."""
+        if mask is None:
+            return self.mask
+        return torch.as_tensor(mask, device=self.device)
+
+    def extract(self, cube: torch.Tensor, mask=None) -> Keypoints:
+        """ORB keypoints of the cross. A keypoint on a zero pixel of the
+        mask is culled, as the JAX ``extract_orb`` culls it; the caller's
+        ``mask`` replaces the FOV mask (it is not multiplied into it), and
+        ``None`` keeps the FOV mask, where the JAX package's ``None`` means
+        no mask (every JAX caller passes one)."""
+        return self.extractor(cube, self.as_mask(mask))
+
+    def prefetch_image(self, img) -> torch.Tensor:
+        """Start the upload of a future uint8 frame and return its tensor on
+        this device, which ``track_fisheye`` takes as it is
+        (``system.py:192-201``): the frame is copied into pinned host memory
+        and sent by a non-blocking copy, so it overlaps the current frame's
+        work. On the CPU it returns a copy of the frame."""
+        host = torch.as_tensor(np.ascontiguousarray(img))
+        if self.device.type != "cuda":
+            return host.to(self.device, copy=True)
+        return host.pin_memory().to(self.device, non_blocking=True)
 
 
 class FrameTracker(FrameFrontend):

@@ -1,0 +1,658 @@
+"""Loop detection, Sim3 computation and loop correction.
+
+Counterpart of ``cubemapslam_tpu/runtime/loop_closing.py`` (the
+LoopClosing thread): DetectLoop with the 3-consecutive-keyframe consistency
+check, ComputeSim3 (the keyframe-pair match, Sim3 RANSAC, the SearchBySim3
+widening, OptimizeSim3 and the S_cw projection gate of 40 matches) and
+CorrectLoop (loop fusion, Sim3 propagation to the covisible neighbourhood,
+the essential-graph optimization, the landmark remap, SearchAndFuse, the
+landmark statistics and the post-loop global BA on the CG solver).
+``LoopKernels`` holds the device stages, with the JAX method names;
+``LoopCloser`` is the host state machine.
+
+PyTorch idiom: the arena is updated in place, so ``LoopCloser`` always
+works on ``system.arena`` and keeps no reference across a stage. Keyframe
+slots are host ints (``arena.kf_R[k]`` is a view, no read). The JAX
+``lax.top_k`` becomes a stable descending sort and ``jnp.argsort`` a stable
+sort. ``search_and_fuse`` is a Python loop over the corrected keyframes (a
+slot the host knows to be unused is skipped: its masked JAX iteration
+changes nothing).
+
+Two rules differ from the JAX package, whose result there depends on the
+order of a scatter with duplicate indices (``loop_closing.py:301-304,
+326-329``, the pattern of ``fuse_pair``): in ``loop_fuse`` and
+``search_and_fuse`` a merge's redirect wins over the rows that do not merge,
+and of two merges with the same loser the later row wins (the rule of
+``MappingKernels.fuse_pair``).
+
+Host reads, counted in ``LoopCloser.reads`` for each ``process`` call:
+detection reads the candidates, their flags and their covisibility groups in
+one packed read. ``_try_close`` reads the pair's match count, the RANSAC
+verdict (whose Horn eigen-solves wait ``sim3.EIGH_WAITS`` more times,
+counted in ``LoopCloser.eigh_waits``), the refined inlier count, and the
+S_cw match count with the current keyframe's covisible set in one read.
+A closure then reads the pose graph's valid-edge count once and the global
+BA's live-observation count once (each solves on its live edges only: a
+masked edge adds exact zeros), the landmark statistics' live count once,
+and synchronizes twice to time the correction and the global BA.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import List, Set, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from cubemapslam_tpu_torch import camera as C
+from cubemapslam_tpu_torch import geometry as G
+from cubemapslam_tpu_torch import matching as M
+from cubemapslam_tpu_torch import place as PL
+from cubemapslam_tpu_torch import slam_map as SM
+from cubemapslam_tpu_torch.camera import CubemapCamera
+from cubemapslam_tpu_torch.config import SlamConfig
+from cubemapslam_tpu_torch.dist import global_ba_problem_from_arena
+from cubemapslam_tpu_torch.optim.ba import bundle_adjust
+from cubemapslam_tpu_torch.optim.pose_graph import optimize_essential_graph
+from cubemapslam_tpu_torch.optim.sim3_opt import optimize_sim3
+from cubemapslam_tpu_torch.runtime.kernels import _members
+from cubemapslam_tpu_torch.runtime.mapping import _kf_keypoints, _top
+from cubemapslam_tpu_torch.solvers import sim3 as S3
+
+MAX_PREV_LOOPS = 16      # past loop edges in the essential graph
+MAX_NEIGH = 16           # corrected keyframes that SearchAndFuse visits
+MAX_LOOP_LANDMARKS = 4096
+POSE_GRAPH_ITERS = 12
+
+
+def _ones_like(x: torch.Tensor) -> torch.Tensor:
+    return torch.ones((), dtype=x.dtype, device=x.device)
+
+
+def _redirect_merges(merge: torch.Tensor, loser: torch.Tensor,
+                     winner: torch.Tensor, L: int):
+    """(redirect (L,), dead (L,)) of rows that merge ``loser`` into
+    ``winner``: a merge's write wins over the rows that do not merge, and
+    of two merges with the same loser the later row wins."""
+    q = torch.arange(merge.shape[0], device=merge.device)
+    last = torch.full((L + 1,), -1, dtype=torch.int64,
+                      device=merge.device).scatter_reduce(
+        0, torch.where(merge, loser, torch.full_like(loser, L)),
+        torch.where(merge, q, torch.full_like(q, -1)), reduce="amax",
+        include_self=True)[:-1]
+    redirect = torch.where(last >= 0, winner[last.clamp(min=0)],
+                           torch.arange(L, device=merge.device))
+    dead = _members(torch.where(merge, loser, torch.full_like(loser, -1)), L)
+    return redirect, dead
+
+
+class LoopKernels:
+    """The device stages of loop closing for one camera geometry
+    (``loop_closing.py:33-486``)."""
+
+    def __init__(self, cfg: SlamConfig, cam: CubemapCamera):
+        self.cfg, self.cam = cfg, cam
+        dev = cam.device
+        self.level_sigma2 = torch.tensor(cfg.level_sigma2,
+                                         dtype=torch.float32, device=dev)
+        self.inv_level_sigma2 = 1.0 / self.level_sigma2
+        self.scale_factors = torch.tensor(cfg.scale_factors,
+                                          dtype=torch.float32, device=dev)
+        self.log_scale = math.log(cfg.scale_factor)
+
+    def _neighbours(self, arena: SM.MapArena, covis: torch.Tensor,
+                    k: int) -> torch.Tensor:
+        """(K,) bool: keyframe k and its covisible set."""
+        nb = (covis[k] >= self.cfg.covisibility_weight_th) & arena.kf_valid
+        nb[k].fill_(True)
+        return nb
+
+    def _member_landmarks(self, arena: SM.MapArena, covis, k: int):
+        """(L,) bool: the landmarks keyframe k and its covisible set observe
+        (mvpLoopMapPoints)."""
+        nb = self._neighbours(arena, covis, k)
+        obs = arena.kf_obs_lm
+        obs_ok = (obs >= 0) & arena.kf_kp_valid & nb[:, None]
+        return _members(torch.where(obs_ok, obs, torch.full_like(obs, -1)),
+                        arena.n_lm_cap) & arena.lm_valid
+
+    def detect_candidates_fused(self, arena: SM.MapArena,
+                                bow_table: torch.Tensor, slot: int):
+        """DetectLoop phase 1 (``loop_closing.py:43-64``): the covisible
+        exclusion set, minScore from the covisible BoW scores, candidate
+        selection. Returns (cand_idx (8,), cand_ok (8,), cand_groups (8, K)
+        the candidates' covisibility groups, each with itself)."""
+        covis = SM.covisibility_matrix(arena)
+        nb = (covis[slot] >= self.cfg.covisibility_weight_th) \
+            & arena.kf_valid
+        exclude = nb.clone()
+        exclude[slot].fill_(True)
+        scores = PL.bow_scores(bow_table[slot], bow_table)
+        min_score = torch.where(
+            nb.any(), torch.where(nb, scores,
+                                  torch.full_like(scores, math.inf)).min(),
+            torch.zeros_like(scores[0]))
+        cand_idx, cand_ok = PL.detect_candidates(
+            bow_table[slot], bow_table, arena.kf_valid, exclude, covis,
+            min_score)
+        groups = (covis[cand_idx] > 0).scatter_(1, cand_idx[:, None], True)
+        return cand_idx, cand_ok, groups
+
+    def match_kf_pair(self, arena: SM.MapArena, k1: int, k2: int):
+        """Landmark-feature matching between two keyframes (the SearchByBoW
+        keyframe pair as a full gated product, ``loop_closing.py:66-90``).
+        Returns (per-k1-feature index into k2, ok)."""
+        lm1, lm2 = arena.kf_obs_lm[k1], arena.kf_obs_lm[k2]
+        has1 = (lm1 >= 0) & arena.kf_kp_valid[k1] \
+            & arena.lm_valid[lm1.clamp(min=0)]
+        has2 = (lm2 >= 0) & arena.kf_kp_valid[k2] \
+            & arena.lm_valid[lm2.clamp(min=0)]
+        dist = M.hamming_matrix(M.unpack_descriptors(arena.kf_desc[k1]),
+                                M.unpack_descriptors(arena.kf_desc[k2]))
+        gate = has1[:, None] & has2[None, :]
+        best_idx, best, _, second = M._masked_top2(dist, gate)
+        ok = (best <= self.cfg.th_low) & (best < 0.75 * second)
+        ok = M.rotation_consistency(arena.kf_angle[k1],
+                                    arena.kf_angle[k2][best_idx], ok,
+                                    bin_deg=float(self.cfg.histo_length))
+        ok = M.resolve_one_to_one(best_idx, best, ok, arena.n_feat)
+        return best_idx, ok
+
+    def search_by_sim3(self, arena: SM.MapArena, k1: int, k2: int,
+                       s12, R12, t12, idx2_in, ok_in):
+        """Widen the keyframe-pair matches with a Sim3 (SearchBySim3,
+        ``loop_closing.py:92-153``): each keyframe's landmarks projected
+        into the other through S12 / S21 (radius 7.5 x scale at the
+        predicted level, TH_HIGH), bidirectional agreements merged into the
+        existing matches, whose features both directions exclude."""
+        N = arena.n_feat
+        kp1, kp2 = _kf_keypoints(arena, k1), _kf_keypoints(arena, k2)
+        lm1, lm2 = arena.kf_obs_lm[k1], arena.kf_obs_lm[k2]
+        lm1s, lm2s = lm1.clamp(min=0), lm2.clamp(min=0)
+        has1 = (lm1 >= 0) & arena.kf_kp_valid[k1] & arena.lm_valid[lm1s]
+        has2 = (lm2 >= 0) & arena.kf_kp_valid[k2] & arena.lm_valid[lm2s]
+        am1 = ok_in
+        am2 = _members(torch.where(ok_in, idx2_in,
+                                   torch.full_like(idx2_in, -1)), N)
+        # direction A: KF2 landmarks -> KF1 features
+        X2c2 = G.se3_apply(arena.kf_R[k2], arena.kf_t[k2],
+                           arena.lm_pos[lm2s])
+        X2c1 = G.sim3_apply(s12, R12, t12, X2c2)
+        lvl_a = SM.predict_scale(torch.linalg.norm(X2c1, dim=-1),
+                                 arena.lm_max_dist[lm2s], self.log_scale,
+                                 self.cfg.n_levels)
+        resA = M.search_by_projection(
+            X2c1, arena.lm_desc[lm2s], lvl_a, has2 & ~am2, kp1, self.cam,
+            self.scale_factors, 7.5, level_lo_off=-1, level_hi_off=0,
+            th=float(self.cfg.th_high))
+        # direction B: KF1 landmarks -> KF2 features
+        S21 = G.sim3_inverse(s12, R12, t12)
+        X1c1 = G.se3_apply(arena.kf_R[k1], arena.kf_t[k1],
+                           arena.lm_pos[lm1s])
+        X1c2 = G.sim3_apply(*S21, X1c1)
+        lvl_b = SM.predict_scale(torch.linalg.norm(X1c2, dim=-1),
+                                 arena.lm_max_dist[lm1s], self.log_scale,
+                                 self.cfg.n_levels)
+        resB = M.search_by_projection(
+            X1c2, arena.lm_desc[lm1s], lvl_b, has1 & ~am1, kp2, self.cam,
+            self.scale_factors, 7.5, level_lo_off=-1, level_hi_off=0,
+            th=float(self.cfg.th_high))
+        # kf1 feature i is accepted when B matched it to kf2 feature j and A
+        # matched that j back to i
+        a_match_of_j = torch.where(resA.ok, resA.idx,
+                                   torch.full_like(resA.idx, -1))
+        agree = resB.ok & (a_match_of_j[resB.idx]
+                           == torch.arange(N, device=idx2_in.device))
+        idx2_out = torch.where(ok_in, idx2_in, torch.where(
+            agree, resB.idx, torch.zeros_like(resB.idx)))
+        return idx2_out, ok_in | agree
+
+    def sim3_candidates(self, arena: SM.MapArena, k1: int, k2: int, idx2,
+                        ok):
+        """Matched landmark pairs in each keyframe's camera frame for the
+        Sim3 solver (``loop_closing.py:155-171``)."""
+        n_lev = self.cfg.n_levels
+        lm1 = arena.kf_obs_lm[k1].clamp(min=0)
+        lm2 = arena.kf_obs_lm[k2][idx2].clamp(min=0)
+        p1 = G.se3_apply(arena.kf_R[k1], arena.kf_t[k1], arena.lm_pos[lm1])
+        p2 = G.se3_apply(arena.kf_R[k2], arena.kf_t[k2], arena.lm_pos[lm2])
+        uv1 = arena.kf_uv[k1]
+        uv2 = arena.kf_uv[k2][idx2]
+        s1 = self.level_sigma2[arena.kf_level[k1].clamp(0, n_lev - 1)]
+        s2 = self.level_sigma2[arena.kf_level[k2][idx2].clamp(0, n_lev - 1)]
+        return p1, p2, uv1, uv2, s1, s2
+
+    def refine_sim3(self, arena: SM.MapArena, k1: int, k2: int, idx2, ok,
+                    s12, R12, t12):
+        """OptimizeSim3 over the matched pairs (``loop_closing.py:173-185``).
+        Returns (s, R, t, inliers, n_inliers)."""
+        p1, p2, uv1, uv2, s1, s2 = self.sim3_candidates(arena, k1, k2, idx2,
+                                                        ok)
+        return optimize_sim3(
+            self.cam, s12, R12, t12, p1, p2,
+            C.cubemap_uv_to_in_face(self.cam, uv1), arena.kf_face[k1],
+            C.cubemap_uv_to_in_face(self.cam, uv2), arena.kf_face[k2][idx2],
+            1.0 / s1, 1.0 / s2, ok, th2=10.0, fix_scale=False)
+
+    def scw_project(self, arena: SM.MapArena, k_cur: int, k_loop: int,
+                    s_cl, R_cl, t_cl, idx2, ok, covis=None):
+        """The loop neighbourhood's landmarks projected into the current
+        keyframe through the corrected S_cw (radius 10 x scale at the
+        predicted level, TH_LOW), ``loop_closing.py:187-236``. Returns (per
+        current feature the loop landmark or -1, the total match count)."""
+        L = arena.n_lm_cap
+        if covis is None:
+            covis = SM.covisibility_matrix(arena)
+        member = self._member_landmarks(arena, covis, k_loop)
+        # the refined matches: current feature i -> loop feature idx2[i] ->
+        # its landmark
+        cur_match = torch.where(ok, arena.kf_obs_lm[k_loop][idx2],
+                                torch.full_like(idx2, SM.NO_LM))
+        cur_match = torch.where(
+            (cur_match >= 0) & arena.lm_valid[cur_match.clamp(min=0)],
+            cur_match, torch.full_like(cur_match, SM.NO_LM))
+        already = _members(cur_match, L)
+        S_cw = G.sim3_compose(s_cl, R_cl, t_cl, _ones_like(s_cl),
+                              arena.kf_R[k_loop], arena.kf_t[k_loop])
+        Xc = G.sim3_apply(*S_cw, arena.lm_pos)          # (L,3)
+        lvl = SM.predict_scale(torch.linalg.norm(Xc, dim=-1),
+                               arena.lm_max_dist, self.log_scale,
+                               self.cfg.n_levels)
+        res = M.search_by_projection(
+            Xc, arena.lm_desc, lvl, member & ~already,
+            _kf_keypoints(arena, k_cur), self.cam, self.scale_factors, 10.0,
+            level_lo_off=-1, level_hi_off=0, th=float(self.cfg.th_low),
+            target_free=cur_match < 0)
+        lm_ids = torch.arange(L, device=Xc.device)
+        loop_assoc = cur_match.scatter_reduce(
+            0, res.idx, torch.where(res.ok, lm_ids,
+                                    torch.full_like(lm_ids, SM.NO_LM)),
+            reduce="amax", include_self=True)
+        return loop_assoc, (loop_assoc >= 0).sum()
+
+    def loop_member_landmarks(self, arena: SM.MapArena, max_sel: int,
+                              k_loop: int):
+        """The loop neighbourhood's landmark set compacted to ``max_sel``
+        ids, lowest first (``loop_closing.py:238-256``). Returns (sel,
+        sel_ok)."""
+        member = self._member_landmarks(
+            arena, SM.covisibility_matrix(arena), k_loop)
+        score = torch.where(member, 1.0, -1.0)
+        val, sel = _top(score, min(max_sel, arena.n_lm_cap))
+        return sel, val > 0
+
+    def search_and_fuse(self, arena: SM.MapArena, neigh: List[int],
+                        sel: torch.Tensor, sel_ok: torch.Tensor
+                        ) -> SM.MapArena:
+        """Project the loop landmark set into each corrected keyframe of
+        ``neigh`` (host slots) and fuse duplicates, the loop landmark winning
+        (SearchAndFuse, radius 4), in place (``loop_closing.py:258-309``): a
+        matched feature holding another landmark has it replaced, a free one
+        gains the observation."""
+        L, N = arena.n_lm_cap, arena.n_feat
+        for k in neigh:
+            ok_q = sel_ok & arena.lm_valid[sel] & arena.kf_valid[k]
+            Xc = G.se3_apply(arena.kf_R[k], arena.kf_t[k], arena.lm_pos[sel])
+            d = torch.linalg.norm(Xc, dim=-1)
+            lvl = SM.predict_scale(d, arena.lm_max_dist[sel], self.log_scale,
+                                   self.cfg.n_levels)
+            in_band = ((d >= 0.8 * arena.lm_min_dist[sel])
+                       & (d <= 1.2 * arena.lm_max_dist[sel]))
+            res = M.search_by_projection(
+                Xc, arena.lm_desc[sel], lvl, ok_q & in_band,
+                _kf_keypoints(arena, k), self.cam, self.scale_factors, 4.0,
+                level_lo_off=-1, level_hi_off=1, th=float(self.cfg.th_low))
+            j = res.idx
+            row = arena.kf_obs_lm[k]
+            tgt = row[j]
+            # a query whose landmark is already in this row is not fused
+            add = res.ok & (tgt < 0)
+            merge = res.ok & (tgt >= 0) & (tgt != sel)
+            row_new = row.scatter_reduce(
+                0, torch.where(add, j, torch.full_like(j, N - 1)),
+                torch.where(add, sel, torch.full_like(sel, SM.NO_LM)),
+                reduce="amax", include_self=True)
+            arena.kf_obs_lm[k] = row_new
+            redirect, dead = _redirect_merges(merge, tgt.clamp(min=0), sel, L)
+            arena.lm_valid.copy_(arena.lm_valid & ~dead)
+            SM.apply_redirect(arena, redirect)
+        return arena
+
+    def loop_fuse(self, arena: SM.MapArena, k_cur: int,
+                  loop_assoc: torch.Tensor) -> SM.MapArena:
+        """Fuse the matched loop landmarks into the current keyframe, in
+        place (``loop_closing.py:311-332``): a current feature holding
+        another landmark has it replaced by the loop landmark, a free one
+        gains the observation."""
+        L = arena.n_lm_cap
+        row = arena.kf_obs_lm[k_cur].clone()
+        has_loop = loop_assoc >= 0
+        arena.kf_obs_lm[k_cur] = torch.where(has_loop, loop_assoc, row)
+        merge = has_loop & (row >= 0) & (row != loop_assoc)
+        redirect, dead = _redirect_merges(merge, row.clamp(min=0),
+                                          loop_assoc.clamp(min=0), L)
+        arena.lm_valid.copy_(arena.lm_valid & ~dead)
+        return SM.apply_redirect(arena, redirect)
+
+    def essential_graph_edges(self, arena: SM.MapArena, covis, k_cur: int,
+                              k_loop: int, s_cl, R_cl, t_cl, neigh,
+                              s_v, R_v, t_v, loop_edges):
+        """The essential graph (``loop_closing.py:397-465``): the temporal
+        chain, every covisibility pair of weight >= 100, the past loop edges
+        and the new one, with their measurements. Returns (e_i, e_j, m_s,
+        m_R, m_t, e_ok), masked, in the JAX package's order."""
+        K = arena.n_kf_cap
+        dev = arena.device
+        idx = torch.arange(K, device=dev)
+        ordkey = torch.where(arena.kf_valid, arena.kf_frame_id,
+                             torch.full_like(arena.kf_frame_id, SM._BIG))
+        order = torch.sort(ordkey, stable=True)[1]
+        chain_i, chain_j = order, torch.roll(order, -1)
+        chain_ok = (arena.kf_valid[chain_i] & arena.kf_valid[chain_j]
+                    & (idx + 1 < K))
+        cov_i = idx.repeat_interleave(K)
+        cov_j = idx.repeat(K)
+        cov_ok = ((covis.reshape(-1) >= self.cfg.essential_graph_min_weight)
+                  & arena.kf_valid[cov_i] & arena.kf_valid[cov_j]
+                  & (cov_i < cov_j))
+        loop_i = torch.zeros(MAX_PREV_LOOPS, dtype=torch.int64, device=dev)
+        loop_j = torch.zeros_like(loop_i)
+        loop_ok = torch.zeros(MAX_PREV_LOOPS, dtype=torch.bool, device=dev)
+        for n, (a, b) in enumerate(loop_edges[:MAX_PREV_LOOPS]):
+            loop_i[n].fill_(a)
+            loop_j[n].fill_(b)
+            loop_ok[n].fill_(True)
+        new_i = torch.full((1,), k_cur, dtype=torch.int64, device=dev)
+        new_j = torch.full((1,), k_loop, dtype=torch.int64, device=dev)
+        e_i = torch.cat([chain_i, cov_i, loop_i, new_i])
+        e_j = torch.cat([chain_j, cov_j, loop_j, new_j])
+        e_ok = torch.cat([chain_ok, cov_ok, loop_ok,
+                          torch.ones(1, dtype=torch.bool, device=dev)])
+        # edges within the corrected neighbourhood or within the untouched
+        # rest measure the original relative poses; covisibility edges that
+        # cross its boundary (made by loop fusion) measure the seeded ones
+        one = torch.ones(e_i.shape[0], device=dev)
+        m_orig = G.sim3_compose(one, arena.kf_R[e_j], arena.kf_t[e_j],
+                                *G.sim3_inverse(one, arena.kf_R[e_i],
+                                                arena.kf_t[e_i]))
+        m_seed = G.sim3_compose(s_v[e_j], R_v[e_j], t_v[e_j],
+                                *G.sim3_inverse(s_v[e_i], R_v[e_i],
+                                                t_v[e_i]))
+        is_covis = torch.zeros(e_i.shape[0], dtype=torch.bool, device=dev)
+        is_covis[K:K + K * K].fill_(True)
+        cross = is_covis & (neigh[e_i] != neigh[e_j])
+        ms = torch.where(cross, m_seed[0], m_orig[0])
+        mR = torch.where(cross[:, None, None], m_seed[1], m_orig[1])
+        mt = torch.where(cross[:, None], m_seed[2], m_orig[2])
+        # the new loop edge measures S_cl^-1 (current -> loop)
+        S_lc = G.sim3_inverse(s_cl, R_cl, t_cl)
+        ms[-1], mR[-1], mt[-1] = S_lc
+        return e_i, e_j, ms, mR, mt, e_ok
+
+    def propagate_and_pose_graph(self, arena: SM.MapArena, k_cur: int,
+                                 k_loop: int, s_cl, R_cl, t_cl,
+                                 neigh_pre: torch.Tensor,
+                                 loop_edges: List[Tuple[int, int]]
+                                 ) -> SM.MapArena:
+        """CorrectLoop's core (``loop_closing.py:334-486``), in place: seed
+        the current keyframe with S_cw = S_cl o T_lw, propagate it through
+        ``neigh_pre`` (its covisible set measured before loop fusion),
+        optimize the essential graph with the loop keyframe fixed, recover
+        the SE3 poses and remap every landmark through its reference
+        keyframe. The masked edges are compacted first (one host read)."""
+        K = arena.n_kf_cap
+        dev = arena.device
+        covis = SM.covisibility_matrix(arena)
+        ones = torch.ones(K, device=dev)
+        s_v, R_v, t_v = ones, arena.kf_R, arena.kf_t
+        S_cw = G.sim3_compose(s_cl, R_cl, t_cl, _ones_like(s_cl),
+                              arena.kf_R[k_loop], arena.kf_t[k_loop])
+        neigh = neigh_pre & arena.kf_valid
+        neigh[k_cur].fill_(True)
+        R_cw_inv, t_cw_inv = G.se3_inverse(arena.kf_R[k_cur],
+                                           arena.kf_t[k_cur])
+        R_ic = torch.einsum("kij,jl->kil", arena.kf_R, R_cw_inv)
+        t_ic = torch.einsum("kij,j->ki", arena.kf_R, t_cw_inv) + arena.kf_t
+        S_iw = G.sim3_compose(ones, R_ic, t_ic, S_cw[0].expand(K),
+                              S_cw[1].expand(K, 3, 3), S_cw[2].expand(K, 3))
+        s_v = torch.where(neigh, S_iw[0], s_v)
+        R_v = torch.where(neigh[:, None, None], S_iw[1], R_v)
+        t_v = torch.where(neigh[:, None], S_iw[2], t_v)
+
+        # landmarks of the corrected neighbourhood through S_old -> S_corr,
+        # each owned by its reference keyframe (else its creator)
+        seg, live = SM._flat_obs(arena)
+        kf_of = torch.arange(K, device=dev).repeat_interleave(arena.n_feat)
+        ref = SM.reference_keyframes(arena, seg, live, kf_of)
+        own = torch.where(ref < K, ref, arena.lm_first_kf.clamp(0, K - 1))
+        owned = neigh[own] & arena.lm_valid
+        p_cam = G.se3_apply(arena.kf_R[own], arena.kf_t[own], arena.lm_pos)
+        lm_new = G.sim3_apply(*G.sim3_inverse(S_iw[0][own], S_iw[1][own],
+                                              S_iw[2][own]), p_cam)
+        lm_pos = torch.where(owned[:, None], lm_new, arena.lm_pos)
+
+        e_i, e_j, ms, mR, mt, e_ok = self.essential_graph_edges(
+            arena, covis, k_cur, k_loop, s_cl, R_cl, t_cl, neigh, s_v, R_v,
+            t_v, loop_edges)
+        keep = e_ok.nonzero()[:, 0]                     # the one host read
+        fixed = torch.zeros(K, dtype=torch.bool, device=dev)
+        fixed[k_loop].fill_(True)
+        s_o, R_o, t_o = optimize_essential_graph(
+            s_v, R_v, t_v, arena.kf_valid, fixed, e_i[keep], e_j[keep],
+            ms[keep], mR[keep], mt[keep],
+            torch.ones(keep.shape[0], dtype=torch.bool, device=dev),
+            n_iters=POSE_GRAPH_ITERS)
+
+        # SE3 back (t / s) and every landmark remapped old -> new
+        p_cam_all = G.se3_apply(arena.kf_R[own], arena.kf_t[own], lm_pos)
+        lm_final = torch.where(
+            arena.lm_valid[:, None],
+            G.sim3_apply(*G.sim3_inverse(s_o[own], R_o[own], t_o[own]),
+                         p_cam_all), lm_pos)
+        kf_t_new = t_o / torch.clamp(s_o[:, None], min=1e-12)
+        valid = arena.kf_valid
+        arena.kf_R.copy_(torch.where(valid[:, None, None], R_o, arena.kf_R))
+        arena.kf_t.copy_(torch.where(valid[:, None], kf_t_new, arena.kf_t))
+        arena.lm_pos.copy_(lm_final)
+        return arena
+
+
+class LoopCloser:
+    """The host state machine of loop closing (``loop_closing.py:489-712``):
+    ``process(system, slot)`` on each new keyframe. ``system`` has the
+    ``arena``, the keyframe counter ``n_kf``, the ``bow_table`` and the
+    RANSAC ``generator``. ``reads`` and ``eigh_waits`` are the last call's
+    host reads and eigen-solve waits; ``timings`` the wall seconds of each
+    event by stage (detect, sim3, correct, gba)."""
+
+    def __init__(self, cfg: SlamConfig, cam: CubemapCamera):
+        self.cfg, self.cam = cfg, cam
+        self.k = LoopKernels(cfg, cam)
+        self.consistency_th = 3       # mnCovisibilityConsistencyTh
+        self.consistent_groups: List[Tuple[Set[int], int]] = []
+        self.last_loop_counter = -100  # keyframe counter at the last loop
+        self.loop_edges: List[Tuple[int, int]] = []
+        self.timings: dict = {}
+        self.reads = 0
+        self.eigh_waits = 0
+
+    def _sync(self) -> None:
+        if self.cam.device.type == "cuda":
+            torch.cuda.synchronize(self.cam.device)
+            self.reads += 1
+
+    def _lap(self, name: str, t0: float) -> float:
+        now = time.perf_counter()
+        self.timings.setdefault(name, []).append(now - t0)
+        return now
+
+    def reset(self) -> None:
+        self.consistent_groups = []
+        self.last_loop_counter = -100
+        self.loop_edges = []
+
+    def process(self, system, slot: int) -> bool:
+        """DetectLoop + ComputeSim3 + CorrectLoop for a new keyframe in
+        ``slot``. Returns True if a loop was closed."""
+        self.reads = self.eigh_waits = 0
+        # >= 10 keyframes in all and since the last loop, on the monotonic
+        # counter (slots are recycled)
+        if system.n_kf < 10 or system.n_kf - self.last_loop_counter < 10:
+            return False
+        t0 = time.perf_counter()
+        with record_function("loop.detect"):
+            cand_idx, cand_ok, groups = self.k.detect_candidates_fused(
+                system.arena, system.bow_table, slot)
+            n = cand_idx.shape[0]
+            host = torch.cat([cand_ok.to(torch.int64), cand_idx,
+                              groups.reshape(-1).to(torch.int64)]).tolist()
+            self.reads += 1
+        self._lap("detect", t0)
+        K = groups.shape[1]
+        ok = host[:n]
+        if not any(ok):
+            self.consistent_groups = []
+            return False
+        # the 3-consecutive-keyframe consistency (LoopClosing.cpp:151-210)
+        enough = []
+        new_groups: List[Tuple[Set[int], int]] = []
+        for r in range(n):
+            if not ok[r]:
+                continue
+            c = host[n + r]
+            row = host[2 * n + r * K:2 * n + (r + 1) * K]
+            group = {i for i, g in enumerate(row) if g} | {c}
+            matched = False
+            for prev_set, streak in self.consistent_groups:
+                if group & prev_set:
+                    new_groups.append((group, streak + 1))
+                    if streak + 1 >= self.consistency_th:
+                        enough.append(c)
+                    matched = True
+                    break
+            if not matched:
+                new_groups.append((group, 0))
+        self.consistent_groups = new_groups
+        for c in enough:
+            if self._try_close(system, slot, c):
+                self.last_loop_counter = system.n_kf
+                self.consistent_groups = []
+                return True
+        return False
+
+    def _try_close(self, system, k_cur: int, k_loop: int) -> bool:
+        """ComputeSim3 against one consistent candidate, then CorrectLoop
+        and the global BA (``loop_closing.py:574-670``)."""
+        t0 = time.perf_counter()
+        with record_function("loop.sim3"):
+            found = self._compute_sim3(system, k_cur, k_loop)
+        if found is None:
+            return False
+        t0 = self._lap("sim3", t0)
+        with record_function("loop.correct"):
+            self._correct(system, k_cur, k_loop, *found)
+            self._sync()
+        t0 = self._lap("correct", t0)
+        with record_function("loop.gba"):
+            self._global_ba(system)
+            self._sync()
+        self._lap("gba", t0)
+        return True
+
+    def _compute_sim3(self, system, k_cur: int, k_loop: int):
+        """ComputeSim3 (``loop_closing.py:577-619``): the keyframe-pair
+        match, RANSAC, the widening, the refinement and the S_cw gate, each
+        gate on one read. Returns (S_cl, loop_assoc, the current keyframe's
+        covisible set as host slots) or None."""
+        cfg, k = self.cfg, self.k
+        arena = system.arena
+        idx2, ok = k.match_kf_pair(arena, k_cur, k_loop)
+        self.reads += 1
+        if int(ok.sum()) < 20:
+            return None
+        p1, p2, uv1, uv2, s1, s2 = k.sim3_candidates(arena, k_cur, k_loop,
+                                                     idx2, ok)
+        res = S3.sim3_ransac(self.cam, system.generator, p1, p2, uv1, uv2,
+                             s1, s2, ok, n_iters=cfg.sim3_ransac_iters,
+                             fix_scale=False, min_inliers=20)
+        self.reads += 1
+        self.eigh_waits += S3.EIGH_WAITS
+        if not bool(res.success):
+            return None
+        # widen the match set with the RANSAC Sim3 before the refinement
+        idx2, ok_wide = k.search_by_sim3(arena, k_cur, k_loop, res.s12,
+                                         res.R12, res.t12, idx2,
+                                         ok & res.inliers)
+        s, R, t, inl, n_inl = k.refine_sim3(arena, k_cur, k_loop, idx2,
+                                            ok_wide, res.s12, res.R12,
+                                            res.t12)
+        self.reads += 1
+        if int(n_inl) < 20:
+            return None
+        # the S_cw projection gate, read with the current keyframe's
+        # covisible set before fusion (mvpCurrentConnectedKFs)
+        covis = SM.covisibility_matrix(arena)
+        loop_assoc, total = k.scw_project(arena, k_cur, k_loop, s, R, t,
+                                          idx2, ok_wide & inl, covis=covis)
+        neigh_pre = (covis[k_cur] >= cfg.covisibility_weight_th) \
+            & arena.kf_valid
+        host = torch.cat([total.reshape(1),
+                          neigh_pre.to(torch.int64)]).tolist()
+        self.reads += 1
+        if host[0] < 40:
+            return None
+        neigh_np = [i for i, v in enumerate(host[1:]) if v]
+        return (s, R, t), loop_assoc, neigh_pre, neigh_np
+
+    def _correct(self, system, k_cur: int, k_loop: int, sim3, loop_assoc,
+                 neigh_pre, neigh_np) -> None:
+        """CorrectLoop (``loop_closing.py:621-661``), in place: loop fusion,
+        the propagation and pose graph, SearchAndFuse over the corrected
+        neighbourhood, the landmark statistics."""
+        k, arena = self.k, system.arena
+        # fuse the loop landmarks into the current keyframe before the pose
+        # graph, so that the covisibility edges it makes take part
+        k.loop_fuse(arena, k_cur, loop_assoc)
+        k.propagate_and_pose_graph(arena, k_cur, k_loop, *sim3, neigh_pre,
+                                   self.loop_edges)
+        self.reads += 1
+        self.loop_edges.append((k_cur, k_loop))
+        # SearchAndFuse over the whole corrected neighbourhood: the current
+        # keyframe and its pre-fusion covisible keyframes
+        neigh = [k_cur] + [i for i in neigh_np[:MAX_NEIGH - 1] if i != k_cur]
+        sel, sel_ok = k.loop_member_landmarks(
+            arena, min(MAX_LOOP_LANDMARKS, arena.n_lm_cap), k_loop)
+        k.search_and_fuse(arena, neigh, sel, sel_ok)
+        SM.update_landmark_stats(arena, k.scale_factors)
+        self.reads += 1
+
+    def _global_ba(self, system) -> None:
+        """The post-loop global BA, single-device branch
+        (``loop_closing.py:701-712``): two phases (5 robust iterations, the
+        chi2 cut, 10 more) of 50 CG iterations each step, then the outlier
+        observations removed, in place. The problem spans every slot of the
+        observation table (K*N); the solve takes its live edges only (one
+        read), whose segment sums are those of the masked problem with its
+        zeros left out."""
+        arena = system.arena
+        K, N = arena.n_kf_cap, arena.n_feat
+        prob = global_ba_problem_from_arena(self.cam, arena,
+                                            self.k.inv_level_sigma2)
+        keep = prob.obs_valid.nonzero()[:, 0]
+        self.reads += 1
+        live = prob._replace(**{
+            f: getattr(prob, f)[keep]
+            for f in ("obs_cam", "obs_pt", "obs_face", "obs_uv",
+                      "obs_inv_sigma2", "obs_valid")})
+        out, inl_live = bundle_adjust(self.cam, live, phase_iters=(5, 10),
+                                      solver="cg", cg_iters=50)
+        inl = torch.zeros_like(prob.obs_valid).index_copy_(0, keep, inl_live)
+        kill = (prob.obs_valid & ~inl).reshape(K, N)
+        obs = torch.where(kill, torch.full_like(arena.kf_obs_lm, SM.NO_LM),
+                          arena.kf_obs_lm)
+        arena.kf_R.copy_(out.R)
+        arena.kf_t.copy_(out.t)
+        arena.lm_pos.copy_(out.X)
+        arena.kf_obs_lm.copy_(obs)

@@ -134,34 +134,50 @@ def make_world(rng: np.random.Generator, n: int = 500,
 
 
 class Renderer:
-    """Ray-traces a billboard world into raw fisheye frames
-    (``synth.Renderer(target="fisheye")``, ``synth.py:99-196``), on the
-    host, with the port's camera model. ``render`` also returns each
-    pixel's distance to the billboard drawn there (0 on the background), a
-    synthetic-data helper that ``build_map`` back-projects with."""
+    """Ray-traces a billboard world into raw fisheye frames or, with
+    ``target="cubemap"``, into cubemap crosses (``synth.Renderer``,
+    ``synth.py:99-196``), on the host, with the port's camera model.
+    ``render`` also returns each pixel's distance to the billboard drawn
+    there (0 on the background), a synthetic-data helper that ``build_map``
+    back-projects with."""
 
-    def __init__(self, cam: CubemapCamera, cfg: SlamConfig):
+    def __init__(self, cam: CubemapCamera, cfg: SlamConfig,
+                 target: str = "fisheye"):
         self.cam = CubemapCamera(**{
             f.name: getattr(cam, f.name).cpu()
             for f in dataclasses.fields(CubemapCamera)})
-        H, W = cfg.fisheye_height, cfg.fisheye_width
+        self.target = target
+        if target == "cubemap":
+            H, W = cfg.cube_h, cfg.cube_w
+        elif target == "fisheye":
+            H, W = cfg.fisheye_height, cfg.fisheye_width
+        else:
+            raise ValueError(target)
         uu, vv = np.meshgrid(np.arange(W, dtype=np.float32),
                              np.arange(H, dtype=np.float32))
         uv = torch.stack([torch.as_tensor(uu), torch.as_tensor(vv)], dim=-1)
-        self.rays_img = C.img_to_ray(self.cam, uv).numpy()
-        # first-order px/rad of the fisheye centre
-        poly = self.cam.poly.numpy()
-        self.fx = float(abs(poly[0])) if len(poly) else 250.0
+        if target == "cubemap":
+            self.rays_img = C.cubemap_to_ray(self.cam, uv)[0].numpy()
+            # the faces' pinhole focal length
+            self.fx = float(self.cam.fxycxy[0])
+        else:
+            self.rays_img = C.img_to_ray(self.cam, uv).numpy()
+            # first-order px/rad of the fisheye centre
+            poly = self.cam.poly.numpy()
+            self.fx = float(abs(poly[0])) if len(poly) else 250.0
         self.H, self.W = H, W
         self.bg = 20.0
 
     def _project(self, pc: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Camera points -> (fisheye uv, visible)."""
+        """Camera points -> (uv, visible) in the target image."""
+        pct = torch.as_tensor(pc, dtype=torch.float32)
+        if self.target == "cubemap":
+            uv, face = C.ray_to_cubemap(self.cam, pct)
+            return uv.numpy(), face.numpy() >= 0
         d = np.linalg.norm(pc, axis=-1)
         cosang = pc[:, 2] / np.maximum(d, 1e-12)
         vis = cosang >= float(self.cam.cos_fov_th)
-        uv = C.ray_to_img(self.cam, torch.as_tensor(
-            pc, dtype=torch.float32)).numpy()
+        uv = C.ray_to_img(self.cam, pct).numpy()
         vis &= ((uv[:, 0] >= 0) & (uv[:, 0] < self.W)
                 & (uv[:, 1] >= 0) & (uv[:, 1] < self.H))
         return uv, vis
@@ -242,9 +258,112 @@ def forward_trajectory(n_frames: int, step: float = 0.12,
     return poses
 
 
+def loop_trajectory(n_frames: int, radius: float = 3.0,
+                    n_loops: float = 1.15, bob: float = 0.0,
+                    facing: str = "center"
+                    ) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """A closed circuit of ``radius`` in the x-z plane over ``n_loops``
+    revolutions (above 1 it revisits the start), as world->camera (R, t)
+    poses (``synth.py:225-249``). ``facing="center"`` keeps the optical axis
+    toward the circle's far side; ``"tangent"`` points it along the
+    direction of travel."""
+    poses = []
+    for k in range(n_frames):
+        phi = 2.0 * np.pi * n_loops * k / n_frames
+        t_wc = np.array([radius * np.sin(phi), bob * np.sin(3.0 * phi),
+                         radius * (1.0 - np.cos(phi))], np.float32)
+        R = _yaw(phi if facing == "center" else phi - 0.5 * np.pi)
+        poses.append((R, -R @ t_wc.astype(np.float32)))
+    return poses
+
+
 def camera_centres(poses) -> np.ndarray:
     """(n, 3) world positions of the cameras of (R, t) poses."""
     return np.stack([-R.T @ t for R, t in poses])
+
+
+# ---------------------------------------------------------------------------
+# A map with a constructed loop drift (the state CorrectLoop faces)
+# ---------------------------------------------------------------------------
+
+LOOP_SIM3_DRIFT = (1.06, (0.0, 0.03, 0.01), (0.15, -0.05, 0.1))
+LOOP_KEYFRAMES = 14          # segment A 0-5, connectors 6-9, segment B 10-13
+
+
+def loop_gt_pose(j: int) -> Tuple[np.ndarray, np.ndarray]:
+    """World->camera pose j of the revisited path segment
+    (``tests/test_loop.py:77-82``)."""
+    R = so3_exp(torch.tensor([0.0, 0.06 * j, 0.0])).numpy()
+    t_wc = np.array([0.1 * j, 0, 0.05 * j], np.float32)
+    return R.astype(np.float32), (-R @ t_wc).astype(np.float32)
+
+
+def build_drifted_loop_arena(cfg: SlamConfig, rng: np.random.Generator,
+                             n_pts: int = 500, device="cpu"):
+    """The port's copy of ``tests/test_loop.py:85-170``: segment A
+    (keyframes 0-5) maps a shell of ``n_pts`` points at ground truth; after
+    connector keyframes 6-9 (40 observations each, off to the side), segment
+    B (10-13) revisits A's viewpoints, but its duplicate landmarks and poses
+    sit in a Sim3-drifted frame D (x' = s R_d x + t_d). Projections stay
+    exact: the stored pose of a segment-B keyframe is
+    (R_gt R_dᵀ, s t_gt - R_gt R_dᵀ t_d). An arena of ``cfg``'s capacities
+    on ``device``. Returns (arena, world points W, their (n_pts, 8) uint32
+    descriptors, (s_d, R_d, t_d))."""
+    from cubemapslam_tpu_torch import interop
+    cam = CubemapCamera.from_config(cfg, "cpu")
+    d = rng.normal(size=(n_pts, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    W = (d * rng.uniform(3, 7, (n_pts, 1))).astype(np.float32)
+    desc = rng.integers(0, 2 ** 32, (n_pts, 8), dtype=np.uint32)
+    s_d, r_d, t_d = LOOP_SIM3_DRIFT
+    R_d = so3_exp(torch.tensor(r_d)).numpy()
+    t_d = np.array(t_d, np.float32)
+
+    K, N, L = cfg.max_keyframes, cfg.n_features, cfg.max_landmarks
+    f = interop.arena_to_numpy(SM.make_arena(K, N, L, "cpu"))
+    lm_of = {}
+    for i in range(LOOP_KEYFRAMES):
+        seg_b = i >= 10
+        if 6 <= i <= 9:
+            Rg, tg = loop_gt_pose(5)
+            tg = tg + np.array([0, 0.3 * (i - 5), 0], np.float32)
+        else:
+            Rg, tg = loop_gt_pose(i - 10 if seg_b else i)
+        pc = (Rg @ W.T).T + tg                      # the true camera points
+        uv, face = (x.numpy() for x in C.ray_to_cubemap(
+            cam, torch.as_tensor(pc, dtype=torch.float32)))
+        rays = pc / np.linalg.norm(pc, axis=1, keepdims=True)
+        vis = np.nonzero(face >= 0)[0]
+        if 6 <= i <= 9:
+            vis = vis[:40]
+        vis = vis[:N]
+        if seg_b:
+            f["kf_R"][i] = Rg @ R_d.T
+            f["kf_t"][i] = s_d * tg - Rg @ R_d.T @ t_d
+        else:
+            f["kf_R"][i], f["kf_t"][i] = Rg, tg
+        n = len(vis)
+        f["kf_uv"][i, :n] = uv[vis]
+        f["kf_rays"][i, :n] = rays[vis]
+        f["kf_face"][i, :n] = face[vis]
+        f["kf_desc"][i, :n] = desc[vis]
+        f["kf_kp_valid"][i, :n] = True
+        f["kf_level"][i] = 0
+        f["kf_angle"][i] = 0.0
+        for j, p in enumerate(vis):
+            key = (int(p), seg_b)
+            if key not in lm_of:
+                slot = lm_of[key] = len(lm_of)
+                f["lm_pos"][slot] = (s_d * (R_d @ W[p]) + t_d) if seg_b \
+                    else W[p]
+                f["lm_valid"][slot] = True
+                f["lm_desc"][slot] = desc[p]
+                f["lm_first_kf"][slot] = i
+            f["kf_obs_lm"][i, j] = lm_of[key]
+        f["kf_valid"][i] = True
+        f["kf_frame_id"][i] = i
+    return (interop.arena_from_numpy(f, device), W, desc,
+            (s_d, R_d, t_d))
 
 
 # ---------------------------------------------------------------------------

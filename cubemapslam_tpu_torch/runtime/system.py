@@ -1,5 +1,5 @@
 """The SLAM system: initialization, tracking, keyframes, local mapping,
-relocalization and localization mode.
+loop closing, relocalization and localization mode.
 
 ``CubemapSLAM`` is the port's counterpart of the JAX package's system object
 (``cubemapslam_tpu/runtime/system.py:65-987``), built on ``MapTracker``'s
@@ -7,7 +7,8 @@ steady frame: a sequence goes in from its first frame, one
 ``track_fisheye`` or ``track_cubemap`` call a frame, and the system
 initializes from two views, tracks, inserts keyframes on the cadence of
 ``_need_new_keyframe`` (each with its BoW row), runs the local-mapping step
-on each and the deferred local BA on the next frame without an insertion.
+and then loop closing (``LoopCloser.process``) on each, and the deferred
+local BA on the next frame without an insertion.
 A LOST frame relocalizes against the map: BoW candidates, the
 reference-keyframe match, bearing-EPnP RANSAC and pose-only LM per
 candidate, then the widening pass. With 5 or fewer live keyframes a lost
@@ -24,7 +25,11 @@ the two initialization frames, and trained once more when
 Host reads. A tracked frame reads the card twice, as ``MapTracker``'s does
 (the motion-match counts and the packed result); a keyframe insertion, its
 BoW row, its mapping step and a deferred BA add none, because the mapping
-kernels mask where the JAX package branches on the device. An
+kernels mask where the JAX package branches on the device. Loop closing adds
+its own (``runtime/loop_closing.py``): from the tenth keyframe on, the loop
+detector reads its candidates once a keyframe; a consistent candidate adds
+the reads of ComputeSim3 and the eigen-solve waits of Sim3 RANSAC, and a
+closure those of the correction and the global BA. An
 initialization attempt reads its keypoint count, its match count and the
 RANSAC verdict, and the SVDs of the essential solver wait 6 times more
 (``essential.SVD_WAITS``); building the initial map reads the triangulated
@@ -55,6 +60,7 @@ from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import (Keypoints,
                                                        build_extractor)
 from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES
+from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
 from cubemapslam_tpu_torch.runtime.tracking import LastFrame, MapTracker
 from cubemapslam_tpu_torch.solvers.essential import SVD_WAITS, TwoViewResult
@@ -104,6 +110,9 @@ class CubemapSLAM(MapTracker):
         super().__init__(cfg, device)
         cfg = self.cfg
         self.mapping = MappingKernels(cfg, self.cam)
+        self.loop_closer = LoopCloser(cfg, self.cam)
+        self.loop_closing_enabled = True
+        self.n_loops_closed = 0
         self.ba_cams = min(48, cfg.max_keyframes)
         # the init-mode extractor: 3x the features (Tracking.cpp:96),
         # downselected to the arena's width after the bootstrap
@@ -168,10 +177,13 @@ class CubemapSLAM(MapTracker):
     # Public API
     # ------------------------------------------------------------------
 
-    def track_cubemap(self, cube: torch.Tensor, timestamp: float
-                      ) -> Optional[np.ndarray]:
+    def track_cubemap(self, cube: torch.Tensor, timestamp: float,
+                      mask=None) -> Optional[np.ndarray]:
         """Track one cubemap-cross frame, dispatching to initialization,
-        tracking or relocalization (``system.py:334-369``)."""
+        tracking or relocalization (``system.py:334-369``). ``mask``
+        (3Hf, 3Wf), array or tensor, culls the keypoints on its zero pixels
+        in place of the FOV mask; ``None`` keeps the FOV mask, where the JAX
+        package's ``None`` means no mask."""
         self.total_frames += 1
         pre_init = self.state in (TrackState.NO_IMAGES_YET,
                                   TrackState.NOT_INITIALIZED)
@@ -180,7 +192,7 @@ class CubemapSLAM(MapTracker):
         with record_function("extract"):
             cube = torch.as_tensor(cube, device=self.device)
             extract = self.extractor_init if pre_init else self.extractor
-            kp = extract(cube, self.mask)
+            kp = extract(cube, self.as_mask(mask))
         self._stage("extract")
         fid = self.frame_id
         self.frame_id += 1
@@ -396,6 +408,7 @@ class CubemapSLAM(MapTracker):
         self.cnt = None
         self.bow_table = None
         self.mb_vo = False
+        self.loop_closer.reset()
 
     # ------------------------------------------------------------------
     # Localization mode (system.py:497-557, 620-707)
@@ -650,11 +663,11 @@ class CubemapSLAM(MapTracker):
 
     def _create_keyframe(self, kp: Keypoints, assoc, outlier, R, t,
                          fid: int, ts: float, slot: int, live_kf: int):
-        """``system.py:866-898`` without loop closing: insert into the free
-        ``slot``, write the BoW row, re-anchor the live frame on the new
-        keyframe, retrain a bootstrap vocabulary when due (``live_kf``: the
-        live keyframes after the insertion), run local mapping, then take
-        the frame's associations from the keyframe's row."""
+        """``system.py:866-898``: insert into the free ``slot``, write the
+        BoW row, re-anchor the live frame on the new keyframe, retrain a
+        bootstrap vocabulary when due (``live_kf``: the live keyframes after
+        the insertion), run local mapping and loop closing, then take the
+        frame's associations from the keyframe's row."""
         assert slot >= 0
         self.kernels.insert_keyframe(self.arena, slot, kp, assoc, outlier,
                                      R, t, fid, ts)
@@ -669,6 +682,8 @@ class CubemapSLAM(MapTracker):
                                        rel_t=torch.zeros(3, device=dev))
         self._maybe_retrain_vocab(live_kf)
         self._local_mapping(slot)
+        if self.loop_closing_enabled:
+            self._loop_closing(slot)
         self.last = self.last._replace(
             assoc=self.arena.kf_obs_lm[slot].clone(),
             outlier=torch.zeros_like(self.last.outlier))
@@ -686,6 +701,24 @@ class CubemapSLAM(MapTracker):
                 self._dispatch_deferred_ba()
         if self.n_kf > 2:
             self._ba_pending_slot = slot
+
+    def _loop_closing(self, slot: int) -> None:
+        """``LoopCloser.process`` on the new keyframe (``system.py:886-888``);
+        its reads, waits and stage times go into the frame's row."""
+        lc = self.loop_closer
+        n_before = {k: len(v) for k, v in lc.timings.items()}
+        with record_function("loop"):
+            closed = lc.process(self, slot)
+        row = self._row
+        row["host_reads"] = row.get("host_reads", 0) + lc.reads
+        if lc.eigh_waits:
+            row["eigh_waits"] = row.get("eigh_waits", 0) + lc.eigh_waits
+        for k, v in lc.timings.items():
+            if len(v) > n_before.get(k, 0):
+                row[f"loop_{k}_ms"] = v[-1] * 1e3
+        if closed:
+            self.n_loops_closed += 1
+            row["loop_closed"] = True
 
     def _dispatch_deferred_ba(self) -> None:
         """``system.py:939-953``: local BA around the pending keyframe (a

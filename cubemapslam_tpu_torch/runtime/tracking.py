@@ -105,27 +105,30 @@ class MapTracker(FrameFrontend):
         return (torch.eye(3, device=self.device),
                 torch.zeros(3, device=self.device), 0.0)
 
-    def track_fisheye(self, fisheye_u8, timestamp: float
+    def track_fisheye(self, fisheye_u8, timestamp: float, mask=None
                       ) -> Optional[np.ndarray]:
-        """Track one (H, W) uint8 fisheye frame: the warp on the device, then
-        ``track_cubemap``."""
+        """Track one (H, W) uint8 fisheye frame (an array, or a tensor such
+        as ``prefetch_image`` returns): the warp on the device, then
+        ``track_cubemap`` with ``mask``."""
         with record_function("warp"):
             img = torch.as_tensor(fisheye_u8, device=self.device)
             cube = self.warp(img)
-        return self.track_cubemap(cube, timestamp)
+        return self.track_cubemap(cube, timestamp, mask)
 
-    def track_cubemap(self, cube: torch.Tensor, timestamp: float
+    def track_cubemap(self, cube: torch.Tensor, timestamp: float, mask=None
                       ) -> Optional[np.ndarray]:
-        """Track one cubemap cross. Returns the 4x4 float64 world->camera
-        pose, or ``None`` when the frame is lost (fewer than 15 matches or
-        10 inliers, or fewer than ``min_track_inliers`` after the local
-        map)."""
+        """Track one cubemap cross. ``mask`` (3Hf, 3Wf), array or tensor,
+        culls the keypoints on its zero pixels in place of the FOV mask;
+        ``None`` keeps the FOV mask (``FrameFrontend.extract``). Returns the
+        4x4 float64 world->camera pose, or ``None`` when the frame is lost
+        (fewer than 15 matches or 10 inliers, or fewer than
+        ``min_track_inliers`` after the local map)."""
         if self.last is None:
             raise RuntimeError("seed the tracker with a map first")
         fid = self.frame_id
         self.frame_id += 1
         with record_function("extract"):
-            kp = self.extract(cube)
+            kp = self.extract(cube, mask)
         return self._track_steady(kp, fid, timestamp)[0]
 
     def _track_steady(self, kp: Keypoints, fid: int, timestamp: float):

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from cubemapslam_tpu_torch import camera as C
 from cubemapslam_tpu_torch import matching as M
 
 NO_LM = -1
@@ -350,6 +351,23 @@ def predict_scale(dist: torch.Tensor, max_dist: torch.Tensor,
     ratio = max_dist.clamp(min=1e-12) / dist.clamp(min=1e-12)
     lvl = torch.ceil(torch.log(ratio) / log_scale_factor).to(torch.int64)
     return lvl.clamp(0, n_levels - 1)
+
+
+def ba_edges_from_arena(cam, arena: MapArena, cam_sel: torch.Tensor,
+                        inv_level_sigma2: torch.Tensor):
+    """The observations of the selected keyframes as BA COO arrays over the
+    whole (K*N) table, masked, not compacted (``slam_map.py:392-411``).
+    cam_sel: (K,) bool. Returns (obs_cam, obs_pt, obs_face, obs_uv in-face,
+    obs_inv_sigma2, obs_valid), each (K*N, ..)."""
+    K, N = arena.n_kf_cap, arena.n_feat
+    _, live = _flat_obs(arena)
+    kf_idx = torch.arange(K, device=arena.device).repeat_interleave(N)
+    live = live & cam_sel[kf_idx]
+    lm = arena.kf_obs_lm.reshape(-1).clamp(min=0)
+    lev = arena.kf_level.reshape(-1).clamp(0, inv_level_sigma2.shape[0] - 1)
+    uv_face = C.cubemap_uv_to_in_face(cam, arena.kf_uv.reshape(-1, 2))
+    return (kf_idx, lm, arena.kf_face.reshape(-1), uv_face,
+            inv_level_sigma2[lev], live)
 
 
 def apply_redirect(arena: MapArena, redirect: torch.Tensor) -> MapArena:

@@ -1,6 +1,7 @@
 """Geometric solvers (counterpart of ``cubemapslam_tpu.solvers``): two-ray
 triangulation, Horn alignment, RANSAC sampling and the two-view essential
-initialization. PnP and Sim3 come with relocalization and loop closing."""
+initialization; PnP (``solvers.pnp``) and Sim3 RANSAC (``solvers.sim3``)
+are imported from their modules."""
 
 from cubemapslam_tpu_torch.solvers.horn import horn_alignment  # noqa: F401
 from cubemapslam_tpu_torch.solvers.sampling import (  # noqa: F401

@@ -1,5 +1,5 @@
 """Host waits of ``torch.linalg.eigh`` on a CUDA card: per call shape, and per
-call site of one ``pnp_ransac``.
+call site of one ``pnp_ransac`` and of one ``sim3_ransac``.
 
     python3 scripts/torch_eigh_waits.py
 
@@ -9,8 +9,9 @@ profiler event of the host that synchronises with the card, or a blocking
 ``torch.profiler``. Prints one JSON line per eigh shape (its waits and
 their event names), then one per call site of ``pnp_ransac`` (the eigh
 calls labelled in call order, with their shapes and waits) for each of a
-few hypothesis counts and point counts, and last the total beside
-``pnp.EIGH_WAITS``.
+few hypothesis counts and point counts, with the total beside
+``pnp.EIGH_WAITS``; then the same for ``sim3_ransac`` beside
+``sim3.EIGH_WAITS``. Exits 1 if a total differs from its constant.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.geometry import so3_exp
 from cubemapslam_tpu_torch.solvers import pnp as PNP
+from cubemapslam_tpu_torch.solvers import sim3 as S3
 from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
 
 SHAPES = ((3, 3), (1, 3, 3), (2, 3, 3), (300, 3, 3), (4, 4), (3, 4, 4),
@@ -100,6 +102,34 @@ def pnp_case(n_iters, n_points, dev):
     sets = sample_minimal_sets(torch.Generator().manual_seed(0), valid,
                                n_iters, PNP.MIN_SET).to(dev)
     args = [x.to(dev) for x in (pw, rays, uv, torch.ones(n_points), valid)]
+    return site_case("pnp", lambda: PNP.pnp_ransac(
+        cam, None, *args, n_iters=n_iters, sets=sets), n_iters, n_points,
+        PNP.EIGH_WAITS)
+
+
+def sim3_case(n_iters, n_points, dev):
+    """One ``sim3_ransac`` (its own generator on the card) on two point
+    sets related by a Sim3, every eigh call labelled as in ``pnp_case``."""
+    cfg = SlamConfig()
+    cam_c = CubemapCamera.from_config(cfg, "cpu")
+    p2, _, _, _ = pnp_scene(cam_c, np.random.default_rng(2), n_points)
+    R = so3_exp(torch.tensor([0.1, 0.2, -0.05]))
+    p1 = 1.3 * p2 @ R.T + torch.tensor([0.5, -0.3, 0.2])
+    uv1, f1 = TC.ray_to_cubemap(cam_c, p1)
+    uv2, f2 = TC.ray_to_cubemap(cam_c, p2)
+    valid = (f1 != TC.UNKNOWN_FACE) & (f2 != TC.UNKNOWN_FACE)
+    ones = torch.ones(n_points)
+    args = [x.to(dev) for x in (p1, p2, uv1, uv2, ones, ones, valid)]
+    cam = CubemapCamera.from_config(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return site_case("sim3", lambda: S3.sim3_ransac(
+        cam, gen, *args, n_iters=n_iters), n_iters, n_points,
+        S3.EIGH_WAITS)
+
+
+def site_case(tag, run, n_iters, n_points, expected):
+    """The waits of each labelled eigh call of ``run()`` and of the whole
+    call, as JSON rows, and the total row."""
     eigh = torch.linalg.eigh
     sites = []
 
@@ -111,8 +141,8 @@ def pnp_case(n_iters, n_points, dev):
 
     def call():
         sites.clear()
-        with record_function("pnp_ransac"):
-            PNP.pnp_ransac(cam, None, *args, n_iters=n_iters, sets=sets)
+        with record_function(tag):
+            run()
 
     torch.linalg.eigh = labelled
     try:
@@ -124,15 +154,15 @@ def pnp_case(n_iters, n_points, dev):
         return [(e.time_range.start, e.time_range.end) for e in ev
                 if e.name == name and e.device_type == DeviceType.CPU]
 
-    rows = [dict(case="pnp_site", n_iters=n_iters, n_points=n_points,
+    rows = [dict(case=f"{tag}_site", n_iters=n_iters, n_points=n_points,
                  site=name, shape=shape,
                  waits=len(waits_inside(ev, spans(name))))
             for name, shape in sites]
-    total = len(waits_inside(ev, spans("pnp_ransac")))
-    return rows, dict(case="pnp_total", n_iters=n_iters, n_points=n_points,
-                      eigh_calls=len(sites),
+    total = len(waits_inside(ev, spans(tag)))
+    return rows, dict(case=f"{tag}_total", n_iters=n_iters,
+                      n_points=n_points, eigh_calls=len(sites),
                       eigh_waits=sum(r["waits"] for r in rows),
-                      all_waits=total, EIGH_WAITS=PNP.EIGH_WAITS)
+                      all_waits=total, EIGH_WAITS=expected)
 
 
 def main() -> int:
@@ -146,12 +176,14 @@ def main() -> int:
     for shape in SHAPES:
         print(json.dumps(shape_case(shape, dev)))
     ok = True
-    for n_iters, n_points in ((300, 150), (300, 2000), (50, 150)):
-        rows, total = pnp_case(n_iters, n_points, dev)
-        for r in rows:
-            print(json.dumps(r))
-        print(json.dumps(total))
-        ok &= total["all_waits"] == total["eigh_waits"] == PNP.EIGH_WAITS
+    for case in (pnp_case, sim3_case):
+        for n_iters, n_points in ((300, 150), (300, 2000), (50, 150)):
+            rows, total = case(n_iters, n_points, dev)
+            for r in rows:
+                print(json.dumps(r))
+            print(json.dumps(total))
+            ok &= (total["all_waits"] == total["eigh_waits"]
+                   == total["EIGH_WAITS"])
     return 0 if ok else 1
 
 

@@ -1,5 +1,5 @@
-"""Port parity: the direct bundle adjustment (dense Schur + Cholesky) and
-its scale gauge.
+"""Port parity: the direct bundle adjustment (dense Schur + Cholesky), its
+scale gauge, the matrix-free CG path and the global problem of the arena.
 
 One seeded local problem is given to both packages as numpy arrays: 8
 cameras (5 in the free block, slot 0 and the 3 anchors fixed, one
@@ -15,6 +15,10 @@ absolute bound. The gauge retraction alone within 1e-5.
 A problem whose reduced camera system is not positive definite (negative
 edge weights) makes the Cholesky factor fail: both packages reject every
 step and return the state they were given, within 1e-5.
+The CG path: one LM step within 1e-4 (free cameras and the points seen 3 or
+more times), the whole solve held loosely (tolerances in the test, with the
+reason), and the outcome of the JAX package's ``test_refines_noisy_map``.
+The global problem's fields equal (floats within 1e-6).
 """
 
 import jax.numpy as jnp
@@ -217,9 +221,18 @@ def test_failed_cholesky_rejects_the_step():
 
 
 def test_cg_solver_not_in_this_port_yet():
+    """The name is from before the CG path was ported: it now checks that
+    ``solver="cg"`` runs (fixed cameras kept, every output finite) and that
+    an unknown solver is refused."""
     f, _ = make_problem(np.random.default_rng(3))
-    with pytest.raises(NotImplementedError):
-        TB.bundle_adjust(TCam.from_config(CFG, "cpu"), tprob(f), solver="cg")
+    tcam = TCam.from_config(CFG, "cpu")
+    out, inl = TB.bundle_adjust(tcam, tprob(f), solver="cg")
+    fixed = f["cam_fixed"] | ~f["cam_valid"]
+    np.testing.assert_array_equal(out.R.numpy()[fixed], f["R"][fixed])
+    assert all(torch.isfinite(x).all() for x in (out.R, out.t, out.X))
+    assert inl.shape == (M * N,)
+    with pytest.raises(AssertionError):
+        TB.bundle_adjust(tcam, tprob(f), solver="lu")
 
 
 @pytest.mark.parametrize("piece", ["chi2_cost", "apply_updates", "lanes",
@@ -296,3 +309,186 @@ def test_direct_pieces(piece):
                           minlength=P)
         held = cnt >= 3
         close(st[2].numpy()[held], np.asarray(sj[2])[held], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The matrix-free CG path and the global problem of the arena
+# ---------------------------------------------------------------------------
+
+def cg_problem(rng):
+    """``make_problem`` with only camera 0 fixed, the gauge of the global
+    BA."""
+    f, truth = make_problem(rng)
+    f = dict(f)
+    f["cam_fixed"] = np.arange(M) == 0
+    return f, truth
+
+
+def test_cg_lm_step():
+    """One robust LM step of the CG path (lambda 1e-4, 30 CG iterations):
+    the free cameras within 1e-4 of JAX, the points seen 3 or more times
+    within 1e-4."""
+    f, _ = cg_problem(np.random.default_rng(8))
+    jcam, tcam = JCam.from_config(CFG), TCam.from_config(CFG, "cpu")
+    jp, tp = jprob(f), tprob(f)
+    act = f["obs_valid"]
+    sj = JB._lm_step(jcam, jp, jnp.asarray(act), True, jnp.float32(1e-4), 30)
+    st = TB._lm_step(tcam, tp, torch.as_tensor(act), True,
+                     torch.tensor(1e-4), 30)
+    np.testing.assert_allclose(st[0].numpy(), np.asarray(sj[0]), atol=1e-4)
+    np.testing.assert_allclose(st[1].numpy(), np.asarray(sj[1]), atol=1e-4)
+    cnt = np.bincount(f["obs_pt"][act & f["cam_valid"][f["obs_cam"]]],
+                      minlength=P)
+    held = cnt >= 3
+    np.testing.assert_allclose(st[2].numpy()[held], np.asarray(sj[2])[held],
+                               atol=1e-4)
+
+
+def test_cg_bundle_adjust_against_jax():
+    """The whole two-phase CG solve (15 LM steps of 30 CG iterations). LM
+    amplifies last-bit differences of float32 (ROADMAP Queue 3, "Float32 BA
+    rounding"), so the two are held loosely: poses within 1e-3, the points
+    seen 3 or more times within 1e-3 for 95% of them, the inlier masks equal
+    on 99% of the edges."""
+    f, _ = cg_problem(np.random.default_rng(9))
+    jout, jinl = JB.bundle_adjust(JCam.from_config(CFG), jprob(f),
+                                  solver="cg")
+    tout, tinl = TB.bundle_adjust(TCam.from_config(CFG, "cpu"), tprob(f),
+                                  solver="cg")
+    for name in ("R", "t"):
+        np.testing.assert_allclose(getattr(tout, name).numpy(),
+                                   np.asarray(getattr(jout, name)),
+                                   atol=1e-3, err_msg=name)
+    cnt = np.bincount(f["obs_pt"][np.asarray(jinl)], minlength=P)
+    d = np.abs(tout.X.numpy() - np.asarray(jout.X)).max(axis=1)[cnt >= 3]
+    assert np.quantile(d, 0.95) < 1e-3, np.quantile(d, 0.95)
+    assert (tinl.numpy() == np.asarray(jinl)).mean() >= 0.99
+
+
+def test_cg_refines_noisy_map():
+    """The analog of TestBundleAdjust::test_refines_noisy_map
+    (``tests/test_optim.py:108-165``) on the CG path: 6 cameras, 120 points
+    at depth 6, 0.3 px noise, the start perturbed; poses within 0.15 deg and
+    0.02, the median point error under 0.02, 90% of the edges inliers."""
+    rng = np.random.default_rng(42)
+    jcam = JCam.from_config(SlamConfig())
+    n_pts, n_cams = 120, 6
+    pts = rng.uniform(-3, 3, (n_pts, 3)).astype(np.float32)
+    pts[:, 2] += 6.0
+    poses = []
+    for k in range(n_cams):
+        R = np.asarray(JG.so3_exp(jnp.asarray(rng.normal(size=3) * 0.05,
+                                              jnp.float32)))
+        t = np.array([0.4 * k, 0, 0], np.float32) + rng.normal(
+            0, 0.02, 3).astype(np.float32)
+        poses.append((R, t))
+    cam_i, pt_i, face_i, uv_i = [], [], [], []
+    for ci, (R, t) in enumerate(poses):
+        pc = (R @ pts.T).T + t
+        uv, face = JC.ray_to_cubemap(jcam, jnp.asarray(pc, jnp.float32))
+        uv_face = np.array(JC.cubemap_uv_to_in_face(jcam, uv))
+        face = np.asarray(face)
+        for pi in np.nonzero(face >= 0)[0]:
+            cam_i.append(ci)
+            pt_i.append(pi)
+            face_i.append(face[pi])
+            uv_i.append(uv_face[pi] + rng.normal(0, 0.3, 2))
+    E = len(cam_i)
+    R0 = np.stack([p[0] for p in poses])
+    t0 = np.stack([p[1] for p in poses])
+    R_n, t_n = [R0[0]], [t0[0]]
+    for k in range(1, n_cams):
+        dR, dt = JG.se3_exp(jnp.asarray(rng.normal(size=6) * 0.01,
+                                        jnp.float32))
+        Rk, tk = JG.se3_compose(dR, dt, jnp.asarray(R0[k]),
+                                jnp.asarray(t0[k]))
+        R_n.append(np.asarray(Rk))
+        t_n.append(np.asarray(tk))
+    X0 = pts + rng.normal(0, 0.05, pts.shape).astype(np.float32)
+    prob = TB.BAProblem(
+        R=torch.as_tensor(np.stack(R_n)), t=torch.as_tensor(np.stack(t_n)),
+        cam_fixed=torch.as_tensor(np.arange(n_cams) == 0),
+        cam_valid=torch.ones(n_cams, dtype=torch.bool),
+        X=torch.as_tensor(X0), pt_valid=torch.ones(n_pts, dtype=torch.bool),
+        obs_cam=torch.as_tensor(cam_i), obs_pt=torch.as_tensor(pt_i),
+        obs_face=torch.as_tensor(np.array(face_i, np.int64)),
+        obs_uv=torch.as_tensor(np.array(uv_i, np.float32)),
+        obs_inv_sigma2=torch.ones(E), obs_valid=torch.ones(E,
+                                                           dtype=torch.bool))
+    out, inl = TB.bundle_adjust(TCam.from_config(SlamConfig(), "cpu"), prob,
+                                solver="cg")
+    for k in range(n_cams):
+        assert angle_deg(out.R[k].numpy(), R0[k]) < 0.15, k
+        assert np.linalg.norm(out.t[k].numpy() - t0[k]) < 0.02, k
+    err = np.linalg.norm(out.X.numpy() - pts, axis=1)
+    assert np.median(err) < 0.02
+    assert inl.numpy().mean() > 0.9
+
+
+def angle_deg(Ra, Rb):
+    dR = np.asarray(Ra, np.float64) @ np.asarray(Rb, np.float64).T
+    return np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))
+
+
+def test_global_ba_problem_from_arena():
+    """``slam_map.ba_edges_from_arena`` and
+    ``dist.global_ba_problem_from_arena`` on the constructed-drift arena
+    (recycled slots: keyframe 0 invalidated, so the fixed keyframe is the
+    next by frame id): integer and boolean fields equal, floats within
+    1e-6."""
+    from cubemapslam_tpu import dist as JD
+    from cubemapslam_tpu import slam_map as JSM
+    from cubemapslam_tpu_torch import dist as TD
+    from cubemapslam_tpu_torch import interop
+    from cubemapslam_tpu_torch import slam_map as TSM
+    from cubemapslam_tpu_torch.runtime import synthetic as S
+    cfg = SlamConfig(cube_face_w=128, cube_face_h=128, n_features=300,
+                     n_levels=3, max_keyframes=16, max_landmarks=1024)
+    arena, _, _, _ = S.build_drifted_loop_arena(
+        cfg, np.random.default_rng(0), n_pts=300)
+    arena.kf_valid[0] = False
+    arena.kf_level[3, :50] = 2
+    f = interop.arena_to_numpy(arena)
+    ja = JSM.MapArena(**{k: jnp.asarray(v) for k, v in f.items()})
+    inv_s2 = 1.0 / np.asarray(cfg.level_sigma2, np.float32)
+    jcam = JCam.from_config(cfg)
+    tcam = TCam.from_config(cfg, "cpu")
+    jp = JD.global_ba_problem_from_arena(jcam, ja, jnp.asarray(inv_s2))
+    tp = TD.global_ba_problem_from_arena(tcam, arena, torch.as_tensor(inv_s2))
+    for name in TB.BAProblem._fields:
+        a, b = getattr(tp, name).numpy(), np.asarray(getattr(jp, name))
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-6, err_msg=name)
+    assert np.nonzero(tp.cam_fixed.numpy())[0].tolist() == [1]
+    sel = np.zeros(cfg.max_keyframes, bool)
+    sel[[2, 11]] = True
+    je = JSM.ba_edges_from_arena(jcam, ja, jnp.asarray(sel),
+                                 jnp.asarray(inv_s2))
+    te = TSM.ba_edges_from_arena(tcam, arena, torch.as_tensor(sel),
+                                  torch.as_tensor(inv_s2))
+    for a, b in zip(te, je):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_cg_masked_edges_may_be_left_out():
+    """The CG solve of a problem with padding edges and of the same problem
+    with them left out (the global BA of loop closing solves on the live
+    edges): poses and points within 1e-6, the inlier masks equal on the
+    live edges."""
+    f, _ = cg_problem(np.random.default_rng(10))
+    tcam = TCam.from_config(CFG, "cpu")
+    full, inl_full = TB.bundle_adjust(tcam, tprob(f), solver="cg")
+    keep = np.nonzero(f["obs_valid"])[0]
+    g = dict(f)
+    for k in ("obs_cam", "obs_pt", "obs_face", "obs_uv", "obs_inv_sigma2",
+              "obs_valid"):
+        g[k] = f[k][keep]
+    part, inl_part = TB.bundle_adjust(tcam, tprob(g), solver="cg")
+    for name in ("R", "t", "X"):
+        np.testing.assert_allclose(getattr(part, name).numpy(),
+                                   getattr(full, name).numpy(), atol=1e-6,
+                                   err_msg=name)
+    np.testing.assert_array_equal(inl_part.numpy(), inl_full.numpy()[keep])
+    assert not inl_full.numpy()[~f["obs_valid"]].any()

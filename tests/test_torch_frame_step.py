@@ -182,6 +182,7 @@ def _foreign(name: str) -> bool:
 def test_port_sources_import_no_jax():
     files = sorted((REPO / "cubemapslam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 10
     for f in files:
         bad = [m for m in _imported_modules(f) if _foreign(m)]
@@ -191,8 +192,9 @@ def test_port_sources_import_no_jax():
 def test_port_runs_without_jax_loaded():
     """In a fresh interpreter: import the port and chip_smoke, run a tiny
     frame step, map build, tracked frame and two frames of CubemapSLAM on
-    the CPU, train a tiny vocabulary and make a BoW row, and find no JAX
-    module loaded."""
+    the CPU, train a tiny vocabulary and make a BoW row, import the loop
+    closing modules and run a tiny global CG BA, and find no JAX module
+    loaded."""
     code = """
 import sys
 import numpy as np, torch
@@ -240,6 +242,18 @@ voc = place.train_vocabulary(
     device="cpu")
 assert place.bow_vector(voc, kp.desc, kp.valid).shape == (4,)
 assert callable(pnp.pnp_ransac) and callable(serialize.load_map)
+# loop closing: Sim3, the pose graph, the global CG BA and the loop closer
+from cubemapslam_tpu_torch import dist
+from cubemapslam_tpu_torch.optim import ba, pose_graph, sim3_opt
+from cubemapslam_tpu_torch.runtime import loop_closing
+from cubemapslam_tpu_torch.solvers import sim3
+assert isinstance(slam.loop_closer, loop_closing.LoopCloser)
+assert callable(sim3.sim3_ransac) and callable(sim3_opt.optimize_sim3)
+assert callable(pose_graph.optimize_essential_graph)
+prob = dist.global_ba_problem_from_arena(mt.cam, mt.arena, mt.inv_sigma2)
+out, inl = ba.bundle_adjust(mt.cam, prob, phase_iters=(1, 1), solver="cg",
+                            cg_iters=2)
+assert torch.isfinite(out.X).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cubemapslam_tpu"))
 print("FOREIGN", bad)

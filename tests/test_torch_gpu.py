@@ -21,7 +21,11 @@ and 2e-2 for all. Place recognition on the card against the CPU:
 ``detect_candidates`` the same candidates and flags; ``pnp_ransac`` with
 the same CPU-drawn minimal sets: both succeed, inlier counts within 5%,
 poses within 1 deg / 0.05 of the truth, and within 0.05 deg and 1e-3 of
-each other when no match is scrambled.
+each other when no match is scrambled. ``prefetch_image``'s tensor tracks
+to the same pose as the host frame (1e-5). The constructed-drift loop
+closure on the card against the CPU, with the bounds of ``chip_smoke.py``
+(ComputeSim3, the correction from the CPU's refined Sim3, the global BA);
+and ``sim3_ransac`` waits ``sim3.EIGH_WAITS`` times.
 """
 
 import math
@@ -423,3 +427,91 @@ def test_pnp_ransac_card_against_cpu(cuda, n_out):
             assert ang < 1.0 and dist < 0.05
         else:
             assert ang < 0.05 and dist < 1e-3
+
+
+def test_prefetch_image_feeds_track_fisheye(cuda):
+    """``prefetch_image`` returns the frame as a uint8 tensor on the card,
+    which ``track_fisheye`` takes as it is: the pose equals the one from
+    the host array, within 1e-5."""
+    cfg = SlamConfig(**SMALL, max_keyframes=16, max_landmarks=2048)
+    ref = MapTracker(cfg, device="cpu")
+    poses = S.forward_trajectory(12, step=0.04, yaw_rate=0.003)
+    world = S.make_world(np.random.default_rng(11), n=500,
+                         centers=S.camera_centres(poses), fx=64.0)
+    S.build_map(ref, world, poses, 4, kf_stride=3)
+    img = S.to_u8(S.Renderer(ref.cam, cfg).render(*world, *poses[10])[0])
+    out = []
+    for prefetch in (True, False):
+        card = MapTracker(cfg)
+        card.set_warp_map(ref.warp_map)
+        card.mask = ref.mask.to(cuda)
+        last = ref.last
+        card.seed(ref.arena, last.kp, last.assoc, last.outlier, last.R,
+                  last.t, last.ref_kf, frame_id=last.frame_id)
+        frame = img
+        if prefetch:
+            frame = card.prefetch_image(img)
+            assert frame.device == cuda and frame.dtype == torch.uint8
+            assert torch.equal(frame.cpu(), torch.as_tensor(img))
+        out.append(card.track_fisheye(frame, 10 / 30.0))
+    assert out[0] is not None and np.abs(out[0] - out[1]).max() < 1e-5
+
+
+def test_loop_closure_card_against_cpu(cuda):
+    """``chip_smoke.small_loop_reference_check`` on the card: the
+    constructed-drift closure at the tier-1 test's size against the CPU,
+    ComputeSim3 (RANSAC and the refined rotation and translation within
+    1e-4, equal match counts), the correction from the CPU's refined Sim3
+    (poses within 1e-4, landmarks within 1e-3 for 99% and 1e-2 for all, the
+    observation table equal on 99.5%) and the global BA from the CPU's
+    corrected arena (poses within 1e-5, landmarks within 1e-3 / 5e-3); the
+    reasons are in ``chip_smoke.py``. On the card the closing call reads 7
+    times (detection among them), waits 3 times in eigh and synchronizes
+    twice to time its last stages (the global BA, held back here, reads
+    once more)."""
+    import chip_smoke
+    chip_smoke.small_loop_reference_check(card=cuda)
+    cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
+    closed, _, _, lc = chip_smoke.small_loop_closure(cfg, cuda)
+    assert closed == [False, True]
+    assert (lc.reads, lc.eigh_waits) == (9, 3)
+
+
+def test_sim3_ransac_eigh_waits(cuda):
+    """One ``sim3_ransac`` on the card waits ``sim3.EIGH_WAITS`` times (its
+    Horn eigen-solves: the batch once, the single refit twice), counted as
+    ``chip_smoke.py`` counts host waits."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from cubemapslam_tpu_torch import camera as TC
+    from cubemapslam_tpu_torch.geometry import so3_exp
+    from cubemapslam_tpu_torch.solvers import sim3 as S3
+    cfg = SlamConfig()
+    cam_c = CubemapCamera.from_config(cfg, "cpu")
+    rng = np.random.default_rng(3)
+    p2 = torch.as_tensor(rng.uniform(-3, 3, (500, 3)).astype(np.float32))
+    p2[:, 2] += 5.0
+    R = so3_exp(torch.tensor([0.1, 0.2, -0.05]))
+    p1 = 1.3 * p2 @ R.T + torch.tensor([0.5, -0.3, 0.2])
+    uv1, f1 = TC.ray_to_cubemap(cam_c, p1)
+    uv2, f2 = TC.ray_to_cubemap(cam_c, p2)
+    valid = (f1 >= 0) & (f2 >= 0)
+    args = [x.to(cuda) for x in (p1, p2, uv1, uv2, torch.ones(500),
+                                 torch.ones(500), valid)]
+    cam = CubemapCamera.from_config(cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    S3.sim3_ransac(cam, gen, *args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("sim3"):
+            res = S3.sim3_ransac(cam, gen, *args)
+        torch.cuda.synchronize()
+    ev = prof.events()
+    span = [(e.time_range.start, e.time_range.end) for e in ev
+            if e.name == "sim3" and e.device_type == DeviceType.CPU]
+    waits = [e for e in ev if e.device_type == DeviceType.CPU
+             and ("Synchronize" in e.name or e.name == "cudaMemcpy")
+             and any(a <= e.time_range.start < b for a, b in span)]
+    assert len(waits) == S3.EIGH_WAITS, [e.name for e in waits]
+    assert bool(res.success) and abs(float(res.s12) - 1.3) < 1e-3

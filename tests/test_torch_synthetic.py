@@ -61,3 +61,22 @@ def test_fisheye_render_matches_jax():
         assert (depth[drawn] > 0).mean() > 0.99
         assert ((depth > 0) <= (img >= ours.bg)).all()
         assert 2.0 < np.median(depth[depth > 0]) < 7.0
+
+
+def test_cubemap_render_matches_jax():
+    """``Renderer(target="cubemap")`` draws the cross as the JAX
+    renderer's cubemap target does, within 1 grey level."""
+    jcfg, tcfg = JConfig(**SMALL), TConfig(**SMALL)
+    pts, patches = synth.make_world(np.random.default_rng(5), n=400,
+                                    fx=64.0)
+    ref = synth.Renderer(JC.CubemapCamera.from_config(jcfg), jcfg,
+                         target="cubemap")
+    ours = S.Renderer(CubemapCamera.from_config(tcfg, "cpu"), tcfg,
+                      target="cubemap")
+    for R, t in synth.forward_trajectory(2, step=0.1):
+        img_ref = ref.render(pts, patches, R, t)
+        img, depth = ours.render(pts, patches, R, t)
+        assert img.shape == img_ref.shape == (tcfg.cube_h, tcfg.cube_w)
+        assert np.abs(img - img_ref).max() <= 1.0
+        assert (img > ours.bg).mean() > 0.1
+        assert ((depth > 0) <= (img >= ours.bg)).all()

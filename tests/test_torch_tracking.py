@@ -407,3 +407,77 @@ def test_map_tracker_against_jax_chain(scene):
         j_last = (kp_j, out[1], out[2], out[8], out[9], ref_kf)
         j_vel = (out[6], out[7], jnp.float32(jcfg.motion_model_damping))
     assert [r["host_reads"] for r in mt.metrics] == [2, 2, 2]
+
+
+def rect_mask(jcam, jcfg):
+    """The FOV mask with a rectangle zeroed: the left half of the front
+    face and the right half of the left face."""
+    m = np.array(JW.fov_mask(jcam, jcfg.cube_w, jcfg.cube_h))
+    f = jcfg.cube_face_w
+    m[f:2 * f, f // 2:f + f // 2] = 0
+    return m
+
+
+def test_caller_mask_against_jax(scene):
+    """A caller's mask that is not the FOV mask: the port's ``extract`` and
+    one ``MapTracker.track_cubemap(..., mask=m)`` against JAX
+    ``extract_orb`` / ``track_frame_full`` on the same cross. The keypoint
+    rows equal (valid flags exactly, positions within 1e-4, as
+    ``test_torch_extractor.py`` holds the extractor), the mask culls
+    keypoints that the FOV mask keeps, and the pose within 1e-3."""
+    tcfg, jcfg, jcam, jk = (scene[k] for k in ("tcfg", "jcfg", "jcam",
+                                               "jk"))
+    src = scene["tracker"]
+    mask = rect_mask(jcam, jcfg)
+    extract, _ = build_extractor(jcfg, jcam, jcfg.n_features,
+                                 (jcfg.cube_h, jcfg.cube_w))
+    cube = src.warp(torch.as_tensor(scene["frames"][NEXT]))
+    kp_t = src.extract(cube, mask)
+    kp_j = extract(jnp.asarray(cube.numpy()), jnp.asarray(mask))
+    tv, jv = kp_t.valid.numpy(), np.asarray(kp_j.valid)
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_allclose(kp_t.uv.numpy()[tv], np.asarray(kp_j.uv)[jv],
+                               atol=1e-4)
+    fov = src.extract(cube).valid.numpy()
+    assert (fov & ~tv).sum() > 5 and not (tv & ~fov).any()
+    uv = kp_t.uv.numpy()[fov & ~tv].astype(int)
+    assert (mask[uv[:, 1], uv[:, 0]] == 0).all()
+
+    mt = MapTracker(tcfg, device="cpu")
+    last = src.last
+    mt.seed(interop.arena_from_numpy(scene["arena_np"]), last.kp,
+            last.assoc, last.outlier, last.R, last.t, last.ref_kf,
+            frame_id=NEXT - 1)
+    T = mt.track_cubemap(cube, NEXT / 30.0, mask=torch.as_tensor(mask))
+    ja = jarena(scene["arena_np"])
+    covis, cnt = jk.graph_cache(ja)
+    out = jk.track_frame_full(
+        ja, kp_j, t2j(last.assoc), t2j(last.outlier), jkp(last.kp).level,
+        jkp(last.kp).angle, t2j(last.rel_R), t2j(last.rel_t),
+        jnp.int32(last.ref_kf), jnp.eye(3), jnp.zeros(3), jnp.float32(0.0),
+        jnp.int32(last.ref_kf), covis, cnt)
+    pk = np.asarray(out[5])
+    assert T is not None and pk[6] == 1
+    assert pose_close(T[:3, :3], T[:3, 3], pk[11:20].reshape(3, 3),
+                      pk[20:23])
+    np.testing.assert_array_equal(mt.last.kp.valid.numpy(), jv)
+
+
+def test_prefetch_image_on_the_cpu(scene):
+    """``prefetch_image`` on a CPU tracker returns a copy of the frame as a
+    CPU tensor, which ``track_fisheye`` takes as it is."""
+    src = scene["tracker"]
+    img = scene["frames"][NEXT]
+    t = src.prefetch_image(img)
+    assert t.device.type == "cpu" and t.dtype == torch.uint8
+    np.testing.assert_array_equal(t.numpy(), img)
+    assert t.data_ptr() != img.ctypes.data
+    mt = MapTracker(scene["tcfg"], device="cpu")
+    last = src.last
+    mt.seed(interop.arena_from_numpy(scene["arena_np"]), last.kp,
+            last.assoc, last.outlier, last.R, last.t, last.ref_kf,
+            frame_id=NEXT - 1)
+    T = mt.track_fisheye(t, NEXT / 30.0)
+    R_gt, t_gt = scene["poses"][NEXT]
+    assert T is not None and pose_close(T[:3, :3], T[:3, 3], R_gt, t_gt,
+                                        tol=0.05, tol_t=0.1)
