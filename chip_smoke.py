@@ -71,6 +71,25 @@ eigen-solve waits); and holds the closure on the card against the CPU at
 the tier-1 test's size, the correction and the global BA each within its
 stated bounds.
 
+Then the ``app`` phase: the ``slam`` phase's rendered frames written as PGM
+files with a Lafida "id ts path" list under ``build/``, run through the
+dataset runner ``apps.run_sequence.main`` with the reference argv (the
+repo's vocabulary, ``SETTINGS_YAML none``: ``SlamConfig()``, ``MASK none``)
+on the card, with the kernels' launch counts read around it; checked: the
+native loader read the frames, every frame from initialization on is
+tracked, no loop is closed, and the tracked frames' Sim3-aligned ATE is
+under the ``slam`` bound (the TUM file's keyframes and their ATE are
+printed); the median frame time is printed.
+Last, the ``dist`` phase: the ``loop`` phase's arena, its global BA problem
+on its live edges sharded with landmark ownership and solved by
+``dist.distributed_bundle_adjust`` at world size 1 over NCCL (this process)
+and 2 over gloo (two spawned ranks sharing the card; gloo stages CUDA
+tensors through the host), each held against the single-process
+``bundle_adjust`` of the same layout on the card within the stated bounds,
+with the wall times and the boundary rows reduced each CG iteration. The
+viewer (``viz``) needs matplotlib, which the card's machine lacks, so no
+phase draws.
+
 Output: progress lines, then one ``{"kernels": [...]}`` JSON line, the
 card's name and power limit as nvidia-smi reports them, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -82,10 +101,14 @@ This script imports nothing of JAX.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
+import datetime
+import io
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -94,18 +117,23 @@ import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from cubemapslam_tpu_torch import CubemapCamera, SlamConfig, _build
+from cubemapslam_tpu_torch import (CubemapCamera, SlamConfig, _build,
+                                   load_config)
 from cubemapslam_tpu_torch import camera as TC
-from cubemapslam_tpu_torch import interop, serialize
+from cubemapslam_tpu_torch import dist as D
+from cubemapslam_tpu_torch import interop, native, serialize
 from cubemapslam_tpu_torch import place as PL
 from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
+from cubemapslam_tpu_torch.apps import run_sequence
 from cubemapslam_tpu_torch.features import extractor as TE
 from cubemapslam_tpu_torch.geometry import se3_log, so3_exp, so3_log
+from cubemapslam_tpu_torch.optim.ba import BAProblem, bundle_adjust
 from cubemapslam_tpu_torch.runtime import FrameTracker
 from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.synthetic import (
@@ -212,6 +240,16 @@ LOOP_SMALL = dict(cube_face_w=160, cube_face_h=160, n_features=600,
 LOOP_REF_SIM3 = 1e-4
 LOOP_REF_CORRECT = (1e-4, 1e-3, 1e-2, 0.995)
 LOOP_REF_GBA = (1e-5, 1e-3, 5e-3, 0.995)
+# the dataset runner over the slam phase's frames, from files under build/
+ROOT = pathlib.Path(__file__).resolve().parent
+APP_DIR = ROOT / "build" / "chip_smoke_app"
+# the sharded global BA on the loop phase's arena: the loop closer's
+# schedule; bounds against the single-process solve of the same layout:
+# (pose difference, 99% and largest point difference, share of the live
+# edges with the same inlier verdict)
+DIST_PHASES, DIST_CG_ITERS = (5, 10), 50
+DIST_REF = (1e-4, 1e-3, 5e-3, 0.999)
+DIST_TIMEOUT = 600.0
 # the port's __global__ kernels, as the profiler names them
 PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
                 "select_levels_kernel", "orb_describe_kernel")
@@ -1768,6 +1806,224 @@ def small_loop_reference_check(card="cuda"):
         raise AssertionError("card and CPU loop closures disagree")
 
 
+# ---------------------------------------------------------------------------
+# The dataset runner and the sharded global BA
+# ---------------------------------------------------------------------------
+
+def write_pgm(path, img) -> None:
+    with open(path, "wb") as f:
+        f.write(f"P5 {img.shape[1]} {img.shape[0]} 255\n".encode())
+        f.write(np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def centre_ate(idx, est, poses):
+    """RMS distance of camera centres ``est`` of frames ``idx`` to the
+    ground truth after a Sim3 alignment, and the path length between the
+    first and last."""
+    gt = S.camera_centres(poses)[idx]
+    s, Ra, ta = horn_alignment(torch.as_tensor(gt, dtype=torch.float32),
+                               torch.as_tensor(est, dtype=torch.float32))
+    al = float(s) * (Ra.numpy() @ est.T).T + ta.numpy()
+    return (float(np.sqrt(np.mean(np.sum((al - gt) ** 2, axis=1)))),
+            float(np.linalg.norm(gt[-1] - gt[0])))
+
+
+def app_phase(poses, frames, counters, settings="none", device=None):
+    """``run_sequence.main`` over ``frames`` written as PGM with a Lafida
+    list, with the launch counters set to 0 just before and read just
+    after (each kernel entry once a frame). Checks the loader, that every
+    frame from the first tracked one on was tracked (the system's
+    ``track_fisheye`` results are recorded), and that the perf file's ratio
+    says so, no loop, and the ATE of the tracked frames (the keyframes' ATE
+    from the TUM file is printed). Returns the launches."""
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    APP_DIR.mkdir(parents=True)
+    fps = (SlamConfig() if settings == "none" else
+           load_config(settings)).fps
+    lines = []
+    for i, img in enumerate(frames):
+        write_pgm(APP_DIR / f"frame_{i:04d}.pgm", img)
+        lines.append(f"{i} {i / fps:.6f} frame_{i:04d}.pgm")
+    (APP_DIR / "list.txt").write_text("\n".join(lines) + "\n")
+    traj, perf = APP_DIR / "kf.tum", APP_DIR / "perf.txt"
+    argv = [str(VOCAB_PATH), settings, str(APP_DIR), str(APP_DIR / "list.txt"),
+            "none", str(traj), str(perf)]
+    log(f"[app] python -m cubemapslam_tpu_torch.apps.run_sequence "
+        f"{' '.join(argv)}")
+    out = io.StringIO()
+    # the pose the runner's system returned for each frame (None: lost)
+    returned = []
+    track = CubemapSLAM.track_fisheye
+
+    def recorded(self, *args, **kwargs):
+        T = track(self, *args, **kwargs)
+        returned.append(T)
+        return T
+
+    zero_launches(counters)
+    t0 = time.perf_counter()
+    CubemapSLAM.track_fisheye = recorded
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run_sequence.main(argv, device=device)
+    finally:
+        CubemapSLAM.track_fisheye = track
+    wall = time.perf_counter() - t0
+    launches = read_launches(counters, "app", len(frames))
+    for line in out.getvalue().splitlines():
+        log(f"[app] | {line}")
+    if rc != 0:
+        raise AssertionError(f"run_sequence.main returned {rc}")
+    loader = [ln for ln in out.getvalue().splitlines()
+              if ln.startswith("image loader:")]
+    kv = dict(ln.split() for ln in perf.read_text().splitlines())
+    rows = [np.array(ln.split(), np.float64)
+            for ln in traj.read_text().splitlines()]
+    if list(kv) != ["median_tracking_time_s", "mean_tracking_time_s",
+                    "tracked_frames_ratio", "loops_closed"] \
+            or any(len(r) != 8 for r in rows) or len(rows) < 2:
+        raise AssertionError("malformed perf or TUM file")
+    kf_idx = [int(round(r[0] * fps)) for r in rows]
+    kf_ate, kf_path = centre_ate(kf_idx, np.stack([r[1:4] for r in rows]),
+                                 poses)
+    tracked = [T is not None for T in returned]
+    n = len(frames)
+    first_ok = tracked.index(True) if True in tracked else n
+    idx = [i for i, ok in enumerate(tracked) if ok]
+    ate, path = centre_ate(idx, np.stack([
+        -returned[i][:3, :3].T @ returned[i][:3, 3] for i in idx]), poses)
+    ratio = float(kv["tracked_frames_ratio"])
+    log(f"[app] {loader[0] if loader else 'no loader line'}; initialized at "
+        f"frame {first_ok}; tracked ratio {ratio:.6f} (every frame from it "
+        f"on: {(n - first_ok) / n:.6f}); loops {kv['loops_closed']}; median "
+        f"frame {float(kv['median_tracking_time_s']) * 1e3:.3f} ms, mean "
+        f"{float(kv['mean_tracking_time_s']) * 1e3:.3f} ms; ATE of the "
+        f"tracked frames {ate:.5f} over {path:.5f} ({ate / path:.5f} of it; "
+        f"bound {SLAM_ATE_FRAC}); {len(rows)} live keyframes in the TUM file "
+        f"(frames {kf_idx}), their ATE {kf_ate / kf_path:.5f} of their path; "
+        f"main's wall {wall:.1f} s")
+    variant = next((c for c in native.CODECS
+                    if native.load_library(c) is not None), None)
+    log(f"[app] native loader variant: "
+        f"{'PGM only' if variant == () else variant} (the first of "
+        f"{native.CODECS} that builds and loads here)")
+    if loader != ["image loader: NativeImageLoader"]:
+        raise AssertionError(f"the native loader was not taken: {loader}")
+    if first_ok >= SLAM_INIT_BY or not all(tracked[first_ok:]) \
+            or len(tracked) != n or abs(ratio - (n - first_ok) / n) > 1e-6:
+        raise AssertionError("not initialized in time, or a frame after "
+                             "initialization was not tracked")
+    if int(kv["loops_closed"]) != 0:
+        raise AssertionError("the runner closed a loop on a trajectory that "
+                             "revisits nothing")
+    if not ate < SLAM_ATE_FRAC * path:
+        raise AssertionError("the runner's trajectory is beyond the ATE "
+                             "bound")
+    return launches
+
+
+def sharded_gap(res, ref, ref_inl, live_valid):
+    """(pose difference, 99% and largest point difference, share of the
+    live edges with the same inlier verdict) of a sharded solve's host
+    result against the single-process one."""
+    dpose = max(float((res["R"] - ref.R.cpu()).abs().max()),
+                float((res["t"] - ref.t.cpu()).abs().max()))
+    d = (res["X"] - ref.X.cpu()).abs().amax(dim=1)
+    live = live_valid.cpu()
+    same = (res["inl"] == ref_inl.cpu())[live].float().mean()
+    return dpose, float(torch.quantile(d, 0.99)), float(d.max()), float(same)
+
+
+def check_sharded(tag, res, ref, ref_inl, valid, ref_ms):
+    gap = sharded_gap(res, ref, ref_inl, valid)
+    log(f"[dist] {tag}: wall {res['wall_s'] * 1e3:.3f} ms against "
+        f"{ref_ms:.3f} ms single-process; pose gap {gap[0]:.3e}, point gap "
+        f"99% {gap[1]:.3e} / max {gap[2]:.3e}, inlier verdicts equal on "
+        f"{gap[3]:.6f} of the live edges (bounds {DIST_REF})")
+    if not (gap[0] < DIST_REF[0] and gap[1] < DIST_REF[1]
+            and gap[2] < DIST_REF[2] and gap[3] >= DIST_REF[3]):
+        raise AssertionError(f"the {tag} sharded solve disagrees with the "
+                             "single-process one")
+
+
+def single_solve(cam, sharded, dev):
+    """The single-process solve of a sharded layout and its wall ms."""
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    ref, inl = bundle_adjust(cam, sharded.prob, phase_iters=DIST_PHASES,
+                             solver="cg", cg_iters=DIST_CG_ITERS)
+    sync()
+    return ref, inl, (time.perf_counter() - t0) * 1e3
+
+
+def dist_phase(cfg, dev="cuda", n_pts=LOOP_POINTS):
+    """The sharded global BA of the loop phase's arena at world size 1 over
+    NCCL in this process (gloo off the card) and 2 over gloo in two spawned
+    ranks, each against the single-process solve of its layout."""
+    vocab = PL.load_vocabulary(str(VOCAB_PATH), dev)
+    arena = loop_system(cfg, dev, vocab, n_pts, SEED + 7).arena
+    cam = CubemapCamera.from_config(cfg, dev)
+    inv_s2 = 1.0 / torch.tensor(cfg.level_sigma2, dtype=torch.float32,
+                                device=dev)
+    prob = D.global_ba_problem_from_arena(cam, arena, inv_s2)
+    keep = prob.obs_valid.nonzero()[:, 0]
+    live = prob._replace(**{f: getattr(prob, f)[keep] for f in D.EDGE_FIELDS})
+    M, P = prob.R.shape[0], prob.X.shape[0]
+    log(f"[dist] the loop arena's global BA: {M} camera slots "
+        f"({int(prob.cam_valid.sum())} live), {P} point slots "
+        f"({int(prob.pt_valid.sum())} live), {keep.numel()} live edges of "
+        f"{prob.obs_valid.numel()}; LM steps by phase {DIST_PHASES}, "
+        f"{DIST_CG_ITERS} CG iterations each")
+
+    # world size 1 over NCCL, in this process
+    sharded = D.shard_ba_problem(live, 1, shard_points=True)
+    ref, ref_inl, ref_ms = single_solve(cam, sharded, dev)
+    backend = "nccl" if dev == "cuda" else "gloo"
+    store_dir = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        dist.init_process_group(
+            backend, store=dist.FileStore(f"{store_dir}/store", 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=DIST_TIMEOUT),
+            device_id=torch.device(dev, 0) if dev == "cuda" else None)
+        try:
+            res = D.rank_bundle_adjust(D.make_mesh(), cam, sharded, dev,
+                                       DIST_PHASES, DIST_CG_ITERS)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    log(f"[dist] world size 1 over {backend}: boundary rows reduced each CG "
+        f"iteration {sharded.n_boundary} (and the {M}x6 camera table)")
+    check_sharded(f"world size 1 ({backend})", res, ref, ref_inl,
+                  sharded.prob.obs_valid, ref_ms)
+
+    # world size 2 over gloo, two spawned ranks on the same device
+    sharded = D.shard_ba_problem(live, 2, shard_points=True)
+    ref, ref_inl, ref_ms = single_solve(cam, sharded, dev)
+    host = sharded._replace(
+        prob=BAProblem(*(t.cpu() for t in sharded.prob)),
+        owner_shard=sharded.owner_shard.cpu())
+    t0 = time.perf_counter()
+    ranks = D.run_ranks(D.rank_bundle_adjust, 2,
+                        args=(CubemapCamera.from_config(cfg, "cpu"), host, dev,
+                              DIST_PHASES, DIST_CG_ITERS),
+                        timeout=DIST_TIMEOUT,
+                        workdir=str(ROOT / "build"))
+    spawn_s = time.perf_counter() - t0
+    log(f"[dist] world size 2 over gloo: {sharded.n_boundary} boundary rows "
+        f"of {P} reduced each CG iteration (and the {M}x6 camera table); "
+        f"edge blocks of {sharded.prob.obs_cam.numel() // 2}; ranks' walls "
+        f"{[round(r['wall_s'] * 1e3, 3) for r in ranks]} ms; spawn to join "
+        f"{spawn_s:.1f} s")
+    for k in ("R", "t", "X", "inl"):
+        if not torch.equal(ranks[0][k], ranks[1][k]):
+            raise AssertionError(f"the two ranks' {k} differ")
+    res = dict(ranks[0], wall_s=max(r["wall_s"] for r in ranks))
+    check_sharded("world size 2 (gloo)", res, ref, ref_inl,
+                  sharded.prob.obs_valid, ref_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1872,6 +2128,11 @@ def main() -> int:
     done("loop")
     small_loop_reference_check()
     done("the loop reference check")
+    a_launches = app_phase(s_poses, s_frames, counters)
+    done("app")
+    del s_frames
+    dist_phase(cfg)
+    done("dist")
 
     for r in rows:
         r["launches"] = sum(launches[r["name"]].values())
@@ -1882,6 +2143,7 @@ def main() -> int:
         r["launches_slam_by_kernel"] = s_launches[r["name"]]
         r["launches_reloc"] = sum(r_launches[r["name"]].values())
         r["launches_localization"] = sum(l_launches[r["name"]].values())
+        r["launches_app"] = sum(a_launches[r["name"]].values())
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

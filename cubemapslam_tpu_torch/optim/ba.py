@@ -23,8 +23,14 @@ S = Hcc - W Hpp^-1 Wᵀ applied matrix-free (two gathers, two ``index_add_``
 and batched small products a matvec) inside a block-Jacobi preconditioned
 CG of a fixed number of iterations, the point blocks inverted by the 3x3
 closed form and the 6x6 preconditioner by ``torch.linalg.inv_ex`` (neither
-waits). It runs on one device; the collective hooks of the JAX code
-(``_psum``, ``_psum_pts``) come with the distributed BA.
+waits). Given a ``torch.distributed`` process ``group``, the CG path is one
+rank of an SPMD solve over keyframe-block shards of the edges
+(``dist.distributed_bundle_adjust``): every camera-table segment sum and
+both cost sums are followed by an ``all_reduce`` (the JAX ``_psum``), every
+point-table sum by the boundary-prefix ``all_reduce`` of ``_psum_pts``, so
+the reduced system, and with it every update, is the same on all ranks.
+Without a group (``None``) no collective runs and the results are those of
+the single-device path.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from __future__ import annotations
 from typing import List, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.geometry import mat3_apply, se3_compose, se3_exp
@@ -362,7 +369,7 @@ def _bundle_adjust_direct(cam: CubemapCamera, prob: BAProblem, phase_iters,
 
 
 # ---------------------------------------------------------------------------
-# Matrix-free Schur + preconditioned CG (ba.py:77-91, 429-524), one device
+# Matrix-free Schur + preconditioned CG (ba.py:53-91, 429-524)
 # ---------------------------------------------------------------------------
 
 def _edge_terms(cam: CubemapCamera, prob: BAProblem, w: torch.Tensor):
@@ -388,6 +395,31 @@ def _segsum(n: int, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                        device=v.device).index_add_(0, idx, v)
 
 
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``ba.py:53-54``: the sum of ``x`` over the ranks of ``group``, in
+    place; ``x`` itself without a group."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+def _psum_pts(x: torch.Tensor, group, n_boundary) -> torch.Tensor:
+    """``ba.py:57-75``: a point-table reduction that exchanges only the
+    boundary prefix. With landmark ownership by keyframe block
+    (``dist.shard_ba_problem(shard_points=True)``), a point seen from one
+    block has all its edges on that rank, so its rows are complete there and
+    never read elsewhere; only the first ``n_boundary`` rows (points seen
+    from >= 2 blocks, permuted to the front) are summed over the ranks.
+    ``n_boundary=None`` sums the whole table."""
+    if group is None or n_boundary is None:
+        return _psum(x, group)
+    if n_boundary > 0:
+        # a prefix of the first dimension is a contiguous view, reduced in
+        # place
+        dist.all_reduce(x[:n_boundary], group=group)
+    return x
+
+
 def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Batched matrix-vector product (..., m, n) x (..., n), as a product
     and a sum: a batched GEMM of a million 3x6 blocks runs one tiny matrix
@@ -396,11 +428,11 @@ def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
-             lm_lambda, cg_iters: int):
+             lm_lambda, cg_iters: int, group=None, n_boundary=None):
     """One damped Gauss-Newton step via the Schur complement and a
     matrix-free, block-Jacobi preconditioned CG of ``cg_iters`` iterations
-    (``ba.py:429-524`` with ``axis_name=None``). Returns the candidate
-    (R, t, X)."""
+    (``ba.py:429-524``), with the edges of this rank's shard when ``group``
+    is set. Returns the candidate (R, t, X)."""
     M = prob.R.shape[0]
     P = prob.X.shape[0]
     dev, f32 = prob.X.device, prob.X.dtype
@@ -408,10 +440,10 @@ def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
     w = prob.obs_inv_sigma2 * (_huber_weight(chi2) if robust else 1.0)
     w = torch.where(active, w, torch.zeros_like(w))
     _, Hcc_e, Hpp_e, W_e, bc_e, bp_e = _edge_terms(cam, prob, w)
-    Hcc = _segsum(M, prob.obs_cam, Hcc_e)
-    Hpp = _segsum(P, prob.obs_pt, Hpp_e)
-    bc = _segsum(M, prob.obs_cam, bc_e)
-    bp = _segsum(P, prob.obs_pt, bp_e)
+    Hcc = _psum(_segsum(M, prob.obs_cam, Hcc_e), group)
+    Hpp = _psum_pts(_segsum(P, prob.obs_pt, Hpp_e), group, n_boundary)
+    bc = _psum(_segsum(M, prob.obs_cam, bc_e), group)
+    bp = _psum_pts(_segsum(P, prob.obs_pt, bp_e), group, n_boundary)
 
     # damped point blocks, inverted by the 3x3 closed form (the same damped
     # matrix as the JAX code's jnp.linalg.inv; zero for invalid points)
@@ -433,14 +465,17 @@ def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
         """x: (M,6) -> S x, with fixed cameras projected out."""
         x = torch.where(fr, x, torch.zeros_like(x))
         hx = _bmv(Hcc_d, x)
-        s = _segsum(P, prob.obs_pt, _bmv(W_eT, x[prob.obs_cam]))
+        s = _psum_pts(_segsum(P, prob.obs_pt, _bmv(W_eT, x[prob.obs_cam])),
+                      group, n_boundary)
         y = _bmv(Hpp_inv, s)
-        coup = _segsum(M, prob.obs_cam, _bmv(W_e, y[prob.obs_pt]))
+        coup = _psum(_segsum(M, prob.obs_cam, _bmv(W_e, y[prob.obs_pt])),
+                     group)
         return torch.where(fr, hx - coup, x)
 
     # reduced rhs: bc - W Hpp^-1 bp
     yb = _bmv(Hpp_inv, bp)
-    rhs = bc - _segsum(M, prob.obs_cam, _bmv(W_e, yb[prob.obs_pt]))
+    rhs = bc - _psum(_segsum(M, prob.obs_cam, _bmv(W_e, yb[prob.obs_pt])),
+                     group)
     rhs = torch.where(fr, rhs, torch.zeros_like(rhs))
 
     # block-Jacobi preconditioner (inv_ex: no error check, no host wait)
@@ -466,7 +501,8 @@ def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
     dc = x
 
     # back-substitute the point updates
-    s = _segsum(P, prob.obs_pt, _bmv(W_eT, dc[prob.obs_cam]))
+    s = _psum_pts(_segsum(P, prob.obs_pt, _bmv(W_eT, dc[prob.obs_cam])),
+                  group, n_boundary)
     dp = _bmv(Hpp_inv, bp - s)
     dp = torch.where(prob.pt_valid[:, None], dp, torch.zeros_like(dp))
     dR, dt = se3_exp(dc)
@@ -477,20 +513,24 @@ def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
 
 
 def _bundle_adjust_cg(cam: CubemapCamera, prob: BAProblem, phase_iters,
-                      chi2_cut: float, cg_iters: int):
-    """The CG-solver BA loop (``ba.py:601-640``). Returns (updated problem,
-    per-edge inlier mask)."""
+                      chi2_cut: float, cg_iters: int, group=None,
+                      n_boundary=None):
+    """The CG-solver BA loop (``ba.py:601-640``), one rank of the SPMD
+    solve when ``group`` is set. Returns (updated problem, per-edge inlier
+    mask)."""
     active = prob.obs_valid
     dev, f32 = prob.X.device, prob.X.dtype
 
     def lm_loop(prob, active, robust, n_iters):
         lm_lambda = torch.full((), 1e-4, dtype=f32, device=dev)
         for _ in range(n_iters):
-            cost = _robust_cost(_chi2(cam, prob), active, robust)
+            cost = _psum(_robust_cost(_chi2(cam, prob), active, robust),
+                         group)
             R_n, t_n, X_n = _lm_step(cam, prob, active, robust, lm_lambda,
-                                     cg_iters)
+                                     cg_iters, group, n_boundary)
             cand = prob._replace(R=R_n, t=t_n, X=X_n)
-            cost_n = _robust_cost(_chi2(cam, cand), active, robust)
+            cost_n = _psum(_robust_cost(_chi2(cam, cand), active, robust),
+                           group)
             improved = cost_n < cost
             prob = prob._replace(R=_select(improved, cand.R, prob.R),
                                  t=_select(improved, cand.t, prob.t),
@@ -567,7 +607,9 @@ def bundle_adjust(cam: CubemapCamera, prob: BAProblem,
                   solver: str = "direct",
                   max_obs_per_cam: int = 1024,
                   n_free: int = None,
-                  cg_iters: int = 30) -> Tuple[BAProblem, torch.Tensor]:
+                  cg_iters: int = 30,
+                  group=None,
+                  n_boundary: int = None) -> Tuple[BAProblem, torch.Tensor]:
     """Two-phase LM BA (``ba.py:569-640``): 5 robust iterations, the chi2
     and FOV cut, 10 plain iterations, the final cut, then the scale-gauge
     retraction. ``solver="direct"`` is the dense-Schur Cholesky path for
@@ -576,12 +618,18 @@ def bundle_adjust(cam: CubemapCamera, prob: BAProblem,
     index >= ``n_free`` fixed anchors. ``solver="cg"`` is the matrix-free
     Schur-CG path (``cg_iters`` CG iterations an LM step) for any COO
     problem, as the global BA after a loop closure uses it. The default
-    stays ``"direct"``, where the JAX package's is ``"cg"``.
+    stays ``"direct"``, where the JAX package's is ``"cg"``. With a
+    ``torch.distributed`` ``group`` (the JAX ``axis_name``), ``solver="cg"``
+    is this rank's part of the SPMD solve: ``prob`` holds the full camera
+    and point tables and this rank's edges, and ``n_boundary`` limits the
+    point-table exchange to the boundary prefix (``_psum_pts``).
 
     Returns (updated problem, per-edge inlier mask)."""
     assert solver in ("cg", "direct"), solver
+    assert not (solver == "direct" and group is not None)
     if solver == "cg":
-        return _bundle_adjust_cg(cam, prob, phase_iters, chi2_cut, cg_iters)
+        return _bundle_adjust_cg(cam, prob, phase_iters, chi2_cut, cg_iters,
+                                 group, n_boundary)
     nf = prob.R.shape[0] if n_free is None else n_free
     return _bundle_adjust_direct(cam, prob, phase_iters, chi2_cut,
                                  max_obs_per_cam, nf)

@@ -35,6 +35,13 @@ A closure then reads the pose graph's valid-edge count once and the global
 BA's live-observation count once (each solves on its live edges only: a
 masked edge adds exact zeros), the landmark statistics' live count once,
 and synchronizes twice to time the correction and the global BA.
+
+With ``torch.distributed`` initialized over more than one rank, the global
+BA is one SPMD solve over keyframe-block shards (``loop_closing.py:684-700``,
+``dist.distributed_bundle_adjust``): rank 0's problem is broadcast first
+(the card's float atomics make each rank's own arena differ), its live edges
+are sharded on the host (``dist.SHARD_READS`` more reads), and every rank
+writes the same result into its arena.
 """
 
 from __future__ import annotations
@@ -43,17 +50,19 @@ import math
 import time
 from typing import List, Set, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from cubemapslam_tpu_torch import camera as C
+from cubemapslam_tpu_torch import dist as D
 from cubemapslam_tpu_torch import geometry as G
 from cubemapslam_tpu_torch import matching as M
 from cubemapslam_tpu_torch import place as PL
 from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.config import SlamConfig
-from cubemapslam_tpu_torch.dist import global_ba_problem_from_arena
 from cubemapslam_tpu_torch.optim.ba import bundle_adjust
 from cubemapslam_tpu_torch.optim.pose_graph import optimize_essential_graph
 from cubemapslam_tpu_torch.optim.sim3_opt import optimize_sim3
@@ -629,25 +638,34 @@ class LoopCloser:
         self.reads += 1
 
     def _global_ba(self, system) -> None:
-        """The post-loop global BA, single-device branch
-        (``loop_closing.py:701-712``): two phases (5 robust iterations, the
-        chi2 cut, 10 more) of 50 CG iterations each step, then the outlier
-        observations removed, in place. The problem spans every slot of the
-        observation table (K*N); the solve takes its live edges only (one
-        read), whose segment sums are those of the masked problem with its
-        zeros left out."""
+        """The post-loop global BA (``loop_closing.py:672-712``): two
+        phases (5 robust iterations, the chi2 cut, 10 more) of 50 CG
+        iterations each step, then the outlier observations removed, in
+        place. The problem spans every slot of the observation table (K*N);
+        the solve takes its live edges only (one read), whose segment sums
+        are those of the masked problem with its zeros left out. With
+        ``torch.distributed`` initialized over more than one rank, rank 0's
+        problem is broadcast and the live edges are solved sharded
+        (``_global_ba_sharded``), where the JAX package shards all K*N
+        slots."""
         arena = system.arena
         K, N = arena.n_kf_cap, arena.n_feat
-        prob = global_ba_problem_from_arena(self.cam, arena,
-                                            self.k.inv_level_sigma2)
+        prob = D.global_ba_problem_from_arena(self.cam, arena,
+                                              self.k.inv_level_sigma2)
+        sharded = dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1
+        if sharded:
+            prob = D.broadcast_problem(prob, D.make_mesh())
         keep = prob.obs_valid.nonzero()[:, 0]
         self.reads += 1
-        live = prob._replace(**{
-            f: getattr(prob, f)[keep]
-            for f in ("obs_cam", "obs_pt", "obs_face", "obs_uv",
-                      "obs_inv_sigma2", "obs_valid")})
-        out, inl_live = bundle_adjust(self.cam, live, phase_iters=(5, 10),
-                                      solver="cg", cg_iters=50)
+        live = prob._replace(**{f: getattr(prob, f)[keep]
+                                for f in D.EDGE_FIELDS})
+        if sharded:
+            out, inl_live = self._global_ba_sharded(live)
+        else:
+            out, inl_live = bundle_adjust(self.cam, live,
+                                          phase_iters=(5, 10), solver="cg",
+                                          cg_iters=50)
         inl = torch.zeros_like(prob.obs_valid).index_copy_(0, keep, inl_live)
         kill = (prob.obs_valid & ~inl).reshape(K, N)
         obs = torch.where(kill, torch.full_like(arena.kf_obs_lm, SM.NO_LM),
@@ -656,3 +674,24 @@ class LoopCloser:
         arena.kf_t.copy_(out.t)
         arena.lm_pos.copy_(out.X)
         arena.kf_obs_lm.copy_(obs)
+
+    def _global_ba_sharded(self, live):
+        """The multi-rank branch of the global BA (``loop_closing.py:684-
+        700``): the live-edge problem sharded into one keyframe block a rank
+        with landmark ownership, solved SPMD over the default group, the
+        inliers scattered back to the live order and the points un-permuted.
+        Returns (the solved problem, the live edges' inliers)."""
+        mesh = D.make_mesh()
+        sharded = D.shard_ba_problem(live, dist.get_world_size(mesh),
+                                     shard_points=True)
+        self.reads += D.SHARD_READS
+        out, inl_s = D.distributed_bundle_adjust(
+            self.cam, sharded, mesh, phase_iters=(5, 10), cg_iters=50)
+        dev = inl_s.device
+        real = np.nonzero(sharded.edge_perm >= 0)[0]
+        inl = torch.zeros_like(live.obs_valid).index_copy_(
+            0, torch.as_tensor(sharded.edge_perm[real], device=dev),
+            inl_s[torch.as_tensor(real, device=dev)])
+        X = torch.empty_like(out.X).index_copy_(
+            0, torch.as_tensor(sharded.point_perm, device=dev), out.X)
+        return out._replace(X=X), inl

@@ -20,7 +20,7 @@ duplicate indices meet only in that dump slot.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -379,3 +379,22 @@ def apply_redirect(arena: MapArena, redirect: torch.Tensor) -> MapArena:
     arena.kf_obs_lm.copy_(torch.where(lm >= 0, redirect[lm.clamp(min=0)],
                                       lm))
     return arena
+
+
+def redundant_keyframe_scores(arena: MapArena
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-keyframe (n_redundant, n_total) for KeyFrameCulling
+    (``slam_map.py:369-389``, LocalMapping.cpp:561-619): an observation is
+    redundant when >= 3 OTHER keyframes see the landmark at the same or a
+    finer scale (level' <= level + 1). From an (L+1, 16) level histogram by
+    one segment sum, in integer counts."""
+    K, N, L = arena.n_kf_cap, arena.n_feat, arena.n_lm_cap
+    seg, live = _flat_obs(arena)
+    lev = arena.kf_level.reshape(-1).clamp(0, 15)
+    hist = torch.zeros((L + 1) * 16, dtype=torch.int64,
+                       device=seg.device).index_add_(
+        0, seg * 16 + lev, live.to(torch.int64)).view(L + 1, 16)
+    cum = hist.cumsum(1)                                  # levels <= j
+    n_le = cum[seg, (lev + 1).clamp(max=15)]              # includes self
+    redundant = live & (n_le - 1 >= 3)
+    return redundant.view(K, N).sum(1), live.view(K, N).sum(1)

@@ -193,8 +193,8 @@ def test_port_runs_without_jax_loaded():
     """In a fresh interpreter: import the port and chip_smoke, run a tiny
     frame step, map build, tracked frame and two frames of CubemapSLAM on
     the CPU, train a tiny vocabulary and make a BoW row, import the loop
-    closing modules and run a tiny global CG BA, and find no JAX module
-    loaded."""
+    closing modules and run a tiny global CG BA, import the apps, the
+    native loader and the viewer, and find no JAX module loaded."""
     code = """
 import sys
 import numpy as np, torch
@@ -254,6 +254,14 @@ prob = dist.global_ba_problem_from_arena(mt.cam, mt.arena, mt.inv_sigma2)
 out, inl = ba.bundle_adjust(mt.cam, prob, phase_iters=(1, 1), solver="cg",
                             cg_iters=2)
 assert torch.isfinite(out.X).all()
+# the apps, the native loader (never the committed native/_build binary),
+# the viewer and the sharded BA
+from cubemapslam_tpu_torch import native, viz
+from cubemapslam_tpu_torch.apps import run_fangshan, run_lafida, run_sequence
+lib = native._load_lib()
+assert lib is None or "native/_build" not in lib._name, lib._name
+assert run_lafida.main is run_sequence.main is run_fangshan.main
+assert callable(viz.Viewer) and callable(dist.distributed_bundle_adjust)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cubemapslam_tpu"))
 print("FOREIGN", bad)

@@ -7,7 +7,8 @@ that every mask and tie-break is exercised, carried across with
 ``interop.arena_from_numpy``.
 
 Tolerances: the incidence, observation counts, covisibility, reference
-keyframes and ``predict_scale`` are integers and must be exactly equal;
+keyframes, ``predict_scale`` and the redundancy scores are integers and
+must be exactly equal;
 the statistics updates give normals and depth bands within 1e-5 (float
 sums in another order) and descriptors bitwise equal.
 """
@@ -151,3 +152,13 @@ def test_predict_scale_exact():
                             log_s, 8)
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
     assert len(np.unique(np.asarray(ref))) == 8
+
+
+def test_redundant_keyframe_scores_exact(arena_np):
+    n_red, n_tot = SM.redundant_keyframe_scores(
+        interop.arena_from_numpy(arena_np))
+    j_red, j_tot = JSM.redundant_keyframe_scores(jax_arena(arena_np))
+    np.testing.assert_array_equal(n_red.numpy(), np.asarray(j_red))
+    np.testing.assert_array_equal(n_tot.numpy(), np.asarray(j_tot))
+    # both outcomes occur on this arena
+    assert 0 < int(n_red.sum()) < int(n_tot.sum())
