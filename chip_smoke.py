@@ -40,9 +40,18 @@ landmarks triangulated, a deferred BA, the launches of each kernel (one a
 frame, kernel D's passes once each) and the ATE of the Sim3-aligned
 trajectory; then one keyframe frame and one deferred-BA frame under the
 profiler, whose host waits may not exceed their stated reads and the
-upload; and ``mapping_step`` / ``local_ba`` on the card against the CPU on
-a small arena. The ``slam`` phase loads the repo's pretrained vocabulary
-(``artifacts/vocab_synth_10k.npz``), and each keyframe gets its BoW row.
+upload; the ``repeat`` check (the same 30 frames again in a fresh
+``CubemapSLAM``: every arena table and the trajectory bitwise equal to the
+first run's, whose sha256 digest is printed on a line of its own so that
+runs can be compared across calls); and ``mapping_step`` / ``local_ba`` on
+the card against the CPU on a small arena. The ``slam`` phase loads the
+repo's pretrained vocabulary (``artifacts/vocab_synth_10k.npz``), and each
+keyframe gets its BoW row. The segmented-sum kernel (``csrc/seg_sum.cu``,
+which gives the BA, the pose graph and the landmark normals a fixed order
+of additions) runs a data-dependent number of times: its launches are
+counted from 0 around the drive of each path (the mapping step and the
+local BA here, the correction and the global BA of the loop closure, the
+runner, the sharded BA), and each of those must launch it.
 
 Then, on the ``slam`` phase's map: the ``reloc`` phase (2 blank frames make
 the system LOST without a reset; the frame at the ground-truth pose of a
@@ -50,7 +59,8 @@ mid-sequence frame relocalizes, within the stated bound of the ground truth
 through the ATE's Sim3 alignment; once more under the profiler, whose host
 waits may not exceed the frame's stated reads, its eigen-solve waits and the
 upload); the ``localization`` phase (6 frames tracked in localization mode
-with the map unchanged, perturbed landmarks engage mbVO, restored ones
+with the map unchanged, each within the bound, the worst frame and its
+margin to the bound printed; perturbed landmarks engage mbVO, restored ones
 relocalize and clear it); a save/load check (``save_map``, ``load_map`` into
 a fresh ``CubemapSLAM``, whose next frame relocalizes); and ``word_ids`` /
 ``bow_vector``, ``detect_candidates`` and ``pnp_ransac`` on the card against
@@ -61,7 +71,11 @@ keyframe from the tenth runs loop detection (its wall ms is printed).
 Last, the ``loop`` phase: the constructed-drift arena (14 keyframes,
 segment B revisiting segment A under a Sim3 drift) at ``SlamConfig()``
 capacities (512 keyframes x 2000 features, 65536 landmarks), with the
-repo's vocabulary; ``LoopCloser.process`` on slots 12 and 13 must close the
+repo's vocabulary. On its arena the segmented-sum kernel is held bitwise
+against its kernel-order plain version at the global BA's shapes (its live
+edges by camera and by point) and at those of the local BA, the pose graph
+and the landmark normals, and timed beside ``index_add_``;
+``LoopCloser.process`` on slots 12 and 13 must close the
 loop and cut the segment-B error to the stated share. A second, warm
 closure on a fresh copy prints the wall time of each stage (detect, sim3,
 correct, gba), the host reads, the eigen-solve waits and the peak memory;
@@ -104,6 +118,7 @@ import bisect
 import contextlib
 import dataclasses
 import datetime
+import hashlib
 import io
 import json
 import math
@@ -128,11 +143,13 @@ from cubemapslam_tpu_torch import camera as TC
 from cubemapslam_tpu_torch import dist as D
 from cubemapslam_tpu_torch import interop, native, serialize
 from cubemapslam_tpu_torch import place as PL
+from cubemapslam_tpu_torch import segment as SG
 from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
 from cubemapslam_tpu_torch.apps import run_sequence
 from cubemapslam_tpu_torch.features import extractor as TE
 from cubemapslam_tpu_torch.geometry import se3_log, so3_exp, so3_log
+from cubemapslam_tpu_torch.optim import ba as TBA
 from cubemapslam_tpu_torch.optim.ba import BAProblem, bundle_adjust
 from cubemapslam_tpu_torch.runtime import FrameTracker
 from cubemapslam_tpu_torch.runtime import synthetic as S
@@ -153,7 +170,8 @@ PROFILE_FRAMES = 3            # frame steps under the profiler
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
 TIMING_REPS, TIMING_BATCH = 7, 20
-SOURCES = ("warp_remap.cu", "orb_detect.cu", "orb_describe.cu")
+SOURCES = ("warp_remap.cu", "orb_detect.cu", "orb_describe.cu",
+           "seg_sum.cu")
 # launches of each kernel entry in one frame step
 LAUNCHES_PER_FRAME = 1
 
@@ -252,7 +270,39 @@ DIST_REF = (1e-4, 1e-3, 5e-3, 0.999)
 DIST_TIMEOUT = 600.0
 # the port's __global__ kernels, as the profiler names them
 PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
-                "select_levels_kernel", "orb_describe_kernel")
+                "select_levels_kernel", "orb_describe_kernel",
+                "seg_sum_kernel")
+# the segmented-sum kernel at the shapes the main path gives it (full width):
+# (rows, segments, lanes, live segments or None for all, share of rows on
+# the dump id). The CG global BA of the loop arena (20,160 live edges over 14
+# of 512 cameras, about 1,440 rows a camera, and 4,167 of 65,536 points; the
+# smoke takes these two from the arena itself, the tests seed them), the
+# direct local BA at SlamConfig() capacities (48 free of 96 cameras, 1280 row
+# slots a camera, 8192 points), the pose graph's normal matrix over 512
+# keyframe slots, and the landmark normals of update_landmark_stats_touched
+# (16384 landmarks, 131072 observation slots).
+SEG_SHAPES = {
+    "gba_cameras": (20160, 512, (6, 6), 14, 0.0),
+    "gba_points": (20160, 65536, (3, 3), 4167, 0.0),
+    "local_ba_coupling": (48 * 1280, 48 * 8192, (18,), None, 0.0),
+    "local_ba_points": (96 * 1280, 8192, (9,), None, 0.0),
+    "pose_graph_H": (4 * 300, 512 * 512, (7, 7), 700, 0.0),
+    "landmark_normals": (131072, 16384, (3,), None, 0.5),
+}
+
+
+def seg_case(name, device, seed=SEED + 11):
+    """A seeded (plan, values) at SEG_SHAPES[name]: rows spread uniformly
+    over the live segments, the given share on the dump id, normal
+    values."""
+    E, n, tail, live, dump = SEG_SHAPES[name]
+    rng = np.random.default_rng([seed, len(name)])
+    ids = rng.choice(n, live, replace=False) if live else np.arange(n)
+    idx = ids[rng.integers(0, len(ids), E)]
+    idx[rng.uniform(size=E) < dump] = n
+    v = rng.normal(size=(E,) + tail).astype(np.float32)
+    return (SG.SegmentPlan(torch.as_tensor(idx).to(device), n),
+            torch.as_tensor(v).to(device))
 
 
 def log(msg: str) -> None:
@@ -531,6 +581,119 @@ def check_kernels(tracker, frame):
         "plain_ms", "bound_ms", "bound_by", "library_ms")}
     g_row["init"]["keypoints"] = sum(plan.level_k)
     return [w_row, d_row, g_row]
+
+
+# the segmented-sum kernel's launches by path: {phase: {"total": n, and by
+# the method that launched them}}, each counted from 0 around its drive
+SEG_LAUNCHES = {}
+
+
+def seg_sum_cases(cam, arena, inv_s2):
+    """The segmented-sum kernel's inputs at the main path's shapes: the
+    loop arena's global BA on its live edges (by camera, the 36 lanes of
+    Hcc, 1,440 rows a live camera on average and 2,000 at most; by point,
+    the 9 of Hpp; the values of a first LM step) and ``seg_case`` at the
+    other SEG_SHAPES. {name: (plan, values)}."""
+    prob = D.global_ba_problem_from_arena(cam, arena, inv_s2)
+    keep = prob.obs_valid.nonzero()[:, 0]
+    live = prob._replace(**{f: getattr(prob, f)[keep] for f in D.EDGE_FIELDS})
+    cam_plan, pt_plan = TBA._cg_plans(live)
+    _, Hcc_e, Hpp_e, _, _, _ = TBA._edge_terms(cam, live,
+                                               live.obs_inv_sigma2)
+    cases = {"gba_cameras": (cam_plan, Hcc_e), "gba_points": (pt_plan, Hpp_e)}
+    for name in SEG_SHAPES:
+        if name not in cases:
+            cases[name] = seg_case(name, "cuda")
+    return cases
+
+
+def check_seg_sum(cam, arena, inv_s2):
+    """The segmented-sum kernel against its kernel-order plain version on
+    the card at each shape of ``seg_sum_cases``, bitwise, and two launches
+    on one plan bitwise equal; times at each shape (a wrapper call, the
+    device's time from a CUDA graph, and ``index_add_`` into zeros, the
+    library call with float atomics), the plain version's at the global
+    BA's camera shape, which is the row's. Bound: each value, permutation
+    entry and offset read once, each output lane written once; one add a
+    value. Returns the kernel's JSON row, without its launches."""
+    cases = []
+    for name, (plan, v) in seg_sum_cases(cam, arena, inv_s2).items():
+        a, b = SG.segment_sum(plan, v), SG.segment_sum(plan, v)
+        ref = SG.segment_sum_ordered(plan, v)
+        torch.cuda.synchronize()
+        E, n, tail = v.shape[0], plan.n, tuple(v.shape[1:])
+        lanes = math.prod(tail)
+
+        def lib(plan=plan, v=v, tail=tail):
+            # the dump row n takes the dropped rows, as in the plain version
+            return torch.zeros((plan.n + 1,) + tail,
+                               device="cuda").index_add_(0, plan.idx, v)[:-1]
+
+        b_ms, b_by = bound(E * lanes * 4 + E * 8 + (n + 1) * 8
+                           + n * lanes * 4, E * lanes)
+        c = dict(name=name, rows=E, segments=n, lanes=lanes,
+                 longest=int((plan.order()[1].diff()).max()),
+                 bitwise=bool(torch.equal(a, ref) and torch.equal(a, b)),
+                 max_abs_err=float((a - ref).abs().max()),
+                 index_add_max_abs_diff=float((lib() - a).abs().max()),
+                 ms=time_ms(lambda: SG.segment_sum(plan, v)),
+                 device_ms=graph_ms(lambda: SG.segment_sum(plan, v)),
+                 library_ms=time_ms(lib), library_device_ms=graph_ms(lib),
+                 bound_ms=b_ms, bound_by=b_by)
+        if name == "gba_cameras":
+            c["plain_ms"] = time_ms(lambda: SG.segment_sum_ordered(plan, v))
+        log(f"[seg_sum] {name}: {E} rows, {n} segments (longest "
+            f"{c['longest']}), {lanes} lanes: bitwise {c['bitwise']} "
+            f"(max |err| {c['max_abs_err']:.3g}; index_add_ differs by "
+            f"{c['index_add_max_abs_diff']:.3g}); kernel {c['ms']:.5f} ms "
+            f"(device {c['device_ms']:.5f}), index_add_ {c['library_ms']:.5f}"
+            f" ms (device {c['library_device_ms']:.5f}), bound "
+            f"{b_ms:.5f} ms ({b_by})"
+            + (f", plain {c['plain_ms']:.5f} ms" if "plain_ms" in c else ""))
+        cases.append(c)
+    bad = [c["name"] for c in cases if not c["bitwise"]]
+    if bad:
+        raise AssertionError(f"seg_sum differs from its kernel-order plain "
+                             f"version, or from itself, at {bad}")
+    head = cases[0]
+    row = dict(name="seg_sum", route="cuda",
+               source="cubemapslam_tpu_torch/csrc/seg_sum.cu",
+               replaces="cubemapslam_tpu/optim/ba.py:447 (the CG BA's "
+                        ".at[].add, an XLA scatter; also ba.py:311, 329, "
+                        "475-486, 514, optim/pose_graph.py:74-80, "
+                        "slam_map.py:203; no pallas_call)",
+               shape=f"gba_cameras: {head['rows']} rows x {head['lanes']} "
+                     f"lanes into {head['segments']} segments",
+               max_abs_err=max(c["max_abs_err"] for c in cases),
+               **{k: head[k] for k in ("ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_device_ms")},
+               cases=cases)
+    return row
+
+
+@contextlib.contextmanager
+def seg_tally(obj, names, tally):
+    """Count the segmented-sum launches inside each named method of
+    ``obj`` into ``tally`` (by name) while the context is open."""
+    orig = {n: getattr(obj, n) for n in names}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            n0 = SG.SEG_SUM.launches
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                tally[name] = tally.get(name, 0) + SG.SEG_SUM.launches - n0
+        return call
+
+    for name, fn in orig.items():
+        setattr(obj, name, counted(name, fn))
+    try:
+        yield tally
+    finally:
+        for name, fn in orig.items():
+            setattr(obj, name, fn)
 
 
 def drive_main_path(tracker, frame_u8, lms, rng):
@@ -1018,25 +1181,35 @@ def drive_slam(slam, poses, frames, counters):
     for group in counters.values():
         for c in group:
             c.launches = 0
+    SG.SEG_SUM.launches = 0
+    seg = {}
     torch.cuda.reset_peak_memory_stats()
     slam.stage_times = {}
     walls, n_new, first_ok = [], [], None
-    for i in range(SLAM_FRAMES):
-        torch.cuda.synchronize()
-        t_start = time.perf_counter()
-        T = slam.track_fisheye(frames[i], i / cfg.fps)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t_start) * 1e3)
-        row = slam.metrics[-1]
-        log("[slam] " + slam_row_line(i, row, walls[-1]))
-        if T is not None and first_ok is None:
-            first_ok = i
-        if first_ok is not None and T is None:
-            raise AssertionError(f"frame {i} after initialization was lost")
-        if row.get("keyframe") and row.get("stage") != "init":
-            n_new.append(int(slam._last_mapping_info[2]))
+    with seg_tally(slam.mapping, ("mapping_step", "local_ba"), seg):
+        for i in range(SLAM_FRAMES):
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            T = slam.track_fisheye(frames[i], i / cfg.fps)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t_start) * 1e3)
+            row = slam.metrics[-1]
+            log("[slam] " + slam_row_line(i, row, walls[-1]))
+            if T is not None and first_ok is None:
+                first_ok = i
+            if first_ok is not None and T is None:
+                raise AssertionError(f"frame {i} after initialization was "
+                                     f"lost")
+            if row.get("keyframe") and row.get("stage") != "init":
+                n_new.append(int(slam._last_mapping_info[2]))
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
+    SEG_LAUNCHES["slam"] = dict(total=SG.SEG_SUM.launches, **seg)
+    log(f"[slam] seg_sum: launches in {SLAM_FRAMES} frames "
+        f"{SEG_LAUNCHES['slam']} (by MappingKernels method)")
+    if not (seg.get("mapping_step") and seg.get("local_ba")):
+        raise AssertionError("the mapping step or the local BA launched no "
+                             "segmented sum")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     times, slam.stage_times = slam.stage_times, None
     for name, by_kernel in launches.items():
@@ -1232,6 +1405,60 @@ def small_mapping_reference_check():
             raise AssertionError(f"card and CPU {stage} disagree")
 
 
+def map_snapshot(slam):
+    """Every arena table and the trajectory on the host, the sha256 digest
+    of each (``digests``, the trajectory's under "trajectory") and of all
+    of them (``digest``: tables in field order, then each pose's timestamp,
+    R and t)."""
+    tables = {k: getattr(slam.arena, k).detach().cpu().clone()
+              for k in slam.arena._fields}
+    traj = [(float(ts), np.asarray(R), np.asarray(t))
+            for ts, R, t in slam.trajectory]
+    h, digests = hashlib.sha256(), {}
+    for k, v in tables.items():
+        b = v.contiguous().numpy().tobytes()
+        digests[k] = hashlib.sha256(b).hexdigest()
+        h.update(k.encode())
+        h.update(b)
+    ht = hashlib.sha256()
+    for ts, R, t in traj:
+        b = np.float64(ts).tobytes() + R.tobytes() + t.tobytes()
+        ht.update(b)
+        h.update(b)
+    digests["trajectory"] = ht.hexdigest()
+    return dict(tables=tables, traj=traj, digest=h.hexdigest(),
+                digests=digests)
+
+
+def repeat_check(cfg, frames, ref):
+    """The slam phase's SLAM_FRAMES frames again in a fresh CubemapSLAM
+    (the same seed and stage timing as ``drive_slam``): every arena table
+    (keyframe poses, landmark positions, the associations among them) and
+    the trajectory bitwise equal to the first run's, ``ref``."""
+    t0 = time.perf_counter()
+    slam = CubemapSLAM(cfg, seed=SEED)
+    slam.stage_times = {}
+    for i in range(SLAM_FRAMES):
+        slam.track_fisheye(frames[i], i / cfg.fps)
+    snap = map_snapshot(slam)
+    a, b = ref["tables"], snap["tables"]
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    traj_same = len(ref["traj"]) == len(snap["traj"]) and all(
+        x[0] == y[0] and np.array_equal(x[1], y[1])
+        and np.array_equal(x[2], y[2])
+        for x, y in zip(ref["traj"], snap["traj"]))
+    gaps = {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in ("kf_R", "kf_t", "lm_pos")}
+    log(f"[repeat] the slam phase's {SLAM_FRAMES} frames again in a fresh "
+        f"CubemapSLAM: map digest {snap['digest']} (first run "
+        f"{ref['digest']}); tables differing {bad}; trajectory bitwise "
+        f"equal {traj_same}; largest differences {gaps}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad or not traj_same:
+        raise AssertionError("the slam phase's map differs between two runs "
+                             "from the same frames")
+
+
 def slam_phase(cfg, counters):
     """The whole system at full width from its first frame, with the
     pretrained vocabulary: the driven frames, the profiled keyframe and
@@ -1250,8 +1477,13 @@ def slam_phase(cfg, counters):
         f"({VOCAB_PATH.name}), built in {time.perf_counter() - t0:.1f} s")
     walls, launches, first_ok, ate = drive_slam(slam, poses, frames,
                                                 counters)
+    snap = map_snapshot(slam)
+    log(f"[slam-digest] sha256 of the map after frame {SLAM_FRAMES - 1}: "
+        f"{snap['digest']}")
     profiled_slam(slam, frames, walls)
     profiled_init(cfg, frames, first_ok, walls)
+    repeat_check(cfg, frames, snap)
+    del snap
     small_mapping_reference_check()
     return slam, poses, frames, launches, ate
 
@@ -1264,6 +1496,7 @@ def zero_launches(counters):
     for group in counters.values():
         for c in group:
             c.launches = 0
+    SG.SEG_SUM.launches = 0
 
 
 def read_launches(counters, tag, n_frames):
@@ -1271,6 +1504,9 @@ def read_launches(counters, tag, n_frames):
     launched once a frame."""
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
+    SEG_LAUNCHES[tag] = {"total": SG.SEG_SUM.launches}
+    log(f"[{tag}] seg_sum: launches in {n_frames} frames "
+        f"{SG.SEG_SUM.launches}")
     for name, by_kernel in launches.items():
         log(f"[{tag}] {name}: launches in {n_frames} frames {by_kernel}")
         for sym, n in by_kernel.items():
@@ -1308,6 +1544,7 @@ def check_near_truth(tag, T, pose, align, path):
     if not (ang < RELOC_BOUND_DEG and dist < RELOC_BOUND_FRAC * path):
         raise AssertionError(f"{tag}: pose beyond the bound of the ground "
                              f"truth")
+    return ang, dist
 
 
 def go_lost(slam, n, ts):
@@ -1387,7 +1624,7 @@ def localization_phase(slam, poses, frames, ate, counters):
     slam.activate_localization_mode()
     before = map_counts(slam)
     zero_launches(counters)
-    walls = []
+    walls, errs = [], {}
     first = RELOC_FRAME + 1
     for i in range(first, first + LOC_FRAMES):
         T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
@@ -1396,8 +1633,15 @@ def localization_phase(slam, poses, frames, ate, counters):
         if T is None or row.get("stage") != "localization" or row["vo"]:
             raise AssertionError(f"localization frame {i} was not tracked "
                                  f"against the map")
-        check_near_truth("localization", T, poses[i], align, path)
+        errs[i] = check_near_truth("localization", T, poses[i], align, path)
     launches = read_launches(counters, "localization", LOC_FRAMES)
+    worst = max(errs, key=lambda i: errs[i][1])
+    frac = errs[worst][1] / path
+    log(f"[localization] worst frame {worst}: {frac:.5f} of the path, "
+        f"{errs[worst][0]:.4f} deg; margin to the bound {RELOC_BOUND_FRAC}: "
+        f"{RELOC_BOUND_FRAC - frac:.5f} ({frac / RELOC_BOUND_FRAC:.3f} of "
+        f"it); by frame "
+        f"{ {i: round(e[1] / path, 5) for i, e in errs.items()} }")
     after = map_counts(slam)
     log(f"[localization] {LOC_FRAMES} frames: wall ms median "
         f"{float(np.median(walls)):.3f}; (keyframes created, live, live "
@@ -1617,17 +1861,21 @@ def segment_b_error(arena) -> float:
                      for j in range(4)))
 
 
-def close_constructed_loop(cfg, system):
-    """``LoopCloser.process`` on slots 12 then 13 at consistency_th = 1.
-    Returns (the closer, the closure's wall ms, what each call returned)."""
+def close_constructed_loop(cfg, system, seg=None):
+    """``LoopCloser.process`` on slots 12 then 13 at consistency_th = 1,
+    with the segmented sums of the correction and the global BA counted
+    into ``seg`` when given. Returns (the closer, the closure's wall ms,
+    what each call returned)."""
     lc = LoopCloser(cfg, CubemapCamera.from_config(cfg,
                                                    system.arena.device))
     lc.consistency_th = 1
-    closed = [lc.process(system, 12)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    closed.append(lc.process(system, 13))
-    torch.cuda.synchronize()
+    with (contextlib.nullcontext() if seg is None else
+          seg_tally(lc, ("_correct", "_global_ba"), seg)):
+        closed = [lc.process(system, 12)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        closed.append(lc.process(system, 13))
+        torch.cuda.synchronize()
     return lc, (time.perf_counter() - t0) * 1e3, closed
 
 
@@ -1649,8 +1897,20 @@ def loop_phase(cfg):
     if min(rows[:6] + rows[10:14]) < LOOP_MIN_ROW:
         raise AssertionError("a segment keyframe holds fewer than "
                              f"{LOOP_MIN_ROW} observations")
+    inv_s2 = 1.0 / torch.tensor(cfg.level_sigma2, dtype=torch.float32,
+                                device="cuda")
+    seg_row = check_seg_sum(CubemapCamera.from_config(cfg, "cuda"), a,
+                            inv_s2)
     before = segment_b_error(a)
-    lc, cold, closed = close_constructed_loop(cfg, system)
+    SG.SEG_SUM.launches = 0
+    seg = {}
+    lc, cold, closed = close_constructed_loop(cfg, system, seg)
+    SEG_LAUNCHES["loop"] = dict(total=SG.SEG_SUM.launches, **seg)
+    log(f"[loop] seg_sum: launches in the closure {SEG_LAUNCHES['loop']} "
+        f"(by LoopCloser stage)")
+    if not (seg.get("_correct") and seg.get("_global_ba")):
+        raise AssertionError("the correction or the global BA launched no "
+                             "segmented sum")
     after = segment_b_error(system.arena)
     log(f"[loop] process(12), process(13): {closed}; the first closure's "
         f"wall {cold:.3f} ms (cold: first use of its operations)")
@@ -1687,6 +1947,7 @@ def loop_phase(cfg):
         raise AssertionError(f"the closure waited {prof['host_waits']:.0f} "
                              f"times; its stated reads and eigen-solve waits "
                              f"are {allowed}")
+    return seg_row
 
 
 def arena_gap(c, g):
@@ -1870,6 +2131,9 @@ def app_phase(poses, frames, counters, settings="none", device=None):
         CubemapSLAM.track_fisheye = track
     wall = time.perf_counter() - t0
     launches = read_launches(counters, "app", len(frames))
+    if not SEG_LAUNCHES["app"]["total"]:
+        raise AssertionError("the runner's mapping launched no segmented "
+                             "sum")
     for line in out.getvalue().splitlines():
         log(f"[app] | {line}")
     if rc != 0:
@@ -1980,6 +2244,7 @@ def dist_phase(cfg, dev="cuda", n_pts=LOOP_POINTS):
     sharded = D.shard_ba_problem(live, 1, shard_points=True)
     ref, ref_inl, ref_ms = single_solve(cam, sharded, dev)
     backend = "nccl" if dev == "cuda" else "gloo"
+    SG.SEG_SUM.launches = 0
     store_dir = tempfile.mkdtemp(dir=ROOT / "build")
     try:
         dist.init_process_group(
@@ -1989,12 +2254,17 @@ def dist_phase(cfg, dev="cuda", n_pts=LOOP_POINTS):
         try:
             res = D.rank_bundle_adjust(D.make_mesh(), cam, sharded, dev,
                                        DIST_PHASES, DIST_CG_ITERS)
+            launches = SG.SEG_SUM.launches
         finally:
             dist.destroy_process_group()
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+    SEG_LAUNCHES["dist"] = {"total": launches}
     log(f"[dist] world size 1 over {backend}: boundary rows reduced each CG "
-        f"iteration {sharded.n_boundary} (and the {M}x6 camera table)")
+        f"iteration {sharded.n_boundary} (and the {M}x6 camera table); "
+        f"seg_sum launches of the rank's solve {launches}")
+    if not launches:
+        raise AssertionError("the sharded BA launched no segmented sum")
     check_sharded(f"world size 1 ({backend})", res, ref, ref_inl,
                   sharded.prob.obs_valid, ref_ms)
 
@@ -2124,7 +2394,7 @@ def main() -> int:
     del slam
     small_reloc_reference_check()
     done("save/load and the reloc reference check")
-    loop_phase(cfg)
+    seg_row = loop_phase(cfg)
     done("loop")
     small_loop_reference_check()
     done("the loop reference check")
@@ -2144,6 +2414,12 @@ def main() -> int:
         r["launches_reloc"] = sum(r_launches[r["name"]].values())
         r["launches_localization"] = sum(l_launches[r["name"]].values())
         r["launches_app"] = sum(a_launches[r["name"]].values())
+    # the segmented sum runs a data-dependent number of times: on the slam
+    # path (mapping and local BA), the loop closure, the runner and the
+    # sharded BA, each counted from 0 around its drive
+    seg_row["launches"] = SEG_LAUNCHES["slam"]["total"]
+    seg_row["launches_by_path"] = SEG_LAUNCHES
+    rows.append(seg_row)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,7 @@ import).
 
 The matrix-free CG path (``_lm_step``, ``ba.py:429-524``) serves the global
 BA of loop closing: per-edge normal blocks, the reduced camera system
-S = Hcc - W Hpp^-1 Wᵀ applied matrix-free (two gathers, two ``index_add_``
+S = Hcc - W Hpp^-1 Wᵀ applied matrix-free (two gathers, two segment sums
 and batched small products a matvec) inside a block-Jacobi preconditioned
 CG of a fixed number of iterations, the point blocks inverted by the 3x3
 closed form and the 6x6 preconditioner by ``torch.linalg.inv_ex`` (neither
@@ -31,6 +31,12 @@ point-table sum by the boundary-prefix ``all_reduce`` of ``_psum_pts``, so
 the reduced system, and with it every update, is the same on all ranks.
 Without a group (``None``) no collective runs and the results are those of
 the single-device path.
+
+Every scatter-add over the edges (the JAX ``.at[idx].add``) is a
+``segment.segment_sum`` on a plan built once a solve: the edge indices do not
+change across its LM steps and CG iterations. On the card the plan fixes the
+order of the additions, so a solve returns the same bits on every run; on the
+CPU it is ``index_add_``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from cubemapslam_tpu_torch.optim.pose_opt import (CHI2_TH, HUBER_DELTA,
                                                   _huber_weight)
 from cubemapslam_tpu_torch.optim.residuals import (reproj_jacobians,
                                                    reproj_residual)
+from cubemapslam_tpu_torch.segment import SegmentPlan, segment_sum
 
 
 class BAProblem(NamedTuple):
@@ -207,17 +214,33 @@ def _inv3_lanes(H, lm_lambda, pt_valid):
             [C * idet, F * idet, I * idet]]
 
 
+def _direct_plans(ctx: _DirectCtx, m_free: int, P: int):
+    """The segment plans of the direct step's two scatters: the point
+    sums over all edges, and the coupling of the first ``m_free`` cameras
+    by (camera, point). A padding slot (``valid0`` false) has weight 0 in
+    every step, so it adds exact zeros: the plans drop it (the JAX package
+    adds it to point 0), and no segment collects the padding."""
+    ok = ctx.valid0
+    pt = torch.where(ok, ctx.obs_pt, P).reshape(-1)
+    tgt = torch.where(ok[:m_free], torch.arange(
+        m_free, device=ok.device)[:, None] * P + ctx.obs_pt[:m_free],
+        m_free * P).reshape(-1)
+    return SegmentPlan(pt, P), SegmentPlan(tgt, m_free * P)
+
+
 def _lm_step_direct(cam: CubemapCamera, prob: BAProblem, ctx: _DirectCtx,
                     active, robust: bool, lm_lambda, m_free: int,
-                    lanes_now=None):
+                    lanes_now=None, plans=None):
     """One damped Gauss-Newton step via the dense Schur complement and a
     Cholesky factor. The coupling and Schur blocks are built for the first
     ``m_free`` cameras only: cameras at index >= m_free must be fixed
-    anchors (they still constrain the points through Hpp / bp)."""
+    anchors (they still constrain the points through Hpp / bp). ``plans``:
+    those of ``_direct_plans``, built here when not given."""
     M = prob.R.shape[0]
     Mf = m_free
     P = prob.X.shape[0]
     dev, f32 = prob.X.device, prob.X.dtype
+    pt_plan, w_plan = plans or _direct_plans(ctx, Mf, P)
     if lanes_now is None:
         lanes_now = _lanes_eval(cam, ctx, prob.R, prob.t, prob.X)
     Xc, local, e0, e1, chi2 = lanes_now
@@ -246,7 +269,7 @@ def _lm_step_direct(cam: CubemapCamera, prob: BAProblem, ctx: _DirectCtx,
     eye6 = torch.eye(6, dtype=f32, device=dev)
     Hcc_d = Hcc + eye6[:, :, None] * dmp_c[None, None, :]
 
-    # point side: 6 symmetric Hpp + 3 bp lanes, one (9,P) scatter-add over
+    # point side: 6 symmetric Hpp + 3 bp lanes, one 9-lane segment sum over
     # ALL edges (anchor cameras constrain the points)
     pt_lanes = []
     for b in range(3):
@@ -254,9 +277,8 @@ def _lm_step_direct(cam: CubemapCamera, prob: BAProblem, ctx: _DirectCtx,
             pt_lanes.append(w * (Jp[0][b] * Jp[0][c] + Jp[1][b] * Jp[1][c]))
     for b in range(3):
         pt_lanes.append(-w * (Jp[0][b] * e0 + Jp[1][b] * e1))
-    pt_red = torch.zeros(9, P, dtype=f32, device=dev).index_add_(
-        1, ctx.obs_pt.reshape(-1),
-        torch.stack([x.reshape(-1) for x in pt_lanes]))
+    pt_red = segment_sum(pt_plan, torch.stack(
+        [x.reshape(-1) for x in pt_lanes], dim=1)).T         # (9,P)
     Hpp = [[pt_red[0], pt_red[1], pt_red[2]],
            [pt_red[1], pt_red[3], pt_red[4]],
            [pt_red[2], pt_red[4], pt_red[5]]]
@@ -267,12 +289,9 @@ def _lm_step_direct(cam: CubemapCamera, prob: BAProblem, ctx: _DirectCtx,
     Wv = torch.stack([
         w[:Mf] * (Jc[0][a][:Mf] * Jp[0][b][:Mf]
                   + Jc[1][a][:Mf] * Jp[1][b][:Mf])
-        for a in range(6) for b in range(3)])             # (18,Mf,Nc)
-    tgt = (torch.arange(Mf, device=dev)[:, None] * P
-           + ctx.obs_pt[:Mf]).reshape(-1)
-    Wd = torch.zeros(18, Mf * P, dtype=f32, device=dev).index_add_(
-        1, tgt, Wv.reshape(18, -1))
-    Wd = Wd.reshape(18, Mf, P).permute(1, 0, 2).reshape(Mf, 6, 3, P)
+        for a in range(6) for b in range(3)], dim=-1)     # (Mf,Nc,18)
+    Wd = segment_sum(w_plan, Wv.reshape(-1, 18))          # (Mf*P,18)
+    Wd = Wd.reshape(Mf, P, 18).permute(0, 2, 1).reshape(Mf, 6, 3, P)
     Hinv_s = torch.stack([torch.stack(r) for r in Hinv])  # (3,3,P)
     Y = torch.einsum("mabp,bcp->macp", Wd, Hinv_s)        # (Mf,6,3,P)
     A = Y.reshape(Mf * 6, 3 * P)
@@ -325,6 +344,7 @@ def _bundle_adjust_direct(cam: CubemapCamera, prob: BAProblem, phase_iters,
     active = ctx.valid0
     Mf = min(n_free, prob.R.shape[0])
     dev, f32 = prob.X.device, prob.X.dtype
+    plans = _direct_plans(ctx, Mf, prob.X.shape[0])
 
     def lm_loop(prob, active, robust, n_iters):
         lanes = list(_lanes_eval(cam, ctx, prob.R, prob.t, prob.X))
@@ -332,7 +352,8 @@ def _bundle_adjust_direct(cam: CubemapCamera, prob: BAProblem, phase_iters,
         lm_lambda = torch.full((), 1e-4, dtype=f32, device=dev)
         for _ in range(n_iters):
             R_n, t_n, X_n = _lm_step_direct(cam, prob, ctx, active, robust,
-                                            lm_lambda, Mf, lanes_now=lanes)
+                                            lm_lambda, Mf, lanes_now=lanes,
+                                            plans=plans)
             cand = prob._replace(R=R_n, t=t_n, X=X_n)
             lanes_c = _lanes_eval(cam, ctx, cand.R, cand.t, cand.X)
             cost_c = _robust_cost(lanes_c[4], active, robust)
@@ -389,12 +410,6 @@ def _edge_terms(cam: CubemapCamera, prob: BAProblem, w: torch.Tensor):
     return e, Hcc_e, Hpp_e, W_e, bc_e, bp_e
 
 
-def _segsum(n: int, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``zeros((n,) + v.shape[1:]).at[idx].add(v)``."""
-    return torch.zeros((n,) + tuple(v.shape[1:]), dtype=v.dtype,
-                       device=v.device).index_add_(0, idx, v)
-
-
 def _psum(x: torch.Tensor, group) -> torch.Tensor:
     """``ba.py:53-54``: the sum of ``x`` over the ranks of ``group``, in
     place; ``x`` itself without a group."""
@@ -427,23 +442,35 @@ def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (A * x[..., None, :]).sum(-1)
 
 
+def _cg_plans(prob: BAProblem):
+    """The segment plans of the CG step: edges by camera and by point. A
+    masked edge (``obs_valid`` false: padding, as in a shard) has weight 0
+    in every step and adds exact zeros, so the plans drop it."""
+    M, P = prob.R.shape[0], prob.X.shape[0]
+    ok = prob.obs_valid
+    return (SegmentPlan(torch.where(ok, prob.obs_cam, M), M),
+            SegmentPlan(torch.where(ok, prob.obs_pt, P), P))
+
+
 def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
-             lm_lambda, cg_iters: int, group=None, n_boundary=None):
+             lm_lambda, cg_iters: int, group=None, n_boundary=None,
+             plans=None):
     """One damped Gauss-Newton step via the Schur complement and a
     matrix-free, block-Jacobi preconditioned CG of ``cg_iters`` iterations
     (``ba.py:429-524``), with the edges of this rank's shard when ``group``
-    is set. Returns the candidate (R, t, X)."""
+    is set. ``plans``: those of ``_cg_plans``, built here when not given.
+    Returns the candidate (R, t, X)."""
     M = prob.R.shape[0]
-    P = prob.X.shape[0]
     dev, f32 = prob.X.device, prob.X.dtype
+    cam_plan, pt_plan = plans or _cg_plans(prob)
     chi2 = _chi2(cam, prob)
     w = prob.obs_inv_sigma2 * (_huber_weight(chi2) if robust else 1.0)
     w = torch.where(active, w, torch.zeros_like(w))
     _, Hcc_e, Hpp_e, W_e, bc_e, bp_e = _edge_terms(cam, prob, w)
-    Hcc = _psum(_segsum(M, prob.obs_cam, Hcc_e), group)
-    Hpp = _psum_pts(_segsum(P, prob.obs_pt, Hpp_e), group, n_boundary)
-    bc = _psum(_segsum(M, prob.obs_cam, bc_e), group)
-    bp = _psum_pts(_segsum(P, prob.obs_pt, bp_e), group, n_boundary)
+    Hcc = _psum(segment_sum(cam_plan, Hcc_e), group)
+    Hpp = _psum_pts(segment_sum(pt_plan, Hpp_e), group, n_boundary)
+    bc = _psum(segment_sum(cam_plan, bc_e), group)
+    bp = _psum_pts(segment_sum(pt_plan, bp_e), group, n_boundary)
 
     # damped point blocks, inverted by the 3x3 closed form (the same damped
     # matrix as the JAX code's jnp.linalg.inv; zero for invalid points)
@@ -465,16 +492,16 @@ def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
         """x: (M,6) -> S x, with fixed cameras projected out."""
         x = torch.where(fr, x, torch.zeros_like(x))
         hx = _bmv(Hcc_d, x)
-        s = _psum_pts(_segsum(P, prob.obs_pt, _bmv(W_eT, x[prob.obs_cam])),
+        s = _psum_pts(segment_sum(pt_plan, _bmv(W_eT, x[prob.obs_cam])),
                       group, n_boundary)
         y = _bmv(Hpp_inv, s)
-        coup = _psum(_segsum(M, prob.obs_cam, _bmv(W_e, y[prob.obs_pt])),
+        coup = _psum(segment_sum(cam_plan, _bmv(W_e, y[prob.obs_pt])),
                      group)
         return torch.where(fr, hx - coup, x)
 
     # reduced rhs: bc - W Hpp^-1 bp
     yb = _bmv(Hpp_inv, bp)
-    rhs = bc - _psum(_segsum(M, prob.obs_cam, _bmv(W_e, yb[prob.obs_pt])),
+    rhs = bc - _psum(segment_sum(cam_plan, _bmv(W_e, yb[prob.obs_pt])),
                      group)
     rhs = torch.where(fr, rhs, torch.zeros_like(rhs))
 
@@ -501,7 +528,7 @@ def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
     dc = x
 
     # back-substitute the point updates
-    s = _psum_pts(_segsum(P, prob.obs_pt, _bmv(W_eT, dc[prob.obs_cam])),
+    s = _psum_pts(segment_sum(pt_plan, _bmv(W_eT, dc[prob.obs_cam])),
                   group, n_boundary)
     dp = _bmv(Hpp_inv, bp - s)
     dp = torch.where(prob.pt_valid[:, None], dp, torch.zeros_like(dp))
@@ -520,6 +547,7 @@ def _bundle_adjust_cg(cam: CubemapCamera, prob: BAProblem, phase_iters,
     mask)."""
     active = prob.obs_valid
     dev, f32 = prob.X.device, prob.X.dtype
+    plans = _cg_plans(prob)
 
     def lm_loop(prob, active, robust, n_iters):
         lm_lambda = torch.full((), 1e-4, dtype=f32, device=dev)
@@ -527,7 +555,7 @@ def _bundle_adjust_cg(cam: CubemapCamera, prob: BAProblem, phase_iters,
             cost = _psum(_robust_cost(_chi2(cam, prob), active, robust),
                          group)
             R_n, t_n, X_n = _lm_step(cam, prob, active, robust, lm_lambda,
-                                     cg_iters, group, n_boundary)
+                                     cg_iters, group, n_boundary, plans)
             cand = prob._replace(R=R_n, t=t_n, X=X_n)
             cost_n = _psum(_robust_cost(_chi2(cam, cand), active, robust),
                            group)

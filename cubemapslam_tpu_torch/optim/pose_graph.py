@@ -7,9 +7,11 @@ information, the loop keyframe fixed. Each Gauss-Newton iteration takes the
 per-edge residual e = log(S_ji * S_i * S_j^-1) and its 7x14 Jacobian by
 forward-mode autodiff through the Sim3 exp and log (``torch.func.jvp`` along
 the 14 tangent directions of every edge at once, as ``jax.vmap(jax.jacfwd)``
-takes it), scatters the blocks into a dense (M, M, 7, 7) normal matrix by
-``index_put_(accumulate=True)`` and solves it with ``torch.linalg.solve_ex``
-(an LU solve, as ``jnp.linalg.solve``; no host wait).
+takes it), sums the blocks into a dense (M, M, 7, 7) normal matrix by one
+``segment.segment_sum`` over the (i,i), (j,j), (i,j) and (j,i) block keys (a
+plan built once a solve, so the card adds in the same order on every run)
+and solves it with ``torch.linalg.solve_ex`` (an LU solve, as
+``jnp.linalg.solve``; no host wait).
 
 A masked edge adds exact zeros to the normal matrix, so a caller may pass
 only its valid edges (``loop_closing.LoopKernels.propagate_and_pose_graph``
@@ -24,6 +26,7 @@ import torch
 from torch import func
 
 from cubemapslam_tpu_torch import geometry as G
+from cubemapslam_tpu_torch.segment import SegmentPlan, segment_sum
 
 
 def jacobian_fwd(f, n: int, x0: torch.Tensor) -> torch.Tensor:
@@ -71,6 +74,11 @@ def optimize_essential_graph(
     keep = free7[:, None] & free7[None, :]
     diag = torch.diag(torch.where(free7, 1e-6, 1.0).to(f32))
     x0 = torch.zeros(E, 14, dtype=f32, device=dev)
+    # the blocks' keys in the order of the JAX package's four scatters
+    h_plan = SegmentPlan(torch.cat([edge_i * M + edge_i, edge_j * M + edge_j,
+                                    edge_i * M + edge_j,
+                                    edge_j * M + edge_i]), M * M)
+    b_plan = SegmentPlan(torch.cat([edge_i, edge_j]), M)
     for _ in range(n_iters):
         s_i, R_i, t_i = s[edge_i], R[edge_i], t[edge_i]
         s_j, R_j, t_j = s[edge_j], R[edge_j], t[edge_j]
@@ -84,15 +92,11 @@ def optimize_essential_graph(
         Ji, Jj = J[..., :7], J[..., 7:]
         JiT = Ji.transpose(1, 2) * w[:, None, None]
         JjT = Jj.transpose(1, 2) * w[:, None, None]
-        # dense (M, M, 7, 7) normal matrix by scatter-add, then (7M, 7M)
-        H = torch.zeros(M, M, 7, 7, dtype=f32, device=dev)
-        H.index_put_((edge_i, edge_i), JiT @ Ji, accumulate=True)
-        H.index_put_((edge_j, edge_j), JjT @ Jj, accumulate=True)
-        H.index_put_((edge_i, edge_j), JiT @ Jj, accumulate=True)
-        H.index_put_((edge_j, edge_i), JjT @ Ji, accumulate=True)
-        b = torch.zeros(M, 7, dtype=f32, device=dev)
-        b.index_add_(0, edge_i, -(JiT @ e0[..., None])[..., 0])
-        b.index_add_(0, edge_j, -(JjT @ e0[..., None])[..., 0])
+        # dense (M, M, 7, 7) normal matrix by segment sum, then (7M, 7M)
+        H = segment_sum(h_plan, torch.cat([JiT @ Ji, JjT @ Jj, JiT @ Jj,
+                                           JjT @ Ji])).view(M, M, 7, 7)
+        b = segment_sum(b_plan, torch.cat([-(JiT @ e0[..., None])[..., 0],
+                                           -(JjT @ e0[..., None])[..., 0]]))
         Hd = H.permute(0, 2, 1, 3).reshape(M * 7, M * 7)
         Hd = torch.where(keep, Hd, torch.zeros_like(Hd)) + diag
         bd = torch.where(free7, b.reshape(-1), torch.zeros_like(free7,

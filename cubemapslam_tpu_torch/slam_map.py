@@ -26,6 +26,7 @@ import torch
 
 from cubemapslam_tpu_torch import camera as C
 from cubemapslam_tpu_torch import matching as M
+from cubemapslam_tpu_torch.segment import SegmentPlan, segment_sum
 
 NO_LM = -1
 _BIG = torch.iinfo(torch.int32).max    # the JAX package's int32 sentinel
@@ -207,9 +208,11 @@ def _stats_core(kf_frame_id, Ow, scale_factors, seg, live, kf_idx, desc,
     dist = torch.linalg.norm(d, dim=-1)
     dir_n = d / dist.clamp(min=1e-12)[:, None]
     w = live.float()
-    normal_sum = _scatter(S + 1, 0.0, seg, dir_n * w[:, None], "sum")
+    # the float sum in the plan's fixed order; the 0/1 counts are exact in
+    # any order
+    normal_sum = segment_sum(SegmentPlan(seg, S), dir_n * w[:, None])
     cnt = _scatter(S + 1, 0.0, seg, w, "sum")
-    normal = normal_sum[:-1] / cnt[:-1, None].clamp(min=1.0)
+    normal = normal_sum / cnt[:-1, None].clamp(min=1.0)
     nn = torch.linalg.norm(normal, dim=-1, keepdim=True)
     normal = normal / nn.clamp(min=1e-12)
 

@@ -1,6 +1,9 @@
 """The port's CubemapSLAM closes a loop on a rendered circuit.
 
     python3 scripts/torch_loop_e2e.py [--device cpu] [--seed 42]
+                                      [--draws device,cpu]
+                                      [--vocab-device cpu] [--dump PATH]
+                                      [--project-rotations]
 
 The counterpart of the JAX package's slow test
 ``tests/test_loop_e2e.py::test_closes_loop_and_reduces_ate``: 170
@@ -19,12 +22,20 @@ weight between keyframes more than 80 frames apart). Prints one line per
 keyframe frame, the closure's stage times, then a JSON summary (with the
 ATE right after each closure, and the RANSAC and refined Sim3 scale of
 each refinement), the card's
-name and power limit, and exits 1 if a check fails.
+name and power limit, and exits 1 if a check fails. ``--draws cpu`` gives
+the card the RANSAC minimal sets of a CPU run (a host generator with the
+same seed), which separates the sampling stream from the card's numerics
+when the two devices disagree; ``--draws device,cpu`` runs both over one
+rendering. The summary's ``rotation_orthonormality_error`` says how far the
+returned rotations left SO(3); ``--project-rotations`` keeps the tracked
+ones on it (a diagnostic), and ``--dump`` records every frame for
+``scripts/torch_e2e_divergence.py``.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import multiprocessing
 import os
@@ -39,6 +50,7 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
+from cubemapslam_tpu_torch import geometry as G  # noqa: E402
 from cubemapslam_tpu_torch import place as PL  # noqa: E402
 from cubemapslam_tpu_torch import slam_map as SM  # noqa: E402
 from cubemapslam_tpu_torch.camera import CubemapCamera  # noqa: E402
@@ -132,6 +144,49 @@ def record_scales(lc):
     return recs
 
 
+def project_tracked_rotations(slam) -> None:
+    """A diagnostic, off by default: each tracked frame's rotation, its
+    velocity and its pose relative to its keyframe projected onto SO(3),
+    as localization mode projects its predictions (``CubemapSLAM.
+    _predicted_pose``), so no rotation of the SLAM path's motion chain
+    leaves SO(3). The system itself keeps the JAX package's numerics."""
+    k = slam.kernels
+    inner = k.track_frame_full
+
+    def projected(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        R = G.so3_project(out.R)
+        packed = out.packed.clone()
+        packed[11:20] = R.reshape(-1)
+        return out._replace(R=R, rel_R=G.so3_project(out.rel_R),
+                            vel_R=G.so3_project(out.vel_R), packed=packed)
+
+    k.track_frame_full = projected
+
+
+def orthonormality_error(slam) -> float:
+    """The largest |R^T R - I| over the returned rotations: how far the
+    SLAM path's rotations left SO(3)."""
+    return max((float(np.abs(R.T @ R - np.eye(3)).max())
+                for _, R, _ in slam.trajectory), default=0.0)
+
+
+def record_frame(dump, slam, cross, T) -> None:
+    """One frame's state (TrackState value), returned 4x4 pose (NaN when
+    none), the tracking extractor's keypoints of the frame (uv, level,
+    descriptor words, valid) and the live keyframes and landmarks after
+    it, appended to ``dump``'s lists."""
+    kp = slam.extractor(cross, slam.as_mask(None))
+    dump["state"].append(np.int64(slam.state.value))
+    dump["pose"].append(np.full((4, 4), np.nan) if T is None else T)
+    dump["kp_uv"].append(kp.uv.cpu().numpy())
+    dump["kp_level"].append(kp.level.cpu().numpy())
+    dump["kp_desc"].append(kp.desc.cpu().numpy())
+    dump["kp_valid"].append(kp.valid.cpu().numpy())
+    dump["n_kf"].append(np.int64(int(slam.arena.kf_valid.sum())))
+    dump["n_lm"].append(np.int64(int(slam.arena.lm_valid.sum())))
+
+
 def train_vocab(cfg, world, device, path) -> None:
     """The test's ``pretrained_vocab``: 12 frames of the circuit, their
     valid descriptors, k=8, depth 3, seed 1."""
@@ -153,6 +208,23 @@ def main() -> int:
                     help="the card by default; 'cpu' for the plain versions")
     ap.add_argument("--seed", type=int, default=42,
                     help="the world's seed (the JAX test's rng fixture: 42)")
+    ap.add_argument("--vocab-device", default=None,
+                    help="where the vocabulary's training frames are "
+                    "extracted ('cpu': the CPU run's vocabulary); the run's "
+                    "device by default")
+    ap.add_argument("--dump", default=None,
+                    help="write each frame's state, returned pose and "
+                    "keypoints to this .npz (one file a --draws entry, the "
+                    "entry's name before the suffix), for "
+                    "scripts/torch_e2e_divergence.py")
+    ap.add_argument("--project-rotations", action="store_true",
+                    help="a diagnostic: project each tracked frame's "
+                    "rotations onto SO(3) (project_tracked_rotations)")
+    ap.add_argument("--draws", default="device",
+                    help="where RANSAC draws its minimal sets, a comma list "
+                    "run in turn over the same frames: 'device' (the "
+                    "system's generator) or 'cpu' (a host generator, the "
+                    "CPU run's sets)")
     args = ap.parse_args()
     if args.device is None and not torch.cuda.is_available():
         print("needs a CUDA card (or --device cpu)", file=sys.stderr)
@@ -169,22 +241,42 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     voc = out_dir / "loop_e2e_vocab.npz"
     t0 = time.perf_counter()
-    train_vocab(cfg0, world, args.device, voc)
+    train_vocab(cfg0, world, args.vocab_device or args.device, voc)
     frames = render_frames(cfg0, world, poses)
     print(f"[e2e] vocabulary and {N_FRAMES} frames rendered in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    ok = True
+    for draws in args.draws.split(","):
+        ok &= run_circuit(voc, frames, centres, args, draws, on_card)
+    return 0 if ok else 1
+
+
+def run_circuit(voc, frames, centres, args, draws, on_card) -> bool:
+    """The circuit through a fresh ``CubemapSLAM``; RANSAC draws on the
+    system's device (``draws="device"``) or from a host generator with the
+    same seed (``"cpu"``: on the card, the minimal sets of a CPU run).
+    Prints the summary; True when every check holds."""
     slam = CubemapSLAM(loop_cfg(vocab_path=str(voc)), device=args.device)
+    if draws == "cpu":
+        slam.generator = torch.Generator().manual_seed(0)
+    elif draws != "device":
+        raise ValueError(f"--draws takes device or cpu, got {draws!r}")
+    if args.project_rotations:
+        project_tracked_rotations(slam)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     ate_pre, ate_pre_frame, walls, closed_at = None, None, [], []
     ate_at_close, scales = [], record_scales(slam.loop_closer)
+    dump = collections.defaultdict(list)
     for k, img in enumerate(frames):
+        cross = torch.as_tensor(img, device=slam.device)
         sync()
         t1 = time.perf_counter()
-        slam.track_cubemap(torch.as_tensor(img, device=slam.device),
-                           k * 0.1)
+        T = slam.track_cubemap(cross, k * 0.1)
         sync()
         walls.append((time.perf_counter() - t1) * 1e3)
+        if args.dump:
+            record_frame(dump, slam, cross, T)
         row = slam.metrics[-1] if slam.metrics else {}
         if row.get("loop_closed"):
             closed_at.append(k)
@@ -211,7 +303,8 @@ def main() -> int:
     det = slam.loop_closer.timings.get("detect", [])
     summary = dict(
         device=(torch.cuda.get_device_name(0) if on_card else "cpu"),
-        seed=args.seed,
+        seed=args.seed, draws=draws,
+        project_rotations=args.project_rotations,
         frames=N_FRAMES, tracked=slam.tracked_frames,
         state=slam.state.name, keyframes=slam.n_kf,
         live_keyframes=int(valid.sum()), loops_closed=slam.n_loops_closed,
@@ -223,17 +316,25 @@ def main() -> int:
         closure_scales=[{key: float(v) for key, v in rec.items()}
                         for rec in scales if "refined" in rec],
         detect_ms_median=(float(np.median(det)) * 1e3 if det else None),
-        frame_wall_ms_median=float(np.median(walls)))
+        frame_wall_ms_median=float(np.median(walls)),
+        rotation_orthonormality_error=orthonormality_error(slam))
     print(json.dumps(summary))
+    if args.dump:
+        path = pathlib.Path(args.dump)
+        path = path.with_name(f"{path.stem}_{draws}{path.suffix}")
+        np.savez_compressed(path, summary=json.dumps(summary),
+                            **{k: np.stack(v) for k, v in dump.items()})
+        print(f"[e2e] per-frame record in {path}")
     if on_card:
         print(nvidia_smi_line())
     ok = (slam.n_loops_closed >= 1 and slam.state == TrackState.OK
           and ate_pre is not None and ate_post < ate_pre
           and ate_post < ATE_FRAC * SCENE)
-    print(f"[e2e] {'PASS' if ok else 'FAIL'}: loops {slam.n_loops_closed}, "
-          f"ATE {ate_pre} -> {ate_post} (bound {ATE_FRAC * SCENE}); "
-          f"cross-pass covisibility {cross_w} (the JAX test asks >= 15)")
-    return 0 if ok else 1
+    print(f"[e2e] {'PASS' if ok else 'FAIL'} ({draws} draws): loops "
+          f"{slam.n_loops_closed}, ATE {ate_pre} -> {ate_post} (bound "
+          f"{ATE_FRAC * SCENE}); cross-pass covisibility {cross_w} (the JAX "
+          f"test asks >= 15)", flush=True)
+    return ok
 
 
 if __name__ == "__main__":

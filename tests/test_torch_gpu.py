@@ -25,7 +25,16 @@ each other when no match is scrambled. ``prefetch_image``'s tensor tracks
 to the same pose as the host frame (1e-5). The constructed-drift loop
 closure on the card against the CPU, with the bounds of ``chip_smoke.py``
 (ComputeSim3, the correction from the CPU's refined Sim3, the global BA);
-and ``sim3_ransac`` waits ``sim3.EIGH_WAITS`` times.
+and ``sim3_ransac`` waits ``sim3.EIGH_WAITS`` times. The segmented-sum
+kernel at the main path's shapes (the global BA's camera and point sums,
+the local BA's coupling and point sums, the pose graph's normal matrix, the
+landmark normals with their dump row): bitwise equal to its kernel-order
+plain version, two launches on one plan bitwise equal, and within
+len * 2^-23 * sum|v| of the CPU's ``index_add_`` per segment; strided
+rows, one lane and no rows as their plain version. Run twice on the card
+from one arena, bitwise equal: ``mapping_step`` with its BA, ``local_ba``,
+the loop correction from the CPU's refined Sim3, the global BA, and the
+pose graph.
 """
 
 import math
@@ -35,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cubemapslam_tpu_torch import SlamConfig
 from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
@@ -382,6 +392,18 @@ def test_place_card_against_cpu(cuda):
     assert torch.equal(i_c[ok_c], i_g.cpu()[ok_c])
 
 
+def test_minimal_sets_from_a_host_generator(cuda):
+    """A host generator gives the card the host's minimal sets: the same
+    draws, and so the same sets, as on the CPU."""
+    from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
+    valid = torch.as_tensor(np.random.default_rng(4).uniform(size=600) > 0.3)
+    host = sample_minimal_sets(torch.Generator().manual_seed(5), valid, 300,
+                               8)
+    card = sample_minimal_sets(torch.Generator().manual_seed(5),
+                               valid.to(cuda), 300, 8)
+    assert card.device.type == "cuda" and torch.equal(card.cpu(), host)
+
+
 @pytest.mark.parametrize("n_out", [0, 45, 90])
 def test_pnp_ransac_card_against_cpu(cuda, n_out):
     """With no scrambled match the two poses agree; with scrambled ones each
@@ -469,7 +491,6 @@ def test_loop_closure_card_against_cpu(cuda):
     times (detection among them), waits 3 times in eigh and synchronizes
     twice to time its last stages (the global BA, held back here, reads
     once more)."""
-    import chip_smoke
     chip_smoke.small_loop_reference_check(card=cuda)
     cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
     closed, _, _, lc = chip_smoke.small_loop_closure(cfg, cuda)
@@ -515,3 +536,116 @@ def test_sim3_ransac_eigh_waits(cuda):
              and any(a <= e.time_range.start < b for a, b in span)]
     assert len(waits) == S3.EIGH_WAITS, [e.name for e in waits]
     assert bool(res.success) and abs(float(res.s12) - 1.3) < 1e-3
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.SEG_SHAPES))
+def test_seg_sum_kernel_bitwise(cuda, name):
+    """The segmented-sum kernel bitwise equal to its kernel-order plain
+    version on the card, two launches on one plan bitwise equal, and within
+    len * 2^-23 * sum|v| of the CPU's index_add_ (its own summation
+    order)."""
+    from cubemapslam_tpu_torch import segment as SG
+    plan, v = chip_smoke.seg_case(name, cuda)
+    n0 = SG.SEG_SUM.launches
+    a = SG.segment_sum(plan, v)
+    b = SG.segment_sum(plan, v)
+    torch.cuda.synchronize()
+    assert SG.SEG_SUM.launches == n0 + 2
+    ref = SG.segment_sum_ordered(plan, v)
+    assert a.shape == ref.shape == (plan.n,) + tuple(v.shape[1:])
+    assert torch.equal(a, ref) and torch.equal(a, b)
+    idx_c, v_c = plan.idx.cpu(), v.cpu()
+    cpu = SG.segment_sum(SG.SegmentPlan(idx_c, plan.n), v_c)
+    lens = torch.bincount(idx_c, minlength=plan.n + 1)[:plan.n].float()
+    mag = SG.segment_sum(SG.SegmentPlan(idx_c, plan.n), v_c.abs())
+    bound = lens.view((-1,) + (1,) * (v.dim() - 1)) * 2.0 ** -23 * mag
+    assert bool(((a.cpu() - cpu).abs() <= bound).all())
+
+
+def test_seg_sum_kernel_strided_and_empty(cuda):
+    """Rows read through strides (a transposed view), one lane, no rows at
+    all: each as its plain version."""
+    from cubemapslam_tpu_torch import segment as SG
+    rng = np.random.default_rng(1)
+    idx = torch.as_tensor(rng.integers(0, 40, 3000)).to(cuda)
+    plan = SG.SegmentPlan(idx, 40)
+    lanes = torch.as_tensor(rng.normal(size=(9, 3000)).astype(
+        np.float32)).to(cuda)
+    assert torch.equal(SG.segment_sum(plan, lanes.T),
+                       SG.segment_sum_ordered(plan, lanes.T.contiguous()))
+    assert torch.equal(SG.segment_sum(plan, lanes[0]),
+                       SG.segment_sum_ordered(plan, lanes[0]))
+    empty = SG.SegmentPlan(torch.zeros(0, dtype=torch.int64, device=cuda), 5)
+    out = SG.segment_sum(empty, torch.zeros(0, 7, device=cuda))
+    assert torch.equal(out, torch.zeros(5, 7, device=cuda))
+
+
+def _arena_equal(a, b):
+    return [k for k in a._fields
+            if not torch.equal(getattr(a, k), getattr(b, k))]
+
+
+@pytest.mark.parametrize("stage", ["mapping_step", "local_ba"])
+def test_mapping_twice_bitwise(cuda, stage):
+    """``mapping_step`` (with its BA) and ``local_ba`` run twice on the
+    card from one arena: every table of the two results bitwise equal."""
+    from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+    cfg, arena, slot, n_kf, fid = mapping_snapshot()
+    outs = []
+    for _ in range(2):
+        mk = MappingKernels(cfg, device=cuda)
+        a = arena.to(cuda)
+        if stage == "mapping_step":
+            a, _ = mk.mapping_step(a, slot, n_kf, fid, max_cams=5)
+        else:
+            a, _ = mk.local_ba(a, slot, 5)
+        outs.append(a.to("cpu"))
+    assert _arena_equal(*outs) == []
+
+
+def test_loop_correction_and_global_ba_twice_bitwise(cuda):
+    """The tier-1-size constructed-drift closure on the card twice from
+    the CPU's refined Sim3 (loop fusion, the pose graph, SearchAndFuse),
+    then the global BA twice from the CPU's corrected arena: each pair
+    bitwise equal."""
+    import types
+    from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
+    cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
+    _, c, rec, _ = chip_smoke.small_loop_closure(cfg, "cpu")
+    corrected = [chip_smoke.small_loop_closure(
+        cfg, cuda, refined=rec["refined"])[1] for _ in range(2)]
+    assert _arena_equal(*corrected) == []
+    solved = []
+    for _ in range(2):
+        system = types.SimpleNamespace(arena=c.to(cuda))
+        LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))._global_ba(
+            system)
+        solved.append(system.arena.to("cpu"))
+    assert _arena_equal(*solved) == []
+
+
+def test_pose_graph_twice_bitwise(cuda):
+    """``optimize_essential_graph`` on a 64-vertex ring with chain,
+    covisibility and loop edges, twice on the card: bitwise equal."""
+    from cubemapslam_tpu_torch import geometry as G
+    from cubemapslam_tpu_torch.optim.pose_graph import \
+        optimize_essential_graph
+    rng = np.random.default_rng(2)
+    m = 64
+    xi = torch.as_tensor(rng.normal(0, 0.05, (m, 7)).astype(np.float32))
+    s, R, t = G.sim3_exp(xi)
+    pairs = [(k, k + 1) for k in range(m - 1)]
+    pairs += [(k, k + 3) for k in range(0, m - 3, 2)] + [(m - 1, 0)]
+    ei = torch.as_tensor([a for a, _ in pairs])
+    ej = torch.as_tensor([b for _, b in pairs])
+    meas = G.sim3_exp(torch.as_tensor(
+        rng.normal(0, 0.05, (len(pairs), 7)).astype(np.float32)))
+    fixed = torch.zeros(m, dtype=torch.bool)
+    fixed[0] = True
+    args = [x.to(cuda) for x in (s, R, t, torch.ones(m, dtype=torch.bool),
+                                 fixed, ei, ej, *meas,
+                                 torch.ones(len(pairs), dtype=torch.bool))]
+    a = optimize_essential_graph(*args, n_iters=10)
+    b = optimize_essential_graph(*args, n_iters=10)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
