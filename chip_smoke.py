@@ -291,18 +291,50 @@ SEG_SHAPES = {
 }
 
 
+# edge shapes of the segmented sum (bitwise checks, not timed): segment
+# lengths (repeated to the given count), lanes, rows on the dump id, and
+# whether the values are a transposed (strided) view. Segments of exactly 32
+# (the last short), 33 (the first long) and 2,049 rows (chunks of 65, the
+# last of 34); one case per lane count the BA, the pose graph and the normals
+# use (1, 3, 6, 9, 18, 36, 49) over short, long and empty segments; every row
+# dropped; rows and lanes read through strides; 49 lanes over segments of 32
+# rows each, whose tiles (4 segments, 128 rows) overflow the 83 rows the
+# kernel stages, so the rest are summed from device memory.
+SEG_MIX = [0, 1, 5, 31, 32, 33, 40, 97, 300]
+SEG_EDGES = {
+    "rows_32_33_2049": ([32, 33, 2049, 0, 1, 64], 1, (9,), 0, False),
+    **{f"lanes_{c}": (SEG_MIX, 3, (c,), 20, False)
+       for c in (1, 3, 6, 9, 18, 36, 49)},
+    "all_dropped": ([0], 300, (7,), 4000, False),
+    "strided": (SEG_MIX, 5, (9,), 100, True),
+    "staging_overflow": ([32], 40, (49,), 0, False),
+}
+
+
 def seg_case(name, device, seed=SEED + 11):
-    """A seeded (plan, values) at SEG_SHAPES[name]: rows spread uniformly
-    over the live segments, the given share on the dump id, normal
-    values."""
-    E, n, tail, live, dump = SEG_SHAPES[name]
+    """A seeded (plan, values) at SEG_SHAPES[name] (rows spread uniformly
+    over the live segments, the given share on the dump id) or
+    SEG_EDGES[name] (the segment lengths as given, in a shuffled row
+    order); normal values."""
     rng = np.random.default_rng([seed, len(name)])
-    ids = rng.choice(n, live, replace=False) if live else np.arange(n)
-    idx = ids[rng.integers(0, len(ids), E)]
-    idx[rng.uniform(size=E) < dump] = n
-    v = rng.normal(size=(E,) + tail).astype(np.float32)
+    if name in SEG_SHAPES:
+        E, n, tail, live, dump = SEG_SHAPES[name]
+        ids = rng.choice(n, live, replace=False) if live else np.arange(n)
+        idx = ids[rng.integers(0, len(ids), E)]
+        idx[rng.uniform(size=E) < dump] = n
+        v = rng.normal(size=(E,) + tail).astype(np.float32)
+        return (SG.SegmentPlan(torch.as_tensor(idx).to(device), n),
+                torch.as_tensor(v).to(device))
+    lens, reps, tail, dropped, strided = SEG_EDGES[name]
+    lens = list(lens) * reps
+    n = len(lens)
+    idx = rng.permutation(np.repeat(np.arange(n + 1), lens + [dropped]))
+    E = len(idx)
+    v = torch.as_tensor(rng.normal(size=(E,) + tail).astype(np.float32))
+    if strided:   # (E, C) read through the strides of a (C, E) tensor
+        v = v.reshape(E, -1).T.contiguous().T.reshape((E,) + tail)
     return (SG.SegmentPlan(torch.as_tensor(idx).to(device), n),
-            torch.as_tensor(v).to(device))
+            v.to(device))
 
 
 def log(msg: str) -> None:
@@ -613,43 +645,46 @@ def check_seg_sum(cam, arena, inv_s2):
     on one plan bitwise equal; times at each shape (a wrapper call, the
     device's time from a CUDA graph, and ``index_add_`` into zeros, the
     library call with float atomics), the plain version's at the global
-    BA's camera shape, which is the row's. Bound: each value, permutation
-    entry and offset read once, each output lane written once; one add a
-    value. Returns the kernel's JSON row, without its launches."""
+    BA's camera shape, which is the row's. Bound: ``seg_bound``. Then the
+    same bitwise checks, untimed, at every SEG_EDGES shape.
+    Returns the kernel's JSON row, without its launches."""
     cases = []
     for name, (plan, v) in seg_sum_cases(cam, arena, inv_s2).items():
-        a, b = SG.segment_sum(plan, v), SG.segment_sum(plan, v)
-        ref = SG.segment_sum_ordered(plan, v)
-        torch.cuda.synchronize()
+        c = seg_bitwise(name, plan, v)
         E, n, tail = v.shape[0], plan.n, tuple(v.shape[1:])
-        lanes = math.prod(tail)
+        lanes = c["lanes"]
 
         def lib(plan=plan, v=v, tail=tail):
             # the dump row n takes the dropped rows, as in the plain version
             return torch.zeros((plan.n + 1,) + tail,
                                device="cuda").index_add_(0, plan.idx, v)[:-1]
 
-        b_ms, b_by = bound(E * lanes * 4 + E * 8 + (n + 1) * 8
-                           + n * lanes * 4, E * lanes)
-        c = dict(name=name, rows=E, segments=n, lanes=lanes,
-                 longest=int((plan.order()[1].diff()).max()),
-                 bitwise=bool(torch.equal(a, ref) and torch.equal(a, b)),
-                 max_abs_err=float((a - ref).abs().max()),
-                 index_add_max_abs_diff=float((lib() - a).abs().max()),
+        b_ms, b_by = seg_bound(plan, v)
+        c.update(index_add_max_abs_diff=float(
+                     (lib() - SG.segment_sum(plan, v)).abs().max()),
                  ms=time_ms(lambda: SG.segment_sum(plan, v)),
                  device_ms=graph_ms(lambda: SG.segment_sum(plan, v)),
                  library_ms=time_ms(lib), library_device_ms=graph_ms(lib),
                  bound_ms=b_ms, bound_by=b_by)
+        c["bound_share"] = b_ms / c["device_ms"]
         if name == "gba_cameras":
             c["plain_ms"] = time_ms(lambda: SG.segment_sum_ordered(plan, v))
         log(f"[seg_sum] {name}: {E} rows, {n} segments (longest "
-            f"{c['longest']}), {lanes} lanes: bitwise {c['bitwise']} "
-            f"(max |err| {c['max_abs_err']:.3g}; index_add_ differs by "
-            f"{c['index_add_max_abs_diff']:.3g}); kernel {c['ms']:.5f} ms "
-            f"(device {c['device_ms']:.5f}), index_add_ {c['library_ms']:.5f}"
-            f" ms (device {c['library_device_ms']:.5f}), bound "
-            f"{b_ms:.5f} ms ({b_by})"
+            f"{c['longest']}, {c['long']} long), {lanes} lanes: bitwise "
+            f"{c['bitwise']} (max |err| {c['max_abs_err']:.3g}; index_add_ "
+            f"differs by {c['index_add_max_abs_diff']:.3g}); kernel "
+            f"{c['ms']:.5f} ms (device {c['device_ms']:.5f}), index_add_ "
+            f"{c['library_ms']:.5f} ms (device "
+            f"{c['library_device_ms']:.5f}), bound {b_ms:.5f} ms ({b_by}, "
+            f"{c['bound_share']:.3f} of the device time)"
             + (f", plain {c['plain_ms']:.5f} ms" if "plain_ms" in c else ""))
+        cases.append(c)
+    for name in SEG_EDGES:
+        c = seg_bitwise(name, *seg_case(name, "cuda"))
+        log(f"[seg_sum] edge {name}: {c['rows']} rows, {c['segments']} "
+            f"segments (longest {c['longest']}, {c['long']} long), "
+            f"{c['lanes']} lanes, strides {c['strides']}: bitwise "
+            f"{c['bitwise']}")
         cases.append(c)
     bad = [c["name"] for c in cases if not c["bitwise"]]
     if bad:
@@ -670,6 +705,34 @@ def check_seg_sum(cam, arena, inv_s2):
                                        "library_device_ms")},
                cases=cases)
     return row
+
+
+def seg_bound(plan, v):
+    """The segmented sum's bound (ms, what bounds it) on this input: the
+    values and permutation entries of the rows it keeps read once (a
+    dropped row sorts after the last offset and is never read), every
+    offset read once, each output lane written once; one add a kept
+    value."""
+    kept, lanes = int(plan.order()[1][-1]), math.prod(v.shape[1:])
+    return bound(kept * lanes * 4 + kept * 8 + (plan.n + 1) * 8
+                 + plan.n * lanes * 4, kept * lanes)
+
+
+def seg_bitwise(name, plan, v):
+    """Two kernel launches on one plan and the kernel-order plain version:
+    the case's dict (shape, longest segment, long segments, whether all
+    three are bitwise equal, the largest difference)."""
+    a, b = SG.segment_sum(plan, v), SG.segment_sum(plan, v)
+    ref = SG.segment_sum_ordered(plan, v)
+    torch.cuda.synchronize()
+    lens = plan.order()[1].diff()
+    return dict(name=name, rows=v.shape[0], segments=plan.n,
+                lanes=math.prod(v.shape[1:]), strides=tuple(v.stride()),
+                longest=int(lens.max()) if plan.n else 0,
+                long=int(plan.schedule()[1]),
+                bitwise=bool(torch.equal(a, ref) and torch.equal(a, b)),
+                max_abs_err=float((a - ref).abs().max()) if a.numel()
+                else 0.0)
 
 
 @contextlib.contextmanager

@@ -6,6 +6,7 @@ port on the CPU, frame by frame.
         --dump build/e2e.npz                      # on a card
     python3 scripts/torch_e2e_divergence.py build/e2e_device.npz \\
         build/e2e_cpu.npz
+    python3 scripts/torch_e2e_divergence.py --refinements build/e2e_cpu.npz
 
 Both runs of ``torch_loop_e2e.py`` see the same rendered frames; with
 ``--draws cpu --vocab-device cpu`` the card also gets the CPU run's RANSAC
@@ -19,7 +20,17 @@ between them (deg) and the distance of their camera centres, and each
 run's rotation error to the truth (deg). A last line
 sums it up: the extraction agreement over all frames, the first frame
 whose pose gap passes 1e-5, 1e-3 and 1e-1, and the first frame where the
-states differ.
+states differ. Before it, one line a run and closure point (after
+``loop.sim3``, ``loop.correct`` and ``loop.gba`` of each closure attempt
+that reached the refinement): the largest |R^T R - I| over the arena's
+live keyframe rotations and over the refined Sim3's rotation, the refined
+scale, the pose graph's scales' range, and the count of non-finite values
+in each. ``--refinements DUMP`` instead runs each refinement a dump
+recorded (the inputs of ``optimize_sim3`` as the closure gave them) again
+through the port's ``optimize_sim3`` on the CPU and, where there is one,
+on the card, and prints one JSON line a refinement and device beside the
+recorded result: the refined scale, |R^T R - I| of the refined rotation,
+whether s, R and t are finite, and the inlier count.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import pathlib
 import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 from cubemapslam_tpu_torch.runtime import synthetic as S  # noqa: E402
 
@@ -95,17 +107,96 @@ def orthonormality_error(poses):
     return max(errs) if errs else None
 
 
+def _departure(Rs):
+    """The largest |R^T R - I| over the finite rotations ``Rs`` (k, 3, 3),
+    and the count of non-finite entries."""
+    Rs = np.asarray(Rs, np.float64).reshape(-1, 3, 3)
+    fin = np.isfinite(Rs).all(axis=(1, 2))
+    err = np.abs(np.einsum("kji,kjl->kil", Rs[fin], Rs[fin]) - np.eye(3))
+    return (float(err.max()) if err.size else 0.0,
+            int((~np.isfinite(Rs)).sum()))
+
+
+def closure_departures(run):
+    """One dict a closure point of a dump: the stage, the frame of the
+    closing keyframe, the live keyframes' largest |R^T R - I| and
+    non-finite entries, and where recorded the refined Sim3's and the pose
+    graph's scales."""
+    out = []
+    for rec in json.loads(str(run["closures"])) if "closures" in run else []:
+        err, bad = _departure(rec["R"])
+        row = dict(point=rec["point"], at_frame=rec["at_frame"],
+                   live=len(rec["kf"]), kf_R_orth_max=err, kf_R_nonfinite=bad)
+        if "refined" in rec:
+            r = rec["refined"]
+            err_r, bad_r = _departure(r["R"])
+            row.update(found=rec["found"], refined_s=r["s"],
+                       refined_R_orth=err_r,
+                       refined_nonfinite=bad_r + int(not np.isfinite(r["s"]))
+                       + int((~np.isfinite(r["t"])).sum()))
+        if "scales" in rec:
+            sc = np.asarray(rec["scales"], np.float64)
+            row.update(scales_min=float(np.nanmin(sc)),
+                       scales_max=float(np.nanmax(sc)),
+                       scales_nonfinite=int((~np.isfinite(sc)).sum()))
+        out.append(row)
+    return out
+
+
+def refinements(path) -> int:
+    """Each recorded refinement of a dump through the port's
+    ``optimize_sim3`` again, on the CPU and on the card, beside the
+    recorded result; one JSON line each."""
+    import torch
+    from torch_loop_e2e import SIM3_ARGS, loop_cfg
+    from cubemapslam_tpu_torch.camera import CubemapCamera
+    from cubemapslam_tpu_torch.optim.sim3_opt import optimize_sim3
+    run = np.load(path)
+    n = len({k.split("_")[1] for k in run.files if k.startswith("sim3_")})
+    devices = ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
+
+    def row(s, R, t, inl):
+        s, R, t = (np.asarray(x, np.float64) for x in (s, R, t))
+        return dict(s=float(s), R_orth=_departure(R)[0],
+                    finite=bool(np.isfinite(s).all() and np.isfinite(R).all()
+                                and np.isfinite(t).all()),
+                    inliers=int(np.asarray(inl).sum()))
+
+    for i in range(n):
+        rec = {k: run[f"sim3_{i}_{k}"] for k in SIM3_ARGS}
+        out = dict(refinement=i, recorded=row(
+            *(run[f"sim3_{i}_out_{k}"] for k in ("s", "R", "t", "inliers"))),
+            matches=int(rec["valid"].sum()))
+        for dev in devices:
+            cam = CubemapCamera.from_config(loop_cfg(), dev)
+            res = optimize_sim3(cam, *(torch.as_tensor(rec[k], device=dev)
+                                       for k in SIM3_ARGS), th2=10.0,
+                                fix_scale=False)
+            out[dev] = row(*(x.cpu().numpy() for x in res[:4]))
+        print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("first", help="a --dump file of torch_loop_e2e.py")
-    ap.add_argument("second", help="another, over the same frames")
+    ap.add_argument("second", nargs="?",
+                    help="another, over the same frames")
+    ap.add_argument("--refinements", action="store_true",
+                    help="run the first dump's refinements again instead")
     args = ap.parse_args()
+    if args.refinements:
+        return refinements(args.first)
     a, b = np.load(args.first), np.load(args.second)
     n = min(len(a["state"]), len(b["state"]))
     first_gap = {g: None for g in GAPS}
     first_state, hits, sames = None, [], []
     truth = truth_rotations(int(json.loads(str(a["summary"]))["frames"]))
     errs = ([], [])
+    departures = [closure_departures(x) for x in (a, b)]
+    for run, rows in zip((args.first, args.second), departures):
+        for row in rows:
+            print(json.dumps(dict(run=run, **row)))
     for k in range(n):
         na, nb, hit, same = keypoint_agreement(a, b, k)
         hits.append(hit)
@@ -140,6 +231,10 @@ def main() -> int:
         rot_err_to_truth_deg_max=[max(e) if e else None for e in errs],
         orthonormality_error_max=[orthonormality_error(x["pose"])
                                   for x in (a, b)],
+        closure_kf_R_orth_max=[
+            {pt: max([r["kf_R_orth_max"] for r in rows if r["point"] == pt],
+                     default=None) for pt in ("sim3", "correct", "gba")}
+            for rows in departures],
         summaries=[json.loads(str(a["summary"])),
                    json.loads(str(b["summary"]))])))
     return 0

@@ -55,6 +55,7 @@ from cubemapslam_tpu_torch import place as PL  # noqa: E402
 from cubemapslam_tpu_torch import slam_map as SM  # noqa: E402
 from cubemapslam_tpu_torch.camera import CubemapCamera  # noqa: E402
 from cubemapslam_tpu_torch.config import SlamConfig  # noqa: E402
+from cubemapslam_tpu_torch.runtime import loop_closing as LC  # noqa: E402
 from cubemapslam_tpu_torch.runtime import synthetic as S  # noqa: E402
 from cubemapslam_tpu_torch.runtime.system import (CubemapSLAM,  # noqa: E402
                                                   TrackState)
@@ -64,6 +65,10 @@ N_FRAMES = 170
 SCENE = 6.0                  # the circle's diameter
 ATE_FRAC = 0.05
 CROSS_PASS_FRAMES = 80
+# the inputs of optim/sim3_opt.py::optimize_sim3 after the camera, as a
+# --dump records them for each refinement
+SIM3_ARGS = ("s12", "R12", "t12", "p1", "p2", "uv1", "face1", "uv2", "face2",
+             "inv_sigma2_1", "inv_sigma2_2", "valid")
 
 
 def loop_cfg(**kw) -> SlamConfig:
@@ -142,6 +147,84 @@ def record_scales(lc):
 
     k.search_by_sim3, k.refine_sim3 = widen_rec, refine_rec
     return recs
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def record_closures(slam):
+    """Keep, for each closure attempt that reaches the refinement, three
+    points of the arena: after ``loop.sim3`` (the refined s, R, t and the
+    refinement's inputs, which ``optimize_sim3`` takes as they are), after
+    ``loop.correct`` (with the pose graph's optimized scales) and after
+    ``loop.gba``; each with the live keyframes' slots, frame ids and
+    rotations, read to the host. Returns (the list of records, the list of
+    the refinements' inputs)."""
+    lc = slam.loop_closer
+    recs, sim3_in, pg_scales = [], [], []
+
+    def live(point, scales=None, **extra):
+        a = slam.arena
+        ks = np.nonzero(_np(a.kf_valid))[0]
+        fids = _np(a.kf_frame_id)
+        recs.append(dict(point=point, at_frame=int(fids[live.k_cur]),
+                         kf=ks.tolist(), frame=fids[ks].tolist(),
+                         R=_np(a.kf_R)[ks].tolist(), **extra))
+        if scales is not None:
+            recs[-1]["scales"] = scales[ks].tolist()
+
+    def refine_rec(inner, cam, *args, **kwargs):
+        out = inner(cam, *args, **kwargs)
+        sim3_in.append(dict({n: _np(v) for n, v in zip(SIM3_ARGS, args)},
+                            **{f"out_{n}": _np(v) for n, v in
+                               zip(("s", "R", "t", "inliers"), out[:4])}))
+        return out
+
+    def pose_graph_rec(inner, *args, **kwargs):
+        out = inner(*args, **kwargs)
+        pg_scales.append(_np(out[0]))
+        return out
+
+    def patched(fn, name, wrapper):
+        """``fn`` with the loop module's function ``name`` seen through
+        ``wrapper`` while it runs."""
+        def call(*args, **kwargs):
+            inner = getattr(LC, name)
+            setattr(LC, name, lambda *a, **k: wrapper(inner, *a, **k))
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                setattr(LC, name, inner)
+        return call
+
+    compute, correct, gba = lc._compute_sim3, lc._correct, lc._global_ba
+
+    def compute_rec(system, k_cur, *args):
+        live.k_cur, n_in = k_cur, len(sim3_in)
+        out = patched(compute, "optimize_sim3", refine_rec)(system, k_cur,
+                                                             *args)
+        if len(sim3_in) > n_in:
+            r = sim3_in[-1]
+            live("sim3", refinement=len(sim3_in) - 1, found=out is not None,
+                 refined=dict(s=r["out_s"].tolist(), R=r["out_R"].tolist(),
+                              t=r["out_t"].tolist()))
+        return out
+
+    def correct_rec(system, *args):
+        out = patched(correct, "optimize_essential_graph",
+                      pose_graph_rec)(system, *args)
+        live("correct", scales=pg_scales[-1])
+        return out
+
+    def gba_rec(system):
+        out = gba(system)
+        live("gba")
+        return out
+
+    lc._compute_sim3, lc._correct, lc._global_ba = (compute_rec, correct_rec,
+                                                     gba_rec)
+    return recs, sim3_in
 
 
 def project_tracked_rotations(slam) -> None:
@@ -268,6 +351,7 @@ def run_circuit(voc, frames, centres, args, draws, on_card) -> bool:
     ate_pre, ate_pre_frame, walls, closed_at = None, None, [], []
     ate_at_close, scales = [], record_scales(slam.loop_closer)
     dump = collections.defaultdict(list)
+    closures, sim3_in = record_closures(slam) if args.dump else ([], [])
     for k, img in enumerate(frames):
         cross = torch.as_tensor(img, device=slam.device)
         sync()
@@ -322,7 +406,10 @@ def run_circuit(voc, frames, centres, args, draws, on_card) -> bool:
     if args.dump:
         path = pathlib.Path(args.dump)
         path = path.with_name(f"{path.stem}_{draws}{path.suffix}")
+        refinements = {f"sim3_{i}_{name}": v for i, rec in enumerate(sim3_in)
+                       for name, v in rec.items()}
         np.savez_compressed(path, summary=json.dumps(summary),
+                            closures=json.dumps(closures), **refinements,
                             **{k: np.stack(v) for k, v in dump.items()})
         print(f"[e2e] per-frame record in {path}")
     if on_card:

@@ -28,8 +28,12 @@ closure on the card against the CPU, with the bounds of ``chip_smoke.py``
 and ``sim3_ransac`` waits ``sim3.EIGH_WAITS`` times. The segmented-sum
 kernel at the main path's shapes (the global BA's camera and point sums,
 the local BA's coupling and point sums, the pose graph's normal matrix, the
-landmark normals with their dump row): bitwise equal to its kernel-order
-plain version, two launches on one plan bitwise equal, and within
+landmark normals with their dump row) and at the edge shapes of
+``chip_smoke.SEG_EDGES`` (segments of 32, 33 and 2,049 rows, the lane
+counts 1, 3, 6, 9, 18, 36 and 49, every row dropped, strided values, and
+49-lane segments of 32 rows that overflow the kernel's staging room):
+bitwise equal to its kernel-order plain version, two launches on one plan
+bitwise equal, and within
 len * 2^-23 * sum|v| of the CPU's ``index_add_`` per segment; strided
 rows, one lane and no rows as their plain version. Run twice on the card
 from one arena, bitwise equal: ``mapping_step`` with its BA, ``local_ba``,
@@ -538,12 +542,15 @@ def test_sim3_ransac_eigh_waits(cuda):
     assert bool(res.success) and abs(float(res.s12) - 1.3) < 1e-3
 
 
-@pytest.mark.parametrize("name", list(chip_smoke.SEG_SHAPES))
+@pytest.mark.parametrize("name", list(chip_smoke.SEG_SHAPES)
+                         + list(chip_smoke.SEG_EDGES))
 def test_seg_sum_kernel_bitwise(cuda, name):
     """The segmented-sum kernel bitwise equal to its kernel-order plain
     version on the card, two launches on one plan bitwise equal, and within
     len * 2^-23 * sum|v| of the CPU's index_add_ (its own summation
-    order)."""
+    order), at the main path's shapes and the edge shapes (segments of 32,
+    33 and 2,049 rows, each lane count of the call sites, every row
+    dropped, strided values)."""
     from cubemapslam_tpu_torch import segment as SG
     plan, v = chip_smoke.seg_case(name, cuda)
     n0 = SG.SEG_SUM.launches

@@ -150,6 +150,45 @@ def test_plan_reuse_across_value_sets():
     assert plan.order()[0] is perm
 
 
+# segment lengths of the long-segment schedule's cases, and rows on the dump
+# id: a mix with segments of exactly 32, 33 and 2,049 rows; 33 rows in every
+# segment (the bound E // 33 met exactly); none longer than 32; every
+# segment long, with dropped rows
+SCHEDULE_CASES = {
+    "mixed": ([0, 32, 33, 5, 2049, 1, 40, 0, 31], 0),
+    "bound_met": ([33] * 12, 0),
+    "no_long": ([32, 0, 7, 31, 1] * 4, 0),
+    "all_long": ([33, 100, 64, 2049, 90], 50),
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+def test_long_segment_schedule(case):
+    """The plan's list of long segments (more than 32 rows) in segment
+    order and their count against a numpy reckoning, and their counters
+    at 0; the host bound min(E // 33, n) holds the count, exactly where
+    every segment has 33 rows."""
+    lens, dropped = SCHEDULE_CASES[case]
+    n = len(lens)
+    rng = np.random.default_rng(5)
+    idx = rng.permutation(np.repeat(np.arange(n + 1), lens + [dropped]))
+    plan = plan_of(idx, n)
+    long_seg, count, done = plan.schedule()
+    want = np.nonzero(np.asarray(lens) > SG.WARP)[0]
+    E = len(idx)
+    assert plan.long_bound == min(E // (SG.WARP + 1), n)
+    assert count.shape == (1,) and int(count) == len(want)
+    assert len(want) <= plan.long_bound
+    if case == "bound_met":
+        assert int(count) == plan.long_bound == E // 33
+    assert long_seg.shape == (plan.long_bound,)
+    np.testing.assert_array_equal(long_seg[:len(want)].numpy(), want)
+    assert (long_seg[len(want):] == n).all()
+    assert done.dtype == torch.int32 and done.shape == (plan.long_bound,)
+    assert not done.any()
+    assert plan.schedule()[0] is long_seg
+
+
 def _site(name, rng):
     """(the scatter the call site had, its segment sum) on the CPU."""
     t = lambda a: torch.as_tensor(a)  # noqa: E731

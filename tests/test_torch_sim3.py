@@ -13,7 +13,21 @@ within 1e-4 of JAX in s, R and t with the inlier masks equal. The outcome
 tests are those of the JAX package (``tests/test_solvers.py:132-164``,
 ``tests/test_optim.py:223-252``): the scale within 0.02 / 1e-3, the
 rotation within 1 / 0.1 degree, the translation within 0.05.
+
+``test_e2e_refinements_against_jax`` replays refinements that closures of
+the e2e circuit ran on the card (``scripts/torch_loop_e2e.py --dump``:
+worlds 42, 1 and 2 with the CPU run's RANSAC sets, world 2 with the card's
+own), their inputs as the card recorded them (``torch_e2e_refinements.npz``
+beside this file): the inlier counts of JAX, the port on the CPU and the
+card are equal; where JAX keeps 20 inliers or more (the loop closer's
+gate), the port's and the card's scales lie within 5e-3 of JAX's,
+relatively (the scale's direction is damped by an absolute 1e-6 only, so
+rounding moves it: ROADMAP Queue 3), rotation and translation within
+1e-5; where JAX's refinement is not finite, the port and the card keep
+fewer than 20 inliers, so the closer rejects the candidate on both.
 """
+
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -232,3 +246,40 @@ def test_refines_noisy_sim3(cams, refine_case):
     assert angle_deg(R.numpy(), R_gt) < 0.1
     assert np.linalg.norm(t.numpy() - t_gt) < 0.05
     assert int(n) > 0.9 * (valid.sum() - 3)
+
+
+REFINEMENTS = ("card_w42_cpu_draws_0", "card_w1_cpu_draws_0",
+               "card_w2_cpu_draws_0", "card_w2_own_draws_0",
+               "card_w2_own_draws_1", "card_w2_own_draws_2",
+               "card_w2_own_draws_3")
+SIM3_ARGS = ("s12", "R12", "t12", "p1", "p2", "uv1", "face1", "uv2", "face2",
+             "inv_sigma2_1", "inv_sigma2_2", "valid")
+MIN_INLIERS = 20                       # LoopCloser's refinement gate
+
+
+@pytest.mark.parametrize("case", REFINEMENTS)
+def test_e2e_refinements_against_jax(case):
+    """A refinement of the e2e circuit on the card, replayed on its
+    recorded inputs by JAX and by the port on the CPU."""
+    data = np.load(pathlib.Path(__file__).with_name(
+        "torch_e2e_refinements.npz"))
+    args = [data[f"{case}/{k}"] for k in SIM3_ARGS]
+    args = [a.astype(np.int64) if a.dtype == np.int8 else a for a in args]
+    cfg = SlamConfig(cube_face_w=160, cube_face_h=160)   # the circuit's
+    jcam, tcam = JCam.from_config(cfg), TCam.from_config(cfg, "cpu")
+    j = JO.optimize_sim3(jcam, *map(jnp.asarray, args), th2=10.0,
+                         fix_scale=False)
+    t = TO.optimize_sim3(tcam, *map(torch.as_tensor, args), th2=10.0,
+                         fix_scale=False)
+    card_s, card_n = float(data[f"{case}/card_s"]), int(
+        data[f"{case}/card_inliers"])
+    assert int(j[4]) == int(t[4]) == card_n
+    if not np.isfinite(float(j[0])):
+        assert card_n < MIN_INLIERS
+        return
+    assert card_n >= MIN_INLIERS
+    s_j = float(j[0])
+    assert abs(float(t[0]) - s_j) <= 5e-3 * s_j
+    assert abs(card_s - s_j) <= 5e-3 * s_j
+    np.testing.assert_allclose(t[1].numpy(), np.asarray(j[1]), atol=1e-5)
+    np.testing.assert_allclose(t[2].numpy(), np.asarray(j[2]), atol=1e-5)
