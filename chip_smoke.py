@@ -23,12 +23,19 @@ Then the tracking path against the map arena, at ``SlamConfig()`` defaults
 (an arena of 512 keyframes x 2000 features and 65536 landmarks): it builds
 a map (``build_map``: 6 keyframes rendered along a forward trajectory
 through a seeded world of 1500 billboards), drives ``MapTracker`` over the
-8 frames that follow a warm-up frame, checking that every frame tracks
-within the stated pose bound of the ground truth, that TrackLocalMap adds
-matches on most frames and that each kernel launches once a frame (kernel
-D's passes once each) on this path; profiles 2 more frames with one range
-per stage; forces the fallback, velocity-gate and blank-frame branches; and
-holds ``MapTracker`` on the card against the CPU on a small map.
+8 frames that follow a warm-up frame twice from the map as built: eagerly
+(``stage_times`` set) and through the captured CUDA graphs
+(``runtime/fused_step.py``; the warm-up frame captures them), requiring
+the same bits at every frame and in the arena after them, and checking
+that every frame tracks within the stated pose bound of the ground truth,
+that TrackLocalMap adds matches on most frames and that each kernel
+launches once a frame (kernel D's passes once each, the capture frame
+included) on both; prints both medians, the capture's host time and the
+memory it took; profiles 2 more eager frames with one range per stage and
+2 graph frames (device busy, idle share, host waits: at most the upload
+and the 2 reads); forces the fallback, velocity-gate and blank-frame
+branches eagerly and through the graphs, bitwise equal; and holds
+``MapTracker`` on the card against the CPU on a small map.
 
 Then the whole system from its first frame, the ``slam`` phase:
 ``CubemapSLAM`` at ``SlamConfig()`` defaults (2000 features, 6000 at init)
@@ -40,10 +47,13 @@ landmarks triangulated, a deferred BA, the launches of each kernel (one a
 frame, kernel D's passes once each) and the ATE of the Sim3-aligned
 trajectory; then one keyframe frame and one deferred-BA frame under the
 profiler, whose host waits may not exceed their stated reads and the
-upload; the ``repeat`` check (the same 30 frames again in a fresh
-``CubemapSLAM``: every arena table and the trajectory bitwise equal to the
-first run's, whose sha256 digest is printed on a line of its own so that
-runs can be compared across calls); and ``mapping_step`` / ``local_ba`` on
+upload (and one wait for each graph the frame captures: the profiled
+frames run with ``stage_times`` unset, so their tracking replays the
+graphs); the ``repeat`` check (the same 30 frames again in a fresh
+``CubemapSLAM`` with ``stage_times`` unset, so every tracked frame replays
+the captured graphs: every arena table and the trajectory bitwise equal to
+the eager first run's, whose sha256 digest is printed on a line of its own
+so that runs can be compared across calls); and ``mapping_step`` / ``local_ba`` on
 the card against the CPU on a small arena. The ``slam`` phase loads the
 repo's pretrained vocabulary (``artifacts/vocab_synth_10k.npz``), and each
 keyframe gets its BoW row. The segmented-sum kernel (``csrc/seg_sum.cu``,
@@ -93,7 +103,8 @@ on the card, with the kernels' launch counts read around it; checked: the
 native loader read the frames, every frame from initialization on is
 tracked, no loop is closed, and the tracked frames' Sim3-aligned ATE is
 under the ``slam`` bound (the TUM file's keyframes and their ATE are
-printed); the median frame time is printed.
+printed); the median frame time (its tracked frames replay the graphs) is
+printed.
 Last, the ``dist`` phase: the ``loop`` phase's arena, its global BA problem
 on its live edges sharded with landmark ownership and solved by
 ``dist.distributed_bundle_adjust`` at world size 1 over NCCL (this process)
@@ -197,7 +208,8 @@ MAP_KEYFRAMES = 6
 KF_STRIDE = 3                 # keyframes at frames 0, 3, ..., 15
 TRAJ_STEP, TRAJ_YAW = 0.04, 0.003   # per frame: map units, radians
 TRACK_FRAMES = 8              # after one warm-up frame
-TRACK_PROFILE_FRAMES = 2
+TRACK_PROFILE_FRAMES = 2      # eager frames profiled by stage
+GRAPH_PROFILE_FRAMES = 2      # graph frames profiled
 # the map build_map must reach: live landmarks per feature of a keyframe,
 # and landmarks the newest keyframe shares with each other keyframe
 MAP_MIN_LANDMARKS_PER_FEATURE = 2
@@ -1004,7 +1016,7 @@ def build_map_phase(cfg):
     the tracker, the poses and the rendered frames that follow the last
     keyframe (by trajectory index)."""
     first = (MAP_KEYFRAMES - 1) * KF_STRIDE + 1
-    n_after = 1 + TRACK_FRAMES + TRACK_PROFILE_FRAMES
+    n_after = 1 + TRACK_FRAMES + TRACK_PROFILE_FRAMES + GRAPH_PROFILE_FRAMES
     poses = S.forward_trajectory(first + n_after, step=TRAJ_STEP,
                                  yaw_rate=TRAJ_YAW)
     world = S.make_world(np.random.default_rng(SEED), n=MAP_BILLBOARDS,
@@ -1058,17 +1070,92 @@ def check_tracked(mt, T, i, poses):
     return row, err
 
 
-def drive_tracking_path(mt, poses, frames, first, counters):
-    """One warm-up frame, then TRACK_FRAMES frames of MapTracker with the
-    launch counters set to 0 just before them. Per frame: the synchronised
-    wall time and the host thread's CPU time (ms)."""
-    T = mt.track_fisheye(frames[first], first / mt.cfg.fps)
-    row, err = check_tracked(mt, T, first, poses)
-    log("[track] warm-up " + track_row_line(first, row, err))
-    for group in counters.values():
-        for c in group:
-            c.launches = 0
+def frame_record(mt, T):
+    """What a tracked frame leaves behind, on the host: the returned pose,
+    the row's counts and branches, the last frame's tensors and the
+    velocity."""
+    row = {k: v for k, v in mt.metrics[-1].items()
+           if k not in ("graph_captures", "graph_replays")}
+    last = mt.last
+    tensors = dict(zip(("kp." + f for f in last.kp._fields), last.kp))
+    tensors.update(assoc=last.assoc, outlier=last.outlier, R=last.R,
+                   t=last.t, rel_R=last.rel_R, rel_t=last.rel_t)
+    if mt.velocity is not None:
+        tensors.update(vel_R=mt.velocity[0], vel_t=mt.velocity[1])
+    return dict(T=None if T is None else T.copy(), row=row,
+                tensors={k: v.cpu().clone() for k, v in tensors.items()})
+
+
+def same_bits(tag, eager, graph):
+    """Fail unless two frame records (``frame_record``), or two arena
+    snapshots, are bitwise equal; returns the number of tensors held."""
+    if isinstance(eager, dict) and "tensors" in eager:
+        te, tg = eager["T"], graph["T"]
+        if (te is None) != (tg is None) or (
+                te is not None and not np.array_equal(te, tg)):
+            raise AssertionError(f"{tag}: the graph frame's pose differs")
+        if eager["row"] != graph["row"]:
+            raise AssertionError(f"{tag}: rows differ: {eager['row']} vs "
+                                 f"{graph['row']}")
+        eager, graph = eager["tensors"], graph["tensors"]
+    bad = [k for k in eager if k not in graph
+           or not torch.equal(eager[k], graph[k])]
+    if bad or set(eager) != set(graph):
+        raise AssertionError(f"{tag}: not bitwise equal: {bad}")
+    return len(eager)
+
+
+def arena_host(mt):
+    return {k: getattr(mt.arena, k).cpu().clone() for k in mt.arena._fields}
+
+
+def reseed(mt, arena, seed, assoc=None):
+    """Seed ``mt`` again from the map as built (a copy of ``arena``, the
+    last frame ``seed``), which drops its graphs."""
+    mt.seed(type(mt.arena)(*(t.clone() for t in arena)), seed.kp,
+            seed.assoc if assoc is None else assoc, seed.outlier, seed.R,
+            seed.t, seed.ref_kf, frame_id=seed.frame_id)
+
+
+def drive_tracking_path(mt, poses, frames, first, counters, graphs):
+    """One warm-up frame, then TRACK_FRAMES frames of MapTracker: eagerly
+    (``stage_times`` set, so each stage also synchronises) or through the
+    captured graphs (the warm-up frame captures them). The launch counters
+    are set to 0 before the warm-up frame (each kernel must launch once in
+    it, captures included) and again just before the TRACK_FRAMES frames.
+    Per frame: the synchronised wall time and the host thread's CPU time
+    (ms). Returns (walls, launches, frame records)."""
+    tag = "graph" if graphs else "eager"
+    mt.stage_times = None if graphs else {}
+    zero_launches(counters)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    t0 = time.perf_counter()
+    T = mt.track_fisheye(frames[first], first / mt.cfg.fps)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    row, err = check_tracked(mt, T, first, poses)
+    records = [frame_record(mt, T)]
+    log(f"[track-{tag}] warm-up " + track_row_line(first, row, err)
+        + f"; wall {warm_ms:.3f} ms")
+    warm = {c.symbol: c.launches for g in counters.values() for c in g}
+    log(f"[track-{tag}] launches in the warm-up frame: {warm}")
+    if any(n != LAUNCHES_PER_FRAME for n in warm.values()):
+        raise AssertionError(f"the warm-up frame launched {warm}")
+    if graphs:
+        fs = mt.fused_step
+        mem = (torch.cuda.memory_allocated() - mem0[0],
+               torch.cuda.memory_reserved() - mem0[1])
+        log(f"[track-graph] capture frame: {fs.captures} graphs captured, "
+            f"{fs.capture_ms:.3f} ms of host time in torch.cuda.graph; "
+            f"memory allocated {mem[0] / 2 ** 20:+.1f} MiB (static buffers, "
+            f"outputs and the graphs' pool), reserved {mem[1] / 2 ** 20:+.1f}"
+            f" MiB (torch.cuda.graph empties the cache first)")
+        if row["graph_captures"] != 2:
+            raise AssertionError(f"the capture frame captured "
+                                 f"{row['graph_captures']} graphs")
+    zero_launches(counters)
     walls, cpus, rows = [], [], []
     for i in range(first + 1, first + 1 + TRACK_FRAMES):
         torch.cuda.synchronize()
@@ -1079,18 +1166,24 @@ def drive_tracking_path(mt, poses, frames, first, counters):
         cpus.append((time.thread_time() - c_start) * 1e3)
         row, err = check_tracked(mt, T, i, poses)
         rows.append(row)
-        log(f"[track] " + track_row_line(i, row, err) + f"; wall "
-            f"{walls[-1]:.3f} ms, host CPU {cpus[-1]:.3f} ms")
+        records.append(frame_record(mt, T))
+        log(f"[track-{tag}] " + track_row_line(i, row, err) + f"; graphs "
+            f"replayed {row['graph_replays']}; wall {walls[-1]:.3f} ms, "
+            f"host CPU {cpus[-1]:.3f} ms")
+        if row["graph_replays"] != (2 if graphs else 0):
+            raise AssertionError(f"frame {i} replayed "
+                                 f"{row['graph_replays']} graphs")
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    log(f"[track] {TRACK_FRAMES} frames: wall ms median "
+    log(f"[track-{tag}] {TRACK_FRAMES} frames: wall ms median "
         f"{float(np.median(walls)):.3f}, host CPU ms median "
         f"{float(np.median(cpus)):.3f}; host reads a frame "
         f"{sorted(set(r['host_reads'] for r in rows))}; peak memory "
         f"{peak:.1f} MiB")
     for name, by_kernel in launches.items():
-        log(f"[track] {name}: launches in {TRACK_FRAMES} frames {by_kernel}")
+        log(f"[track-{tag}] {name}: launches in {TRACK_FRAMES} frames "
+            f"{by_kernel}")
         for sym, n in by_kernel.items():
             if n != LAUNCHES_PER_FRAME * TRACK_FRAMES:
                 raise AssertionError(f"{name} ({sym}) was launched {n} times "
@@ -1099,39 +1192,69 @@ def drive_tracking_path(mt, poses, frames, first, counters):
     if n_local < LOCAL_MIN_FRAMES:
         raise AssertionError(f"TrackLocalMap added matches on only {n_local} "
                              f"of {TRACK_FRAMES} frames")
-    return walls, launches
+    return walls, launches, records
 
 
-def profiled_tracking(mt, poses, frames, start):
-    """TRACK_PROFILE_FRAMES frames of MapTracker under profile_stages."""
-    it = iter(range(start, start + TRACK_PROFILE_FRAMES))
+def eager_and_graph_tracking(mt, poses, frames, first, counters):
+    """The tracking path twice from the map as built: eagerly, then through
+    the graphs; every frame (pose, counts, branches, the last frame's
+    tensors, the velocity) and the arena after them bitwise equal. Returns
+    the graph run's walls and launches, and the eager run's walls."""
+    seed = mt.last
+    built = tuple(t.clone() for t in mt.arena)
+    e_walls, _, e_rec = drive_tracking_path(mt, poses, frames, first,
+                                            counters, graphs=False)
+    e_arena = arena_host(mt)
+    reseed(mt, built, seed)
+    g_walls, launches, g_rec = drive_tracking_path(mt, poses, frames, first,
+                                                   counters, graphs=True)
+    n = sum(same_bits(f"frame {first + k}", e, g)
+            for k, (e, g) in enumerate(zip(e_rec, g_rec)))
+    n += same_bits("the arena after the frames", e_arena, arena_host(mt))
+    log(f"[track] graph frames against eager frames: {len(g_rec)} frames "
+        f"and the arena bitwise equal ({n} tensors); wall ms median eager "
+        f"{float(np.median(e_walls)):.3f} (each stage synchronised), graph "
+        f"{float(np.median(g_walls)):.3f}")
+    return g_walls, launches, e_walls, built, seed
+
+
+def profiled_tracking(mt, poses, frames, start, graphs):
+    """Frames of MapTracker under profile_stages: TRACK_PROFILE_FRAMES eager
+    frames (``stage_times`` set) by stage, or GRAPH_PROFILE_FRAMES graph
+    frames as a whole (a replay has no stage ranges)."""
+    n = GRAPH_PROFILE_FRAMES if graphs else TRACK_PROFILE_FRAMES
+    mt.stage_times = None if graphs else {}
+    it = iter(range(start, start + n))
     got = []
 
     def step():
         i = next(it)
         got.append((i, mt.track_fisheye(frames[i], i / mt.cfg.fps)))
 
-    prof = profile_stages(step, TRACK_STAGES, TRACK_PROFILE_FRAMES)
+    prof = profile_stages(step, () if graphs else TRACK_STAGES, n)
+    mt.stage_times = None
     for i, T in got:
         check_tracked(mt, T, i, poses)
     return prof
 
 
-def forced_branches(mt, poses, frames, first, seed):
-    """Three frames that force the fallbacks, from the map's last keyframe
-    again (``seed``, the tracker's state when the map was built): an emptied
-    last association (widen -> zero velocity -> reference keyframe, and
-    still tracks), a velocity above the 0.2 rad gate (predicts from the last
-    pose, so the 15 px match suffices), and a blank frame (lost, None, no
-    exception)."""
+def forced_branches(mt, poses, frames, first, built, seed, graphs):
+    """Three frames that force the fallbacks, from the map as built again
+    (``built``, ``seed``): an emptied last association (widen -> zero
+    velocity -> reference keyframe, and still tracks), a velocity above the
+    0.2 rad gate (predicts from the last pose, so the 15 px match
+    suffices), and a blank frame (lost, None, no exception); eagerly or
+    through the graphs. Returns the frame records."""
+    tag = "graph" if graphs else "eager"
+    mt.stage_times = None if graphs else {}
     fps = mt.cfg.fps
     i = first
-    mt.seed(mt.arena, seed.kp, torch.full_like(seed.assoc, -1),
-            seed.outlier, seed.R, seed.t, seed.ref_kf,
-            frame_id=seed.frame_id)
+    reseed(mt, built, seed, assoc=torch.full_like(seed.assoc, -1))
     T = mt.track_fisheye(frames[i], i / fps)
     row, err = check_tracked(mt, T, i, poses)
-    log("[branch] emptied last association: " + track_row_line(i, row, err))
+    records = [frame_record(mt, T)]
+    log(f"[branch-{tag}] emptied last association: "
+        + track_row_line(i, row, err))
     if row["path"] != ("motion", "widen", "zero_velocity", "reference_kf",
                        "local"):
         raise AssertionError(f"frame {i} took {row['path']}")
@@ -1143,17 +1266,70 @@ def forced_branches(mt, poses, frames, first, seed):
     mt.velocity = vel
     T = mt.track_fisheye(frames[i], i / fps)
     row, err = check_tracked(mt, T, i, poses)
-    log(f"[branch] velocity of {rot:.3f} rad (gate 0.2): "
+    records.append(frame_record(mt, T))
+    log(f"[branch-{tag}] velocity of {rot:.3f} rad (gate 0.2): "
         + track_row_line(i, row, err))
     if not (rot >= 0.2 and row["path"] == ("motion", "local")):
         raise AssertionError(f"the velocity gate did not hold: {row['path']}")
     blank = np.zeros_like(frames[i])
     T = mt.track_fisheye(blank, (i + 1) / fps)
     row = mt.metrics[-1]
-    log("[branch] blank frame: " + track_row_line("blank", row, None)
+    records.append(frame_record(mt, T))
+    log(f"[branch-{tag}] blank frame: " + track_row_line("blank", row, None)
         + f"; returned {T}")
     if T is not None or row["track_ok"] or row["path"][-1] != "skip_local":
         raise AssertionError("the blank frame was not lost")
+    if graphs and mt.metrics[-1]["graph_replays"] != 1:
+        raise AssertionError("the blank frame did not replay graph A alone")
+    mt.stage_times = None
+    return records
+
+
+def map_tracking_phase(cfg, counters):
+    """The map, the tracking path eagerly and through the graphs, the
+    profiled frames of each, the forced branches both ways and the small
+    card-against-CPU check. Returns the graph run's launches."""
+    mt, poses, frames, first = build_map_phase(cfg)
+    t_walls, t_launches, e_walls, built, seed = eager_and_graph_tracking(
+        mt, poses, frames, first, counters)
+    start = first + 1 + TRACK_FRAMES
+    t_prof = profiled_tracking(mt, poses, frames, start, graphs=False)
+    log_profile("track-profile", t_prof, e_walls)
+    reads = [r["host_reads"] for r in mt.metrics[-TRACK_PROFILE_FRAMES:]]
+    log(f"[track] eager frames: host reads a frame, counted by the tracker: "
+        f"{sorted(set(reads))}; host waits a frame, from the profiler: "
+        f"{t_prof['host_waits']:.2f} (with the 2 stage synchronisations)")
+    # every read is a wait, so the profiler must see at least as many
+    if t_prof["host_waits"] < max(reads):
+        raise AssertionError("the profiler saw fewer host waits than the "
+                             "tracker's own reads")
+    g_prof = profiled_tracking(mt, poses, frames,
+                               start + TRACK_PROFILE_FRAMES, graphs=True)
+    log_profile("graph-profile", g_prof, t_walls)
+    rows = mt.metrics[-GRAPH_PROFILE_FRAMES:]
+    reads = max(r["host_reads"] for r in rows)
+    log(f"[track] graph frames: device busy {g_prof['device_busy_ms']:.3f} "
+        f"ms a frame, idle share {g_prof['idle_share']:.4f} of the profiled "
+        f"wall ({1.0 - g_prof['device_busy_ms'] / float(np.mean(t_walls)):.4f}"
+        f" of the unprofiled); host reads {reads}, host waits "
+        f"{g_prof['host_waits']:.2f} a frame (the upload and the reads: "
+        f"{reads + 1}); graphs replayed a frame "
+        f"{[r['graph_replays'] for r in rows]}")
+    if g_prof["host_waits"] > reads + 1 or any(
+            r["graph_replays"] != 2 for r in rows):
+        raise AssertionError("a graph frame waited more than an eager one, "
+                             "or did not replay both graphs")
+    e_rec = forced_branches(mt, poses, frames, first, built, seed,
+                            graphs=False)
+    g_rec = forced_branches(mt, poses, frames, first, built, seed,
+                            graphs=True)
+    for k, (e, g) in enumerate(zip(e_rec, g_rec)):
+        same_bits(f"forced branch {k}", e, g)
+    log("[branch] the three forced frames through the graphs are bitwise "
+        "the eager ones")
+    del mt
+    small_map_reference_check()
+    return t_launches
 
 
 def small_map_reference_check():
@@ -1359,7 +1535,10 @@ def profiled_slam(slam, frames, walls):
     one deferred-BA frame are found (the frame after the profiled keyframe
     frame has its insertion held, so that its pending BA runs); the host
     waits of each may be no more than its stated reads (loop detection's
-    among them), its eigen-solve waits and the frame's upload."""
+    among them), its eigen-solve waits, the frame's upload and one for each
+    graph it captured. These frames run with ``stage_times`` unset, so
+    their tracking replays the captured graphs (the first captures them):
+    the tracking stages have no ranges of their own there."""
     want = {"keyframe": None, "ba": None}
     for i in range(SLAM_FRAMES, SLAM_FRAMES + SLAM_PROFILE_MAX):
         held = (want["keyframe"] is not None and want["ba"] is None
@@ -1377,14 +1556,18 @@ def profiled_slam(slam, frames, walls):
                 else "ba" if row.get("ba") else None)
         log(f"[slam-profile] frame {i}: {kind or 'tracked'}"
             f"{' (keyframe insertion held)' if held else ''}; host reads "
-            f"{row.get('host_reads')}; host waits {prof['host_waits']:.0f}; "
-            f"wall {prof['wall_ms']:.3f} ms")
+            f"{row.get('host_reads')}; graphs captured "
+            f"{row.get('graph_captures', 0)}, replayed "
+            f"{row.get('graph_replays', 0)}; host waits "
+            f"{prof['host_waits']:.0f}; wall {prof['wall_ms']:.3f} ms")
         if row["state"] != "OK":
             raise AssertionError(f"profiled frame {i} was not tracked")
         if kind and want[kind] is None:
             want[kind] = prof
             log_profile(f"slam-profile-{kind}", prof, walls)
-            allowed = row["host_reads"] + row.get("eigh_waits", 0) + 1
+            # torch.cuda.graph synchronises once for each graph it captures
+            allowed = (row["host_reads"] + row.get("eigh_waits", 0) + 1
+                       + row.get("graph_captures", 0))
             if prof["host_waits"] > allowed:
                 raise AssertionError(
                     f"the {kind} frame waited {prof['host_waits']:.0f} "
@@ -1495,14 +1678,22 @@ def map_snapshot(slam):
 
 def repeat_check(cfg, frames, ref):
     """The slam phase's SLAM_FRAMES frames again in a fresh CubemapSLAM
-    (the same seed and stage timing as ``drive_slam``): every arena table
-    (keyframe poses, landmark positions, the associations among them) and
-    the trajectory bitwise equal to the first run's, ``ref``."""
+    (the same seed as ``drive_slam``, but ``stage_times`` unset, so every
+    tracked frame replays the captured graphs): every arena table (keyframe
+    poses, landmark positions, the associations among them) and the
+    trajectory bitwise equal to the first run's, ``ref``, which ran
+    eagerly."""
     t0 = time.perf_counter()
     slam = CubemapSLAM(cfg, seed=SEED)
-    slam.stage_times = {}
     for i in range(SLAM_FRAMES):
         slam.track_fisheye(frames[i], i / cfg.fps)
+    graph_frames = sum(1 for r in slam.metrics if r.get("graph_replays"))
+    captures = sum(r.get("graph_captures", 0) for r in slam.metrics)
+    log(f"[repeat] {graph_frames} of {SLAM_FRAMES} frames replayed graphs, "
+        f"{captures} graphs captured")
+    if graph_frames < SLAM_FRAMES - SLAM_INIT_BY:
+        raise AssertionError("the repeat run's tracked frames did not "
+                             "replay the graphs")
     snap = map_snapshot(slam)
     a, b = ref["tables"], snap["tables"]
     bad = [k for k in a if not torch.equal(a[k], b[k])]
@@ -2428,25 +2619,8 @@ def main() -> int:
     small_reference_check()
     done("frame step")
 
-    mt, poses, frames, first = build_map_phase(cfg)
-    seed = mt.last
-    t_walls, t_launches = drive_tracking_path(mt, poses, frames, first,
-                                              counters)
-    start = first + 1 + TRACK_FRAMES
-    t_prof = profiled_tracking(mt, poses, frames, start)
-    log_profile("track-profile", t_prof, t_walls)
-    reads = [r["host_reads"] for r in mt.metrics[-TRACK_PROFILE_FRAMES:]]
-    log(f"[track] host reads a frame, counted by the tracker: "
-        f"{sorted(set(reads))}; host waits a frame, from the profiler: "
-        f"{t_prof['host_waits']:.2f}")
-    # every read is a wait, so the profiler must see at least as many
-    if t_prof["host_waits"] < max(reads):
-        raise AssertionError("the profiler saw fewer host waits than the "
-                             "tracker's own reads")
-    forced_branches(mt, poses, frames, first, seed)
-    small_map_reference_check()
+    t_launches = map_tracking_phase(cfg, counters)
     done("map tracking")
-    del mt, seed
     slam, s_poses, s_frames, s_launches, ate = slam_phase(cfg, counters)
     done("slam")
     r_launches = reloc_phase(slam, s_poses, s_frames, ate, counters)

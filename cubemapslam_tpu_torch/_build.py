@@ -100,8 +100,13 @@ class CudaKernel:
     Each entry point launches exactly one ``__global__`` kernel. ``argtypes``
     lists the ctypes of the arguments before the trailing stream; pointers
     are ``ctypes.c_void_p``. ``launches`` counts the calls that launched the
-    kernel; it is a plain integer that callers may reset.
+    kernel; it is a plain integer that callers may reset. A call made while
+    a CUDA graph is captured launches nothing: whoever captures takes its
+    count back and adds it on each replay (``runtime/fused_step.py``).
+    ``CudaKernel.instances`` lists every entry point made.
     """
+
+    instances: List["CudaKernel"] = []
 
     def __init__(self, source: str, symbol: str,
                  argtypes: Sequence[type]):
@@ -110,6 +115,7 @@ class CudaKernel:
         self.argtypes: List[type] = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
         self._fn = None
+        CudaKernel.instances.append(self)
 
     def build(self) -> None:
         if self._fn is None:

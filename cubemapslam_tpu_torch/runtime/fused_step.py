@@ -1,0 +1,300 @@
+"""The steady-state tracked frame as two captured CUDA graphs.
+
+``FusedStep`` is the port's counterpart of the JAX package's one-program
+steady-state frame (``CubemapSLAM._build_fused_step``,
+``cubemapslam_tpu/runtime/system.py:278-303``: warp, cross assembly,
+``extract`` and ``track_frame_full`` under one ``jax.jit``). The port's
+frame branches on the host twice (``runtime/kernels.py``), so it is two
+graphs, captured once and replayed on every later frame:
+
+* graph A: the static fisheye buffer through kernel W (``warp_to_cross``),
+  ``extract`` (the pyramid products, kernel D's two launches, the top-k and
+  the describe kernel), then ``TrackingKernels.frame_motion`` (the
+  re-anchoring, the velocity gate and the prediction, the 15 px projection
+  search and the pose-only LM) and the counts [matches, inliers];
+* host read 1 of those counts; the fallbacks (widen, zero velocity,
+  reference keyframe) run eagerly, and their stage tuple is copied into
+  graph A's outputs, which are graph B's inputs;
+* graph B, when the frame tracks: ``TrackingKernels.frame_local``
+  (TrackLocalMap, with the arena's visible/found counters updated in place,
+  then the epilogue); a frame that does not track runs ``frame_skip``
+  eagerly;
+* host read 2, of the packed result, by the caller.
+
+Static inputs. Before a replay the frame's inputs are copied into buffers
+that do not move: the fisheye frame, the mask (only when it is not the
+tensor, at the same version, that was copied last), the last frame's
+associations, outliers, keypoint levels and angles, its pose relative to
+its keyframe, that keyframe's slot, the velocity and its gain, the
+reference keyframe's slot, and the covisibility and observation-count
+views (only when they are not the tensors copied last). Slots and the gain
+are written by fills, so no input makes the host wait, except the upload of
+a frame that arrives as a host array, as on the eager path.
+
+The arena is read and updated in place by the graphs, so its tensors must
+stay where they were at capture: every tensor the graphs read that the
+tracker owns (the arena's tables and the tracker's buffers) is checked by
+``data_ptr`` before each replay, and a moved one raises. Whoever replaces
+the arena drops the graphs (``MapTracker.drop_graphs``: ``seed``,
+``CubemapSLAM.reset``, ``serialize.load_map``).
+
+Outputs. A graph's outputs live in its memory pool and the next replay
+writes over them, so everything that outlives the frame (the keypoints,
+the associations, outliers, pose, the pose relative to the new reference,
+the velocity and the packed result) is cloned after the frame; the clones
+are what the caller keeps. Both graphs share one private pool and are
+always replayed in the order they were captured (A, then B).
+
+Capture. The first frame that needs a graph runs its part eagerly on a side
+stream (which warms every library handle and workspace on that stream, and
+is that frame's own work, so the arena's counters are updated once), then
+captures the same part on that stream with ``torch.cuda.graph`` into the
+pool, and copies the eager outputs into the graph's outputs. A hand-written
+kernel's wrapper counts a Python call, and a replay makes none, so each
+capture records every ``CudaKernel``'s launches during it, takes them back,
+and adds them again on each replay.
+
+No fallback: on the card a failed capture, a failed replay or a moved
+tensor raises. On the CPU (the tests) there is no graph: each part runs
+eagerly on the same static buffers, so the copies, the fallback copy, the
+clones and the ``data_ptr`` check are the same code.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from cubemapslam_tpu_torch._build import CudaKernel
+from cubemapslam_tpu_torch.features.extractor import Keypoints
+from cubemapslam_tpu_torch.runtime.kernels import FrameTrack
+
+N_KP = len(Keypoints._fields)
+
+
+class FusedStep:
+    """Static buffers, the two graphs and their pool for one tracker's
+    steady-state frame. Call it as ``step(tracker, fisheye, mask, last,
+    velocity, gain, ref_kf)``; it returns (keypoints, ``FrameTrack``).
+
+    ``captures`` and ``replays`` count the graphs captured and replayed so
+    far, ``frame_captures`` / ``frame_replays`` those of the last call, and
+    ``capture_ms`` the host's wall time in ``torch.cuda.graph``."""
+
+    def __init__(self, tracker):
+        self.device = tracker.device
+        self.graphs = self.device.type == "cuda"
+        self.inputs: Dict[str, torch.Tensor] = {}
+        self.outputs: Dict[str, List[torch.Tensor]] = {}
+        self._graph: Dict[str, torch.cuda.CUDAGraph] = {}
+        self._launch_delta: Dict[str, List[Tuple[CudaKernel, int]]] = {}
+        self._sources: Dict[str, Tuple[int, int]] = {}
+        self._held: Dict[str, torch.Tensor] = {}
+        self._pointers: Optional[List[Tuple[str, int]]] = None
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self._stream = torch.cuda.Stream(self.device) if self.graphs \
+            else None
+        self.captures = self.replays = 0
+        self.frame_captures = self.frame_replays = 0
+        self.capture_ms = 0.0
+
+    # ------------------------------------------------------------------
+    # Static inputs
+    # ------------------------------------------------------------------
+
+    def _static(self, name: str, like: torch.Tensor) -> torch.Tensor:
+        buf = self.inputs.get(name)
+        if buf is None:
+            buf = torch.empty_like(like, device=self.device,
+                                   memory_format=torch.contiguous_format)
+            self.inputs[name] = buf
+        elif buf.shape != like.shape or buf.dtype != like.dtype:
+            raise ValueError(f"fused step: input {name} is "
+                             f"{tuple(like.shape)} {like.dtype}, the "
+                             f"captured graphs take {tuple(buf.shape)} "
+                             f"{buf.dtype}")
+        return buf
+
+    def _copy(self, name: str, src: torch.Tensor) -> None:
+        self._static(name, src).copy_(src)
+
+    def _copy_if_new(self, name: str, src: torch.Tensor) -> None:
+        """Copy ``src`` unless it is the tensor, at the same version, that
+        was copied into ``name`` last."""
+        key = (id(src), src._version)
+        if self._sources.get(name) == key and name in self.inputs:
+            return
+        self._copy(name, src)
+        self._sources[name] = key
+        # the source is kept alive, so that no other tensor takes its id
+        self._held[name] = src
+
+    def _fill(self, name: str, value, dtype: torch.dtype) -> None:
+        buf = self.inputs.get(name)
+        if buf is None:
+            buf = torch.empty((), dtype=dtype, device=self.device)
+            self.inputs[name] = buf
+        buf.fill_(value)
+
+    def load_inputs(self, tracker, fisheye, mask, last, velocity, gain: float,
+                    ref_kf: int) -> None:
+        """Copy one frame's inputs into the static buffers (see the module
+        docstring). ``fisheye`` is an (H, W) uint8 array or tensor,
+        ``mask`` what ``FrameFrontend.as_mask`` takes, ``last`` the
+        tracker's ``LastFrame`` and ``velocity`` (R, t)."""
+        W, H = tracker.src_wh
+        img = torch.as_tensor(fisheye)
+        if img.shape != (H, W) or img.dtype != torch.uint8:
+            raise ValueError(f"fisheye must be ({H}, {W}) uint8, got "
+                             f"{tuple(img.shape)} {img.dtype}")
+        self._copy("fisheye", img)
+        self._copy_if_new("mask", tracker.as_mask(mask))
+        self._copy("last_assoc", last.assoc)
+        self._copy("last_outlier", last.outlier)
+        self._copy("last_level", last.kp.level)
+        self._copy("last_angle", last.kp.angle)
+        self._copy("rel_R", last.rel_R)
+        self._copy("rel_t", last.rel_t)
+        self._fill("last_ref", last.ref_kf, torch.int64)
+        self._copy("vel_R", velocity[0])
+        self._copy("vel_t", velocity[1])
+        self._fill("gain", gain, torch.float32)
+        self._fill("ref_kf", ref_kf, torch.int64)
+        self._copy_if_new("covis", tracker.covis)
+        self._copy_if_new("cnt", tracker.cnt)
+
+    # ------------------------------------------------------------------
+    # The two parts
+    # ------------------------------------------------------------------
+
+    def _part_a(self, tracker) -> List[torch.Tensor]:
+        """Warp, extract and ``frame_motion``, flat: the keypoints' fields,
+        the stage tuple (assoc, n, R, t, outlier, n_inl), (R_last, t_last,
+        R_pred, t_pred) and the counts."""
+        s = self.inputs
+        cube = tracker.warp(s["fisheye"])
+        kp = tracker.extract(cube, s["mask"])
+        st, pose, counts = tracker.kernels.frame_motion(
+            tracker.arena, kp, s["last_assoc"], s["last_outlier"],
+            s["last_level"], s["last_angle"], s["rel_R"], s["rel_t"],
+            s["last_ref"], s["vel_R"], s["vel_t"], s["gain"])
+        return [*kp, *st, *pose, counts]
+
+    def _part_b(self, tracker) -> List[torch.Tensor]:
+        """``frame_local`` on graph A's outputs (the stage tuple possibly
+        overwritten by a fallback's)."""
+        a = self.outputs["a"]
+        kp = Keypoints(*a[:N_KP])
+        st = a[N_KP:N_KP + 6]
+        R_last, t_last = a[N_KP + 6:N_KP + 8]
+        return list(tracker.kernels.frame_local(
+            tracker.arena, kp, st, R_last, t_last, self.inputs["ref_kf"],
+            self.inputs["covis"], self.inputs["cnt"]))
+
+    # ------------------------------------------------------------------
+    # Capture and replay
+    # ------------------------------------------------------------------
+
+    def _tracked_pointers(self, tracker) -> List[Tuple[str, int]]:
+        named = [(f"arena.{k}", getattr(tracker.arena, k))
+                 for k in tracker.arena._fields]
+        named += list(tracker.named_buffers())
+        return [(k, t.data_ptr()) for k, t in named]
+
+    def check(self, tracker) -> None:
+        """Raise if a tensor that the captured parts read has moved since
+        the first capture (the arena replaced, a buffer reassigned)."""
+        if self._pointers is None:
+            return
+        now = dict(self._tracked_pointers(tracker))
+        moved = [k for k, p in self._pointers if now.get(k) != p]
+        if moved:
+            raise RuntimeError(
+                f"fused step: {', '.join(moved[:4])}"
+                f"{' ...' if len(moved) > 4 else ''} moved since the graphs "
+                f"were captured; drop the graphs (MapTracker.drop_graphs) "
+                f"where the arena is replaced")
+
+    def _run(self, name: str, part, tracker) -> List[torch.Tensor]:
+        """Part ``name`` of the frame: replayed from its graph, or, the first
+        time, run eagerly on the side stream and captured (on the CPU, run
+        eagerly every time). Its outputs are ``self.outputs[name]``."""
+        if self._pointers is None:
+            self._pointers = self._tracked_pointers(tracker)
+        if not self.graphs:
+            self.outputs[name] = part(tracker)
+            return self.outputs[name]
+        graph = self._graph.get(name)
+        if graph is not None:
+            graph.replay()
+            for k, d in self._launch_delta[name]:
+                k.launches += d
+            self.replays += 1
+            self.frame_replays += 1
+            return self.outputs[name]
+        main, side = torch.cuda.current_stream(self.device), self._stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            eager = part(tracker)
+            before = [(k, k.launches) for k in CudaKernel.instances]
+            graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                    static = part(tracker)
+            except Exception as e:
+                raise RuntimeError(f"fused step: the capture of graph "
+                                   f"{name.upper()} failed: {e}") from e
+            self.capture_ms += (time.perf_counter() - t0) * 1e3
+            delta = []
+            for k, n in before:
+                if k.launches != n:
+                    delta.append((k, k.launches - n))
+                    k.launches = n
+            for s, e in zip(static, eager):
+                s.copy_(e)
+        main.wait_stream(side)
+        self._graph[name] = graph
+        self._launch_delta[name] = delta
+        self.outputs[name] = static
+        self.captures += 1
+        self.frame_captures += 1
+        return static
+
+    # ------------------------------------------------------------------
+    # One frame
+    # ------------------------------------------------------------------
+
+    def __call__(self, tracker, fisheye, mask, last, velocity, gain: float,
+                 ref_kf: int) -> Tuple[Keypoints, FrameTrack]:
+        self.frame_captures = self.frame_replays = 0
+        self.check(tracker)
+        self.load_inputs(tracker, fisheye, mask, last, velocity, gain, ref_kf)
+        k = tracker.kernels
+        a = self._run("a", self._part_a, tracker)
+        kp = Keypoints(*a[:N_KP])
+        st = a[N_KP:N_KP + 6]
+        R_last, t_last = a[N_KP + 6:N_KP + 8]
+        pose = tuple(a[N_KP + 6:N_KP + 10])
+        n, n_inl = a[-1].tolist()
+        path = ["motion"]
+        s = self.inputs
+        st_f, n, n_inl, reads = k.motion_fallbacks(
+            tracker.arena, kp, (s["last_assoc"], s["last_outlier"],
+                                s["last_level"], s["last_angle"]),
+            tuple(st), n, n_inl, pose, s["ref_kf"], path)
+        if n >= 15 and n_inl >= 10:
+            for dst, src in zip(st, st_f):
+                if dst is not src:
+                    dst.copy_(src)
+            out = self._run("b", self._part_b, tracker)
+            path.append("local")
+        else:
+            out = k.frame_skip(tracker.arena, st_f, R_last, t_last,
+                               s["ref_kf"], s["cnt"])
+            path.append("skip_local")
+        kp = Keypoints(*(x.clone() for x in kp))
+        return kp, FrameTrack(tracker.arena, *(x.clone() for x in out),
+                              tuple(path), reads + 1)

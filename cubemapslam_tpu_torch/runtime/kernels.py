@@ -13,6 +13,12 @@ every branch; each fallback that runs adds one read. The caller reads the
 packed result once more. A 0-d device tensor is never used as an index
 (PyTorch would read it to the host): such indices go in as 1-element
 tensors.
+
+The stages between those reads (``frame_motion``, then ``frame_local`` or
+``frame_skip``) read nothing to the host and take the keyframe slots, the
+motion model's gain and the radius scale as device tensors, so that
+``runtime/fused_step.py`` can capture them as CUDA graphs; in the JAX
+package they are one jitted program.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from cubemapslam_tpu_torch.solvers.pnp import pnp_ransac
 
 MIN_MATCHES = 20             # widen / fall back below this (Tracking.cpp:641)
 VELOCITY_GATE_RAD = 0.2      # implausible rotations predict from the last pose
+WIDE_LOCAL_INLIERS = 100     # below this, the local search radius x 3
 
 
 class FrameTrack(NamedTuple):
@@ -59,6 +66,15 @@ class FrameTrack(NamedTuple):
 def _row(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for a 0-d device index, without a host read."""
     return table.index_select(0, idx.reshape(1))[0]
+
+
+def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a 0-d tensor on ``device``: a tensor is taken as it is, a
+    Python number is written by a fill (no copy from the host, so no
+    wait)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), x, dtype=dtype, device=device)
 
 
 class TrackingKernels:
@@ -146,16 +162,22 @@ class TrackingKernels:
                            ref_kf):
         """Match the frame against a keyframe's landmark-bearing features by
         full Hamming search, ratio 0.7 and the rotation histogram
-        (``kernels.py:127-152``). ``ref_kf`` is a slot (int)."""
-        kf_lm = arena.kf_obs_lm[ref_kf]
-        kf_has = ((kf_lm >= 0) & arena.kf_kp_valid[ref_kf]
+        (``kernels.py:127-152``). ``ref_kf`` is a slot: an int or a 0-d
+        device index."""
+        ref_kf = device_scalar(ref_kf, torch.int64, arena.device)
+
+        def kf(table):
+            return _row(table, ref_kf)
+
+        kf_lm = kf(arena.kf_obs_lm)
+        kf_has = ((kf_lm >= 0) & kf(arena.kf_kp_valid)
                   & arena.lm_valid[kf_lm.clamp(min=0)])
-        dist = M.hamming_matrix(M.unpack_descriptors(arena.kf_desc[ref_kf]),
+        dist = M.hamming_matrix(M.unpack_descriptors(kf(arena.kf_desc)),
                                 M.unpack_descriptors(kp_cur.desc))
         gate = kf_has[:, None] & kp_cur.valid[None, :]
         best_idx, best, _, second = M._masked_top2(dist, gate)
         ok = (best <= self.th_low) & (best < 0.7 * second)
-        ok = M.rotation_consistency(arena.kf_angle[ref_kf],
+        ok = M.rotation_consistency(kf(arena.kf_angle),
                                     kp_cur.angle[best_idx], ok,
                                     bin_deg=self.histo_bin)
         ok = M.resolve_one_to_one(best_idx, best, ok, kp_cur.n)
@@ -300,20 +322,56 @@ class TrackingKernels:
         return (arena, assoc, outlier, R, t, n_final, pkf_max, pkf_votes,
                 diag)
 
-    def _motion_stage(self, arena, kp_cur, last, R_pred, t_pred, R_last,
-                      t_last, ref_kf, path):
-        """The motion-model match and its fallbacks, in the JAX order
-        (``kernels.py:389-426``), branching on counts read to the host.
-        Returns (stage tuple, n, n_inl, host reads)."""
+    def predict_pose(self, arena: SM.MapArena, rel_R, rel_t, last_ref,
+                     vel_R, vel_t, vel_gain):
+        """The last pose re-anchored on keyframe ``last_ref`` (a 0-d device
+        index) and the motion model's prediction: ``(vel_R, vel_t)`` scaled
+        by the 0-d ``vel_gain`` and dropped when it turns by 0.2 rad or more
+        (``kernels.py:359-366``). Returns (R_last, t_last, R_pred,
+        t_pred)."""
+        R_last, t_last = G.se3_compose(rel_R, rel_t,
+                                       _row(arena.kf_R, last_ref),
+                                       _row(arena.kf_t, last_ref))
+        tw = G.se3_log(vel_R, vel_t) * vel_gain
+        rot_mag = torch.linalg.norm(tw[3:6])
+        tw = torch.where(rot_mag < VELOCITY_GATE_RAD, tw,
+                         torch.zeros_like(tw))
+        Rv, tv = G.se3_exp(tw)
+        R_pred, t_pred = G.se3_compose(Rv, tv, R_last, t_last)
+        return R_last, t_last, R_pred, t_pred
+
+    def frame_motion(self, arena: SM.MapArena, kp_cur: Keypoints,
+                     last_assoc, last_outlier, last_kp_level, last_kp_angle,
+                     rel_R, rel_t, last_ref, vel_R, vel_t, vel_gain):
+        """The frame's first stage, which reads nothing to the host: the
+        prediction (``predict_pose``) and the motion-model match at 15 px.
+        Returns (stage tuple of ``track_motion_fused``, (R_last, t_last,
+        R_pred, t_pred), counts (2,) int64 [matches, inliers])."""
+        pose = self.predict_pose(arena, rel_R, rel_t, last_ref, vel_R, vel_t,
+                                 vel_gain)
+        st = self.track_motion_fused(arena, kp_cur, last_assoc, last_outlier,
+                                     last_kp_level, last_kp_angle, *pose[2:],
+                                     radius=15.0)
+        return st, pose, torch.stack([st[1], st[5]])
+
+    def motion_fallbacks(self, arena: SM.MapArena, kp_cur: Keypoints, last,
+                         st, n: int, n_inl: int, pose, ref_kf, path):
+        """The fallbacks after the 15 px match, in the JAX order
+        (``kernels.py:389-426``), branching on counts read to the host:
+        widened to 30 px below 20 matches, a zero-velocity retry, then the
+        reference keyframe ``ref_kf`` (a 0-d device index). ``last`` is the
+        last frame's (assoc, outlier, kp level, kp angle), ``n`` / ``n_inl``
+        the 15 px match's counts as read. Returns (stage tuple, n, n_inl,
+        reads made here)."""
+        R_last, t_last, R_pred, t_pred = pose
+
         def motion(R0, t0, radius):
             st = self.track_motion_fused(arena, kp_cur, *last, R0, t0,
                                          radius=radius)
             n, n_inl = torch.stack([st[1], st[5]]).tolist()
             return st, n, n_inl
 
-        st, n, n_inl = motion(R_pred, t_pred, 15.0)
-        path.append("motion")
-        reads = 1
+        reads = 0
         if n < MIN_MATCHES:
             st, n, n_inl = motion(R_pred, t_pred, 30.0)
             path.append("widen")
@@ -334,58 +392,44 @@ class TrackingKernels:
             reads += 1
         return st, n, n_inl, reads
 
-    def track_frame_full(self, arena: SM.MapArena, kp_cur: Keypoints,
-                         last_assoc, last_outlier, last_kp_level,
-                         last_kp_angle, rel_R, rel_t, last_ref: int,
-                         vel_R, vel_t, vel_gain, ref_kf: int, covis,
-                         cnt) -> FrameTrack:
-        """The whole per-frame tracking step (``kernels.py:341-490``):
-        motion-model match at 15 px, widened to 30 px below 20 matches, a
-        zero-velocity retry, the reference-keyframe fallback, then
-        TrackLocalMap when the frame tracks (>= 15 matches and >= 10
-        inliers). The arena's visible/found counters are updated in place.
-
-        The last pose arrives relative to keyframe ``last_ref`` and is
-        re-anchored on the current keyframe table; the motion model is
-        ``(vel_R, vel_t)`` scaled by ``vel_gain`` and dropped when it turns
-        by 0.2 rad or more. ``packed`` is (23,) float32: [n_matches,
-        n_inliers, n_final, n_ref_obs, live_kf, first_free_slot, track_ok,
-        new_ref_kf, local_frustum, local_queried, local_matched,
-        R.ravel(9), t(3)].
-        """
-        dev = arena.device
-        path = []
-        with record_function("motion"):
-            R_last, t_last = G.se3_compose(rel_R, rel_t, arena.kf_R[last_ref],
-                                           arena.kf_t[last_ref])
-            tw = G.se3_log(vel_R, vel_t) * vel_gain
-            rot_mag = torch.linalg.norm(tw[3:6])
-            tw = torch.where(rot_mag < VELOCITY_GATE_RAD, tw,
-                             torch.zeros_like(tw))
-            Rv, tv = G.se3_exp(tw)
-            R_pred, t_pred = G.se3_compose(Rv, tv, R_last, t_last)
-            last = (last_assoc, last_outlier, last_kp_level, last_kp_angle)
-            st, n, n_inl, reads = self._motion_stage(
-                arena, kp_cur, last, R_pred, t_pred, R_last, t_last, ref_kf,
-                path)
+    def frame_local(self, arena: SM.MapArena, kp_cur: Keypoints, st, R_last,
+                    t_last, ref_kf, covis, cnt):
+        """The rest of a frame that tracks, which reads nothing to the host:
+        TrackLocalMap on the stage tuple ``st``, with the search radius
+        scaled by 3 below 100 inliers (chosen on the device), then the
+        epilogue. The arena's visible/found counters are updated in place.
+        Returns (assoc, outlier, R, t, packed, vel_R, vel_t, rel_R,
+        rel_t)."""
         assoc, n_t, R, t, outlier, n_inl_t = st
-        track_ok = n >= 15 and n_inl >= 10
-        ref_t = torch.full((), ref_kf, dtype=torch.int64, device=dev)
-        if track_ok:
-            rs = 3.0 if n_inl < 100 else 1.0
-            (arena, assoc_f, outlier_f, R_f, t_f, n_final, pkf_max,
-             pkf_votes, diag) = self.track_local_fused(
-                arena, kp_cur, assoc, outlier, R, t, covis=covis,
-                radius_scale=rs)
-            path.append("local")
-        else:
-            assoc_f, outlier_f, R_f, t_f = assoc, outlier, R, t
-            zero = torch.zeros((), dtype=torch.int64, device=dev)
-            n_final, pkf_max, pkf_votes = zero, ref_t, zero
-            diag = torch.zeros(3, dtype=torch.int64, device=dev)
-            path.append("skip_local")
+        # x 3.0 or x 1.0 in float32: the bits of the host's choice
+        rs = torch.where(n_inl_t < WIDE_LOCAL_INLIERS, 3.0, 1.0)
+        (arena, assoc_f, outlier_f, R_f, t_f, n_final, pkf_max,
+         pkf_votes, diag) = self.track_local_fused(
+            arena, kp_cur, assoc, outlier, R, t, covis=covis,
+            radius_scale=rs)
+        return self._epilogue(arena, st, assoc_f, outlier_f, R_f, t_f,
+                              n_final, pkf_max, pkf_votes, diag, R_last,
+                              t_last, ref_kf, cnt)
+
+    def frame_skip(self, arena: SM.MapArena, st, R_last, t_last, ref_kf,
+                   cnt):
+        """The rest of a frame that does not track: the epilogue on the
+        stage tuple ``st``, with TrackLocalMap's counts at 0. Returns what
+        ``frame_local`` returns."""
+        assoc, _, R, t, outlier, _ = st
+        zero = torch.zeros((), dtype=torch.int64, device=arena.device)
+        diag = torch.zeros(3, dtype=torch.int64, device=arena.device)
+        return self._epilogue(arena, st, assoc, outlier, R, t, zero, ref_kf,
+                              zero, diag, R_last, t_last, ref_kf, cnt)
+
+    def _epilogue(self, arena, st, assoc_f, outlier_f, R_f, t_f, n_final,
+                  pkf_max, pkf_votes, diag, R_last, t_last, ref_kf, cnt):
+        """The new reference keyframe, its tracked-landmark count, the first
+        free slot, the velocity, the pose relative to the new reference and
+        the packed (23,) result (``kernels.py:387-409``)."""
+        n_t, n_inl_t = st[1], st[5]
         with record_function("epilogue"):
-            new_ref = torch.where(pkf_votes > 0, pkf_max, ref_t)
+            new_ref = torch.where(pkf_votes > 0, pkf_max, ref_kf)
             live_kf = arena.kf_valid.sum()
             row = _row(arena.kf_obs_lm, new_ref)
             row0 = row.clamp(min=0)
@@ -407,8 +451,54 @@ class TrackingKernels:
                                        _row(arena.kf_t, new_ref))
             rel_R, rel_t = G.se3_compose(R_f, t_f, R_ri, t_ri)
             packed = torch.cat([scalars, R_f.reshape(-1), t_f])
-        return FrameTrack(arena, assoc_f, outlier_f, R_f, t_f, packed,
-                          vel_R, vel_t, rel_R, rel_t, tuple(path), reads)
+        return (assoc_f, outlier_f, R_f, t_f, packed, vel_R, vel_t, rel_R,
+                rel_t)
+
+    def track_frame_full(self, arena: SM.MapArena, kp_cur: Keypoints,
+                         last_assoc, last_outlier, last_kp_level,
+                         last_kp_angle, rel_R, rel_t, last_ref, vel_R,
+                         vel_t, vel_gain, ref_kf, covis, cnt) -> FrameTrack:
+        """The whole per-frame tracking step (``kernels.py:341-490``):
+        motion-model match at 15 px, widened to 30 px below 20 matches, a
+        zero-velocity retry, the reference-keyframe fallback, then
+        TrackLocalMap when the frame tracks (>= 15 matches and >= 10
+        inliers). The arena's visible/found counters are updated in place.
+
+        The last pose arrives relative to keyframe ``last_ref`` and is
+        re-anchored on the current keyframe table; the motion model is
+        ``(vel_R, vel_t)`` scaled by ``vel_gain`` and dropped when it turns
+        by 0.2 rad or more. ``last_ref`` and ``ref_kf`` are keyframe slots
+        and ``vel_gain`` the gain, each an int / float or a 0-d tensor on
+        the arena's device. ``packed`` is (23,) float32: [n_matches,
+        n_inliers, n_final, n_ref_obs, live_kf, first_free_slot, track_ok,
+        new_ref_kf, local_frustum, local_queried, local_matched,
+        R.ravel(9), t(3)].
+
+        The stages are ``frame_motion``, ``motion_fallbacks`` and
+        ``frame_local`` or ``frame_skip``; ``runtime/fused_step.py``
+        captures the first and the third as CUDA graphs.
+        """
+        dev = arena.device
+        last_ref = device_scalar(last_ref, torch.int64, dev)
+        ref_kf = device_scalar(ref_kf, torch.int64, dev)
+        vel_gain = device_scalar(vel_gain, torch.float32, dev)
+        path = ["motion"]
+        last = (last_assoc, last_outlier, last_kp_level, last_kp_angle)
+        with record_function("motion"):
+            st, pose, counts = self.frame_motion(
+                arena, kp_cur, *last, rel_R, rel_t, last_ref, vel_R, vel_t,
+                vel_gain)
+            n, n_inl = counts.tolist()
+            st, n, n_inl, reads = self.motion_fallbacks(
+                arena, kp_cur, last, st, n, n_inl, pose, ref_kf, path)
+        if n >= 15 and n_inl >= 10:
+            out = self.frame_local(arena, kp_cur, st, *pose[:2], ref_kf,
+                                   covis, cnt)
+            path.append("local")
+        else:
+            out = self.frame_skip(arena, st, *pose[:2], ref_kf, cnt)
+            path.append("skip_local")
+        return FrameTrack(arena, *out, tuple(path), reads + 1)
 
     # ------------------------------------------------------------------
     # Relocalization (Tracking::Relocalization, Tracking.cpp:990-1151)

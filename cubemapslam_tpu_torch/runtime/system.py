@@ -23,7 +23,8 @@ the two initialization frames, and trained once more when
 ``vocab_retrain_keyframes`` keyframes are live.
 
 Host reads. A tracked frame reads the card twice, as ``MapTracker``'s does
-(the motion-match counts and the packed result); a keyframe insertion, its
+(the motion-match counts and the packed result), whether it replays the
+captured graphs or runs eagerly; a keyframe insertion, its
 BoW row, its mapping step and a deferred BA add none, because the mapping
 kernels mask where the JAX package branches on the device. Loop closing adds
 its own (``runtime/loop_closing.py``): from the tenth keyframe on, the loop
@@ -45,7 +46,6 @@ initialization attempts, ``eigh_waits`` where PnP ran).
 from __future__ import annotations
 
 import enum
-import time
 import warnings
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -100,10 +100,12 @@ class CubemapSLAM(MapTracker):
     4x4 world->camera pose of a tracked frame, else ``None``. ``metrics``
     has a row per frame; ``trajectory`` holds (timestamp, R, t) of each
     tracked frame; ``keyframe_trajectory()`` the live keyframes in time
-    order. With ``stage_times`` set to a dict, each stage (``extract``,
-    ``init``, ``track``, ``insert+mapping``, ``local_ba``, ``reloc``,
-    ``localization``) synchronizes the card and records its wall ms there
-    and in the frame's row."""
+    order. A steady-state ``track_fisheye`` frame on the card (tracking,
+    not in localization mode) replays ``MapTracker``'s captured graphs.
+    With ``stage_times`` set to a dict every frame runs eagerly, and each
+    stage (``extract``, ``init``, ``track``, ``insert+mapping``,
+    ``local_ba``, ``reloc``, ``localization``) synchronizes the card and
+    records its wall ms there and in the frame's row."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None, device=None,
                  seed: int = 0):
@@ -151,31 +153,43 @@ class CubemapSLAM(MapTracker):
         self.trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
         self.tracked_frames = 0
         self.total_frames = 0
-        self.stage_times: Optional[dict] = None
-        self._stage_t0 = 0.0
 
-    # ------------------------------------------------------------------
-    # Stage timing (system.py:162-186)
-    # ------------------------------------------------------------------
-
-    def _stage_start(self) -> None:
-        if self.stage_times is not None:
-            self._stage_t0 = time.perf_counter()
-
-    def _stage(self, name: str) -> None:
-        if self.stage_times is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        ms = (now - self._stage_t0) * 1e3
-        self.stage_times.setdefault(name, []).append(ms)
-        self._row.setdefault("stage_ms", {})[name] = ms
-        self._stage_t0 = now
+    def _stage(self, name: str) -> Optional[float]:
+        """``MapTracker._stage``, with the ms also in the frame's row."""
+        ms = super()._stage(name)
+        if ms is not None:
+            self._row.setdefault("stage_ms", {})[name] = ms
+        return ms
 
     # ------------------------------------------------------------------
     # Public API
     # ------------------------------------------------------------------
+
+    def _graph_frame(self) -> bool:
+        """The JAX package's condition for its one-program frame
+        (``system.py:227-230``): tracking, not in localization mode, no
+        stage timing; and, here, a CUDA device. (The JAX condition also
+        asks for a mask; the port's ``None`` is the FOV mask.)"""
+        return (self.state == TrackState.OK and not self.localization_only
+                and super()._graph_frame())
+
+    def track_fisheye(self, fisheye_u8, timestamp: float, mask=None
+                      ) -> Optional[np.ndarray]:
+        """Track one (H, W) uint8 fisheye frame (an array, or a tensor such
+        as ``prefetch_image`` returns). A steady-state frame on the card
+        replays the captured graphs (``MapTracker``); every other frame
+        warps and goes through ``track_cubemap``."""
+        if not self._graph_frame():
+            return super().track_fisheye(fisheye_u8, timestamp, mask)
+        self.total_frames += 1
+        self._row = {}
+        fid = self.frame_id
+        self.frame_id += 1
+        kp, out = self._fused_frame(fisheye_u8, mask)
+        pose_np = self._keyframe_half(
+            kp, fid, timestamp, *self._consume(kp, out, fid, timestamp,
+                                               self._graph_counts()))
+        return self._finish_frame(timestamp, pose_np)
 
     def track_cubemap(self, cube: torch.Tensor, timestamp: float,
                       mask=None) -> Optional[np.ndarray]:
@@ -209,6 +223,11 @@ class CubemapSLAM(MapTracker):
             self._stage("reloc")
         else:
             pose_np = self._track_frame(kp, fid, timestamp)
+        return self._finish_frame(timestamp, pose_np)
+
+    def _finish_frame(self, timestamp: float, pose_np):
+        """The frame's state in its row, and its pose (4x4, also appended to
+        ``trajectory``) when tracking."""
         self._row.update(state=self.state.name)
         if self.state != TrackState.OK:
             return None
@@ -357,7 +376,14 @@ class CubemapSLAM(MapTracker):
                 pose_np = self._track_frame_localization(kp, fid, ts)
             self._stage("localization")
             return pose_np
-        T, out, row = self._track_steady(kp, fid, ts)
+        return self._keyframe_half(kp, fid, ts,
+                                   *self._track_steady(kp, fid, ts))
+
+    def _keyframe_half(self, kp: Keypoints, fid: int, ts: float, T, out,
+                       row):
+        """After a tracked frame's read: lost, a new keyframe with its
+        mapping, or the deferred BA (``system.py:578-618``). Returns the
+        host pose (R, t), or None when lost."""
         row.update(self._row, keyframe=False, ba=False)
         self._row = row
         self._stage("track")
@@ -409,6 +435,7 @@ class CubemapSLAM(MapTracker):
         self.bow_table = None
         self.mb_vo = False
         self.loop_closer.reset()
+        self.drop_graphs()
 
     # ------------------------------------------------------------------
     # Localization mode (system.py:497-557, 620-707)

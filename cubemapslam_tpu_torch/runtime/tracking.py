@@ -1,12 +1,21 @@
 """The steady-state tracked frame against the map arena.
 
-``MapTracker`` is the port's counterpart of the fused steady-state frame of
-the JAX package (``CubemapSLAM._build_fused_step`` and
+``MapTracker`` runs the port's counterpart of the fused steady-state frame
+of the JAX package (``CubemapSLAM._build_fused_step`` and
 ``_track_fisheye_fused``, ``cubemapslam_tpu/runtime/system.py:278-332``):
 warp -> extract -> ``TrackingKernels.track_frame_full`` -> one read of the
 packed (23,) result, then the tracking half of ``_consume_track_outputs``
 (``system.py:578-609``). It holds the arena, the cached covisibility and
 observation-count views, the last frame and the motion model.
+
+On a CUDA device, once seeded, ``track_fisheye`` runs the frame as the
+JAX package dispatches its one jitted program: through ``FusedStep``
+(``runtime/fused_step.py``), two CUDA graphs captured on the first frame and
+replayed on every later one, with the same two host reads and the same
+bits as the eager frame. With ``stage_times`` set to a dict the frame runs
+eagerly, as in the JAX package, and each stage (``extract``, ``track``) is
+synchronised and its wall ms recorded there; ``track_cubemap`` and the CPU
+always run eagerly.
 
 The keyframe decision, keyframe creation, deferred BA and the reset of a
 small map are ``CubemapSLAM``'s (``runtime/system.py``), which builds on
@@ -15,6 +24,7 @@ this class; here a lost frame leaves the last tracked state as it was.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,7 +36,8 @@ from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.runtime.frame_step import FrameFrontend
-from cubemapslam_tpu_torch.runtime.kernels import TrackingKernels
+from cubemapslam_tpu_torch.runtime.fused_step import FusedStep
+from cubemapslam_tpu_torch.runtime.kernels import FrameTrack, TrackingKernels
 
 PACKED_NAMES = ("matches", "inliers_mm", "inliers", "n_ref", "live_kf",
                 "first_free", "track_ok", "new_ref", "local_frustum",
@@ -55,7 +66,11 @@ class MapTracker(FrameFrontend):
     a frame. Seed it with ``seed`` (an arena and a last frame) first.
 
     ``metrics`` holds a row per tracked frame: the packed counts
-    (``PACKED_NAMES``), the branches taken and the host reads made."""
+    (``PACKED_NAMES``), the branches taken, the host reads made and the
+    CUDA graphs captured and replayed (``graph_captures``,
+    ``graph_replays``; both 0 on an eager frame). ``stage_times``, when a
+    dict, keeps every frame eager and records each stage's synchronised
+    wall ms."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None, device=None):
         super().__init__(cfg, device)
@@ -70,6 +85,65 @@ class MapTracker(FrameFrontend):
         self.ref_kf = 0
         self.frame_id = 0
         self.metrics = []
+        self.stage_times: Optional[dict] = None
+        self._stage_t0 = 0.0
+        self._fused: Optional[FusedStep] = None
+
+    # ------------------------------------------------------------------
+    # Stage timing (system.py:162-186)
+    # ------------------------------------------------------------------
+
+    def _stage_start(self) -> None:
+        if self.stage_times is not None:
+            self._stage_t0 = time.perf_counter()
+
+    def _stage(self, name: str) -> Optional[float]:
+        """Synchronise and record the wall ms since the last stage under
+        ``name``, when ``stage_times`` is set. Returns the ms, else None."""
+        if self.stage_times is None:
+            return None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        ms = (now - self._stage_t0) * 1e3
+        self.stage_times.setdefault(name, []).append(ms)
+        self._stage_t0 = now
+        return ms
+
+    # ------------------------------------------------------------------
+    # The captured frame
+    # ------------------------------------------------------------------
+
+    def drop_graphs(self) -> None:
+        """Forget the captured frame; the next graph frame captures anew.
+        Whoever replaces the arena calls it."""
+        self._fused = None
+
+    @property
+    def fused_step(self) -> Optional[FusedStep]:
+        """The captured frame's ``FusedStep``, if one was made."""
+        return self._fused
+
+    def _graph_frame(self) -> bool:
+        """Whether ``track_fisheye`` runs this frame through the graphs: on
+        a CUDA device, once seeded, with ``stage_times`` unset."""
+        return (self.device.type == "cuda" and self.last is not None
+                and self.stage_times is None)
+
+    def _graph_counts(self):
+        """(graphs captured, graphs replayed) by the last fused frame."""
+        return self._fused.frame_captures, self._fused.frame_replays
+
+    def _fused_frame(self, fisheye_u8, mask):
+        """Warp, extract and ``track_frame_full`` through ``FusedStep``.
+        Returns (keypoints, ``FrameTrack``)."""
+        if self.covis is None:
+            self.refresh_graph_cache()
+        if self._fused is None:
+            self._fused = FusedStep(self)
+        vel_R, vel_t, gain = self._velocity_args()
+        return self._fused(self, fisheye_u8, mask, self.last, (vel_R, vel_t),
+                           gain, self.ref_kf)
 
     def refresh_graph_cache(self) -> None:
         """Recompute the cached (covisibility, observation count) views
@@ -97,6 +171,7 @@ class MapTracker(FrameFrontend):
         self.velocity = None
         self.frame_id = frame_id + 1
         self.refresh_graph_cache()
+        self.drop_graphs()
 
     def _velocity_args(self):
         """(vel_R, vel_t, gain) of ``system.py:552-556``."""
@@ -109,7 +184,14 @@ class MapTracker(FrameFrontend):
                       ) -> Optional[np.ndarray]:
         """Track one (H, W) uint8 fisheye frame (an array, or a tensor such
         as ``prefetch_image`` returns): the warp on the device, then
-        ``track_cubemap`` with ``mask``."""
+        ``track_cubemap`` with ``mask``; on the card, through the captured
+        graphs (see the module docstring)."""
+        if self._graph_frame():
+            fid = self.frame_id
+            self.frame_id += 1
+            kp, out = self._fused_frame(fisheye_u8, mask)
+            return self._consume(kp, out, fid, timestamp,
+                                 self._graph_counts())[0]
         with record_function("warp"):
             img = torch.as_tensor(fisheye_u8, device=self.device)
             cube = self.warp(img)
@@ -127,14 +209,18 @@ class MapTracker(FrameFrontend):
             raise RuntimeError("seed the tracker with a map first")
         fid = self.frame_id
         self.frame_id += 1
+        self._stage_start()
         with record_function("extract"):
             kp = self.extract(cube, mask)
-        return self._track_steady(kp, fid, timestamp)[0]
+        self._stage("extract")
+        T = self._track_steady(kp, fid, timestamp)[0]
+        self._stage("track")
+        return T
 
     def _track_steady(self, kp: Keypoints, fid: int, timestamp: float):
-        """``track_frame_full``, the one read of its packed result and the
-        tracking half of ``_consume_track_outputs``. Returns (pose or None,
-        the ``FrameTrack``, the frame's metrics row)."""
+        """``track_frame_full`` on the eager path, then ``_consume``.
+        Returns (pose or None, the ``FrameTrack``, the frame's metrics
+        row)."""
         if self.covis is None:
             self.refresh_graph_cache()
         last = self.last
@@ -142,11 +228,19 @@ class MapTracker(FrameFrontend):
             self.arena, kp, last.assoc, last.outlier, last.kp.level,
             last.kp.angle, last.rel_R, last.rel_t, last.ref_kf,
             *self._velocity_args(), self.ref_kf, self.covis, self.cnt)
+        return self._consume(kp, out, fid, timestamp)
+
+    def _consume(self, kp: Keypoints, out: FrameTrack, fid: int,
+                 timestamp: float, graphs=(0, 0)):
+        """The one read of the packed result and the tracking half of
+        ``_consume_track_outputs``; ``graphs`` is (captures, replays) of the
+        frame. Returns (pose or None, ``out``, the frame's metrics row)."""
         with record_function("epilogue"):
             pk = out.packed.tolist()
             counts = dict(zip(PACKED_NAMES, (int(x) for x in pk[:11])))
             row = dict(frame=fid, **counts, path=out.path,
-                       host_reads=out.host_reads + 1)
+                       host_reads=out.host_reads + 1,
+                       graph_captures=graphs[0], graph_replays=graphs[1])
             self.metrics.append(row)
             if (not counts["track_ok"]
                     or counts["inliers"] < self.cfg.min_track_inliers):

@@ -62,3 +62,4 @@ def load_map(system, path: str) -> None:
     system.state = TrackState.LOST
     system.velocity = None
     system.covis = system.cnt = None
+    system.drop_graphs()

@@ -38,7 +38,12 @@ len * 2^-23 * sum|v| of the CPU's ``index_add_`` per segment; strided
 rows, one lane and no rows as their plain version. Run twice on the card
 from one arena, bitwise equal: ``mapping_step`` with its BA, ``local_ba``,
 the loop correction from the CPU's refined Sim3, the global BA, and the
-pose graph.
+pose graph. ``MapTracker``'s frames through the captured CUDA graphs
+(``runtime/fused_step.py``) bitwise equal to its eager frames over 8
+frames and the forced branches (fallbacks, velocity gate, blank frame),
+with one launch a frame of W, D's two entries and describe, captured anew
+after ``seed``, and raising on a moved arena and on a capture that meets
+a host read.
 """
 
 import math
@@ -53,6 +58,7 @@ from cubemapslam_tpu_torch import SlamConfig
 from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
 from cubemapslam_tpu_torch.camera import CubemapCamera
+from cubemapslam_tpu_torch.geometry import so3_exp
 from cubemapslam_tpu_torch.features import extractor as TE
 from cubemapslam_tpu_torch.runtime import FrameTracker
 from cubemapslam_tpu_torch.runtime import synthetic as S
@@ -656,3 +662,172 @@ def test_pose_graph_twice_bitwise(cuda):
     b = optimize_essential_graph(*args, n_iters=10)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The tracked frame as captured CUDA graphs (runtime/fused_step.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_FRAMES = 8
+
+
+@pytest.fixture(scope="module")
+def graph_scene(cuda):
+    """A small map built on the CPU, the frames after it rendered, and a
+    function that seeds a card tracker from the map as built."""
+    cfg = SlamConfig(**SMALL, max_keyframes=16, max_landmarks=2048)
+    ref = MapTracker(cfg, device="cpu")
+    poses = S.forward_trajectory(10 + GRAPH_FRAMES, step=0.04,
+                                 yaw_rate=0.003)
+    world = S.make_world(np.random.default_rng(11), n=500,
+                         centers=S.camera_centres(poses), fx=64.0)
+    S.build_map(ref, world, poses, 4, kf_stride=3)
+    render = S.Renderer(ref.cam, cfg)
+    frames = [S.to_u8(render.render(*world, *poses[i])[0])
+              for i in range(10, 10 + GRAPH_FRAMES)]
+
+    def tracker(eager, assoc=None):
+        tr = MapTracker(cfg)
+        tr.set_warp_map(ref.warp_map)
+        tr.mask = ref.mask.to(cuda)
+        last = ref.last
+        tr.seed(ref.arena, last.kp, last.assoc if assoc is None else assoc,
+                last.outlier, last.R, last.t, last.ref_kf,
+                frame_id=last.frame_id)
+        tr.stage_times = {} if eager else None
+        return tr
+
+    return dict(cfg=cfg, ref=ref, frames=frames, tracker=tracker)
+
+
+def _frame_state(tr, T):
+    row = {k: v for k, v in tr.metrics[-1].items()
+           if not k.startswith("graph_")}
+    last = tr.last
+    tensors = [*last.kp, last.assoc, last.outlier, last.R, last.t,
+               last.rel_R, last.rel_t]
+    if tr.velocity is not None:
+        tensors += list(tr.velocity)
+    return T, row, [x.cpu() for x in tensors]
+
+
+def _same_frames(a, b):
+    for (Ta, ra, xa), (Tb, rb, xb) in zip(a, b):
+        assert (Ta is None) == (Tb is None)
+        assert Ta is None or np.array_equal(Ta, Tb)
+        assert ra == rb
+        assert len(xa) == len(xb)
+        assert all(torch.equal(x, y) for x, y in zip(xa, xb))
+
+
+@pytest.mark.parametrize("branch", ["steady", "fallbacks", "gate", "blank"])
+def test_graph_frames_bitwise_eager(cuda, graph_scene, branch):
+    """MapTracker's graph frames against its eager frames (``stage_times``
+    set) from one seed: ``steady`` over 8 frames; ``fallbacks`` with the
+    last association emptied (widen, zero velocity, reference keyframe,
+    then graph B on the fallback's stage tuple); ``gate`` a velocity above
+    the 0.2 rad gate; ``blank`` a blank frame after a tracked one (graph A,
+    then the eager skip). Every pose, row, last-frame tensor, velocity
+    and the arena after them bitwise equal; the graph frames replay."""
+    frames = graph_scene["frames"]
+    if branch != "steady":
+        frames = frames[:2]
+    if branch == "blank":
+        frames = [frames[0], np.zeros_like(frames[0])]
+    runs = []
+    for eager in (True, False):
+        assoc = None
+        if branch == "fallbacks":
+            assoc = torch.full_like(graph_scene["ref"].last.assoc, -1)
+        tr = graph_scene["tracker"](eager, assoc)
+        out = []
+        for k, img in enumerate(frames):
+            if branch == "gate" and k == 1:
+                tr.velocity = (so3_exp(torch.tensor([0.0, 0.3, 0.0],
+                                                    device=cuda)),
+                               torch.zeros(3, device=cuda))
+            out.append(_frame_state(tr, tr.track_fisheye(img, k / 30.0)))
+        runs.append((out, tr))
+    (e_out, e_tr), (g_out, g_tr) = runs
+    _same_frames(e_out, g_out)
+    assert _arena_equal(e_tr.arena.to("cpu"), g_tr.arena.to("cpu")) == []
+    rows = g_tr.metrics
+    assert all(r["graph_replays"] == 0 and r["graph_captures"] == 0
+               for r in e_tr.metrics)
+    assert rows[0]["graph_captures"] >= 1
+    if branch == "fallbacks":
+        assert rows[0]["path"][1:4] == ("widen", "zero_velocity",
+                                        "reference_kf")
+    if branch == "blank":
+        assert rows[1]["path"][-1] == "skip_local"
+        assert rows[1]["graph_replays"] == 1
+    if branch == "steady":
+        assert all(r["graph_replays"] == 2 for r in rows[1:])
+        assert all(r["path"] == ("motion", "local") for r in rows)
+
+
+def test_graph_launch_counts(cuda, graph_scene):
+    """Kernels W, D (two entries) and describe count one launch a frame on
+    the capture frame and on every replayed frame."""
+    tr = graph_scene["tracker"](eager=False)
+    kernels = (warp_cuda.WARP_REMAP, TE.ORB_FAST, TE.ORB_SELECT,
+               TE.ORB_DESCRIBE)
+    for k, img in enumerate(graph_scene["frames"][:4]):
+        for c in kernels:
+            c.launches = 0
+        assert tr.track_fisheye(img, k / 30.0) is not None
+        assert [c.launches for c in kernels] == [1, 1, 1, 1]
+        row = tr.metrics[-1]
+        assert (row["graph_captures"], row["graph_replays"]) == \
+            ((2, 0) if k == 0 else (0, 2))
+    fs = tr.fused_step
+    assert (fs.captures, fs.replays) == (2, 6)
+
+
+def test_graphs_captured_again_after_reset(cuda, graph_scene):
+    """``seed`` drops the graphs, and the next frame captures anew and gives
+    the first run's bits; a stale ``FusedStep`` raises on a moved arena,
+    as does a frame after the arena is replaced without a drop; and
+    ``CubemapSLAM.reset`` drops the graphs."""
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    frames = graph_scene["frames"][:2]
+    tr = graph_scene["tracker"](eager=False)
+    first = [_frame_state(tr, tr.track_fisheye(img, k / 30.0))
+             for k, img in enumerate(frames)]
+    stale = tr.fused_step
+    ref, last = graph_scene["ref"], graph_scene["ref"].last
+    tr.seed(ref.arena, last.kp, last.assoc, last.outlier, last.R, last.t,
+            last.ref_kf, frame_id=last.frame_id)
+    assert tr.fused_step is None
+    again = [_frame_state(tr, tr.track_fisheye(img, k / 30.0))
+             for k, img in enumerate(frames)]
+    _same_frames(first, again)
+    assert tr.metrics[-2]["graph_captures"] == 2
+    vel = tr._velocity_args()
+    with pytest.raises(RuntimeError, match="moved"):
+        stale(tr, frames[0], None, tr.last, vel[:2], vel[2], tr.ref_kf)
+    tr.arena = type(tr.arena)(*(t.clone() for t in tr.arena))
+    with pytest.raises(RuntimeError, match="moved"):
+        tr.track_fisheye(frames[0], 1.0)
+    slam = CubemapSLAM(graph_scene["cfg"], device=cuda)
+    slam._fused = stale
+    slam.reset()
+    assert slam.fused_step is None
+
+
+def test_capture_meets_a_host_read(cuda, graph_scene, monkeypatch):
+    """A synchronising operation inside a captured part makes the capture
+    raise; the frame does not go on eagerly (no row is written)."""
+    tr = graph_scene["tracker"](eager=False)
+    inner = tr.kernels.frame_motion
+
+    def reads(*args, **kwargs):
+        st, pose, counts = inner(*args, **kwargs)
+        return st, pose, counts * int(counts.sum().item() > -1)
+
+    monkeypatch.setattr(tr.kernels, "frame_motion", reads)
+    n_rows = len(tr.metrics)
+    with pytest.raises(RuntimeError, match="capture of graph A failed"):
+        tr.track_fisheye(graph_scene["frames"][0], 0.0)
+    assert len(tr.metrics) == n_rows
+    torch.cuda.synchronize()
