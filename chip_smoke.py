@@ -49,11 +49,19 @@ trajectory; then one keyframe frame and one deferred-BA frame under the
 profiler, whose host waits may not exceed their stated reads and the
 upload (and one wait for each graph the frame captures: the profiled
 frames run with ``stage_times`` unset, so their tracking replays the
-graphs); the ``repeat`` check (the same 30 frames again in a fresh
-``CubemapSLAM`` with ``stage_times`` unset, so every tracked frame replays
-the captured graphs: every arena table and the trajectory bitwise equal to
-the eager first run's, whose sha256 digest is printed on a line of its own
-so that runs can be compared across calls); and ``mapping_step`` / ``local_ba`` on
+graphs, and their mapping ``FusedMapping``'s graph K or graph BA,
+``runtime/fused_mapping.py``, which these frames capture: their capture's
+host ms and memory are printed); the same kinds of frame once more on the
+``repeat`` run's system, whose mapping graphs are captured, so that the
+frames reported replay them; the ``repeat`` check (the same 30 frames
+again in a fresh ``CubemapSLAM`` with ``stage_times`` unset, so every
+tracked frame replays the captured graphs, and every keyframe and
+deferred-BA frame graph K or BA after the one that captured it: every
+arena table and the trajectory bitwise equal to the eager first run's,
+whose sha256 digest is printed on a line of its own so that runs can be
+compared across calls, every kernel launched once a frame and the
+segmented sum as often as in the eager drive; the wall ms by kind of
+frame beside the eager drive's); and ``mapping_step`` / ``local_ba`` on
 the card against the CPU on a small arena. The ``slam`` phase loads the
 repo's pretrained vocabulary (``artifacts/vocab_synth_10k.npz``), and each
 keyframe gets its BoW row. The segmented-sum kernel (``csrc/seg_sum.cu``,
@@ -1529,16 +1537,25 @@ def aligned_error(T, pose, align):
     return ang, float(np.linalg.norm(centre - (-R_gt.T @ t_gt)))
 
 
-def profiled_slam(slam, frames, walls):
+def profiled_slam(slam, frames, walls, graph_walls, tag, replays):
     """Frames after the driven ones, each under profile_stages on its own,
     until one keyframe frame (insert + mapping_step + loop detection) and
     one deferred-BA frame are found (the frame after the profiled keyframe
     frame has its insertion held, so that its pending BA runs); the host
     waits of each may be no more than its stated reads (loop detection's
-    among them), its eigen-solve waits, the frame's upload and one for each
-    graph it captured. These frames run with ``stage_times`` unset, so
-    their tracking replays the captured graphs (the first captures them):
-    the tracking stages have no ranges of their own there."""
+    among them), its eigen-solve waits, the frame's upload and one for
+    each graph it captured. These frames run with ``stage_times`` unset, so
+    their tracking replays the captured graphs and their insertion and
+    mapping step, or their BA, ``FusedMapping``'s graph K or BA; the first
+    frame of each kind captures its graphs (the capture's host ms and
+    memory are printed). With ``replays`` only frames whose mapping replayed
+    its graph are taken (the repeat run's system, whose graphs are
+    captured); without, the first of each kind (the driven system, whose
+    first such frames capture them, as in the frames that the later phases
+    build on). The tracking and mapping stages have no ranges of their own
+    there. The idle share is given against ``walls`` (the eager drive's
+    frames) and, for replays, against ``graph_walls`` (the repeat run's
+    frames of the same kind that captured no graph, by kind)."""
     want = {"keyframe": None, "ba": None}
     for i in range(SLAM_FRAMES, SLAM_FRAMES + SLAM_PROFILE_MAX):
         held = (want["keyframe"] is not None and want["ba"] is None
@@ -1554,29 +1571,53 @@ def profiled_slam(slam, frames, walls):
         row = slam.metrics[-1]
         kind = ("keyframe" if row.get("keyframe")
                 else "ba" if row.get("ba") else None)
-        log(f"[slam-profile] frame {i}: {kind or 'tracked'}"
+        fm = slam.fused_mapping
+        log(f"[{tag}] frame {i}: {kind or 'tracked'}"
             f"{' (keyframe insertion held)' if held else ''}; host reads "
             f"{row.get('host_reads')}; graphs captured "
             f"{row.get('graph_captures', 0)}, replayed "
-            f"{row.get('graph_replays', 0)}; host waits "
-            f"{prof['host_waits']:.0f}; wall {prof['wall_ms']:.3f} ms")
+            f"{row.get('graph_replays', 0)}; mapping graphs captured "
+            f"{row.get('graph_mapping_captures', 0)}, replayed "
+            f"{row.get('graph_mapping_replays', 0)}; host waits "
+            f"{prof['host_waits']:.0f}; wall {prof['wall_ms']:.3f} ms; "
+            f"device busy {prof['device_busy_ms']:.3f} ms")
+        if row.get("graph_mapping_captures"):
+            log(f"[{tag}] frame {i} captured a mapping graph: "
+                f"FusedMapping has {fm.captures} graphs, "
+                f"{fm.capture_ms:.3f} ms of host time in torch.cuda.graph, "
+                f"{fm.capture_mib:.1f} MiB reserved by their pool")
         if row["state"] != "OK":
             raise AssertionError(f"profiled frame {i} was not tracked")
-        if kind and want[kind] is None:
+        replayed = (row.get("graph_mapping_replays", 0) > 0
+                    and row.get("graph_mapping_captures", 0) == 0)
+        if kind and (replayed or not replays) and want[kind] is None:
             want[kind] = prof
-            log_profile(f"slam-profile-{kind}", prof, walls)
+            log_profile(f"{tag}-{kind}", prof, walls)
+            if replays:
+                mid = float(np.median(graph_walls[kind]))
+                log(f"[{tag}-{kind}] idle share "
+                    f"{1 - prof['device_busy_ms'] / mid:.4f} of the median "
+                    f"unprofiled wall of the repeat run's {kind} frames that "
+                    f"replayed their graphs ({mid:.3f} ms)")
             # torch.cuda.graph synchronises once for each graph it captures
+            captured = (row.get("graph_captures", 0)
+                        + row.get("graph_mapping_captures", 0))
             allowed = (row["host_reads"] + row.get("eigh_waits", 0) + 1
-                       + row.get("graph_captures", 0))
+                       + captured)
+            log(f"[{tag}-{kind}] host waits {prof['host_waits']:.0f} "
+                f"against {allowed} allowed: {row['host_reads']} reads, "
+                f"{row.get('eigh_waits', 0)} eigen-solve waits, the "
+                f"upload, {captured} captures")
             if prof["host_waits"] > allowed:
                 raise AssertionError(
                     f"the {kind} frame waited {prof['host_waits']:.0f} "
-                    f"times; its stated reads, eigen-solve waits and the "
-                    f"upload are {allowed}")
+                    f"times; its stated reads, eigen-solve waits, the "
+                    f"upload and its captures are {allowed}")
         if all(want.values()):
             return want
-    raise AssertionError(f"no keyframe frame and deferred-BA frame among "
-                         f"{SLAM_PROFILE_MAX} profiled frames: {want}")
+    raise AssertionError(f"no keyframe frame and deferred-BA frame "
+                         f"{'that replayed the mapping graphs ' if replays else ''}"
+                         f"among {SLAM_PROFILE_MAX} profiled frames: {want}")
 
 
 def profiled_init(cfg, frames, first_ok, walls):
@@ -1676,24 +1717,90 @@ def map_snapshot(slam):
                 digests=digests)
 
 
-def repeat_check(cfg, frames, ref):
+def repeat_check(cfg, frames, ref, counters, eager_walls):
     """The slam phase's SLAM_FRAMES frames again in a fresh CubemapSLAM
     (the same seed as ``drive_slam``, but ``stage_times`` unset, so every
-    tracked frame replays the captured graphs): every arena table (keyframe
-    poses, landmark positions, the associations among them) and the
-    trajectory bitwise equal to the first run's, ``ref``, which ran
-    eagerly."""
+    tracked frame replays the captured graphs, and its keyframe insertion
+    and mapping step, or its deferred BA, replays graph K or graph BA):
+    every arena table (keyframe poses, landmark positions, the associations
+    among them) and the trajectory bitwise equal to the first run's,
+    ``ref``, which ran eagerly; graph K replayed on every keyframe frame
+    after the one that captured it and graph BA on every deferred-BA frame
+    after its own; the launches of every kernel entry (once a frame) and
+    of the segmented sum (as many as the eager drive's). Prints the
+    synchronised wall ms by kind of frame beside the eager drive's
+    (``eager_walls``, stage timing on). Returns the walls of the repeat
+    run's frames that captured no graph, by kind, its system and its
+    launches."""
     t0 = time.perf_counter()
     slam = CubemapSLAM(cfg, seed=SEED)
+    zero_launches(counters)
+    walls = []
     for i in range(SLAM_FRAMES):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
         slam.track_fisheye(frames[i], i / cfg.fps)
-    graph_frames = sum(1 for r in slam.metrics if r.get("graph_replays"))
-    captures = sum(r.get("graph_captures", 0) for r in slam.metrics)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t_start) * 1e3)
+    launches = {name: {c.symbol: c.launches for c in group}
+                for name, group in counters.items()}
+    seg = SG.SEG_SUM.launches
+    rows = slam.metrics
+    graph_frames = sum(1 for r in rows if r.get("graph_replays"))
+    captures = sum(r.get("graph_captures", 0) for r in rows)
     log(f"[repeat] {graph_frames} of {SLAM_FRAMES} frames replayed graphs, "
         f"{captures} graphs captured")
     if graph_frames < SLAM_FRAMES - SLAM_INIT_BY:
         raise AssertionError("the repeat run's tracked frames did not "
                              "replay the graphs")
+    mapped = [r for r in rows if "graph_mapping_replays" in r]
+    kf = [r for r in mapped if r["keyframe"]]
+    ba = [r for r in mapped if r["ba"] and not r["keyframe"]]
+    fm, fs = slam.fused_mapping, slam.fused_step
+    log(f"[repeat] graph K: {len(kf)} keyframe frames, the first captured "
+        f"{kf[0]['graph_mapping_captures'] if kf else None}, replays on "
+        f"the later ones {[r['graph_mapping_replays'] for r in kf[1:]]}; "
+        f"graph BA: {len(ba)} deferred-BA frames, the first captured "
+        f"{ba[0]['graph_mapping_captures'] if ba else None}, replays on "
+        f"the later ones {[r['graph_mapping_replays'] for r in ba[1:]]}; "
+        f"FusedMapping {fm.captures} captures, {fm.replays} replays, "
+        f"{fm.capture_ms:.3f} ms of host time in torch.cuda.graph, "
+        f"{fm.capture_mib:.1f} MiB reserved by its pool; FusedStep "
+        f"{fs.capture_ms:.3f} ms, {fs.capture_mib:.1f} MiB")
+    if (len(kf) < 2 or len(ba) < 2 or fm.captures != 2
+            or kf[0]["graph_mapping_captures"] != 1
+            or ba[0]["graph_mapping_captures"] != 1
+            or any(r["graph_mapping_captures"] or not r[
+                "graph_mapping_replays"] for r in kf[1:] + ba[1:])):
+        raise AssertionError("the repeat run's keyframe and deferred-BA "
+                             "frames did not replay graphs K and BA")
+    by_kind, replayed = {}, {}
+    for r, e, g in zip(rows, eager_walls, walls):
+        kind = ("init" if r.get("stage") == "init" else "keyframe"
+                if r.get("keyframe") else "ba" if r.get("ba") else "tracked")
+        by_kind.setdefault(kind, []).append((e, g))
+        if not (r.get("graph_captures") or r.get("graph_mapping_captures")):
+            replayed.setdefault(kind, []).append(g)
+    log("[repeat] wall ms median by kind of frame, eager drive (stage "
+        "timing on) -> graphs: " + "; ".join(
+            f"{k} (x{len(v)}) {float(np.median([e for e, _ in v])):.3f} -> "
+            f"{float(np.median([g for _, g in v])):.3f}"
+            for k, v in by_kind.items()) + "; frames that captured no graph: "
+        + "; ".join(f"{k} (x{len(v)}) median {float(np.median(v)):.3f}, mean "
+                    f"{float(np.mean(v)):.3f}" for k, v in replayed.items()))
+    SEG_LAUNCHES["repeat"] = {"total": seg}
+    log(f"[repeat] seg_sum: launches in {SLAM_FRAMES} frames {seg} (the "
+        f"eager drive: {SEG_LAUNCHES['slam']['total']})")
+    if seg != SEG_LAUNCHES["slam"]["total"]:
+        raise AssertionError("the repeat run's segmented-sum launches differ "
+                             "from the eager drive's")
+    for name, by_kernel in launches.items():
+        log(f"[repeat] {name}: launches in {SLAM_FRAMES} frames {by_kernel}")
+        for sym, n in by_kernel.items():
+            if n != LAUNCHES_PER_FRAME * SLAM_FRAMES:
+                raise AssertionError(f"{name} ({sym}) was launched {n} times "
+                                     f"in the repeat run's {SLAM_FRAMES} "
+                                     f"frames")
     snap = map_snapshot(slam)
     a, b = ref["tables"], snap["tables"]
     bad = [k for k in a if not torch.equal(a[k], b[k])]
@@ -1711,14 +1818,16 @@ def repeat_check(cfg, frames, ref):
     if bad or not traj_same:
         raise AssertionError("the slam phase's map differs between two runs "
                              "from the same frames")
+    return replayed, slam, launches
 
 
 def slam_phase(cfg, counters):
     """The whole system at full width from its first frame, with the
     pretrained vocabulary: the driven frames, the profiled keyframe and
     deferred-BA frames, and the small card-against-CPU mapping check.
-    Returns the system, the poses and frames, the drive's launches and the
-    ATE's (alignment, path length)."""
+    Returns the system, the poses and frames, the drive's launches, the
+    repeat run's (through the graphs) and the ATE's (alignment, path
+    length)."""
     cfg = dataclasses.replace(cfg, vocab_path=str(VOCAB_PATH))
     poses, frames = slam_sequence(cfg)
     t0 = time.perf_counter()
@@ -1734,12 +1843,16 @@ def slam_phase(cfg, counters):
     snap = map_snapshot(slam)
     log(f"[slam-digest] sha256 of the map after frame {SLAM_FRAMES - 1}: "
         f"{snap['digest']}")
-    profiled_slam(slam, frames, walls)
+    graph_walls, replay_slam, g_launches = repeat_check(
+        cfg, frames, snap, counters, walls)
+    profiled_slam(slam, frames, walls, graph_walls, "slam-profile", False)
+    profiled_slam(replay_slam, frames, walls, graph_walls, "slam-replay",
+                  True)
+    del replay_slam
     profiled_init(cfg, frames, first_ok, walls)
-    repeat_check(cfg, frames, snap)
     del snap
     small_mapping_reference_check()
-    return slam, poses, frames, launches, ate
+    return slam, poses, frames, launches, g_launches, ate
 
 
 # ---------------------------------------------------------------------------
@@ -2621,7 +2734,8 @@ def main() -> int:
 
     t_launches = map_tracking_phase(cfg, counters)
     done("map tracking")
-    slam, s_poses, s_frames, s_launches, ate = slam_phase(cfg, counters)
+    slam, s_poses, s_frames, s_launches, g_launches, ate = slam_phase(
+        cfg, counters)
     done("slam")
     r_launches = reloc_phase(slam, s_poses, s_frames, ate, counters)
     done("reloc")
@@ -2648,6 +2762,7 @@ def main() -> int:
         r["launches_tracking_by_kernel"] = t_launches[r["name"]]
         r["launches_slam"] = sum(s_launches[r["name"]].values())
         r["launches_slam_by_kernel"] = s_launches[r["name"]]
+        r["launches_repeat"] = sum(g_launches[r["name"]].values())
         r["launches_reloc"] = sum(r_launches[r["name"]].values())
         r["launches_localization"] = sum(l_launches[r["name"]].values())
         r["launches_app"] = sum(a_launches[r["name"]].values())

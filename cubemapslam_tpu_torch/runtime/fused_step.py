@@ -45,14 +45,15 @@ the velocity and the packed result) is cloned after the frame; the clones
 are what the caller keeps. Both graphs share one private pool and are
 always replayed in the order they were captured (A, then B).
 
-Capture. The first frame that needs a graph runs its part eagerly on a side
-stream (which warms every library handle and workspace on that stream, and
-is that frame's own work, so the arena's counters are updated once), then
-captures the same part on that stream with ``torch.cuda.graph`` into the
-pool, and copies the eager outputs into the graph's outputs. A hand-written
-kernel's wrapper counts a Python call, and a replay makes none, so each
-capture records every ``CudaKernel``'s launches during it, takes them back,
-and adds them again on each replay.
+Capture (``CapturedFrame``, which ``runtime/fused_mapping.py`` shares). The
+first frame that needs a graph runs its part eagerly on a side stream
+(which warms every library handle and workspace on that stream, and is that
+frame's own work, so the arena's counters are updated once), then captures
+the same part on that stream with ``torch.cuda.graph`` into the pool, and
+copies the eager outputs into the graph's outputs. A hand-written kernel's
+wrapper counts a Python call, and a replay makes none, so each capture
+records every ``CudaKernel``'s launches during it, takes them back, and
+adds them again on each replay.
 
 No fallback: on the card a failed capture, a failed replay or a moved
 tensor raises. On the CPU (the tests) there is no graph: each part runs
@@ -63,7 +64,7 @@ clones and the ``data_ptr`` check are the same code.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,18 +75,33 @@ from cubemapslam_tpu_torch.runtime.kernels import FrameTrack
 N_KP = len(Keypoints._fields)
 
 
-class FusedStep:
-    """Static buffers, the two graphs and their pool for one tracker's
-    steady-state frame. Call it as ``step(tracker, fisheye, mask, last,
-    velocity, gain, ref_kf)``; it returns (keypoints, ``FrameTrack``).
+class CapturedFrame:
+    """Static input buffers, and parts of a frame captured as CUDA graphs
+    into one private memory pool, each replayed on every later call.
 
-    ``captures`` and ``replays`` count the graphs captured and replayed so
-    far, ``frame_captures`` / ``frame_replays`` those of the last call, and
-    ``capture_ms`` the host's wall time in ``torch.cuda.graph``."""
+    ``run(name, part)`` runs ``part()`` (which returns a list of tensors)
+    and keeps its outputs in ``outputs[name]``: the first time on the card
+    eagerly on a side stream and then captured (see the module docstring),
+    every later time by replaying the graph; on the CPU eagerly every time.
+    ``check(named)`` records the data pointers of the (name, tensor) pairs
+    the parts read the first time it is called and raises on a later call
+    if one moved. ``captures`` and ``replays`` count the graphs captured
+    and replayed so far, ``frame_captures`` / ``frame_replays`` those since
+    ``new_frame()``, ``capture_ms`` the host's wall time in
+    ``torch.cuda.graph`` and ``capture_mib`` the device memory the
+    captures' pool reserved.
 
-    def __init__(self, tracker):
-        self.device = tracker.device
-        self.graphs = self.device.type == "cuda"
+    One pool serves every part of an instance. A graph writes its
+    temporaries into the pool on each replay, so a part that another part
+    captured later reads (graph B reads graph A's outputs) must be replayed
+    before it, and outputs that the caller keeps are cloned after the
+    replay that wrote them."""
+
+    label = "captured frame"
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.graphs = device.type == "cuda"
         self.inputs: Dict[str, torch.Tensor] = {}
         self.outputs: Dict[str, List[torch.Tensor]] = {}
         self._graph: Dict[str, torch.cuda.CUDAGraph] = {}
@@ -94,11 +110,11 @@ class FusedStep:
         self._held: Dict[str, torch.Tensor] = {}
         self._pointers: Optional[List[Tuple[str, int]]] = None
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
-        self._stream = torch.cuda.Stream(self.device) if self.graphs \
-            else None
+        self._stream = torch.cuda.Stream(device) if self.graphs else None
         self.captures = self.replays = 0
         self.frame_captures = self.frame_replays = 0
         self.capture_ms = 0.0
+        self.capture_mib = 0.0
 
     # ------------------------------------------------------------------
     # Static inputs
@@ -111,7 +127,7 @@ class FusedStep:
                                    memory_format=torch.contiguous_format)
             self.inputs[name] = buf
         elif buf.shape != like.shape or buf.dtype != like.dtype:
-            raise ValueError(f"fused step: input {name} is "
+            raise ValueError(f"{self.label}: input {name} is "
                              f"{tuple(like.shape)} {like.dtype}, the "
                              f"captured graphs take {tuple(buf.shape)} "
                              f"{buf.dtype}")
@@ -137,6 +153,92 @@ class FusedStep:
             buf = torch.empty((), dtype=dtype, device=self.device)
             self.inputs[name] = buf
         buf.fill_(value)
+
+    # ------------------------------------------------------------------
+    # Capture and replay
+    # ------------------------------------------------------------------
+
+    def new_frame(self) -> None:
+        self.frame_captures = self.frame_replays = 0
+
+    def check(self, named: Sequence[Tuple[str, torch.Tensor]]) -> None:
+        """Record where the tensors of ``named`` lie the first time; later,
+        raise if one has moved (the arena replaced, a buffer reassigned)."""
+        now = [(k, t.data_ptr()) for k, t in named]
+        if self._pointers is None:
+            self._pointers = now
+            return
+        where = dict(now)
+        moved = [k for k, p in self._pointers if where.get(k) != p]
+        if moved:
+            raise RuntimeError(
+                f"{self.label}: {', '.join(moved[:4])}"
+                f"{' ...' if len(moved) > 4 else ''} moved since the graphs "
+                f"were captured; drop the graphs (MapTracker.drop_graphs) "
+                f"where the arena is replaced")
+
+    def run(self, name: str, part: Callable[[], List[torch.Tensor]]
+            ) -> List[torch.Tensor]:
+        """Part ``name`` of the frame: replayed from its graph, or, the first
+        time, run eagerly on the side stream and captured (on the CPU, run
+        eagerly every time). Its outputs are ``self.outputs[name]``."""
+        if not self.graphs:
+            self.outputs[name] = part()
+            return self.outputs[name]
+        graph = self._graph.get(name)
+        if graph is not None:
+            graph.replay()
+            for k, d in self._launch_delta[name]:
+                k.launches += d
+            self.replays += 1
+            self.frame_replays += 1
+            return self.outputs[name]
+        main, side = torch.cuda.current_stream(self.device), self._stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            eager = part()
+            before = [(k, k.launches) for k in CudaKernel.instances]
+            graph = torch.cuda.CUDAGraph()
+            # as torch.cuda.graph does first, so that the growth of the
+            # reserved memory is the pool's
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                    static = part()
+            except Exception as e:
+                raise RuntimeError(f"{self.label}: the capture of graph "
+                                   f"{name.upper()} failed: {e}") from e
+            self.capture_ms += (time.perf_counter() - t0) * 1e3
+            self.capture_mib += (torch.cuda.memory_reserved(self.device)
+                                 - reserved) / 2 ** 20
+            delta = []
+            for k, n in before:
+                if k.launches != n:
+                    delta.append((k, k.launches - n))
+                    k.launches = n
+            for s, e in zip(static, eager):
+                s.copy_(e)
+        main.wait_stream(side)
+        self._graph[name] = graph
+        self._launch_delta[name] = delta
+        self.outputs[name] = static
+        self.captures += 1
+        self.frame_captures += 1
+        return static
+
+
+class FusedStep(CapturedFrame):
+    """Static buffers, the two graphs and their pool for one tracker's
+    steady-state frame. Call it as ``step(tracker, fisheye, mask, last,
+    velocity, gain, ref_kf)``; it returns (keypoints, ``FrameTrack``).
+    Graphs A and B share the pool and are replayed in that order."""
+
+    label = "fused step"
+
+    def __init__(self, tracker):
+        super().__init__(tracker.device)
 
     def load_inputs(self, tracker, fisheye, mask, last, velocity, gain: float,
                     ref_kf: int) -> None:
@@ -193,75 +295,12 @@ class FusedStep:
             tracker.arena, kp, st, R_last, t_last, self.inputs["ref_kf"],
             self.inputs["covis"], self.inputs["cnt"]))
 
-    # ------------------------------------------------------------------
-    # Capture and replay
-    # ------------------------------------------------------------------
-
-    def _tracked_pointers(self, tracker) -> List[Tuple[str, int]]:
+    def check_tracker(self, tracker) -> None:
+        """``check`` on every tensor the parts read that the tracker owns:
+        the arena's tables and the tracker's buffers."""
         named = [(f"arena.{k}", getattr(tracker.arena, k))
                  for k in tracker.arena._fields]
-        named += list(tracker.named_buffers())
-        return [(k, t.data_ptr()) for k, t in named]
-
-    def check(self, tracker) -> None:
-        """Raise if a tensor that the captured parts read has moved since
-        the first capture (the arena replaced, a buffer reassigned)."""
-        if self._pointers is None:
-            return
-        now = dict(self._tracked_pointers(tracker))
-        moved = [k for k, p in self._pointers if now.get(k) != p]
-        if moved:
-            raise RuntimeError(
-                f"fused step: {', '.join(moved[:4])}"
-                f"{' ...' if len(moved) > 4 else ''} moved since the graphs "
-                f"were captured; drop the graphs (MapTracker.drop_graphs) "
-                f"where the arena is replaced")
-
-    def _run(self, name: str, part, tracker) -> List[torch.Tensor]:
-        """Part ``name`` of the frame: replayed from its graph, or, the first
-        time, run eagerly on the side stream and captured (on the CPU, run
-        eagerly every time). Its outputs are ``self.outputs[name]``."""
-        if self._pointers is None:
-            self._pointers = self._tracked_pointers(tracker)
-        if not self.graphs:
-            self.outputs[name] = part(tracker)
-            return self.outputs[name]
-        graph = self._graph.get(name)
-        if graph is not None:
-            graph.replay()
-            for k, d in self._launch_delta[name]:
-                k.launches += d
-            self.replays += 1
-            self.frame_replays += 1
-            return self.outputs[name]
-        main, side = torch.cuda.current_stream(self.device), self._stream
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            eager = part(tracker)
-            before = [(k, k.launches) for k in CudaKernel.instances]
-            graph = torch.cuda.CUDAGraph()
-            t0 = time.perf_counter()
-            try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=side):
-                    static = part(tracker)
-            except Exception as e:
-                raise RuntimeError(f"fused step: the capture of graph "
-                                   f"{name.upper()} failed: {e}") from e
-            self.capture_ms += (time.perf_counter() - t0) * 1e3
-            delta = []
-            for k, n in before:
-                if k.launches != n:
-                    delta.append((k, k.launches - n))
-                    k.launches = n
-            for s, e in zip(static, eager):
-                s.copy_(e)
-        main.wait_stream(side)
-        self._graph[name] = graph
-        self._launch_delta[name] = delta
-        self.outputs[name] = static
-        self.captures += 1
-        self.frame_captures += 1
-        return static
+        self.check(named + list(tracker.named_buffers()))
 
     # ------------------------------------------------------------------
     # One frame
@@ -269,11 +308,11 @@ class FusedStep:
 
     def __call__(self, tracker, fisheye, mask, last, velocity, gain: float,
                  ref_kf: int) -> Tuple[Keypoints, FrameTrack]:
-        self.frame_captures = self.frame_replays = 0
-        self.check(tracker)
+        self.new_frame()
+        self.check_tracker(tracker)
         self.load_inputs(tracker, fisheye, mask, last, velocity, gain, ref_kf)
         k = tracker.kernels
-        a = self._run("a", self._part_a, tracker)
+        a = self.run("a", lambda: self._part_a(tracker))
         kp = Keypoints(*a[:N_KP])
         st = a[N_KP:N_KP + 6]
         R_last, t_last = a[N_KP + 6:N_KP + 8]
@@ -289,7 +328,7 @@ class FusedStep:
             for dst, src in zip(st, st_f):
                 if dst is not src:
                     dst.copy_(src)
-            out = self._run("b", self._part_b, tracker)
+            out = self.run("b", lambda: self._part_b(tracker))
             path.append("local")
         else:
             out = k.frame_skip(tracker.arena, st_f, R_last, t_last,

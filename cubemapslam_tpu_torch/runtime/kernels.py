@@ -560,27 +560,32 @@ class TrackingKernels:
     # Keyframe creation and counters
     # ------------------------------------------------------------------
 
-    def insert_keyframe(self, arena: SM.MapArena, slot: int, kp: Keypoints,
-                        assoc, outlier, R, t, frame_id: int,
-                        timestamp: float) -> SM.MapArena:
+    def insert_keyframe(self, arena: SM.MapArena, slot, kp: Keypoints,
+                        assoc, outlier, R, t, frame_id,
+                        timestamp) -> SM.MapArena:
         """Write a frame into arena row ``slot`` in place and refresh the
-        statistics of the landmarks it observes (``kernels.py:545-576``)."""
+        statistics of the landmarks it observes (``kernels.py:545-576``).
+        ``slot``, ``frame_id`` and ``timestamp`` are Python numbers or 0-d
+        tensors on the arena's device (the captured keyframe frame's,
+        ``runtime/fused_mapping.py``); every row is written through a
+        1-element index, so neither kind makes the host wait or is baked
+        into a capture."""
         N, L = arena.n_feat, arena.n_lm_cap
+        dev = arena.device
+        at = device_scalar(slot, torch.int64, dev).reshape(1)
         good = torch.where(outlier, torch.full_like(assoc, SM.NO_LM), assoc)
-        arena.kf_R[slot] = R
-        arena.kf_t[slot] = t
-        # fills: a Python scalar assigned by index would be a host copy
-        arena.kf_valid[slot].fill_(True)
-        arena.kf_frame_id[slot].fill_(frame_id)
-        arena.kf_timestamp[slot].fill_(timestamp)
-        arena.kf_uv[slot] = kp.uv
-        arena.kf_rays[slot] = kp.rays
-        arena.kf_face[slot] = kp.face
-        arena.kf_level[slot] = kp.level
-        arena.kf_angle[slot] = kp.angle
-        arena.kf_desc[slot] = kp.desc
-        arena.kf_kp_valid[slot] = kp.valid
-        arena.kf_obs_lm[slot] = good
+        rows = ((arena.kf_R, R), (arena.kf_t, t),
+                (arena.kf_frame_id, device_scalar(frame_id, torch.int64,
+                                                  dev)),
+                (arena.kf_timestamp, device_scalar(timestamp, torch.float32,
+                                                   dev)),
+                (arena.kf_uv, kp.uv), (arena.kf_rays, kp.rays),
+                (arena.kf_face, kp.face), (arena.kf_level, kp.level),
+                (arena.kf_angle, kp.angle), (arena.kf_desc, kp.desc),
+                (arena.kf_kp_valid, kp.valid), (arena.kf_obs_lm, good))
+        for table, row in rows:
+            table.index_copy_(0, at, row.reshape((1,) + table.shape[1:]))
+        arena.kf_valid.index_fill_(0, at, True)
         return SM.update_landmark_stats_touched(
             arena, self.scale_factors, _members(good, L),
             max_touched=N, max_obs=min(32 * N, arena.n_kf_cap * N))

@@ -14,8 +14,16 @@ matches are masked), and ``ba_step`` on a culled slot writes nothing (its
 write-back targets are the dump rows). ``cull_keyframes``' ``lax.scan`` of
 3 rounds is a Python loop of 3 on the device. Indices that live on the
 device go in as 1-element tensors (``index_select``), never as ``t[i]``
-with a 0-d tensor, which would read it to the host. ``lax.top_k`` becomes a
-stable descending sort (ties to the lower index).
+with a 0-d tensor: on a CUDA tensor that either reads the index to the
+host, which a capture forbids, or takes a copy that an in-place write then
+misses. ``lax.top_k`` becomes a stable descending sort (ties to the lower
+index).
+
+``mapping_step``, ``ba_step`` and the stages they call take the slot, the
+keyframe counter and the frame id as Python ints or as 0-d tensors on the
+arena's device, with the same bits: the captured keyframe and BA frames
+(``runtime/fused_mapping.py``) pass tensors, so that no value is baked into
+a graph.
 
 One rule differs from the JAX package, whose result there depends on the
 order of a scatter with duplicate indices (``fuse_pair``, ``mapping.py:
@@ -44,7 +52,7 @@ from cubemapslam_tpu_torch.runtime.frame_step import resolve_device
 from cubemapslam_tpu_torch.runtime.kernels import _members
 from cubemapslam_tpu_torch.solvers import triangulate_rays
 
-Slot = Union[int, torch.Tensor]     # a Python slot or a 1-element index
+Slot = Union[int, torch.Tensor]     # a Python slot, a 0-d or 1-element index
 _I32_MAX = torch.iinfo(torch.int32).max
 
 
@@ -62,6 +70,14 @@ def _put(table: torch.Tensor, k: Slot, row: torch.Tensor) -> None:
         table[k] = row
     else:
         table.index_copy_(0, k.reshape(1), row[None])
+
+
+def _index(k: Slot, device) -> torch.Tensor:
+    """``k`` as a 1-element int64 index on ``device`` (a Python int by a
+    fill, so with no copy from the host)."""
+    if isinstance(k, int):
+        return torch.full((1,), k, dtype=torch.int64, device=device)
+    return k.reshape(1)
 
 
 def _top(x: torch.Tensor, k: int):
@@ -136,7 +152,7 @@ class MappingKernels:
     # MapPointCulling (LocalMapping.cpp:175-206)
     # ------------------------------------------------------------------
 
-    def cull_map_points(self, arena: SM.MapArena, current_kf_count: int,
+    def cull_map_points(self, arena: SM.MapArena, current_kf_count: Slot,
                         cnt=None):
         """Probation culling of RECENT landmarks only (``mapping.py:64-85``):
         within about 3 keyframes of creation a landmark must keep
@@ -216,11 +232,13 @@ class MappingKernels:
         return Xw, ok, res.idx, cos_par, gates
 
     def _allocate(self, arena: SM.MapArena, ok_flat: torch.Tensor,
-                  slots: torch.Tensor, Xw_flat: torch.Tensor, k_new: int,
-                  kf_counter: int, frame_id: int):
+                  slots: torch.Tensor, Xw_flat: torch.Tensor, k_new: Slot,
+                  kf_counter: Slot, frame_id: Slot):
         """Give each accepted candidate, in order, the next free landmark
         slot (``slots``: the free slots in index order) and write its rows;
-        the others go to the dump row L. Returns (slot, can)."""
+        the others go to the dump row L. ``k_new``, ``kf_counter`` and
+        ``frame_id`` are ints (a fill) or 0-d tensors (an indexed write).
+        Returns (slot, can)."""
         L = arena.n_lm_cap
         n_free = (~arena.lm_valid).sum()
         rank = torch.cumsum(ok_flat.to(torch.int64), 0) - 1
@@ -236,9 +254,9 @@ class MappingKernels:
         _padded_write(arena.lm_found, slot, 1)
         return slot, can
 
-    def commit_new_landmarks_multi(self, arena: SM.MapArena, k_new: int,
+    def commit_new_landmarks_multi(self, arena: SM.MapArena, k_new: Slot,
                                    nb_idx: torch.Tensor, Xw, ok, idx2,
-                                   kf_counter: int, frame_id: int):
+                                   kf_counter: Slot, frame_id: Slot):
         """Allocate landmark slots for the accepted candidates of ALL
         neighbours in one pass and wire the observations, k_new's row and
         each neighbour's (``mapping.py:171-224``). Xw/ok/idx2 are (B, N, ..)
@@ -254,7 +272,7 @@ class MappingKernels:
         new_slot = torch.where(can_bn, slot_bn,
                                torch.full_like(slot_bn, L)).amin(dim=0)
         obs = arena.kf_obs_lm
-        obs[k_new] = torch.where(new_slot < L, new_slot, obs[k_new])
+        _put(obs, k_new, torch.where(new_slot < L, new_slot, _at(obs, k_new)))
         for b in range(B):
             nb = nb_idx[b:b + 1]
             row = obs.index_select(0, nb)[0].scatter_reduce(
@@ -347,7 +365,7 @@ class MappingKernels:
     # Local bundle adjustment (Optimizer::LocalBundleAdjustment)
     # ------------------------------------------------------------------
 
-    def local_ba(self, arena: SM.MapArena, center_kf: int,
+    def local_ba(self, arena: SM.MapArena, center_kf: Slot,
                  max_cams: int = 48, covis=None,
                  enabled: Optional[torch.Tensor] = None):
         """BA over the covisible neighbourhood of ``center_kf``, in place
@@ -362,9 +380,8 @@ class MappingKernels:
         dev = arena.device
         if covis is None:
             covis = SM.covisibility_matrix(arena)
-        w = covis[center_kf].clone()
-        # a fill: a Python scalar assigned by index would be a host copy
-        w[center_kf].fill_(_I32_MAX)                       # centre included
+        w = _at(covis, center_kf).clone()
+        w.index_fill_(0, _index(center_kf, dev), _I32_MAX)  # centre included
         w = torch.where(arena.kf_valid, w, torch.full_like(w, -1))
         cam_w, cam_idx = _top(w, max_cams)
         local_valid = cam_w > 0
@@ -461,8 +478,8 @@ class MappingKernels:
                     max_obs=min(48 * arena.n_feat,
                                 arena.n_kf_cap * arena.n_feat))
 
-    def mapping_step(self, arena: SM.MapArena, slot: int, kf_counter: int,
-                     frame_id: int, n_neighbors: int = 6,
+    def mapping_step(self, arena: SM.MapArena, slot: Slot, kf_counter: Slot,
+                     frame_id: Slot, n_neighbors: int = 6,
                      max_cams: int = 48, run_ba: bool = True,
                      run_cull: bool = True):
         """The whole mapping step of new keyframe ``slot``, in place
@@ -480,12 +497,13 @@ class MappingKernels:
         dev = arena.device
         O = SM.incidence_matrix(arena)
         covis = SM.covisibility_matrix(arena, O=O)
-        w = covis[slot].clone()
-        w[slot].fill_(-1)
+        at = _index(slot, dev)
+        w = _at(covis, slot).clone()
+        w.index_fill_(0, at, -1)
         w = torch.where(arena.kf_valid, w, torch.full_like(w, -1))
         # neighbours forced at target temporal baselines of 4/8/16 frames
         fid = arena.kf_frame_id
-        fid0 = fid[slot]
+        fid0 = _at(fid, slot)
         chosen = torch.zeros(K, dtype=torch.bool, device=dev)
         eligible = arena.kf_valid & (torch.arange(K, device=dev) != slot) \
             & (fid < fid0)
@@ -532,7 +550,7 @@ class MappingKernels:
         arena = SM.apply_redirect(arena, redirect_total)
 
         # statistics of what the new keyframe and its neighbours observe
-        rows = torch.cat([torch.full((1,), slot, device=dev), nb_idx])
+        rows = torch.cat([at, nb_idx])
         row_obs = arena.kf_obs_lm[rows]
         row_live = (row_obs >= 0) & arena.kf_kp_valid[rows]
         touched = _members(torch.where(row_live, row_obs,
@@ -554,8 +572,8 @@ class MappingKernels:
         free = ~arena.kf_valid
         first_free = torch.where(free.any(), torch.argmax(free.to(torch.int8)),
                                  torch.full((), -1, device=dev))
-        row = arena.kf_obs_lm[slot]
-        n_row = ((row >= 0) & arena.kf_kp_valid[slot]
+        row = _at(arena.kf_obs_lm, slot)
+        n_row = ((row >= 0) & _at(arena.kf_kp_valid, slot)
                  & arena.lm_valid[row.clamp(min=0)]).sum()
         g = gates_b.sum(dim=0)
         return arena, torch.stack([
@@ -566,13 +584,13 @@ class MappingKernels:
     # Deferred local BA (LocalMapping.cpp:84-90)
     # ------------------------------------------------------------------
 
-    def ba_step(self, arena: SM.MapArena, slot: int, max_cams: int = 48):
+    def ba_step(self, arena: SM.MapArena, slot: Slot, max_cams: int = 48):
         """local_ba around ``slot`` and the statistics of the landmarks it
         moved, in place (``mapping.py:617-633``). When the slot is no longer
         a valid keyframe nothing is written (its validity gates the writes
         on the device, where the JAX package branches)."""
         arena, touched = self.local_ba(arena, slot, max_cams,
-                                       enabled=arena.kf_valid[slot])
+                                       enabled=_at(arena.kf_valid, slot))
         caps = self._stats_caps(arena, int(self.cfg.max_local_ba_points))
         SM.update_landmark_stats_touched(arena, self.scale_factors, touched,
                                          **caps)
@@ -582,7 +600,7 @@ class MappingKernels:
     # KeyFrameCulling (LocalMapping.cpp:561-619)
     # ------------------------------------------------------------------
 
-    def cull_keyframes(self, arena: SM.MapArena, center_kf: int,
+    def cull_keyframes(self, arena: SM.MapArena, center_kf: Slot,
                        max_culls: int = 3, covis=None):
         """Cull up to ``max_culls`` redundant keyframes one at a time, the
         redundancy recomputed between culls from an (L, levels) observation
@@ -594,7 +612,7 @@ class MappingKernels:
         dev = arena.device
         if covis is None:
             covis = SM.covisibility_matrix(arena)
-        row_c = covis[center_kf]
+        row_c = _at(covis, center_kf)
         local0 = row_c >= self.cfg.covisibility_weight_th
         seg0, live0 = SM._flat_obs(arena)
         lev_full = arena.kf_level.reshape(-1).clamp(0, 15)

@@ -500,10 +500,10 @@ def arena_before_last_mapping(slam, world, poses):
     got = []
     step = slam._local_mapping
 
-    def record(slot):
+    def record(slot, *args):
         got.append((slam.arena.to("cpu"), slot, slam.n_kf,
                     slam.last_kf_frame_id))
-        step(slot)
+        step(slot, *args)
 
     slam._local_mapping = record
     render = Renderer(slam.cam, slam.cfg)

@@ -59,9 +59,10 @@ from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import (Keypoints,
                                                        build_extractor)
+from cubemapslam_tpu_torch.runtime.fused_mapping import FusedMapping
 from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES
 from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
-from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+from cubemapslam_tpu_torch.runtime.mapping import MappingKernels, _index
 from cubemapslam_tpu_torch.runtime.tracking import LastFrame, MapTracker
 from cubemapslam_tpu_torch.solvers.essential import SVD_WAITS, TwoViewResult
 from cubemapslam_tpu_torch.solvers.pnp import EIGH_WAITS
@@ -101,7 +102,10 @@ class CubemapSLAM(MapTracker):
     has a row per frame; ``trajectory`` holds (timestamp, R, t) of each
     tracked frame; ``keyframe_trajectory()`` the live keyframes in time
     order. A steady-state ``track_fisheye`` frame on the card (tracking,
-    not in localization mode) replays ``MapTracker``'s captured graphs.
+    not in localization mode) replays ``MapTracker``'s captured graphs,
+    and its keyframe insertion with the mapping step, or its deferred BA,
+    replays ``FusedMapping``'s (``runtime/fused_mapping.py``; rows carry
+    ``graph_mapping_captures``, ``graph_mapping_replays``).
     With ``stage_times`` set to a dict every frame runs eagerly, and each
     stage (``extract``, ``init``, ``track``, ``insert+mapping``,
     ``local_ba``, ``reloc``, ``localization``) synchronizes the card and
@@ -153,6 +157,7 @@ class CubemapSLAM(MapTracker):
         self.trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
         self.tracked_frames = 0
         self.total_frames = 0
+        self._fused_mapping: Optional[FusedMapping] = None
 
     def _stage(self, name: str) -> Optional[float]:
         """``MapTracker._stage``, with the ms also in the frame's row."""
@@ -164,6 +169,22 @@ class CubemapSLAM(MapTracker):
     # ------------------------------------------------------------------
     # Public API
     # ------------------------------------------------------------------
+
+    def drop_graphs(self) -> None:
+        """Forget the captured tracked frame and the captured mapping
+        graphs; the next graph frame captures anew."""
+        super().drop_graphs()
+        self._fused_mapping = None
+
+    @property
+    def fused_mapping(self) -> Optional[FusedMapping]:
+        """The captured keyframe and BA frames' ``FusedMapping``, if one
+        was made."""
+        return self._fused_mapping
+
+    def shutdown(self) -> None:
+        """System::Shutdown; nothing runs in the background to stop
+        (``system.py:986-987``)."""
 
     def _graph_frame(self) -> bool:
         """The JAX package's condition for its one-program frame
@@ -188,7 +209,8 @@ class CubemapSLAM(MapTracker):
         kp, out = self._fused_frame(fisheye_u8, mask)
         pose_np = self._keyframe_half(
             kp, fid, timestamp, *self._consume(kp, out, fid, timestamp,
-                                               self._graph_counts()))
+                                               self._graph_counts()),
+            fused=True)
         return self._finish_frame(timestamp, pose_np)
 
     def track_cubemap(self, cube: torch.Tensor, timestamp: float,
@@ -380,11 +402,14 @@ class CubemapSLAM(MapTracker):
                                    *self._track_steady(kp, fid, ts))
 
     def _keyframe_half(self, kp: Keypoints, fid: int, ts: float, T, out,
-                       row):
+                       row, fused: bool = False):
         """After a tracked frame's read: lost, a new keyframe with its
-        mapping, or the deferred BA (``system.py:578-618``). Returns the
-        host pose (R, t), or None when lost."""
-        row.update(self._row, keyframe=False, ba=False)
+        mapping, or the deferred BA (``system.py:578-618``); with ``fused``
+        (a graph frame) the insertion, BoW row and mapping step and the BA
+        replay ``FusedMapping``'s graphs. Returns the host pose (R, t), or
+        None when lost."""
+        row.update(self._row, keyframe=False, ba=False,
+                   graph_mapping_captures=0, graph_mapping_replays=0)
         self._row = row
         self._stage("track")
         if T is None:
@@ -396,13 +421,14 @@ class CubemapSLAM(MapTracker):
             with record_function("insert+mapping"):
                 self._create_keyframe(kp, out.assoc, out.outlier, out.R,
                                       out.t, fid, ts, slot=row["first_free"],
-                                      live_kf=row["live_kf"] + 1)
+                                      live_kf=row["live_kf"] + 1,
+                                      fused=fused)
             row["keyframe"] = True
             self._stage("insert+mapping")
         elif self._ba_pending_slot is not None:
             # no keyframe this frame: run the deferred local BA
             with record_function("local_ba"):
-                self._dispatch_deferred_ba()
+                self._dispatch_deferred_ba(fused)
             self._stage("local_ba")
         return T[:3, :3], T[:3, 3]
 
@@ -621,16 +647,25 @@ class CubemapSLAM(MapTracker):
     # The bag of words (system.py:740-771)
     # ------------------------------------------------------------------
 
-    def _update_bow(self, slot: int, kp: Keypoints) -> None:
-        self.bow_table[slot] = PL.bow_vector(self.vocab, kp.desc, kp.valid)
+    def _update_bow(self, slot, kp: Keypoints) -> None:
+        """The BoW row of keyframe ``slot`` (an int, or a 0-d tensor on the
+        device), written through a 1-element index."""
+        self.bow_table.index_copy_(0, _index(slot, self.device),
+                                   PL.bow_vector(self.vocab, kp.desc,
+                                                 kp.valid)[None])
+
+    def _retrain_due(self, live_kf: int) -> bool:
+        return (self._vocab_is_bootstrap
+                and live_kf >= self.cfg.vocab_retrain_keyframes)
 
     def _maybe_retrain_vocab(self, live_kf: int) -> None:
         """Train a bootstrap vocabulary once more on the live keyframes'
         descriptors when ``vocab_retrain_keyframes`` are live, then
         recompute every BoW row. ``live_kf`` is the count after the
-        insertion (the JAX package reads ``kf_valid`` for it)."""
-        if (not self._vocab_is_bootstrap
-                or live_kf < self.cfg.vocab_retrain_keyframes):
+        insertion (the JAX package reads ``kf_valid`` for it). The new
+        vocabulary and BoW table are new tensors, so the mapping graphs,
+        which read them, are dropped."""
+        if not self._retrain_due(live_kf):
             return
         a = self.arena
         data = torch.cat([a.kf_desc, a.kf_kp_valid[..., None].long()],
@@ -642,6 +677,7 @@ class CubemapSLAM(MapTracker):
             device=self.device)
         self._vocab_is_bootstrap = False
         self.bow_table = self._recompute_bow_table()
+        self._fused_mapping = None
 
     def _recompute_bow_table(self) -> torch.Tensor:
         """Every slot's BoW row, in batches of ``BOW_CHUNK_SLOTS`` slots;
@@ -689,26 +725,35 @@ class CubemapSLAM(MapTracker):
         return want
 
     def _create_keyframe(self, kp: Keypoints, assoc, outlier, R, t,
-                         fid: int, ts: float, slot: int, live_kf: int):
+                         fid: int, ts: float, slot: int, live_kf: int,
+                         fused: bool = False):
         """``system.py:866-898``: insert into the free ``slot``, write the
         BoW row, re-anchor the live frame on the new keyframe, retrain a
         bootstrap vocabulary when due (``live_kf``: the live keyframes after
         the insertion), run local mapping and loop closing, then take the
-        frame's associations from the keyframe's row."""
+        frame's associations from the keyframe's row. With ``fused`` the
+        insertion, BoW row and mapping step replay graph K, unless a
+        retraining falls between them: that frame runs them eagerly."""
         assert slot >= 0
-        self.kernels.insert_keyframe(self.arena, slot, kp, assoc, outlier,
-                                     R, t, fid, ts)
         self.n_kf += 1
         self.ref_kf = slot
         self.last_kf_frame_id = fid
         self._kf_inlier_peak = 0
-        self._update_bow(slot, kp)
+        if fused and not self._retrain_due(live_kf):
+            self._last_mapping_info = self._mapping_graphs(
+                lambda fm: fm.keyframe(self, slot, kp, assoc, outlier, R, t,
+                                       fid, ts))
+            self._supersede_pending_ba(slot, fused)
+        else:
+            self.kernels.insert_keyframe(self.arena, slot, kp, assoc,
+                                         outlier, R, t, fid, ts)
+            self._update_bow(slot, kp)
+            self._maybe_retrain_vocab(live_kf)
+            self._local_mapping(slot, fused)
         dev = self.device
         self.last = self.last._replace(ref_kf=slot,
                                        rel_R=torch.eye(3, device=dev),
                                        rel_t=torch.zeros(3, device=dev))
-        self._maybe_retrain_vocab(live_kf)
-        self._local_mapping(slot)
         if self.loop_closing_enabled:
             self._loop_closing(slot)
         self.last = self.last._replace(
@@ -716,18 +761,42 @@ class CubemapSLAM(MapTracker):
             outlier=torch.zeros_like(self.last.outlier))
         self.refresh_graph_cache()
 
-    def _local_mapping(self, slot: int) -> None:
+    def _mapping_step(self, slot, kf_counter, frame_id) -> torch.Tensor:
+        """The mapping step without BA of a new keyframe (what
+        ``_local_mapping`` runs, and graph K after the insertion and the
+        BoW row). Returns its diagnostics (12,), on the device."""
+        return self.mapping.mapping_step(
+            self.arena, slot, kf_counter, frame_id, max_cams=self.ba_cams,
+            run_ba=False, run_cull=True)[1]
+
+    def _local_mapping(self, slot: int, fused: bool = False) -> None:
         """``system.py:904-931``: the mapping step without BA, then the
         rule by which a newer keyframe supersedes a pending deferred BA."""
-        _, self._last_mapping_info = self.mapping.mapping_step(
-            self.arena, slot, self.n_kf, self.last_kf_frame_id,
-            max_cams=self.ba_cams, run_ba=False, run_cull=True)
+        self._last_mapping_info = self._mapping_step(slot, self.n_kf,
+                                                     self.last_kf_frame_id)
+        self._supersede_pending_ba(slot, fused)
+
+    def _supersede_pending_ba(self, slot: int, fused: bool) -> None:
+        """A pending deferred BA superseded twice runs now; the new
+        keyframe's BA is pending from the third keyframe on."""
         if self._ba_pending_slot is not None:
             self._ba_superseded += 1
             if self._ba_superseded >= 2:
-                self._dispatch_deferred_ba()
+                self._dispatch_deferred_ba(fused)
         if self.n_kf > 2:
             self._ba_pending_slot = slot
+
+    def _mapping_graphs(self, run):
+        """``run(fused_mapping)`` on the system's ``FusedMapping`` (made on
+        first use); its captures and replays go into the frame's row."""
+        if self._fused_mapping is None:
+            self._fused_mapping = FusedMapping(self)
+        fm = self._fused_mapping
+        out = run(fm)
+        row = self._row
+        row["graph_mapping_captures"] += fm.frame_captures
+        row["graph_mapping_replays"] += fm.frame_replays
+        return out
 
     def _loop_closing(self, slot: int) -> None:
         """``LoopCloser.process`` on the new keyframe (``system.py:886-888``);
@@ -747,15 +816,19 @@ class CubemapSLAM(MapTracker):
             self.n_loops_closed += 1
             row["loop_closed"] = True
 
-    def _dispatch_deferred_ba(self) -> None:
+    def _dispatch_deferred_ba(self, fused: bool = False) -> None:
         """``system.py:939-953``: local BA around the pending keyframe (a
-        no-op on the device if it was culled meanwhile)."""
+        no-op on the device if it was culled meanwhile); with ``fused``, a
+        replay of graph BA."""
         slot = self._ba_pending_slot
         self._ba_pending_slot = None
         self._ba_superseded = 0
         if slot is None:
             return
-        self.mapping.ba_step(self.arena, slot, max_cams=self.ba_cams)
+        if fused:
+            self._mapping_graphs(lambda fm: fm.deferred_ba(self, slot))
+        else:
+            self.mapping.ba_step(self.arena, slot, max_cams=self.ba_cams)
         self.ba_runs += 1
         self._row["ba"] = True
         self.refresh_graph_cache()

@@ -43,7 +43,16 @@ pose graph. ``MapTracker``'s frames through the captured CUDA graphs
 frames and the forced branches (fallbacks, velocity gate, blank frame),
 with one launch a frame of W, D's two entries and describe, captured anew
 after ``seed``, and raising on a moved arena and on a capture that meets
-a host read.
+a host read. ``CubemapSLAM``'s keyframe and deferred-BA frames through
+graphs K and BA (``runtime/fused_mapping.py``) bitwise equal to its eager
+frames over 12 frames from the first (keyframes into 5 slots), every
+table and the mapping diagnostics at every frame, with every kernel's and
+the segmented sum's launches equal frame by frame; ``insert_keyframe``,
+``mapping_step`` (with and without BA) and ``ba_step`` with 0-d CUDA
+tensors bitwise the calls with Python numbers; and a loop closed between
+graph frames (forced on the fourth keyframe, against the one before it)
+bitwise equal to an eager twin at every frame, the frames after it
+replaying the graphs.
 """
 
 import math
@@ -831,3 +840,223 @@ def test_capture_meets_a_host_read(cuda, graph_scene, monkeypatch):
         tr.track_fisheye(graph_scene["frames"][0], 0.0)
     assert len(tr.metrics) == n_rows
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The keyframe and deferred-BA frames as captured CUDA graphs
+# (runtime/fused_mapping.py)
+# ---------------------------------------------------------------------------
+
+SLAM_SMALL = dict(cube_face_w=160, cube_face_h=160, n_features=600,
+                  n_levels=3, max_keyframes=24, max_landmarks=4096,
+                  min_init_keypoints=80, min_init_matches=60,
+                  min_track_inliers=20, fps=5.0)
+SLAM_GRAPH_FRAMES = 12
+LOOP_AT_KEYFRAME = 4     # the loop closing forced on this keyframe
+
+
+@pytest.fixture(scope="module")
+def slam_frames(cuda):
+    """The configuration and 12 fisheye frames of a forward trajectory
+    through the billboard world of ``mapping_snapshot``, rendered on the
+    host: keyframes on the even frames from 2 (slots 2 to 6), the deferred
+    BA on the odd ones from 3."""
+    cfg = SlamConfig(**SLAM_SMALL)
+    poses = S.forward_trajectory(SLAM_GRAPH_FRAMES)
+    world = S.make_world(np.random.default_rng(5), n=600,
+                         centers=S.camera_centres(poses), fx=80.0)
+    render = S.Renderer(CubemapCamera.from_config(cfg, "cpu"), cfg)
+    return cfg, [S.to_u8(render.render(*world, R, t)[0]) for R, t in poses]
+
+
+def _force_loop_closure(slam, at_keyframe):
+    """Close a loop on the ``at_keyframe``-th keyframe that loop closing
+    sees, against the keyframe inserted before it (ComputeSim3, CorrectLoop
+    and the global BA, ``LoopCloser._try_close``); the other keyframes go
+    through ``LoopCloser.process`` as they come."""
+    lc = slam.loop_closer
+    inner = lc.process
+    slots = []
+
+    def process(system, slot):
+        slots.append(slot)
+        if len(slots) != at_keyframe:
+            return inner(system, slot)
+        lc.reads = lc.eigh_waits = 0
+        return lc._try_close(system, slot, slots[-2])
+
+    lc.process = process
+
+
+def _slam_state(slam, T):
+    row = {k: v for k, v in slam.metrics[-1].items()
+           if not k.startswith("graph_") and not k.endswith("_ms")}
+    last, tensors = slam.last, []
+    if last is not None:
+        tensors = [*last.kp, last.assoc, last.outlier, last.R, last.t,
+                   last.rel_R, last.rel_t]
+    if slam.velocity is not None:
+        tensors += list(slam.velocity)
+    tensors += [getattr(slam.arena, k) for k in slam.arena._fields]
+    if slam.bow_table is not None:
+        tensors.append(slam.bow_table)
+    if slam._last_mapping_info is not None:
+        tensors.append(slam._last_mapping_info)
+    return T, row, [x.cpu() for x in tensors]
+
+
+def _slam_run(cuda, cfg, frames, eager, close_loop=False):
+    """``CubemapSLAM`` on the card over ``frames`` from the first, eagerly
+    (``stage_times`` set) or through the graphs: (system, per-frame
+    ``_slam_state``, per-frame launches of every kernel entry and of the
+    segmented sum)."""
+    from cubemapslam_tpu_torch import segment as SG
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    counters = (warp_cuda.WARP_REMAP, TE.ORB_FAST, TE.ORB_SELECT,
+                TE.ORB_DESCRIBE, SG.SEG_SUM)
+    slam = CubemapSLAM(cfg, device=cuda)
+    slam.stage_times = {} if eager else None
+    if close_loop:
+        _force_loop_closure(slam, LOOP_AT_KEYFRAME)
+    states, launches = [], []
+    for k, img in enumerate(frames):
+        for c in counters:
+            c.launches = 0
+        T = slam.track_fisheye(img, k / cfg.fps)
+        states.append(_slam_state(slam, T))
+        launches.append({c.symbol: c.launches for c in counters})
+    torch.cuda.synchronize()
+    return slam, states, launches
+
+
+@pytest.fixture(scope="module")
+def slam_runs(cuda, slam_frames):
+    cfg, frames = slam_frames
+    return {eager: _slam_run(cuda, cfg, frames, eager)
+            for eager in (True, False)}
+
+
+def test_mapping_graphs_bitwise_eager(cuda, slam_runs):
+    """``CubemapSLAM``'s graph frames (``FusedStep``, then ``FusedMapping``'s
+    graphs K and BA) against its eager frames over 12 frames from the
+    first: every pose, row, last-frame tensor, arena table, the BoW table
+    and the mapping diagnostics bitwise equal at every frame. Graph K is
+    captured on the first keyframe frame and replayed on every later one,
+    which insert into 4 different slots; graph BA likewise on the
+    deferred-BA frames."""
+    (e_slam, e_states, _), (g_slam, g_states, _) = (slam_runs[True],
+                                                    slam_runs[False])
+    _same_frames(e_states, g_states)
+    assert all(r["graph_mapping_captures"] == r["graph_mapping_replays"]
+               == 0 for r in e_slam.metrics if "graph_mapping_replays" in r)
+    assert e_slam.fused_mapping is None
+    rows = [r for r in g_slam.metrics if "graph_mapping_replays" in r]
+    kf = [r for r in rows if r["keyframe"]]
+    ba = [r for r in rows if r["ba"] and not r["keyframe"]]
+    assert len(kf) >= 3 and len(ba) >= 2
+    assert (kf[0]["graph_mapping_captures"], ba[0]["graph_mapping_captures"]
+            ) == (1, 1)
+    assert all(r["graph_mapping_replays"] == 1
+               and r["graph_mapping_captures"] == 0 for r in kf[1:] + ba[1:])
+    assert len({r["first_free"] for r in kf[1:]}) >= 2
+    fm = g_slam.fused_mapping
+    assert (fm.captures, fm.replays) == (
+        2, sum(r["graph_mapping_replays"] for r in rows))
+
+
+def test_mapping_graph_launch_counts(cuda, slam_runs):
+    """Launch counts add up across replays: every kernel entry and the
+    segmented sum count, frame by frame, what the eager frames launch; W,
+    D's two entries and describe once a frame, and the segmented sum on
+    every keyframe and deferred-BA frame."""
+    (_, e_states, e_launch), (g_slam, _, g_launch) = (slam_runs[True],
+                                                      slam_runs[False])
+    assert e_launch == g_launch
+    for row, n in zip(g_slam.metrics, g_launch):
+        assert [n[s] for s in ("warp_remap_launch", "orb_fast_launch",
+                               "orb_select_launch", "orb_describe_launch")
+                ] == [1, 1, 1, 1]
+        if row.get("keyframe") or row.get("ba"):
+            assert n["seg_sum_launch"] > 0
+
+
+@pytest.fixture(scope="module")
+def mapping_snap(cuda):
+    return mapping_snapshot()
+
+
+@pytest.mark.parametrize("stage", ["insert_keyframe", "mapping_step",
+                                   "mapping_step_ba", "ba_step"])
+def test_mapping_tensor_slots_on_card(cuda, mapping_snap, stage):
+    """On the card, eagerly: the slot, keyframe counter, frame id and
+    timestamp as 0-d CUDA tensors give every table (and the diagnostics)
+    bitwise what the same calls with Python numbers give. A 0-d index that
+    PyTorch read to the host or copied, so that an in-place write went
+    nowhere, would show here."""
+    from cubemapslam_tpu_torch.runtime import mapping as TM
+    from cubemapslam_tpu_torch.runtime.kernels import TrackingKernels
+    from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+    cfg, arena, slot, n_kf, fid = mapping_snap
+    mk = MappingKernels(cfg, device=cuda)
+    tk = TrackingKernels(cfg, mk.cam)
+    outs = []
+    for as_tensors in (False, True):
+        a = arena.to(cuda)
+        if stage == "insert_keyframe":
+            kp = TM._kf_keypoints(a, slot - 1)
+            kp = type(kp)(*(x.clone() for x in kp))
+            args = (slot + 1, 99, 3.25)
+            if as_tensors:
+                args = (torch.tensor(slot + 1, device=cuda),
+                        torch.tensor(99, device=cuda),
+                        torch.tensor(3.25, device=cuda))
+            tk.insert_keyframe(a, args[0], kp, a.kf_obs_lm[slot - 1].clone(),
+                               torch.zeros_like(kp.valid),
+                               a.kf_R[slot - 1].clone(),
+                               a.kf_t[slot - 1].clone(), *args[1:])
+            extra = []
+            assert bool(a.kf_valid[slot + 1])
+            assert int(a.kf_frame_id[slot + 1]) == 99
+        else:
+            args = (slot, n_kf, fid)
+            if as_tensors:
+                args = tuple(torch.tensor(x, device=cuda) for x in args)
+            if stage == "ba_step":
+                mk.ba_step(a, args[0], max_cams=5)
+                extra = []
+            else:
+                a, info = mk.mapping_step(a, *args, max_cams=5,
+                                          run_ba=stage.endswith("_ba"))
+                extra = [info.cpu()]
+        outs.append(([getattr(a, k).cpu() for k in a._fields], extra))
+    (ti, ei), (tt, et) = outs
+    assert all(torch.equal(x, y) for x, y in zip(ti + ei, tt + et))
+    if stage != "insert_keyframe":
+        before = arena.to("cpu")
+        assert not all(torch.equal(getattr(before, k), x)
+                       for k, x in zip(before._fields, tt))
+
+
+def test_graph_frames_after_loop_closure(cuda, slam_frames):
+    """ROADMAP Queue 3: a loop closed between graph frames. The 12 frames
+    twice, eagerly and through the graphs, with loop closing forced on the
+    fourth keyframe frame the loop closer sees (against the keyframe
+    before it): both close the loop there, every frame and every table
+    bitwise equal, so right after ``loop.correct`` / ``loop.gba`` too, and
+    the frames after it replay the tracked frame's graphs and the mapping
+    graphs, which read the arena the closure wrote in place."""
+    cfg, frames = slam_frames
+    (e_slam, e_states, _), (g_slam, g_states, _) = (
+        _slam_run(cuda, cfg, frames, eager, close_loop=True)
+        for eager in (True, False))
+    closed = [i for i, (_, r, _) in enumerate(g_states)
+              if r.get("loop_closed")]
+    assert len(closed) == 1 and e_slam.n_loops_closed == 1
+    assert [i for i, (_, r, _) in enumerate(e_states)
+            if r.get("loop_closed")] == closed
+    _same_frames(e_states, g_states)
+    after = g_slam.metrics[closed[0] + 1:]
+    assert after and all(r["state"] == "OK" and r["graph_replays"] == 2
+                         for r in after)
+    assert any(r["graph_mapping_replays"] for r in after)
+    assert g_slam.loop_closer.timings["gba"]

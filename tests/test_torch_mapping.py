@@ -20,6 +20,11 @@ bands within 3e-2): float32 LM over 15 iterations rounds differently in
 the two packages. ``mapping_step`` with its BA is held more loosely, for
 the reason its test gives. These runs use a BA window of 5 cameras.
 
+``mapping_step`` and ``ba_step`` also take the slot, the keyframe counter
+and the frame id as 0-d tensors (as the captured mapping graphs give them):
+every table and the diagnostics bitwise the calls with ints, and against
+JAX at the same tolerances.
+
 ``fuse_pair``'s rule for duplicate scatter indices differs from the JAX
 package's (a merge's write wins; of two merges with one loser, the later
 row): the parity arena has no merge whose loser is landmark 0, and
@@ -77,6 +82,49 @@ def snap():
     return dict(arena=arena, slot=slot, n_kf=n_kf, fid=fid,
                 jm=JMK(jcfg, JCam.from_config(jcfg)),
                 tm=MappingKernels(TConfig(**E2E), device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    """The JAX calls' results, shared by the tests that hold the port's
+    int and tensor calls against them."""
+    return {}
+
+
+def jax_mapping_step(snap, cache, run_ba):
+    key = ("mapping_step", run_ba)
+    if key not in cache:
+        cache[key] = snap["jm"].mapping_step(
+            ja(snap["arena"]), jnp.int32(snap["slot"]),
+            jnp.int32(snap["n_kf"]), jnp.int32(snap["fid"]),
+            max_cams=MAX_CAMS, run_ba=run_ba)
+    return cache[key]
+
+
+def culled_arena(snap, culled):
+    arena = dict(snap["arena"])
+    if culled:
+        arena["kf_valid"] = arena["kf_valid"].copy()
+        arena["kf_valid"][snap["slot"]] = False
+    return arena
+
+
+def jax_ba_step(snap, cache, culled):
+    key = ("ba_step", culled)
+    if key not in cache:
+        cache[key] = snap["jm"].ba_step(ja(culled_arena(snap, culled)),
+                                        jnp.int32(snap["slot"]),
+                                        max_cams=MAX_CAMS)
+    return cache[key]
+
+
+def device_scalars(*xs):
+    return tuple(torch.tensor(x, dtype=torch.int64) for x in xs)
+
+
+def assert_same_arena(a, b):
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def ja(arena):
@@ -304,7 +352,7 @@ def test_local_ba(snap):
 
 
 @pytest.mark.parametrize("run_ba", [False, True])
-def test_mapping_step(snap, run_ba):
+def test_mapping_step(snap, jax_results, run_ba):
     """Without BA, every table exactly equal. With BA (run on the arena
     the step has just grown by a hundred two-view landmarks) the JAX
     package's own result changes with the number of CPU cores it runs on:
@@ -317,9 +365,12 @@ def test_mapping_step(snap, run_ba):
     slot, n_kf, fid = snap["slot"], snap["n_kf"], snap["fid"]
     t, info_t = snap["tm"].mapping_step(ta(snap["arena"]), slot, n_kf, fid,
                                         max_cams=MAX_CAMS, run_ba=run_ba)
-    j, info_j = snap["jm"].mapping_step(
-        ja(snap["arena"]), jnp.int32(slot), jnp.int32(n_kf), jnp.int32(fid),
-        max_cams=MAX_CAMS, run_ba=run_ba)
+    check_mapping_step(t, info_t, *jax_mapping_step(snap, jax_results,
+                                                    run_ba), run_ba)
+
+
+def check_mapping_step(t, info_t, j, info_j, run_ba):
+    """``test_mapping_step``'s comparison of the port's step with JAX's."""
     info_j, info_t = np.asarray(info_j), info_t.numpy()
     assert info_j[2] > 50                     # n_new: triangulated
     if not run_ba:
@@ -339,19 +390,49 @@ def test_mapping_step(snap, run_ba):
         np.testing.assert_allclose(tn[k], jn[k], atol=2e-2, err_msg=k)
 
 
+@pytest.mark.parametrize("run_ba", [False, True])
+def test_mapping_step_device_scalars(snap, jax_results, run_ba):
+    """The slot, keyframe counter and frame id as 0-d tensors: every table
+    and the diagnostics bitwise the call with ints, and against JAX as
+    ``test_mapping_step`` holds it."""
+    args = (snap["slot"], snap["n_kf"], snap["fid"])
+    outs = [snap["tm"].mapping_step(ta(snap["arena"]), *a, max_cams=MAX_CAMS,
+                                    run_ba=run_ba)
+            for a in (args, device_scalars(*args))]
+    (t_int, info_int), (t, info_t) = outs
+    assert_same_arena(t_int, t)
+    assert torch.equal(info_int, info_t)
+    check_mapping_step(t, info_t, *jax_mapping_step(snap, jax_results,
+                                                    run_ba), run_ba)
+
+
 @pytest.mark.parametrize("culled", [False, True])
-def test_ba_step(snap, culled):
+def test_ba_step(snap, jax_results, culled):
     """On the new keyframe, and on a slot culled meanwhile (a no-op)."""
-    arena, slot = dict(snap["arena"]), snap["slot"]
-    if culled:
-        arena["kf_valid"] = arena["kf_valid"].copy()
-        arena["kf_valid"][slot] = False
-    t = snap["tm"].ba_step(ta(arena), slot, max_cams=MAX_CAMS)
-    j = snap["jm"].ba_step(ja(arena), jnp.int32(slot), max_cams=MAX_CAMS)
+    arena = culled_arena(snap, culled)
+    t = snap["tm"].ba_step(ta(arena), snap["slot"], max_cams=MAX_CAMS)
+    check_ba_step(t, jax_ba_step(snap, jax_results, culled), arena, culled)
+
+
+def check_ba_step(t, j, arena, culled):
+    """``test_ba_step``'s comparison of the port's step with JAX's."""
     assert_arena(t, j, after_ba=not culled)
     if culled:
         for k, v in interop.arena_to_numpy(t).items():
             np.testing.assert_array_equal(v, arena[k], err_msg=k)
+
+
+@pytest.mark.parametrize("culled", [False, True])
+def test_ba_step_device_scalars(snap, jax_results, culled):
+    """The slot as a 0-d tensor, on the new keyframe and on a culled slot:
+    every table bitwise the call with an int, and against JAX as
+    ``test_ba_step`` holds it."""
+    arena = culled_arena(snap, culled)
+    t_int = snap["tm"].ba_step(ta(arena), snap["slot"], max_cams=MAX_CAMS)
+    t = snap["tm"].ba_step(ta(arena), *device_scalars(snap["slot"]),
+                           max_cams=MAX_CAMS)
+    assert_same_arena(t_int, t)
+    check_ba_step(t, jax_ba_step(snap, jax_results, culled), arena, culled)
 
 
 def test_cull_keyframes(snap):
