@@ -35,7 +35,18 @@ memory it took; profiles 2 more eager frames with one range per stage and
 2 graph frames (device busy, idle share, host waits: at most the upload
 and the 2 reads); forces the fallback, velocity-gate and blank-frame
 branches eagerly and through the graphs, bitwise equal; and holds
-``MapTracker`` on the card against the CPU on a small map.
+``MapTracker`` on the card against the CPU on a small map. A graph frame
+must run fewer than ``GRAPH_MAX_OPS`` device operations. The pose-LM kernel
+(``csrc/pose_lm.cu``, the whole pose-only LM in one launch) is then held
+against its kernel-order plain version (``pose_optimization_ordered``) on
+the first pose solve of the eager run's first frame (recorded as the frame
+ran; the graph run's is the same bits) and on seeded problems of 37, 2000
+and 6000 edges, and timed beside the masked eager LM it replaced (from a
+CUDA graph and eagerly) and its serial floor (no edge, every iteration).
+Its launches are counted from 0 around the drive of every path (frame step,
+tracking eagerly and through the graphs, slam, repeat, reloc, localization,
+app), each required > 0, the graph run's equal to the eager run's and the
+repeat run's to the slam drive's.
 
 Then the whole system from its first frame, the ``slam`` phase:
 ``CubemapSLAM`` at ``SlamConfig()`` defaults (2000 features, 6000 at init)
@@ -169,8 +180,11 @@ from cubemapslam_tpu_torch.apps import run_sequence
 from cubemapslam_tpu_torch.features import extractor as TE
 from cubemapslam_tpu_torch.geometry import se3_log, so3_exp, so3_log
 from cubemapslam_tpu_torch.optim import ba as TBA
+from cubemapslam_tpu_torch.optim import pose_opt as PO
+from cubemapslam_tpu_torch.optim import residuals as TR
 from cubemapslam_tpu_torch.optim.ba import BAProblem, bundle_adjust
 from cubemapslam_tpu_torch.runtime import FrameTracker
+from cubemapslam_tpu_torch.runtime import kernels as TK
 from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.synthetic import (
     landmarks_from_keypoints, perturbed_pose, synthetic_fisheye)
@@ -190,7 +204,7 @@ H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
 TIMING_REPS, TIMING_BATCH = 7, 20
 SOURCES = ("warp_remap.cu", "orb_detect.cu", "orb_describe.cu",
-           "seg_sum.cu")
+           "seg_sum.cu", "pose_lm.cu")
 # launches of each kernel entry in one frame step
 LAUNCHES_PER_FRAME = 1
 
@@ -227,6 +241,10 @@ MAP_MIN_COVIS = 50
 POSE_BOUND_DEG, POSE_BOUND_M = 0.1, 0.015
 LOCAL_MIN_FRAMES = 6          # of TRACK_FRAMES with local_matched > 0
 GATE_ROT_RAD = 0.3            # a velocity above the 0.2 rad gate
+GRAPH_MAX_OPS = 1500          # device operations of a graph frame: its two
+                              # pose solves are one launch each (the masked
+                              # eager LM was about 11k a solve); the other
+                              # stages make about 1,200
 TRACK_STAGES = ("warp", "extract", "motion", "local.select", "local.search",
                 "local.optimize", "local.counters", "epilogue")
 # the whole system from its first frame (CubemapSLAM) at SlamConfig()
@@ -237,6 +255,8 @@ SLAM_BILLBOARDS = 1500
 SLAM_INIT_BY = 10             # initialized within the first 10 frames
 SLAM_MIN_NEW_KF = 3           # keyframes by the cadence beyond the first 2
 SLAM_ATE_FRAC = 0.01          # ATE bound, as a fraction of the path length
+DIGEST_MASKED_LM = "d6f6104a"  # the slam map's digest before the pose-LM
+                               # kernel's order of sums
 SLAM_PROFILE_MAX = 8          # frames profiled to find a keyframe frame and
                               # a deferred-BA frame
 SLAM_STAGES = TRACK_STAGES + ("insert+mapping", "loop", "local_ba")
@@ -291,7 +311,7 @@ DIST_TIMEOUT = 600.0
 # the port's __global__ kernels, as the profiler names them
 PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
                 "select_levels_kernel", "orb_describe_kernel",
-                "seg_sum_kernel")
+                "seg_sum_kernel", "pose_lm_kernel")
 # the segmented-sum kernel at the shapes the main path gives it (full width):
 # (rows, segments, lanes, live segments or None for all, share of rows on
 # the dump id). The CG global BA of the loop arena (20,160 live edges over 14
@@ -355,6 +375,48 @@ def seg_case(name, device, seed=SEED + 11):
         v = v.reshape(E, -1).T.contiguous().T.reshape((E,) + tail)
     return (SG.SegmentPlan(torch.as_tensor(idx).to(device), n),
             v.to(device))
+
+
+# the pose-only LM kernel (csrc/pose_lm.cu): seeded problems at the edge
+# counts of a frame (2000 features), of an init frame (6000) and one not a
+# multiple of a warp; the seeded problems of the CPU tests at 128^2 faces
+LM_SIZES = (37, 2000, 6000)
+LM_SEEDS = (1, 2, 3)
+
+
+def lm_problem(cfg, n, seed, device, noise=0.5, outliers=0.15):
+    """A seeded pose-only problem on ``device``: n landmarks in front
+    of a known pose, each seen on the face its direction falls on, with
+    pixel noise, gross outliers (a share ``outliers`` moved by up to 30
+    px), three pyramid levels' inverse sigma^2 and 5% invalid edges; the
+    start 2 degrees and 5 cm off, on the faces of ``cfg``'s camera.
+    Returns the arguments of ``pose_optimization`` after the camera: (R0,
+    t0, Xw, face, uv_face, inv_sigma2, valid)."""
+    rng = np.random.default_rng(seed)
+    R = so3_exp(torch.tensor([0.05, -0.1, 0.03])).numpy()
+    t = np.array([0.1, -0.05, 0.2], np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 2] = np.abs(d[:, 2])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    Xc = d * rng.uniform(2, 8, (n, 1)).astype(np.float32)
+    Xw = ((Xc - t) @ R).astype(np.float32)               # R^T (Xc - t)
+    a = np.abs(Xc)
+    face = np.select([(Xc[:, 2] >= a[:, 0]) & (Xc[:, 2] >= a[:, 1]),
+                      Xc[:, 0] >= a[:, 1], Xc[:, 0] <= -a[:, 1],
+                      Xc[:, 1] >= 0], [0, 2, 1, 4], 3).astype(np.int64)
+    uv = TR.project_to_face(CubemapCamera.from_config(cfg, "cpu"),
+                            torch.as_tensor(Xc),
+                            torch.as_tensor(face)).numpy()
+    uv = uv + rng.normal(0, noise, uv.shape).astype(np.float32)
+    bad = rng.uniform(size=n) < outliers
+    uv[bad] += rng.uniform(-30, 30, (int(bad.sum()), 2)).astype(np.float32)
+    inv_s2 = (1.0 / 1.44 ** rng.integers(0, 3, n)).astype(np.float32)
+    valid = rng.uniform(size=n) < 0.95
+    dR = so3_exp(torch.tensor([0.02, 0.02, -0.02])).numpy()
+    R0 = (dR @ R).astype(np.float32)
+    t0 = t + np.array([0.05, -0.03, 0.02], np.float32)
+    return tuple(torch.as_tensor(x).to(device) for x in
+                 (R0, t0, Xw, face, uv.astype(np.float32), inv_s2, valid))
 
 
 def log(msg: str) -> None:
@@ -638,6 +700,201 @@ def check_kernels(tracker, frame):
 # the segmented-sum kernel's launches by path: {phase: {"total": n, and by
 # the method that launched them}}, each counted from 0 around its drive
 SEG_LAUNCHES = {}
+# the pose-LM kernel's launches by path, each counted from 0 around its
+# drive: one a solve (two on a steady tracked frame, one more a motion
+# fallback, one a relocalization candidate and one its widening pass)
+POSE_LAUNCHES = {}
+# (camera, arguments) of the pose solves of the eager map-tracking run's
+# first frame, recorded for check_pose_lm
+LM_INPUTS = []
+
+
+def pose_launches(tag, n_frames):
+    """The pose-LM launches since the counters were set to 0, recorded as
+    the ``tag`` path's; the path must have launched the kernel."""
+    n = PO.POSE_LM.launches
+    POSE_LAUNCHES[tag] = n
+    log(f"[{tag}] pose_lm: launches in {n_frames} frames {n}")
+    if n <= 0:
+        raise AssertionError(f"the {tag} path launched no pose-LM kernel")
+    return n
+
+
+@contextlib.contextmanager
+def recording_lm(store):
+    """Record (camera, cloned arguments) of every ``pose_optimization``
+    call of the tracking kernels into ``store`` while the context is
+    open."""
+    inner = TK.pose_optimization
+
+    def recorded(cam, *args, **kwargs):
+        store.append((cam, tuple(a.clone() for a in args)))
+        return inner(cam, *args, **kwargs)
+
+    TK.pose_optimization = recorded
+    try:
+        yield store
+    finally:
+        TK.pose_optimization = inner
+
+
+# float operations of the pose-LM kernel, counted from its source: every
+# edge of a pass is evaluated (the pose on the landmark 18, the face
+# rotation 15, the safe depth 2, the projection and residual 8, chi2 4, the
+# gate 1); an edge in the round's mask adds the robust weight and rho (10,
+# the robust rounds), the Jacobian (57), the weighted rows (12), the 21 H
+# entries (4 each), the 6 gradient entries (4 each) and the cost (1)
+LM_EVAL_OPS = 18 + 15 + 2 + 8 + 4 + 1
+LM_TERM_OPS = 10 + 57 + 12 + 21 * 4 + 6 * 4 + 1
+LM_EDGE_BYTES = 12 + 8 + 4 + 8 + 1 + 1     # Xw, uv, 1/sigma^2, face, valid,
+                                           # the inlier flag written
+
+
+def lm_bound(n, iters, counted):
+    """The pose-LM kernel's bound (ms, what bounds it) on one input of n
+    edges whose rounds ran ``iters`` LM iterations with ``counted`` edges
+    in their sums: each pass (a round's start, each iteration) evaluates
+    every edge and sums the counted ones, the last pass evaluates every
+    edge once more; every input read once, the outputs written once."""
+    passes = [1 + int(i) for i in iters]
+    ops = sum(p * (n * LM_EVAL_OPS + int(c) * LM_TERM_OPS)
+              for p, c in zip(passes, counted)) + n * LM_EVAL_OPS
+    return bound(n * LM_EDGE_BYTES + 4 * (9 + 3 + 45 + 4) + 4 * (9 + 3) + 8,
+                 ops)
+
+
+def wall_ms(fn, reps=3):
+    """Median synchronised wall time (ms) of ``reps`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def graph1_ms(fn, reps=5):
+    """Device time (ms) of one call of ``fn`` captured alone in a CUDA graph
+    (for calls of thousands of operations, where ``graph_ms``'s batch of
+    TIMING_BATCH would make a graph of 10^5 nodes): the median of ``reps``
+    replays between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def lm_case(name, cam, args):
+    """The kernel against ``pose_optimization_ordered`` on one input: one
+    launch; the iterations of each round, R, t, the inlier mask and its
+    count. The case's dict (bitwise or not, the largest pose
+    difference)."""
+    n0 = PO.POSE_LM.launches
+    R, t, inl, n_inl, iters = PO.pose_lm(cam, *args)
+    torch.cuda.synchronize()
+    one = PO.POSE_LM.launches == n0 + 1
+    ref = PO.pose_optimization_ordered(cam, *args)
+    err = max(float((R - ref[0]).abs().max()),
+              float((t - ref[1]).abs().max()))
+    c = dict(name=name, n=args[2].shape[0], iters=iters.tolist(),
+             counted=ref[5].tolist(), inliers=int(n_inl),
+             bitwise=bool(torch.equal(R, ref[0]) and torch.equal(t, ref[1])
+                          and torch.equal(inl, ref[2])
+                          and int(n_inl) == int(ref[3])
+                          and torch.equal(iters.long(), ref[4].long())),
+             max_abs_err=err, one_launch=one)
+    log(f"[pose_lm] {name}: {c['n']} edges, iterations a round "
+        f"{c['iters']} (plain {ref[4].tolist()}), edges summed a round "
+        f"{c['counted']}, {c['inliers']} inliers (plain {int(ref[3])}); "
+        f"bitwise {c['bitwise']}, max |err| {err:.3g}")
+    if not (one and err <= 1e-6 and torch.equal(inl, ref[2])
+            and c["iters"] == ref[4].tolist()):
+        raise AssertionError(f"the pose-LM kernel differs from its plain "
+                             f"version on {name}")
+    return c
+
+
+def check_pose_lm(cfg, real):
+    """The pose-LM kernel (``csrc/pose_lm.cu``) against its kernel-order
+    plain version on the card: on ``real`` (camera, arguments), the first
+    pose solve of a tracked frame of the map-tracking phase (the eager
+    twin of the graph frame, same bits), and on the seeded problems of
+    LM_SIZES; R and t within 1e-6 (bitwise where printed), the inlier
+    masks and the iterations equal. Timed on the real input: a wrapper
+    call, the device's time from a CUDA graph, the plain version's wall
+    time, and what the kernel replaced, the masked eager LM
+    (``pose_optimization_masked``), captured in one CUDA graph (device ms;
+    its device operations from the profiler) and eager (wall ms). The
+    serial floor: the kernel's device time with no edge (4 rounds of 10
+    iterations, nothing summed) per pass, times this input's passes.
+    Returns the kernel's JSON row, without its launches."""
+    cam, args = real
+    cases = [lm_case("tracked frame, first solve", cam, args)]
+    full = CubemapCamera.from_config(cfg, "cuda")
+    for n in LM_SIZES:
+        cases.append(lm_case(f"seeded, {n} edges", full,
+                             lm_problem(cfg, n, SEED + 5, "cuda")))
+    head = cases[0]
+    b_ms, b_by = lm_bound(head["n"], head["iters"], head["counted"])
+
+    def kernel():
+        return PO.pose_lm(cam, *args)
+
+    def masked():
+        return PO.pose_optimization_masked(cam, *args)
+
+    empty = [a[:0] if k >= 2 else a for k, a in enumerate(args)]
+    floor_pass = graph_ms(lambda: PO.pose_lm(cam, *empty)) / 44
+    passes = sum(1 + i for i in head["iters"])
+    prof = profile_stages(masked, (), 1)
+    row = dict(name="pose_lm", route="cuda",
+               source="cubemapslam_tpu_torch/csrc/pose_lm.cu",
+               replaces="cubemapslam_tpu/optim/pose_opt.py:36 "
+                        "(pose_optimization: lax.fori_loop of "
+                        "lax.while_loop LM iterations, one XLA program; no "
+                        "pallas_call)",
+               shape=f"{head['n']} edges, iterations a round "
+                     f"{head['iters']}",
+               max_abs_err=max(c["max_abs_err"] for c in cases),
+               bitwise=all(c["bitwise"] for c in cases),
+               ms=time_ms(kernel), device_ms=graph_ms(kernel),
+               plain_ms=wall_ms(lambda: PO.pose_optimization_ordered(
+                   cam, *args)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               serial_floor_ms=floor_pass * passes,
+               serial_floor_pass_ms=floor_pass,
+               replaced_graph_ms=graph1_ms(masked),
+               replaced_eager_ms=wall_ms(masked),
+               replaced_device_ops=prof["device_ops"], cases=cases)
+    log(f"[pose_lm] row: kernel {row['ms']:.5f} ms (device "
+        f"{row['device_ms']:.5f}), plain (kernel order) {row['plain_ms']:.3f}"
+        f" ms, the replaced masked LM {row['replaced_graph_ms']:.3f} ms from "
+        f"a CUDA graph ({row['replaced_device_ops']:.0f} device operations)"
+        f" and {row['replaced_eager_ms']:.3f} ms eager; bound "
+        f"{b_ms:.5f} ms ({b_by}); serial floor {row['serial_floor_ms']:.5f}"
+        f" ms ({passes} passes of {floor_pass:.5f}); library none")
+    return row
+
+
 
 
 def seg_sum_cases(cam, arena, inv_s2):
@@ -855,6 +1112,36 @@ def waits_in(waits, spans, n, source):
     return len(inside) / n, sorted(by_src.items(), key=lambda kv: -kv[1])
 
 
+# a gap between two device operations of a frame shorter than this is
+# counted as the cost of back-to-back launches (inside a graph replay or
+# between eager launches); a longer one waits for the host
+SHORT_GAP_NS = 20_000
+
+
+def device_gaps(kernels, spans):
+    """Per span (a frame's host range) of the device operations that start
+    in it, sorted by start: the device span from the first start to the
+    last end, and the idle time between operations split into gaps
+    shorter than SHORT_GAP_NS and the rest (ms, summed over the spans)."""
+    span = short = long_ = 0
+    for a, b in spans:
+        ks = sorted((k for k in kernels if a <= k[2] < b),
+                    key=lambda k: k[2])
+        if not ks:
+            continue
+        end = ks[0][3]
+        for k in ks[1:]:
+            gap = k[2] - end
+            if gap > 0:
+                if gap < SHORT_GAP_NS:
+                    short += gap
+                else:
+                    long_ += gap
+            end = max(end, k[3])
+        span += end - ks[0][2]
+    return span / 1e6, short / 1e6, long_ / 1e6
+
+
 def profile_stages(step, stages, n):
     """``n`` calls of ``step`` under torch.profiler, each in a ``frame``
     range and synchronised after it, with one range per stage
@@ -865,8 +1152,9 @@ def profile_stages(step, stages, n):
     host and card makes, or a blocking ``cudaMemcpy``) with their sources;
     per stage the host time, device busy time, device operations, host waits
     and the five device operations with the most time, all per frame; each
-    port kernel's device time; and the count of matrix products with the
-    dense descriptor operator (its 8194 columns), which must be 0."""
+    port kernel's device time; the count of matrix products with the
+    dense descriptor operator (its 8194 columns), which must be 0; and per
+    frame ``device_gaps``: the device span and its short and long gaps."""
     walls = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -919,7 +1207,10 @@ def profile_stages(step, stages, n):
         if e[0] in ("aten::mm", "aten::matmul", "aten::addmm")
         and any(DESC_OP_COLS in s for s in (e[4] or []) if s))
     wall = float(np.median(walls))
+    span, short, long_ = device_gaps(kernels, host_spans("frame"))
     return dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
+                device_span_ms=span / n, short_gaps_ms=short / n,
+                long_gaps_ms=long_ / n,
                 idle_share=1.0 - busy / float(np.mean(walls)),
                 device_ops=len(kernels) / n, host_waits=frame_waits,
                 wait_sources=frame_sources, stages=per_stage,
@@ -940,6 +1231,11 @@ def log_profile(tag, prof, unprofiled_walls):
         f"{prof['device_ops']:.0f} device operations per frame")
     log(f"[{tag}] host waits a frame {prof['host_waits']:.2f}, by source: "
         + ", ".join(f"{src} {c:.2f}" for src, c in prof["wait_sources"]))
+    log(f"[{tag}] device span a frame {prof['device_span_ms']:.3f} ms (first "
+        f"start to last end): idle between operations "
+        f"{prof['short_gaps_ms']:.3f} ms in gaps under "
+        f"{SHORT_GAP_NS / 1e3:.0f} us, {prof['long_gaps_ms']:.3f} ms in "
+        f"longer ones")
     for st, v in prof["stages"].items():
         log(f"[{tag}] stage {st:14s}: host {v['host_ms']:.3f} ms, device "
             f"busy {v['device_busy_ms']:.3f} ms, {v['device_ops']:.0f} "
@@ -1132,7 +1428,8 @@ def drive_tracking_path(mt, poses, frames, first, counters, graphs):
     are set to 0 before the warm-up frame (each kernel must launch once in
     it, captures included) and again just before the TRACK_FRAMES frames.
     Per frame: the synchronised wall time and the host thread's CPU time
-    (ms). Returns (walls, launches, frame records)."""
+    (ms). The eager run's warm-up frame records its pose solves' inputs
+    into LM_INPUTS. Returns (walls, launches, frame records)."""
     tag = "graph" if graphs else "eager"
     mt.stage_times = None if graphs else {}
     zero_launches(counters)
@@ -1140,7 +1437,8 @@ def drive_tracking_path(mt, poses, frames, first, counters, graphs):
     torch.cuda.reset_peak_memory_stats()
     mem0 = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
     t0 = time.perf_counter()
-    T = mt.track_fisheye(frames[first], first / mt.cfg.fps)
+    with contextlib.nullcontext() if graphs else recording_lm(LM_INPUTS):
+        T = mt.track_fisheye(frames[first], first / mt.cfg.fps)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     row, err = check_tracked(mt, T, first, poses)
@@ -1183,6 +1481,7 @@ def drive_tracking_path(mt, poses, frames, first, counters, graphs):
                                  f"{row['graph_replays']} graphs")
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
+    pose_launches(f"tracking_{tag}", TRACK_FRAMES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     log(f"[track-{tag}] {TRACK_FRAMES} frames: wall ms median "
         f"{float(np.median(walls)):.3f}, host CPU ms median "
@@ -1218,6 +1517,11 @@ def eager_and_graph_tracking(mt, poses, frames, first, counters):
                                                    counters, graphs=True)
     n = sum(same_bits(f"frame {first + k}", e, g)
             for k, (e, g) in enumerate(zip(e_rec, g_rec)))
+    if not (POSE_LAUNCHES["tracking_graph"] == POSE_LAUNCHES["tracking_eager"]
+            >= 2 * TRACK_FRAMES):
+        raise AssertionError("the graph frames launched the pose-LM kernel "
+                             "otherwise than their eager twins, or less "
+                             "than twice a frame")
     n += same_bits("the arena after the frames", e_arena, arena_host(mt))
     log(f"[track] graph frames against eager frames: {len(g_rec)} frames "
         f"and the arena bitwise equal ({n} tensors); wall ms median eager "
@@ -1327,6 +1631,9 @@ def map_tracking_phase(cfg, counters):
             r["graph_replays"] != 2 for r in rows):
         raise AssertionError("a graph frame waited more than an eager one, "
                              "or did not replay both graphs")
+    if not g_prof["device_ops"] < GRAPH_MAX_OPS:
+        raise AssertionError(f"a graph frame ran {g_prof['device_ops']:.0f} "
+                             f"device operations (at most {GRAPH_MAX_OPS})")
     e_rec = forced_branches(mt, poses, frames, first, built, seed,
                             graphs=False)
     g_rec = forced_branches(mt, poses, frames, first, built, seed,
@@ -1337,7 +1644,8 @@ def map_tracking_phase(cfg, counters):
         "the eager ones")
     del mt
     small_map_reference_check()
-    return t_launches
+    pose_row = check_pose_lm(cfg, LM_INPUTS[0])
+    return t_launches, pose_row
 
 
 def small_map_reference_check():
@@ -1425,10 +1733,7 @@ def drive_slam(slam, poses, frames, counters):
     landmarks triangulated, a deferred BA run, the launches, and the ATE of
     the Sim3-aligned trajectory."""
     cfg = slam.cfg
-    for group in counters.values():
-        for c in group:
-            c.launches = 0
-    SG.SEG_SUM.launches = 0
+    zero_launches(counters)
     seg = {}
     torch.cuda.reset_peak_memory_stats()
     slam.stage_times = {}
@@ -1452,6 +1757,7 @@ def drive_slam(slam, poses, frames, counters):
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
     SEG_LAUNCHES["slam"] = dict(total=SG.SEG_SUM.launches, **seg)
+    pose_launches("slam", SLAM_FRAMES)
     log(f"[slam] seg_sum: launches in {SLAM_FRAMES} frames "
         f"{SEG_LAUNCHES['slam']} (by MappingKernels method)")
     if not (seg.get("mapping_step") and seg.get("local_ba")):
@@ -1745,6 +2051,9 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
     seg = SG.SEG_SUM.launches
+    if pose_launches("repeat", SLAM_FRAMES) != POSE_LAUNCHES["slam"]:
+        raise AssertionError("the repeat run's pose-LM launches differ from "
+                             "the eager drive's")
     rows = slam.metrics
     graph_frames = sum(1 for r in rows if r.get("graph_replays"))
     captures = sum(r.get("graph_captures", 0) for r in rows)
@@ -1842,7 +2151,9 @@ def slam_phase(cfg, counters):
                                                 counters)
     snap = map_snapshot(slam)
     log(f"[slam-digest] sha256 of the map after frame {SLAM_FRAMES - 1}: "
-        f"{snap['digest']}")
+        f"{snap['digest']}; {slam.n_kf} keyframes, {slam.ba_runs} deferred "
+        f"BAs (with the pose solve as masked eager iterations, its sums in "
+        f"PyTorch's order: {DIGEST_MASKED_LM}..., 14 keyframes, 13 BAs)")
     graph_walls, replay_slam, g_launches = repeat_check(
         cfg, frames, snap, counters, walls)
     profiled_slam(slam, frames, walls, graph_walls, "slam-profile", False)
@@ -1864,6 +2175,7 @@ def zero_launches(counters):
         for c in group:
             c.launches = 0
     SG.SEG_SUM.launches = 0
+    PO.POSE_LM.launches = 0
 
 
 def read_launches(counters, tag, n_frames):
@@ -1874,6 +2186,7 @@ def read_launches(counters, tag, n_frames):
     SEG_LAUNCHES[tag] = {"total": SG.SEG_SUM.launches}
     log(f"[{tag}] seg_sum: launches in {n_frames} frames "
         f"{SG.SEG_SUM.launches}")
+    pose_launches(tag, n_frames)
     for name, by_kernel in launches.items():
         log(f"[{tag}] {name}: launches in {n_frames} frames {by_kernel}")
         for sym, n in by_kernel.items():
@@ -2706,13 +3019,14 @@ def main() -> int:
     lms = landmarks_from_keypoints(kp0, N_LANDMARKS, rng, cfg.n_levels)
     log(f"[path] {int(kp0.valid.sum())} valid keypoints on frame 0; "
         f"{N_LANDMARKS} landmarks")
-    for group in counters.values():
-        for c in group:
-            c.launches = 0
+    zero_launches(counters)
     torch.cuda.reset_peak_memory_stats()
     walls, cpus, results = drive_main_path(tracker, frame, lms, rng)
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
+    if pose_launches("frame_step", N_FRAMES) != N_FRAMES:
+        raise AssertionError("the frame step did not launch the pose-LM "
+                             "kernel once a frame")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     check_results(results, cfg)
     log(f"[path] frame step wall ms (synchronised): "
@@ -2732,7 +3046,7 @@ def main() -> int:
     small_reference_check()
     done("frame step")
 
-    t_launches = map_tracking_phase(cfg, counters)
+    t_launches, pose_row = map_tracking_phase(cfg, counters)
     done("map tracking")
     slam, s_poses, s_frames, s_launches, g_launches, ate = slam_phase(
         cfg, counters)
@@ -2772,6 +3086,10 @@ def main() -> int:
     seg_row["launches"] = SEG_LAUNCHES["slam"]["total"]
     seg_row["launches_by_path"] = SEG_LAUNCHES
     rows.append(seg_row)
+    # the pose-LM kernel: one launch a solve, counted on each path
+    pose_row["launches"] = POSE_LAUNCHES["frame_step"]
+    pose_row["launches_by_path"] = POSE_LAUNCHES
+    rows.append(pose_row)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

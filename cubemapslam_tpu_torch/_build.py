@@ -12,6 +12,8 @@ with ``ctypes``. No PyTorch header is compiled, so a build takes seconds.
 There is no fallback: a missing ``nvcc``, a failed build or a non-zero launch
 status raises. ``--use_fast_math`` is deliberately not passed, so divisions
 and square roots round as IEEE float32, like the plain PyTorch versions.
+``SOURCE_FLAGS`` adds flags for one source (``-fmad=false`` where every
+product and sum must round on its own, as the plain version's do).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" \
     / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE_FLAGS: Dict[str, Sequence[str]] = {"pose_lm.cu": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -47,10 +50,15 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def _flags(source: str) -> List[str]:
+    return [*NVCC_FLAGS, *SOURCE_FLAGS.get(source, ())]
+
+
 def _lib_path(source: str) -> pathlib.Path:
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                            + " ".join(_flags(source)).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"{src.stem}_{digest}.so"
 
 
@@ -67,7 +75,7 @@ def build_all(sources: Iterable[str]) -> Dict[str, str]:
     for s in todo:
         out = _lib_path(s)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
+        cmd = [nvcc, *_flags(s), "-o", str(tmp), str(CSRC / s)]
         procs.append((s, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

@@ -52,7 +52,13 @@ the segmented sum's launches equal frame by frame; ``insert_keyframe``,
 tensors bitwise the calls with Python numbers; and a loop closed between
 graph frames (forced on the fourth keyframe, against the one before it)
 bitwise equal to an eager twin at every frame, the frames after it
-replaying the graphs.
+replaying the graphs. The pose-LM kernel (``csrc/pose_lm.cu``) against
+``pose_optimization_ordered`` at N = 37, 2000 and 6000 and on the CPU
+tests' seeded problems: the same iterations a round, R and t bitwise
+equal (1e-6 is the bound asked for), the inlier masks equal; with no
+valid edge and no edge; its wrapper raising on a device mix, a strided
+input and a wrong dtype; and two launches a graph frame of
+``MapTracker``.
 """
 
 import math
@@ -602,6 +608,71 @@ def test_seg_sum_kernel_strided_and_empty(cuda):
     assert torch.equal(out, torch.zeros(5, 7, device=cuda))
 
 
+def _lm_cases():
+    return ([("full", n, 1) for n in chip_smoke.LM_SIZES]
+            + [("small", 300, seed) for seed in chip_smoke.LM_SEEDS])
+
+
+@pytest.mark.parametrize("size,n,seed", _lm_cases())
+def test_pose_lm_kernel(cuda, size, n, seed):
+    """The pose-LM kernel (``csrc/pose_lm.cu``) against
+    ``pose_optimization_ordered`` on the card: seeded problems at N = 37,
+    2000 and 6000 on ``SlamConfig()``'s faces, and the CPU tests' seeded
+    problems (N = 300, 128^2 faces). One launch a solve; the iterations of
+    each round equal; R and t bitwise equal (the bound asked for is 1e-6;
+    the kernel rounds every product and sum as the plain version does, so
+    equality is reached and held), the inlier mask and its count equal."""
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    cfg = SlamConfig() if size == "full" else SlamConfig(cube_face_w=128,
+                                                         cube_face_h=128)
+    cam = CubemapCamera.from_config(cfg, cuda)
+    args = chip_smoke.lm_problem(cfg, n, seed, cuda)
+    n0 = PO.POSE_LM.launches
+    R, t, inl, n_inl, iters = PO.pose_lm(cam, *args)
+    torch.cuda.synchronize()
+    assert PO.POSE_LM.launches == n0 + 1
+    ref = PO.pose_optimization_ordered(cam, *args)
+    assert torch.equal(iters.long(), ref[4].long()), (iters, ref[4])
+    assert torch.equal(R, ref[0]) and torch.equal(t, ref[1])
+    assert torch.equal(inl, ref[2]) and int(n_inl) == int(ref[3])
+    assert int(n_inl) > 0.6 * n
+    out = PO.pose_optimization(cam, *args)
+    assert all(torch.equal(a, b) for a, b in zip(out, (R, t, inl, n_inl)))
+
+
+def test_pose_lm_edge_cases(cuda):
+    """No valid edge (the pose unchanged, no inlier) and no edge at all."""
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    cfg = SlamConfig()
+    cam = CubemapCamera.from_config(cfg, cuda)
+    args = list(chip_smoke.lm_problem(cfg, 37, 4, cuda))
+    args[6] = torch.zeros_like(args[6])
+    for case in (args, [a[:0] if k >= 2 else a for k, a in enumerate(args)]):
+        R, t, inl, n_inl, iters = PO.pose_lm(cam, *case)
+        assert torch.equal(R, case[0]) and torch.equal(t, case[1])
+        assert int(n_inl) == 0 and not bool(inl.any())
+        assert iters.tolist() == [10] * 4
+
+
+def test_pose_lm_wrapper_raises(cuda):
+    """The kernel's wrapper raises on a CPU/CUDA mix, a non-contiguous
+    input and a wrong dtype; it launches nothing then."""
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    cfg = SlamConfig()
+    cam = CubemapCamera.from_config(cfg, cuda)
+    args = list(chip_smoke.lm_problem(cfg, 100, 5, cuda))
+    n0 = PO.POSE_LM.launches
+    mixed = args[:2] + [args[2].cpu()] + args[3:]
+    wide = torch.zeros((100, 4), device=cuda)
+    wide[:, :3] = args[2]
+    strided = args[:2] + [wide[:, :3]] + args[3:]
+    int32 = args[:3] + [args[3].int()] + args[4:]
+    for bad in (mixed, strided, int32):
+        with pytest.raises(ValueError):
+            PO.pose_optimization(cam, *bad)
+    assert PO.POSE_LM.launches == n0
+
+
 def _arena_equal(a, b):
     return [k for k in a._fields
             if not torch.equal(getattr(a, k), getattr(b, k))]
@@ -777,15 +848,19 @@ def test_graph_frames_bitwise_eager(cuda, graph_scene, branch):
 
 def test_graph_launch_counts(cuda, graph_scene):
     """Kernels W, D (two entries) and describe count one launch a frame on
-    the capture frame and on every replayed frame."""
+    the capture frame and on every replayed frame, the pose-LM kernel two
+    (the motion solve in graph A, TrackLocalMap's in graph B); the graph
+    frames are bitwise their eager twins
+    (``test_graph_frames_bitwise_eager``)."""
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
     tr = graph_scene["tracker"](eager=False)
     kernels = (warp_cuda.WARP_REMAP, TE.ORB_FAST, TE.ORB_SELECT,
-               TE.ORB_DESCRIBE)
+               TE.ORB_DESCRIBE, PO.POSE_LM)
     for k, img in enumerate(graph_scene["frames"][:4]):
         for c in kernels:
             c.launches = 0
         assert tr.track_fisheye(img, k / 30.0) is not None
-        assert [c.launches for c in kernels] == [1, 1, 1, 1]
+        assert [c.launches for c in kernels] == [1, 1, 1, 1, 2]
         row = tr.metrics[-1]
         assert (row["graph_captures"], row["graph_replays"]) == \
             ((2, 0) if k == 0 else (0, 2))
