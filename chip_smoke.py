@@ -73,7 +73,25 @@ whose sha256 digest is printed on a line of its own so that runs can be
 compared across calls, every kernel launched once a frame and the
 segmented sum as often as in the eager drive; the wall ms by kind of
 frame beside the eager drive's); and ``mapping_step`` / ``local_ba`` on
-the card against the CPU on a small arena. The ``slam`` phase loads the
+the card against the CPU on a small arena. Each profiled keyframe frame
+launches the triangulation kernel 6 times (graph K's replays included).
+A fresh eager ``CubemapSLAM`` over the same frames counts the init path's
+triangulation launches and profiles the drive's first mapping step with a
+range around each call graph K makes (the insertion and BoW row, culling,
+the 6 epipolar searches, the 6 triangulations, the gates, the commit, the
+8 fuses, the landmark statistics, keyframe culling), each device
+operation given to its innermost range: ``[graph-k]`` lines of busy ms
+and operations by part. Then the ``triangulate`` phase: the triangulation
+kernel (``csrc/triangulate.cu``, one thread a correspondence) bitwise
+against ``triangulate_rays_ordered`` on the first call of that mapping
+step (recorded as the drive ran) and on seeded problems of 0, 1, 37, 2000
+and 6000 rows with degenerate rows (parallel, axis-aligned, NaN rays; a
+zero baseline; zero pivots), eagerly and from a CUDA graph, and within
+``TRI_REF_RTOL`` of the matmul path it replaced on the rows of
+``tri_ref_rows``; timed by block size, beside ``torch.linalg.eigh`` on
+the same normal matrices and the replaced path. Its launches are counted
+on the slam, repeat, init, reloc, localization and app paths. The
+``slam`` phase loads the
 repo's pretrained vocabulary (``artifacts/vocab_synth_10k.npz``), and each
 keyframe gets its BoW row. The segmented-sum kernel (``csrc/seg_sum.cu``,
 which gives the BA, the pose graph and the landmark normals a fixed order
@@ -174,6 +192,7 @@ from cubemapslam_tpu_torch import dist as D
 from cubemapslam_tpu_torch import interop, native, serialize
 from cubemapslam_tpu_torch import place as PL
 from cubemapslam_tpu_torch import segment as SG
+from cubemapslam_tpu_torch import slam_map as SMAP
 from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
 from cubemapslam_tpu_torch.apps import run_sequence
@@ -185,6 +204,7 @@ from cubemapslam_tpu_torch.optim import residuals as TR
 from cubemapslam_tpu_torch.optim.ba import BAProblem, bundle_adjust
 from cubemapslam_tpu_torch.runtime import FrameTracker
 from cubemapslam_tpu_torch.runtime import kernels as TK
+from cubemapslam_tpu_torch.runtime import mapping as TMAP
 from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.synthetic import (
     landmarks_from_keypoints, perturbed_pose, synthetic_fisheye)
@@ -194,6 +214,7 @@ from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
 from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 from cubemapslam_tpu_torch.solvers import horn_alignment
 from cubemapslam_tpu_torch.solvers import pnp as PNP
+from cubemapslam_tpu_torch.solvers import triangulate as TT
 from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
 
 SEED = 0
@@ -202,9 +223,11 @@ N_FRAMES = 6                  # the first is a warm-up frame
 PROFILE_FRAMES = 3            # frame steps under the profiler
 H100_BYTES_PER_S = 3.35e12    # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12    # float32 outside the tensor cores
+H100_F64_OPS_PER_S = 34e12    # float64 outside the tensor cores, H100 SXM
+                              # data sheet
 TIMING_REPS, TIMING_BATCH = 7, 20
 SOURCES = ("warp_remap.cu", "orb_detect.cu", "orb_describe.cu",
-           "seg_sum.cu", "pose_lm.cu")
+           "seg_sum.cu", "pose_lm.cu", "triangulate.cu")
 # launches of each kernel entry in one frame step
 LAUNCHES_PER_FRAME = 1
 
@@ -311,7 +334,7 @@ DIST_TIMEOUT = 600.0
 # the port's __global__ kernels, as the profiler names them
 PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
                 "select_levels_kernel", "orb_describe_kernel",
-                "seg_sum_kernel", "pose_lm_kernel")
+                "seg_sum_kernel", "pose_lm_kernel", "triangulate_kernel")
 # the segmented-sum kernel at the shapes the main path gives it (full width):
 # (rows, segments, lanes, live segments or None for all, share of rows on
 # the dump id). The CG global BA of the loop arena (20,160 live edges over 14
@@ -419,6 +442,63 @@ def lm_problem(cfg, n, seed, device, noise=0.5, outliers=0.15):
                  (R0, t0, Xw, face, uv.astype(np.float32), inv_s2, valid))
 
 
+# the triangulation kernel (csrc/triangulate.cu): seeded problems at the
+# correspondence counts of a mapping step's neighbour (2000 features) and of
+# init (6000), one not a multiple of a warp, one and none, each with
+# degenerate rows (parallel, axis-aligned and NaN rays); at 2000 also a zero
+# baseline, and an identity rotation with the baseline on the x axis, where
+# the axis-aligned rows give normal matrices with exact zeros off the
+# diagonal (rotations with M[p][q] == 0). Block sizes timed beside the
+# port's (TRI_THREADS); the bound on the replaced matmul path's points.
+TRI_SIZES = (0, 1, 37, 2000, 6000)
+TRI_BLOCKS = (32, 64, 128)
+TRI_REF_RTOL = 1e-5           # relative, on the rows of tri_ref_rows
+TRI_REF_DEG = 1.0             # parallax and ray-consistency angle of those
+# float64 operations of the kernel a correspondence, counted from its
+# source: A's camera-2 rows (3 negations, 12 entries of 2 products and a
+# sum) and camera-1 negations 42; the 10 entries of M (6 products, 5 sums)
+# 110; each of the 36 rotations 19 for c and s (14 arithmetic, 5 compares
+# and selects) and 72 for the rows and columns of M and the columns of V
+# (24 entries of 2 products and a sum); the argmin 9 and the division 6
+TRI_OPS = 42 + 110 + 36 * (19 + 72) + 9 + 6
+TRI_BYTES = 12 + 12 + 12      # two rays read, a point written
+
+
+def tri_problem(n, seed, device, kind="mixed"):
+    """A seeded triangulation problem on ``device``: (rays1, rays2, R21,
+    t21) float32 of n points 2-10 map units in front of camera 1, seen from
+    a pose 0.8 units away with 1e-3 of ray noise. ``kind`` "mixed": every
+    16th row from 1 has parallel rays (r2 = R21 r1), from 2 both rays on
+    the z axis, from 3 both on x, from 4 a NaN in r1, from 5 a NaN in r2;
+    "zero_baseline": t21 = 0; "axis": R21 = I and t21 on the x axis, with
+    the mixed rows."""
+    rng = np.random.default_rng([seed, n])
+    pts = rng.uniform(-4.0, 4.0, (n, 3))
+    pts[:, 2] += 6.0
+    R21 = so3_exp(torch.tensor([0.03, -0.08, 0.01],
+                               dtype=torch.float64)).numpy()
+    t21 = np.array([0.8, 0.15, -0.1])
+    if kind == "zero_baseline":
+        t21 = np.zeros(3)
+    if kind == "axis":
+        R21, t21 = np.eye(3), np.array([0.8, 0.0, 0.0])
+    rays = []
+    for P in (pts, pts @ R21.T + t21):
+        r = P / np.linalg.norm(P, axis=1, keepdims=True)
+        r = r + rng.normal(0, 1e-3, r.shape)
+        rays.append(r / np.linalg.norm(r, axis=1, keepdims=True))
+    r1, r2 = rays
+    if kind != "zero_baseline":
+        i = np.arange(n) % 16
+        r2[i == 1] = r1[i == 1] @ R21.T
+        r1[i == 2] = r2[i == 2] = (0.0, 0.0, 1.0)
+        r1[i == 3] = r2[i == 3] = (1.0, 0.0, 0.0)
+        r1[i == 4, 1] = np.nan
+        r2[i == 5, 2] = np.nan
+    return tuple(torch.as_tensor(np.ascontiguousarray(x, np.float32))
+                 .to(device) for x in (r1, r2, R21, t21))
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -466,10 +546,11 @@ def graph_ms(fn) -> float:
     return time_ms(graph.replay) / TIMING_BATCH
 
 
-def bound(nbytes: float, nops: float):
-    """Least time on an H100 (ms) and what bounds it."""
+def bound(nbytes: float, nops: float, ops_per_s: float = H100_F32_OPS_PER_S):
+    """Least time on an H100 (ms) and what bounds it; ``nops`` at the
+    float32 rate unless another is given."""
     tb = nbytes / H100_BYTES_PER_S * 1e3
-    to = nops / H100_F32_OPS_PER_S * 1e3
+    to = nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -707,6 +788,43 @@ POSE_LAUNCHES = {}
 # (camera, arguments) of the pose solves of the eager map-tracking run's
 # first frame, recorded for check_pose_lm
 LM_INPUTS = []
+# the triangulation kernel's launches by path, each counted from 0 around
+# its drive: 4 a two-view reconstruction at init, 6 a mapping step
+TRI_LAUNCHES = {}
+# the arguments of the first triangulate_rays call of the slam drive's
+# first mapping step, recorded for check_triangulate
+TRI_INPUTS = []
+
+
+def tri_launches(tag, n_frames, required=True):
+    """The triangulation launches since the counters were set to 0,
+    recorded as the ``tag`` path's; with ``required`` the path must have
+    launched the kernel."""
+    n = TT.TRIANGULATE.launches
+    TRI_LAUNCHES[tag] = n
+    log(f"[{tag}] triangulate: launches in {n_frames} frames {n}")
+    if required and n <= 0:
+        raise AssertionError(f"the {tag} path launched no triangulation "
+                             f"kernel")
+    return n
+
+
+@contextlib.contextmanager
+def recording_triangulation(store):
+    """Record the cloned arguments of the first ``triangulate_rays`` call
+    of the mapping stages into ``store`` while the context is open."""
+    inner = TMAP.triangulate_rays
+
+    def recorded(*args):
+        if not store:
+            store.append(tuple(a.clone() for a in args))
+        return inner(*args)
+
+    TMAP.triangulate_rays = recorded
+    try:
+        yield store
+    finally:
+        TMAP.triangulate_rays = inner
 
 
 def pose_launches(tag, n_frames):
@@ -895,6 +1013,162 @@ def check_pose_lm(cfg, real):
     return row
 
 
+
+
+def same_float_bits(a, b):
+    """Equal bits wherever neither is NaN, and NaN at the same places."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32)))
+
+
+def wide_rows(args):
+    """Rows of a triangulation problem whose rays part by >= TRI_REF_DEG."""
+    r1, r2, R21, _ = args
+    return (r1 * (r2 @ R21)).sum(-1) < math.cos(math.radians(TRI_REF_DEG))
+
+
+def tri_ref_rows(args, X):
+    """The rows on which the kernel is held to the path it replaced, whose
+    points are ``X``: rays parting by >= TRI_REF_DEG, and a point that is
+    finite, within 50 baselines of camera 1 (the mapping's depth gate) and
+    within TRI_REF_DEG of both rays, as a match the mapping's gates keep.
+    Elsewhere (rays that do not meet: the unmatched rows of a mapping
+    step's candidates) the two smallest eigenvalues may lie close, and the
+    two paths' roundings pick different vectors."""
+    r1, r2, R21, t21 = args
+    cos = math.cos(math.radians(TRI_REF_DEG))
+    d1 = torch.linalg.norm(X, dim=-1)
+    X2 = X @ R21.T + t21
+    d2 = torch.linalg.norm(X2, dim=-1)
+    return (wide_rows(args) & torch.isfinite(X).all(-1) & (d1 > 0)
+            & (d1 <= 50.0 * torch.linalg.norm(t21))
+            & ((X * r1).sum(-1) >= cos * d1)
+            & ((X2 * r2).sum(-1) >= cos * d2))
+
+
+def tri_case(name, args):
+    """The kernel against ``triangulate_rays_ordered`` on one input, from
+    one launch and from a CUDA graph replay of it, and against the matmul
+    path it replaced (run on the card) within TRI_REF_RTOL on the rows of
+    wide parallax. The case's dict."""
+    n = args[0].shape[0]
+    n0 = TT.TRIANGULATE.launches
+    X = TT.triangulate_cuda(*args)
+    torch.cuda.synchronize()
+    launched = TT.TRIANGULATE.launches - n0
+    ref = TT.triangulate_rays_ordered(*args)
+    Xg = X
+    if n:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            with torch.cuda.graph(graph, stream=side):
+                Xg = TT.triangulate_cuda(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        Xg.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+    old = TT.triangulate_rays_matmul(*args)
+    fin = torch.isfinite(X).all(-1)
+    both = fin & torch.isfinite(ref).all(-1)
+    err = float((X - ref)[both].abs().max()) if bool(both.any()) else 0.0
+    rel = torch.linalg.norm(X - old, dim=-1) / torch.linalg.norm(old, dim=-1)
+    held = tri_ref_rows(args, old)
+    rest = wide_rows(args) & fin & torch.isfinite(old).all(-1) & ~held
+    gap = float(rel[held].max()) if bool(held.any()) else 0.0
+    gap_rest = float(rel[rest].max()) if bool(rest.any()) else 0.0
+    c = dict(name=name, n=n, bitwise=same_float_bits(X, ref),
+             graph_bitwise=same_float_bits(Xg, ref), max_abs_err=err,
+             finite=int(fin.sum()), finite_as_replaced=bool(torch.equal(
+                 fin, torch.isfinite(old).all(-1))),
+             held=int(held.sum()), replaced_rel_gap=gap,
+             other_wide=int(rest.sum()), other_wide_rel_gap=gap_rest,
+             launches=launched)
+    log(f"[triangulate] {name}: {n} correspondences, {c['finite']} finite "
+        f"(the replaced path's mask the same: {c['finite_as_replaced']}), "
+        f"bitwise {c['bitwise']}, from a graph {c['graph_bitwise']}, max "
+        f"|err| {err:.3g}; {launched} launch(es); against the replaced "
+        f"matmul path on {c['held']} rows of tri_ref_rows: largest relative "
+        f"gap {gap:.3g} (bound {TRI_REF_RTOL}); on the {c['other_wide']} "
+        f"other finite wide rows (not held) {gap_rest:.3g}")
+    if not (c["bitwise"] and c["graph_bitwise"]
+            and launched == (1 if n else 0) and gap <= TRI_REF_RTOL):
+        raise AssertionError(f"the triangulation kernel differs from its "
+                             f"plain version, or from the replaced path, "
+                             f"on {name}")
+    return c
+
+
+def check_triangulate(real):
+    """The triangulation kernel (``csrc/triangulate.cu``) on the card: on
+    ``real``, the first ``triangulate_with_neighbor`` call of the slam
+    drive's first mapping step (recorded as it ran), and on ``tri_problem``
+    inputs of TRI_SIZES and the two 2000-row specials, ``tri_case`` each.
+    Timed on the real input: a wrapper call, the device's time from a CUDA
+    graph (and at each of TRI_BLOCKS), the plain version's wall time, the
+    library call (``torch.linalg.eigh`` of the same (N,4,4) float64 normal
+    matrices, a non-finite one replaced by the identity; it waits for the
+    host) and what the kernel replaced, the matmul path (device ms from a
+    CUDA graph, its device operations from the profiler, eager wall ms).
+    Returns the kernel's JSON row, without its launches."""
+    cases = [tri_case("slam, first mapping step, first neighbour", real)]
+    for n in TRI_SIZES:
+        cases.append(tri_case(f"seeded, {n} rows", tri_problem(
+            n, SEED + 6, "cuda")))
+    for kind in ("zero_baseline", "axis"):
+        cases.append(tri_case(f"seeded {kind}, 2000 rows", tri_problem(
+            2000, SEED + 7, "cuda", kind)))
+    n = real[0].shape[0]
+    b_ms, b_by = bound(n * TRI_BYTES + 4 * 12, n * TRI_OPS,
+                       H100_F64_OPS_PER_S)
+    M = TT.normal_matrices(*real)
+    ok = torch.isfinite(M).all(-1).all(-1)
+    M = torch.where(ok[:, None, None], M,
+                    torch.eye(4, dtype=M.dtype, device=M.device))
+
+    def kernel():
+        return TT.triangulate_cuda(*real)
+
+    def replaced():
+        return TT.triangulate_rays_matmul(*real)
+
+    blocks = {b: graph_ms(lambda b=b: TT.triangulate_cuda(*real, threads=b))
+              for b in TRI_BLOCKS}
+    prof = profile_stages(replaced, (), 1)
+    row = dict(name="triangulate", route="cuda",
+               source="cubemapslam_tpu_torch/csrc/triangulate.cu",
+               replaces="cubemapslam_tpu/solvers/triangulate.py:18 "
+                        "(triangulate_rays: a batched XLA SVD at :33 inside "
+                        "the vmapped mapping program; no pallas_call)",
+               shape=f"{n} correspondences, blocks of {TT.TRI_THREADS}",
+               max_abs_err=max(c["max_abs_err"] for c in cases),
+               bitwise=all(c["bitwise"] and c["graph_bitwise"]
+                           for c in cases),
+               ms=time_ms(kernel), device_ms=graph_ms(kernel),
+               device_ms_by_block={str(b): v for b, v in blocks.items()},
+               plain_ms=wall_ms(lambda: TT.triangulate_rays_ordered(*real)),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_ms(lambda: torch.linalg.eigh(M)),
+               library_call="torch.linalg.eigh on the (N,4,4) float64 "
+                            "normal matrices",
+               replaced_graph_ms=graph1_ms(replaced),
+               replaced_eager_ms=wall_ms(replaced),
+               replaced_device_ops=prof["device_ops"],
+               replaced_rel_gap=max(c["replaced_rel_gap"] for c in cases),
+               cases=cases)
+    log(f"[triangulate] row: kernel {row['ms']:.5f} ms (device "
+        f"{row['device_ms']:.5f}; by block size "
+        + ", ".join(f"{b} {v:.5f}" for b, v in blocks.items())
+        + f"), plain (kernel order) {row['plain_ms']:.3f} ms, the replaced "
+        f"matmul path {row['replaced_graph_ms']:.3f} ms from a CUDA graph "
+        f"({row['replaced_device_ops']:.0f} device operations) and "
+        f"{row['replaced_eager_ms']:.3f} ms eager; library (eigh) "
+        f"{row['library_ms']:.5f} ms; bound {b_ms:.6f} ms ({b_by}: "
+        f"{TRI_OPS} float64 operations a row)")
+    return row
 
 
 def seg_sum_cases(cam, arena, inv_s2):
@@ -1738,7 +2012,8 @@ def drive_slam(slam, poses, frames, counters):
     torch.cuda.reset_peak_memory_stats()
     slam.stage_times = {}
     walls, n_new, first_ok = [], [], None
-    with seg_tally(slam.mapping, ("mapping_step", "local_ba"), seg):
+    with seg_tally(slam.mapping, ("mapping_step", "local_ba"), seg), \
+            recording_triangulation(TRI_INPUTS):
         for i in range(SLAM_FRAMES):
             torch.cuda.synchronize()
             t_start = time.perf_counter()
@@ -1758,6 +2033,7 @@ def drive_slam(slam, poses, frames, counters):
                 for name, group in counters.items()}
     SEG_LAUNCHES["slam"] = dict(total=SG.SEG_SUM.launches, **seg)
     pose_launches("slam", SLAM_FRAMES)
+    tri_launches("slam", SLAM_FRAMES)
     log(f"[slam] seg_sum: launches in {SLAM_FRAMES} frames "
         f"{SEG_LAUNCHES['slam']} (by MappingKernels method)")
     if not (seg.get("mapping_step") and seg.get("local_ba")):
@@ -1871,14 +2147,17 @@ def profiled_slam(slam, frames, walls, graph_walls, tag, replays):
             # on this frame, so the BA pending since the last keyframe
             # runs (frames that keep inserting keyframes would never run it)
             slam.last_kf_frame_id = slam.frame_id
+        n_tri = TT.TRIANGULATE.launches
         prof = profile_stages(
             lambda: slam.track_fisheye(frames[i], i / slam.cfg.fps),
             SLAM_STAGES, 1)
+        n_tri = TT.TRIANGULATE.launches - n_tri
         row = slam.metrics[-1]
         kind = ("keyframe" if row.get("keyframe")
                 else "ba" if row.get("ba") else None)
         fm = slam.fused_mapping
-        log(f"[{tag}] frame {i}: {kind or 'tracked'}"
+        log(f"[{tag}] frame {i}: {kind or 'tracked'}; triangulation "
+            f"launches {n_tri}"
             f"{' (keyframe insertion held)' if held else ''}; host reads "
             f"{row.get('host_reads')}; graphs captured "
             f"{row.get('graph_captures', 0)}, replayed "
@@ -1894,6 +2173,10 @@ def profiled_slam(slam, frames, walls, graph_walls, tag, replays):
                 f"{fm.capture_mib:.1f} MiB reserved by their pool")
         if row["state"] != "OK":
             raise AssertionError(f"profiled frame {i} was not tracked")
+        if n_tri != (6 if kind == "keyframe" else 0):
+            raise AssertionError(f"profiled {kind or 'tracked'} frame {i} "
+                                 f"launched the triangulation kernel {n_tri} "
+                                 f"times (a mapping step: 6, else 0)")
         replayed = (row.get("graph_mapping_replays", 0) > 0
                     and row.get("graph_mapping_captures", 0) == 0)
         if kind and (replayed or not replays) and want[kind] is None:
@@ -1943,6 +2226,119 @@ def profiled_init(cfg, frames, first_ok, walls):
     log(f"[init-profile] frame {first_ok}: host reads {row['host_reads']}, "
         f"SVD waits {row['svd_waits']}, host waits {prof['host_waits']:.0f}")
     log_profile("init-profile", prof, walls)
+
+
+# graph K's parts, as ranges around the calls that make them (profiler
+# names), each kernel given to the innermost range around it: the insertion
+# and BoW row, then the mapping step's own
+GRAPH_K_PARTS = {
+    "k.insert": "insert + BoW row",
+    "k.covis": "incidence, covisibility, observation counts",
+    "k.cull_points": "culling (map points)",
+    "k.epipolar": "6 epipolar searches",
+    "k.triangulate": "6 triangulations",
+    "k.pair": "6 x gates (with each pair's geometry)",
+    "k.commit": "the commit",
+    "k.fuse": "8 fuses (+ the redirect)",
+    "k.stats": "landmark statistics",
+    "k.cull_kf": "keyframe culling",
+    "k.step": "the rest of mapping_step (neighbours, winner, diagnostics)",
+}
+
+
+@contextlib.contextmanager
+def graph_k_ranges(slam):
+    """Each call that graph K makes on ``slam`` wrapped in its
+    GRAPH_K_PARTS range while the context is open."""
+    m = slam.mapping
+    targets = [(slam.kernels, "insert_keyframe", "k.insert"),
+               (slam, "_update_bow", "k.insert"),
+               (SMAP, "incidence_matrix", "k.covis"),
+               (SMAP, "covisibility_matrix", "k.covis"),
+               (SMAP, "observation_counts", "k.covis"),
+               (m, "cull_map_points", "k.cull_points"),
+               (TMAP.M, "search_for_triangulation", "k.epipolar"),
+               (TMAP, "triangulate_rays", "k.triangulate"),
+               (m, "triangulate_with_neighbor", "k.pair"),
+               (m, "commit_new_landmarks_multi", "k.commit"),
+               (m, "fuse_pair", "k.fuse"),
+               (SMAP, "apply_redirect", "k.fuse"),
+               (SMAP, "update_landmark_stats_touched", "k.stats"),
+               (m, "cull_keyframes", "k.cull_kf"),
+               (m, "mapping_step", "k.step")]
+    saved = []
+    for obj, attr, rng in targets:
+        inner = getattr(obj, attr)
+
+        def ranged(*args, _inner=inner, _rng=rng, **kwargs):
+            with record_function(_rng):
+                return _inner(*args, **kwargs)
+
+        saved.append((obj, attr, obj.__dict__.get(attr), inner))
+        setattr(obj, attr, ranged)
+    try:
+        yield
+    finally:
+        for obj, attr, own, inner in reversed(saved):
+            if own is None and not isinstance(obj, types.ModuleType):
+                delattr(obj, attr)          # the method again
+            else:
+                setattr(obj, attr, inner)
+
+
+def graph_k_breakdown(cfg, frames, first_ok, first_map):
+    """A fresh ``CubemapSLAM`` over the slam drive's frames, eagerly
+    (``stage_times`` set), as the drive ran them: the triangulation
+    launches of the frames up to the initializing one (the ``init``
+    path), then frame ``first_map``, the drive's first mapping step, under
+    the profiler with GRAPH_K_PARTS ranges around the calls that graph K
+    would replay. Each device operation inside the insertion or the
+    mapping step goes to the innermost range around it. Prints each part's
+    device busy ms and operations, most first."""
+    slam = CubemapSLAM(cfg, seed=SEED)
+    slam.stage_times = {}
+    TT.TRIANGULATE.launches = 0
+    for i in range(first_map):
+        slam.track_fisheye(frames[i], i / cfg.fps)
+        if i == first_ok:
+            tri_launches("init", first_ok + 1)
+    n0 = TT.TRIANGULATE.launches
+    with graph_k_ranges(slam), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        slam.track_fisheye(frames[first_map], first_map / cfg.fps)
+        torch.cuda.synchronize()
+    row = slam.metrics[-1]
+    if not row.get("keyframe") or TT.TRIANGULATE.launches - n0 != 6:
+        raise AssertionError(f"frame {first_map} of the breakdown made no "
+                             f"mapping step of 6 triangulations")
+    events = raw_events(prof)
+    cpu_names = {e[0] for e in events if not e[1]}
+    dev = [e for e in events if e[1]]
+    spans = [(e[3] - e[2], e[2], e[3], e[0]) for e in dev
+             if e[0] in GRAPH_K_PARTS]
+    outer = [sp for sp in spans if sp[3] in ("k.insert", "k.step")]
+    parts = {k: [0.0, 0] for k in GRAPH_K_PARTS}
+    tri_kernels = 0
+    for name, _, a, b, _ in dev:
+        if name in cpu_names or not any(o[1] <= a < o[2] for o in outer):
+            continue
+        part = min(sp for sp in spans if sp[1] <= a < sp[2])[3]
+        parts[part][0] += (b - a) / 1e6
+        parts[part][1] += 1
+        tri_kernels += "triangulate_kernel" in name
+    busy = sum(v[0] for v in parts.values())
+    ops = sum(v[1] for v in parts.values())
+    log(f"[graph-k] frame {first_map}, the slam drive's first mapping step, "
+        f"eager under the profiler: graph K's calls {busy:.3f} ms device "
+        f"busy in {ops} operations; triangulation kernels {tri_kernels}")
+    for k, (ms, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
+        log(f"[graph-k]   {GRAPH_K_PARTS[k]:58s} {ms:9.3f} ms "
+            f"{n:6d} operations")
+    if tri_kernels != 6:
+        raise AssertionError("the profiled mapping step did not run the "
+                             "triangulation kernel 6 times")
+    return parts
 
 
 INTEGER_VIEWS = ("kf_valid", "kf_frame_id", "kf_face", "kf_level", "kf_desc",
@@ -2054,6 +2450,9 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
     if pose_launches("repeat", SLAM_FRAMES) != POSE_LAUNCHES["slam"]:
         raise AssertionError("the repeat run's pose-LM launches differ from "
                              "the eager drive's")
+    if tri_launches("repeat", SLAM_FRAMES) != TRI_LAUNCHES["slam"]:
+        raise AssertionError("the repeat run's triangulation launches "
+                             "differ from the eager drive's")
     rows = slam.metrics
     graph_frames = sum(1 for r in rows if r.get("graph_replays"))
     captures = sum(r.get("graph_captures", 0) for r in rows)
@@ -2161,6 +2560,9 @@ def slam_phase(cfg, counters):
                   True)
     del replay_slam
     profiled_init(cfg, frames, first_ok, walls)
+    first_map = next(i for i, r in enumerate(slam.metrics[:SLAM_FRAMES])
+                     if r.get("keyframe") and r.get("stage") != "init")
+    graph_k_breakdown(cfg, frames, first_ok, first_map)
     del snap
     small_mapping_reference_check()
     return slam, poses, frames, launches, g_launches, ate
@@ -2176,6 +2578,7 @@ def zero_launches(counters):
             c.launches = 0
     SG.SEG_SUM.launches = 0
     PO.POSE_LM.launches = 0
+    TT.TRIANGULATE.launches = 0
 
 
 def read_launches(counters, tag, n_frames):
@@ -2187,6 +2590,7 @@ def read_launches(counters, tag, n_frames):
     log(f"[{tag}] seg_sum: launches in {n_frames} frames "
         f"{SG.SEG_SUM.launches}")
     pose_launches(tag, n_frames)
+    tri_launches(tag, n_frames, required=False)
     for name, by_kernel in launches.items():
         log(f"[{tag}] {name}: launches in {n_frames} frames {by_kernel}")
         for sym, n in by_kernel.items():
@@ -2814,6 +3218,8 @@ def app_phase(poses, frames, counters, settings="none", device=None):
     if not SEG_LAUNCHES["app"]["total"]:
         raise AssertionError("the runner's mapping launched no segmented "
                              "sum")
+    if not TRI_LAUNCHES["app"]:
+        raise AssertionError("the runner launched no triangulation kernel")
     for line in out.getvalue().splitlines():
         log(f"[app] | {line}")
     if rc != 0:
@@ -3051,6 +3457,10 @@ def main() -> int:
     slam, s_poses, s_frames, s_launches, g_launches, ate = slam_phase(
         cfg, counters)
     done("slam")
+    if not TRI_INPUTS:
+        raise AssertionError("the slam drive's mapping made no triangulation")
+    tri_row = check_triangulate(TRI_INPUTS.pop())
+    done("triangulate")
     r_launches = reloc_phase(slam, s_poses, s_frames, ate, counters)
     done("reloc")
     l_launches = localization_phase(slam, s_poses, s_frames, ate, counters)
@@ -3090,6 +3500,11 @@ def main() -> int:
     pose_row["launches"] = POSE_LAUNCHES["frame_step"]
     pose_row["launches_by_path"] = POSE_LAUNCHES
     rows.append(pose_row)
+    # the triangulation kernel: one launch a call, 6 a mapping step and 4 a
+    # two-view reconstruction, counted on each path
+    tri_row["launches"] = TRI_LAUNCHES["slam"]
+    tri_row["launches_by_path"] = TRI_LAUNCHES
+    rows.append(tri_row)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" \
     / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCE_FLAGS: Dict[str, Sequence[str]] = {"pose_lm.cu": ("-fmad=false",)}
+SOURCE_FLAGS: Dict[str, Sequence[str]] = {"pose_lm.cu": ("-fmad=false",),
+                                          "triangulate.cu": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -58,7 +58,14 @@ tests' seeded problems: the same iterations a round, R and t bitwise
 equal (1e-6 is the bound asked for), the inlier masks equal; with no
 valid edge and no edge; its wrapper raising on a device mix, a strided
 input and a wrong dtype; and two launches a graph frame of
-``MapTracker``.
+``MapTracker``. The triangulation kernel (``csrc/triangulate.cu``) against
+``triangulate_rays_ordered`` on ``chip_smoke.tri_problem`` inputs (N = 0,
+1, 37, 2000, 6000 with degenerate rows; a zero baseline; zero pivots):
+bitwise, NaN where NaN, eagerly and from a CUDA graph, one launch a call,
+within ``chip_smoke.TRI_REF_RTOL`` of the matmul path it replaced on rows
+of wide parallax; no build for CPU tensors; its wrapper raising on a wrong
+dtype, shape or device and a strided input; 6 launches a keyframe frame
+(graph K's replays included).
 """
 
 import math
@@ -673,6 +680,69 @@ def test_pose_lm_wrapper_raises(cuda):
     assert PO.POSE_LM.launches == n0
 
 
+def _tri_cases():
+    return ([("mixed", n) for n in chip_smoke.TRI_SIZES]
+            + [("zero_baseline", 2000), ("axis", 2000)])
+
+
+@pytest.mark.parametrize("kind,n", _tri_cases())
+def test_triangulate_kernel_bitwise(cuda, kind, n):
+    """The triangulation kernel (``csrc/triangulate.cu``) against
+    ``triangulate_rays_ordered`` on ``chip_smoke.tri_problem`` inputs: N =
+    0, 1, 37, 2000 and 6000 with parallel, axis-aligned and NaN rows, a
+    zero baseline, and an identity rotation whose axis-aligned rows meet
+    zero pivots. Bitwise (NaN where NaN), from one launch and from a CUDA
+    graph replay; one launch a call (none at N = 0); within
+    ``chip_smoke.TRI_REF_RTOL`` of the matmul path it replaced on the rows
+    of wide parallax (``chip_smoke.tri_case`` raises otherwise)."""
+    from cubemapslam_tpu_torch.solvers import triangulate as TT
+    args = chip_smoke.tri_problem(n, chip_smoke.SEED + 6, cuda, kind)
+    c = chip_smoke.tri_case(f"{kind}, {n} rows", args)
+    assert c["bitwise"] and c["graph_bitwise"]
+    assert c["launches"] == (1 if n else 0)
+    n0 = TT.TRIANGULATE.launches
+    X = TT.triangulate_rays(*args)
+    assert TT.TRIANGULATE.launches == n0 + (1 if n else 0)
+    assert chip_smoke.same_float_bits(X, TT.triangulate_rays_ordered(*args))
+    if kind == "mixed" and n >= 37:
+        assert not torch.isfinite(X[4::16]).all(-1).any()
+        assert torch.isfinite(X[6::16]).all()
+
+
+def test_triangulate_cpu_call_builds_nothing(cuda, monkeypatch):
+    """A call on CPU tensors takes the plain path: it neither builds nor
+    launches the kernel, even with a card present."""
+    from cubemapslam_tpu_torch import _build
+    from cubemapslam_tpu_torch.solvers import triangulate as TT
+
+    def no_build(source):
+        raise AssertionError(f"{source} built for a CPU call")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(TT.TRIANGULATE, "_fn", None)
+    n0 = TT.TRIANGULATE.launches
+    X = TT.triangulate_rays(*chip_smoke.tri_problem(37, 1, "cpu"))
+    assert X.device.type == "cpu" and X.shape == (37, 3)
+    assert TT.TRIANGULATE.launches == n0 and TT.TRIANGULATE._fn is None
+
+
+def test_triangulate_wrapper_raises(cuda):
+    """The kernel's wrapper raises on a float64 ray, a strided ray, a
+    CPU/CUDA mix and a wrong shape; it launches nothing then."""
+    from cubemapslam_tpu_torch.solvers import triangulate as TT
+    args = list(chip_smoke.tri_problem(100, 5, cuda))
+    wide = torch.zeros((100, 4), device=cuda)
+    wide[:, :3] = args[0]
+    bad = [[args[0].double()] + args[1:], [wide[:, :3]] + args[1:],
+           args[:3] + [args[3].cpu()], args[:2] + [args[2].reshape(9)]
+           + args[3:], [args[0][:50]] + args[1:]]
+    n0 = TT.TRIANGULATE.launches
+    for b in bad:
+        with pytest.raises(ValueError):
+            TT.triangulate_rays(*b)
+    assert TT.TRIANGULATE.launches == n0
+
+
 def _arena_equal(a, b):
     return [k for k in a._fields
             if not torch.equal(getattr(a, k), getattr(b, k))]
@@ -987,8 +1057,9 @@ def _slam_run(cuda, cfg, frames, eager, close_loop=False):
     segmented sum)."""
     from cubemapslam_tpu_torch import segment as SG
     from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    from cubemapslam_tpu_torch.solvers import triangulate as TT
     counters = (warp_cuda.WARP_REMAP, TE.ORB_FAST, TE.ORB_SELECT,
-                TE.ORB_DESCRIBE, SG.SEG_SUM)
+                TE.ORB_DESCRIBE, SG.SEG_SUM, TT.TRIANGULATE)
     slam = CubemapSLAM(cfg, device=cuda)
     slam.stage_times = {} if eager else None
     if close_loop:
@@ -1040,19 +1111,31 @@ def test_mapping_graphs_bitwise_eager(cuda, slam_runs):
 
 
 def test_mapping_graph_launch_counts(cuda, slam_runs):
-    """Launch counts add up across replays: every kernel entry and the
-    segmented sum count, frame by frame, what the eager frames launch; W,
-    D's two entries and describe once a frame, and the segmented sum on
-    every keyframe and deferred-BA frame."""
+    """Launch counts add up across replays: every kernel entry, the
+    segmented sum and the triangulation kernel count, frame by frame, what
+    the eager frames launch; W, D's two entries and describe once a frame,
+    the segmented sum on every keyframe and deferred-BA frame, the
+    triangulation 6 times on a keyframe frame after init (graph K's
+    replays included) and 4 a two-view reconstruction while initializing."""
     (_, e_states, e_launch), (g_slam, _, g_launch) = (slam_runs[True],
                                                       slam_runs[False])
     assert e_launch == g_launch
+    mapped = init = 0
     for row, n in zip(g_slam.metrics, g_launch):
         assert [n[s] for s in ("warp_remap_launch", "orb_fast_launch",
                                "orb_select_launch", "orb_describe_launch")
                 ] == [1, 1, 1, 1]
         if row.get("keyframe") or row.get("ba"):
             assert n["seg_sum_launch"] > 0
+        if row.get("stage") == "init":
+            assert n["triangulate_launch"] % 4 == 0
+            init += n["triangulate_launch"]
+        elif row.get("keyframe"):
+            assert n["triangulate_launch"] == 6
+            mapped += row.get("graph_mapping_replays", 0) > 0
+        else:
+            assert n["triangulate_launch"] == 0
+    assert init > 0 and mapped > 0
 
 
 @pytest.fixture(scope="module")
