@@ -37,12 +37,15 @@ and the 2 reads); forces the fallback, velocity-gate and blank-frame
 branches eagerly and through the graphs, bitwise equal; and holds
 ``MapTracker`` on the card against the CPU on a small map. A graph frame
 must run fewer than ``GRAPH_MAX_OPS`` device operations. The pose-LM kernel
-(``csrc/pose_lm.cu``, the whole pose-only LM in one launch) is then held
-against its kernel-order plain version (``pose_optimization_ordered``) on
-the first pose solve of the eager run's first frame (recorded as the frame
-ran; the graph run's is the same bits) and on seeded problems of 37, 2000
-and 6000 edges, and timed beside the masked eager LM it replaced (from a
-CUDA graph and eagerly) and its serial floor (no edge, every iteration).
+(``csrc/pose_lm.cu``, the whole pose-only LM in one launch of one cluster
+of 1, 2, 4 or 8 blocks) is then held bitwise against its kernel-order plain
+version (``pose_optimization_ordered``) at every cluster size on the first
+pose solve of the eager run's first frame (recorded as the frame ran; the
+graph run's is the same bits) and on seeded problems of 37, 2000 and 6000
+edges, timed at every cluster size on each (device, wrapper, a pass) with
+its serial floor (no edge, every iteration) and the ptxas line of each
+size, and, at the size the wrapper picks, beside the masked eager LM it
+replaced (from a CUDA graph and eagerly).
 Its launches are counted from 0 around the drive of every path (frame step,
 tracking eagerly and through the graphs, slam, repeat, reloc, localization,
 app), each required > 0, the graph run's equal to the eager run's and the
@@ -171,6 +174,7 @@ import io
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -508,6 +512,20 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def lm_ptxas_lines(text: str):
+    """The ptxas lines (spills, registers) of each cluster size's pose-LM
+    kernel in an nvcc -Xptxas -v log, as "C=<size>: ..."."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"pose_lm_kernelILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            cur = m.group(1) if m else None
+        elif cur and ("spill" in line or "Used" in line):
+            out.append(f"C={cur}: "
+                       + re.sub(r"^ptxas info\s*:\s*", "", line.strip()))
+    return out
 
 
 def time_ms(fn) -> float:
@@ -922,67 +940,101 @@ def graph1_ms(fn, reps=5):
 
 
 def lm_case(name, cam, args):
-    """The kernel against ``pose_optimization_ordered`` on one input: one
-    launch; the iterations of each round, R, t, the inlier mask and its
-    count. The case's dict (bitwise or not, the largest pose
-    difference)."""
-    n0 = PO.POSE_LM.launches
-    R, t, inl, n_inl, iters = PO.pose_lm(cam, *args)
-    torch.cuda.synchronize()
-    one = PO.POSE_LM.launches == n0 + 1
+    """The kernel against ``pose_optimization_ordered`` on one input, at
+    every cluster size of ``pose_opt.LM_CLUSTERS``: one launch a call; the
+    iterations of each round, R, t, the inlier mask and its count, bitwise
+    (the order of sums does not depend on the cluster size). The case's
+    dict (the largest pose difference, bitwise by cluster size)."""
     ref = PO.pose_optimization_ordered(cam, *args)
-    err = max(float((R - ref[0]).abs().max()),
-              float((t - ref[1]).abs().max()))
-    c = dict(name=name, n=args[2].shape[0], iters=iters.tolist(),
-             counted=ref[5].tolist(), inliers=int(n_inl),
-             bitwise=bool(torch.equal(R, ref[0]) and torch.equal(t, ref[1])
-                          and torch.equal(inl, ref[2])
-                          and int(n_inl) == int(ref[3])
-                          and torch.equal(iters.long(), ref[4].long())),
-             max_abs_err=err, one_launch=one)
+    c = dict(name=name, n=args[2].shape[0], iters=ref[4].tolist(),
+             counted=ref[5].tolist(), inliers=int(ref[3]), max_abs_err=0.0,
+             bitwise_by_cluster={})
+    for cluster in PO.LM_CLUSTERS:
+        n0 = PO.POSE_LM.launches
+        R, t, inl, n_inl, iters = PO.pose_lm(cam, *args, cluster=cluster)
+        torch.cuda.synchronize()
+        one = PO.POSE_LM.launches == n0 + 1
+        err = max(float((R - ref[0]).abs().max()),
+                  float((t - ref[1]).abs().max()))
+        same = bool(torch.equal(R, ref[0]) and torch.equal(t, ref[1])
+                    and torch.equal(inl, ref[2])
+                    and int(n_inl) == int(ref[3])
+                    and torch.equal(iters.long(), ref[4].long()))
+        c["max_abs_err"] = max(c["max_abs_err"], err)
+        c["bitwise_by_cluster"][cluster] = same
+        if not (one and same):
+            raise AssertionError(
+                f"the pose-LM kernel on a cluster of {cluster} differs from "
+                f"its plain version on {name} (one launch {one}, iterations "
+                f"{iters.tolist()} against {ref[4].tolist()}, max |err| "
+                f"{err:.3g})")
+    c["bitwise"] = all(c["bitwise_by_cluster"].values())
     log(f"[pose_lm] {name}: {c['n']} edges, iterations a round "
-        f"{c['iters']} (plain {ref[4].tolist()}), edges summed a round "
-        f"{c['counted']}, {c['inliers']} inliers (plain {int(ref[3])}); "
-        f"bitwise {c['bitwise']}, max |err| {err:.3g}")
-    if not (one and err <= 1e-6 and torch.equal(inl, ref[2])
-            and c["iters"] == ref[4].tolist()):
-        raise AssertionError(f"the pose-LM kernel differs from its plain "
-                             f"version on {name}")
+        f"{c['iters']}, edges summed a round {c['counted']}, "
+        f"{c['inliers']} inliers; bitwise at cluster sizes "
+        f"{c['bitwise_by_cluster']}")
     return c
+
+
+# the ptxas lines of the pose-LM kernel at each cluster size, from the build
+LM_PTXAS = {}
 
 
 def check_pose_lm(cfg, real):
     """The pose-LM kernel (``csrc/pose_lm.cu``) against its kernel-order
-    plain version on the card: on ``real`` (camera, arguments), the first
-    pose solve of a tracked frame of the map-tracking phase (the eager
-    twin of the graph frame, same bits), and on the seeded problems of
-    LM_SIZES; R and t within 1e-6 (bitwise where printed), the inlier
-    masks and the iterations equal. Timed on the real input: a wrapper
-    call, the device's time from a CUDA graph, the plain version's wall
-    time, and what the kernel replaced, the masked eager LM
+    plain version on the card, at every cluster size: on ``real`` (camera,
+    arguments), the first pose solve of a tracked frame of the map-tracking
+    phase (the eager twin of the graph frame, same bits), and on the seeded
+    problems of LM_SIZES; bitwise (``lm_case``). Timed at every cluster
+    size on each of these inputs: a wrapper call, the device's time from a
+    CUDA graph and its time a pass; and the serial floor a pass, the device
+    time with no edge (4 rounds of 10 iterations, nothing summed) over 44.
+    The row carries the times of the wrapper's cluster size
+    (``pose_opt.LM_CLUSTER``); beside them the plain version's
+    wall time and what the kernel replaced, the masked eager LM
     (``pose_optimization_masked``), captured in one CUDA graph (device ms;
-    its device operations from the profiler) and eager (wall ms). The
-    serial floor: the kernel's device time with no edge (4 rounds of 10
-    iterations, nothing summed) per pass, times this input's passes.
-    Returns the kernel's JSON row, without its launches."""
+    its device operations from the profiler) and eager (wall ms). Returns
+    the kernel's JSON row, without its launches."""
     cam, args = real
-    cases = [lm_case("tracked frame, first solve", cam, args)]
     full = CubemapCamera.from_config(cfg, "cuda")
-    for n in LM_SIZES:
-        cases.append(lm_case(f"seeded, {n} edges", full,
-                             lm_problem(cfg, n, SEED + 5, "cuda")))
+    inputs = [("tracked frame, first solve", cam, args)] + [
+        (f"seeded, {n} edges", full, lm_problem(cfg, n, SEED + 5, "cuda"))
+        for n in LM_SIZES]
+    cases = [lm_case(name, c, a) for name, c, a in inputs]
     head = cases[0]
+    chosen = PO.LM_CLUSTER
     b_ms, b_by = lm_bound(head["n"], head["iters"], head["counted"])
-
-    def kernel():
-        return PO.pose_lm(cam, *args)
+    empty = [a[:0] if k >= 2 else a for k, a in enumerate(args)]
+    by_cluster = {}
+    for cluster in PO.LM_CLUSTERS:
+        floor_pass = graph_ms(lambda: PO.pose_lm(
+            cam, *empty, cluster=cluster)) / 44
+        sizes = {}
+        for (name, c, a), case in zip(inputs, cases):
+            def run(c=c, a=a):
+                return PO.pose_lm(c, *a, cluster=cluster)
+            passes = sum(1 + i for i in case["iters"])
+            dev = graph_ms(run)
+            sizes[name] = dict(n=case["n"], passes=passes, ms=time_ms(run),
+                               device_ms=dev, device_pass_ms=dev / passes)
+            log(f"[pose_lm] C={cluster} {name} ({case['n']} edges, "
+                f"{passes} passes): device {dev:.5f} ms "
+                f"({dev / passes * 1e3:.3f} us a pass), wrapper "
+                f"{sizes[name]['ms']:.5f} ms")
+        by_cluster[cluster] = dict(serial_floor_pass_ms=floor_pass,
+                                   ptxas=LM_PTXAS.get(cluster, []),
+                                   sizes=sizes)
+        log(f"[pose_lm] C={cluster}: serial floor {floor_pass * 1e3:.3f} us "
+            f"a pass (no edge, 44 passes); ptxas "
+            f"{'; '.join(LM_PTXAS.get(cluster, [])) or 'not built here'}")
+    log(f"[pose_lm] the wrapper's cluster size: {chosen}")
 
     def masked():
         return PO.pose_optimization_masked(cam, *args)
 
-    empty = [a[:0] if k >= 2 else a for k, a in enumerate(args)]
-    floor_pass = graph_ms(lambda: PO.pose_lm(cam, *empty)) / 44
     passes = sum(1 + i for i in head["iters"])
+    at = by_cluster[chosen]
+    floor_pass = at["serial_floor_pass_ms"]
     prof = profile_stages(masked, (), 1)
     row = dict(name="pose_lm", route="cuda",
                source="cubemapslam_tpu_torch/csrc/pose_lm.cu",
@@ -991,10 +1043,12 @@ def check_pose_lm(cfg, real):
                         "lax.while_loop LM iterations, one XLA program; no "
                         "pallas_call)",
                shape=f"{head['n']} edges, iterations a round "
-                     f"{head['iters']}",
+                     f"{head['iters']}, a cluster of {chosen} blocks",
+               cluster=chosen,
                max_abs_err=max(c["max_abs_err"] for c in cases),
                bitwise=all(c["bitwise"] for c in cases),
-               ms=time_ms(kernel), device_ms=graph_ms(kernel),
+               ms=at["sizes"][head["name"]]["ms"],
+               device_ms=at["sizes"][head["name"]]["device_ms"],
                plain_ms=wall_ms(lambda: PO.pose_optimization_ordered(
                    cam, *args)),
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1002,8 +1056,9 @@ def check_pose_lm(cfg, real):
                serial_floor_pass_ms=floor_pass,
                replaced_graph_ms=graph1_ms(masked),
                replaced_eager_ms=wall_ms(masked),
-               replaced_device_ops=prof["device_ops"], cases=cases)
-    log(f"[pose_lm] row: kernel {row['ms']:.5f} ms (device "
+               replaced_device_ops=prof["device_ops"], cases=cases,
+               by_cluster=by_cluster)
+    log(f"[pose_lm] row (C={chosen}): kernel {row['ms']:.5f} ms (device "
         f"{row['device_ms']:.5f}), plain (kernel order) {row['plain_ms']:.3f}"
         f" ms, the replaced masked LM {row['replaced_graph_ms']:.3f} ms from "
         f"a CUDA graph ({row['replaced_device_ops']:.0f} device operations)"
@@ -1011,8 +1066,6 @@ def check_pose_lm(cfg, real):
         f"{b_ms:.5f} ms ({b_by}); serial floor {row['serial_floor_ms']:.5f}"
         f" ms ({passes} passes of {floor_pass:.5f}); library none")
     return row
-
-
 
 
 def same_float_bits(a, b):
@@ -1421,7 +1474,8 @@ def profile_stages(step, stages, n):
     range and synchronised after it, with one range per stage
     (``record_function``) inside. Returns the per-frame medians of the wall
     time (profiler on), the device's busy time (summed kernel and copy time)
-    and the device operations; the host waits of a frame (a call that waits
+    and the device operations (also those that start in each frame's host
+    range); the host waits of a frame (a call that waits
     for the device: a synchronisation, which every blocking copy between
     host and card makes, or a blocking ``cudaMemcpy``) with their sources;
     per stage the host time, device busy time, device operations, host waits
@@ -1481,8 +1535,12 @@ def profile_stages(step, stages, n):
         if e[0] in ("aten::mm", "aten::matmul", "aten::addmm")
         and any(DESC_OP_COLS in s for s in (e[4] or []) if s))
     wall = float(np.median(walls))
-    span, short, long_ = device_gaps(kernels, host_spans("frame"))
+    frames = host_spans("frame")
+    span, short, long_ = device_gaps(kernels, frames)
+    ops_by_frame = [sum(1 for k in kernels if a <= k[2] < b)
+                    for a, b in frames]
     return dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy,
+                device_ops_by_frame=ops_by_frame,
                 device_span_ms=span / n, short_gaps_ms=short / n,
                 long_gaps_ms=long_ / n,
                 idle_share=1.0 - busy / float(np.mean(walls)),
@@ -1502,7 +1560,8 @@ def log_profile(tag, prof, unprofiled_walls):
         f"{prof['wall_ms']:.3f}); device busy {prof['device_busy_ms']:.3f} "
         f"ms per frame; idle share {prof['idle_share']:.4f} of the profiled "
         f"wall, {idle_off:.4f} of the unprofiled wall; "
-        f"{prof['device_ops']:.0f} device operations per frame")
+        f"{prof['device_ops']:.0f} device operations per frame (starting in "
+        f"each frame's host range: {prof['device_ops_by_frame']})")
     log(f"[{tag}] host waits a frame {prof['host_waits']:.2f}, by source: "
         + ", ".join(f"{src} {c:.2f}" for src, c in prof["wait_sources"]))
     log(f"[{tag}] device span a frame {prof['device_span_ms']:.3f} ms (first "
@@ -3400,6 +3459,12 @@ def main() -> int:
     log(f"[build] {len(logs)} kernel sources built in "
         f"{time.perf_counter() - t_b:.1f} s")
     for src, text in logs.items():
+        if src == "pose_lm.cu":
+            for line in lm_ptxas_lines(text):
+                log(f"[build] {src} {line}")
+                size, _, info = line.partition(": ")
+                LM_PTXAS.setdefault(int(size[2:]), []).append(info)
+            continue
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")

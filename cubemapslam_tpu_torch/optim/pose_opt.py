@@ -8,8 +8,8 @@ accepted step is tiny, inside one compiled program.
 
 - ``pose_optimization``: on CPU tensors ``pose_optimization_masked``; on
   CUDA tensors one launch of ``csrc/pose_lm.cu`` (the whole solve, with
-  JAX's early exit, no host read), or it raises. ``POSE_LM.launches``
-  counts the launches.
+  JAX's early exit, no host read, on one cluster of ``LM_CLUSTER``
+  blocks), or it raises. ``POSE_LM.launches`` counts the launches.
 - ``pose_optimization_masked``: every round runs a fixed 10 iterations under
   an ``active`` mask: once the exit condition fires no state changes, which
   is exactly equivalent and needs no host synchronisation per iteration.
@@ -38,13 +38,22 @@ from cubemapslam_tpu_torch.optim.residuals import (eval_point,
 CHI2_TH = 5.991
 HUBER_DELTA = float(torch.sqrt(torch.tensor(CHI2_TH, dtype=torch.float32)))
 
-LM_THREADS = 512     # the kernel's block (csrc kThreads)
+LM_THREADS = 512     # the kernel's virtual threads (csrc kThreads)
 LM_WARPS = LM_THREADS // 32
+LM_CLUSTERS = (1, 2, 4, 8)   # the cluster sizes the kernel is built for
+# The cluster size of every solve. Device ms at C = 1, 2, 4, 8
+# (``chip_smoke.py``, NVIDIA H100 80GB HBM3 at 700 W): the tracked frame's
+# first solve, 2000 edges, 0.26868, 0.17702, 0.14641, 0.11861; 6000 edges
+# 0.64254, 0.45694, 0.29467, 0.20636; 37 edges 0.10133, 0.07429, 0.07959,
+# 0.07898. A frame's solves take all its features as edges (2000, 6000 at
+# init), where 8 is fastest.
+LM_CLUSTER = 8
 
 _P = ctypes.c_void_p
 POSE_LM = CudaKernel("pose_lm.cu", "pose_lm_launch",
                      [_P] * 9 + [ctypes.c_float, ctypes.c_longlong,
-                                 ctypes.c_int, ctypes.c_int] + [_P] * 5)
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                     + [_P] * 5)
 
 
 def _huber_weight(chi2: torch.Tensor) -> torch.Tensor:
@@ -82,12 +91,15 @@ def pose_optimization(cam: CubemapCamera, R0: torch.Tensor, t0: torch.Tensor,
 def pose_lm(cam: CubemapCamera, R0: torch.Tensor, t0: torch.Tensor,
             Xw: torch.Tensor, face: torch.Tensor, uv_face: torch.Tensor,
             inv_sigma2: torch.Tensor, valid: torch.Tensor,
-            n_rounds: int = 4, n_iters: int = 10):
+            n_rounds: int = 4, n_iters: int = 10,
+            cluster: int = LM_CLUSTER):
     """The whole solve in one launch of the pose-LM kernel: float32 R0 (3,3),
     t0 (3,), Xw (N,3), uv_face (N,2), inv_sigma2 (N,), int64 face (N,),
     bool valid (N,), the camera's float32 face_R (5,3,3) and fxycxy (4,),
-    all contiguous on one CUDA device. Returns (R, t, inliers, n_inliers,
-    iters): ``iters`` (n_rounds,) int32, the LM iterations each round ran.
+    all contiguous on one CUDA device. ``cluster``: the blocks of the
+    kernel's cluster, one of LM_CLUSTERS (the same bits at each). Returns
+    (R, t, inliers, n_inliers, iters): ``iters`` (n_rounds,) int32, the LM
+    iterations each round ran.
     Allocates the outputs, makes no other device operation and reads
     nothing to the host."""
     tensors = (R0, t0, Xw, face, uv_face, inv_sigma2, valid, cam.face_R,
@@ -110,6 +122,9 @@ def pose_lm(cam: CubemapCamera, R0: torch.Tensor, t0: torch.Tensor,
         raise ValueError(f"pose_optimization takes at least one round and "
                          f"iteration and fewer than 2^31 edges, got "
                          f"{n_rounds}, {n_iters}, {n}")
+    if cluster not in LM_CLUSTERS:
+        raise ValueError(f"pose_lm: a cluster of {LM_CLUSTERS} blocks, got "
+                         f"{cluster}")
     dev = R0.device
     R = torch.empty((3, 3), dtype=torch.float32, device=dev)
     t = torch.empty(3, dtype=torch.float32, device=dev)
@@ -118,8 +133,8 @@ def pose_lm(cam: CubemapCamera, R0: torch.Tensor, t0: torch.Tensor,
     iters = torch.empty(n_rounds, dtype=torch.int32, device=dev)
     POSE_LM(*(x.data_ptr() for x in (R0, t0, Xw, uv_face, inv_sigma2, face,
                                      valid, cam.face_R, cam.fxycxy)),
-            HUBER_DELTA, n, n_rounds, n_iters, R.data_ptr(), t.data_ptr(),
-            inl.data_ptr(), n_inl.data_ptr(), iters.data_ptr())
+            HUBER_DELTA, n, n_rounds, n_iters, cluster, R.data_ptr(),
+            t.data_ptr(), inl.data_ptr(), n_inl.data_ptr(), iters.data_ptr())
     return R, t, inl, n_inl, iters
 
 

@@ -52,13 +52,15 @@ the segmented sum's launches equal frame by frame; ``insert_keyframe``,
 tensors bitwise the calls with Python numbers; and a loop closed between
 graph frames (forced on the fourth keyframe, against the one before it)
 bitwise equal to an eager twin at every frame, the frames after it
-replaying the graphs. The pose-LM kernel (``csrc/pose_lm.cu``) against
-``pose_optimization_ordered`` at N = 37, 2000 and 6000 and on the CPU
-tests' seeded problems: the same iterations a round, R and t bitwise
-equal (1e-6 is the bound asked for), the inlier masks equal; with no
-valid edge and no edge; its wrapper raising on a device mix, a strided
-input and a wrong dtype; and two launches a graph frame of
-``MapTracker``. The triangulation kernel (``csrc/triangulate.cu``) against
+replaying the graphs. The pose-LM kernel (``csrc/pose_lm.cu``) on a
+cluster of 1, 2, 4 and 8 blocks against ``pose_optimization_ordered`` at
+N = 1, 37, 2000 and 6000, on the CPU tests' seeded problems, past the
+edges the cluster holds in registers and replayed from a CUDA graph: the same
+iterations a round, R and t bitwise equal (1e-6 is the bound asked for),
+the inlier masks equal; with no valid edge and no edge; each case failing
+after LM_CASE_SECONDS if a cluster hangs; its wrapper raising on a device
+mix, a strided input, a wrong dtype and a cluster size of 3 or 16; and
+two launches a graph frame of ``MapTracker``. The triangulation kernel (``csrc/triangulate.cu``) against
 ``triangulate_rays_ordered`` on ``chip_smoke.tri_problem`` inputs (N = 0,
 1, 37, 2000, 6000 with degenerate rows; a zero baseline; zero pivots):
 bitwise, NaN where NaN, eagerly and from a CUDA graph, one launch a call,
@@ -68,6 +70,7 @@ dtype, shape or device and a strided input; 6 launches a keyframe frame
 (graph K's replays included).
 """
 
+import faulthandler
 import math
 import pathlib
 
@@ -616,54 +619,128 @@ def test_seg_sum_kernel_strided_and_empty(cuda):
 
 
 def _lm_cases():
-    return ([("full", n, 1) for n in chip_smoke.LM_SIZES]
+    return ([("full", n, 1) for n in (1,) + chip_smoke.LM_SIZES]
             + [("small", 300, seed) for seed in chip_smoke.LM_SEEDS])
 
 
+# seconds a pose-LM case may take once the kernel is built: the kernel's
+# cluster barrier waits for every block, so a block that left a round on
+# another pass would hang the card; the case then fails (the process exits
+# with a traceback) instead of eating the suite's clock
+LM_CASE_SECONDS = 120
+
+
+@pytest.fixture
+def lm_hang_limit(cuda):
+    """Build the pose-LM kernel, then fail the case if it runs longer than
+    LM_CASE_SECONDS."""
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    PO.POSE_LM.build()
+    faulthandler.dump_traceback_later(LM_CASE_SECONDS, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
+def _lm_check(cam, args, cluster, graph=False):
+    """The kernel on ``cluster`` blocks against
+    ``pose_optimization_ordered``: one launch a call (with ``graph``, a
+    warm-up call, then the call captured in a CUDA graph, its outputs
+    overwritten and the graph replayed), the iterations of each round
+    equal, R, t, the inlier mask and its count bitwise equal. Returns the
+    kernel's (R, t, inl, n_inl, iters)."""
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    n0 = PO.POSE_LM.launches
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            PO.pose_lm(cam, *args, cluster=cluster)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = PO.pose_lm(cam, *args, cluster=cluster)
+        for x in out:
+            x.fill_(7)
+        g.replay()
+        torch.cuda.synchronize()
+        assert PO.POSE_LM.launches == n0 + 2
+    else:
+        out = PO.pose_lm(cam, *args, cluster=cluster)
+        torch.cuda.synchronize()
+        assert PO.POSE_LM.launches == n0 + 1
+    R, t, inl, n_inl, iters = out
+    ref = PO.pose_optimization_ordered(cam, *args)
+    assert torch.equal(iters.long(), ref[4].long()), (iters, ref[4])
+    assert torch.equal(R, ref[0]) and torch.equal(t, ref[1])
+    assert torch.equal(inl, ref[2]) and int(n_inl) == int(ref[3])
+    return out
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("size,n,seed", _lm_cases())
-def test_pose_lm_kernel(cuda, size, n, seed):
-    """The pose-LM kernel (``csrc/pose_lm.cu``) against
-    ``pose_optimization_ordered`` on the card: seeded problems at N = 37,
-    2000 and 6000 on ``SlamConfig()``'s faces, and the CPU tests' seeded
-    problems (N = 300, 128^2 faces). One launch a solve; the iterations of
-    each round equal; R and t bitwise equal (the bound asked for is 1e-6;
-    the kernel rounds every product and sum as the plain version does, so
+def test_pose_lm_kernel(cuda, lm_hang_limit, size, n, seed, cluster):
+    """The pose-LM kernel (``csrc/pose_lm.cu``) on a cluster of 1, 2, 4 and
+    8 blocks against ``pose_optimization_ordered`` on the card: seeded
+    problems at N = 1, 37, 2000 and 6000 on ``SlamConfig()``'s faces, and
+    the CPU tests' seeded problems (N = 300, 128^2 faces). One launch a
+    solve; the iterations of each round equal; R and t bitwise equal (the
+    bound asked for is 1e-6; the kernel rounds every product and sum as the
+    plain version does, in the same order at every cluster size, so
     equality is reached and held), the inlier mask and its count equal."""
     from cubemapslam_tpu_torch.optim import pose_opt as PO
     cfg = SlamConfig() if size == "full" else SlamConfig(cube_face_w=128,
                                                          cube_face_h=128)
     cam = CubemapCamera.from_config(cfg, cuda)
     args = chip_smoke.lm_problem(cfg, n, seed, cuda)
-    n0 = PO.POSE_LM.launches
-    R, t, inl, n_inl, iters = PO.pose_lm(cam, *args)
-    torch.cuda.synchronize()
-    assert PO.POSE_LM.launches == n0 + 1
-    ref = PO.pose_optimization_ordered(cam, *args)
-    assert torch.equal(iters.long(), ref[4].long()), (iters, ref[4])
-    assert torch.equal(R, ref[0]) and torch.equal(t, ref[1])
-    assert torch.equal(inl, ref[2]) and int(n_inl) == int(ref[3])
-    assert int(n_inl) > 0.6 * n
-    out = PO.pose_optimization(cam, *args)
-    assert all(torch.equal(a, b) for a, b in zip(out, (R, t, inl, n_inl)))
+    R, t, inl, n_inl, _ = _lm_check(cam, args, cluster)
+    if n >= 37:
+        assert int(n_inl) > 0.6 * n
+    if cluster == PO.LM_CLUSTER:
+        out = PO.pose_optimization(cam, *args)
+        assert all(torch.equal(a, b) for a, b in zip(out, (R, t, inl, n_inl)))
 
 
-def test_pose_lm_edge_cases(cuda):
-    """No valid edge (the pose unchanged, no inlier) and no edge at all."""
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_pose_lm_edge_cases(cuda, lm_hang_limit, cluster):
+    """No valid edge (the pose unchanged, no inlier) and no edge at all, on
+    a cluster of 1, 2, 4 and 8 blocks."""
     from cubemapslam_tpu_torch.optim import pose_opt as PO
     cfg = SlamConfig()
     cam = CubemapCamera.from_config(cfg, cuda)
     args = list(chip_smoke.lm_problem(cfg, 37, 4, cuda))
     args[6] = torch.zeros_like(args[6])
     for case in (args, [a[:0] if k >= 2 else a for k, a in enumerate(args)]):
-        R, t, inl, n_inl, iters = PO.pose_lm(cam, *case)
+        R, t, inl, n_inl, iters = _lm_check(cam, case, cluster)
         assert torch.equal(R, case[0]) and torch.equal(t, case[1])
         assert int(n_inl) == 0 and not bool(inl.any())
         assert iters.tolist() == [10] * 4
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_pose_lm_past_register_cache(cuda, lm_hang_limit, cluster):
+    """More edges than the cluster holds in registers at any cluster size
+    (4 a thread: 8192 at C = 8): the kernel reads the rest from device
+    memory on every pass, in the same order, and stays bitwise its plain
+    version."""
+    cfg = SlamConfig()
+    cam = CubemapCamera.from_config(cfg, cuda)
+    _lm_check(cam, chip_smoke.lm_problem(cfg, 9193, 6, cuda), cluster)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_pose_lm_graph_replay(cuda, lm_hang_limit, cluster):
+    """The cluster launch captured in a CUDA graph and replayed: bitwise
+    its plain version."""
+    cfg = SlamConfig()
+    cam = CubemapCamera.from_config(cfg, cuda)
+    _lm_check(cam, chip_smoke.lm_problem(cfg, 2000, 7, cuda), cluster,
+              graph=True)
+
+
 def test_pose_lm_wrapper_raises(cuda):
     """The kernel's wrapper raises on a CPU/CUDA mix, a non-contiguous
-    input and a wrong dtype; it launches nothing then."""
+    input, a wrong dtype and a cluster size outside 1, 2, 4, 8; it launches
+    nothing then."""
     from cubemapslam_tpu_torch.optim import pose_opt as PO
     cfg = SlamConfig()
     cam = CubemapCamera.from_config(cfg, cuda)
@@ -677,6 +754,9 @@ def test_pose_lm_wrapper_raises(cuda):
     for bad in (mixed, strided, int32):
         with pytest.raises(ValueError):
             PO.pose_optimization(cam, *bad)
+    for cluster in (3, 16):
+        with pytest.raises(ValueError):
+            PO.pose_lm(cam, *args, cluster=cluster)
     assert PO.POSE_LM.launches == n0
 
 

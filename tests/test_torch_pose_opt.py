@@ -246,6 +246,89 @@ def test_block_sum_order():
     assert np.array_equal(TP._block_sum(torch.as_tensor(v)).numpy(), total)
 
 
+def _same_bits(a, b):
+    """Equal float32 bits wherever neither is NaN, NaN at the same places
+    (a NaN's payload depends on the operand order, which the card does not
+    keep: it gives the one canonical NaN)."""
+    na, nb = np.isnan(a), np.isnan(b)
+    return bool(np.array_equal(na, nb) and np.array_equal(
+        np.where(na, 0, a.view(np.uint32)), np.where(nb, 0, b.view(np.uint32))))
+
+
+def _reduce_scatter(a):
+    """The kernel's transposed warp reduction, lane by lane: (32 lanes, 32
+    values) -> (32,), lane k's sum of value k. At offset o (16, 8, 4, 2, 1)
+    lane l keeps the o values whose bit o matches its own, sends the other
+    o to lane l ^ o and adds what it receives to what it keeps."""
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        upper = ((lanes & o) != 0)[:, None]
+        lo, hi = a[:, :o], a[:, o:2 * o]
+        keep = np.where(upper, hi, lo)
+        send = np.where(upper, lo, hi)
+        a = keep + send[lanes ^ o]
+    return a[:, 0]
+
+
+def _reduction_values(rng):
+    """(1300, 28) float32 edge terms over 8 decades, with lanes whose sums
+    cancel (x and -x a thread, huge and tiny terms mixed), lanes with +inf,
+    -inf, both (NaN sums) and a NaN term."""
+    n = 1300
+    v = (rng.normal(size=(n, 28))
+         * 10.0 ** rng.uniform(-4, 4, (n, 28))).astype(np.float32)
+    v[512:1024, 3] = -v[:512, 3]
+    v[:, 4] = np.where(np.arange(n) % 3 == 0, 1e4, -1e4) + v[:, 4] * 1e-4
+    v[5, 7] = np.inf
+    v[700, 8] = -np.inf
+    v[9, 9], v[600, 9] = np.inf, -np.inf
+    v[33, 10] = np.nan
+    return v
+
+
+@pytest.mark.parametrize("model", ["reduce_scatter", 1, 2, 4, 8])
+def test_kernel_reduction_order(model):
+    """The kernel's reduction gives ``_block_sum``'s bits. "reduce_scatter":
+    a numpy model of the transposed warp reduction (28 values padded to 32,
+    31 shuffles a warp) equals the shuffle tree's warp sums and, added in
+    warp order, ``_block_sum``. C = 1, 2, 4, 8: the 16 warps split over a
+    cluster of C blocks (virtual thread v = block * 512 / C + thread, warp w
+    in block w // (16 / C)), each block's warp sums in its own buffer, and
+    every block re-adding all 16 in warp order from the others' buffers,
+    gives ``_block_sum``'s bits in every block."""
+    rng = np.random.default_rng(0)
+    v = _reduction_values(rng)
+    want = TP._block_sum(torch.as_tensor(v)).numpy()
+    threads = np.zeros((TP.LM_THREADS, 32), np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for i in range(len(v)):
+            threads[i % TP.LM_THREADS, :28] = (
+                threads[i % TP.LM_THREADS, :28] + v[i])
+        warps = threads.reshape(TP.LM_WARPS, 32, 32)
+        if model == "reduce_scatter":
+            tree = warps[..., :28]
+            for off in (16, 8, 4, 2, 1):
+                tree = tree[:, :off] + tree[:, off:2 * off]
+            sums = np.stack([_reduce_scatter(w)[:28] for w in warps])
+            assert _same_bits(sums, tree[:, 0])
+            total = sums[0]
+            for w in range(1, TP.LM_WARPS):
+                total = total + sums[w]
+            assert _same_bits(total, want)
+            return
+        per_block, per_warp = TP.LM_THREADS // model, TP.LM_WARPS // model
+        buffers = []
+        for b in range(model):
+            own = threads[b * per_block:(b + 1) * per_block]
+            buffers.append(np.stack([
+                _reduce_scatter(w) for w in own.reshape(per_warp, 32, 32)]))
+        for b in range(model):
+            total = buffers[0][0]
+            for w in range(1, TP.LM_WARPS):
+                total = total + buffers[w // per_warp][w % per_warp]
+            assert _same_bits(total[:28], want)
+
+
 def _parent_pose_optimization(cam, R0, t0, Xw, face, uv_face, inv_sigma2,
                               valid, n_rounds=4, n_iters=10):
     """The port's pose_optimization before its CUDA kernel (the CPU body),
