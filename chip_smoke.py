@@ -77,21 +77,28 @@ compared across calls, every kernel launched once a frame and the
 segmented sum as often as in the eager drive; the wall ms by kind of
 frame beside the eager drive's); and ``mapping_step`` / ``local_ba`` on
 the card against the CPU on a small arena. Each profiled keyframe frame
-launches the triangulation kernel 6 times (graph K's replays included).
-A fresh eager ``CubemapSLAM`` over the same frames counts the init path's
-triangulation launches and profiles the drive's first mapping step with a
-range around each call graph K makes (the insertion and BoW row, culling,
-the 6 epipolar searches, the 6 triangulations, the gates, the commit, the
-8 fuses, the landmark statistics, keyframe culling), each device
-operation given to its innermost range: ``[graph-k]`` lines of busy ms
-and operations by part. Then the ``triangulate`` phase: the triangulation
-kernel (``csrc/triangulate.cu``, one thread a correspondence) bitwise
-against ``triangulate_rays_ordered`` on the first call of that mapping
-step (recorded as the drive ran) and on seeded problems of 0, 1, 37, 2000
-and 6000 rows with degenerate rows (parallel, axis-aligned, NaN rays; a
-zero baseline; zero pivots), eagerly and from a CUDA graph, and within
+launches the triangulation kernel once (graph K's replays included), and
+one that replays graph K runs at most ``KEYFRAME_MAX_OPS`` device
+operations. A fresh eager ``CubemapSLAM`` over the same frames counts the
+init path's triangulation launches and profiles the drive's first mapping
+step with a range around each call graph K makes (the insertion and BoW
+row, culling, the pairs' geometry, the 6 epipolar searches, the one
+launch that triangulates and gates all 6 pairs, the commit, the 8 fuses,
+the landmark statistics, keyframe culling), each device operation given
+to its innermost range: ``[graph-k]`` lines of busy ms and operations by
+part (the pairs' geometry at most ``GRAPH_K_GEOMETRY_MAX_OPS``). Then the
+``triangulate`` phase: the triangulation kernel (``csrc/triangulate.cu``,
+one thread a row of B pairs x N correspondences) in its gated form
+bitwise against ``triangulate_gated_ordered`` on that mapping step's call
+(recorded as the drive ran) and on seeded problems, and in its ungated
+form against ``triangulate_rays_ordered`` and its one-pair launches, at
+1, 4 and 6 pairs of 0, 1, 37, 2000 and 6000 rows with degenerate rows
+(parallel, axis-aligned, NaN rays, out-of-range levels; a zero baseline;
+zero pivots), eagerly and from a CUDA graph; the ungated form within
 ``TRI_REF_RTOL`` of the matmul path it replaced on the rows of
-``tri_ref_rows``; timed by block size, beside ``torch.linalg.eigh`` on
+``tri_ref_rows``, the gated form's decisions against the eager gates it
+replaced (a row decided otherwise lies within ``TRI_FLIP_ULPS`` of the
+gate that turned); timed by block size, beside ``torch.linalg.eigh`` on
 the same normal matrices and the replaced path. Its launches are counted
 on the slam, repeat, init, reloc, localization and app paths. The
 ``slam`` phase loads the
@@ -286,6 +293,11 @@ DIGEST_MASKED_LM = "d6f6104a"  # the slam map's digest before the pose-LM
                                # kernel's order of sums
 SLAM_PROFILE_MAX = 8          # frames profiled to find a keyframe frame and
                               # a deferred-BA frame
+KEYFRAME_MAX_OPS = 5600       # device operations of a keyframe frame that
+                              # replays graph K: the triangulation and gates
+                              # of the 6 neighbours are one launch (they
+                              # were about 1,560 operations)
+GRAPH_K_GEOMETRY_MAX_OPS = 400    # the pairs' geometry in graph K
 SLAM_STAGES = TRACK_STAGES + ("insert+mapping", "loop", "local_ba")
 # the pretrained vocabulary the slam phase loads (k=10, depth 4)
 VOCAB_PATH = pathlib.Path(__file__).resolve().parent / "artifacts" / \
@@ -449,15 +461,20 @@ def lm_problem(cfg, n, seed, device, noise=0.5, outliers=0.15):
 # the triangulation kernel (csrc/triangulate.cu): seeded problems at the
 # correspondence counts of a mapping step's neighbour (2000 features) and of
 # init (6000), one not a multiple of a warp, one and none, each with
-# degenerate rows (parallel, axis-aligned and NaN rays); at 2000 also a zero
-# baseline, and an identity rotation with the baseline on the x axis, where
-# the axis-aligned rows give normal matrices with exact zeros off the
-# diagonal (rotations with M[p][q] == 0). Block sizes timed beside the
-# port's (TRI_THREADS); the bound on the replaced matmul path's points.
+# degenerate rows (parallel, axis-aligned and NaN rays), under 1, 4 (the
+# two-view reconstruction's hypotheses) and 6 pairs (a mapping step's
+# neighbours), ungated and gated; at 2000 also a zero baseline, and an
+# identity rotation with the baseline on the x axis, where the axis-aligned
+# rows give normal matrices with exact zeros off the diagonal (rotations
+# with M[p][q] == 0). Block sizes timed beside the port's (TRI_THREADS); the
+# bound on the replaced matmul path's points.
 TRI_SIZES = (0, 1, 37, 2000, 6000)
+TRI_PAIRS = (1, 4, 6)
 TRI_BLOCKS = (32, 64, 128)
 TRI_REF_RTOL = 1e-5           # relative, on the rows of tri_ref_rows
 TRI_REF_DEG = 1.0             # parallax and ray-consistency angle of those
+TRI_FLIP_ULPS = 16            # a gate decision the eager gates make the
+                              # other way lies this close to its threshold
 # float64 operations of the kernel a correspondence, counted from its
 # source: A's camera-2 rows (3 negations, 12 entries of 2 products and a
 # sum) and camera-1 negations 42; the 10 entries of M (6 products, 5 sums)
@@ -466,16 +483,29 @@ TRI_REF_DEG = 1.0             # parallax and ray-consistency angle of those
 # (24 entries of 2 products and a sum); the argmin 9 and the division 6
 TRI_OPS = 42 + 110 + 36 * (19 + 72) + 9 + 6
 TRI_BYTES = 12 + 12 + 12      # two rays read, a point written
+# float32 operations of the gated form's gates a row, counted from its
+# source: 3 finite tests; the parallax 15 + 1; the two norms 10 and 50 base
+# 2; the two FOV cones 2 x 3 and X2 15; each of the two projections 10
+# octant tests and negations, 1 select, 6 for the pinhole, 4 in-face, 2 the
+# offset, 5 the chi2 and 1 its product; the scale test 6; the world point
+# 3 + 15; the mask's 12 ands
+TRI_GATE_OPS = 3 + 16 + 12 + 21 + 2 * 29 + 6 + 18 + 12
+# bytes of the gated form a row: r1, r2 (24), uv1, uv2 (16), two levels
+# (16), idx (8), the match flag (1) read; Xw (12), ok (1), cos_par (4)
+# written (the pair's geometry and the tables of levels once a launch)
+TRI_GATE_BYTES = 24 + 16 + 16 + 8 + 1 + 12 + 1 + 4
 
 
-def tri_problem(n, seed, device, kind="mixed"):
-    """A seeded triangulation problem on ``device``: (rays1, rays2, R21,
-    t21) float32 of n points 2-10 map units in front of camera 1, seen from
-    a pose 0.8 units away with 1e-3 of ray noise. ``kind`` "mixed": every
-    16th row from 1 has parallel rays (r2 = R21 r1), from 2 both rays on
-    the z axis, from 3 both on x, from 4 a NaN in r1, from 5 a NaN in r2;
-    "zero_baseline": t21 = 0; "axis": R21 = I and t21 on the x axis, with
-    the mixed rows."""
+def tri_problem(n, seed, device, kind="mixed", pairs=1):
+    """A seeded triangulation problem on ``device``: (rays1, rays2, R21s,
+    t21s) float32 of n points 2-10 map units in front of camera 1, seen from
+    a pose 0.8 units away with 1e-3 of ray noise, under ``pairs`` poses
+    (R21s (B,3,3), t21s (B,3)): pair 0 that pose, pair b turned by a further
+    b (0.01, -0.02, 0.015) rad and moved by b (0.1, 0.05, -0.05). ``kind``
+    "mixed": every 16th row from 1 has parallel rays (r2 = R21 r1 under
+    pair 0), from 2 both rays on the z axis, from 3 both on x, from 4 a NaN
+    in r1, from 5 a NaN in r2; "zero_baseline": t21 = 0; "axis": R21 = I and
+    t21 on the x axis, with the mixed rows."""
     rng = np.random.default_rng([seed, n])
     pts = rng.uniform(-4.0, 4.0, (n, 3))
     pts[:, 2] += 6.0
@@ -499,8 +529,106 @@ def tri_problem(n, seed, device, kind="mixed"):
         r1[i == 3] = r2[i == 3] = (1.0, 0.0, 0.0)
         r1[i == 4, 1] = np.nan
         r2[i == 5, 2] = np.nan
+    Rs = [so3_exp(torch.tensor([0.01, -0.02, 0.015], dtype=torch.float64)
+                  * b).numpy() @ R21 for b in range(pairs)]
+    ts = [t21 + b * np.array([0.1, 0.05, -0.05]) for b in range(pairs)]
     return tuple(torch.as_tensor(np.ascontiguousarray(x, np.float32))
-                 .to(device) for x in (r1, r2, R21, t21))
+                 .to(device) for x in (r1, r2, np.stack(Rs), np.stack(ts)))
+
+
+def tri_gated_problem(pairs, n, seed, device):
+    """A seeded problem of the gated form on ``device``: the arguments of
+    ``TT.triangulate_gated`` for a new keyframe (slot ``pairs``) against
+    ``pairs`` neighbours (slots 0 .. pairs - 1, shuffled), K = pairs + 2
+    keyframes (the last an empty slot) of n features, at ``SlamConfig()``'s
+    camera and level tables. Seeded world points 1.5-12 units in front of
+    the new keyframe (within about 75 degrees of its axis); each neighbour,
+    0.3-1 unit away (0.05 for pair 1: its depth gate bites) and turned by up
+    to 0.1 rad, sees them through a shuffle of its features (``idx``); rays
+    with 1e-3 of noise, cross uv from ``camera.ray_to_cubemap`` with 0.7 px;
+    90% of rows matched; levels 0-7. Every 16th row from 1 has the
+    neighbour's ray parallel to the new one (r2 = R21 r1), from 2 a NaN in
+    the new ray, from 3 level 9 in the new keyframe, from 4 level -1 in the
+    neighbour (the kernel clamps both), from 5 both rays on the z axis."""
+    cfg = SlamConfig()
+    cam = CubemapCamera.from_config(cfg, "cpu")
+    rng = np.random.default_rng([seed, pairs, n])
+    K = pairs + 2
+    f64 = torch.float64
+    d = rng.normal(size=(n, 3))
+    d[:, 2] = np.abs(d[:, 2]) + 0.6
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    R = [so3_exp(torch.as_tensor(rng.uniform(-0.1, 0.1, 3), dtype=f64))
+         .numpy() for _ in range(K)]
+    c = [rng.uniform(-1.0, 1.0, 3) for _ in range(K)]
+    k_new = pairs
+    for b in range(pairs):
+        off = rng.normal(size=3)
+        c[b] = c[k_new] + off / np.linalg.norm(off) * (
+            0.05 if b == 1 else rng.uniform(0.3, 1.0))
+    Xw = c[k_new] + (d * rng.uniform(1.5, 12.0, (n, 1))) @ R[k_new]
+    rays = np.zeros((K, n, 3))
+    perm = np.stack([rng.permutation(n) for _ in range(pairs)])
+    for k in range(K - 1):
+        P = (Xw - c[k]) @ R[k].T                     # world -> camera k
+        r = P / np.linalg.norm(P, axis=1, keepdims=True)
+        r = r + rng.normal(0, 1e-3, r.shape)
+        r /= np.linalg.norm(r, axis=1, keepdims=True)
+        rays[k, perm[k] if k < pairs else np.arange(n)] = r
+    t = [-(R[k] @ c[k]) for k in range(K)]
+    R21 = [R[b] @ R[k_new].T for b in range(pairs)]     # float64, as a guide
+    i16 = np.arange(n) % 16
+    for b in range(pairs):
+        rows = np.nonzero(i16 == 1)[0]
+        rays[b, perm[b, rows]] = rays[k_new, rows] @ R21[b].T
+        rows = np.nonzero(i16 == 5)[0]
+        rays[b, perm[b, rows]] = (0.0, 0.0, 1.0)
+    rays[k_new, i16 == 5] = (0.0, 0.0, 1.0)
+    rays[k_new, i16 == 2, 1] = np.nan
+    rays32 = torch.as_tensor(rays, dtype=torch.float32)
+    uv = TC.ray_to_cubemap(cam, rays32)[0]
+    uv = uv + torch.as_tensor(rng.normal(0, 0.7, uv.shape), dtype=torch.float32)
+    level = rng.integers(0, 8, (K, n))
+    level[k_new, i16 == 3] = 9
+    for b in range(pairs):
+        level[b, perm[b, i16 == 4]] = -1
+    level[K - 1] = 0
+    uv[K - 1] = 0.0
+    kf_R = np.stack(R).astype(np.float32)
+    kf_t = np.stack(t).astype(np.float32)
+    Rt = torch.as_tensor(kf_R)
+    tt = torch.as_tensor(kf_t)
+    R21s = torch.stack([Rt[b] @ Rt[k_new].T for b in range(pairs)])
+    t21s = torch.stack([tt[b] - R21s[b] @ tt[k_new] for b in range(pairs)])
+    order = rng.permutation(pairs)
+    kf = TT.Keyframes(rays32, uv, torch.as_tensor(level), Rt, tt)
+    consts = TT.GateConstants(
+        cam.fxycxy, cam.face_wh, cam.cos_fov_th,
+        torch.tensor(cfg.level_sigma2, dtype=torch.float32),
+        torch.tensor(cfg.scale_factors, dtype=torch.float32),
+        1.5 * cfg.scale_factor)
+    match = torch.as_tensor(rng.uniform(size=(pairs, n)) < 0.9)
+    idx = torch.as_tensor(perm[order].astype(np.int64))
+    args = (kf, torch.tensor([k_new]), torch.as_tensor(order.astype(np.int64)),
+            idx, match, R21s[order].contiguous(), t21s[order].contiguous(),
+            consts)
+    return to_device(args, device)
+
+
+def tensors_map(fn, x):
+    """``fn`` applied to every tensor in ``x``, a tensor or a tuple (named
+    or not) of them and of other values."""
+    if torch.is_tensor(x):
+        return fn(x)
+    if isinstance(x, tuple):
+        items = [tensors_map(fn, v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def to_device(x, device):
+    """The tensors of ``x`` moved to ``device``, contiguous."""
+    return tensors_map(lambda t: t.to(device).contiguous(), x)
 
 
 def log(msg: str) -> None:
@@ -807,10 +935,10 @@ POSE_LAUNCHES = {}
 # first frame, recorded for check_pose_lm
 LM_INPUTS = []
 # the triangulation kernel's launches by path, each counted from 0 around
-# its drive: 4 a two-view reconstruction at init, 6 a mapping step
+# its drive: one a two-view reconstruction at init, one a mapping step
 TRI_LAUNCHES = {}
-# the arguments of the first triangulate_rays call of the slam drive's
-# first mapping step, recorded for check_triangulate
+# the arguments of the triangulate_gated call of the slam drive's first
+# mapping step, recorded for check_triangulate
 TRI_INPUTS = []
 
 
@@ -829,20 +957,20 @@ def tri_launches(tag, n_frames, required=True):
 
 @contextlib.contextmanager
 def recording_triangulation(store):
-    """Record the cloned arguments of the first ``triangulate_rays`` call
+    """Record the cloned arguments of the first ``triangulate_gated`` call
     of the mapping stages into ``store`` while the context is open."""
-    inner = TMAP.triangulate_rays
+    inner = TMAP.triangulate_gated
 
     def recorded(*args):
         if not store:
-            store.append(tuple(a.clone() for a in args))
+            store.append(tensors_map(torch.clone, args))
         return inner(*args)
 
-    TMAP.triangulate_rays = recorded
+    TMAP.triangulate_gated = recorded
     try:
         yield store
     finally:
-        TMAP.triangulate_rays = inner
+        TMAP.triangulate_gated = inner
 
 
 def pose_launches(tag, n_frames):
@@ -1101,53 +1229,78 @@ def tri_ref_rows(args, X):
             & ((X2 * r2).sum(-1) >= cos * d2))
 
 
+def pair_args(args, b):
+    """Pair b of an ungated problem (rays1, rays2, R21s, t21s)."""
+    r1, r2, R21s, t21s = args
+    return r1, r2, R21s[b], t21s[b]
+
+
+def replayed(fn):
+    """``fn()`` captured in a CUDA graph, its outputs then filled with
+    NaN (floats) or ones (masks, counts), the graph replayed: the outputs
+    of the replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    for x in (out if isinstance(out, tuple) else (out,)):
+        x.fill_(float("nan") if x.is_floating_point() else 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
 def tri_case(name, args):
-    """The kernel against ``triangulate_rays_ordered`` on one input, from
-    one launch and from a CUDA graph replay of it, and against the matmul
-    path it replaced (run on the card) within TRI_REF_RTOL on the rows of
-    wide parallax. The case's dict."""
-    n = args[0].shape[0]
+    """The ungated kernel on B pairs against ``triangulate_rays_ordered``,
+    from one launch and from a CUDA graph replay of it, against the B
+    one-pair launches (PR 13's kernel, a launch a pair), and against the
+    matmul path it replaced (run on the card) within TRI_REF_RTOL on the
+    rows of wide parallax. The case's dict."""
+    n, B = args[0].shape[0], args[2].shape[0]
     n0 = TT.TRIANGULATE.launches
-    X = TT.triangulate_cuda(*args)
+    X = TT.triangulate_pairs_cuda(*args)
     torch.cuda.synchronize()
     launched = TT.TRIANGULATE.launches - n0
     ref = TT.triangulate_rays_ordered(*args)
-    Xg = X
-    if n:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            with torch.cuda.graph(graph, stream=side):
-                Xg = TT.triangulate_cuda(*args)
-        torch.cuda.current_stream().wait_stream(side)
-        Xg.fill_(float("nan"))
-        graph.replay()
-        torch.cuda.synchronize()
-    old = TT.triangulate_rays_matmul(*args)
+    one = torch.stack([TT.triangulate_rays(*pair_args(args, b))
+                       for b in range(B)])
+    Xg = replayed(lambda: TT.triangulate_pairs_cuda(*args)) if n else X
     fin = torch.isfinite(X).all(-1)
     both = fin & torch.isfinite(ref).all(-1)
     err = float((X - ref)[both].abs().max()) if bool(both.any()) else 0.0
-    rel = torch.linalg.norm(X - old, dim=-1) / torch.linalg.norm(old, dim=-1)
-    held = tri_ref_rows(args, old)
-    rest = wide_rows(args) & fin & torch.isfinite(old).all(-1) & ~held
-    gap = float(rel[held].max()) if bool(held.any()) else 0.0
-    gap_rest = float(rel[rest].max()) if bool(rest.any()) else 0.0
-    c = dict(name=name, n=n, bitwise=same_float_bits(X, ref),
-             graph_bitwise=same_float_bits(Xg, ref), max_abs_err=err,
-             finite=int(fin.sum()), finite_as_replaced=bool(torch.equal(
-                 fin, torch.isfinite(old).all(-1))),
-             held=int(held.sum()), replaced_rel_gap=gap,
-             other_wide=int(rest.sum()), other_wide_rel_gap=gap_rest,
-             launches=launched)
-    log(f"[triangulate] {name}: {n} correspondences, {c['finite']} finite "
-        f"(the replaced path's mask the same: {c['finite_as_replaced']}), "
-        f"bitwise {c['bitwise']}, from a graph {c['graph_bitwise']}, max "
-        f"|err| {err:.3g}; {launched} launch(es); against the replaced "
-        f"matmul path on {c['held']} rows of tri_ref_rows: largest relative "
-        f"gap {gap:.3g} (bound {TRI_REF_RTOL}); on the {c['other_wide']} "
-        f"other finite wide rows (not held) {gap_rest:.3g}")
-    if not (c["bitwise"] and c["graph_bitwise"]
+    held = rest = 0
+    gap = gap_rest = 0.0
+    as_replaced = True
+    for b in range(B):
+        pa = pair_args(args, b)
+        old = TT.triangulate_rays_matmul(*pa)
+        rel = (torch.linalg.norm(X[b] - old, dim=-1)
+               / torch.linalg.norm(old, dim=-1))
+        h = tri_ref_rows(pa, old)
+        r = wide_rows(pa) & fin[b] & torch.isfinite(old).all(-1) & ~h
+        held, rest = held + int(h.sum()), rest + int(r.sum())
+        gap = max(gap, float(rel[h].max()) if bool(h.any()) else 0.0)
+        gap_rest = max(gap_rest, float(rel[r].max()) if bool(r.any())
+                       else 0.0)
+        as_replaced &= bool(torch.equal(fin[b], torch.isfinite(old).all(-1)))
+    c = dict(name=name, n=n, pairs=B, bitwise=same_float_bits(X, ref),
+             graph_bitwise=same_float_bits(Xg, ref),
+             per_pair_bitwise=same_float_bits(X, one), max_abs_err=err,
+             finite=int(fin.sum()), finite_as_replaced=as_replaced,
+             held=held, replaced_rel_gap=gap, other_wide=rest,
+             other_wide_rel_gap=gap_rest, launches=launched)
+    log(f"[triangulate] {name}: {B} x {n} rows, {c['finite']} finite (the "
+        f"replaced path's mask the same: {as_replaced}), bitwise "
+        f"{c['bitwise']}, from a graph {c['graph_bitwise']}, as {B} one-pair "
+        f"launches {c['per_pair_bitwise']}, max |err| {err:.3g}; {launched} "
+        f"launch(es); against the replaced matmul path on {held} rows of "
+        f"tri_ref_rows: largest relative gap {gap:.3g} (bound "
+        f"{TRI_REF_RTOL}); on the {rest} other finite wide rows (not held) "
+        f"{gap_rest:.3g}")
+    if not (c["bitwise"] and c["graph_bitwise"] and c["per_pair_bitwise"]
             and launched == (1 if n else 0) and gap <= TRI_REF_RTOL):
         raise AssertionError(f"the triangulation kernel differs from its "
                              f"plain version, or from the replaced path, "
@@ -1155,72 +1308,274 @@ def tri_case(name, args):
     return c
 
 
-def check_triangulate(real):
-    """The triangulation kernel (``csrc/triangulate.cu``) on the card: on
-    ``real``, the first ``triangulate_with_neighbor`` call of the slam
-    drive's first mapping step (recorded as it ran), and on ``tri_problem``
-    inputs of TRI_SIZES and the two 2000-row specials, ``tri_case`` each.
-    Timed on the real input: a wrapper call, the device's time from a CUDA
-    graph (and at each of TRI_BLOCKS), the plain version's wall time, the
-    library call (``torch.linalg.eigh`` of the same (N,4,4) float64 normal
-    matrices, a non-finite one replaced by the identity; it waits for the
-    host) and what the kernel replaced, the matmul path (device ms from a
-    CUDA graph, its device operations from the profiler, eager wall ms).
-    Returns the kernel's JSON row, without its launches."""
-    cases = [tri_case("slam, first mapping step, first neighbour", real)]
-    for n in TRI_SIZES:
-        cases.append(tri_case(f"seeded, {n} rows", tri_problem(
-            n, SEED + 6, "cuda")))
+def same_candidates(a, b):
+    """Two gated results with the same bits (NaN where NaN)."""
+    return (same_float_bits(a.Xw, b.Xw) and torch.equal(a.ok, b.ok)
+            and same_float_bits(a.cos_par, b.cos_par)
+            and torch.equal(a.gates, b.gates))
+
+
+def gated_rows(args):
+    """The gated form's gathers: k_new's rays, uv, levels and pose, and
+    each pair's matched rays, uv and levels (B,N,..)."""
+    kf, k_new, nb_idx, idx = args[:4]
+    rays1, uv1, lev1, R1, t1 = (x.index_select(0, k_new)[0] for x in kf)
+    at = (nb_idx[:, None], idx)
+    return rays1, uv1, lev1, R1, t1, kf.rays[at], kf.uv[at], kf.level[at]
+
+
+def replaced_gated(mk, args):
+    """What the gated kernel replaced, on its arguments: a pair at a time,
+    the gathers, a one-pair launch and the eager gates
+    (``MappingKernels.gate_pair``)."""
+    R21s, t21s = args[5], args[6]
+    rays1, uv1, lev1, R1, t1, rays2, uv2, lev2 = gated_rows(args)
+    outs = [mk.gate_pair(rays1, rays2[b], uv1, uv2[b], lev1, lev2[b],
+                         args[4][b], R21s[b], t21s[b], R1, t1)
+            for b in range(R21s.shape[0])]
+    return TT.Candidates(*(torch.stack(x) for x in zip(*outs)))
+
+
+def _ulp(x):
+    x = x.abs()
+    return torch.nextafter(x, torch.full_like(x, math.inf)) - x
+
+
+def gate_flips(mk, args, new, old):
+    """Rows whose mask the gated kernel (``new``) and the eager gates it
+    replaced (``old``, ``replaced_gated``) decide differently. Each such
+    row is given to the first gate that the two formulations decide
+    differently (the eager one: ``@``, ``linalg.norm`` and
+    ``camera.ray_to_cubemap``; the kernel's: products and norms written
+    out), with the kernel's distance to that gate's threshold in float32
+    ulps (of the threshold; for a chi2 gate, of the reprojected pixel: how
+    far u and v would have to move for the decision to turn). Returns
+    ({gate: flipped rows}, the largest distance)."""
+    kf, k_new, nb_idx, idx, match, R21s, t21s, consts = args
+    rays1, uv1, lev1, R1, t1, rays2, uv2, lev2 = gated_rows(args)
+    X1 = TT.triangulate_rays_ordered(rays1, rays2, R21s, t21s)
+    cam, top = mk.cam, consts.level_sigma2.shape[0] - 1
+    s1 = consts.level_sigma2[lev1.clamp(0, top)]
+    s2 = consts.level_sigma2[lev2.clamp(0, top)]
+    ro = (consts.scale_factors[lev1.clamp(0, top)]
+          / consts.scale_factors[lev2.clamp(0, top)])
+    rf = consts.ratio
+    cos_t = consts.cos_fov_th
+    flips, worst = {}, 0.0
+    differ = new.ok != old.ok
+    for b in torch.nonzero(differ.any(-1)).flatten().tolist():
+        x1, R, t = X1[b], R21s[b], t21s[b]
+        # the eager formulation, as gate_pair writes it
+        cos_e = (rays1 * (rays2[b] @ R)).sum(-1)
+        d1_e = torch.linalg.norm(x1, dim=-1)
+        x2_e = x1 @ R.T + t
+        d2_e = torch.linalg.norm(x2_e, dim=-1)
+        p1_e, p2_e = TC.ray_to_cubemap(cam, x1), TC.ray_to_cubemap(cam, x2_e)
+        # the kernel's, written out
+        q = [rays2[b, :, 0] * R[0, j] + rays2[b, :, 1] * R[1, j]
+             + rays2[b, :, 2] * R[2, j] for j in range(3)]
+        cos_w = rays1[:, 0] * q[0] + rays1[:, 1] * q[1] + rays1[:, 2] * q[2]
+        d1_w = TT._norm3(*x1.unbind(-1))
+        x2_w = torch.stack([(R[a, 0] * x1[:, 0] + R[a, 1] * x1[:, 1]
+                             + R[a, 2] * x1[:, 2]) + t[a] for a in range(3)],
+                           -1)
+        d2_w = TT._norm3(*x2_w.unbind(-1))
+        p1_w = TT._to_cubemap(consts, *x1.unbind(-1))
+        p2_w = TT._to_cubemap(consts, *x2_w.unbind(-1))
+        base_e, base_w = torch.linalg.norm(t), TT._norm3(*t.unbind())
+
+        def chi2(p, uv, s, eager):
+            u, v = (p[0][:, 0], p[0][:, 1]) if eager else (p[0], p[1])
+            valid = p[1] >= 0 if eager else p[2]
+            du, dv = u - uv[:, 0], v - uv[:, 1]
+            e = du * du + dv * dv
+            thr = 5.991 * s
+            move = 2 * (du.abs() * _ulp(u) + dv.abs() * _ulp(v))
+            return valid & (e <= thr), (e - thr).abs() / move
+
+        def fov(x, d):
+            r = x[:, 2] / torch.clamp(d, min=1e-12)
+            return r > cos_t, (r - cos_t).abs() / _ulp(cos_t)
+
+        c1e, _ = chi2(p1_e, uv1, s1, True)
+        c1w, m1 = chi2(p1_w, uv1, s1, False)
+        c2e, _ = chi2(p2_e, uv2[b], s2[b], True)
+        c2w, m2 = chi2(p2_w, uv2[b], s2[b], False)
+        rd_e, rd_w = d2_e / torch.clamp(d1_e, min=1e-12), \
+            d2_w / torch.clamp(d1_w, min=1e-12)
+        stages = [
+            ("parallax", cos_e < 0.9998, cos_w < 0.9998,
+             (cos_w - 0.9998).abs()
+             / _ulp(torch.tensor(0.9998, device=cos_w.device))),
+            ("depth", d1_e <= 50.0 * base_e, d1_w <= 50.0 * base_w,
+             (d1_w - 50.0 * base_w).abs() / _ulp(50.0 * base_w)),
+            ("fov1", *fov(x1, d1_e)[:1], *fov(x1, d1_w)),
+            ("fov2", *fov(x2_e, d2_e)[:1], *fov(x2_w, d2_w)),
+            ("chi2 (new keyframe)", c1e, c1w, m1),
+            ("chi2 (neighbour)", c2e, c2w, m2),
+            ("scale", (rd_e * rf > ro[b]) & (rd_e < ro[b] * rf),
+             (rd_w * rf > ro[b]) & (rd_w < ro[b] * rf),
+             torch.minimum((rd_w * rf - ro[b]).abs() / _ulp(ro[b]),
+                           (rd_w - ro[b] * rf).abs() / _ulp(rd_w)))]
+        for i in torch.nonzero(differ[b]).flatten().tolist():
+            for gate, pe, pw, margin in stages:
+                if bool(pe[i]) != bool(pw[i]):
+                    flips[gate] = flips.get(gate, 0) + 1
+                    worst = max(worst, float(margin[i]))
+                    break
+            else:
+                flips["none found"] = flips.get("none found", 0) + 1
+                worst = math.inf
+    return flips, worst
+
+
+def tri_gated_case(name, args, mk):
+    """The gated kernel against ``triangulate_gated_ordered``, from one
+    launch and from a CUDA graph replay of it, and its decisions against
+    the eager gates it replaced (``gate_flips``). The case's dict."""
+    n, B = args[3].shape[1], args[3].shape[0]
+    n0 = TT.TRIANGULATE.launches
+    new = TT.triangulate_gated_cuda(*args)
+    torch.cuda.synchronize()
+    launched = TT.TRIANGULATE.launches - n0
+    ref = TT.triangulate_gated_ordered(*args)
+    g = replayed(lambda: TT.triangulate_gated_cuda(*args)) if n else new
+    old = replaced_gated(mk, args)
+    flips, worst = gate_flips(mk, args, new, old)
+    both = torch.isfinite(new.Xw) & torch.isfinite(ref.Xw)
+    err = float((new.Xw - ref.Xw)[both].abs().max()) if bool(both.any()) \
+        else 0.0
+    kept = new.ok & old.ok
+
+    def bits(a, b):
+        """(B,N): the rows whose values differ in any bit."""
+        d = a.view(torch.int32) != b.view(torch.int32)
+        return d.any(-1) if d.dim() == 3 else d
+
+    c = dict(name=name, n=n, pairs=B, bitwise=same_candidates(new, ref),
+             graph_bitwise=same_candidates(g, ref), max_abs_err=err,
+             kept=int(new.ok.sum()), gates=new.gates.sum(0).tolist(),
+             kept_eager=int(old.ok.sum()),
+             gates_eager=old.gates.sum(0).tolist(), flips=flips,
+             flip_ulps=worst, launches=launched,
+             xw_bits_differ=int((kept & bits(new.Xw, old.Xw)).sum()),
+             cos_bits_differ=int((kept & bits(new.cos_par, old.cos_par))
+                                 .sum()))
+    log(f"[triangulate] {name}, gated: {B} x {n} rows, kept {c['kept']} "
+        f"(gates [raw, parallax, depth, chi2] {c['gates']}), bitwise "
+        f"{c['bitwise']}, from a graph {c['graph_bitwise']}; {launched} "
+        f"launch(es); the eager gates it replaced kept {c['kept_eager']} "
+        f"({c['gates_eager']}): rows decided otherwise "
+        f"{sum(flips.values())} {flips}, each within {worst:.3g} ulps of its "
+        f"gate (bound {TRI_FLIP_ULPS}); of the rows both keep, "
+        f"{c['xw_bits_differ']} with other bits in the world point and "
+        f"{c['cos_bits_differ']} in the parallax cosine (written out here, "
+        f"through cuBLAS there)")
+    if not (c["bitwise"] and c["graph_bitwise"] and worst <= TRI_FLIP_ULPS
+            and launched == (1 if n else 0)):
+        raise AssertionError(f"the gated triangulation kernel differs from "
+                             f"its plain version, or from the eager gates "
+                             f"beyond a rounding, on {name}")
+    return c
+
+
+def check_triangulate(real, mk):
+    """The triangulation kernel (``csrc/triangulate.cu``) on the card: the
+    gated form on ``real``, the slam drive's first mapping step's
+    ``triangulate_gated`` call (recorded as it ran; ``mk`` its
+    ``MappingKernels``), and on ``tri_gated_problem`` inputs of TRI_PAIRS x
+    TRI_SIZES (``tri_gated_case`` each); the ungated form on
+    ``tri_problem`` inputs of TRI_PAIRS x TRI_SIZES and the two 2000-row
+    specials (``tri_case``). Timed on the real input: a wrapper call, the
+    device's time from a CUDA graph (and at each of TRI_BLOCKS), the plain
+    version's wall time, the library call (``torch.linalg.eigh`` of the
+    B N float64 normal matrices, a non-finite one replaced by the identity;
+    it waits for the host) and what the kernel replaced, a one-pair launch
+    and the eager gates a pair (device ms from a CUDA graph, its device
+    operations from the profiler, eager wall ms); and the ungated form at
+    the two-view reconstruction's shape (4 x 6000). Returns the kernel's
+    JSON row, without its launches."""
+    cases = [tri_gated_case("slam, first mapping step", real, mk)]
+    cfg_mk = MappingKernels(SlamConfig(), device="cuda")
+    for B in TRI_PAIRS:
+        for n in TRI_SIZES:
+            cases.append(tri_gated_case(
+                f"seeded, {B} pairs x {n} rows",
+                tri_gated_problem(B, n, SEED + 8, "cuda"), cfg_mk))
+            cases.append(tri_case(f"seeded, {B} pairs x {n} rows",
+                                  tri_problem(n, SEED + 6, "cuda",
+                                              pairs=B)))
     for kind in ("zero_baseline", "axis"):
         cases.append(tri_case(f"seeded {kind}, 2000 rows", tri_problem(
             2000, SEED + 7, "cuda", kind)))
-    n = real[0].shape[0]
-    b_ms, b_by = bound(n * TRI_BYTES + 4 * 12, n * TRI_OPS,
+    B, n = real[3].shape
+    n64 = B * n * TRI_OPS
+    n32 = B * n * TRI_GATE_OPS
+    b_ms, b_by = bound(B * n * TRI_GATE_BYTES + 4 * 12 * B,
+                       n64 + n32 * H100_F64_OPS_PER_S / H100_F32_OPS_PER_S,
                        H100_F64_OPS_PER_S)
-    M = TT.normal_matrices(*real)
-    ok = torch.isfinite(M).all(-1).all(-1)
-    M = torch.where(ok[:, None, None], M,
+    rays1, _, _, _, _, rays2 = gated_rows(real)[:6]
+    M = TT.normal_matrices(rays1, rays2, real[5], real[6]).reshape(-1, 4, 4)
+    fin = torch.isfinite(M).all(-1).all(-1)
+    M = torch.where(fin[:, None, None], M,
                     torch.eye(4, dtype=M.dtype, device=M.device))
 
     def kernel():
-        return TT.triangulate_cuda(*real)
+        return TT.triangulate_gated_cuda(*real)
 
     def replaced():
-        return TT.triangulate_rays_matmul(*real)
+        return replaced_gated(mk, real)
 
-    blocks = {b: graph_ms(lambda b=b: TT.triangulate_cuda(*real, threads=b))
-              for b in TRI_BLOCKS}
+    init = tri_problem(6000, SEED + 6, "cuda", pairs=4)
+    blocks = {b: graph_ms(lambda b=b: TT.triangulate_gated_cuda(
+        *real, threads=b)) for b in TRI_BLOCKS}
+    # the same rows' chains without the gathers and the gates: pair 0's
+    # rays under all B pairs' geometry, and under pair 0's alone
+    plain_rows = (rays1, rays2[0].contiguous(), real[5], real[6])
+    ungated = {f"{B} x {n}": graph_ms(
+                   lambda: TT.triangulate_pairs_cuda(*plain_rows)),
+               f"1 x {n}": graph_ms(lambda: TT.triangulate_pairs_cuda(
+                   rays1, plain_rows[1], real[5][:1], real[6][:1]))}
     prof = profile_stages(replaced, (), 1)
     row = dict(name="triangulate", route="cuda",
                source="cubemapslam_tpu_torch/csrc/triangulate.cu",
                replaces="cubemapslam_tpu/solvers/triangulate.py:18 "
-                        "(triangulate_rays: a batched XLA SVD at :33 inside "
-                        "the vmapped mapping program; no pallas_call)",
-               shape=f"{n} correspondences, blocks of {TT.TRI_THREADS}",
+                        "(triangulate_rays: a batched XLA SVD at :33) and "
+                        "the gates of cubemapslam_tpu/runtime/mapping.py:"
+                        "116-168, vmapped over 6 neighbours in one XLA "
+                        "program; no pallas_call",
+               shape=f"{B} pairs x {n} rows, gated, blocks of "
+                     f"{TT.TRI_THREADS}",
                max_abs_err=max(c["max_abs_err"] for c in cases),
                bitwise=all(c["bitwise"] and c["graph_bitwise"]
                            for c in cases),
                ms=time_ms(kernel), device_ms=graph_ms(kernel),
                device_ms_by_block={str(b): v for b, v in blocks.items()},
-               plain_ms=wall_ms(lambda: TT.triangulate_rays_ordered(*real)),
+               device_ms_reconstruction=graph_ms(
+                   lambda: TT.triangulate_pairs_cuda(*init)),
+               device_ms_ungated=ungated,
+               plain_ms=wall_ms(lambda: TT.triangulate_gated_ordered(*real)),
                bound_ms=b_ms, bound_by=b_by,
                library_ms=time_ms(lambda: torch.linalg.eigh(M)),
-               library_call="torch.linalg.eigh on the (N,4,4) float64 "
-                            "normal matrices",
+               library_call=f"torch.linalg.eigh on the {B * n} float64 "
+                            f"normal matrices",
                replaced_graph_ms=graph1_ms(replaced),
                replaced_eager_ms=wall_ms(replaced),
                replaced_device_ops=prof["device_ops"],
-               replaced_rel_gap=max(c["replaced_rel_gap"] for c in cases),
-               cases=cases)
+               flips=cases[0]["flips"], cases=cases)
     log(f"[triangulate] row: kernel {row['ms']:.5f} ms (device "
         f"{row['device_ms']:.5f}; by block size "
         + ", ".join(f"{b} {v:.5f}" for b, v in blocks.items())
-        + f"), plain (kernel order) {row['plain_ms']:.3f} ms, the replaced "
-        f"matmul path {row['replaced_graph_ms']:.3f} ms from a CUDA graph "
+        + f"; ungated 4 x 6000 {row['device_ms_reconstruction']:.5f}, "
+        + ", ".join(f"{k} {v:.5f}" for k, v in ungated.items())
+        + f" of these rows), plain "
+        f"(kernel order) {row['plain_ms']:.3f} ms, the replaced path (a "
+        f"one-pair launch and the eager gates a pair) "
+        f"{row['replaced_graph_ms']:.3f} ms from a CUDA graph "
         f"({row['replaced_device_ops']:.0f} device operations) and "
         f"{row['replaced_eager_ms']:.3f} ms eager; library (eigh) "
         f"{row['library_ms']:.5f} ms; bound {b_ms:.6f} ms ({b_by}: "
-        f"{TRI_OPS} float64 operations a row)")
+        f"{TRI_OPS} float64 and {TRI_GATE_OPS} float32 operations a row)")
     return row
 
 
@@ -2232,15 +2587,20 @@ def profiled_slam(slam, frames, walls, graph_walls, tag, replays):
                 f"{fm.capture_mib:.1f} MiB reserved by their pool")
         if row["state"] != "OK":
             raise AssertionError(f"profiled frame {i} was not tracked")
-        if n_tri != (6 if kind == "keyframe" else 0):
+        if n_tri != (1 if kind == "keyframe" else 0):
             raise AssertionError(f"profiled {kind or 'tracked'} frame {i} "
                                  f"launched the triangulation kernel {n_tri} "
-                                 f"times (a mapping step: 6, else 0)")
+                                 f"times (a mapping step: 1, else 0)")
         replayed = (row.get("graph_mapping_replays", 0) > 0
                     and row.get("graph_mapping_captures", 0) == 0)
         if kind and (replayed or not replays) and want[kind] is None:
             want[kind] = prof
             log_profile(f"{tag}-{kind}", prof, walls)
+            if (replays and kind == "keyframe"
+                    and prof["device_ops"] > KEYFRAME_MAX_OPS):
+                raise AssertionError(
+                    f"the replayed keyframe frame ran {prof['device_ops']} "
+                    f"device operations (at most {KEYFRAME_MAX_OPS})")
             if replays:
                 mid = float(np.median(graph_walls[kind]))
                 log(f"[{tag}-{kind}] idle share "
@@ -2295,8 +2655,8 @@ GRAPH_K_PARTS = {
     "k.covis": "incidence, covisibility, observation counts",
     "k.cull_points": "culling (map points)",
     "k.epipolar": "6 epipolar searches",
-    "k.triangulate": "6 triangulations",
-    "k.pair": "6 x gates (with each pair's geometry)",
+    "k.triangulate": "triangulate + gates, one launch",
+    "k.pair": "the pairs' geometry",
     "k.commit": "the commit",
     "k.fuse": "8 fuses (+ the redirect)",
     "k.stats": "landmark statistics",
@@ -2317,8 +2677,8 @@ def graph_k_ranges(slam):
                (SMAP, "observation_counts", "k.covis"),
                (m, "cull_map_points", "k.cull_points"),
                (TMAP.M, "search_for_triangulation", "k.epipolar"),
-               (TMAP, "triangulate_rays", "k.triangulate"),
-               (m, "triangulate_with_neighbor", "k.pair"),
+               (TMAP, "triangulate_gated", "k.triangulate"),
+               (m, "_search_pair", "k.pair"),
                (m, "commit_new_landmarks_multi", "k.commit"),
                (m, "fuse_pair", "k.fuse"),
                (SMAP, "apply_redirect", "k.fuse"),
@@ -2368,9 +2728,9 @@ def graph_k_breakdown(cfg, frames, first_ok, first_map):
         slam.track_fisheye(frames[first_map], first_map / cfg.fps)
         torch.cuda.synchronize()
     row = slam.metrics[-1]
-    if not row.get("keyframe") or TT.TRIANGULATE.launches - n0 != 6:
+    if not row.get("keyframe") or TT.TRIANGULATE.launches - n0 != 1:
         raise AssertionError(f"frame {first_map} of the breakdown made no "
-                             f"mapping step of 6 triangulations")
+                             f"mapping step of one triangulation launch")
     events = raw_events(prof)
     cpu_names = {e[0] for e in events if not e[1]}
     dev = [e for e in events if e[1]]
@@ -2394,9 +2754,13 @@ def graph_k_breakdown(cfg, frames, first_ok, first_map):
     for k, (ms, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
         log(f"[graph-k]   {GRAPH_K_PARTS[k]:58s} {ms:9.3f} ms "
             f"{n:6d} operations")
-    if tri_kernels != 6:
+    if tri_kernels != 1:
         raise AssertionError("the profiled mapping step did not run the "
-                             "triangulation kernel 6 times")
+                             "triangulation kernel once")
+    if parts["k.pair"][1] > GRAPH_K_GEOMETRY_MAX_OPS:
+        raise AssertionError(f"the pairs' geometry made {parts['k.pair'][1]} "
+                             f"device operations (at most "
+                             f"{GRAPH_K_GEOMETRY_MAX_OPS})")
     return parts
 
 
@@ -3524,7 +3888,7 @@ def main() -> int:
     done("slam")
     if not TRI_INPUTS:
         raise AssertionError("the slam drive's mapping made no triangulation")
-    tri_row = check_triangulate(TRI_INPUTS.pop())
+    tri_row = check_triangulate(TRI_INPUTS.pop(), slam.mapping)
     done("triangulate")
     r_launches = reloc_phase(slam, s_poses, s_frames, ate, counters)
     done("reloc")

@@ -51,6 +51,8 @@ from cubemapslam_tpu_torch.optim.ba import BAProblem, bundle_adjust
 from cubemapslam_tpu_torch.runtime.frame_step import resolve_device
 from cubemapslam_tpu_torch.runtime.kernels import _members
 from cubemapslam_tpu_torch.solvers import triangulate_rays
+from cubemapslam_tpu_torch.solvers.triangulate import (
+    GateConstants, Keyframes, triangulate_gated)
 
 Slot = Union[int, torch.Tensor]     # a Python slot, a 0-d or 1-element index
 _I32_MAX = torch.iinfo(torch.int32).max
@@ -78,6 +80,14 @@ def _index(k: Slot, device) -> torch.Tensor:
     if isinstance(k, int):
         return torch.full((1,), k, dtype=torch.int64, device=device)
     return k.reshape(1)
+
+
+def _one_launch_gates(device: torch.device) -> bool:
+    """Whether ``mapping_step`` triangulates and gates all its neighbours
+    in one ``triangulate_gated`` launch (on the card) or pair by pair
+    through ``triangulate_with_neighbor`` (on the CPU, whose path the
+    parity tests hold to JAX)."""
+    return device.type == "cuda"
 
 
 def _top(x: torch.Tensor, k: int):
@@ -143,6 +153,9 @@ class MappingKernels:
         self.inv_level_sigma2 = 1.0 / self.level_sigma2
         self.th_low = float(cfg.th_low)
         self.histo_bin = float(cfg.histo_length)
+        self.gate_consts = GateConstants(
+            cam.fxycxy, cam.face_wh, cam.cos_fov_th, self.level_sigma2,
+            self.scale_factors, 1.5 * cfg.scale_factor)
 
     def _level(self, table: torch.Tensor, level: torch.Tensor
                ) -> torch.Tensor:
@@ -174,13 +187,10 @@ class MappingKernels:
     # CreateNewMapPoints (LocalMapping.cpp:209-386)
     # ------------------------------------------------------------------
 
-    def triangulate_with_neighbor(self, arena: SM.MapArena, k_new: Slot,
-                                  k_nb: Slot):
-        """Match the free keypoints of (k_new, k_nb) on the epipolar
-        constraint and triangulate (``mapping.py:91-169``). Returns the
-        candidates' world points per k_new feature, their mask, the matched
-        k_nb feature, the parallax cosine and the gate counts [raw,
-        parallax, depth, chi2]."""
+    def _search_pair(self, arena: SM.MapArena, k_new: Slot, k_nb: Slot):
+        """The pair's geometry and the epipolar search of its free
+        keypoints (``mapping.py:97-111``). Returns (kp1, kp2, R21, t21,
+        search result)."""
         kp1 = _kf_keypoints(arena, k_new)
         kp2 = _kf_keypoints(arena, k_nb)
         R21, t21, E12 = _relative_geometry(arena, k_new, k_nb)
@@ -194,16 +204,40 @@ class MappingKernels:
             free1=free1, free2=free2, epipole_ray2=e2, epipole_guard_deg=1.0,
             th_low=self.th_low, histo_bin_deg=self.histo_bin,
             chi2_th=float(self.cfg.chi2_epipolar))
-        rays1 = kp1.rays
-        rays2 = kp2.rays[res.idx]
+        return kp1, kp2, R21, t21, res
+
+    def triangulate_with_neighbor(self, arena: SM.MapArena, k_new: Slot,
+                                  k_nb: Slot):
+        """Match the free keypoints of (k_new, k_nb) on the epipolar
+        constraint and triangulate (``mapping.py:91-169``). Returns the
+        candidates' world points per k_new feature, their mask, the matched
+        k_nb feature, the parallax cosine and the gate counts [raw,
+        parallax, depth, chi2]. ``mapping_step`` takes this pair by pair on
+        the CPU; on the card it gates all pairs in one
+        ``triangulate_gated`` launch."""
+        kp1, kp2, R21, t21, res = self._search_pair(arena, k_new, k_nb)
+        at = res.idx
+        Xw, ok, cos_par, gates = self.gate_pair(
+            kp1.rays, kp2.rays[at], kp1.uv, kp2.uv[at], kp1.level,
+            kp2.level[at], res.ok, R21, t21, _at(arena.kf_R, k_new),
+            _at(arena.kf_t, k_new))
+        return Xw, ok, at, cos_par, gates
+
+    def gate_pair(self, rays1, rays2, uv1, uv2, level1, level2, match_ok,
+                  R21, t21, R1, t1):
+        """Triangulate one pair's N matched rows (``triangulate_rays``) and
+        gate them eagerly (``mapping.py:112-168``): the rows' rays, cross
+        uv and levels in each keyframe, the search's mask, the pair's (R21,
+        t21) and the new keyframe's pose (R1, t1). Returns (Xw, ok,
+        cos_par, gates)."""
         X1 = triangulate_rays(rays1, rays2, R21, t21)     # frame-1 coords
-        ok = res.ok & torch.isfinite(X1).all(dim=-1)
+        ok = match_ok & torch.isfinite(X1).all(dim=-1)
         # parallax between the viewing rays in a common frame
         cos_par = (rays1 * (rays2 @ R21)).sum(dim=-1)
         ok &= cos_par < 0.9998
         n_par = ok.sum()
         d1 = torch.linalg.norm(X1, dim=-1)
-        ok &= d1 <= 50.0 * base
+        ok &= d1 <= 50.0 * torch.linalg.norm(t21)
         n_depth = ok.sum()
         ok &= X1[:, 2] / torch.clamp(d1, min=1e-12) > self.cam.cos_fov_th
         X2 = X1 @ R21.T + t21
@@ -212,24 +246,22 @@ class MappingKernels:
         # reprojection chi2 in both frames
         uvp1, f1 = C.ray_to_cubemap(self.cam, X1)
         uvp2, f2 = C.ray_to_cubemap(self.cam, X2)
-        lev2 = kp2.level[res.idx]
-        s1 = self._level(self.level_sigma2, kp1.level)
-        s2 = self._level(self.level_sigma2, lev2)
-        e1 = ((uvp1 - kp1.uv) ** 2).sum(dim=-1)
-        e2_ = ((uvp2 - kp2.uv[res.idx]) ** 2).sum(dim=-1)
+        s1 = self._level(self.level_sigma2, level1)
+        s2 = self._level(self.level_sigma2, level2)
+        e1 = ((uvp1 - uv1) ** 2).sum(dim=-1)
+        e2 = ((uvp2 - uv2) ** 2).sum(dim=-1)
         ok &= (f1 >= 0) & (e1 <= 5.991 * s1)
-        ok &= (f2 >= 0) & (e2_ <= 5.991 * s2)
+        ok &= (f2 >= 0) & (e2 <= 5.991 * s2)
         n_chi2 = ok.sum()
         # scale consistency
         ratio_dist = d2 / torch.clamp(d1, min=1e-12)
-        ratio_oct = (self._level(self.scale_factors, kp1.level)
-                     / self._level(self.scale_factors, lev2))
+        ratio_oct = (self._level(self.scale_factors, level1)
+                     / self._level(self.scale_factors, level2))
         rf = 1.5 * self.cfg.scale_factor
         ok &= (ratio_dist * rf > ratio_oct) & (ratio_dist < ratio_oct * rf)
-        R1, t1 = _at(arena.kf_R, k_new), _at(arena.kf_t, k_new)
         Xw = (X1 - t1) @ R1
-        gates = torch.stack([res.ok.sum(), n_par, n_depth, n_chi2])
-        return Xw, ok, res.idx, cos_par, gates
+        gates = torch.stack([match_ok.sum(), n_par, n_depth, n_chi2])
+        return Xw, ok, cos_par, gates
 
     def _allocate(self, arena: SM.MapArena, ok_flat: torch.Tensor,
                   slots: torch.Tensor, Xw_flat: torch.Tensor, k_new: Slot,
@@ -522,10 +554,22 @@ class MappingKernels:
 
         # triangulate against every neighbour; keep the widest-parallax
         # candidate of each feature
-        tri = [self.triangulate_with_neighbor(arena, slot, nb_idx[b:b + 1])
-               for b in range(n_neighbors)]
-        Xw_b, ok_b, idx2_b, cos_b, gates_b = (torch.stack(x)
-                                              for x in zip(*tri))
+        if _one_launch_gates(dev):
+            pairs = [self._search_pair(arena, slot, nb_idx[b:b + 1])
+                     for b in range(n_neighbors)]
+            R21s, t21s, idx2_b, match = (torch.stack(x) for x in zip(*(
+                (R21, t21, res.idx, res.ok)
+                for _, _, R21, t21, res in pairs)))
+            Xw_b, ok_b, cos_b, gates_b = triangulate_gated(
+                Keyframes(arena.kf_rays, arena.kf_uv, arena.kf_level,
+                          arena.kf_R, arena.kf_t), _index(slot, dev),
+                nb_idx, idx2_b, match, R21s, t21s, self.gate_consts)
+        else:
+            tri = [self.triangulate_with_neighbor(arena, slot,
+                                                  nb_idx[b:b + 1])
+                   for b in range(n_neighbors)]
+            Xw_b, ok_b, idx2_b, cos_b, gates_b = (torch.stack(x)
+                                                  for x in zip(*tri))
         ok_b &= nb_ok[:, None]
         all_cos = torch.where(ok_b, cos_b, torch.full_like(cos_b, 2.0))
         winner = torch.argmin(all_cos, dim=0)

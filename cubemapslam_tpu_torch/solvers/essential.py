@@ -16,14 +16,15 @@ initialization frames.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from cubemapslam_tpu_torch import camera as C
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
-from cubemapslam_tpu_torch.solvers.triangulate import triangulate_rays
+from cubemapslam_tpu_torch.solvers.triangulate import (triangulate_pairs,
+                                                       triangulate_rays)
 
 CHI2_TH = 3.841
 SCORE_TH = 5.991
@@ -127,10 +128,13 @@ def decompose_e(E: torch.Tensor):
 def check_rt(cam: CubemapCamera, R: torch.Tensor, t: torch.Tensor,
              rays1: torch.Tensor, rays2: torch.Tensor,
              uv1: torch.Tensor, uv2: torch.Tensor,
-             inliers: torch.Tensor, th2: float):
-    """Triangulate and gate one (R,t) hypothesis. Returns (n_good, p3d (N,3)
-    in frame 1, good (N,), parallax_deg)."""
-    p3d = triangulate_rays(rays1, rays2, R, t)
+             inliers: torch.Tensor, th2: float,
+             p3d: Optional[torch.Tensor] = None):
+    """Triangulate (unless given ``p3d``, the hypothesis' points) and gate
+    one (R,t) hypothesis. Returns (n_good, p3d (N,3) in frame 1, good (N,),
+    parallax_deg)."""
+    if p3d is None:
+        p3d = triangulate_rays(rays1, rays2, R, t)
     finite = torch.isfinite(p3d).all(dim=-1)
     O2 = -(R.T @ t)
     d1 = torch.linalg.norm(p3d, dim=-1)
@@ -183,8 +187,9 @@ def reconstruct_e(cam: CubemapCamera, E: torch.Tensor,
     th2 = 4.0 * sigma2
     Rs = torch.stack([R1, R2, R1, R2])
     ts = torch.stack([t, t, -t, -t])
+    pts = triangulate_pairs(rays1, rays2, Rs, ts)    # one launch on the card
     outs = [check_rt(cam, Rs[h], ts[h], rays1, rays2, uv1, uv2, inliers,
-                     th2) for h in range(4)]
+                     th2, p3d=pts[h]) for h in range(4)]
     n_good = torch.stack([o[0] for o in outs])
     p3d = torch.stack([o[1] for o in outs])
     good = torch.stack([o[2] for o in outs])

@@ -60,14 +60,21 @@ iterations a round, R and t bitwise equal (1e-6 is the bound asked for),
 the inlier masks equal; with no valid edge and no edge; each case failing
 after LM_CASE_SECONDS if a cluster hangs; its wrapper raising on a device
 mix, a strided input, a wrong dtype and a cluster size of 3 or 16; and
-two launches a graph frame of ``MapTracker``. The triangulation kernel (``csrc/triangulate.cu``) against
-``triangulate_rays_ordered`` on ``chip_smoke.tri_problem`` inputs (N = 0,
-1, 37, 2000, 6000 with degenerate rows; a zero baseline; zero pivots):
-bitwise, NaN where NaN, eagerly and from a CUDA graph, one launch a call,
-within ``chip_smoke.TRI_REF_RTOL`` of the matmul path it replaced on rows
-of wide parallax; no build for CPU tensors; its wrapper raising on a wrong
-dtype, shape or device and a strided input; 6 launches a keyframe frame
-(graph K's replays included).
+two launches a graph frame of ``MapTracker``. The triangulation kernel
+(``csrc/triangulate.cu``) under 1, 4 and 6 pairs of N = 0, 1, 37, 2000,
+6000 rows with degenerate rows: ungated against
+``triangulate_rays_ordered`` on ``chip_smoke.tri_problem`` inputs (and a
+zero baseline, zero pivots) and against its one-pair launches, within
+``chip_smoke.TRI_REF_RTOL`` of the matmul path it replaced on rows of
+wide parallax; gated against ``triangulate_gated_ordered`` on
+``chip_smoke.tri_gated_problem`` inputs (points, masks, cosines and gate
+counts); bitwise, NaN where NaN, eagerly and from a CUDA graph, one launch
+a call; the gated launch's decisions against the eager gates it replaced
+on the small map's mapping step, each row decided otherwise within
+``chip_smoke.TRI_FLIP_ULPS`` of its gate; no build for CPU tensors; the
+wrappers raising on a wrong dtype, shape or device and a strided input;
+one launch a keyframe frame (graph K's replays included) and one a
+two-view reconstruction.
 """
 
 import faulthandler
@@ -761,32 +768,84 @@ def test_pose_lm_wrapper_raises(cuda):
 
 
 def _tri_cases():
-    return ([("mixed", n) for n in chip_smoke.TRI_SIZES]
-            + [("zero_baseline", 2000), ("axis", 2000)])
+    return ([("mixed", n, B) for B in chip_smoke.TRI_PAIRS
+             for n in chip_smoke.TRI_SIZES]
+            + [("zero_baseline", 2000, 1), ("axis", 2000, 1)])
 
 
-@pytest.mark.parametrize("kind,n", _tri_cases())
-def test_triangulate_kernel_bitwise(cuda, kind, n):
-    """The triangulation kernel (``csrc/triangulate.cu``) against
-    ``triangulate_rays_ordered`` on ``chip_smoke.tri_problem`` inputs: N =
-    0, 1, 37, 2000 and 6000 with parallel, axis-aligned and NaN rows, a
-    zero baseline, and an identity rotation whose axis-aligned rows meet
-    zero pivots. Bitwise (NaN where NaN), from one launch and from a CUDA
-    graph replay; one launch a call (none at N = 0); within
+@pytest.mark.parametrize("kind,n,pairs", _tri_cases())
+def test_triangulate_kernel_bitwise(cuda, kind, n, pairs):
+    """The triangulation kernel (``csrc/triangulate.cu``), ungated, on
+    ``chip_smoke.tri_problem`` inputs under 1, 4 and 6 pairs: N = 0, 1, 37,
+    2000 and 6000 with parallel, axis-aligned and NaN rows, a zero
+    baseline, and an identity rotation whose axis-aligned rows meet zero
+    pivots. Against ``triangulate_rays_ordered`` bitwise (NaN where NaN),
+    from one launch and from a CUDA graph replay, and against the one-pair
+    launches; one launch a call (none at N = 0); within
     ``chip_smoke.TRI_REF_RTOL`` of the matmul path it replaced on the rows
     of wide parallax (``chip_smoke.tri_case`` raises otherwise)."""
     from cubemapslam_tpu_torch.solvers import triangulate as TT
-    args = chip_smoke.tri_problem(n, chip_smoke.SEED + 6, cuda, kind)
-    c = chip_smoke.tri_case(f"{kind}, {n} rows", args)
-    assert c["bitwise"] and c["graph_bitwise"]
+    args = chip_smoke.tri_problem(n, chip_smoke.SEED + 6, cuda, kind, pairs)
+    c = chip_smoke.tri_case(f"{kind}, {pairs} x {n} rows", args)
+    assert c["bitwise"] and c["graph_bitwise"] and c["per_pair_bitwise"]
     assert c["launches"] == (1 if n else 0)
     n0 = TT.TRIANGULATE.launches
-    X = TT.triangulate_rays(*args)
+    X = TT.triangulate_pairs(*args)
     assert TT.TRIANGULATE.launches == n0 + (1 if n else 0)
     assert chip_smoke.same_float_bits(X, TT.triangulate_rays_ordered(*args))
     if kind == "mixed" and n >= 37:
-        assert not torch.isfinite(X[4::16]).all(-1).any()
-        assert torch.isfinite(X[6::16]).all()
+        assert not torch.isfinite(X[:, 4::16]).all(-1).any()
+        assert torch.isfinite(X[:, 6::16]).all()
+
+
+@pytest.mark.parametrize("pairs", [1, 4, 6])
+@pytest.mark.parametrize("n", [0, 1, 37, 2000, 6000])
+def test_triangulate_gated_kernel_bitwise(cuda, pairs, n):
+    """The gated form on ``chip_smoke.tri_gated_problem`` inputs (1, 4, 6
+    neighbours; N = 0, 1, 37, 2000, 6000; parallel, NaN and axis-aligned
+    rows, out-of-range levels, a short baseline): world points, masks,
+    parallax cosines and gate counts bitwise ``triangulate_gated_ordered``,
+    from one launch and from a CUDA graph replay; one launch a call (none
+    at N = 0); its decisions against the eager gates it replaced
+    (``chip_smoke.tri_gated_case`` raises otherwise)."""
+    from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+    mk = MappingKernels(SlamConfig(), device=cuda)
+    args = chip_smoke.tri_gated_problem(pairs, n, chip_smoke.SEED + 8, cuda)
+    c = chip_smoke.tri_gated_case(f"{pairs} x {n} rows", args, mk)
+    assert c["bitwise"] and c["graph_bitwise"]
+    assert c["launches"] == (1 if n else 0)
+    if n >= 37:
+        assert all(g > 0 for g in c["gates"])
+
+
+def test_gated_kernel_decisions_against_eager_gates(cuda):
+    """On the small map's last mapping step (``mapping_snapshot``, on the
+    card), the new keyframe against its 5 other keyframes and an empty
+    slot: the one gated launch against the path it replaced (a one-pair
+    launch and the eager gates, ``@``, ``linalg.norm`` and
+    ``ray_to_cubemap``, a pair at a time). Every row the two decide
+    otherwise is named by the gate that turned and lies within
+    ``chip_smoke.TRI_FLIP_ULPS`` float32 ulps of it; the count is
+    printed."""
+    from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
+    from cubemapslam_tpu_torch.solvers import triangulate as TT
+    cfg, arena, slot, _, _ = mapping_snapshot()
+    mk = MappingKernels(cfg, device=cuda)
+    a = arena.to(cuda)
+    nbs = [3, 0, 6, 4, 1, 2]
+    pairs = [mk._search_pair(a, slot, nb) for nb in nbs]
+    R21s, t21s, idx, match = (torch.stack(x) for x in zip(*(
+        (R21, t21, res.idx, res.ok) for _, _, R21, t21, res in pairs)))
+    args = (TT.Keyframes(a.kf_rays, a.kf_uv, a.kf_level, a.kf_R, a.kf_t),
+            torch.tensor([slot], device=cuda), torch.tensor(nbs, device=cuda),
+            idx, match, R21s, t21s, mk.gate_consts)
+    c = chip_smoke.tri_gated_case("mapping_snapshot, 6 neighbours", args, mk)
+    print(f"rows decided otherwise than the eager gates: "
+          f"{sum(c['flips'].values())} {c['flips']}, within "
+          f"{c['flip_ulps']:.3g} ulps")
+    assert c["bitwise"] and c["kept"] > 20
+    assert "none found" not in c["flips"]
+    assert c["flip_ulps"] <= chip_smoke.TRI_FLIP_ULPS
 
 
 def test_triangulate_cpu_call_builds_nothing(cuda, monkeypatch):
@@ -801,25 +860,51 @@ def test_triangulate_cpu_call_builds_nothing(cuda, monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(TT.TRIANGULATE, "_fn", None)
     n0 = TT.TRIANGULATE.launches
-    X = TT.triangulate_rays(*chip_smoke.tri_problem(37, 1, "cpu"))
+    args = chip_smoke.tri_problem(37, 1, "cpu", pairs=4)
+    X = TT.triangulate_rays(*chip_smoke.pair_args(args, 0))
     assert X.device.type == "cpu" and X.shape == (37, 3)
+    assert TT.triangulate_pairs(*args).shape == (4, 37, 3)
+    c = TT.triangulate_gated(*chip_smoke.tri_gated_problem(6, 37, 1, "cpu"))
+    assert c.Xw.device.type == "cpu"
     assert TT.TRIANGULATE.launches == n0 and TT.TRIANGULATE._fn is None
 
 
 def test_triangulate_wrapper_raises(cuda):
-    """The kernel's wrapper raises on a float64 ray, a strided ray, a
-    CPU/CUDA mix and a wrong shape; it launches nothing then."""
+    """The kernel's wrappers raise on a float64 ray, a strided ray, a
+    CPU/CUDA mix and a wrong shape (one pair, B pairs), and on an int32
+    level table, a strided index, a CPU slot, a wrong shape and a missing
+    level table (the gated form); they launch nothing then."""
     from cubemapslam_tpu_torch.solvers import triangulate as TT
-    args = list(chip_smoke.tri_problem(100, 5, cuda))
+    args = list(chip_smoke.pair_args(
+        chip_smoke.tri_problem(100, 5, cuda), 0))
     wide = torch.zeros((100, 4), device=cuda)
     wide[:, :3] = args[0]
     bad = [[args[0].double()] + args[1:], [wide[:, :3]] + args[1:],
            args[:3] + [args[3].cpu()], args[:2] + [args[2].reshape(9)]
            + args[3:], [args[0][:50]] + args[1:]]
+    pairs = list(chip_smoke.tri_problem(100, 5, cuda, pairs=4))
+    bad_pairs = [pairs[:3] + [pairs[3][:3]], pairs[:2] + [pairs[2][0]]
+                 + pairs[3:]]
+    g = list(chip_smoke.tri_gated_problem(6, 64, 5, cuda))
+    kf, consts = g[0], g[7]
+    wide_idx = torch.zeros((6, 128), dtype=torch.int64, device=cuda)
+    wide_idx[:, ::2] = g[3]
+    bad_gated = [[kf._replace(level=kf.level.int())] + g[1:],
+                 g[:3] + [wide_idx[:, ::2]] + g[4:],
+                 g[:1] + [g[1].cpu()] + g[2:],
+                 g[:4] + [g[4][:, :32]] + g[5:],
+                 g[:7] + [consts._replace(level_sigma2=consts.level_sigma2[:0],
+                                          scale_factors=consts.scale_factors[:0])]]
     n0 = TT.TRIANGULATE.launches
     for b in bad:
         with pytest.raises(ValueError):
             TT.triangulate_rays(*b)
+    for b in bad_pairs:
+        with pytest.raises(ValueError):
+            TT.triangulate_pairs(*b)
+    for b in bad_gated:
+        with pytest.raises(ValueError):
+            TT.triangulate_gated(*b)
     assert TT.TRIANGULATE.launches == n0
 
 
@@ -1195,8 +1280,8 @@ def test_mapping_graph_launch_counts(cuda, slam_runs):
     segmented sum and the triangulation kernel count, frame by frame, what
     the eager frames launch; W, D's two entries and describe once a frame,
     the segmented sum on every keyframe and deferred-BA frame, the
-    triangulation 6 times on a keyframe frame after init (graph K's
-    replays included) and 4 a two-view reconstruction while initializing."""
+    triangulation once on a keyframe frame after init (graph K's replays
+    included) and once a two-view reconstruction while initializing."""
     (_, e_states, e_launch), (g_slam, _, g_launch) = (slam_runs[True],
                                                       slam_runs[False])
     assert e_launch == g_launch
@@ -1208,10 +1293,10 @@ def test_mapping_graph_launch_counts(cuda, slam_runs):
         if row.get("keyframe") or row.get("ba"):
             assert n["seg_sum_launch"] > 0
         if row.get("stage") == "init":
-            assert n["triangulate_launch"] % 4 == 0
+            assert n["triangulate_launch"] in (0, 1)
             init += n["triangulate_launch"]
         elif row.get("keyframe"):
-            assert n["triangulate_launch"] == 6
+            assert n["triangulate_launch"] == 1
             mapped += row.get("graph_mapping_replays", 0) > 0
         else:
             assert n["triangulate_launch"] == 0

@@ -25,6 +25,13 @@ and the frame id as 0-d tensors (as the captured mapping graphs give them):
 every table and the diagnostics bitwise the calls with ints, and against
 JAX at the same tolerances.
 
+On the card ``mapping_step`` triangulates and gates its 6 neighbours in
+one ``triangulate_gated`` launch; here that branch runs on the CPU (its
+device condition lifted by a monkeypatch, the launch's plain version
+``triangulate_gated_ordered`` in the kernel's order), held to JAX as
+``test_mapping_step`` holds the pair-by-pair path, and to that path:
+the same diagnostics and integer tables.
+
 ``fuse_pair``'s rule for duplicate scatter indices differs from the JAX
 package's (a merge's write wins; of two merges with one loser, the later
 row): the parity arena has no merge whose loser is landmark 0, and
@@ -43,6 +50,7 @@ from cubemapslam_tpu.runtime.mapping import MappingKernels as JMK
 from cubemapslam_tpu_torch import interop
 from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
+from cubemapslam_tpu_torch.runtime import mapping as TMAP
 from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
 from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
@@ -388,6 +396,38 @@ def check_mapping_step(t, info_t, j, info_j, run_ba):
     assert (tn["kf_obs_lm"] != jn["kf_obs_lm"]).sum() <= 0.05 * live
     for k in ("kf_R", "kf_t"):
         np.testing.assert_allclose(tn[k], jn[k], atol=2e-2, err_msg=k)
+
+
+@pytest.mark.parametrize("slots", ["ints", "tensors"])
+def test_mapping_step_one_launch(snap, jax_results, slots, monkeypatch):
+    """The card's branch of ``mapping_step`` (the pairs' searches, one
+    ``triangulate_gated`` call for all neighbours) run on the CPU, without
+    BA, with the slot, counter and frame id as ints and as 0-d tensors:
+    against JAX as ``test_mapping_step`` holds it (every table, the
+    diagnostics exactly), and against the pair-by-pair CPU path (the same
+    diagnostics, the same integer tables)."""
+    args = (snap["slot"], snap["n_kf"], snap["fid"])
+    pair, info_pair = snap["tm"].mapping_step(ta(snap["arena"]), *args,
+                                              max_cams=MAX_CAMS, run_ba=False)
+    calls = []
+    inner = TMAP.triangulate_gated
+
+    def counted(*a):
+        calls.append(a[3].shape)
+        return inner(*a)
+
+    monkeypatch.setattr(TMAP, "_one_launch_gates", lambda device: True)
+    monkeypatch.setattr(TMAP, "triangulate_gated", counted)
+    if slots == "tensors":
+        args = device_scalars(*args)
+    t, info_t = snap["tm"].mapping_step(ta(snap["arena"]), *args,
+                                        max_cams=MAX_CAMS, run_ba=False)
+    assert calls == [(6, E2E["n_features"])]
+    assert torch.equal(info_t, info_pair)
+    for k in INTEGER:
+        assert torch.equal(getattr(t, k), getattr(pair, k)), k
+    check_mapping_step(t, info_t, *jax_mapping_step(snap, jax_results,
+                                                    False), False)
 
 
 @pytest.mark.parametrize("run_ba", [False, True])
