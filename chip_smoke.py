@@ -132,15 +132,21 @@ repo's vocabulary. On its arena the segmented-sum kernel is held bitwise
 against its kernel-order plain version at the global BA's shapes (its live
 edges by camera and by point) and at those of the local BA, the pose graph
 and the landmark normals, and timed beside ``index_add_``;
-``LoopCloser.process`` on slots 12 and 13 must close the
-loop and cut the segment-B error to the stated share. A second, warm
-closure on a fresh copy prints the wall time of each stage (detect, sim3,
-correct, gba), the host reads, the eigen-solve waits and the peak memory;
-a third copy is closed under the
-profiler by stage (whose host waits may not exceed the stated reads and
-eigen-solve waits); and holds the closure on the card against the CPU at
-the tier-1 test's size, the correction and the global BA each within its
-stated bounds.
+``LoopCloser.process`` on slots 12 and 13 closes a fresh copy of the
+arena once eagerly (``LoopCloser.graphs`` off) and once with the pose
+graph's Gauss-Newton iterations and the global BA's LM steps each replayed
+from a CUDA graph captured in the closure: each must close the loop, cut
+the segment-B error to the stated share and launch the segmented sum the
+stated number of times by stage, and every table of the two closed arenas
+must be bitwise equal. A warm closure in each mode on a fresh copy prints
+the wall time of each stage (detect, sim3, correct, gba), the host reads,
+the eigen-solve waits, the captures, replays, capture ms, pool MiB and
+capture waits, and the peak memory; one more copy in each mode is closed
+under the profiler by stage and by the correction's and the global BA's
+sub-ranges (whose host waits may not exceed the stated reads, eigen-solve
+waits and capture waits), and the two are printed side by side; and it
+holds the closure on the card against the CPU at the tier-1 test's size,
+the correction and the global BA each within its stated bounds.
 
 Then the ``app`` phase: the ``slam`` phase's rendered frames written as PGM
 files with a Lafida "id ts path" list under ``build/``, run through the
@@ -328,6 +334,17 @@ LOOP_POINTS = 3000
 LOOP_MIN_ROW = 1000
 LOOP_ERR_FRAC = 0.6
 LOOP_STAGES = ("loop.detect", "loop.sim3", "loop.correct", "loop.gba")
+# the correction's and the global BA's sub-ranges (runtime/loop_closing.py,
+# optim/ba.py)
+LOOP_SUBRANGES = ("loop.correct.fuse", "loop.correct.propagate",
+                  "loop.correct.pose_graph", "loop.correct.remap",
+                  "loop.correct.search_and_fuse", "loop.correct.stats",
+                  "loop.gba.build", "loop.gba.lm", "loop.gba.cut",
+                  "loop.gba.write")
+# the closure's segmented sums by LoopCloser stage: the correction's 12
+# Gauss-Newton iterations x 2 and the landmark normals; the global BA's 15
+# LM steps x (4 + 2 x 50 CG iterations + 2)
+LOOP_SEG_LAUNCHES = {"_correct": 25, "_global_ba": 1590}
 # the card-against-CPU closure at the tier-1 test's size, and its bounds:
 # the RANSAC Sim3 and the refined rotation and translation (largest entry);
 # (pose difference, 99% and largest landmark difference, share of the
@@ -1754,22 +1771,43 @@ def check_results(results, cfg):
 
 def raw_events(prof):
     """The profiler's events as (name, on the card, start ns, end ns, input
-    shapes), read from its raw result: ``prof.events()`` builds a tree of
-    Python objects, which takes minutes for a loop closure's 10^5
-    operations."""
+    shapes, correlation id), read from its raw result: ``prof.events()``
+    builds a tree of Python objects, which takes minutes for a loop
+    closure's 10^5 operations."""
     out = []
     for e in prof.profiler.kineto_results.events():
         s = e.start_ns()
         out.append((e.name(), e.device_type() == DeviceType.CUDA, s,
-                    s + e.duration_ns(), e.shapes()))
+                    s + e.duration_ns(), e.shapes(), e.correlation_id()))
     return out
+
+
+def launch_times(cpu):
+    """The start of each CUDA runtime or driver call (a kernel launch, a
+    copy, a graph launch) by its correlation id."""
+    return {e[5]: e[2] for e in cpu if e[5] and e[0].startswith("cu")}
+
+
+def launched_in(kernels, launch, host):
+    """The device operations whose launch (``launch_times``) starts inside
+    one of the ``host`` spans. Unlike the range's span on the device, this
+    holds for nested ranges."""
+    spans = sorted(host)
+    starts = [a for a, _ in spans]
+
+    def inside(k):
+        t = launch.get(k[5])
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        return i >= 0 and t < spans[i][1]
+
+    return [k for k in kernels if inside(k)]
 
 
 def wait_sources(cpu):
     """A function that names the outermost aten operation around a host
     wait (a span of ``cpu``), else the wait's own name."""
     tops = []
-    for name, _, a, b, _ in sorted((e for e in cpu
+    for name, _, a, b, *_ in sorted((e for e in cpu
                                     if e[0].startswith("aten::")),
                                    key=lambda e: (e[2], -e[3])):
         if not tops or a >= tops[-1][2]:
@@ -1833,8 +1871,9 @@ def profile_stages(step, stages, n):
     range); the host waits of a frame (a call that waits
     for the device: a synchronisation, which every blocking copy between
     host and card makes, or a blocking ``cudaMemcpy``) with their sources;
-    per stage the host time, device busy time, device operations, host waits
-    and the five device operations with the most time, all per frame; each
+    per stage the host time, device busy time and device operations of what
+    it launched (``launched_in``), host waits and the five device operations
+    with the most time, all per frame; each
     port kernel's device time; the count of matrix products with the
     dense descriptor operator (its 8194 columns), which must be 0; and per
     frame ``device_gaps``: the device span and its short and long gaps."""
@@ -1865,11 +1904,10 @@ def profile_stages(step, stages, n):
     frame_waits, frame_sources = waits_in(waits, host_spans("frame"), n,
                                           source)
     per_stage = {}
+    launch = launch_times(cpu)
     for st in stages:
         host = host_spans(st)
-        spans = [(e[2], e[3]) for e in dev if e[0] == st]
-        inside = [k for k in kernels
-                  if any(a <= k[2] < b for a, b in spans)]
+        inside = launched_in(kernels, launch, host)
         by_name = {}
         for k in inside:
             t, c = by_name.get(k[0], (0.0, 0))
@@ -2739,7 +2777,7 @@ def graph_k_breakdown(cfg, frames, first_ok, first_map):
     outer = [sp for sp in spans if sp[3] in ("k.insert", "k.step")]
     parts = {k: [0.0, 0] for k in GRAPH_K_PARTS}
     tri_kernels = 0
-    for name, _, a, b, _ in dev:
+    for name, _, a, b, *_ in dev:
         if name in cpu_names or not any(o[1] <= a < o[2] for o in outer):
             continue
         part = min(sp for sp in spans if sp[1] <= a < sp[2])[3]
@@ -3368,14 +3406,16 @@ def segment_b_error(arena) -> float:
                      for j in range(4)))
 
 
-def close_constructed_loop(cfg, system, seg=None):
+def close_constructed_loop(cfg, system, seg=None, graphs=True):
     """``LoopCloser.process`` on slots 12 then 13 at consistency_th = 1,
-    with the segmented sums of the correction and the global BA counted
-    into ``seg`` when given. Returns (the closer, the closure's wall ms,
-    what each call returned)."""
+    its solves through CUDA graphs or eagerly (``graphs``), with the
+    segmented sums of the correction and the global BA counted into
+    ``seg`` when given. Returns (the closer, the closure's wall ms, what
+    each call returned)."""
     lc = LoopCloser(cfg, CubemapCamera.from_config(cfg,
                                                    system.arena.device))
     lc.consistency_th = 1
+    lc.graphs = graphs
     with (contextlib.nullcontext() if seg is None else
           seg_tally(lc, ("_correct", "_global_ba"), seg)):
         closed = [lc.process(system, 12)]
@@ -3386,13 +3426,39 @@ def close_constructed_loop(cfg, system, seg=None):
     return lc, (time.perf_counter() - t0) * 1e3, closed
 
 
+LOOP_MODES = (("eager", False), ("graph", True))
+
+
+def loop_arena_tables(arena):
+    """Every arena table on the host and the sha256 digest of all of them
+    (tables in field order)."""
+    tables = {k: getattr(arena, k).detach().cpu().clone()
+              for k in arena._fields}
+    h = hashlib.sha256()
+    for k, v in tables.items():
+        h.update(k.encode())
+        h.update(v.contiguous().numpy().tobytes())
+    return tables, h.hexdigest()
+
+
+def graph_counts_line(lc):
+    g = lc.graph_counts
+    return (f"captures {g['captures']}, replays {g['replays']}, capture "
+            f"{g['capture_ms']:.3f} ms, pool {g['capture_mib']:.1f} MiB, "
+            f"capture waits {lc.capture_waits}")
+
+
 def loop_phase(cfg):
-    """The constructed-drift closure at SlamConfig() capacities: checks the
-    rows hold LOOP_MIN_ROW observations, closes the loop, and requires the
-    segment-B error to fall to LOOP_ERR_FRAC; closes a fresh copy again,
-    warm, for the stage times, host reads, eigen-solve waits and peak
-    memory; then closes a third copy under the profiler by stage (its host
-    waits may not exceed the stated reads and eigen-solve waits)."""
+    """The constructed-drift closure at SlamConfig() capacities, once
+    eagerly (``LoopCloser.graphs`` off) and once with its solves through
+    CUDA graphs, each on a fresh copy of the arena: both must close the
+    loop, cut the segment-B error to LOOP_ERR_FRAC, launch the segmented
+    sum LOOP_SEG_LAUNCHES times by stage, and leave every arena table
+    bitwise equal. Then a warm closure in each mode for the stage times,
+    host reads, eigen-solve waits, capture waits and peak memory; then a
+    closure in each mode under the profiler by stage and sub-range (its
+    host waits may not exceed the stated reads, eigen-solve waits and
+    capture waits)."""
     vocab = PL.load_vocabulary(str(VOCAB_PATH))
     t0 = time.perf_counter()
     system = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
@@ -3409,51 +3475,93 @@ def loop_phase(cfg):
     seg_row = check_seg_sum(CubemapCamera.from_config(cfg, "cuda"), a,
                             inv_s2)
     before = segment_b_error(a)
-    SG.SEG_SUM.launches = 0
-    seg = {}
-    lc, cold, closed = close_constructed_loop(cfg, system, seg)
-    SEG_LAUNCHES["loop"] = dict(total=SG.SEG_SUM.launches, **seg)
-    log(f"[loop] seg_sum: launches in the closure {SEG_LAUNCHES['loop']} "
-        f"(by LoopCloser stage)")
-    if not (seg.get("_correct") and seg.get("_global_ba")):
-        raise AssertionError("the correction or the global BA launched no "
-                             "segmented sum")
-    after = segment_b_error(system.arena)
-    log(f"[loop] process(12), process(13): {closed}; the first closure's "
-        f"wall {cold:.3f} ms (cold: first use of its operations)")
-    log(f"[loop] segment-B centre error {before:.5f} -> {after:.5f} "
-        f"({after / before:.4f} of it; bound {LOOP_ERR_FRAC}); loop edges "
-        f"{lc.loop_edges}")
-    if closed != [False, True] or not after <= LOOP_ERR_FRAC * before:
-        raise AssertionError("the constructed loop was not closed and "
-                             "corrected")
-    del system, lc
-    system = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
-    torch.cuda.reset_peak_memory_stats()
-    lc, wall, closed = close_constructed_loop(cfg, system)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    times = {k: [round(x * 1e3, 3) for x in v] for k, v in lc.timings.items()}
-    log(f"[loop] warm closure on a fresh copy: {closed}; wall {wall:.3f} ms; "
-        f"stage wall ms {times}; host reads {lc.reads}, eigen-solve waits "
-        f"{lc.eigh_waits}; peak memory {peak:.1f} MiB")
-    if closed != [False, True]:
-        raise AssertionError("the warm closure did not close")
-    del system, lc
-    fresh = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
-    lc2 = LoopCloser(cfg, CubemapCamera.from_config(cfg, "cuda"))
-    lc2.consistency_th = 1
-    lc2.process(fresh, 12)
-    prof = profile_stages(lambda: lc2.process(fresh, 13), LOOP_STAGES, 1)
-    log_profile("loop-profile", prof, [wall])
-    allowed = lc2.reads + lc2.eigh_waits
-    log(f"[loop-profile] host reads {lc2.reads}, eigen-solve waits "
-        f"{lc2.eigh_waits}; host waits {prof['host_waits']:.0f}")
-    if not lc2.loop_edges:
-        raise AssertionError("the profiled closure did not close")
-    if prof["host_waits"] > allowed:
-        raise AssertionError(f"the closure waited {prof['host_waits']:.0f} "
-                             f"times; its stated reads and eigen-solve waits "
-                             f"are {allowed}")
+    closed_tables = {}
+    for mode, graphs in LOOP_MODES:
+        system = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
+        SG.SEG_SUM.launches = 0
+        seg = {}
+        lc, cold, closed = close_constructed_loop(cfg, system, seg, graphs)
+        launches = dict(total=SG.SEG_SUM.launches, **seg)
+        SEG_LAUNCHES["loop" if graphs else "loop_eager"] = launches
+        log(f"[loop] {mode}: seg_sum launches in the closure {launches} (by "
+            f"LoopCloser stage; required {LOOP_SEG_LAUNCHES})")
+        if seg != LOOP_SEG_LAUNCHES:
+            raise AssertionError(f"the {mode} closure launched the "
+                                 f"segmented sum {seg} times")
+        after = segment_b_error(system.arena)
+        log(f"[loop] {mode}: process(12), process(13): {closed}; the first "
+            f"closure's wall {cold:.3f} ms (cold: first use of its "
+            f"operations); {graph_counts_line(lc)}")
+        log(f"[loop] {mode}: segment-B centre error {before:.5f} -> "
+            f"{after:.5f} ({after / before:.4f} of it; bound "
+            f"{LOOP_ERR_FRAC}); loop edges {lc.loop_edges}")
+        if closed != [False, True] or not after <= LOOP_ERR_FRAC * before:
+            raise AssertionError("the constructed loop was not closed and "
+                                 "corrected")
+        if graphs and lc.graph_counts["captures"] != 2:
+            raise AssertionError("the graph closure did not capture its two "
+                                 "solves")
+        if not graphs and lc.graph_counts["captures"]:
+            raise AssertionError("the eager closure captured a graph")
+        closed_tables[mode] = loop_arena_tables(system.arena)
+        del system, lc
+    (e_tab, e_dig), (g_tab, g_dig) = (closed_tables["eager"],
+                                      closed_tables["graph"])
+    differ = [k for k in e_tab
+              if e_tab[k].numpy().tobytes() != g_tab[k].numpy().tobytes()]
+    log(f"[loop] the closed arena, eager sha256 {e_dig}, graph {g_dig}: "
+        f"tables that differ {differ}")
+    if differ:
+        raise AssertionError(f"the graph closure's tables {differ} differ "
+                             f"from the eager closure's")
+    walls = {}
+    for mode, graphs in LOOP_MODES:
+        system = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
+        torch.cuda.reset_peak_memory_stats()
+        lc, wall, closed = close_constructed_loop(cfg, system, None, graphs)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        walls[mode] = wall
+        times = {k: [round(x * 1e3, 3) for x in v]
+                 for k, v in lc.timings.items()}
+        log(f"[loop] warm {mode} closure on a fresh copy: {closed}; wall "
+            f"{wall:.3f} ms; stage wall ms {times}; host reads {lc.reads}, "
+            f"eigen-solve waits {lc.eigh_waits}; {graph_counts_line(lc)}; "
+            f"peak memory {peak:.1f} MiB")
+        if closed != [False, True]:
+            raise AssertionError(f"the warm {mode} closure did not close")
+        del system, lc
+    profs = {}
+    for mode, graphs in LOOP_MODES:
+        fresh = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
+        lc2 = LoopCloser(cfg, CubemapCamera.from_config(cfg, "cuda"))
+        lc2.consistency_th = 1
+        lc2.graphs = graphs
+        lc2.process(fresh, 12)
+        prof = profile_stages(lambda: lc2.process(fresh, 13),
+                              LOOP_STAGES + LOOP_SUBRANGES, 1)
+        tag = f"loop-profile-{mode}"
+        log_profile(tag, prof, [walls[mode]])
+        allowed = lc2.reads + lc2.eigh_waits + lc2.capture_waits
+        log(f"[{tag}] host reads {lc2.reads}, eigen-solve waits "
+            f"{lc2.eigh_waits}, capture waits {lc2.capture_waits}; host "
+            f"waits {prof['host_waits']:.0f}; {graph_counts_line(lc2)}")
+        if not lc2.loop_edges:
+            raise AssertionError(f"the profiled {mode} closure did not "
+                                 f"close")
+        if prof["host_waits"] > allowed:
+            raise AssertionError(
+                f"the {mode} closure waited {prof['host_waits']:.0f} times; "
+                f"its stated reads, eigen-solve waits and capture waits "
+                f"are {allowed}")
+        profs[mode] = prof
+        del fresh, lc2
+    for st in LOOP_STAGES + LOOP_SUBRANGES:
+        e, g = profs["eager"]["stages"][st], profs["graph"]["stages"][st]
+        log(f"[loop-compare] {st:29s} eager / graph: host "
+            f"{e['host_ms']:.3f} / {g['host_ms']:.3f} ms, device busy "
+            f"{e['device_busy_ms']:.3f} / {g['device_busy_ms']:.3f} ms, "
+            f"{e['device_ops']:.0f} / {g['device_ops']:.0f} device "
+            f"operations")
     return seg_row
 
 
@@ -3472,17 +3580,19 @@ def arena_gap(c, g):
             float((obs_c == obs_g)[either].float().mean()))
 
 
-def small_loop_closure(cfg, dev, refined=None):
+def small_loop_closure(cfg, dev, refined=None, graphs=True):
     """The small constructed-drift closure (``process`` on slots 12 and 13
     at consistency_th = 1) on ``dev`` with the global BA held back. Records
     the RANSAC Sim3 (as the widening receives it) with its inlier count,
     the widened match count, and the refinement's output; with
     ``refined`` (another run's refinement, on the CPU) the closer goes on
     from that Sim3 in place of its own. Returns (what each call returned,
-    the corrected arena on the CPU, the records on the CPU, the closer)."""
+    the corrected arena on the CPU, the records on the CPU, the closer).
+    ``graphs``: ``LoopCloser.graphs``."""
     system = loop_system(cfg, dev, None, 500, SEED + 8)
     lc = LoopCloser(cfg, CubemapCamera.from_config(cfg, dev))
     lc.consistency_th = 1
+    lc.graphs = graphs
     lc._global_ba = lambda system: None
     k, rec = lc.k, {}
     widen, refine = k.search_by_sim3, k.refine_sim3

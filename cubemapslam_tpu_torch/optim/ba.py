@@ -18,8 +18,9 @@ does. The Schur product runs in float32 with TF32 off (set at package
 import).
 
 The matrix-free CG path (``_lm_step``, ``ba.py:429-524``) serves the global
-BA of loop closing: per-edge normal blocks, the reduced camera system
-S = Hcc - W Hpp^-1 Wᵀ applied matrix-free (two gathers, two segment sums
+BA of loop closing (on the card its LM steps replay one captured CUDA
+graph, ``_bundle_adjust_cg``): per-edge normal blocks, the reduced camera
+system S = Hcc - W Hpp^-1 Wᵀ applied matrix-free (two gathers, two segment sums
 and batched small products a matvec) inside a block-Jacobi preconditioned
 CG of a fixed number of iterations, the point blocks inverted by the 3x3
 closed form and the 6x6 preconditioner by ``torch.linalg.inv_ex`` (neither
@@ -45,6 +46,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.geometry import mat3_apply, se3_compose, se3_exp
@@ -79,9 +81,14 @@ def _chi2(cam: CubemapCamera, prob: BAProblem) -> torch.Tensor:
 
 
 def _robust_cost(chi2: torch.Tensor, active: torch.Tensor,
-                 robust: bool) -> torch.Tensor:
-    if robust:
-        rho = torch.where(chi2 > CHI2_TH,
+                 robust) -> torch.Tensor:
+    """The (Huber when ``robust``) cost of the active edges. ``robust`` is
+    a bool, or a 0-d bool tensor that selects the same bits on the device
+    (the CG path, whose one captured LM step serves both phases)."""
+    flag = isinstance(robust, torch.Tensor)
+    if flag or robust:
+        over = (chi2 > CHI2_TH) & robust if flag else chi2 > CHI2_TH
+        rho = torch.where(over,
                           2.0 * HUBER_DELTA * torch.sqrt(
                               torch.clamp(chi2, min=1e-20)) - CHI2_TH, chi2)
     else:
@@ -452,19 +459,25 @@ def _cg_plans(prob: BAProblem):
             SegmentPlan(torch.where(ok, prob.obs_pt, P), P))
 
 
-def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
+def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust,
              lm_lambda, cg_iters: int, group=None, n_boundary=None,
              plans=None):
     """One damped Gauss-Newton step via the Schur complement and a
     matrix-free, block-Jacobi preconditioned CG of ``cg_iters`` iterations
     (``ba.py:429-524``), with the edges of this rank's shard when ``group``
-    is set. ``plans``: those of ``_cg_plans``, built here when not given.
-    Returns the candidate (R, t, X)."""
+    is set. ``robust``: the Huber weights when true, a bool or a 0-d bool
+    tensor (the CG loop's; ``inv_sigma2 * 1`` is ``inv_sigma2``, so its
+    plain phase keeps the bits). ``plans``: those of ``_cg_plans``, built
+    here when not given. Returns the candidate (R, t, X)."""
     M = prob.R.shape[0]
     dev, f32 = prob.X.device, prob.X.dtype
     cam_plan, pt_plan = plans or _cg_plans(prob)
     chi2 = _chi2(cam, prob)
-    w = prob.obs_inv_sigma2 * (_huber_weight(chi2) if robust else 1.0)
+    if isinstance(robust, torch.Tensor):
+        w = prob.obs_inv_sigma2 * torch.where(robust, _huber_weight(chi2),
+                                              1.0)
+    else:
+        w = prob.obs_inv_sigma2 * (_huber_weight(chi2) if robust else 1.0)
     w = torch.where(active, w, torch.zeros_like(w))
     _, Hcc_e, Hpp_e, W_e, bc_e, bp_e = _edge_terms(cam, prob, w)
     Hcc = _psum(segment_sum(cam_plan, Hcc_e), group)
@@ -541,46 +554,72 @@ def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust: bool,
 
 def _bundle_adjust_cg(cam: CubemapCamera, prob: BAProblem, phase_iters,
                       chi2_cut: float, cg_iters: int, group=None,
-                      n_boundary=None):
+                      n_boundary=None, loop=None):
     """The CG-solver BA loop (``ba.py:601-640``), one rank of the SPMD
     solve when ``group`` is set. Returns (updated problem, per-edge inlier
-    mask)."""
-    active = prob.obs_valid
+    mask).
+
+    Each LM step (the cost, ``_lm_step``, the candidate's cost, the
+    accept and the damping's update) reads and writes a fixed set of
+    state tensors in place: R, t, X, the damping, the active edges and the
+    robust flag, a 0-d device tensor, so that one step's body serves both
+    phases and reads nothing on the host. The segment plans and the
+    problem's other fields are built once and only read. ``loop``, when
+    given, runs the steps (``runtime.fused_step.CapturedLoop.repeat``:
+    on the card the first step eagerly and then captured as one CUDA
+    graph, replayed for the other steps of both phases); else a Python
+    loop runs them. The chi2/FOV cut between the phases and the gauge stay
+    eager. A solve with a ``group`` stays eager: its collectives do not go
+    into a graph."""
+    if group is not None and loop is not None:
+        raise ValueError("the sharded CG solve runs eagerly: its "
+                         "collectives are not captured")
     dev, f32 = prob.X.device, prob.X.dtype
     plans = _cg_plans(prob)
+    state = prob._replace(R=prob.R.clone(), t=prob.t.clone(),
+                          X=prob.X.clone())
+    active = prob.obs_valid.clone()
+    lm_lambda = torch.empty((), dtype=f32, device=dev)
+    robust = torch.empty((), dtype=torch.bool, device=dev)
 
-    def lm_loop(prob, active, robust, n_iters):
-        lm_lambda = torch.full((), 1e-4, dtype=f32, device=dev)
-        for _ in range(n_iters):
-            cost = _psum(_robust_cost(_chi2(cam, prob), active, robust),
-                         group)
-            R_n, t_n, X_n = _lm_step(cam, prob, active, robust, lm_lambda,
-                                     cg_iters, group, n_boundary, plans)
-            cand = prob._replace(R=R_n, t=t_n, X=X_n)
-            cost_n = _psum(_robust_cost(_chi2(cam, cand), active, robust),
-                           group)
-            improved = cost_n < cost
-            prob = prob._replace(R=_select(improved, cand.R, prob.R),
-                                 t=_select(improved, cand.t, prob.t),
-                                 X=_select(improved, cand.X, prob.X))
-            # lambda floor 1e-6: the damping bounds the motion along
-            # near-null gauge directions in the CG solve
-            lm_lambda = torch.clamp(torch.where(improved, lm_lambda * 0.5,
-                                                lm_lambda * 4.0), 1e-6, 1e4)
-        return prob
+    def lm_step():
+        cost = _psum(_robust_cost(_chi2(cam, state), active, robust), group)
+        R_n, t_n, X_n = _lm_step(cam, state, active, robust, lm_lambda,
+                                 cg_iters, group, n_boundary, plans)
+        cand = state._replace(R=R_n, t=t_n, X=X_n)
+        cost_n = _psum(_robust_cost(_chi2(cam, cand), active, robust),
+                       group)
+        improved = cost_n < cost
+        for old, new in ((state.R, R_n), (state.t, t_n), (state.X, X_n)):
+            old.copy_(_select(improved, new, old))
+        # lambda floor 1e-6: the damping bounds the motion along
+        # near-null gauge directions in the CG solve
+        lm_lambda.copy_(torch.clamp(torch.where(
+            improved, lm_lambda * 0.5, lm_lambda * 4.0), 1e-6, 1e4))
 
-    anchor_state = _gauge_entry(prob)
+    with record_function("loop.gba.cut"):
+        anchor_state = _gauge_entry(prob)
     for phase, n in enumerate(phase_iters):
-        robust = phase == 0
-        prob = lm_loop(prob, active, robust, n)
-        chi2 = _chi2(cam, prob)
-        # outlier cut + FOV cheirality (behind-camera points)
-        Xc = mat3_apply(prob.R[prob.obs_cam], prob.X[prob.obs_pt]) \
-            + prob.t[prob.obs_cam]
-        d = torch.linalg.norm(Xc, dim=-1)
-        in_fov = Xc[..., 2] / torch.clamp(d, min=1e-12) > cam.cos_fov_th
-        active = active & (chi2 <= chi2_cut) & in_fov
-    prob = _gauge_retract(prob, anchor_state)
+        robust.fill_(phase == 0)
+        lm_lambda.fill_(1e-4)
+        # the CG path's caller is loop closing's global BA, whose profile
+        # reads these ranges
+        with record_function("loop.gba.lm"):
+            if loop is None:
+                for _ in range(n):
+                    lm_step()
+            else:
+                loop.repeat("lm", lm_step, n)
+        with record_function("loop.gba.cut"):
+            chi2 = _chi2(cam, state)
+            # outlier cut + FOV cheirality (behind-camera points)
+            Xc = mat3_apply(state.R[state.obs_cam], state.X[state.obs_pt]) \
+                + state.t[state.obs_cam]
+            d = torch.linalg.norm(Xc, dim=-1)
+            in_fov = Xc[..., 2] / torch.clamp(d, min=1e-12) > cam.cos_fov_th
+            active.copy_(active & (chi2 <= chi2_cut) & in_fov)
+    with record_function("loop.gba.cut"):
+        prob = _gauge_retract(state, anchor_state)
     return prob, active
 
 
@@ -637,7 +676,8 @@ def bundle_adjust(cam: CubemapCamera, prob: BAProblem,
                   n_free: int = None,
                   cg_iters: int = 30,
                   group=None,
-                  n_boundary: int = None) -> Tuple[BAProblem, torch.Tensor]:
+                  n_boundary: int = None,
+                  loop=None) -> Tuple[BAProblem, torch.Tensor]:
     """Two-phase LM BA (``ba.py:569-640``): 5 robust iterations, the chi2
     and FOV cut, 10 plain iterations, the final cut, then the scale-gauge
     retraction. ``solver="direct"`` is the dense-Schur Cholesky path for
@@ -650,14 +690,19 @@ def bundle_adjust(cam: CubemapCamera, prob: BAProblem,
     ``torch.distributed`` ``group`` (the JAX ``axis_name``), ``solver="cg"``
     is this rank's part of the SPMD solve: ``prob`` holds the full camera
     and point tables and this rank's edges, and ``n_boundary`` limits the
-    point-table exchange to the boundary prefix (``_psum_pts``).
+    point-table exchange to the boundary prefix (``_psum_pts``). ``loop``
+    (``solver="cg"``, no ``group``): the runner of its LM steps, a
+    ``runtime.fused_step.CapturedLoop`` that replays them from one captured
+    CUDA graph on the card (``_bundle_adjust_cg``); the same bits as the
+    eager steps.
 
     Returns (updated problem, per-edge inlier mask)."""
     assert solver in ("cg", "direct"), solver
-    assert not (solver == "direct" and group is not None)
+    assert not (solver == "direct" and (group is not None
+                                        or loop is not None))
     if solver == "cg":
         return _bundle_adjust_cg(cam, prob, phase_iters, chi2_cut, cg_iters,
-                                 group, n_boundary)
+                                 group, n_boundary, loop)
     nf = prob.R.shape[0] if n_free is None else n_free
     return _bundle_adjust_direct(cam, prob, phase_iters, chi2_cut,
                                  max_obs_per_cam, nf)

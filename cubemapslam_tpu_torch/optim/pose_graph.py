@@ -11,7 +11,8 @@ takes it), sums the blocks into a dense (M, M, 7, 7) normal matrix by one
 ``segment.segment_sum`` over the (i,i), (j,j), (i,j) and (j,i) block keys (a
 plan built once a solve, so the card adds in the same order on every run)
 and solves it with ``torch.linalg.solve_ex`` (an LU solve, as
-``jnp.linalg.solve``; no host wait).
+``jnp.linalg.solve``; no host wait). On the card the loop closer replays
+the iterations from one captured CUDA graph (``loop=``).
 
 A masked edge adds exact zeros to the normal matrix, so a caller may pass
 only its valid edges (``loop_closing.LoopKernels.propagate_and_pose_graph``
@@ -20,6 +21,7 @@ does).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -59,12 +61,22 @@ def optimize_essential_graph(
         edge_i: torch.Tensor, edge_j: torch.Tensor,
         meas_s: torch.Tensor, meas_R: torch.Tensor, meas_t: torch.Tensor,
         edge_valid: torch.Tensor,
-        n_iters: int = 20) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        n_iters: int = 20,
+        loop=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Optimize the Sim3 vertices S_iw (s (M,), R (M,3,3), t (M,3)) over
     relative-Sim3 edges (``pose_graph.py:39-94``): edge e joins vertices
     edge_i[e] and edge_j[e] with the measurement S_ji, so that
     e = log(S_meas * S_i * S_j^-1) vanishes when consistent. Returns the
-    optimized (s, R, t); no host read."""
+    optimized (s, R, t); no host read.
+
+    Each Gauss-Newton iteration reads and writes copies of s, R and t in
+    place; the segment plans and the constants are built once. ``loop``,
+    when given, runs the iterations (``runtime.fused_step.CapturedLoop.
+    repeat``: on the card the first eagerly and then captured as one CUDA
+    graph, replayed for the others); else a Python loop runs them. On the
+    card the dense solve is pinned to cuSOLVER for the iterations (the
+    previous choice restored after): a batch of one matrix takes its LU
+    there by default, and MAGMA's would not capture."""
     M = s.shape[0]
     dev, f32 = s.device, s.dtype
     E = edge_i.shape[0]
@@ -79,7 +91,9 @@ def optimize_essential_graph(
                                     edge_i * M + edge_j,
                                     edge_j * M + edge_i]), M * M)
     b_plan = SegmentPlan(torch.cat([edge_i, edge_j]), M)
-    for _ in range(n_iters):
+    s, R, t = s.clone(), R.clone(), t.clone()
+
+    def step():
         s_i, R_i, t_i = s[edge_i], R[edge_i], t[edge_i]
         s_j, R_j, t_j = s[edge_j], R[edge_j], t[edge_j]
 
@@ -104,8 +118,30 @@ def optimize_essential_graph(
         dx = torch.linalg.solve_ex(Hd, bd[:, None])[0].reshape(M, 7)
         dx = torch.where(free[:, None], dx, torch.zeros_like(dx))
         ds, dR, dt = G.sim3_exp(dx)
-        s, R, t = G.sim3_compose(ds, dR, dt, s, R, t)
+        for old, new in zip((s, R, t), G.sim3_compose(ds, dR, dt, s, R, t)):
+            old.copy_(new)
+
+    with _cusolver(dev):
+        if loop is None:
+            for _ in range(n_iters):
+                step()
+        else:
+            loop.repeat("gauss_newton", step, n_iters)
     return s, R, t
+
+
+@contextlib.contextmanager
+def _cusolver(dev: torch.device):
+    """``torch.linalg`` on cuSOLVER while the block runs, on the card."""
+    if dev.type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
 
 
 def remap_points_through_sim3(X: torch.Tensor,

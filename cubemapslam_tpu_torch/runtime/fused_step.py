@@ -73,6 +73,9 @@ from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.runtime.kernels import FrameTrack
 
 N_KP = len(Keypoints._fields)
+# host waits of one capture: torch.cuda.graph synchronizes the device on
+# entry
+CAPTURE_WAITS = 1
 
 
 class CapturedFrame:
@@ -227,6 +230,34 @@ class CapturedFrame:
         self.captures += 1
         self.frame_captures += 1
         return static
+
+
+class CapturedLoop(CapturedFrame):
+    """The body of an iteration loop as one CUDA graph, captured once and
+    replayed for the iterations after the first: ``repeat(name, body, n)``
+    runs ``body()`` n times. The body updates a fixed set of state tensors
+    in place and returns nothing; whatever it reads (the state, the
+    problem, its segment plans) the caller keeps alive until the last
+    replay.
+
+    On the card the first ``run`` runs the body eagerly on the side stream,
+    which is one iteration (the state advances), and then captures it,
+    which records its launches without running them (the state does not
+    advance again); every later ``run`` replays the graph, one iteration
+    each. So n calls are n iterations, wherever the capture falls. On the
+    CPU every call runs the body eagerly. An instance serves one solve and
+    is dropped after it with its graph and pool: the next solve's shapes
+    may differ."""
+
+    label = "captured loop"
+
+    def repeat(self, name: str, body: Callable[[], None], n: int) -> None:
+        def part() -> List[torch.Tensor]:
+            body()
+            return []
+
+        for _ in range(n):
+            self.run(name, part)
 
 
 class FusedStep(CapturedFrame):

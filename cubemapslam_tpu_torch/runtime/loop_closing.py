@@ -34,7 +34,10 @@ S_cw match count with the current keyframe's covisible set in one read.
 A closure then reads the pose graph's valid-edge count once and the global
 BA's live-observation count once (each solves on its live edges only: a
 masked edge adds exact zeros), the landmark statistics' live count once,
-and synchronizes twice to time the correction and the global BA.
+and synchronizes twice to time the correction and the global BA. On the
+card the two solves' iterations replay CUDA graphs captured in the
+closure (``LoopCloser``), whose captures synchronize once each
+(``LoopCloser.capture_waits``).
 
 With ``torch.distributed`` initialized over more than one rank, the global
 BA is one SPMD solve over keyframe-block shards (``loop_closing.py:684-700``,
@@ -66,6 +69,8 @@ from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.optim.ba import bundle_adjust
 from cubemapslam_tpu_torch.optim.pose_graph import optimize_essential_graph
 from cubemapslam_tpu_torch.optim.sim3_opt import optimize_sim3
+from cubemapslam_tpu_torch.runtime.fused_step import (CAPTURE_WAITS,
+                                                      CapturedLoop)
 from cubemapslam_tpu_torch.runtime.kernels import _members
 from cubemapslam_tpu_torch.runtime.mapping import _kf_keypoints, _top
 from cubemapslam_tpu_torch.solvers import sim3 as S3
@@ -403,14 +408,47 @@ class LoopKernels:
     def propagate_and_pose_graph(self, arena: SM.MapArena, k_cur: int,
                                  k_loop: int, s_cl, R_cl, t_cl,
                                  neigh_pre: torch.Tensor,
-                                 loop_edges: List[Tuple[int, int]]
-                                 ) -> SM.MapArena:
+                                 loop_edges: List[Tuple[int, int]],
+                                 loop=None) -> SM.MapArena:
         """CorrectLoop's core (``loop_closing.py:334-486``), in place: seed
         the current keyframe with S_cw = S_cl o T_lw, propagate it through
         ``neigh_pre`` (its covisible set measured before loop fusion),
         optimize the essential graph with the loop keyframe fixed, recover
         the SE3 poses and remap every landmark through its reference
-        keyframe. The masked edges are compacted first (one host read)."""
+        keyframe. The masked edges are compacted first (one host read).
+        ``loop``: the runner of the Gauss-Newton iterations
+        (``optimize_essential_graph``)."""
+        with record_function("loop.correct.propagate"):
+            own, lm_pos, graph = self._propagate(arena, k_cur, k_loop, s_cl,
+                                                 R_cl, t_cl, neigh_pre,
+                                                 loop_edges)
+        with record_function("loop.correct.pose_graph"):
+            s_o, R_o, t_o = optimize_essential_graph(
+                *graph, n_iters=POSE_GRAPH_ITERS, loop=loop)
+        with record_function("loop.correct.remap"):
+            # SE3 back (t / s) and every landmark remapped old -> new
+            p_cam_all = G.se3_apply(arena.kf_R[own], arena.kf_t[own], lm_pos)
+            lm_final = torch.where(
+                arena.lm_valid[:, None],
+                G.sim3_apply(*G.sim3_inverse(s_o[own], R_o[own], t_o[own]),
+                             p_cam_all), lm_pos)
+            kf_t_new = t_o / torch.clamp(s_o[:, None], min=1e-12)
+            valid = arena.kf_valid
+            arena.kf_R.copy_(torch.where(valid[:, None, None], R_o,
+                                         arena.kf_R))
+            arena.kf_t.copy_(torch.where(valid[:, None], kf_t_new,
+                                         arena.kf_t))
+            arena.lm_pos.copy_(lm_final)
+        return arena
+
+    def _propagate(self, arena: SM.MapArena, k_cur: int, k_loop: int, s_cl,
+                   R_cl, t_cl, neigh_pre: torch.Tensor,
+                   loop_edges: List[Tuple[int, int]]):
+        """``propagate_and_pose_graph`` up to the solve: the seeded Sim3s,
+        the landmarks of the corrected neighbourhood remapped, the
+        essential graph's live edges. Returns (each landmark's owning
+        keyframe, the remapped landmarks, the arguments of
+        ``optimize_essential_graph``)."""
         K = arena.n_kf_cap
         dev = arena.device
         covis = SM.covisibility_matrix(arena)
@@ -448,24 +486,10 @@ class LoopKernels:
         keep = e_ok.nonzero()[:, 0]                     # the one host read
         fixed = torch.zeros(K, dtype=torch.bool, device=dev)
         fixed[k_loop].fill_(True)
-        s_o, R_o, t_o = optimize_essential_graph(
+        return own, lm_pos, (
             s_v, R_v, t_v, arena.kf_valid, fixed, e_i[keep], e_j[keep],
             ms[keep], mR[keep], mt[keep],
-            torch.ones(keep.shape[0], dtype=torch.bool, device=dev),
-            n_iters=POSE_GRAPH_ITERS)
-
-        # SE3 back (t / s) and every landmark remapped old -> new
-        p_cam_all = G.se3_apply(arena.kf_R[own], arena.kf_t[own], lm_pos)
-        lm_final = torch.where(
-            arena.lm_valid[:, None],
-            G.sim3_apply(*G.sim3_inverse(s_o[own], R_o[own], t_o[own]),
-                         p_cam_all), lm_pos)
-        kf_t_new = t_o / torch.clamp(s_o[:, None], min=1e-12)
-        valid = arena.kf_valid
-        arena.kf_R.copy_(torch.where(valid[:, None, None], R_o, arena.kf_R))
-        arena.kf_t.copy_(torch.where(valid[:, None], kf_t_new, arena.kf_t))
-        arena.lm_pos.copy_(lm_final)
-        return arena
+            torch.ones(keep.shape[0], dtype=torch.bool, device=dev))
 
 
 class LoopCloser:
@@ -474,7 +498,21 @@ class LoopCloser:
     ``arena``, the keyframe counter ``n_kf``, the ``bow_table`` and the
     RANSAC ``generator``. ``reads`` and ``eigh_waits`` are the last call's
     host reads and eigen-solve waits; ``timings`` the wall seconds of each
-    event by stage (detect, sim3, correct, gba)."""
+    event by stage (detect, sim3, correct, gba).
+
+    The closure's two iterative solves, the essential graph's 12
+    Gauss-Newton iterations and the global BA's 15 LM steps, each run
+    through a ``CapturedLoop`` made for that solve and dropped after it:
+    on the card the first iteration runs eagerly, is captured as one CUDA
+    graph and is replayed for the others, with the same bits as the eager
+    iterations (the live-edge counts fix the shapes only within one
+    closure, so each closure captures anew). ``graphs = False``, or a
+    ``system`` whose ``stage_times`` is set (``CubemapSLAM``'s eager
+    switch), runs them as Python loops of eager launches; so does the
+    sharded global BA. ``graph_counts`` holds the last call's captures,
+    replays, capture ms and pool MiB, and ``capture_waits`` the host waits
+    of its captures (``fused_step.CAPTURE_WAITS`` each); a failed capture
+    or replay raises."""
 
     def __init__(self, cfg: SlamConfig, cam: CubemapCamera):
         self.cfg, self.cam = cfg, cam
@@ -484,8 +522,33 @@ class LoopCloser:
         self.last_loop_counter = -100  # keyframe counter at the last loop
         self.loop_edges: List[Tuple[int, int]] = []
         self.timings: dict = {}
-        self.reads = 0
-        self.eigh_waits = 0
+        self.graphs = True
+        self._reset_counts()
+
+    def _reset_counts(self) -> None:
+        self.reads = self.eigh_waits = self.capture_waits = 0
+        self.graph_counts = dict(captures=0, replays=0, capture_ms=0.0,
+                                 capture_mib=0.0)
+
+    def _loop(self, system):
+        """The runner of one solve's iterations: a new ``CapturedLoop``,
+        or None (eager) when ``graphs`` is off or ``system`` times its
+        stages."""
+        if not self.graphs or getattr(system, "stage_times", None) is not None:
+            return None
+        return CapturedLoop(self.cam.device)
+
+    def _count(self, loop) -> None:
+        """Add one solve's captures, replays, capture ms, pool MiB and
+        capture waits to the call's counts."""
+        if loop is None:
+            return
+        c = self.graph_counts
+        c["captures"] += loop.captures
+        c["replays"] += loop.replays
+        c["capture_ms"] += loop.capture_ms
+        c["capture_mib"] += loop.capture_mib
+        self.capture_waits += loop.captures * CAPTURE_WAITS
 
     def _sync(self) -> None:
         if self.cam.device.type == "cuda":
@@ -505,7 +568,7 @@ class LoopCloser:
     def process(self, system, slot: int) -> bool:
         """DetectLoop + ComputeSim3 + CorrectLoop for a new keyframe in
         ``slot``. Returns True if a loop was closed."""
-        self.reads = self.eigh_waits = 0
+        self._reset_counts()
         # >= 10 keyframes in all and since the last loop, on the monotonic
         # counter (slots are recycled)
         if system.n_kf < 10 or system.n_kf - self.last_loop_counter < 10:
@@ -623,19 +686,26 @@ class LoopCloser:
         k, arena = self.k, system.arena
         # fuse the loop landmarks into the current keyframe before the pose
         # graph, so that the covisibility edges it makes take part
-        k.loop_fuse(arena, k_cur, loop_assoc)
+        with record_function("loop.correct.fuse"):
+            k.loop_fuse(arena, k_cur, loop_assoc)
+        loop = self._loop(system)
         k.propagate_and_pose_graph(arena, k_cur, k_loop, *sim3, neigh_pre,
-                                   self.loop_edges)
+                                   self.loop_edges, loop)
+        self._count(loop)
+        del loop                # its graph and pool with it
         self.reads += 1
         self.loop_edges.append((k_cur, k_loop))
         # SearchAndFuse over the whole corrected neighbourhood: the current
         # keyframe and its pre-fusion covisible keyframes
-        neigh = [k_cur] + [i for i in neigh_np[:MAX_NEIGH - 1] if i != k_cur]
-        sel, sel_ok = k.loop_member_landmarks(
-            arena, min(MAX_LOOP_LANDMARKS, arena.n_lm_cap), k_loop)
-        k.search_and_fuse(arena, neigh, sel, sel_ok)
-        SM.update_landmark_stats(arena, k.scale_factors)
-        self.reads += 1
+        with record_function("loop.correct.search_and_fuse"):
+            neigh = [k_cur] + [i for i in neigh_np[:MAX_NEIGH - 1]
+                               if i != k_cur]
+            sel, sel_ok = k.loop_member_landmarks(
+                arena, min(MAX_LOOP_LANDMARKS, arena.n_lm_cap), k_loop)
+            k.search_and_fuse(arena, neigh, sel, sel_ok)
+        with record_function("loop.correct.stats"):
+            SM.update_landmark_stats(arena, k.scale_factors)
+            self.reads += 1
 
     def _global_ba(self, system) -> None:
         """The post-loop global BA (``loop_closing.py:672-712``): two
@@ -647,33 +717,42 @@ class LoopCloser:
         ``torch.distributed`` initialized over more than one rank, rank 0's
         problem is broadcast and the live edges are solved sharded
         (``_global_ba_sharded``), where the JAX package shards all K*N
-        slots."""
+        slots. The single-process solve runs its LM steps through
+        ``_loop`` (one CUDA graph a closure on the card); the sharded one
+        stays eager, since its collectives do not go into a graph."""
         arena = system.arena
         K, N = arena.n_kf_cap, arena.n_feat
-        prob = D.global_ba_problem_from_arena(self.cam, arena,
-                                              self.k.inv_level_sigma2)
-        sharded = dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1
-        if sharded:
-            prob = D.broadcast_problem(prob, D.make_mesh())
-        keep = prob.obs_valid.nonzero()[:, 0]
-        self.reads += 1
-        live = prob._replace(**{f: getattr(prob, f)[keep]
-                                for f in D.EDGE_FIELDS})
+        with record_function("loop.gba.build"):
+            prob = D.global_ba_problem_from_arena(self.cam, arena,
+                                                  self.k.inv_level_sigma2)
+            sharded = dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1
+            if sharded:
+                prob = D.broadcast_problem(prob, D.make_mesh())
+            keep = prob.obs_valid.nonzero()[:, 0]
+            self.reads += 1
+            live = prob._replace(**{f: getattr(prob, f)[keep]
+                                    for f in D.EDGE_FIELDS})
         if sharded:
             out, inl_live = self._global_ba_sharded(live)
         else:
+            loop = self._loop(system)
             out, inl_live = bundle_adjust(self.cam, live,
                                           phase_iters=(5, 10), solver="cg",
-                                          cg_iters=50)
-        inl = torch.zeros_like(prob.obs_valid).index_copy_(0, keep, inl_live)
-        kill = (prob.obs_valid & ~inl).reshape(K, N)
-        obs = torch.where(kill, torch.full_like(arena.kf_obs_lm, SM.NO_LM),
-                          arena.kf_obs_lm)
-        arena.kf_R.copy_(out.R)
-        arena.kf_t.copy_(out.t)
-        arena.lm_pos.copy_(out.X)
-        arena.kf_obs_lm.copy_(obs)
+                                          cg_iters=50, loop=loop)
+            self._count(loop)
+            del loop            # its graph and pool with it
+        with record_function("loop.gba.write"):
+            inl = torch.zeros_like(prob.obs_valid).index_copy_(0, keep,
+                                                               inl_live)
+            kill = (prob.obs_valid & ~inl).reshape(K, N)
+            obs = torch.where(kill,
+                              torch.full_like(arena.kf_obs_lm, SM.NO_LM),
+                              arena.kf_obs_lm)
+            arena.kf_R.copy_(out.R)
+            arena.kf_t.copy_(out.t)
+            arena.lm_pos.copy_(out.X)
+            arena.kf_obs_lm.copy_(obs)
 
     def _global_ba_sharded(self, live):
         """The multi-rank branch of the global BA (``loop_closing.py:684-

@@ -106,7 +106,12 @@ class CubemapSLAM(MapTracker):
     and its keyframe insertion with the mapping step, or its deferred BA,
     replays ``FusedMapping``'s (``runtime/fused_mapping.py``; rows carry
     ``graph_mapping_captures``, ``graph_mapping_replays``).
-    With ``stage_times`` set to a dict every frame runs eagerly, and each
+    A loop closure on the card runs its two solves' iterations through
+    captured CUDA graphs (``LoopCloser``; rows carry
+    ``graph_loop_captures``, ``graph_loop_replays`` and
+    ``graph_loop_capture_waits``).
+    With ``stage_times`` set to a dict every frame, its loop closure
+    included, runs eagerly, and each
     stage (``extract``, ``init``, ``track``, ``insert+mapping``,
     ``local_ba``, ``reloc``, ``localization``) synchronizes the card and
     records its wall ms there and in the frame's row."""
@@ -812,6 +817,11 @@ class CubemapSLAM(MapTracker):
         for k, v in lc.timings.items():
             if len(v) > n_before.get(k, 0):
                 row[f"loop_{k}_ms"] = v[-1] * 1e3
+        g = lc.graph_counts
+        if g["captures"] or g["replays"]:
+            row["graph_loop_captures"] = g["captures"]
+            row["graph_loop_replays"] = g["replays"]
+            row["graph_loop_capture_waits"] = lc.capture_waits
         if closed:
             self.n_loops_closed += 1
             row["loop_closed"] = True

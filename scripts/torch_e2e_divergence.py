@@ -70,15 +70,25 @@ def keypoint_agreement(a, b, k):
             float(same[hit].mean()) if hit.any() else 0.0)
 
 
+def _nearest_rotation(R):
+    """The rotation nearest ``R`` (float64, by SVD)."""
+    U, _, Vt = np.linalg.svd(np.asarray(R, np.float64))
+    return U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+
+
 def pose_gap(Ta, Tb):
     """(rotation between the two poses in deg, distance of the camera
-    centres), or None when either run returned no pose."""
+    centres), or None when either run returned no pose. The angle is taken
+    between the rotations nearest the two, as 2 asin(|Qa - Qb|_F / 2^1.5),
+    which is 0 for equal poses: the trace of Ra^T Rb would give two equal
+    poses off SO(3) an angle of their own departure."""
     if np.isnan(Ta).any() or np.isnan(Tb).any():
         return None
     Ra, Rb = Ta[:3, :3], Tb[:3, :3]
-    c = np.clip((np.trace(Ra.T @ Rb) - 1.0) / 2.0, -1.0, 1.0)
+    d = np.linalg.norm(_nearest_rotation(Ra) - _nearest_rotation(Rb))
     ca, cb = -Ra.T @ Ta[:3, 3], -Rb.T @ Tb[:3, 3]
-    return float(np.degrees(np.arccos(c))), float(np.linalg.norm(ca - cb))
+    return (float(np.degrees(2.0 * np.arcsin(min(d / 2 ** 1.5, 1.0)))),
+            float(np.linalg.norm(ca - cb)))
 
 
 def truth_rotations(n):

@@ -3,7 +3,7 @@
     python3 scripts/torch_loop_e2e.py [--device cpu] [--seed 42]
                                       [--draws device,cpu]
                                       [--vocab-device cpu] [--dump PATH]
-                                      [--project-rotations]
+                                      [--project-rotations] [--eager-loop]
 
 The counterpart of the JAX package's slow test
 ``tests/test_loop_e2e.py::test_closes_loop_and_reduces_ate``: 170
@@ -29,7 +29,8 @@ when the two devices disagree; ``--draws device,cpu`` runs both over one
 rendering. The summary's ``rotation_orthonormality_error`` says how far the
 returned rotations left SO(3); ``--project-rotations`` keeps the tracked
 ones on it (a diagnostic), and ``--dump`` records every frame for
-``scripts/torch_e2e_divergence.py``.
+``scripts/torch_e2e_divergence.py``. On the card a closure replays its
+solves' iterations from CUDA graphs; ``--eager-loop`` runs them eagerly.
 """
 
 from __future__ import annotations
@@ -303,6 +304,10 @@ def main() -> int:
     ap.add_argument("--project-rotations", action="store_true",
                     help="a diagnostic: project each tracked frame's "
                     "rotations onto SO(3) (project_tracked_rotations)")
+    ap.add_argument("--eager-loop", action="store_true",
+                    help="close loops eagerly (LoopCloser.graphs off); by "
+                    "default a closure replays its solves' iterations from "
+                    "CUDA graphs")
     ap.add_argument("--draws", default="device",
                     help="where RANSAC draws its minimal sets, a comma list "
                     "run in turn over the same frames: 'device' (the "
@@ -347,6 +352,7 @@ def run_circuit(voc, frames, centres, args, draws, on_card) -> bool:
         raise ValueError(f"--draws takes device or cpu, got {draws!r}")
     if args.project_rotations:
         project_tracked_rotations(slam)
+    slam.loop_closer.graphs = not args.eager_loop
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     ate_pre, ate_pre_frame, walls, closed_at = None, None, [], []
     ate_at_close, scales = [], record_scales(slam.loop_closer)
@@ -387,7 +393,7 @@ def run_circuit(voc, frames, centres, args, draws, on_card) -> bool:
     det = slam.loop_closer.timings.get("detect", [])
     summary = dict(
         device=(torch.cuda.get_device_name(0) if on_card else "cpu"),
-        seed=args.seed, draws=draws,
+        seed=args.seed, draws=draws, loop_graphs=not args.eager_loop,
         project_rotations=args.project_rotations,
         frames=N_FRAMES, tracked=slam.tracked_frames,
         state=slam.state.name, keyframes=slam.n_kf,

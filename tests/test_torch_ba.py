@@ -18,7 +18,11 @@ step and return the state they were given, within 1e-5.
 The CG path: one LM step within 1e-4 (free cameras and the points seen 3 or
 more times), the whole solve held loosely (tolerances in the test, with the
 reason), and the outcome of the JAX package's ``test_refines_noisy_map``.
-The global problem's fields equal (floats within 1e-6).
+The global problem's fields equal (floats within 1e-6). The CG path's LM
+steps on fixed state tensors, through ``CapturedLoop`` or a Python loop,
+bitwise the loop as it was before (``tests/torch_parent_loops.py``), on
+the small problem after n = 1, 2, 5 robust steps and on the global BA of
+the constructed-drift arena at ``chip_smoke.LOOP_SMALL``.
 """
 
 import jax.numpy as jnp
@@ -33,6 +37,10 @@ from cubemapslam_tpu.config import SlamConfig
 from cubemapslam_tpu.optim import ba as JB
 from cubemapslam_tpu_torch.camera import CubemapCamera as TCam
 from cubemapslam_tpu_torch.optim import ba as TB
+from cubemapslam_tpu_torch.runtime.fused_step import CapturedLoop
+
+import chip_smoke
+import torch_parent_loops as PARENT
 
 CFG = SlamConfig(cube_face_w=128, cube_face_h=128)
 M, N_FREE, P, N = 8, 5, 150, 120
@@ -48,6 +56,12 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(n)
 
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bytes (NaN where NaN)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and a.numpy().tobytes() == b.numpy().tobytes())
 
 
 def make_problem(rng, inv_sigma_sign=1.0):
@@ -255,8 +269,12 @@ def test_direct_pieces(piece):
         close(ct.numpy(), cj, atol=1e-3)
         act = f["obs_valid"] & f["cam_valid"][f["obs_cam"]]
         for robust in (True, False):
-            close(float(TB._robust_cost(ct, torch.as_tensor(act), robust)),
+            cost = TB._robust_cost(ct, torch.as_tensor(act), robust)
+            close(float(cost),
                   float(JB._robust_cost(cj, jnp.asarray(act), robust)))
+            # the CG path's 0-d device flag selects the same bits
+            assert same_bits(TB._robust_cost(ct, torch.as_tensor(act),
+                                             torch.tensor(robust)), cost)
     elif piece == "apply_updates":
         rng = np.random.default_rng(5)
         dc = rng.normal(0, 0.01, (M, 6)).astype(np.float32)
@@ -492,3 +510,83 @@ def test_cg_masked_edges_may_be_left_out():
                                    err_msg=name)
     np.testing.assert_array_equal(inl_part.numpy(), inl_full.numpy()[keep])
     assert not inl_full.numpy()[~f["obs_valid"]].any()
+
+
+# ---------------------------------------------------------------------------
+# The CG path's LM steps on fixed state tensors, run through CapturedLoop
+# ---------------------------------------------------------------------------
+
+def same_solve(new, old):
+    (p_new, inl_new), (p_old, inl_old) = new, old
+    for name in TB.BAProblem._fields:
+        assert same_bits(getattr(p_new, name), getattr(p_old, name)), name
+    assert same_bits(inl_new, inl_old)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_captured_loop_runs_n_steps(n):
+    """``CapturedLoop.repeat(name, body, n)`` advances the state exactly n
+    steps: a counter, and the CG solve with n robust steps and one plain
+    one, bitwise the loop as it was before its steps updated fixed state
+    tensors (``torch_parent_loops``). On the CPU nothing is captured."""
+    count = torch.zeros((), dtype=torch.int64)
+    loop = CapturedLoop(torch.device("cpu"))
+    loop.repeat("count", lambda: count.add_(1), n)
+    assert int(count) == n and (loop.captures, loop.replays) == (0, 0)
+    f, _ = cg_problem(np.random.default_rng(11))
+    tcam = TCam.from_config(CFG, "cpu")
+    prob = tprob(f)
+    new = TB.bundle_adjust(tcam, prob, phase_iters=(n, 1), solver="cg",
+                           loop=CapturedLoop(torch.device("cpu")))
+    same_solve(new, PARENT.bundle_adjust_cg(tcam, tprob(f), (n, 1),
+                                            TB.CHI2_TH, 30))
+    # the solve works on copies: the problem it was given is unchanged
+    for name in TB.BAProblem._fields:
+        assert same_bits(getattr(prob, name), getattr(tprob(f), name)), name
+
+
+@pytest.fixture(scope="module")
+def loop_ba():
+    """The global BA's live-edge problem of the constructed-drift arena at
+    ``chip_smoke.LOOP_SMALL`` (``LoopCloser._global_ba`` before its
+    solve), and the parent loop's solve of it (5 robust and 10 plain LM
+    steps of 50 CG iterations)."""
+    from cubemapslam_tpu_torch import dist as TD
+    from cubemapslam_tpu_torch.config import SlamConfig as TConfig
+    from cubemapslam_tpu_torch.runtime import synthetic as S
+    cfg = TConfig(**chip_smoke.LOOP_SMALL)
+    arena, _, _, _ = S.build_drifted_loop_arena(cfg,
+                                                np.random.default_rng(42))
+    tcam = TCam.from_config(cfg, "cpu")
+    inv_s2 = 1.0 / torch.tensor(cfg.level_sigma2, dtype=torch.float32)
+    prob = TD.global_ba_problem_from_arena(tcam, arena, inv_s2)
+    keep = prob.obs_valid.nonzero()[:, 0]
+    live = prob._replace(**{k: getattr(prob, k)[keep]
+                            for k in TD.EDGE_FIELDS})
+    return tcam, live, PARENT.bundle_adjust_cg(tcam, live, (5, 10),
+                                               TB.CHI2_TH, 50)
+
+
+@pytest.mark.parametrize("runner", ["captured_loop", "python_loop"])
+def test_cg_loop_bitwise_parent_loop(loop_ba, runner):
+    """The global BA of loop closing at the tier-1 size, its 15 LM steps
+    through ``CapturedLoop`` (eager on the CPU) and as a Python loop
+    (``loop=None``): every field and the inlier mask bitwise the loop as it
+    was before (``torch_parent_loops.bundle_adjust_cg``)."""
+    tcam, live, old = loop_ba
+    loop = CapturedLoop(torch.device("cpu")) \
+        if runner == "captured_loop" else None
+    new = TB.bundle_adjust(tcam, live, phase_iters=(5, 10), solver="cg",
+                           cg_iters=50, loop=loop)
+    same_solve(new, old)
+
+
+def test_cg_sharded_solve_stays_eager():
+    """A solve with a process group does not take a ``CapturedLoop``: its
+    collectives are not captured."""
+    f, _ = cg_problem(np.random.default_rng(12))
+    with pytest.raises(ValueError, match="sharded"):
+        TB._bundle_adjust_cg(TCam.from_config(CFG, "cpu"), tprob(f), (1,),
+                             TB.CHI2_TH, 2, group=object(),
+                             loop=CapturedLoop(torch.device("cpu")))
+

@@ -38,7 +38,12 @@ len * 2^-23 * sum|v| of the CPU's ``index_add_`` per segment; strided
 rows, one lane and no rows as their plain version. Run twice on the card
 from one arena, bitwise equal: ``mapping_step`` with its BA, ``local_ba``,
 the loop correction from the CPU's refined Sim3, the global BA, and the
-pose graph. ``MapTracker``'s frames through the captured CUDA graphs
+pose graph, each also through its captured loop graph
+(``CapturedLoop``: one capture a solve, a replay for every later
+iteration, the same segmented-sum launches); ``CapturedLoop`` itself
+advancing its state exactly n = 1, 2, 5 iterations (a counter and a
+segmented sum, whose launches count on every replay) and raising on a body
+that reads the host. ``MapTracker``'s frames through the captured CUDA graphs
 (``runtime/fused_step.py``) bitwise equal to its eager frames over 8
 frames and the forced branches (fallbacks, velocity gate, blank frame),
 with one launch a frame of W, D's two entries and describe, captured anew
@@ -94,6 +99,7 @@ from cubemapslam_tpu_torch.geometry import so3_exp
 from cubemapslam_tpu_torch.features import extractor as TE
 from cubemapslam_tpu_torch.runtime import FrameTracker
 from cubemapslam_tpu_torch.runtime import synthetic as S
+from cubemapslam_tpu_torch.runtime.fused_step import CapturedLoop
 from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 
 pytestmark = pytest.mark.gpu
@@ -932,29 +938,52 @@ def test_mapping_twice_bitwise(cuda, stage):
 
 
 def test_loop_correction_and_global_ba_twice_bitwise(cuda):
-    """The tier-1-size constructed-drift closure on the card twice from
-    the CPU's refined Sim3 (loop fusion, the pose graph, SearchAndFuse),
-    then the global BA twice from the CPU's corrected arena: each pair
-    bitwise equal."""
+    """The tier-1-size constructed-drift closure on the card twice eagerly
+    (``LoopCloser.graphs`` off) and once with the pose graph's iterations
+    replayed from a CUDA graph, from the CPU's refined Sim3 (loop fusion,
+    the pose graph, SearchAndFuse); then the global BA likewise from the
+    CPU's corrected arena, its LM steps replayed from a CUDA graph: each
+    triple bitwise equal, with the same segmented-sum launches, one capture
+    a solve and a replay for every iteration after the first."""
     import types
-    from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
+    from cubemapslam_tpu_torch import segment as SG
+    from cubemapslam_tpu_torch.runtime.loop_closing import (
+        POSE_GRAPH_ITERS, LoopCloser)
     cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
     _, c, rec, _ = chip_smoke.small_loop_closure(cfg, "cpu")
-    corrected = [chip_smoke.small_loop_closure(
-        cfg, cuda, refined=rec["refined"])[1] for _ in range(2)]
-    assert _arena_equal(*corrected) == []
-    solved = []
-    for _ in range(2):
+    corrected, counts = [], []
+    for graphs in (False, False, True):
+        _, arena, _, lc = chip_smoke.small_loop_closure(
+            cfg, cuda, refined=rec["refined"], graphs=graphs)
+        corrected.append(arena)
+        counts.append(lc.graph_counts)
+    assert _arena_equal(*corrected[:2]) == []
+    assert _arena_equal(corrected[0], corrected[2]) == []
+    assert counts[0]["captures"] == 0
+    assert (counts[2]["captures"], counts[2]["replays"]) == (
+        1, POSE_GRAPH_ITERS - 1)
+    solved, launches = [], []
+    for graphs in (False, False, True):
         system = types.SimpleNamespace(arena=c.to(cuda))
-        LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))._global_ba(
-            system)
+        lc = LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))
+        lc.graphs = graphs
+        n0 = SG.SEG_SUM.launches
+        lc._global_ba(system)
+        torch.cuda.synchronize()
+        launches.append(SG.SEG_SUM.launches - n0)
         solved.append(system.arena.to("cpu"))
-    assert _arena_equal(*solved) == []
+        assert (lc.graph_counts["captures"], lc.graph_counts["replays"]) == (
+            (1, 14) if graphs else (0, 0))
+    assert _arena_equal(*solved[:2]) == []
+    assert _arena_equal(solved[0], solved[2]) == []
+    assert launches[0] == launches[1] == launches[2] > 0
 
 
 def test_pose_graph_twice_bitwise(cuda):
     """``optimize_essential_graph`` on a 64-vertex ring with chain,
-    covisibility and loop edges, twice on the card: bitwise equal."""
+    covisibility and loop edges, twice on the card and once with its
+    iterations replayed from a CUDA graph (``CapturedLoop``): bitwise
+    equal, one capture and 9 replays."""
     from cubemapslam_tpu_torch import geometry as G
     from cubemapslam_tpu_torch.optim.pose_graph import \
         optimize_essential_graph
@@ -975,8 +1004,58 @@ def test_pose_graph_twice_bitwise(cuda):
                                  torch.ones(len(pairs), dtype=torch.bool))]
     a = optimize_essential_graph(*args, n_iters=10)
     b = optimize_essential_graph(*args, n_iters=10)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    loop = CapturedLoop(cuda)
+    g = optimize_essential_graph(*args, n_iters=10, loop=loop)
+    for x, y, z in zip(a, b, g):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert (loop.captures, loop.replays) == (1, 9)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_captured_loop_runs_n_steps(cuda, n):
+    """``CapturedLoop.repeat(name, body, n)`` on the card: the first call
+    runs the body eagerly and captures it without running it again, every
+    later call replays it, so the state advances exactly n steps (a
+    counter, and a segmented sum that accumulates into the state); the
+    segmented sum's launches are counted on every replay."""
+    from cubemapslam_tpu_torch import segment as SG
+    count = torch.zeros((), dtype=torch.int64, device=cuda)
+    acc = torch.zeros(4, 3, device=cuda)
+    plan = SG.SegmentPlan(torch.tensor([0, 2, 2, 3, 3, 3], device=cuda), 4)
+    v = torch.arange(18, dtype=torch.float32, device=cuda).reshape(6, 3)
+
+    def body():
+        count.add_(1)
+        acc.add_(SG.segment_sum(plan, v))
+
+    loop = CapturedLoop(cuda)
+    n0 = SG.SEG_SUM.launches
+    loop.repeat("count", body, n)
+    torch.cuda.synchronize()
+    assert int(count) == n
+    assert torch.equal(acc.cpu(), n * SG.segment_sum(
+        SG.SegmentPlan(plan.idx.cpu(), 4), v.cpu()))
+    assert SG.SEG_SUM.launches - n0 == n
+    assert (loop.captures, loop.replays) == (1, n - 1)
+    loop.repeat("count", body, 2)
+    torch.cuda.synchronize()
+    assert int(count) == n + 2 and loop.captures == 1
+
+
+def test_captured_loop_capture_fails_raises(cuda):
+    """A loop body that reads the host (``.item()``) cannot be captured:
+    ``repeat`` raises after the eager first iteration, and nothing falls
+    back to running the rest eagerly."""
+    count = torch.zeros((), dtype=torch.int64, device=cuda)
+
+    def body():
+        count.add_(int(count.item() >= 0))
+
+    loop = CapturedLoop(cuda)
+    with pytest.raises(RuntimeError, match="capture of graph COUNT failed"):
+        loop.repeat("count", body, 3)
+    torch.cuda.synchronize()
+    assert int(count) == 1 and loop.captures == 0
 
 
 # ---------------------------------------------------------------------------

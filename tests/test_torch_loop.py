@@ -21,7 +21,11 @@ row) is held by ``test_loser_zero_rule``, and the parity arena has no such
 merge. The consistency bookkeeping of ``process`` is held on fed candidate
 groups, and the constructed-drift closure of ``tests/test_loop.py:173-208``
 (slow-marked there) to its outcome: closed, segment-B error below 0.6 of its
-value before.
+value before. The same closure with the solvers' iterations through
+``CapturedLoop`` (the default), with ``LoopCloser.graphs`` off and with a
+system's ``stage_times`` set: every arena table bitwise the closure with
+the loops as they were (``tests/torch_parent_loops.py``), and no
+``CapturedLoop`` made under the eager switch.
 """
 
 import types
@@ -41,8 +45,11 @@ from cubemapslam_tpu_torch import place as PL
 from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.camera import CubemapCamera as TCam
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
+from cubemapslam_tpu_torch.optim import ba as TB
 from cubemapslam_tpu_torch.runtime import loop_closing as TL
 from cubemapslam_tpu_torch.runtime import synthetic as S
+
+import torch_parent_loops as PARENT
 
 SMALL = dict(cube_face_w=160, cube_face_h=160, n_features=600, n_levels=3,
              max_keyframes=64, max_landmarks=8192, min_init_keypoints=80,
@@ -397,3 +404,99 @@ def test_closes_constructed_drift():
     assert err_after < 0.6 * err_before, (err_before, err_after)
     assert lc.loop_edges == [(13, int(lc.loop_edges[0][1]))]
     assert lc.loop_edges[0][1] < 10
+
+
+# ---------------------------------------------------------------------------
+# The closure's two solves through CapturedLoop, and the eager switch
+# ---------------------------------------------------------------------------
+
+CLOSURE_MODES = ("parent_loops", "graphs", "graphs_off", "stage_times")
+
+
+def _parent_pose_graph(*args, n_iters, loop):
+    return PARENT.optimize_essential_graph(*args, n_iters=n_iters)
+
+
+def _parent_bundle_adjust(cam, prob, phase_iters, solver, cg_iters, loop):
+    return PARENT.bundle_adjust_cg(cam, prob, phase_iters, TB.CHI2_TH,
+                                   cg_iters)
+
+
+@pytest.fixture(scope="module")
+def closures():
+    """The constructed-drift closure (``process`` on slots 12 then 13 at
+    consistency_th = 1) four times from one arena: with the solvers' loops
+    as they were (``torch_parent_loops`` patched into the loop module),
+    through ``CapturedLoop`` (the default), with ``LoopCloser.graphs`` off
+    and with a system whose ``stage_times`` is set. Each mode's arena, the
+    closer and the ``CapturedLoop`` objects made (with their iterations)."""
+    cfg = TConfig(**SMALL)
+    arena, W, desc, _ = S.build_drifted_loop_arena(
+        cfg, np.random.default_rng(42))
+    voc = PL.train_vocabulary(desc, k=8, depth=3, device="cpu")
+    bow = torch.zeros(cfg.max_keyframes, voc.n_words)
+    for i in range(S.LOOP_KEYFRAMES):
+        bow[i] = PL.bow_vector(voc, arena.kf_desc[i], arena.kf_kp_valid[i])
+    out = {}
+    for mode in CLOSURE_MODES:
+        made = []
+
+        class Recorded(TL.CapturedLoop):
+            def __init__(self, device):
+                super().__init__(device)
+                self.iterations = 0
+                made.append(self)
+
+            def repeat(self, name, body, n):
+                self.iterations += n
+                super().repeat(name, body, n)
+
+        system = types.SimpleNamespace(
+            arena=SM.MapArena(*(x.clone() for x in arena)),
+            n_kf=S.LOOP_KEYFRAMES, bow_table=bow,
+            generator=torch.Generator().manual_seed(0))
+        if mode == "stage_times":
+            system.stage_times = {}
+        lc = TL.LoopCloser(cfg, TCam.from_config(cfg, "cpu"))
+        lc.consistency_th = 1
+        lc.graphs = mode != "graphs_off"
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(TL, "CapturedLoop", Recorded)
+            if mode == "parent_loops":
+                mp.setattr(TL, "optimize_essential_graph", _parent_pose_graph)
+                mp.setattr(TL, "bundle_adjust", _parent_bundle_adjust)
+            closed = [lc.process(system, slot) for slot in (12, 13)]
+        out[mode] = (closed, snapshot(system.arena), lc, made)
+    return out
+
+
+@pytest.mark.parametrize("mode", CLOSURE_MODES[1:])
+def test_closure_loops_bitwise_parent_loops(closures, mode):
+    """The tier-1-size closure with the pose graph's and the global BA's
+    iterations on fixed state tensors (through ``CapturedLoop``, eager on
+    the CPU, or as Python loops): it closes, and every arena table is
+    bitwise the closure with the loops as they were, with the same host
+    reads and eigen-solve waits and no capture."""
+    closed, arena, lc, _ = closures[mode]
+    p_closed, p_arena, p_lc, _ = closures["parent_loops"]
+    assert closed == p_closed == [False, True]
+    for name, a in arena.items():
+        b = p_arena[name]
+        assert a.shape == b.shape and a.tobytes() == b.tobytes(), name
+    assert (lc.reads, lc.eigh_waits) == (p_lc.reads, p_lc.eigh_waits)
+    assert lc.capture_waits == 0 and lc.graph_counts["captures"] == 0
+
+
+@pytest.mark.parametrize("mode", CLOSURE_MODES[1:])
+def test_eager_switch_runs_no_capture(closures, mode):
+    """The closure makes one ``CapturedLoop`` a solve (the pose graph's 12
+    iterations, the global BA's 15 steps) by default; with
+    ``LoopCloser.graphs`` off, or a system that times its stages, it makes
+    none, so nothing can be captured."""
+    _, _, _, made = closures[mode]
+    if mode == "graphs":
+        assert [m.iterations for m in made] == [TL.POSE_GRAPH_ITERS, 15]
+        assert all(m.captures == m.replays == 0 for m in made)
+    else:
+        assert made == []
+

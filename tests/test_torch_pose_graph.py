@@ -9,7 +9,10 @@ left out gives the masked result within 1e-6 (a masked edge adds exact
 zeros; only the float order of the sums can change); the point remap within
 1e-5. The outcome test is that of the JAX package (``TestPoseGraph``,
 ``tests/test_optim.py:168-220``): the largest position error falls below a
-quarter of its value before, the scales within 0.02 of 1.
+quarter of its value before, the scales within 0.02 of 1. The
+Gauss-Newton iterations on copies of the state, through ``CapturedLoop``
+or a Python loop, bitwise the loop as it was before
+(``tests/torch_parent_loops.py``) after 1, 2, 5 and 12 iterations.
 """
 
 import jax.numpy as jnp
@@ -21,6 +24,9 @@ from cubemapslam_tpu import geometry as JG
 from cubemapslam_tpu.optim import pose_graph as JP
 from cubemapslam_tpu_torch import geometry as TG
 from cubemapslam_tpu_torch.optim import pose_graph as TP
+from cubemapslam_tpu_torch.runtime.fused_step import CapturedLoop
+
+import torch_parent_loops as PARENT
 
 M = 16
 
@@ -105,6 +111,27 @@ def test_essential_graph_against_jax(graph):
     # the fixed and the invalid vertices kept their state
     for k in (0, 15):
         np.testing.assert_array_equal(tR.numpy()[k], args[1][k])
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 5, 12])
+def test_gauss_newton_loop_bitwise_parent_loop(graph, n_iters):
+    """The Gauss-Newton iterations on copies of s, R, t updated in place,
+    run through ``CapturedLoop`` (eager on the CPU; n calls are n
+    iterations) and as a Python loop: s, R, t bitwise the loop as it was
+    before (``torch_parent_loops.optimize_essential_graph``), and the
+    inputs unchanged."""
+    args, _ = graph
+    old = PARENT.optimize_essential_graph(*map(t_, args), n_iters=n_iters)
+    inputs = [t_(a) for a in args]
+    loop = CapturedLoop(torch.device("cpu"))
+    for runner in (loop, None):
+        new = TP.optimize_essential_graph(*inputs, n_iters=n_iters,
+                                          loop=runner)
+        for a, b in zip(new, old):
+            assert a.numpy().tobytes() == b.numpy().tobytes()
+    assert (loop.captures, loop.replays) == (0, 0)
+    for a, b in zip(inputs, map(t_, args)):
+        assert torch.equal(a, b)
 
 
 def test_masked_edges_may_be_left_out(graph):
