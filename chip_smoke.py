@@ -111,17 +111,28 @@ local BA here, the correction and the global BA of the loop closure, the
 runner, the sharded BA), and each of those must launch it.
 
 Then, on the ``slam`` phase's map: the ``reloc`` phase (2 blank frames make
-the system LOST without a reset; the frame at the ground-truth pose of a
-mid-sequence frame relocalizes, within the stated bound of the ground truth
-through the ATE's Sim3 alignment; once more under the profiler, whose host
-waits may not exceed the frame's stated reads, its eigen-solve waits and the
-upload); the ``localization`` phase (6 frames tracked in localization mode
-with the map unchanged, each within the bound, the worst frame and its
-margin to the bound printed; perturbed landmarks engage mbVO, restored ones
-relocalize and clear it); a save/load check (``save_map``, ``load_map`` into
-a fresh ``CubemapSLAM``, whose next frame relocalizes); and ``word_ids`` /
-``bow_vector``, ``detect_candidates`` and ``pnp_ransac`` on the card against
-the CPU on seeded inputs. The ``slam`` phase runs with loop closing on: its
+the system LOST without a reset; from that state the frame at the
+ground-truth pose of a mid-sequence frame relocalizes three times: eagerly
+(``reloc_graphs`` off), through ``FusedReloc`` capturing its graphs R (a
+candidate: match, PnP, LM) and W (the widening pass) and replaying them
+(``runtime/fused_reloc.py``), the graph frames bitwise equal to the eager
+one, each within the stated bound of the ground truth through the ATE's
+Sim3 alignment, the wall ms of each kind and the capture's ms and pool MiB
+printed; twice more under the profiler, eagerly and replaying, whose host
+waits may not exceed the frame's stated reads and the upload); the
+``sym_eig`` check (the
+eigen-solve kernel ``csrc/sym_eig.cu``, one warp a matrix, bitwise against
+its kernel-order plain version ``sym_eig_ordered`` on the six solves of the
+reloc frame's first PnP, recorded as it ran, on those of a seeded
+2000-point scene and on special matrices at n = 3, 4 and 12, eagerly and
+from a CUDA graph; timed on the recorded solves beside
+``torch.linalg.eigh`` and the bound); the ``localization`` phase (6 frames
+tracked in localization mode with the map unchanged, each within the bound,
+the worst frame and its margin to the bound printed; perturbed landmarks
+engage mbVO, restored ones relocalize and clear it); a save/load check
+(``save_map``, ``load_map`` into a fresh ``CubemapSLAM``, whose next frame
+relocalizes); and ``word_ids`` / ``bow_vector``, ``detect_candidates`` and
+``pnp_ransac`` on the card against the CPU on seeded inputs. The ``slam`` phase runs with loop closing on: its
 forward trajectory revisits nothing, so it must close no loop, and each
 keyframe from the tenth runs loop detection (its wall ms is printed).
 
@@ -231,6 +242,7 @@ from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
 from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 from cubemapslam_tpu_torch.solvers import horn_alignment
 from cubemapslam_tpu_torch.solvers import pnp as PNP
+from cubemapslam_tpu_torch.solvers import sym_eig as SE
 from cubemapslam_tpu_torch.solvers import triangulate as TT
 from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
 
@@ -244,7 +256,7 @@ H100_F64_OPS_PER_S = 34e12    # float64 outside the tensor cores, H100 SXM
                               # data sheet
 TIMING_REPS, TIMING_BATCH = 7, 20
 SOURCES = ("warp_remap.cu", "orb_detect.cu", "orb_describe.cu",
-           "seg_sum.cu", "pose_lm.cu", "triangulate.cu")
+           "seg_sum.cu", "pose_lm.cu", "triangulate.cu", "sym_eig.cu")
 # launches of each kernel entry in one frame step
 LAUNCHES_PER_FRAME = 1
 
@@ -367,7 +379,8 @@ DIST_TIMEOUT = 600.0
 # the port's __global__ kernels, as the profiler names them
 PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
                 "select_levels_kernel", "orb_describe_kernel",
-                "seg_sum_kernel", "pose_lm_kernel", "triangulate_kernel")
+                "seg_sum_kernel", "pose_lm_kernel", "triangulate_kernel",
+                "sym_eig_kernel")
 # the segmented-sum kernel at the shapes the main path gives it (full width):
 # (rows, segments, lanes, live segments or None for all, share of rows on
 # the dump id). The CG global BA of the loop arena (20,160 live edges over 14
@@ -1593,6 +1606,220 @@ def check_triangulate(real, mk):
         f"{row['replaced_eager_ms']:.3f} ms eager; library (eigh) "
         f"{row['library_ms']:.5f} ms; bound {b_ms:.6f} ms ({b_by}: "
         f"{TRI_OPS} float64 and {TRI_GATE_OPS} float32 operations a row)")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# The symmetric eigen-solve kernel (csrc/sym_eig.cu)
+# ---------------------------------------------------------------------------
+
+# the kernel's launches by path, each counted from 0 around its drive: one
+# an eigen-solve, 6 a relocalization candidate's PnP
+EIG_LAUNCHES = {}
+# the inputs of the six eigen-solves of the reloc phase's first PnP (its
+# eager frame's first candidate), recorded for check_sym_eig
+EIG_INPUTS = []
+# the names of one pnp_ransac's six eigen-solves, in call order
+EIG_SITES = ("pca", "null", "horn", "refit.pca", "refit.null", "refit.horn")
+
+
+def eig_launches(tag, required=True):
+    """The eigen-solve kernel's launches since the counters were set to 0,
+    recorded as the ``tag`` path's; with ``required`` the path must have
+    launched it."""
+    n = SE.SYM_EIG.launches
+    EIG_LAUNCHES[tag] = n
+    log(f"[{tag}] sym_eig: launches {n}")
+    if required and n <= 0:
+        raise AssertionError(f"the {tag} path launched no sym_eig kernel")
+    return n
+
+
+@contextlib.contextmanager
+def recording_eigh(store):
+    """Record clones of the inputs of the first six ``pnp._eigh`` calls (one
+    ``pnp_ransac``) into ``store`` while the context is open."""
+    inner = PNP._eigh
+
+    def recorded(A):
+        if len(store) < len(EIG_SITES):
+            store.append(A.clone())
+        return inner(A)
+
+    PNP._eigh = recorded
+    try:
+        yield store
+    finally:
+        PNP._eigh = inner
+
+
+def pnp_eig_inputs(device, seed=SEED + 12, n=2000, n_out=600):
+    """The six eigen-solve inputs of one ``pnp_ransac`` on a seeded
+    ``pnp_scene`` of ``n`` points, ``n_out`` of the matches scrambled, on
+    ``device``: (300,3,3), (300,12,12), (300,3,4,4), (3,3), (12,12),
+    (3,4,4)."""
+    cfg = SlamConfig()
+    cam = CubemapCamera.from_config(cfg, device)
+    _, _, pw, rays, uv, valid = pnp_scene(
+        CubemapCamera.from_config(cfg, "cpu"), np.random.default_rng(seed),
+        n=n, n_out=n_out)
+    sets = sample_minimal_sets(torch.Generator().manual_seed(seed), valid,
+                               cfg.pnp_ransac_iters, PNP.MIN_SET)
+    store = []
+    with recording_eigh(store):
+        PNP.pnp_ransac(cam, None, *(x.to(device) for x in (
+            pw, rays, uv, torch.ones(n), valid)), sets=sets)
+    return store
+
+
+def eig_specials(n, device, seed=SEED + 13):
+    """(8, n, n) float32 matrices that exercise the kernel's branches: equal
+    eigenvalues (a diagonal with ties, the identity), zero, a rank-one
+    matrix, an indefinite and a badly scaled one, and a NaN and an inf
+    entry (their results NaN)."""
+    rng = np.random.default_rng(seed + n)
+    X = rng.standard_normal((4, n, n)).astype(np.float32)
+    A = np.zeros((8, n, n), np.float32)
+    A[0] = np.diag(np.array([1.0, 2.0, 1.0] + [3.0] * (n - 3), np.float32))
+    A[1] = np.eye(n, dtype=np.float32)
+    A[3] = np.outer(X[0, 0], X[0, 0])
+    A[4] = X[1] + X[1].T
+    A[5] = (X[2] @ X[2].T) * np.float32(1e-20)
+    A[6] = X[3] @ X[3].T
+    A[6, n - 1, 0] = np.nan
+    A[7] = X[3] @ X[3].T
+    A[7, 0, 0] = np.inf
+    return torch.as_tensor(A).to(device)
+
+
+def eig_case(name, A):
+    """The kernel against ``sym_eig_ordered`` on (..., n, n) ``A``: one
+    launch, eigenvalues and eigenvectors bitwise (NaN where NaN), eagerly
+    and replayed from a CUDA graph. The case's dict with the rotations and
+    sweeps of its matrices (the ordered version's count)."""
+    ref_w, ref_V, rot, sw = SE.sym_eig_ordered(A, counts=True)
+    n0 = SE.SYM_EIG.launches
+    w, V = SE.sym_eig_cuda(A)
+    torch.cuda.synchronize()
+    one = SE.SYM_EIG.launches == n0 + 1
+    out = {}
+
+    def run():
+        out["w"], out["V"] = SE.sym_eig_cuda(A)
+
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        run()
+    graph.replay()
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref_w)
+    err = max(float((w - ref_w)[fin].abs().max()) if fin.any() else 0.0,
+              float((V - ref_V)[torch.isfinite(ref_V)].abs().max())
+              if torch.isfinite(ref_V).any() else 0.0)
+    c = dict(name=name, shape=list(A.shape), max_abs_err=err,
+             bitwise=same_float_bits(w, ref_w) and same_float_bits(V, ref_V),
+             graph_bitwise=same_float_bits(out["w"], ref_w)
+             and same_float_bits(out["V"], ref_V),
+             rotations=int(rot.sum()), max_sweeps=int(sw.max()))
+    log(f"[sym_eig] {name} {tuple(A.shape)}: bitwise {c['bitwise']}, from a "
+        f"graph {c['graph_bitwise']}; {c['rotations']} rotations, at most "
+        f"{c['max_sweeps']} sweeps a matrix")
+    if not (one and c["bitwise"] and c["graph_bitwise"]):
+        raise AssertionError(f"the sym_eig kernel differs from its plain "
+                             f"version on {name} (one launch {one}, max "
+                             f"|err| {err:.3g})")
+    return c
+
+
+def eig_bound(A, rotations, sweeps):
+    """The kernel's bound (ms, what bounds it) on ``A`` (B, n, n), from the
+    ordered version's count of each matrix's rotations and sweeps: the
+    input read and the outputs written once; float64 operations: the sum of
+    squares (2 n^2), each convergence test (2 a pair above the diagonal,
+    one a sweep begun and one more where the matrix converged), each skip
+    test (2 a pair a sweep begun), each rotation (14 for the angle, 6 for
+    each of the n - 2 pairs of entries, 4 for the diagonal, 6 for each row
+    of V: 12 n + 6), the order and the sign (4 n^2)."""
+    B, n = A.shape[0], A.shape[-1]
+    pairs = n * (n - 1) // 2
+    sweeps = sweeps.double()
+    tests = sweeps + (sweeps < SE.MAX_SWEEPS).double()
+    ops = float((2 * n * n + 2 * pairs * tests + 2 * pairs * sweeps
+                 + (12 * n + 6) * rotations.double() + 4 * n * n).sum())
+    return bound(B * (8 * n * n + 4 * n), ops, H100_F64_OPS_PER_S)
+
+
+def check_sym_eig(real):
+    """The eigen-solve kernel (``csrc/sym_eig.cu``) on the card, bitwise
+    against ``sym_eig_ordered`` (``eig_case``) on ``real``, the six inputs
+    of the reloc phase's first PnP (recorded as it ran), on the six of a
+    seeded 2000-point ``pnp_scene``, and on ``eig_specials`` at n = 3, 4 and
+    12. Timed on each real input: a wrapper call, the device's time from a
+    CUDA graph, the plain version's wall time and the library call
+    (``torch.linalg.eigh`` of the same float32 matrices, which waits for
+    the host each call), beside the bound. Returns the kernel's JSON row
+    (one PnP's six solves summed), without its launches."""
+    cases = [eig_case(f"reloc, {site}", A.reshape(-1, *A.shape[-2:]))
+             for site, A in zip(EIG_SITES, real)]
+    seeded = pnp_eig_inputs("cuda")
+    cases += [eig_case(f"seeded pnp_scene, {site}",
+                       A.reshape(-1, *A.shape[-2:]))
+              for site, A in zip(EIG_SITES, seeded)]
+    cases += [eig_case(f"specials n={n}", eig_specials(n, "cuda"))
+              for n in SE.SYM_EIG_SIZES]
+    by_site = {}
+    for site, A in zip(EIG_SITES, real):
+        A = A.reshape(-1, *A.shape[-2:]).contiguous()
+        _, _, rot, sw = SE.sym_eig_ordered(A, counts=True)
+        b_ms, b_by = eig_bound(A, rot, sw)
+        by_site[site] = dict(
+            shape=list(A.shape), ms=time_ms(lambda: SE.sym_eig_cuda(A)),
+            device_ms=graph_ms(lambda: SE.sym_eig_cuda(A)),
+            plain_ms=wall_ms(lambda: SE.sym_eig_ordered(A)),
+            library_ms=time_ms(lambda: torch.linalg.eigh(A)),
+            library_wall_ms=wall_ms(lambda: torch.linalg.eigh(A)),
+            bound_ms=b_ms, bound_by=b_by,
+            mean_rotations=float(rot.double().mean()),
+            max_sweeps=int(sw.max()))
+        v = by_site[site]
+        log(f"[sym_eig] {site} {tuple(A.shape)}: kernel {v['ms']:.5f} ms "
+            f"(device {v['device_ms']:.5f}), plain {v['plain_ms']:.3f} ms, "
+            f"library (eigh, waits) {v['library_ms']:.5f} ms (wall "
+            f"{v['library_wall_ms']:.5f}); bound {b_ms:.6f} ms ({b_by}); "
+            f"{v['mean_rotations']:.1f} rotations a matrix, at most "
+            f"{v['max_sweeps']} sweeps")
+
+    def total(key):
+        return sum(v[key] for v in by_site.values())
+
+    row = dict(name="sym_eig", route="cuda",
+               source="cubemapslam_tpu_torch/csrc/sym_eig.cu",
+               replaces="jnp.linalg.eigh inside the compiled relocalization "
+                        "program: cubemapslam_tpu/solvers/pnp.py:51 and "
+                        ":133, cubemapslam_tpu/solvers/horn.py:46; no "
+                        "pallas_call",
+               shape="one pnp_ransac's six solves: " + ", ".join(
+                   f"{k} {tuple(v['shape'])}" for k, v in by_site.items()),
+               max_abs_err=max(c["max_abs_err"] for c in cases),
+               bitwise=all(c["bitwise"] and c["graph_bitwise"]
+                           for c in cases),
+               ms=total("ms"), device_ms=total("device_ms"),
+               plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+               bound_by=max(by_site.values(),
+                            key=lambda v: v["bound_ms"])["bound_by"],
+               library_ms=total("library_ms"),
+               library_call="torch.linalg.eigh on the same float32 "
+                            "matrices (a host wait each call)",
+               by_site=by_site, cases=cases)
+    log(f"[sym_eig] row (one PnP's six solves): kernel {row['ms']:.5f} ms "
+        f"(device {row['device_ms']:.5f}), plain {row['plain_ms']:.3f} ms, "
+        f"library {row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} "
+        f"ms; bitwise on {len(cases)} cases {row['bitwise']}")
     return row
 
 
@@ -3040,6 +3267,7 @@ def zero_launches(counters):
     SG.SEG_SUM.launches = 0
     PO.POSE_LM.launches = 0
     TT.TRIANGULATE.launches = 0
+    SE.SYM_EIG.launches = 0
 
 
 def read_launches(counters, tag, n_frames):
@@ -3052,6 +3280,7 @@ def read_launches(counters, tag, n_frames):
         f"{SG.SEG_SUM.launches}")
     pose_launches(tag, n_frames)
     tri_launches(tag, n_frames, required=False)
+    eig_launches(tag, required=False)
     for name, by_kernel in launches.items():
         log(f"[{tag}] {name}: launches in {n_frames} frames {by_kernel}")
         for sym, n in by_kernel.items():
@@ -3106,13 +3335,53 @@ def go_lost(slam, n, ts):
                                  "LOST with its keyframes")
 
 
+def lost_state(slam):
+    """What a relocalization changes on a LOST system (it leaves the arena
+    as it is): the tracking state, the last frame, the reference keyframe,
+    the motion model, mbVO, the inlier peak and the generator's state."""
+    return (slam.state, slam.last, slam.ref_kf, slam.velocity, slam.mb_vo,
+            slam._kf_inlier_peak, slam.generator.get_state())
+
+
+def restore_lost(slam, st):
+    (slam.state, slam.last, slam.ref_kf, slam.velocity, slam.mb_vo,
+     slam._kf_inlier_peak, gen) = st
+    slam.generator.set_state(gen)
+
+
+def reloc_record(slam, T, row):
+    """A relocalization's outcome: the pose, the row's reads, scores and
+    counts, and the last frame's associations, outliers and pose."""
+    keys = ("reloc_candidates", "relocalized", "reloc_inliers",
+            "reloc_scores", "host_reads", "eigh_waits")
+    last = [x.cpu() for x in (slam.last.assoc, slam.last.outlier,
+                              slam.last.R, slam.last.t)]
+    return T, {k: row.get(k) for k in keys}, last
+
+
+def same_reloc(tag, a, b):
+    (Ta, ra, xa), (Tb, rb, xb) = a, b
+    same = (np.array_equal(Ta, Tb) and ra == rb
+            and all(torch.equal(x, y) for x, y in zip(xa, xb)))
+    log(f"[reloc] {tag}: bitwise equal to the eager frame {same}")
+    if not same:
+        raise AssertionError(f"the {tag} reloc frame differs from the eager "
+                             f"one: {ra} against {rb}")
+
+
 def reloc_phase(slam, poses, frames, ate, counters):
     """Blank frames make the system LOST (more than 5 live keyframes, so no
-    reset); the frame at the ground-truth pose of RELOC_FRAME relocalizes
-    within the bound, with the launch counters set to 0 just before it; a
-    blank frame again, and the same frame relocalizes under the profiler,
-    whose host waits may be no more than the frame's stated reads, its
-    eigen-solve waits and the upload. Returns the launches."""
+    reset); from that state the frame at the ground-truth pose of
+    RELOC_FRAME relocalizes three times: eagerly (``reloc_graphs`` off, as
+    for the blank frames before; the inputs of its first PnP's six
+    eigen-solves are recorded for ``check_sym_eig``), through
+    ``FusedReloc`` capturing graphs R and W,
+    and replaying them with the launch counters set to 0 just before it;
+    the graph frames bitwise equal to the eager one, each within the bound.
+    A blank frame again, and the same frame relocalizes under the profiler,
+    eagerly, then (after another blank frame) replaying the graphs: each
+    one's host waits may be no more than the frame's stated reads and the
+    upload (no eigen-solve wait). Returns the launches."""
     align, path = ate
     live = int(slam.arena.kf_valid.sum())
     fids = slam.arena.kf_frame_id[slam.arena.kf_valid].tolist()
@@ -3121,13 +3390,44 @@ def reloc_phase(slam, poses, frames, ate, counters):
     if live <= 5:
         raise AssertionError("5 or fewer live keyframes: LOST would reset")
     ts = 100.0
+    # eagerly until the capturing frame: a LOST blank frame tries to
+    # relocalize too
+    slam.reloc_graphs = False
     go_lost(slam, RELOC_BLANK, ts)
-    zero_launches(counters)
-    T, row, wall = timed_frame(slam, frames[RELOC_FRAME], ts + 10)
-    launches = read_launches(counters, "reloc", 1)
-    log(f"[reloc] frame {RELOC_FRAME} replayed: " + reloc_row_line(row, wall))
-    if T is None or slam.state != TrackState.OK or not row["relocalized"]:
-        raise AssertionError("the replayed frame did not relocalize")
+    lost = lost_state(slam)
+    with recording_eigh(EIG_INPUTS):
+        T, row, wall = timed_frame(slam, frames[RELOC_FRAME], ts + 10)
+    slam.reloc_graphs = True
+    eager = reloc_record(slam, T, row)
+    log(f"[reloc] frame {RELOC_FRAME} eager: " + reloc_row_line(row, wall))
+    walls = {"eager": wall}
+    for kind in ("capturing", "replaying"):
+        restore_lost(slam, lost)
+        if kind == "replaying":
+            zero_launches(counters)
+        T, row, wall = timed_frame(slam, frames[RELOC_FRAME], ts + 10)
+        if kind == "replaying":
+            launches = read_launches(counters, "reloc", 1)
+            eig_launches("reloc")
+        walls[kind] = wall
+        fr = slam.fused_reloc
+        log(f"[reloc] frame {RELOC_FRAME} {kind}: "
+            + reloc_row_line(row, wall)
+            + f"; graphs captured {row.get('graph_reloc_captures')}, "
+              f"replayed {row.get('graph_reloc_replays')}"
+            + (f"; capture {fr.capture_ms:.3f} ms, pool "
+               f"{fr.capture_mib:.1f} MiB" if kind == "capturing" else ""))
+        captured = row.get("graph_reloc_captures", 0)
+        if captured != (2 if kind == "capturing" else 0) \
+                or not row.get("graph_reloc_replays", 0) + captured:
+            raise AssertionError(f"the {kind} reloc frame captured "
+                                 f"{captured} graphs")
+        same_reloc(kind, reloc_record(slam, T, row), eager)
+        if T is None or slam.state != TrackState.OK \
+                or not row["relocalized"]:
+            raise AssertionError(f"the {kind} frame did not relocalize")
+    log(f"[reloc] frame wall ms: eager {walls['eager']:.3f}, capturing "
+        f"{walls['capturing']:.3f}, replaying {walls['replaying']:.3f}")
     near = min(fids, key=lambda f: abs(f - RELOC_FRAME))
     slot = int(torch.nonzero(slam.arena.kf_valid
                              & (slam.arena.kf_frame_id == near))[0])
@@ -3135,22 +3435,31 @@ def reloc_phase(slam, poses, frames, ate, counters):
     log(f"[reloc] {d_kf:.5f} map units from the keyframe of frame {near}, "
         f"the live keyframe nearest frame {RELOC_FRAME}")
     check_near_truth("reloc", T, poses[RELOC_FRAME], align, path)
-    go_lost(slam, 1, ts + 20)
-    prof = profile_stages(
-        lambda: slam.track_fisheye(frames[RELOC_FRAME], ts + 30),
-        RELOC_STAGES, 1)
-    row = slam.metrics[-1]
-    log(f"[reloc-profile] frame {RELOC_FRAME}: " + reloc_row_line(
-        row, prof["wall_ms"]))
-    log_profile("reloc-profile", prof, [wall])
-    if slam.state != TrackState.OK or not row["relocalized"]:
-        raise AssertionError("the profiled frame did not relocalize")
-    allowed = row["host_reads"] + row.get("eigh_waits", 0) + 1
-    if prof["host_waits"] > allowed:
-        raise AssertionError(f"the reloc frame waited "
-                             f"{prof['host_waits']:.0f} times; its stated "
-                             f"reads, eigen-solve waits and the upload are "
-                             f"{allowed}")
+    for kind in ("eager", "replaying"):
+        slam.reloc_graphs = kind != "eager"
+        go_lost(slam, 1, ts + 20)
+        prof = profile_stages(
+            lambda: slam.track_fisheye(frames[RELOC_FRAME], ts + 30),
+            RELOC_STAGES, 1)
+        row = slam.metrics[-1]
+        tag = f"reloc-profile-{kind}"
+        log(f"[{tag}] frame {RELOC_FRAME}: " + reloc_row_line(
+            row, prof["wall_ms"]))
+        log_profile(tag, prof, [walls[kind]])
+        if slam.state != TrackState.OK or not row["relocalized"]:
+            raise AssertionError(f"the profiled {kind} frame did not "
+                                 f"relocalize")
+        if row.get("eigh_waits", 0) or row.get("graph_reloc_captures", 0):
+            raise AssertionError(f"the profiled {kind} reloc frame counted "
+                                 f"eigen-solve waits or captured a graph")
+        allowed = row["host_reads"] + 1
+        log(f"[{tag}] host waits {prof['host_waits']:.0f} against "
+            f"{allowed} allowed: {row['host_reads']} reads and the upload")
+        if prof["host_waits"] > allowed:
+            raise AssertionError(f"the {kind} reloc frame waited "
+                                 f"{prof['host_waits']:.0f} times; its "
+                                 f"stated reads and the upload are "
+                                 f"{allowed}")
     return launches
 
 
@@ -3215,6 +3524,9 @@ def localization_phase(slam, poses, frames, ate, counters):
     check_near_truth("localization", T, poses[i], align, path)
     if map_counts(slam) != before:
         raise AssertionError("localization mode changed the map")
+    # the eigen-solves run where a frame relocalizes: the mbVO frame's try
+    # and the restored frame's, counted from the phase's start
+    eig_launches("localization")
     slam.deactivate_localization_mode()
     return launches
 
@@ -4002,6 +4314,10 @@ def main() -> int:
     done("triangulate")
     r_launches = reloc_phase(slam, s_poses, s_frames, ate, counters)
     done("reloc")
+    if len(EIG_INPUTS) != len(EIG_SITES):
+        raise AssertionError("the reloc frame's PnP made no six eigen-solves")
+    eig_row = check_sym_eig(EIG_INPUTS)
+    done("sym_eig")
     l_launches = localization_phase(slam, s_poses, s_frames, ate, counters)
     done("localization")
     save_load_check(slam, s_poses, s_frames, ate)
@@ -4044,6 +4360,11 @@ def main() -> int:
     tri_row["launches"] = TRI_LAUNCHES["slam"]
     tri_row["launches_by_path"] = TRI_LAUNCHES
     rows.append(tri_row)
+    # the eigen-solve kernel: 6 launches a relocalization candidate's PnP,
+    # counted on each path (reloc: one replaying frame)
+    eig_row["launches"] = EIG_LAUNCHES["reloc"]
+    eig_row["launches_by_path"] = EIG_LAUNCHES
+    rows.append(eig_row)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

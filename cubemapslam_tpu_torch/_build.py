@@ -18,6 +18,7 @@ product and sum must round on its own, as the plain version's do).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +35,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCE_FLAGS: Dict[str, Sequence[str]] = {"pose_lm.cu": ("-fmad=false",),
+                                          "sym_eig.cu": ("-fmad=false",),
                                           "triangulate.cu": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -152,3 +154,20 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"(got {t.device})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+@contextlib.contextmanager
+def cusolver(dev: torch.device):
+    """``torch.linalg`` on cuSOLVER (and cuBLAS's batched LU) while the
+    block runs, on the card: routes that a CUDA graph can capture and that
+    read nothing back to the host (``solve_ex`` / ``inv_ex`` check no
+    error flag)."""
+    if dev.type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)

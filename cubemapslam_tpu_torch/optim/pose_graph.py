@@ -21,13 +21,13 @@ does).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import torch
 from torch import func
 
 from cubemapslam_tpu_torch import geometry as G
+from cubemapslam_tpu_torch._build import cusolver
 from cubemapslam_tpu_torch.segment import SegmentPlan, segment_sum
 
 
@@ -121,27 +121,13 @@ def optimize_essential_graph(
         for old, new in zip((s, R, t), G.sim3_compose(ds, dR, dt, s, R, t)):
             old.copy_(new)
 
-    with _cusolver(dev):
+    with cusolver(dev):
         if loop is None:
             for _ in range(n_iters):
                 step()
         else:
             loop.repeat("gauss_newton", step, n_iters)
     return s, R, t
-
-
-@contextlib.contextmanager
-def _cusolver(dev: torch.device):
-    """``torch.linalg`` on cuSOLVER while the block runs, on the card."""
-    if dev.type != "cuda":
-        yield
-        return
-    before = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(before)
 
 
 def remap_points_through_sim3(X: torch.Tensor,

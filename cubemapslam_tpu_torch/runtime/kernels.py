@@ -38,6 +38,7 @@ from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.optim.pose_opt import pose_optimization
 from cubemapslam_tpu_torch.solvers import TwoViewResult, initialize_two_view
 from cubemapslam_tpu_torch.solvers.pnp import pnp_ransac
+from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
 MIN_MATCHES = 20             # widen / fall back below this (Tracking.cpp:641)
 VELOCITY_GATE_RAD = 0.2      # implausible rotations predict from the last pose
@@ -504,49 +505,74 @@ class TrackingKernels:
     # Relocalization (Tracking::Relocalization, Tracking.cpp:990-1151)
     # ------------------------------------------------------------------
 
+    def reloc_candidate(self, arena: SM.MapArena, kp_cur: Keypoints, slot,
+                        scores, sets=None):
+        """One candidate keyframe ``slot`` (an int or a 0-d device index):
+        the reference-keyframe match (>= 15), bearing-EPnP RANSAC on the
+        minimal sets selected from ``scores`` (n_iters, N) uniform draws
+        (or on ``sets`` (n_iters, 4) if given), then pose-only LM (>= 10
+        inliers) (``kernels.py:511-521``). Reads nothing to the host, so
+        ``runtime/fused_reloc.py`` captures it. Returns (assoc, R, t,
+        outlier, score): score is the LM inlier count if the candidate
+        passes, else -1."""
+        lvl_sig2 = self.level_sigma2[kp_cur.level.clamp(0,
+                                                        self.cfg.n_levels - 1)]
+        assoc, n = self.track_reference_kf(arena, kp_cur, slot)
+        has = (assoc >= 0) & kp_cur.valid
+        res = pnp_ransac(self.cam, None, arena.lm_pos[assoc.clamp(min=0)],
+                         kp_cur.rays, kp_cur.uv, lvl_sig2, has,
+                         n_iters=self.cfg.pnp_ransac_iters, sets=sets,
+                         scores=scores)
+        R, t, outlier, n2 = self.optimize_pose(arena, kp_cur, assoc, res.R,
+                                               res.t)
+        good = (n >= 15) & res.success & (n2 >= 10)
+        return (assoc, R, t, outlier,
+                torch.where(good, n2, torch.full_like(n2, -1)))
+
+    def reloc_scores(self, generator: torch.Generator, kp_cur: Keypoints):
+        """One candidate's RANSAC draws: (n_iters, N) uniform scores from
+        ``generator``, on the keypoints' device."""
+        return draw_scores(generator, self.cfg.pnp_ransac_iters, kp_cur.n,
+                           kp_cur.uv.device)
+
+    def reloc_skipped(self, kp_cur: Keypoints):
+        """The row of a candidate that is not ok: no association, the
+        identity pose, no outlier, score -1."""
+        n_kp, dev = kp_cur.n, kp_cur.uv.device
+        return (torch.full((n_kp,), SM.NO_LM, dtype=torch.int64, device=dev),
+                torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                torch.zeros(n_kp, dtype=torch.bool, device=dev),
+                torch.full((), -1, dtype=torch.int64, device=dev))
+
     def reloc_candidates_fused(self, arena: SM.MapArena, kp_cur: Keypoints,
                                cand_idx: Sequence[int],
                                cand_ok: Sequence[bool],
                                generator: torch.Generator, sets=None):
-        """Per candidate keyframe slot: the reference-keyframe match (>= 15),
-        bearing-EPnP RANSAC, then pose-only LM (>= 10 inliers)
+        """Per candidate keyframe slot, ``reloc_candidate``
         (``kernels.py:499-526``). The JAX package maps over the candidates
-        on the device; here the host loops over them, and a candidate that
-        is not ok is skipped. ``sets`` optionally gives each candidate's
-        (n_iters, 4) minimal sets. Returns the stacked (assoc, R, t,
-        outlier, score): score is the LM inlier count of a candidate that
-        passes, else -1."""
-        n_kp, dev = kp_cur.n, kp_cur.uv.device
-        lvl_sig2 = self.level_sigma2[kp_cur.level.clamp(0,
-                                                        self.cfg.n_levels - 1)]
+        on the device; here the host loops over them: a candidate that is
+        not ok gets ``reloc_skipped``'s row, an ok one draws its scores
+        from ``generator`` (one draw each, in candidate order) unless
+        ``sets`` gives each candidate's (n_iters, 4) minimal sets. Returns
+        the stacked (assoc, R, t, outlier, score)."""
         outs = []
         for i, (c, ok_c) in enumerate(zip(cand_idx, cand_ok)):
             if not ok_c:
-                outs.append((
-                    torch.full((n_kp,), SM.NO_LM, dtype=torch.int64,
-                               device=dev),
-                    torch.eye(3, device=dev), torch.zeros(3, device=dev),
-                    torch.zeros(n_kp, dtype=torch.bool, device=dev),
-                    torch.full((), -1, dtype=torch.int64, device=dev)))
-                continue
-            assoc, n = self.track_reference_kf(arena, kp_cur, int(c))
-            has = (assoc >= 0) & kp_cur.valid
-            res = pnp_ransac(self.cam, generator,
-                             arena.lm_pos[assoc.clamp(min=0)], kp_cur.rays,
-                             kp_cur.uv, lvl_sig2, has,
-                             n_iters=self.cfg.pnp_ransac_iters,
-                             sets=None if sets is None else sets[i])
-            R, t, outlier, n2 = self.optimize_pose(arena, kp_cur, assoc,
-                                                   res.R, res.t)
-            good = (n >= 15) & res.success & (n2 >= 10)
-            outs.append((assoc, R, t, outlier,
-                         torch.where(good, n2, torch.full_like(n2, -1))))
+                outs.append(self.reloc_skipped(kp_cur))
+            elif sets is None:
+                outs.append(self.reloc_candidate(
+                    arena, kp_cur, int(c),
+                    self.reloc_scores(generator, kp_cur)))
+            else:
+                outs.append(self.reloc_candidate(arena, kp_cur, int(c), None,
+                                                 sets=sets[i]))
         return tuple(torch.stack(x) for x in zip(*outs))
 
     def reloc_widen_fused(self, arena: SM.MapArena, kp_cur: Keypoints,
                           assoc, outlier, R, t, covis=None):
         """The widening pass of the accepted candidate: local-landmark
         projection search, then pose-only LM (``kernels.py:528-539``).
+        Reads nothing to the host (``runtime/fused_reloc.py`` captures it).
         Returns (assoc, R, t, outlier, n_inliers)."""
         assoc = torch.where(outlier, torch.full_like(assoc, SM.NO_LM), assoc)
         sel, sel_ok, _, _, _ = self.select_local_landmarks(arena, assoc,

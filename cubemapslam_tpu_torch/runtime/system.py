@@ -37,10 +37,14 @@ RANSAC verdict, and the SVDs of the essential solver wait 6 times more
 points once, the landmark statistics once, the first pose once and, to
 train a vocabulary, the descriptors once. A relocalization reads the
 candidates once, their scores once and each widened candidate's count and
-pose once; each candidate's PnP waits ``pnp.EIGH_WAITS`` times more. A
-localization-mode frame reads each stage's counts with its pose. Each
-frame's count is in ``metrics`` (``host_reads``; ``svd_waits`` on
-initialization attempts, ``eigh_waits`` where PnP ran).
+pose once; its PnP makes the card wait ``pnp.EIGH_WAITS`` = 0 times more (the
+eigen-solves are the ``sym_eig`` kernel). On the card its candidates and
+widening passes replay ``FusedReloc``'s graphs R and W
+(``runtime/fused_reloc.py``), unless ``reloc_graphs`` is False or
+``stage_times`` is set. A localization-mode frame reads each stage's counts
+with its pose. Each frame's count is in ``metrics`` (``host_reads``;
+``svd_waits`` on initialization attempts, ``eigh_waits`` where PnP or Sim3
+RANSAC ran).
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import (Keypoints,
                                                        build_extractor)
 from cubemapslam_tpu_torch.runtime.fused_mapping import FusedMapping
+from cubemapslam_tpu_torch.runtime.fused_reloc import FusedReloc
 from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES
 from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels, _index
@@ -163,6 +168,8 @@ class CubemapSLAM(MapTracker):
         self.tracked_frames = 0
         self.total_frames = 0
         self._fused_mapping: Optional[FusedMapping] = None
+        self.reloc_graphs = True
+        self._fused_reloc: Optional[FusedReloc] = None
 
     def _stage(self, name: str) -> Optional[float]:
         """``MapTracker._stage``, with the ms also in the frame's row."""
@@ -176,16 +183,28 @@ class CubemapSLAM(MapTracker):
     # ------------------------------------------------------------------
 
     def drop_graphs(self) -> None:
-        """Forget the captured tracked frame and the captured mapping
-        graphs; the next graph frame captures anew."""
+        """Forget the captured tracked frame and the captured mapping and
+        relocalization graphs; the next graph frame captures anew."""
         super().drop_graphs()
         self._fused_mapping = None
+        self._fused_reloc = None
 
     @property
     def fused_mapping(self) -> Optional[FusedMapping]:
         """The captured keyframe and BA frames' ``FusedMapping``, if one
         was made."""
         return self._fused_mapping
+
+    @property
+    def fused_reloc(self) -> Optional[FusedReloc]:
+        """The relocalization's ``FusedReloc``, if one was made."""
+        return self._fused_reloc
+
+    def _reloc_graph(self) -> bool:
+        """Whether ``_relocalize`` runs through ``FusedReloc``: on a CUDA
+        device, with ``reloc_graphs`` on and ``stage_times`` unset."""
+        return (self.device.type == "cuda" and self.reloc_graphs
+                and self.stage_times is None)
 
     def shutdown(self) -> None:
         """System::Shutdown; nothing runs in the background to stop
@@ -622,19 +641,33 @@ class CubemapSLAM(MapTracker):
         row["reloc_candidates"] = sum(ok)
         if not any(ok):
             return None
+        fr = None
+        if self._reloc_graph():
+            if self._fused_reloc is None:
+                self._fused_reloc = FusedReloc(self)
+            fr = self._fused_reloc
         with record_function("reloc.candidates"):
-            assoc_c, R_c, t_c, out_c, score_c = k.reloc_candidates_fused(
-                a, kp, idx, ok, self.generator)
+            if fr is None:
+                assoc_c, R_c, t_c, out_c, score_c = k.reloc_candidates_fused(
+                    a, kp, idx, ok, self.generator)
+            else:
+                assoc_c, R_c, t_c, out_c, score_c = fr.candidates(self, kp,
+                                                                  idx, ok)
             scores = score_c.tolist()
         row["host_reads"] += 1
         row["eigh_waits"] = row.get("eigh_waits", 0) + EIGH_WAITS * sum(ok)
+        row["reloc_scores"] = scores
+        pose_out = None
         for i in sorted(range(n_c), key=lambda j: -scores[j]):   # stable
             if scores[i] < 0:
                 break
             with record_function("reloc.widen"):
-                assoc, R, t, outlier, n3 = k.reloc_widen_fused(
-                    a, kp, assoc_c[i], out_c[i], R_c[i], t_c[i],
-                    covis=self.covis)
+                args = (assoc_c[i], out_c[i], R_c[i], t_c[i])
+                if fr is None:
+                    assoc, R, t, outlier, n3 = k.reloc_widen_fused(
+                        a, kp, *args, covis=self.covis)
+                else:
+                    assoc, R, t, outlier, n3 = fr.widen(self, *args)
                 (n3,), pose = self._read((n3,), R, t)
             if n3 < self.cfg.min_track_inliers_after_reloc:
                 continue
@@ -645,8 +678,12 @@ class CubemapSLAM(MapTracker):
             self.mb_vo = False
             self._kf_inlier_peak = 0
             row.update(relocalized=True, reloc_inliers=n3)
-            return pose
-        return None
+            pose_out = pose
+            break
+        if fr is not None:
+            row["graph_reloc_captures"] = fr.frame_captures
+            row["graph_reloc_replays"] = fr.frame_replays
+        return pose_out
 
     # ------------------------------------------------------------------
     # The bag of words (system.py:740-771)

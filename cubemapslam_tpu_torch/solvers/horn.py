@@ -1,13 +1,15 @@
 """Horn 1987 closed-form absolute orientation, batched
 (``cubemapslam_tpu/solvers/horn.py:18``): the optimal rotation is the
 eigenvector of the largest eigenvalue of the 4x4 quaternion N-matrix built
-from the cross-covariance of the demeaned point sets. Used to Sim3-align a
-trajectory to the ground truth; ``torch.linalg.eigh`` waits for the card,
-so it stays off the per-frame path."""
+from the cross-covariance of the demeaned point sets. The eigen-solve is
+``eigh``: ``torch.linalg.eigh`` by default (the Sim3 RANSAC of loop
+closing and the trajectory alignment), which waits for the card on a CUDA
+tensor; the bearing EPnP passes ``solvers.sym_eig``'s solve, which does
+not."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -16,12 +18,15 @@ from cubemapslam_tpu_torch.geometry import quat_to_rot
 
 def horn_alignment(p_to: torch.Tensor, p_from: torch.Tensor,
                    weights: Optional[torch.Tensor] = None,
-                   fix_scale: bool = False
+                   fix_scale: bool = False,
+                   eigh: Optional[Callable] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Solve p_to ~= s R p_from + t in closed form.
 
-    p_to/p_from: (...,N,3); weights (...,N) optional {0,1} mask. Returns
-    (s (...,), R (...,3,3), t (...,3))."""
+    p_to/p_from: (...,N,3); weights (...,N) optional {0,1} mask; ``eigh``
+    the symmetric eigen-solve of the (...,4,4) N-matrix, eigenvalues
+    ascending (``torch.linalg.eigh`` when None). Returns (s (...,), R
+    (...,3,3), t (...,3))."""
     if weights is None:
         weights = torch.ones(p_to.shape[:-1], dtype=p_to.dtype,
                              device=p_to.device)
@@ -41,7 +46,7 @@ def horn_alignment(p_to: torch.Tensor, p_from: torch.Tensor,
         torch.stack([Szx - Sxz, Sxy + Syx, Syy - Sxx - Szz, Syz + Szy], -1),
         torch.stack([Sxy - Syx, Szx + Sxz, Syz + Szy, Szz - Sxx - Syy], -1),
     ], -2)
-    _, evecs = torch.linalg.eigh(N)
+    _, evecs = (torch.linalg.eigh if eigh is None else eigh)(N)
     q_wxyz = evecs[..., :, 3]                  # largest eigenvalue
     q_xyzw = torch.cat([q_wxyz[..., 1:], q_wxyz[..., 0:1]], -1)
     R = quat_to_rot(q_xyzw)

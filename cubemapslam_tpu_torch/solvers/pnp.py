@@ -13,24 +13,25 @@ inlier set.
 Where the JAX package ``vmap``s over the hypotheses, they are a batch
 dimension here. A hypothesis gathers its 4 points before M is built (the
 JAX code weights all N rows by 0/1, which adds only zero rows); the refit
-uses all N points. No host read is made but the eigen-solves' own.
+uses all N points.
 
-``torch.linalg.eigh`` reads its error flag back to the host on a CUDA
-tensor, so each call waits for the card. A batch of more than one matrix
-of size 32 or less goes to cuSOLVER's batched Jacobi and waits once; a
-single matrix goes to ``syevd``, which waits once more. ``pnp_ransac``
-makes 6 calls: the hypotheses' PCA (n_iters, 3, 3), null space of MᵀM
-(n_iters, 12, 12) and Horn's 4x4 (n_iters, 3, 4, 4), and the refit's
-Horn (3, 4, 4) wait once each; the refit's PCA (3, 3) and MᵀM (12, 12) are
-single matrices and wait twice. That is ``EIGH_WAITS`` = 8, whatever the
-number of points, for any n_iters above 1
-(``scripts/torch_eigh_waits.py`` reads it per call site on a card). A
-fixed-sweep Jacobi of the 12x12
-MᵀM, as ``triangulate.null_vector4`` does for 4x4, would take 66 rotations
-a sweep, thousands of small launches a solve on a host-bound path, against
-a few waits. The null space of a minimal set is exactly 4-dimensional, so
-its basis (and with it each hypothesis) differs between LAPACK, cuSOLVER
-and JAX; ``pnp_ransac`` is held to its outcome.
+The six eigen-solves of a call go through ``solvers.sym_eig.sym_eig``
+(``_eigh``): the hypotheses' PCA (n_iters, 3, 3), the null space of their
+MᵀM (n_iters, 12, 12) and Horn's 4x4 (n_iters, 3, 4, 4), then the refit's
+(3, 3), (12, 12) and (3, 4, 4). On CUDA tensors each is one launch of the
+hand-written batched Jacobi kernel (``csrc/sym_eig.cu``), which reads
+nothing back, and the LU solves run on cuSOLVER / cuBLAS's batched LU
+(``_build.cusolver``), which check no error flag: ``pnp_ransac`` makes the
+host wait ``EIGH_WAITS`` = 0 times, whatever the number of points or
+hypotheses, and a CUDA graph can hold it (``runtime/fused_reloc.py``). On
+CPU tensors they are ``torch.linalg.eigh`` on the host (``eigh_nan``),
+where nothing waits on a device. (With ``torch.linalg.eigh`` on the card
+one call waited 8 times: the four batched solves once each, the refit's
+single 3x3 and 12x12 twice each; ``scripts/torch_eigh_waits.py`` reads
+both solvers per call site on a card.) The null space of a minimal
+set is exactly 4-dimensional, so its basis (and with it each hypothesis)
+differs between LAPACK, the kernel and JAX; ``pnp_ransac`` is held to its
+outcome.
 """
 
 from __future__ import annotations
@@ -40,16 +41,19 @@ from typing import NamedTuple, Optional
 import torch
 
 from cubemapslam_tpu_torch import camera as C
+from cubemapslam_tpu_torch._build import cusolver
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.geometry import hat
 from cubemapslam_tpu_torch.solvers.horn import horn_alignment
-from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
+from cubemapslam_tpu_torch.solvers.sampling import (draw_scores,
+                                                    select_minimal_sets)
+from cubemapslam_tpu_torch.solvers.sym_eig import sym_eig
 
 MIN_SET = 4
-# host waits of one pnp_ransac call on a CUDA tensor, in its 6
-# torch.linalg.eigh calls: 4 batched ones wait once, the refit's single
-# 3x3 and 12x12 twice (see above)
-EIGH_WAITS = 8
+# host waits of one pnp_ransac call on CUDA tensors, in its 6 eigen-solves
+# (the sym_eig kernel reads nothing back; torch.linalg.eigh waited 8 times
+# there). On CPU tensors the solves run on the host: no device to wait for.
+EIGH_WAITS = 0
 
 # symmetric products beta_a*beta_b in the order of the reference's L_6x10
 # columns: [b11 b12 b22 b13 b23 b33 b14 b24 b34 b44]
@@ -69,16 +73,9 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def _eigh(A: torch.Tensor):
-    """``torch.linalg.eigh`` of symmetric (..., n, n) that gives NaN for a
-    non-finite matrix, as JAX's does, where LAPACK and cuSOLVER would
-    raise: such a matrix is solved as the identity and its results
-    replaced by NaN."""
-    bad = ~torch.isfinite(A).all(dim=-1).all(dim=-1)
-    evals, evecs = torch.linalg.eigh(
-        torch.where(bad[..., None, None], _eye(A.shape[-1], A), A))
-    nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
-    return (torch.where(bad[..., None], nan, evals),
-            torch.where(bad[..., None, None], nan, evecs))
+    """The symmetric eigen-solve of every call site: ``sym_eig`` (NaN for a
+    non-finite matrix, raising nothing, as JAX's does)."""
+    return sym_eig(A)
 
 
 def _control_points(pw: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -194,16 +191,12 @@ def _solve_epnp_candidates(pw: torch.Tensor, bearings: torch.Tensor,
                       * w[..., None, :]).sum(dim=-1))
     sgn = torch.where(sgn == 0, torch.ones_like(sgn), sgn)
     pc = pc * sgn[..., None, None]
-    # Horn's eigh would raise on a NaN hypothesis: solve it on zeros and
-    # give it a NaN pose, which counts no inlier (as JAX's NaN does)
-    bad = ~torch.isfinite(pc).all(dim=-1).all(dim=-1)
-    pc = torch.where(bad[..., None, None], torch.zeros_like(pc), pc)
+    # a NaN hypothesis gets a NaN pose (its eigen-solve gives NaN), which
+    # counts no inlier, as JAX's NaN does
     _, R, t = horn_alignment(pc, pw[..., None, :, :].expand_as(pc),
                              weights=w[..., None, :].expand(pc.shape[:-1]),
-                             fix_scale=True)
-    nan = torch.full((), float("nan"), dtype=R.dtype, device=R.device)
-    return (torch.where(bad[..., None, None], nan, R),
-            torch.where(bad[..., None], nan, t))
+                             fix_scale=True, eigh=_eigh)
+    return R, t
 
 
 class PnPResult(NamedTuple):
@@ -242,15 +235,30 @@ def pnp_ransac(cam: CubemapCamera, generator: torch.Generator,
                level_sigma2: torch.Tensor, valid: torch.Tensor,
                n_iters: int = 300, chi2_th: float = 5.991,
                min_inliers: int = 10,
-               sets: Optional[torch.Tensor] = None) -> PnPResult:
+               sets: Optional[torch.Tensor] = None,
+               scores: Optional[torch.Tensor] = None) -> PnPResult:
     """RANSAC bearing EPnP over all hypotheses at once (``pnp.py:188-219``,
     with the parameters Tracking.cpp:1035 passes). pw (N, 3) world points;
     bearings (N, 3) the matched keypoints' unit rays, uv their cross
     pixels, level_sigma2 their scale variance; valid (N,). The minimal sets
-    come from ``generator`` unless ``sets`` (n_iters, 4) is given."""
+    are ``sets`` (n_iters, 4) if given, else selected from ``scores``
+    (n_iters, N) uniform draws if given, else from scores drawn from
+    ``generator`` (``solvers/sampling.py``). On CUDA tensors the call reads
+    nothing back to the host."""
+    with cusolver(pw.device):
+        return _pnp_ransac(cam, generator, pw, bearings, uv, level_sigma2,
+                           valid, n_iters, chi2_th, min_inliers, sets,
+                           scores)
+
+
+def _pnp_ransac(cam, generator, pw, bearings, uv, level_sigma2, valid,
+                n_iters, chi2_th, min_inliers, sets, scores) -> PnPResult:
     max_err2 = chi2_th * level_sigma2
     if sets is None:
-        sets = sample_minimal_sets(generator, valid, n_iters, MIN_SET)
+        if scores is None:
+            scores = draw_scores(generator, n_iters, valid.shape[0],
+                                 valid.device)
+        sets = select_minimal_sets(scores, valid, MIN_SET)
     sets = sets.to(pw.device, torch.int64)
     Rs, ts = _solve_epnp_candidates(pw[sets], bearings[sets],
                                     valid[sets].to(pw.dtype))

@@ -12,12 +12,16 @@ dimension here. A hypothesis gathers its 3 points before Horn's alignment
 the result is the same up to summation order); the refit uses all N points
 weighted by the inlier mask.
 
-``torch.linalg.eigh`` reads its error flag back to the host on a CUDA
-tensor: the batch of hypotheses' 4x4 Horn matrices waits once and the
-refit's single 4x4 twice, so ``sim3_ransac`` waits ``EIGH_WAITS`` = 3 times
-(``scripts/torch_eigh_waits.py`` reads it on a card). For 3 points that are
-not collinear the top eigenvalue of Horn's matrix is simple, so each
-hypothesis is the same rotation in every backend.
+Horn's eigen-solves are ``torch.linalg.eigh`` (``horn_alignment``'s
+default), which reads its error flag back to the host on a CUDA tensor:
+on the card the batch of hypotheses' 4x4 Horn matrices waits once and the
+refit's single 4x4 twice, so ``sim3_ransac`` makes the host wait
+``EIGH_WAITS`` = 3 times (``scripts/torch_eigh_waits.py`` reads it on a
+card); on CPU tensors the solves run on the host, with no device to wait
+for. (The bearing EPnP's Horn uses the ``sym_eig`` kernel, which waits for
+nothing; moving this one to it would move the loop closure's bits.) For 3
+points that are not collinear the top eigenvalue of Horn's matrix is
+simple, so each hypothesis is the same rotation in every backend.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from cubemapslam_tpu_torch.solvers.horn import horn_alignment
 from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
 
 MIN_SET = 3
-# host waits of one sim3_ransac on a CUDA tensor: the batched Horn eigh once,
-# the refit's single 4x4 eigh twice
+# host waits of one sim3_ransac on CUDA tensors: the batched Horn eigh once,
+# the refit's single 4x4 eigh twice (on CPU tensors: no device to wait for)
 EIGH_WAITS = 3
 
 

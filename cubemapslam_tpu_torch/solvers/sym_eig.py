@@ -1,0 +1,205 @@
+"""Batched symmetric eigen-solves without a host read.
+
+The counterpart of ``jnp.linalg.eigh`` at the call sites of the bearing EPnP
+(``cubemapslam_tpu/solvers/pnp.py:51, :133``) and of its Horn alignment
+(``cubemapslam_tpu/solvers/horn.py:46``), which the JAX package runs inside
+its compiled relocalization program. ``torch.linalg.eigh`` reads cuSOLVER's
+error flag back to the host on a CUDA tensor, so the card waits at every
+call and no CUDA graph can hold one.
+
+- ``sym_eig``: (..., n, n) float32 symmetric (the lower triangle is read)
+  -> ascending eigenvalues (..., n) and the eigenvectors as columns (..., n,
+  n). On a CUDA tensor one launch of ``csrc/sym_eig.cu`` (n in
+  ``SYM_EIG_SIZES``; ``SYM_EIG.launches`` counts them), or it raises; on a
+  CPU tensor ``eigh_nan``. A matrix with a non-finite entry gives NaN
+  results and raises nothing on either device.
+- ``eigh_nan``: ``torch.linalg.eigh`` where a non-finite matrix is solved
+  as the identity and its results replaced by NaN, as JAX's are (LAPACK and
+  cuSOLVER would raise); the CPU's path.
+- ``sym_eig_ordered``: the kernel's cyclic Jacobi in float64 (the source
+  has the method) in plain PyTorch, in the kernel's order, on any device:
+  each rotation, each sum of squares, the stable order and the sign rule
+  written out as elementwise operations, so that each value rounds as the
+  kernel's does (the square root IEEE-rounded on the host too). It holds
+  the kernel bitwise on the card, a scalar emulation of the kernel bitwise
+  and the method against JAX on the CPU; nothing on the main path calls
+  it.
+
+The Jacobi solve stops a matrix when the sum of its squared entries above
+the diagonal is at most ``EPS ** 2`` times the sum of all its squared
+entries, or after ``MAX_SWEEPS`` sweeps; the result is rounded to float32,
+far above that ``EPS``. Eigenvectors of a repeated eigenvalue (the
+4-dimensional null space of a minimal set's MᵀM) are a basis of their space
+that differs between solvers; only the space is shared.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from cubemapslam_tpu_torch._build import CudaKernel, require_cuda
+
+SYM_EIG_SIZES = (3, 4, 12)
+MAX_SWEEPS = 20
+EPS = 1e-12
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+SYM_EIG = CudaKernel("sym_eig.cu", "sym_eig_launch",
+                     [_P, _P, _P, _I, _I, _I, ctypes.c_double])
+
+
+def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """IEEE round-to-nearest float64 square root, as the kernel's: PyTorch's
+    on the card; numpy's on the host, where PyTorch's vectorized float64
+    square root misses it in about 1% of values."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
+
+
+def _nonfinite(A: torch.Tensor) -> torch.Tensor:
+    return ~torch.isfinite(A).all(dim=-1).all(dim=-1)
+
+
+def eigh_nan(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``torch.linalg.eigh`` of symmetric (..., n, n) that gives NaN for a
+    non-finite matrix, as JAX's does, where LAPACK and cuSOLVER would
+    raise: such a matrix is solved as the identity and its results
+    replaced by NaN."""
+    bad = _nonfinite(A)
+    evals, evecs = torch.linalg.eigh(
+        torch.where(bad[..., None, None], _eye(A.shape[-1], A), A))
+    nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
+    return (torch.where(bad[..., None], nan, evals),
+            torch.where(bad[..., None, None], nan, evecs))
+
+
+def sym_eig(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigenvalues (ascending) and eigenvectors (columns) of symmetric
+    (..., n, n) float32 ``A``: a CPU tensor takes ``eigh_nan``, a CUDA
+    tensor the kernel."""
+    if A.device.type == "cpu":
+        return eigh_nan(A)
+    return sym_eig_cuda(A)
+
+
+def sym_eig_cuda(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel over the matrices of (..., n, n) float32
+    ``A`` on a CUDA device (n in ``SYM_EIG_SIZES``; a strided input is made
+    contiguous). Allocates the outputs, makes no other device operation
+    and reads nothing to the host; an empty batch launches nothing."""
+    n = A.shape[-1] if A.dim() >= 2 else -1
+    if A.dim() < 2 or A.shape[-2] != n or n not in SYM_EIG_SIZES \
+            or A.dtype != torch.float32:
+        raise ValueError(f"sym_eig takes (..., n, n) float32 with n in "
+                         f"{SYM_EIG_SIZES}, got {tuple(A.shape)} {A.dtype}")
+    lead = A.shape[:-2]
+    A = A.reshape(-1, n, n).contiguous()
+    require_cuda("sym_eig", A)
+    B = A.shape[0]
+    if B >= 2 ** 31:
+        raise ValueError(f"sym_eig takes fewer than 2^31 matrices, got {B}")
+    evals = torch.empty((B, n), dtype=A.dtype, device=A.device)
+    evecs = torch.empty((B, n, n), dtype=A.dtype, device=A.device)
+    if B:
+        SYM_EIG(A.data_ptr(), evals.data_ptr(), evecs.data_ptr(), B, n,
+                MAX_SWEEPS, EPS * EPS)
+    return evals.reshape(*lead, n), evecs.reshape(*lead, n, n)
+
+
+def sym_eig_ordered(A: torch.Tensor, counts: bool = False):
+    """The kernel's arithmetic in plain PyTorch, in its order, on any device
+    (float32 in and out, float64 inside): the lower triangle mirrored, the
+    sums of squares added entry by entry, each rotation of each sweep
+    applied where its matrix is not done and its pivot is not below the
+    skip threshold, then the stable order and the sign rule. With
+    ``counts`` it also returns, a matrix, the rotations applied and the
+    sweeps begun (int64), for the kernel's bound. Reads the host once a
+    sweep, to stop when every matrix is done."""
+    f64 = torch.float64
+    n = A.shape[-1]
+    lead = A.shape[:-2]
+    A = A.reshape(-1, n, n)
+    B, dev = A.shape[0], A.device
+    bad = _nonfinite(A)
+    low = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+    S = torch.where(low, A, A.transpose(-1, -2)).to(f64)
+    S = torch.where(bad[:, None, None], _eye(n, S), S)
+    zero = torch.zeros(B, dtype=f64, device=dev)
+    one = torch.ones(B, dtype=f64, device=dev)
+    nrm = zero
+    for i in range(n):
+        for j in range(n):
+            nrm = nrm + S[:, i, j] * S[:, i, j]
+    tol2 = (EPS * EPS) * nrm
+    skip2 = tol2 / (n * (n - 1) // 2)
+    V = _eye(n, S).expand(B, n, n).clone()
+    pairs = [(p, q) for p in range(n - 1) for q in range(p + 1, n)]
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    rotations = torch.zeros(B, dtype=torch.int64, device=dev)
+    sweeps = torch.zeros(B, dtype=torch.int64, device=dev)
+    for _ in range(MAX_SWEEPS):
+        off = zero
+        for p, q in pairs:
+            off = off + S[:, p, q] * S[:, p, q]
+        active = active & ~(off <= tol2)
+        if not bool(active.any()):
+            break
+        sweeps += active
+        for p, q in pairs:
+            app, aqq, apq = S[:, p, p], S[:, q, q], S[:, p, q]
+            do = active & ~(apq * apq <= skip2)
+            theta = (aqq - app) / (2.0 * apq)
+            sgn = torch.where(theta >= 0, one, -one)
+            t = sgn / (theta.abs() + _sqrt(theta * theta + 1.0))
+            c = one / _sqrt(t * t + 1.0)
+            s = t * c
+            cc, ss = c[:, None], s[:, None]
+            mp, mq = S[:, :, p], S[:, :, q]
+            new = S.clone()
+            new_p, new_q = cc * mp - ss * mq, ss * mp + cc * mq
+            new[:, :, p] = new_p
+            new[:, p, :] = new_p
+            new[:, :, q] = new_q
+            new[:, q, :] = new_q
+            new[:, p, p] = app - t * apq
+            new[:, q, q] = aqq + t * apq
+            new[:, p, q] = 0.0
+            new[:, q, p] = 0.0
+            S = torch.where(do[:, None, None], new, S)
+            vp, vq = V[:, :, p], V[:, :, q]
+            newV = V.clone()
+            newV[:, :, p] = cc * vp - ss * vq
+            newV[:, :, q] = ss * vp + cc * vq
+            V = torch.where(do[:, None, None], newV, V)
+            rotations += do
+    d = torch.diagonal(S, dim1=-2, dim2=-1)                   # (B, n)
+    idx = torch.arange(n, device=dev)
+    before = (d[:, None, :] < d[:, :, None]) \
+        | ((d[:, None, :] == d[:, :, None]) & (idx[None, :] < idx[:, None]))
+    rank = before.sum(dim=-1)                                 # of column j
+    perm = torch.empty_like(rank).scatter_(1, rank, idx.expand(B, n))
+    evals = torch.gather(d, 1, perm)
+    V = torch.gather(V, 2, perm[:, None, :].expand(B, n, n))
+    best, piv = V[:, 0, :].abs(), V[:, 0, :]
+    for r in range(1, n):
+        take = V[:, r, :].abs() > best
+        best = torch.where(take, V[:, r, :].abs(), best)
+        piv = torch.where(take, V[:, r, :], piv)
+    V = torch.where((piv < 0)[:, None, :], -V, V)
+    nan = torch.full((), float("nan"), dtype=A.dtype, device=dev)
+    evals = torch.where(bad[:, None], nan, evals.to(A.dtype))
+    evecs = torch.where(bad[:, None, None], nan, V.to(A.dtype))
+    out = (evals.reshape(*lead, n), evecs.reshape(*lead, n, n))
+    if counts:
+        out += (rotations.reshape(lead), sweeps.reshape(lead))
+    return out

@@ -1,17 +1,22 @@
-"""Host waits of ``torch.linalg.eigh`` on a CUDA card: per call shape, and per
-call site of one ``pnp_ransac`` and of one ``sim3_ransac``.
+"""Host waits of the symmetric eigen-solves on a CUDA card, by device and
+solver: per call shape for ``torch.linalg.eigh`` (cuSOLVER) and for
+``solvers.sym_eig.sym_eig`` (the hand-written kernel), and per call site of
+one ``pnp_ransac`` (its six solves on the kernel) and of one
+``sim3_ransac`` (its Horn solves on ``torch.linalg.eigh``).
 
     python3 scripts/torch_eigh_waits.py
 
-Needs one CUDA card. A host wait is what ``chip_smoke.py`` counts: a
-profiler event of the host that synchronises with the card, or a blocking
-``cudaMemcpy``. Each case runs once to warm up and once under
-``torch.profiler``. Prints one JSON line per eigh shape (its waits and
-their event names), then one per call site of ``pnp_ransac`` (the eigh
-calls labelled in call order, with their shapes and waits) for each of a
-few hypothesis counts and point counts, with the total beside
-``pnp.EIGH_WAITS``; then the same for ``sim3_ransac`` beside
-``sim3.EIGH_WAITS``. Exits 1 if a total differs from its constant.
+Needs one CUDA card; the counts are the card's (on CPU tensors both solvers
+run on the host, with no device to wait for). A host wait is what
+``chip_smoke.py`` counts: a profiler event of the host that synchronises
+with the card, or a blocking ``cudaMemcpy``. Each case runs once to warm up
+and once under ``torch.profiler``. Prints one JSON line per solver and
+shape (its waits and their event names), then one per call site of
+``pnp_ransac`` (the ``pnp._eigh`` calls labelled in call order, with their
+shapes and waits) for each of a few hypothesis counts and point counts,
+with the whole call's waits beside ``pnp.EIGH_WAITS`` (0); then the same
+for ``sim3_ransac`` (its ``torch.linalg.eigh`` calls) beside
+``sim3.EIGH_WAITS`` (3). Exits 1 if a total differs from its constant.
 """
 
 from __future__ import annotations
@@ -33,10 +38,12 @@ from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.geometry import so3_exp
 from cubemapslam_tpu_torch.solvers import pnp as PNP
 from cubemapslam_tpu_torch.solvers import sim3 as S3
+from cubemapslam_tpu_torch.solvers import sym_eig as SE
 from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
 
 SHAPES = ((3, 3), (1, 3, 3), (2, 3, 3), (300, 3, 3), (4, 4), (3, 4, 4),
           (300, 3, 4, 4), (12, 12), (2, 12, 12), (300, 12, 12))
+SOLVERS = {"torch.linalg.eigh": torch.linalg.eigh, "sym_eig": SE.sym_eig}
 
 
 def is_wait(e) -> bool:
@@ -61,21 +68,21 @@ def waits_inside(events, spans):
             and any(a <= e.time_range.start < b for a, b in spans)]
 
 
-def shape_case(shape, dev):
+def shape_case(solver, shape, dev):
     g = torch.Generator().manual_seed(0)
     A = torch.randn(shape, generator=g)
     A = (A @ A.transpose(-1, -2)).to(dev)
 
     def call():
         with record_function("eigh"):
-            torch.linalg.eigh(A)
+            SOLVERS[solver](A)
 
     ev = profiled(call)
     spans = [(e.time_range.start, e.time_range.end) for e in ev
              if e.name == "eigh" and e.device_type == DeviceType.CPU]
     w = waits_inside(ev, spans)
-    return dict(case="eigh", shape=list(shape), waits=len(w),
-                events=sorted({e.name for e in w}))
+    return dict(case="eigh", solver=solver, shape=list(shape),
+                waits=len(w), events=sorted({e.name for e in w}))
 
 
 def pnp_scene(cam, rng, n):
@@ -104,7 +111,7 @@ def pnp_case(n_iters, n_points, dev):
     args = [x.to(dev) for x in (pw, rays, uv, torch.ones(n_points), valid)]
     return site_case("pnp", lambda: PNP.pnp_ransac(
         cam, None, *args, n_iters=n_iters, sets=sets), n_iters, n_points,
-        PNP.EIGH_WAITS)
+        PNP.EIGH_WAITS, PNP, "_eigh")
 
 
 def sim3_case(n_iters, n_points, dev):
@@ -124,13 +131,14 @@ def sim3_case(n_iters, n_points, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     return site_case("sim3", lambda: S3.sim3_ransac(
         cam, gen, *args, n_iters=n_iters), n_iters, n_points,
-        S3.EIGH_WAITS)
+        S3.EIGH_WAITS, torch.linalg, "eigh")
 
 
-def site_case(tag, run, n_iters, n_points, expected):
-    """The waits of each labelled eigh call of ``run()`` and of the whole
-    call, as JSON rows, and the total row."""
-    eigh = torch.linalg.eigh
+def site_case(tag, run, n_iters, n_points, expected, owner, attr):
+    """The waits of each labelled call of the eigen-solve ``owner.attr``
+    inside ``run()`` and of the whole call, as JSON rows, and the total
+    row."""
+    eigh = getattr(owner, attr)
     sites = []
 
     def labelled(A, *a, **kw):
@@ -144,11 +152,11 @@ def site_case(tag, run, n_iters, n_points, expected):
         with record_function(tag):
             run()
 
-    torch.linalg.eigh = labelled
+    setattr(owner, attr, labelled)
     try:
         ev = profiled(call)
     finally:
-        torch.linalg.eigh = eigh
+        setattr(owner, attr, eigh)
 
     def spans(name):
         return [(e.time_range.start, e.time_range.end) for e in ev
@@ -173,8 +181,9 @@ def main() -> int:
     print(json.dumps(dict(card=torch.cuda.get_device_name(0),
                           torch=torch.__version__,
                           cuda=torch.version.cuda)))
-    for shape in SHAPES:
-        print(json.dumps(shape_case(shape, dev)))
+    for solver in SOLVERS:
+        for shape in SHAPES:
+            print(json.dumps(shape_case(solver, shape, dev)))
     ok = True
     for case in (pnp_case, sim3_case):
         for n_iters, n_points in ((300, 150), (300, 2000), (50, 150)):

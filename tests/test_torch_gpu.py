@@ -79,7 +79,17 @@ on the small map's mapping step, each row decided otherwise within
 ``chip_smoke.TRI_FLIP_ULPS`` of its gate; no build for CPU tensors; the
 wrappers raising on a wrong dtype, shape or device and a strided input;
 one launch a keyframe frame (graph K's replays included) and one a
-two-view reconstruction.
+two-view reconstruction. The eigen-solve kernel (``csrc/sym_eig.cu``) on
+the six solves of a card ``pnp_ransac`` and on special matrices (ties,
+zero, rank one, badly scaled, NaN and inf entries; batches of 1, 5, 8):
+bitwise equal to ``sym_eig_ordered``, eagerly and from a CUDA graph, one
+launch a call; against ``torch.linalg.eigh`` by the invariants of
+``tests/test_torch_sym_eig.py``; its wrapper raising on a wrong size,
+dtype or shape and launching nothing for an empty batch. ``pnp_ransac``
+on the card making 0 host waits (6 launches of the kernel) and captured
+in a CUDA graph bitwise equal to its eager calls; relocalization through
+``FusedReloc``'s graphs R and W bitwise equal to the eager path on a map
+loaded on the card, over relocalizing and blank frames.
 """
 
 import faulthandler
@@ -455,9 +465,10 @@ def test_minimal_sets_from_a_host_generator(cuda):
 @pytest.mark.parametrize("n_out", [0, 45, 90])
 def test_pnp_ransac_card_against_cpu(cuda, n_out):
     """With no scrambled match the two poses agree; with scrambled ones each
-    hypothesis starts from a null basis of its own (cuSOLVER's, LAPACK's),
-    so both are held to the outcome: success, inlier counts within 5%, the
-    truth within 1 deg / 0.05."""
+    hypothesis starts from a null basis of its own (the ``sym_eig`` kernel's
+    Jacobi basis on the card, LAPACK's on the CPU), so both are held to the
+    outcome: success, inlier counts within 5%, the truth within 1 deg /
+    0.05."""
     from cubemapslam_tpu_torch import camera as C
     from cubemapslam_tpu_torch.geometry import so3_exp, so3_log
     from cubemapslam_tpu_torch.solvers import pnp as PNP
@@ -1462,3 +1473,228 @@ def test_graph_frames_after_loop_closure(cuda, slam_frames):
                          for r in after)
     assert any(r["graph_mapping_replays"] for r in after)
     assert g_slam.loop_closer.timings["gba"]
+
+
+# ---------------------------------------------------------------------------
+# The symmetric eigen-solve kernel (csrc/sym_eig.cu) and relocalization as
+# captured CUDA graphs (runtime/fused_reloc.py)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def eig_inputs(cuda):
+    """The six eigen-solve inputs of one ``pnp_ransac`` on the card
+    (``chip_smoke.pnp_eig_inputs``), each as a (B, n, n) batch."""
+    return [A.reshape(-1, *A.shape[-2:])
+            for A in chip_smoke.pnp_eig_inputs(cuda)]
+
+
+@pytest.mark.parametrize("site", chip_smoke.EIG_SITES)
+def test_sym_eig_kernel_bitwise(cuda, eig_inputs, site):
+    """The kernel bitwise against ``sym_eig_ordered`` (eagerly and from a
+    CUDA graph, one launch) on each of the six solves of a PnP: (300,3,3),
+    (300,12,12), (900,4,4), (1,3,3), (1,12,12), (3,4,4)."""
+    A = eig_inputs[chip_smoke.EIG_SITES.index(site)]
+    c = chip_smoke.eig_case(site, A)
+    assert c["bitwise"] and c["graph_bitwise"] and c["rotations"] > 0
+
+
+@pytest.mark.parametrize("n", [3, 4, 12])
+@pytest.mark.parametrize("batch", [1, 5, 8])
+def test_sym_eig_kernel_specials(cuda, n, batch):
+    """Ties, the identity, zero, rank one, indefinite, badly scaled, NaN and
+    inf matrices in batches that end inside a block (1, 5) or fill two
+    blocks (8): bitwise the ordered version, NaN where it is NaN."""
+    A = chip_smoke.eig_specials(n, cuda)[:batch]
+    c = chip_smoke.eig_case(f"specials n={n} x {batch}", A)
+    assert c["bitwise"] and c["graph_bitwise"]
+
+
+@pytest.mark.parametrize("site", chip_smoke.EIG_SITES)
+def test_sym_eig_kernel_against_eigh(cuda, eig_inputs, site):
+    """The kernel against ``torch.linalg.eigh`` (cuSOLVER, float32) by the
+    invariants of ``tests/test_torch_sym_eig.py``: eigenvalues within 1e-6
+    of the largest |eigenvalue|, V diag(w) Vᵀ within 1e-6 of A and VᵀV
+    within 1e-6 of I; for MᵀM the projector onto the 4-dimensional null
+    space within 1e-3 of cuSOLVER's; for Horn's 4x4 the quaternion of the
+    largest eigenvalue, where it is separated by 1e-2, up to its sign."""
+    from cubemapslam_tpu_torch.solvers import sym_eig as SE
+    A = eig_inputs[chip_smoke.EIG_SITES.index(site)]
+    w, V = SE.sym_eig(A)
+    we, Ve = torch.linalg.eigh(A)
+    w, V, we, Ve, A = (x.double() for x in (w, V, we, Ve, A))
+    scale = we.abs().amax(dim=-1)
+    assert ((w - we).abs().amax(dim=-1) <= 1e-6 * scale).all()
+    rec = V @ (w[..., :, None] * V.transpose(-1, -2))
+    assert ((rec - A).abs().amax(dim=(-1, -2)) <= 1e-6 * scale).all()
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=cuda)
+    assert (V.transpose(-1, -2) @ V - eye).abs().max() <= 1e-6
+    if site.endswith("null"):
+        P, Pe = (X[..., :4] @ X[..., :4].transpose(-1, -2) for X in (V, Ve))
+        assert (P - Pe).abs().max() <= 1e-3
+    if site.endswith("horn"):
+        sep = (we[:, 3] - we[:, 2]) > 1e-2 * scale
+        q, qe = V[sep, :, 3], Ve[sep, :, 3]
+        d = torch.minimum((q - qe).abs().amax(-1), (q + qe).abs().amax(-1))
+        assert sep.any() and (d <= 1e-3).all()
+
+
+def test_sym_eig_wrapper_raises(cuda):
+    from cubemapslam_tpu_torch.solvers import sym_eig as SE
+    n0 = SE.SYM_EIG.launches
+    for A in (torch.eye(5, device=cuda)[None],
+              torch.eye(4, device=cuda, dtype=torch.float64)[None],
+              torch.zeros(3, 4, 5, device=cuda)):
+        with pytest.raises(ValueError):
+            SE.sym_eig_cuda(A)
+    assert SE.SYM_EIG.launches == n0
+    w, V = SE.sym_eig_cuda(torch.zeros(0, 4, 4, device=cuda))
+    assert w.shape == (0, 4) and V.shape == (0, 4, 4)
+    assert SE.SYM_EIG.launches == n0
+    # a strided batch is solved as its contiguous copy
+    A = chip_smoke.eig_specials(4, cuda)[:6]
+    w1, V1 = SE.sym_eig_cuda(A.transpose(-1, -2))
+    w2, V2 = SE.sym_eig_cuda(A.transpose(-1, -2).contiguous())
+    assert chip_smoke.same_float_bits(w1, w2)
+    assert chip_smoke.same_float_bits(V1, V2)
+
+
+def _pnp_args(cuda, seed=3):
+    cfg = SlamConfig()
+    _, _, pw, rays, uv, valid = chip_smoke.pnp_scene(
+        CubemapCamera.from_config(cfg, "cpu"), np.random.default_rng(seed),
+        n=2000, n_out=600)
+    cam = CubemapCamera.from_config(cfg, cuda)
+    return cfg, cam, [x.to(cuda) for x in (pw, rays, uv, torch.ones(2000),
+                                           valid)]
+
+
+def test_pnp_ransac_waits_on_the_card(cuda):
+    """One ``pnp_ransac`` on the card makes the host wait ``pnp.EIGH_WAITS``
+    = 0 times, its minimal sets drawn from a generator on the card, counted
+    as ``test_sim3_ransac_eigh_waits`` counts them; it launches the
+    eigen-solve kernel 6 times and recovers the pose."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from cubemapslam_tpu_torch.solvers import pnp as PNP
+    from cubemapslam_tpu_torch.solvers import sym_eig as SE
+    cfg, cam, args = _pnp_args(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    PNP.pnp_ransac(cam, gen, *args)
+    torch.cuda.synchronize()
+    n0 = SE.SYM_EIG.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("pnp"):
+            res = PNP.pnp_ransac(cam, gen, *args)
+        torch.cuda.synchronize()
+    ev = prof.events()
+    span = [(e.time_range.start, e.time_range.end) for e in ev
+            if e.name == "pnp" and e.device_type == DeviceType.CPU]
+    waits = [e for e in ev if e.device_type == DeviceType.CPU
+             and ("Synchronize" in e.name or e.name == "cudaMemcpy")
+             and any(a <= e.time_range.start < b for a, b in span)]
+    assert len(waits) == PNP.EIGH_WAITS == 0, [e.name for e in waits]
+    assert SE.SYM_EIG.launches == n0 + 6
+    assert bool(res.success) and int(res.n_inliers) > 1000
+
+
+def test_pnp_ransac_from_a_cuda_graph(cuda):
+    """``pnp_ransac`` on scores in a static buffer, captured in a CUDA graph
+    (its LU solves on cuSOLVER / cuBLAS's batched LU, its eigen-solves on
+    the kernel) and replayed on new scores: bitwise the eager call on the
+    same scores each time."""
+    from cubemapslam_tpu_torch.solvers import pnp as PNP
+    cfg, cam, args = _pnp_args(cuda, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    scores = torch.rand((cfg.pnp_ransac_iters, 2000), generator=gen,
+                        device=cuda)
+
+    def run():
+        return list(PNP.pnp_ransac(cam, None, *args, scores=scores))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = run()
+    for k in range(3):
+        scores.copy_(torch.rand(scores.shape, generator=gen, device=cuda))
+        graph.replay()
+        eager = run()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(static, eager)), k
+        assert bool(eager[0])
+
+
+RELOC_SMALL = dict(SLAM_SMALL, min_track_inliers_after_reloc=30)
+
+
+@pytest.fixture(scope="module")
+def reloc_map(cuda, slam_frames, tmp_path_factory):
+    """``CubemapSLAM`` on the card over ``slam_frames``' 12 frames (the
+    relocalization gate at 30 inliers, as the CPU reloc tests), saved."""
+    from cubemapslam_tpu_torch import serialize
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
+    _, frames = slam_frames
+    cfg = SlamConfig(**RELOC_SMALL)
+    slam = CubemapSLAM(cfg, device=cuda)
+    for k, img in enumerate(frames):
+        slam.track_fisheye(img, k / cfg.fps)
+    assert slam.state == TrackState.OK
+    path = str(tmp_path_factory.mktemp("reloc") / "map.npz")
+    serialize.save_map(slam, path)
+    return cfg, frames, path
+
+
+def _reloc_run(cuda, reloc_map, graphs):
+    """The saved map loaded on the card (LOST), then a relocalizing frame, a
+    blank frame, another relocalizing frame, a blank frame and the first
+    again, with ``reloc_graphs`` as given: (system, per-frame
+    ``_slam_state``, per-frame launches of the eigen-solve and pose-LM
+    kernels)."""
+    from cubemapslam_tpu_torch import serialize
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    from cubemapslam_tpu_torch.solvers import sym_eig as SE
+    cfg, frames, path = reloc_map
+    slam = CubemapSLAM(cfg, device=cuda)
+    serialize.load_map(slam, path)
+    slam.reloc_graphs = graphs
+    blank = np.full(frames[0].shape, 20, np.uint8)
+    states, launches = [], []
+    for k, img in enumerate((frames[6], blank, frames[9], blank, frames[6])):
+        SE.SYM_EIG.launches = PO.POSE_LM.launches = 0
+        T = slam.track_fisheye(img, 20.0 + k)
+        states.append(_slam_state(slam, T))
+        launches.append((SE.SYM_EIG.launches, PO.POSE_LM.launches))
+    torch.cuda.synchronize()
+    return slam, states, launches
+
+
+def test_reloc_graphs_bitwise_eager(cuda, reloc_map):
+    """Relocalization through ``FusedReloc``'s graphs R and W against the
+    eager path on the same loaded map and generator: every pose, row (its
+    reads and the candidates' scores), last frame, arena table and the BoW
+    table bitwise equal at every frame, the same launches; graph R and W
+    captured on the first relocalizing frame and replayed after; 6
+    eigen-solve launches an ok candidate and 0 eigen-solve waits."""
+    (e_slam, e_states, e_launch), (g_slam, g_states, g_launch) = (
+        _reloc_run(cuda, reloc_map, graphs) for graphs in (False, True))
+    _same_frames(e_states, g_states)
+    assert e_launch == g_launch
+    assert e_slam.fused_reloc is None
+    rows = [r for r in g_slam.metrics if r.get("stage") == "reloc"]
+    relocs = [r for r in rows if r.get("reloc_candidates")]
+    assert [r["relocalized"] for r in relocs] == [True, True, True]
+    assert relocs[0]["graph_reloc_captures"] == 2
+    assert all(r["graph_reloc_captures"] == 0 and r["graph_reloc_replays"]
+               >= r["reloc_candidates"] + 1 for r in relocs[1:])
+    for r, (n_eig, _) in zip(rows, [g_launch[i] for i in (0, 2, 4)]):
+        assert r["eigh_waits"] == 0 and r["host_reads"] >= 3
+        assert n_eig == 6 * r["reloc_candidates"]
+    fr = g_slam.fused_reloc
+    assert (fr.captures, fr.replays) == (2, sum(
+        r["graph_reloc_replays"] for r in relocs))

@@ -31,6 +31,18 @@ seeded world, and saved with ``serialize.save_map``; the tests share it.
 * A map saved by JAX's ``save_map`` relocalizes in the port after
   ``load_map``; a map saved by the port loads in JAX's, equal table by
   table.
+* The split of the candidate program: ``reloc_candidates_fused`` as a loop
+  over ``reloc_candidate`` (each ok candidate's scores drawn from the
+  generator, in candidate order) bitwise equal to the parent's
+  formulation (a copy here), outputs and generator state; and
+  ``sample_minimal_sets`` as ``draw_scores`` then ``select_minimal_sets``
+  bitwise equal to its parent's body (a copy here).
+* ``FusedReloc`` on the CPU (``CubemapSLAM._reloc_graph`` lifted by a
+  monkeypatch; no graph, each part eagerly on the static buffers) bitwise
+  equal to the eager ``_relocalize`` on the loaded map: the pose, the row
+  (reads, scores), the last frame, every arena table and the generator
+  state, over a relocalizing frame, a blank frame and a second
+  relocalization; a moved arena raises and ``drop_graphs`` forgets it.
 """
 
 import pathlib
@@ -54,7 +66,9 @@ from cubemapslam_tpu.camera import CubemapCamera as JCam
 from cubemapslam_tpu_torch import interop, serialize
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
 from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
-from cubemapslam_tpu_torch.solvers.pnp import EIGH_WAITS
+from cubemapslam_tpu_torch import slam_map as TSM
+from cubemapslam_tpu_torch.solvers import sampling as TS
+from cubemapslam_tpu_torch.solvers.pnp import EIGH_WAITS, pnp_ransac
 
 VOCAB = str(pathlib.Path(__file__).resolve().parents[1] / "artifacts"
             / "vocab_synth_10k.npz")
@@ -322,3 +336,123 @@ def test_map_files_cross(mapped, tmp_path):
     assert port.track_cubemap(torch.as_tensor(mapped["imgs"][8]), 0.0) \
         is not None
     assert port.metrics[-1]["relocalized"]
+
+
+def parent_reloc_candidates_fused(k, arena, kp_cur, cand_idx, cand_ok,
+                                  generator):
+    """``TrackingKernels.reloc_candidates_fused`` as it was before the
+    split (a copy): the candidates' PnP drawing its own sets."""
+    n_kp, dev = kp_cur.n, kp_cur.uv.device
+    lvl_sig2 = k.level_sigma2[kp_cur.level.clamp(0, k.cfg.n_levels - 1)]
+    outs = []
+    for c, ok_c in zip(cand_idx, cand_ok):
+        if not ok_c:
+            outs.append((
+                torch.full((n_kp,), TSM.NO_LM, dtype=torch.int64,
+                           device=dev),
+                torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                torch.zeros(n_kp, dtype=torch.bool, device=dev),
+                torch.full((), -1, dtype=torch.int64, device=dev)))
+            continue
+        assoc, n = k.track_reference_kf(arena, kp_cur, int(c))
+        has = (assoc >= 0) & kp_cur.valid
+        res = pnp_ransac(k.cam, generator,
+                         arena.lm_pos[assoc.clamp(min=0)], kp_cur.rays,
+                         kp_cur.uv, lvl_sig2, has,
+                         n_iters=k.cfg.pnp_ransac_iters)
+        R, t, outlier, n2 = k.optimize_pose(arena, kp_cur, assoc, res.R,
+                                            res.t)
+        good = (n >= 15) & res.success & (n2 >= 10)
+        outs.append((assoc, R, t, outlier,
+                     torch.where(good, n2, torch.full_like(n2, -1))))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def parent_sample_minimal_sets(generator, valid, n_iters, k):
+    """``sample_minimal_sets`` as it was before the split (a copy)."""
+    n = valid.shape[0]
+    scores = torch.rand((n_iters, n), generator=generator,
+                        device=generator.device).to(valid.device)
+    scores = torch.where(valid[None, :], scores,
+                         torch.full_like(scores, float("-inf")))
+    idx = torch.sort(scores, dim=1, descending=True, stable=True)[1]
+    return idx[:, :k]
+
+
+@pytest.mark.parametrize("n_valid", [0, 3, 150, 600])
+def test_sample_minimal_sets_split(n_valid):
+    rng = np.random.default_rng(n_valid)
+    valid = torch.zeros(600, dtype=torch.bool)
+    valid[torch.as_tensor(rng.permutation(600)[:n_valid])] = True
+    gens = [torch.Generator().manual_seed(3) for _ in range(3)]
+    a = parent_sample_minimal_sets(gens[0], valid, 300, 4)
+    b = TS.sample_minimal_sets(gens[1], valid, 300, 4)
+    c = TS.select_minimal_sets(TS.draw_scores(gens[2], 300, 600, "cpu"),
+                               valid, 4)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert all(torch.equal(gens[0].get_state(), g.get_state())
+               for g in gens[1:])
+
+
+def test_reloc_candidate_loop_against_parent(mapped):
+    """The split loop against the parent's formulation on the map: 5 live
+    keyframes as candidates, one not ok, the replayed frame's keypoints,
+    each run from a generator seeded alike."""
+    slam = mapped["slam"]
+    kp = slam.extract(torch.as_tensor(mapped["imgs"][REPLAY]))
+    live = np.nonzero(mapped["arena_np"]["kf_valid"])[0][:5].tolist()
+    ok = [True, False, True, True, True]
+    arena = interop.arena_from_numpy(mapped["arena_np"])
+    gens = [torch.Generator().manual_seed(11) for _ in range(2)]
+    new = slam.kernels.reloc_candidates_fused(arena, kp, live, ok, gens[0])
+    old = parent_reloc_candidates_fused(slam.kernels, arena, kp, live, ok,
+                                        gens[1])
+    assert all(torch.equal(x, y) for x, y in zip(new, old))
+    assert (new[4] >= 0).sum() >= 2 and int(new[4][1]) == -1
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+def _reloc_state(s, T):
+    row = {k: v for k, v in s.metrics[-1].items()
+           if not k.startswith("graph_") and not k.endswith("_ms")}
+    tensors = [getattr(s.arena, k) for k in s.arena._fields]
+    if s.last is not None:
+        tensors += [s.last.assoc, s.last.outlier, s.last.R, s.last.t]
+    return T, row, tensors, s.generator.get_state()
+
+
+def test_fused_reloc_on_cpu_equals_eager(mapped, monkeypatch):
+    imgs = mapped["imgs"]
+    black = np.full(imgs[0].shape, 20.0, np.float32)
+    frames = [(imgs[REPLAY], 4.0), (black, 5.0), (imgs[REPLAY + 2], 6.0)]
+    runs = {}
+    for graph in (False, True):
+        s = fresh(mapped)
+        if graph:
+            monkeypatch.setattr(CubemapSLAM, "_reloc_graph",
+                                lambda self: True)
+        runs[graph] = (s, [_reloc_state(
+            s, s.track_cubemap(torch.as_tensor(img), ts))
+            for img, ts in frames])
+    (se, e), (sg, g) = runs[False], runs[True]
+    assert se.fused_reloc is None and sg.fused_reloc is not None
+    for (Te, re, xe, ge), (Tg, rg, xg, gg) in zip(e, g):
+        assert (Te is None) == (Tg is None)
+        assert Te is None or np.array_equal(Te, Tg)
+        assert re == rg
+        assert all(torch.equal(x, y) for x, y in zip(xe, xg))
+        assert torch.equal(ge, gg)
+    relocs = [m for m in sg.metrics if m.get("stage") == "reloc"]
+    assert [m["relocalized"] for m in relocs] == [True, True]
+    assert all(m["graph_reloc_captures"] == m["graph_reloc_replays"] == 0
+               for m in relocs)
+    fr = sg.fused_reloc
+    assert fr.inputs["scores"].shape == (sg.cfg.pnp_ransac_iters,
+                                         sg.cfg.n_features)
+    # a moved arena raises; drop_graphs forgets the graphs
+    sg.state = TrackState.LOST
+    sg.arena = sg.arena._replace(lm_pos=sg.arena.lm_pos.clone())
+    with pytest.raises(RuntimeError, match="moved"):
+        sg.track_cubemap(torch.as_tensor(imgs[REPLAY]), 7.0)
+    sg.drop_graphs()
+    assert sg.fused_reloc is None
