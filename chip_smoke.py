@@ -121,14 +121,15 @@ Sim3 alignment, the wall ms of each kind and the capture's ms and pool MiB
 printed; twice more under the profiler, eagerly and replaying, whose host
 waits may not exceed the frame's stated reads and the upload); the
 ``sym_eig`` check (the
-eigen-solve kernel ``csrc/sym_eig.cu``, one warp a matrix, bitwise against
-its kernel-order plain version ``sym_eig_ordered`` on the six solves of the
-reloc frame's first PnP, recorded as it ran, on those of a seeded
-2000-point scene and on special matrices at n = 3, 4 and 12, eagerly and
-from a CUDA graph; timed on the recorded solves beside
-``torch.linalg.eigh`` and the bound); the ``localization`` phase (6 frames
-tracked in localization mode with the map unchanged, each within the bound,
-the worst frame and its margin to the bound printed; perturbed landmarks
+eigen-solve kernel ``csrc/sym_eig.cu``, a round-robin Jacobi, one warp a
+matrix, bitwise against its kernel-order plain version ``sym_eig_ordered``
+on the six solves of the reloc frame's first PnP, recorded as it ran, on
+those of a seeded 2000-point scene and on special matrices at n = 3, 4 and
+12, eagerly and from a CUDA graph; timed on the recorded solves beside
+``torch.linalg.eigh``, the bound and the serial floor: a solve's most steps
+a matrix times one step's measured latency); the ``localization`` phase (6
+frames tracked in localization mode with the map unchanged, each within the
+bound, the worst frame and its margin to the bound printed; perturbed landmarks
 engage mbVO, restored ones relocalize and clear it); a save/load check
 (``save_map``, ``load_map`` into a fresh ``CubemapSLAM``, whose next frame
 relocalizes); and ``word_ids`` / ``bow_vector``, ``detect_candidates`` and
@@ -1695,9 +1696,9 @@ def eig_specials(n, device, seed=SEED + 13):
 def eig_case(name, A):
     """The kernel against ``sym_eig_ordered`` on (..., n, n) ``A``: one
     launch, eigenvalues and eigenvectors bitwise (NaN where NaN), eagerly
-    and replayed from a CUDA graph. The case's dict with the rotations and
-    sweeps of its matrices (the ordered version's count)."""
-    ref_w, ref_V, rot, sw = SE.sym_eig_ordered(A, counts=True)
+    and replayed from a CUDA graph. The case's dict with the rotations,
+    sweeps and steps of its matrices (the ordered version's count)."""
+    ref_w, ref_V, rot, sw, st = SE.sym_eig_ordered(A, counts=True)
     n0 = SE.SYM_EIG.launches
     w, V = SE.sym_eig_cuda(A)
     torch.cuda.synchronize()
@@ -1725,10 +1726,11 @@ def eig_case(name, A):
              bitwise=same_float_bits(w, ref_w) and same_float_bits(V, ref_V),
              graph_bitwise=same_float_bits(out["w"], ref_w)
              and same_float_bits(out["V"], ref_V),
-             rotations=int(rot.sum()), max_sweeps=int(sw.max()))
+             rotations=int(rot.sum()), max_sweeps=int(sw.max()),
+             max_steps=int(st.max()))
     log(f"[sym_eig] {name} {tuple(A.shape)}: bitwise {c['bitwise']}, from a "
         f"graph {c['graph_bitwise']}; {c['rotations']} rotations, at most "
-        f"{c['max_sweeps']} sweeps a matrix")
+        f"{c['max_sweeps']} sweeps ({c['max_steps']} steps) a matrix")
     if not (one and c["bitwise"] and c["graph_bitwise"]):
         raise AssertionError(f"the sym_eig kernel differs from its plain "
                              f"version on {name} (one launch {one}, max "
@@ -1738,13 +1740,17 @@ def eig_case(name, A):
 
 def eig_bound(A, rotations, sweeps):
     """The kernel's bound (ms, what bounds it) on ``A`` (B, n, n), from the
-    ordered version's count of each matrix's rotations and sweeps: the
-    input read and the outputs written once; float64 operations: the sum of
-    squares (2 n^2), each convergence test (2 a pair above the diagonal,
+    ordered version's count of each matrix's rotations applied and sweeps
+    begun: the input read and the outputs written once; the float64
+    operations the solve needs whatever its schedule or its lanes: the sum
+    of squares (2 n^2), each convergence test (2 a pair above the diagonal,
     one a sweep begun and one more where the matrix converged), each skip
-    test (2 a pair a sweep begun), each rotation (14 for the angle, 6 for
-    each of the n - 2 pairs of entries, 4 for the diagonal, 6 for each row
-    of V: 12 n + 6), the order and the sign (4 n^2)."""
+    test (2 a pair a sweep begun), each rotation applied (14 for the angle,
+    6 for each of the n - 2 pairs of entries, 4 for the diagonal, 6 for
+    each row of V: 12 n + 6), the order and the sign (4 n^2). The kernel's
+    program does more (both lanes of a pair compute its angle, each entry
+    of A is computed in both triangles, a skipped pair rotates by the
+    identity, n = 3 runs at 4): none of that is counted."""
     B, n = A.shape[0], A.shape[-1]
     pairs = n * (n - 1) // 2
     sweeps = sweeps.double()
@@ -1752,6 +1758,21 @@ def eig_bound(A, rotations, sweeps):
     ops = float((2 * n * n + 2 * pairs * tests + 2 * pairs * sweeps
                  + (12 * n + 6) * rotations.double() + 4 * n * n).sum())
     return bound(B * (8 * n * n + 4 * n), ops, H100_F64_OPS_PER_S)
+
+
+def eig_step_ms(n):
+    """One step's latency (ms) at size n and the steps it was measured on:
+    the device time (``graph_ms``) of one seeded symmetric (1, n, n) matrix
+    less that of the identity (done before its first sweep), over the
+    seeded matrix's steps."""
+    X = np.random.default_rng(SEED + 14 + n).standard_normal(
+        (1, n, n)).astype(np.float32)
+    A = torch.as_tensor(X + X.transpose(0, 2, 1)).cuda()
+    eye = torch.eye(n, device="cuda")[None]
+    steps = int(SE.sym_eig_ordered(A, counts=True)[4].max())
+    busy = graph_ms(lambda: SE.sym_eig_cuda(A))
+    idle = graph_ms(lambda: SE.sym_eig_cuda(eye))
+    return (busy - idle) / steps, steps
 
 
 def check_sym_eig(real):
@@ -1762,7 +1783,8 @@ def check_sym_eig(real):
     12. Timed on each real input: a wrapper call, the device's time from a
     CUDA graph, the plain version's wall time and the library call
     (``torch.linalg.eigh`` of the same float32 matrices, which waits for
-    the host each call), beside the bound. Returns the kernel's JSON row
+    the host each call), beside the bound and the serial floor (the most
+    steps a matrix times ``eig_step_ms``). Returns the kernel's JSON row
     (one PnP's six solves summed), without its launches."""
     cases = [eig_case(f"reloc, {site}", A.reshape(-1, *A.shape[-2:]))
              for site, A in zip(EIG_SITES, real)]
@@ -1772,10 +1794,17 @@ def check_sym_eig(real):
               for site, A in zip(EIG_SITES, seeded)]
     cases += [eig_case(f"specials n={n}", eig_specials(n, "cuda"))
               for n in SE.SYM_EIG_SIZES]
+    step = {}
+    for n in SE.SYM_EIG_SIZES:
+        step[n] = eig_step_ms(n)
+        log(f"[sym_eig] one step at n={n}: {step[n][0] * 1e3:.4f} us "
+            f"(a seeded (1,{n},{n}) matrix of {step[n][1]} steps less the "
+            f"identity, device time)")
     by_site = {}
     for site, A in zip(EIG_SITES, real):
         A = A.reshape(-1, *A.shape[-2:]).contiguous()
-        _, _, rot, sw = SE.sym_eig_ordered(A, counts=True)
+        n = A.shape[-1]
+        _, _, rot, sw, st = SE.sym_eig_ordered(A, counts=True)
         b_ms, b_by = eig_bound(A, rot, sw)
         by_site[site] = dict(
             shape=list(A.shape), ms=time_ms(lambda: SE.sym_eig_cuda(A)),
@@ -1785,14 +1814,18 @@ def check_sym_eig(real):
             library_wall_ms=wall_ms(lambda: torch.linalg.eigh(A)),
             bound_ms=b_ms, bound_by=b_by,
             mean_rotations=float(rot.double().mean()),
-            max_sweeps=int(sw.max()))
+            max_sweeps=int(sw.max()), mean_steps=float(st.double().mean()),
+            max_steps=int(st.max()), step_ms=step[n][0],
+            serial_floor_ms=int(st.max()) * step[n][0])
         v = by_site[site]
         log(f"[sym_eig] {site} {tuple(A.shape)}: kernel {v['ms']:.5f} ms "
             f"(device {v['device_ms']:.5f}), plain {v['plain_ms']:.3f} ms, "
             f"library (eigh, waits) {v['library_ms']:.5f} ms (wall "
             f"{v['library_wall_ms']:.5f}); bound {b_ms:.6f} ms ({b_by}); "
-            f"{v['mean_rotations']:.1f} rotations a matrix, at most "
-            f"{v['max_sweeps']} sweeps")
+            f"serial floor {v['serial_floor_ms']:.5f} ms ({v['max_steps']} "
+            f"steps x {v['step_ms'] * 1e3:.4f} us); "
+            f"{v['mean_rotations']:.1f} rotations and {v['mean_steps']:.1f} "
+            f"steps a matrix, at most {v['max_sweeps']} sweeps")
 
     def total(key):
         return sum(v[key] for v in by_site.values())
@@ -1815,11 +1848,14 @@ def check_sym_eig(real):
                library_ms=total("library_ms"),
                library_call="torch.linalg.eigh on the same float32 "
                             "matrices (a host wait each call)",
+               serial_floor_ms=total("serial_floor_ms"),
+               step_ms={n: v[0] for n, v in step.items()},
                by_site=by_site, cases=cases)
     log(f"[sym_eig] row (one PnP's six solves): kernel {row['ms']:.5f} ms "
         f"(device {row['device_ms']:.5f}), plain {row['plain_ms']:.3f} ms, "
         f"library {row['library_ms']:.5f} ms, bound {row['bound_ms']:.6f} "
-        f"ms; bitwise on {len(cases)} cases {row['bitwise']}")
+        f"ms, serial floor {row['serial_floor_ms']:.5f} ms; bitwise on "
+        f"{len(cases)} cases {row['bitwise']}")
     return row
 
 

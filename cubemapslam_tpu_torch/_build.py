@@ -145,6 +145,28 @@ class CudaKernel:
                                f"cudaError {status}")
 
 
+def variant(kernel: CudaKernel, path: pathlib.Path) -> CudaKernel:
+    """``kernel``'s entry point built from another source ``path`` (a
+    variant or a parent commit's version, for a benchmark that compares
+    them on one card) with ``kernel``'s flags, into ``BUILD_DIR``: a new
+    ``CudaKernel`` with its own launch counter. Raises if nvcc fails."""
+    flags = _flags(kernel.source)
+    digest = hashlib.sha256(path.read_bytes() + " ".join(flags).encode())
+    lib = BUILD_DIR / f"variant_{path.stem}_{digest.hexdigest()[:12]}.so"
+    if not lib.is_file():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        done = subprocess.run([_nvcc(), *flags, "-o", str(lib), str(path)],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {path}:\n{done.stdout}"
+                               f"{done.stderr}")
+    k = CudaKernel(path.name, kernel.symbol, kernel.argtypes[:-1])
+    fn = getattr(ctypes.CDLL(str(lib)), k.symbol)
+    fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+    k._fn = fn
+    return k
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Check that every tensor is a contiguous CUDA tensor on one device."""
     dev = tensors[0].device

@@ -16,14 +16,17 @@ call and no CUDA graph can hold one.
 - ``eigh_nan``: ``torch.linalg.eigh`` where a non-finite matrix is solved
   as the identity and its results replaced by NaN, as JAX's are (LAPACK and
   cuSOLVER would raise); the CPU's path.
-- ``sym_eig_ordered``: the kernel's cyclic Jacobi in float64 (the source
-  has the method) in plain PyTorch, in the kernel's order, on any device:
-  each rotation, each sum of squares, the stable order and the sign rule
-  written out as elementwise operations, so that each value rounds as the
-  kernel's does (the square root IEEE-rounded on the host too). It holds
-  the kernel bitwise on the card, a scalar emulation of the kernel bitwise
-  and the method against JAX on the CPU; nothing on the main path calls
-  it.
+- ``sym_eig_ordered``: the kernel's Jacobi in float64 (the source has the
+  method) in plain PyTorch, in the kernel's order, on any device: the
+  round-robin ``schedule`` (n/2 disjoint rotations a step, n - 1 steps a
+  sweep, n rounded up to even), each step's angles from the pivots as the
+  step found them, ``JᵀAJ`` by an entry formula symmetric in (i, j) so A
+  stays exactly symmetric, the shuffle-tree sums (``_tree``), the stable
+  order and the sign rule, written out as elementwise operations so that
+  each value rounds as the kernel's does (the square root IEEE-rounded on
+  the host too). It holds the kernel bitwise on the card, a lane-by-lane
+  scalar emulation of the kernel bitwise and the method against JAX on the
+  CPU; nothing on the main path calls it.
 
 The Jacobi solve stops a matrix when the sum of its squared entries above
 the diagonal is at most ``EPS ** 2`` times the sum of all its squared
@@ -116,17 +119,45 @@ def sym_eig_cuda(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return evals.reshape(*lead, n), evecs.reshape(*lead, n, n)
 
 
+def schedule(n: int) -> Tuple[Tuple[Tuple[int, int], ...], ...]:
+    """The kernel's round-robin sweep at size n: ``NP - 1`` steps of
+    ``NP / 2`` disjoint pairs (p, q), p < q, over the indices 0 .. NP - 1,
+    where NP is n rounded up to even (at odd n the index n is a dummy whose
+    pairs never rotate). Step s pairs NP - 1 with s and i with j where
+    i + j = 2 s modulo NP - 1: every pair once a sweep."""
+    m = n + n % 2 - 1
+    return tuple(((s, m),) + tuple(
+        (min((s - k) % m, (s + k) % m), max((s - k) % m, (s + k) % m))
+        for k in range(1, (m + 1) // 2)) for s in range(m))
+
+
+def _tree(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's shuffle-tree sum of per-lane values ``x`` (B, L), L <= 32
+    (the other lanes hold 0): each of 32 lanes adds its xor-16, then xor-8,
+    xor-4, xor-2 and xor-1 neighbour's value to its own; lane 0's value
+    (every lane's: each sum's two terms are the same in both lanes)."""
+    x = torch.cat([x, x.new_zeros(x.shape[0], 32 - x.shape[1])], dim=1)
+    lane = torch.arange(32, device=x.device)
+    for m in (16, 8, 4, 2, 1):
+        x = x + x[:, lane ^ m]
+    return x[:, 0]
+
+
 def sym_eig_ordered(A: torch.Tensor, counts: bool = False):
     """The kernel's arithmetic in plain PyTorch, in its order, on any device
-    (float32 in and out, float64 inside): the lower triangle mirrored, the
-    sums of squares added entry by entry, each rotation of each sweep
-    applied where its matrix is not done and its pivot is not below the
-    skip threshold, then the stable order and the sign rule. With
-    ``counts`` it also returns, a matrix, the rotations applied and the
-    sweeps begun (int64), for the kernel's bound. Reads the host once a
-    sweep, to stop when every matrix is done."""
+    (float32 in and out, float64 inside): the lower triangle mirrored into
+    an NP x NP matrix (zero padded at odd n), the sums of squares a row
+    added left to right and the rows by ``_tree``, each step of each sweep
+    (``schedule``) applied to a matrix that is not done: every pair's angle
+    from the pivots as the step found them, then ``JᵀAJ`` entry by entry
+    and ``VJ``, a skipped pair rotating by the identity; then the stable
+    order and the sign rule. With ``counts`` it also returns, a matrix, the
+    rotations applied, the sweeps begun and the steps made (int64), for the
+    kernel's bound. Reads the host once a sweep, to stop when every matrix
+    is done."""
     f64 = torch.float64
     n = A.shape[-1]
+    NP = n + n % 2
     lead = A.shape[:-2]
     A = A.reshape(-1, n, n)
     B, dev = A.shape[0], A.device
@@ -134,55 +165,66 @@ def sym_eig_ordered(A: torch.Tensor, counts: bool = False):
     low = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
     S = torch.where(low, A, A.transpose(-1, -2)).to(f64)
     S = torch.where(bad[:, None, None], _eye(n, S), S)
-    zero = torch.zeros(B, dtype=f64, device=dev)
-    one = torch.ones(B, dtype=f64, device=dev)
-    nrm = zero
-    for i in range(n):
-        for j in range(n):
-            nrm = nrm + S[:, i, j] * S[:, i, j]
-    tol2 = (EPS * EPS) * nrm
-    skip2 = tol2 / (n * (n - 1) // 2)
-    V = _eye(n, S).expand(B, n, n).clone()
-    pairs = [(p, q) for p in range(n - 1) for q in range(p + 1, n)]
+    nrm = torch.zeros(B, n, dtype=f64, device=dev)
+    for j in range(n):
+        nrm = nrm + S[:, :, j] * S[:, :, j]
+    tol2 = (EPS * EPS) * _tree(nrm)
+    skip2 = (tol2 / (n * (n - 1) // 2))[:, None]
+    S = torch.nn.functional.pad(S, (0, NP - n, 0, NP - n))
+    V = _eye(NP, S).expand(B, NP, NP).clone()
+    lane = torch.arange(n, device=dev)
+    one = torch.ones((), dtype=f64, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     rotations = torch.zeros(B, dtype=torch.int64, device=dev)
     sweeps = torch.zeros(B, dtype=torch.int64, device=dev)
+    steps = torch.zeros(B, dtype=torch.int64, device=dev)
     for _ in range(MAX_SWEEPS):
-        off = zero
-        for p, q in pairs:
-            off = off + S[:, p, q] * S[:, p, q]
-        active = active & ~(off <= tol2)
+        off = torch.zeros(B, n, dtype=f64, device=dev)
+        for j in range(n):
+            off = torch.where(j > lane, off + S[:, :n, j] * S[:, :n, j], off)
+        active = active & ~(_tree(off) <= tol2)
         if not bool(active.any()):
             break
         sweeps += active
-        for p, q in pairs:
-            app, aqq, apq = S[:, p, p], S[:, q, q], S[:, p, q]
-            do = active & ~(apq * apq <= skip2)
+        for pairs in schedule(n):
+            P = torch.tensor([p for p, _ in pairs], device=dev)
+            Q = torch.tensor([q for _, q in pairs], device=dev)
+            part = torch.empty(NP, dtype=torch.int64, device=dev)
+            part[P], part[Q] = Q, P
+            app, aqq, apq = S[:, P, P], S[:, Q, Q], S[:, P, Q]
+            do = ~(apq * apq <= skip2)
             theta = (aqq - app) / (2.0 * apq)
             sgn = torch.where(theta >= 0, one, -one)
             t = sgn / (theta.abs() + _sqrt(theta * theta + 1.0))
             c = one / _sqrt(t * t + 1.0)
             s = t * c
-            cc, ss = c[:, None], s[:, None]
-            mp, mq = S[:, :, p], S[:, :, q]
-            new = S.clone()
-            new_p, new_q = cc * mp - ss * mq, ss * mp + cc * mq
-            new[:, :, p] = new_p
-            new[:, p, :] = new_p
-            new[:, :, q] = new_q
-            new[:, q, :] = new_q
-            new[:, p, p] = app - t * apq
-            new[:, q, q] = aqq + t * apq
-            new[:, p, q] = 0.0
-            new[:, q, p] = 0.0
-            S = torch.where(do[:, None, None], new, S)
-            vp, vq = V[:, :, p], V[:, :, q]
-            newV = V.clone()
-            newV[:, :, p] = cc * vp - ss * vq
-            newV[:, :, q] = ss * vp + cc * vq
-            V = torch.where(do[:, None, None], newV, V)
-            rotations += do
-    d = torch.diagonal(S, dim1=-2, dim2=-1)                   # (B, n)
+            t = torch.where(do, t, 0.0)
+            c = torch.where(do, c, one)
+            s = torch.where(do, s, 0.0)
+            u = torch.empty(B, NP, dtype=f64, device=dev)
+            w = torch.empty_like(u)
+            u[:, P], u[:, Q], w[:, P], w[:, Q] = c, c, -s, s
+            ui, uj, wi, wj = u[:, :, None], u[:, None, :], w[:, :, None], \
+                w[:, None, :]
+            rows = S[:, part, :]
+            new = ((ui * uj) * S + (wi * wj) * rows[:, :, part]) \
+                + ((ui * wj) * S[:, :, part] + (wi * uj) * rows)
+            piv = torch.where(do, 0.0, apq)
+            new[:, P, Q] = piv
+            new[:, Q, P] = piv
+            new[:, P, P] = app - t * apq
+            new[:, Q, Q] = aqq + t * apq
+            cc, ss = c[:, None, :], s[:, None, :]
+            vp, vq = V[:, :, P], V[:, :, Q]
+            newV = torch.empty_like(V)
+            newV[:, :, P] = cc * vp - ss * vq
+            newV[:, :, Q] = ss * vp + cc * vq
+            on = active[:, None, None]
+            S = torch.where(on, new, S)
+            V = torch.where(on, newV, V)
+            rotations += (do & active[:, None]).sum(dim=-1)
+            steps += active
+    d, V = torch.diagonal(S, dim1=-2, dim2=-1)[:, :n], V[:, :n, :n]
     idx = torch.arange(n, device=dev)
     before = (d[:, None, :] < d[:, :, None]) \
         | ((d[:, None, :] == d[:, :, None]) & (idx[None, :] < idx[:, None]))
@@ -201,5 +243,6 @@ def sym_eig_ordered(A: torch.Tensor, counts: bool = False):
     evecs = torch.where(bad[:, None, None], nan, V.to(A.dtype))
     out = (evals.reshape(*lead, n), evecs.reshape(*lead, n, n))
     if counts:
-        out += (rotations.reshape(lead), sweeps.reshape(lead))
+        out += (rotations.reshape(lead), sweeps.reshape(lead),
+                steps.reshape(lead))
     return out
