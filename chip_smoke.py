@@ -145,20 +145,28 @@ against its kernel-order plain version at the global BA's shapes (its live
 edges by camera and by point) and at those of the local BA, the pose graph
 and the landmark normals, and timed beside ``index_add_``;
 ``LoopCloser.process`` on slots 12 and 13 closes a fresh copy of the
-arena once eagerly (``LoopCloser.graphs`` off) and once with the pose
-graph's Gauss-Newton iterations and the global BA's LM steps each replayed
-from a CUDA graph captured in the closure: each must close the loop, cut
-the segment-B error to the stated share and launch the segmented sum the
-stated number of times by stage, and every table of the two closed arenas
-must be bitwise equal. A warm closure in each mode on a fresh copy prints
-the wall time of each stage (detect, sim3, correct, gba), the host reads,
-the eigen-solve waits, the captures, replays, capture ms, pool MiB and
-capture waits, and the peak memory; one more copy in each mode is closed
-under the profiler by stage and by the correction's and the global BA's
-sub-ranges (whose host waits may not exceed the stated reads, eigen-solve
-waits and capture waits), and the two are printed side by side; and it
-holds the closure on the card against the CPU at the tier-1 test's size,
-the correction and the global BA each within its stated bounds.
+arena once eagerly (``LoopCloser.graphs`` off) and once through the CUDA
+graphs (DetectLoop and ComputeSim3 through ``FusedLoop``'s graphs D, M and
+S, ``runtime/fused_loop.py``; the pose graph's Gauss-Newton iterations and
+the global BA's LM steps each replayed from a graph captured in the
+closure): each must close the loop, cut the segment-B error to the stated
+share (a miss is raised after the last phase), launch the segmented sum
+the stated number of times by stage and the eigen-solve kernel twice (one
+Sim3 RANSAC), and every table of the two closed arenas must be bitwise
+equal (the digest is printed); the graph copy's arena, restored in place
+and closed again, must replay graphs D, M and S and give the same
+tables. A warm closure eagerly, capturing (a fresh copy) and replaying
+(that copy restored) prints the wall time of each stage (detect, sim3,
+correct, gba), the host reads, the eigen-solve waits, the captures,
+replays, capture ms, pool MiB and capture waits, and the peak memory; the
+same three are closed under the profiler (``process(12)`` alone for
+``loop.detect``, then the closure) by stage and by ComputeSim3's eager,
+the correction's and the global BA's sub-ranges (whose host waits may not
+exceed the stated reads, eigen-solve waits and capture waits), printed
+side by side; the eigen-solve kernel is held bitwise on the eager
+closure's two Sim3 RANSAC solves and timed beside ``torch.linalg.eigh``;
+and it holds the closure on the card against the CPU at the tier-1 test's
+size, the correction and the global BA each within its stated bounds.
 
 Then the ``app`` phase: the ``slam`` phase's rendered frames written as PGM
 files with a Lafida "id ts path" list under ``build/``, run through the
@@ -237,12 +245,14 @@ from cubemapslam_tpu_torch.runtime import mapping as TMAP
 from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.synthetic import (
     landmarks_from_keypoints, perturbed_pose, synthetic_fisheye)
+from cubemapslam_tpu_torch.runtime.fused_loop import LoopGraphOwner
 from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
 from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
 from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 from cubemapslam_tpu_torch.solvers import horn_alignment
 from cubemapslam_tpu_torch.solvers import pnp as PNP
+from cubemapslam_tpu_torch.solvers import sim3 as S3
 from cubemapslam_tpu_torch.solvers import sym_eig as SE
 from cubemapslam_tpu_torch.solvers import triangulate as TT
 from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
@@ -347,6 +357,18 @@ LOOP_POINTS = 3000
 LOOP_MIN_ROW = 1000
 LOOP_ERR_FRAC = 0.6
 LOOP_STAGES = ("loop.detect", "loop.sim3", "loop.correct", "loop.gba")
+# ComputeSim3's eager sub-ranges (runtime/loop_closing.py)
+LOOP_SIM3_SUBRANGES = ("loop.sim3.match", "loop.sim3.ransac",
+                       "loop.sim3.widen", "loop.sim3.refine",
+                       "loop.sim3.scw")
+# the loop closer's graphs on a fresh system (runtime/fused_loop.py): D on
+# the first keyframe it sees, M and S on its first ComputeSim3; and a
+# closure's captures: M, S and its two solves' loops
+LOOP_FUSED_GRAPHS = 3
+LOOP_CLOSURE_CAPTURES = 4
+# the Sim3 RANSAC's eigen-solves (its Horn 4x4s), in call order: the
+# hypotheses' batch and the refit's single matrix
+SIM3_EIG_SITES = ("sim3.horn", "sim3.refit.horn")
 # the correction's and the global BA's sub-ranges (runtime/loop_closing.py,
 # optim/ba.py)
 LOOP_SUBRANGES = ("loop.correct.fuse", "loop.correct.propagate",
@@ -2909,8 +2931,10 @@ def profiled_slam(slam, frames, walls, graph_walls, tag, replays):
                     f"unprofiled wall of the repeat run's {kind} frames that "
                     f"replayed their graphs ({mid:.3f} ms)")
             # torch.cuda.graph synchronises once for each graph it captures
+            # (the loop closer's counted in its capture waits)
             captured = (row.get("graph_captures", 0)
-                        + row.get("graph_mapping_captures", 0))
+                        + row.get("graph_mapping_captures", 0)
+                        + row.get("graph_loop_capture_waits", 0))
             allowed = (row["host_reads"] + row.get("eigh_waits", 0) + 1
                        + captured)
             log(f"[{tag}-{kind}] host waits {prof['host_waits']:.0f} "
@@ -3162,6 +3186,7 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
     slam = CubemapSLAM(cfg, seed=SEED)
     zero_launches(counters)
     walls = []
+    torch.cuda.reset_peak_memory_stats()
     for i in range(SLAM_FRAMES):
         torch.cuda.synchronize()
         t_start = time.perf_counter()
@@ -3171,6 +3196,7 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
     seg = SG.SEG_SUM.launches
+    peak = peak_memory()
     if pose_launches("repeat", SLAM_FRAMES) != POSE_LAUNCHES["slam"]:
         raise AssertionError("the repeat run's pose-LM launches differ from "
                              "the eager drive's")
@@ -3211,7 +3237,8 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
         kind = ("init" if r.get("stage") == "init" else "keyframe"
                 if r.get("keyframe") else "ba" if r.get("ba") else "tracked")
         by_kind.setdefault(kind, []).append((e, g))
-        if not (r.get("graph_captures") or r.get("graph_mapping_captures")):
+        if not (r.get("graph_captures") or r.get("graph_mapping_captures")
+                or r.get("graph_loop_captures")):
             replayed.setdefault(kind, []).append(g)
     log("[repeat] wall ms median by kind of frame, eager drive (stage "
         "timing on) -> graphs: " + "; ".join(
@@ -3220,6 +3247,22 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
             for k, v in by_kind.items()) + "; frames that captured no graph: "
         + "; ".join(f"{k} (x{len(v)}) median {float(np.median(v)):.3f}, mean "
                     f"{float(np.mean(v)):.3f}" for k, v in replayed.items()))
+    # loop detection from the tenth keyframe: graph D, captured on the first
+    # such keyframe frame and replayed on the later ones
+    det = [(r, g) for r, g in zip(rows, walls) if "loop_detect_ms" in r]
+    log(f"[repeat] loop detection: graph D captured on keyframe frames "
+        f"{[r.get('graph_loop_captures', 0) for r, _ in det]}, replayed "
+        f"{[r.get('graph_loop_replays', 0) for r, _ in det]}; detect wall ms "
+        f"{[round(r['loop_detect_ms'], 3) for r, _ in det]}; keyframe frames "
+        f"that replayed graph D (x{len(det) - 1}) wall ms "
+        f"{[round(g, 3) for _, g in det[1:]]}, median "
+        f"{float(np.median([g for _, g in det[1:]] or [0])):.3f}; "
+        f"{fused_loop_line(slam)}; the run's peak memory {peak}")
+    if (not det or det[0][0].get("graph_loop_captures") != 1
+            or any(r.get("graph_loop_captures") or not r.get(
+                "graph_loop_replays") for r, _ in det[1:])):
+        raise AssertionError("the repeat run's loop detection did not "
+                             "capture graph D once and replay it after")
     SEG_LAUNCHES["repeat"] = {"total": seg}
     log(f"[repeat] seg_sum: launches in {SLAM_FRAMES} frames {seg} (the "
         f"eager drive: {SEG_LAUNCHES['slam']['total']})")
@@ -3731,10 +3774,20 @@ def small_reloc_reference_check(card="cuda"):
 # Loop closing at full width on the constructed-drift arena
 # ---------------------------------------------------------------------------
 
+class LoopSystem(LoopGraphOwner):
+    """What ``LoopCloser.process`` reads of a system (the arena, the
+    keyframe counter, the BoW table and the generator), owning its loop
+    graphs as ``CubemapSLAM`` does."""
+
+    def __init__(self, arena, n_kf, bow_table, generator):
+        self.arena, self.n_kf = arena, n_kf
+        self.bow_table, self.generator = bow_table, generator
+
+
 def loop_system(cfg, device, vocab, n_pts, seed):
     """The constructed-drift arena at ``cfg``'s capacities on ``device``,
     the BoW rows of its keyframes, and the system fields that
-    ``LoopCloser.process`` reads."""
+    ``LoopCloser.process`` reads (a ``LoopSystem``)."""
     arena, _, desc, _ = S.build_drifted_loop_arena(
         cfg, np.random.default_rng(seed), n_pts=n_pts, device=device)
     if vocab is None:
@@ -3743,8 +3796,7 @@ def loop_system(cfg, device, vocab, n_pts, seed):
     bow = torch.zeros(cfg.max_keyframes, vocab.n_words, device=device)
     bow[:n] = PL.bow_vectors(vocab, arena.kf_desc[:n], arena.kf_kp_valid[:n])
     gen = torch.Generator(device=device).manual_seed(SEED)
-    return types.SimpleNamespace(arena=arena, n_kf=n, bow_table=bow,
-                                 generator=gen)
+    return LoopSystem(arena, n, bow, gen)
 
 
 def segment_b_error(arena) -> float:
@@ -3796,17 +3848,72 @@ def graph_counts_line(lc):
             f"capture waits {lc.capture_waits}")
 
 
+def restore_loop_system(system, tables):
+    """Write ``tables`` (``loop_arena_tables``) back into the system's arena
+    in place and seed its generator anew: the same closure again on the
+    same tensors, so that graphs captured on them replay."""
+    for k, v in tables.items():
+        getattr(system.arena, k).copy_(v)
+    system.generator.manual_seed(SEED)
+
+
+@contextlib.contextmanager
+def recording_sim3_eigh(store):
+    """Record clones of the inputs of the first ``sim3_ransac``'s two Horn
+    eigen-solves (the hypotheses' (n_iters, 4, 4) batch, the refit's 4x4)
+    into ``store`` while the context is open."""
+    inner = S3.horn_alignment
+
+    def recorded(*args, eigh, **kw):
+        def solve(A):
+            if len(store) < len(SIM3_EIG_SITES):
+                store.append(A.reshape(-1, 4, 4).clone())
+            return eigh(A)
+        return inner(*args, eigh=solve, **kw)
+
+    S3.horn_alignment = recorded
+    try:
+        yield store
+    finally:
+        S3.horn_alignment = inner
+
+
+def peak_memory() -> str:
+    """The card's peak memory since the last reset of its statistics:
+    allocated to tensors, and reserved by the caching allocator (the CUDA
+    graphs' pools among it)."""
+    return (f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB "
+            f"allocated, {torch.cuda.max_memory_reserved() / 2 ** 20:.1f} "
+            f"MiB reserved")
+
+
+def fused_loop_line(system):
+    fl = system.fused_loop
+    if fl is None:
+        return "no FusedLoop"
+    return (f"FusedLoop: {fl.captures} graphs captured, {fl.replays} "
+            f"replays, {fl.capture_ms:.3f} ms in torch.cuda.graph, pool "
+            f"{fl.capture_mib:.1f} MiB")
+
+
 def loop_phase(cfg):
     """The constructed-drift closure at SlamConfig() capacities, once
-    eagerly (``LoopCloser.graphs`` off) and once with its solves through
-    CUDA graphs, each on a fresh copy of the arena: both must close the
-    loop, cut the segment-B error to LOOP_ERR_FRAC, launch the segmented
-    sum LOOP_SEG_LAUNCHES times by stage, and leave every arena table
-    bitwise equal. Then a warm closure in each mode for the stage times,
-    host reads, eigen-solve waits, capture waits and peak memory; then a
-    closure in each mode under the profiler by stage and sub-range (its
-    host waits may not exceed the stated reads, eigen-solve waits and
-    capture waits)."""
+    eagerly (``LoopCloser.graphs`` off) and once through the CUDA graphs
+    (DetectLoop and ComputeSim3 through ``FusedLoop``'s graphs D, M and S,
+    the solves' iterations through ``CapturedLoop``), each on a fresh copy
+    of the arena: both must close the loop, cut the segment-B error to
+    LOOP_ERR_FRAC, launch the segmented sum LOOP_SEG_LAUNCHES times by
+    stage and the eigen-solve kernel twice (one Sim3 RANSAC; its inputs
+    are recorded from the eager closure), and leave every arena table
+    bitwise equal; the graph system's arena restored in place and closed
+    again must replay graphs D, M and S, capture none of them and give the
+    same tables. Then a warm closure eagerly, capturing (a fresh copy) and
+    replaying (that copy restored) for the stage times, host reads,
+    eigen-solve waits, capture waits and peak memory; then the same three
+    under the profiler (process(12), DetectLoop only, and process(13), the
+    closure) by stage and sub-range (host waits at most the stated reads,
+    eigen-solve waits and capture waits). Returns the segmented sum's row
+    and the Sim3 RANSAC's recorded eigen-solve inputs."""
     vocab = PL.load_vocabulary(str(VOCAB_PATH))
     t0 = time.perf_counter()
     system = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
@@ -3823,12 +3930,16 @@ def loop_phase(cfg):
     seg_row = check_seg_sum(CubemapCamera.from_config(cfg, "cuda"), a,
                             inv_s2)
     before = segment_b_error(a)
-    closed_tables = {}
+    closed_tables, sim3_eig = {}, []
     for mode, graphs in LOOP_MODES:
         system = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
-        SG.SEG_SUM.launches = 0
+        initial, _ = loop_arena_tables(system.arena)
+        SG.SEG_SUM.launches = SE.SYM_EIG.launches = 0
         seg = {}
-        lc, cold, closed = close_constructed_loop(cfg, system, seg, graphs)
+        with (contextlib.nullcontext() if graphs else
+              recording_sim3_eigh(sim3_eig)):
+            lc, cold, closed = close_constructed_loop(cfg, system, seg,
+                                                      graphs)
         launches = dict(total=SG.SEG_SUM.launches, **seg)
         SEG_LAUNCHES["loop" if graphs else "loop_eager"] = launches
         log(f"[loop] {mode}: seg_sum launches in the closure {launches} (by "
@@ -3836,81 +3947,180 @@ def loop_phase(cfg):
         if seg != LOOP_SEG_LAUNCHES:
             raise AssertionError(f"the {mode} closure launched the "
                                  f"segmented sum {seg} times")
+        n_eig = eig_launches("loop" if graphs else "loop_eager")
+        if n_eig != 2:
+            raise AssertionError(f"the {mode} closure launched the "
+                                 f"eigen-solve kernel {n_eig} times (one "
+                                 f"Sim3 RANSAC: 2)")
         after = segment_b_error(system.arena)
         log(f"[loop] {mode}: process(12), process(13): {closed}; the first "
             f"closure's wall {cold:.3f} ms (cold: first use of its "
-            f"operations); {graph_counts_line(lc)}")
+            f"operations); {graph_counts_line(lc)}; {fused_loop_line(system)}")
         log(f"[loop] {mode}: segment-B centre error {before:.5f} -> "
             f"{after:.5f} ({after / before:.4f} of it; bound "
             f"{LOOP_ERR_FRAC}); loop edges {lc.loop_edges}")
-        if closed != [False, True] or not after <= LOOP_ERR_FRAC * before:
-            raise AssertionError("the constructed loop was not closed and "
-                                 "corrected")
-        if graphs and lc.graph_counts["captures"] != 2:
-            raise AssertionError("the graph closure did not capture its two "
-                                 "solves")
-        if not graphs and lc.graph_counts["captures"]:
+        if closed != [False, True]:
+            raise AssertionError("the constructed loop was not closed")
+        if not after <= LOOP_ERR_FRAC * before:
+            raise AssertionError("the loop closure did not reduce the "
+                                 "segment-B drift enough")
+        fl = system.fused_loop
+        if graphs and (lc.graph_counts["captures"] != LOOP_CLOSURE_CAPTURES
+                       or fl.captures != LOOP_FUSED_GRAPHS):
+            raise AssertionError("the graph closure did not capture graphs "
+                                 "D, M and S and its two solves")
+        if not graphs and (lc.graph_counts["captures"] or fl is not None):
             raise AssertionError("the eager closure captured a graph")
         closed_tables[mode] = loop_arena_tables(system.arena)
+        if graphs:
+            captured = system
         del system, lc
+    if len(sim3_eig) != len(SIM3_EIG_SITES):
+        raise AssertionError("the eager closure's Sim3 RANSAC made no two "
+                             "eigen-solves")
     (e_tab, e_dig), (g_tab, g_dig) = (closed_tables["eager"],
                                       closed_tables["graph"])
     differ = [k for k in e_tab
               if e_tab[k].numpy().tobytes() != g_tab[k].numpy().tobytes()]
-    log(f"[loop] the closed arena, eager sha256 {e_dig}, graph {g_dig}: "
-        f"tables that differ {differ}")
+    log(f"[loop-digest] the closed arena, eager sha256 {e_dig}, graph "
+        f"{g_dig}: tables that differ {differ}")
     if differ:
         raise AssertionError(f"the graph closure's tables {differ} differ "
                              f"from the eager closure's")
-    walls = {}
-    for mode, graphs in LOOP_MODES:
-        system = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
+    fl = captured.fused_loop
+    n_cap, n_rep = fl.captures, fl.replays
+    restore_loop_system(captured, initial)
+    lc, wall, closed = close_constructed_loop(cfg, captured, None, True)
+    r_tab, r_dig = loop_arena_tables(captured.arena)
+    log(f"[loop] replaying: the graph closure's arena restored in place and "
+        f"closed again: {closed}; sha256 {r_dig}; {graph_counts_line(lc)}; "
+        f"{fused_loop_line(captured)}")
+    if (closed != [False, True] or r_dig != g_dig or fl.captures != n_cap
+            or fl.replays != n_rep + 4):
+        raise AssertionError("the closure on the restored arena did not "
+                             "replay graphs D (twice), M and S to the same "
+                             "tables")
+    del captured, lc
+    walls, pools = {}, {}
+    modes = (("eager", False), ("capturing", True), ("replaying", True))
+    for mode, graphs in modes:
+        if mode != "replaying":
+            system = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
+        else:
+            restore_loop_system(system, initial)
         torch.cuda.reset_peak_memory_stats()
         lc, wall, closed = close_constructed_loop(cfg, system, None, graphs)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        peak = peak_memory()
         walls[mode] = wall
         times = {k: [round(x * 1e3, 3) for x in v]
                  for k, v in lc.timings.items()}
-        log(f"[loop] warm {mode} closure on a fresh copy: {closed}; wall "
-            f"{wall:.3f} ms; stage wall ms {times}; host reads {lc.reads}, "
-            f"eigen-solve waits {lc.eigh_waits}; {graph_counts_line(lc)}; "
-            f"peak memory {peak:.1f} MiB")
+        log(f"[loop] warm {mode} closure: {closed}; wall {wall:.3f} ms; "
+            f"stage wall ms {times}; host reads {lc.reads}, eigen-solve "
+            f"waits {lc.eigh_waits}; {graph_counts_line(lc)}; "
+            f"{fused_loop_line(system)}; peak memory {peak}")
         if closed != [False, True]:
             raise AssertionError(f"the warm {mode} closure did not close")
-        del system, lc
-    profs = {}
-    for mode, graphs in LOOP_MODES:
-        fresh = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
+        del lc
+    del system
+    profs, detects = {}, {}
+    stages = LOOP_STAGES + LOOP_SIM3_SUBRANGES + LOOP_SUBRANGES
+    for mode, graphs in modes:
+        if mode != "replaying":
+            fresh = loop_system(cfg, "cuda", vocab, LOOP_POINTS, SEED + 7)
+        else:
+            restore_loop_system(fresh, initial)
+        pool0 = getattr(fresh.fused_loop, "capture_mib", 0.0)
         lc2 = LoopCloser(cfg, CubemapCamera.from_config(cfg, "cuda"))
         lc2.consistency_th = 1
         lc2.graphs = graphs
-        lc2.process(fresh, 12)
-        prof = profile_stages(lambda: lc2.process(fresh, 13),
-                              LOOP_STAGES + LOOP_SUBRANGES, 1)
+        detects[mode] = (profile_stages(lambda: lc2.process(fresh, 12),
+                                        ("loop.detect",), 1),
+                         lc2.reads, lc2.capture_waits)
+        pool1 = getattr(fresh.fused_loop, "capture_mib", 0.0)
+        prof = profile_stages(lambda: lc2.process(fresh, 13), stages, 1)
+        pools[mode] = (pool1 - pool0,
+                       getattr(fresh.fused_loop, "capture_mib", 0.0) - pool1)
         tag = f"loop-profile-{mode}"
         log_profile(tag, prof, [walls[mode]])
         allowed = lc2.reads + lc2.eigh_waits + lc2.capture_waits
         log(f"[{tag}] host reads {lc2.reads}, eigen-solve waits "
             f"{lc2.eigh_waits}, capture waits {lc2.capture_waits}; host "
-            f"waits {prof['host_waits']:.0f}; {graph_counts_line(lc2)}")
+            f"waits {prof['host_waits']:.0f}; {graph_counts_line(lc2)}; "
+            f"{fused_loop_line(fresh)}")
         if not lc2.loop_edges:
             raise AssertionError(f"the profiled {mode} closure did not "
                                  f"close")
-        if prof["host_waits"] > allowed:
-            raise AssertionError(
-                f"the {mode} closure waited {prof['host_waits']:.0f} times; "
-                f"its stated reads, eigen-solve waits and capture waits "
-                f"are {allowed}")
+        d_prof, d_reads, d_waits = detects[mode]
+        for tag_, p_, allowed_ in ((tag, prof, allowed),
+                                   (f"{tag}-detect", d_prof,
+                                    d_reads + d_waits)):
+            if p_["host_waits"] > allowed_:
+                raise AssertionError(
+                    f"[{tag_}] waited {p_['host_waits']:.0f} times; its "
+                    f"stated reads, eigen-solve waits and capture waits are "
+                    f"{allowed_}")
         profs[mode] = prof
-        del fresh, lc2
-    for st in LOOP_STAGES + LOOP_SUBRANGES:
-        e, g = profs["eager"]["stages"][st], profs["graph"]["stages"][st]
-        log(f"[loop-compare] {st:29s} eager / graph: host "
-            f"{e['host_ms']:.3f} / {g['host_ms']:.3f} ms, device busy "
-            f"{e['device_busy_ms']:.3f} / {g['device_busy_ms']:.3f} ms, "
-            f"{e['device_ops']:.0f} / {g['device_ops']:.0f} device "
-            f"operations")
-    return seg_row
+        del lc2
+    del fresh
+    for st, src in (("loop.detect", "detect"), ("loop.sim3", "closure")):
+        for mode, _ in modes:
+            v = (detects[mode][0] if src == "detect"
+                 else profs[mode])["stages"][st]
+            pool = pools[mode][0 if src == "detect" else 1]
+            log(f"[loop-{st[5:]}] {mode:10s}: host {v['host_ms']:.3f} ms, "
+                f"device busy {v['device_busy_ms']:.3f} ms, "
+                f"{v['device_ops']:.0f} device operations, "
+                f"{v['host_waits']:.0f} host waits; pool MiB captured "
+                f"{pool:.1f}")
+    for st in stages:
+        e, c, g = (profs[m]["stages"][st] for m, _ in modes)
+        log(f"[loop-compare] {st:29s} eager / capturing / replaying: host "
+            f"{e['host_ms']:.3f} / {c['host_ms']:.3f} / {g['host_ms']:.3f} "
+            f"ms, device busy {e['device_busy_ms']:.3f} / "
+            f"{c['device_busy_ms']:.3f} / {g['device_busy_ms']:.3f} ms, "
+            f"{e['device_ops']:.0f} / {c['device_ops']:.0f} / "
+            f"{g['device_ops']:.0f} device operations, "
+            f"{e['host_waits']:.0f} / {c['host_waits']:.0f} / "
+            f"{g['host_waits']:.0f} host waits")
+    return seg_row, sim3_eig
+
+
+def check_sym_eig_sim3(inputs, row):
+    """The eigen-solve kernel on the Sim3 RANSAC's two Horn solves of the
+    loop phase's eager closure (recorded as it ran): bitwise against
+    ``sym_eig_ordered`` eagerly and from a CUDA graph (``eig_case``), timed
+    (a wrapper call, the device's time from a graph, the plain version,
+    ``torch.linalg.eigh`` of the same matrices) beside the bound. Adds them
+    to the kernel's ``row`` as ``sim3_sites``."""
+    sites = {}
+    for site, A in zip(SIM3_EIG_SITES, inputs):
+        A = A.contiguous()
+        c = eig_case(f"loop, {site}", A)
+        _, _, rot, sw, st = SE.sym_eig_ordered(A, counts=True)
+        b_ms, b_by = eig_bound(A, rot, sw)
+        v = sites[site] = dict(
+            shape=list(A.shape), ms=time_ms(lambda: SE.sym_eig_cuda(A)),
+            device_ms=graph_ms(lambda: SE.sym_eig_cuda(A)),
+            plain_ms=wall_ms(lambda: SE.sym_eig_ordered(A)),
+            library_ms=time_ms(lambda: torch.linalg.eigh(A)),
+            library_wall_ms=wall_ms(lambda: torch.linalg.eigh(A)),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=c["max_abs_err"],
+            bitwise=c["bitwise"] and c["graph_bitwise"],
+            mean_rotations=float(rot.double().mean()),
+            max_sweeps=int(sw.max()), max_steps=int(st.max()))
+        log(f"[sym_eig] {site} {tuple(A.shape)}: kernel {v['ms']:.5f} ms "
+            f"(device {v['device_ms']:.5f}), plain {v['plain_ms']:.3f} ms, "
+            f"library (eigh, waits) {v['library_ms']:.5f} ms (wall "
+            f"{v['library_wall_ms']:.5f}); bound {b_ms:.6f} ms ({b_by}); "
+            f"{v['mean_rotations']:.1f} rotations a matrix, at most "
+            f"{v['max_sweeps']} sweeps ({v['max_steps']} steps)")
+    row["sim3_sites"] = sites
+    row["cases"] += [dict(name=f"loop, {k}", bitwise=v["bitwise"])
+                     for k, v in sites.items()]
+    row["max_abs_err"] = max(row["max_abs_err"],
+                             *(v["max_abs_err"] for v in sites.values()))
+    row["bitwise"] = row["bitwise"] and all(v["bitwise"]
+                                            for v in sites.values())
 
 
 def arena_gap(c, g):
@@ -3930,37 +4140,29 @@ def arena_gap(c, g):
 
 def small_loop_closure(cfg, dev, refined=None, graphs=True):
     """The small constructed-drift closure (``process`` on slots 12 and 13
-    at consistency_th = 1) on ``dev`` with the global BA held back. Records
-    the RANSAC Sim3 (as the widening receives it) with its inlier count,
-    the widened match count, and the refinement's output; with
-    ``refined`` (another run's refinement, on the CPU) the closer goes on
-    from that Sim3 in place of its own. Returns (what each call returned,
-    the corrected arena on the CPU, the records on the CPU, the closer).
-    ``graphs``: ``LoopCloser.graphs``."""
+    at consistency_th = 1) on ``dev`` with the global BA held back; on the
+    card DetectLoop and ComputeSim3 replay the system's ``FusedLoop``
+    unless ``graphs`` (``LoopCloser.graphs``) is off. Records, on the CPU,
+    the closing ComputeSim3's ``LoopCloser.sim3_trace``: the RANSAC Sim3 (as
+    the widening receives it) with its inlier count, the widened match
+    count and the refinement's output. With ``refined`` (another run's
+    refinement, on the CPU) the refinement stage returns that Sim3 in place
+    of its own, in graph S too. Returns (what each call returned, the
+    corrected arena on the CPU, the records, the closer)."""
     system = loop_system(cfg, dev, None, 500, SEED + 8)
     lc = LoopCloser(cfg, CubemapCamera.from_config(cfg, dev))
     lc.consistency_th = 1
     lc.graphs = graphs
     lc._global_ba = lambda system: None
-    k, rec = lc.k, {}
-    widen, refine = k.search_by_sim3, k.refine_sim3
-
-    def widen_rec(arena, k1, k2, s12, R12, t12, idx2, ok):
-        rec["ransac"] = [x.cpu() for x in (s12, R12, t12)]
-        rec["ransac_inliers"] = int(ok.sum())
-        out = widen(arena, k1, k2, s12, R12, t12, idx2, ok)
-        rec["widened"] = int(out[1].sum())
-        return out
-
-    def refine_rec(*args):
-        out = refine(*args)
-        rec["refined"] = [x.cpu() for x in out]
-        if refined is None:
-            return out
-        return tuple(x.to(dev) for x in refined)
-
-    k.search_by_sim3, k.refine_sim3 = widen_rec, refine_rec
+    if refined is not None:
+        given = tuple(x.to(dev) for x in refined)
+        lc.k.refine_sim3 = lambda *args: given
     closed = [lc.process(system, slot) for slot in (12, 13)]
+    tr = lc.sim3_trace
+    rec = dict(ransac=[x.cpu() for x in tr["ransac"]],
+               ransac_inliers=int(tr["ransac_inliers"]),
+               widened=int(tr["widened"]),
+               refined=[x.cpu() for x in tr["refined"]])
     return closed, system.arena.to("cpu"), rec, lc
 
 
@@ -3972,10 +4174,11 @@ def small_loop_reference_check(card="cuda"):
     count (each device draws its own sets; on this exact scene every
     all-inlier set gives the drift up to rounding), the widened and refined
     match counts equal, and the refined rotation and translation within
-    LOOP_REF_SIM3. The refined scale is not held: segment B revisits
-    segment A's viewpoints exactly, so the loop keyframes' relative
-    translation is 0 and no reprojection constrains the scale (only the
-    1e-6 damping does); each device's rounding moves it its own way.
+    LOOP_REF_SIM3; on the card ComputeSim3 replays graph S. The refined
+    scale is not held: segment B revisits segment A's viewpoints exactly,
+    so the loop keyframes' relative translation is of the order of 1e-7,
+    the refinement sees the scale only through it (and the 1e-6 damping),
+    and each device's rounding moves it its own way.
 
     The correction, from the CPU's refined Sim3 on both devices: both
     close, keyframe poses within LOOP_REF_CORRECT[0], the landmarks live in
@@ -4360,7 +4563,8 @@ def main() -> int:
     del slam
     small_reloc_reference_check()
     done("save/load and the reloc reference check")
-    seg_row = loop_phase(cfg)
+    seg_row, sim3_eig = loop_phase(cfg)
+    check_sym_eig_sim3(sim3_eig, eig_row)
     done("loop")
     small_loop_reference_check()
     done("the loop reference check")

@@ -170,23 +170,25 @@ def search_by_projection(query_rays_cam: torch.Tensor,
                          nn_ratio: Optional[float] = None,
                          target_free: Optional[torch.Tensor] = None,
                          query_angles: Optional[torch.Tensor] = None,
-                         check_orientation: bool = False) -> MatchResult:
+                         check_orientation: bool = False,
+                         query_chunk: Optional[int] = None) -> MatchResult:
     """Generic projection search.
 
     query_rays_cam: (Q,3) camera-frame directions of projected 3D points.
     Candidates must lie in [level+level_lo_off, level+level_hi_off] and
     within radius_px * scale_factor[level] (as an angle). nn_ratio, when
     given, applies the best/second same-level ratio test; target_free masks
-    frame keypoints still unassociated.
+    frame keypoints still unassociated. ``query_chunk``, when given, takes
+    the (Q, N) distance and gate matrices that many queries at a time: each
+    query's best and second candidates are its own row's, so the result is
+    the same, and the largest temporaries shrink by Q / query_chunk.
     """
     qn = query_rays_cam / torch.clamp(
         torch.linalg.norm(query_rays_cam, dim=-1, keepdim=True), min=1e-12)
     in_fov = qn[:, 2] >= cam.cos_fov_th
     _, qface = C.ray_to_cubemap(cam, qn)
     projectable = in_fov & (qface != C.UNKNOWN_FACE) & query_valid
-
-    dist = hamming_matrix(unpack_descriptors(query_desc),
-                          unpack_descriptors(kp.desc))
+    kp_bits = unpack_descriptors(kp.desc)
 
     lv = query_levels.long()
     # a Python radius stays a scalar: a tensor made from it on the card
@@ -195,16 +197,27 @@ def search_by_projection(query_rays_cam: torch.Tensor,
          else float(radius_px))
     r_eff = r * scale_factors[lv.clamp(0, scale_factors.shape[0] - 1)]
     cos_win = _window_cos(r_eff, cam.fxycxy[0])        # (Q,)
-    ray_dot = qn @ kp.rays.T                            # (Q, N)
-    gate = ray_dot >= cos_win[:, None]
-    klv = kp.level[None, :]
-    gate &= klv >= lv[:, None] + level_lo_off
-    gate &= klv <= lv[:, None] + level_hi_off
-    gate &= kp.valid[None, :] & projectable[:, None]
-    if target_free is not None:
-        gate &= target_free[None, :]
 
-    best_idx, best, second_idx, second = _masked_top2(dist, gate)
+    def top2(q):
+        """``_masked_top2`` of the queries ``q`` (a slice)."""
+        dist = hamming_matrix(unpack_descriptors(query_desc[q]), kp_bits)
+        ray_dot = qn[q] @ kp.rays.T                      # (Q, N)
+        gate = ray_dot >= cos_win[q, None]
+        klv = kp.level[None, :]
+        gate &= klv >= lv[q, None] + level_lo_off
+        gate &= klv <= lv[q, None] + level_hi_off
+        gate &= kp.valid[None, :] & projectable[q, None]
+        if target_free is not None:
+            gate &= target_free[None, :]
+        return _masked_top2(dist, gate)
+
+    n_q = qn.shape[0]
+    if query_chunk is None or query_chunk >= n_q:
+        best_idx, best, second_idx, second = top2(slice(None))
+    else:
+        best_idx, best, second_idx, second = (torch.cat(x) for x in zip(*(
+            top2(slice(lo, lo + query_chunk))
+            for lo in range(0, n_q, query_chunk))))
     ok = best <= th
     if nn_ratio is not None:
         # the ratio applies only when best and runner-up share a level

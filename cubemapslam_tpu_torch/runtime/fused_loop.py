@@ -1,0 +1,196 @@
+"""Loop closing's DetectLoop and ComputeSim3 as captured CUDA graphs.
+
+``FusedLoop`` is the port's counterpart of the JAX package's jitted loop
+stages (``cubemapslam_tpu/runtime/loop_closing.py``:
+``detect_candidates_fused`` :43, ``match_kf_pair`` :66, ``search_by_sim3``
+:92, ``sim3_candidates`` :155, ``refine_sim3`` :173, whose OptimizeSim3 is a
+``lax.fori_loop``, and ``scw_project`` :187), driven there by
+``_try_close`` (:574-619), whose ``sim3_ransac`` (:591) runs outside any
+jit. ``LoopCloser`` runs them through it on the card, as three graphs in a
+pool of their own, captured on first use and replayed on every later call,
+across keyframes and across closures:
+
+* graph D, DetectLoop's program: ``LoopKernels.detect_candidates_fused`` of
+  the new keyframe's slot, packed into the row (flags, candidates, their
+  covisibility groups) that the host reads once; it runs on every keyframe
+  from the tenth;
+* graph M, the keyframe-pair match (``match_kf_pair``) and its count, read
+  once for the gate of 20 matches;
+* graph S, the rest of ComputeSim3: ``LoopKernels.sim3_ransac`` on the
+  given scores (its two Horn eigen-solves are launches of the ``sym_eig``
+  kernel), the SearchBySim3 widening, OptimizeSim3, the covisibility
+  matrix, ``scw_project`` and the current keyframe's covisible set; the
+  RANSAC verdict, the refined inlier count and the S_cw match count come
+  back with that set in one packed read. OptimizeSim3's 15 Gauss-Newton
+  steps sit in the graph unrolled: graph S is captured once a system and
+  replayed whole, where a ``CapturedLoop`` would launch each step from the
+  host. ``scw_project`` takes the landmarks in blocks
+  (``loop_closing.SCW_QUERY_CHUNK``), so that the pool, which the system
+  keeps for its life, does not hold its (L, N) matrices.
+
+The host applies the three gates in the eager order (the RANSAC verdict,
+20 refined inliers, 40 S_cw matches). Graph S also runs its later stages
+when an earlier gate fails: they only read the arena and the static
+inputs, so they change no arena byte and no generator state, and the host
+drops what they computed. ComputeSim3 reads the card twice, where the eager
+path reads up to 4 times, and no eigen-solve waits.
+
+Static inputs. The slots are 0-d device tensors written by fills (each
+stage takes them through ``index_select`` / ``index_fill_``, so no slot is
+baked into a graph). The RANSAC's (n_iters, N) scores are drawn from
+``system.generator`` outside the graphs, after the match gate, as the
+eager ``sim3_ransac`` draws them, and copied into a static buffer, so the
+generator advances as it does eagerly and the graphs give the eager bits.
+Graph S reads graph M's outputs, so M is always replayed before S.
+
+The graphs read the arena and ``system.bow_table`` and write neither: each
+table is checked by ``data_ptr`` before a call and a moved one raises. They
+also read the ``LoopKernels``' own tensors (the level sigmas, the scale
+factors, the camera's), so this object holds the ``LoopKernels`` it was made
+with and runs every part on them. The system owns it (``LoopGraphOwner``,
+which ``CubemapSLAM`` is): it makes it on its loop closer's first request
+on the card, serves it to a loop closer made later with the same
+configuration (whose replays read constants that stay alive) and raises for
+another, and drops it where it replaces what the graphs read
+(``CubemapSLAM.drop_graphs``: ``reset``, ``serialize.load_map``; a
+vocabulary retrain, which replaces the BoW table). The outputs the caller
+keeps are cloned after the replay. The capture machinery, the launch counts
+added back on each replay and the lack of any fallback are
+``CapturedFrame``'s (``runtime/fused_step.py``); on the CPU each part runs
+eagerly on the same static buffers.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from cubemapslam_tpu_torch.runtime.fused_step import CapturedFrame
+
+
+def pack_detection(cand_idx: torch.Tensor, cand_ok: torch.Tensor,
+                   groups: torch.Tensor) -> torch.Tensor:
+    """DetectLoop's result as one int64 row for one read: the flags, the
+    candidates, then their covisibility groups row by row."""
+    return torch.cat([cand_ok.to(torch.int64), cand_idx,
+                      groups.reshape(-1).to(torch.int64)])
+
+
+class FusedLoop(CapturedFrame):
+    """Static buffers, graphs D, M and S and their pool for one system's
+    loop closing on the ``LoopKernels`` ``k``: ``detect(system, slot)``,
+    ``match(system, k_cur, k_loop)`` and ``sim3(system, scores)``."""
+
+    label = "fused loop"
+
+    def __init__(self, k):
+        super().__init__(k.cam.device)
+        self.k = k
+
+    def check_system(self, system) -> None:
+        """``check`` on the arena's tables and the BoW table."""
+        named = [(f"arena.{f}", getattr(system.arena, f))
+                 for f in system.arena._fields]
+        self.check(named + [("bow_table", system.bow_table)])
+
+    def _part_d(self, system) -> List[torch.Tensor]:
+        return [pack_detection(*self.k.detect_candidates_fused(
+            system.arena, system.bow_table, self.inputs["slot"]))]
+
+    def _part_m(self, system) -> List[torch.Tensor]:
+        s = self.inputs
+        idx2, ok = self.k.match_kf_pair(system.arena, s["k_cur"],
+                                        s["k_loop"])
+        return [idx2, ok, ok.sum()]
+
+    def _part_s(self, system) -> List[torch.Tensor]:
+        """Graph S on graph M's matches: (the refined s, R, t, inliers and
+        inlier count, loop_assoc, neigh_pre, the RANSAC's s, R, t, [success,
+        n_inliers, total, the RANSAC's inlier count, the widened match
+        count, neigh_pre...])."""
+        k, a, s = self.k, system.arena, self.inputs
+        kc, kl = s["k_cur"], s["k_loop"]
+        idx2, ok = self.outputs["m"][:2]
+        res = k.sim3_ransac(a, kc, kl, idx2, ok, None, scores=s["scores"])
+        idx2, ok_wide = k.search_by_sim3(a, kc, kl, res.s12, res.R12,
+                                         res.t12, idx2, ok & res.inliers)
+        s12, R12, t12, inl, n_inl = k.refine_sim3(a, kc, kl, idx2, ok_wide,
+                                                  res.s12, res.R12, res.t12)
+        loop_assoc, total, neigh_pre = k.scw_gate(
+            a, kc, kl, (s12, R12, t12), idx2, ok_wide & inl)
+        packed = torch.cat([res.success.reshape(1).to(torch.int64),
+                            n_inl.reshape(1), total.reshape(1),
+                            (ok & res.inliers).sum().reshape(1),
+                            ok_wide.sum().reshape(1),
+                            neigh_pre.to(torch.int64)])
+        return [s12, R12, t12, inl, n_inl, loop_assoc, neigh_pre, res.s12,
+                res.R12, res.t12, packed]
+
+    def detect(self, system, slot: int) -> List[int]:
+        """Graph D on keyframe ``slot``: the packed row, read to the host
+        (one read)."""
+        self.check_system(system)
+        self._fill("slot", slot, torch.int64)
+        return self.run("d", lambda: self._part_d(system))[0].tolist()
+
+    def match(self, system, k_cur: int, k_loop: int) -> int:
+        """Graph M on the pair: the match count, read to the host (one
+        read); the matches stay in the graph's outputs for graph S."""
+        self.check_system(system)
+        self._fill("k_cur", k_cur, torch.int64)
+        self._fill("k_loop", k_loop, torch.int64)
+        return int(self.run("m", lambda: self._part_m(system))[2])
+
+    def sim3(self, system, scores: torch.Tensor):
+        """Graph S on the pair and matches of the last ``match``, with the
+        RANSAC's ``scores``, after one read. Returns ((success, n_inliers,
+        total), the covisible set's flags, (S_cl, loop_assoc, neigh_pre),
+        and the trace of ``LoopCloser.sim3_trace``), the tensors cloned."""
+        self.check_system(system)
+        self._copy("scores", scores)
+        out = [x.clone() for x in self.run("s", lambda: self._part_s(system))]
+        host = out[-1].tolist()
+        trace = dict(ransac=tuple(out[7:10]), ransac_inliers=out[-1][3],
+                     widened=out[-1][4], refined=tuple(out[:5]))
+        return (tuple(host[:3]), host[5:], (tuple(out[:3]), out[5], out[6]),
+                trace)
+
+
+class LoopGraphOwner:
+    """A system's side of its loop graphs: it holds one ``FusedLoop`` and
+    hands it to its loop closer. ``CubemapSLAM`` is one; so is
+    ``chip_smoke.py``'s loop-closing system."""
+
+    _fused_loop: Optional[FusedLoop] = None
+
+    @property
+    def fused_loop(self) -> Optional[FusedLoop]:
+        """The ``FusedLoop``, if one was made."""
+        return self._fused_loop
+
+    def fused_loop_for(self, k) -> Optional[FusedLoop]:
+        """The ``FusedLoop`` for the ``LoopKernels`` ``k`` on a CUDA device
+        (``own_fused_loop``); None elsewhere, where loop closing runs
+        eagerly."""
+        if k.cam.device.type != "cuda":
+            return None
+        return self.own_fused_loop(k)
+
+    def own_fused_loop(self, k) -> FusedLoop:
+        """The ``FusedLoop``, made on ``k`` on first use. One made on other
+        ``LoopKernels`` of the same configuration serves (it runs on its
+        own, which its graphs read); another configuration raises. On the
+        CPU its parts run eagerly on its static buffers."""
+        fl = self._fused_loop
+        if fl is None:
+            fl = self._fused_loop = FusedLoop(k)
+        elif fl.k is not k and fl.k.cfg != k.cfg:
+            raise RuntimeError("the system's FusedLoop was captured for a "
+                               "loop closer of another configuration; drop "
+                               "it (drop_loop_graphs) first")
+        return fl
+
+    def drop_loop_graphs(self) -> None:
+        """Forget the ``FusedLoop``; the next request makes a new one."""
+        self._fused_loop = None

@@ -11,8 +11,12 @@ landmark statistics and the post-loop global BA on the CG solver).
 ``LoopCloser`` is the host state machine.
 
 PyTorch idiom: the arena is updated in place, so ``LoopCloser`` always
-works on ``system.arena`` and keeps no reference across a stage. Keyframe
-slots are host ints (``arena.kf_R[k]`` is a view, no read). The JAX
+works on ``system.arena`` and keeps no reference across a stage. The
+stages of DetectLoop and ComputeSim3 take each keyframe slot as a Python
+int or a 0-d tensor on the arena's device, with the same bits (rows through
+``mapping._at``, writes through ``index_fill_``: ``t[s]`` with a 0-d CUDA
+``s`` would read it to the host), so that ``FusedLoop``'s graphs bake in
+no slot; the correction's stages take host ints. The JAX
 ``lax.top_k`` becomes a stable descending sort and ``jnp.argsort`` a stable
 sort. ``search_and_fuse`` is a Python loop over the corrected keyframes (a
 slot the host knows to be unused is skipped: its masked JAX iteration
@@ -27,16 +31,20 @@ and of two merges with the same loser the later row wins (the rule of
 
 Host reads, counted in ``LoopCloser.reads`` for each ``process`` call:
 detection reads the candidates, their flags and their covisibility groups in
-one packed read. ``_try_close`` reads the pair's match count, the RANSAC
-verdict (whose Horn eigen-solves wait ``sim3.EIGH_WAITS`` more times,
-counted in ``LoopCloser.eigh_waits``), the refined inlier count, and the
-S_cw match count with the current keyframe's covisible set in one read.
+one packed read. Eagerly ``_try_close`` reads the pair's match count, the
+RANSAC verdict, the refined inlier count, and the S_cw match count with the
+current keyframe's covisible set in one read; through ``FusedLoop`` (on the
+card, ``runtime/fused_loop.py``) it reads the match count, then the
+verdict, the refined count, the S_cw count and the covisible set in one
+read. The RANSAC's Horn eigen-solves are ``sym_eig`` launches and wait
+``sim3.EIGH_WAITS`` = 0 more times (counted in ``LoopCloser.eigh_waits``).
 A closure then reads the pose graph's valid-edge count once and the global
 BA's live-observation count once (each solves on its live edges only: a
 masked edge adds exact zeros), the landmark statistics' live count once,
 and synchronizes twice to time the correction and the global BA. On the
-card the two solves' iterations replay CUDA graphs captured in the
-closure (``LoopCloser``), whose captures synchronize once each
+card DetectLoop and ComputeSim3 replay graphs captured once a system, and
+the two solves' iterations replay CUDA graphs captured in the closure
+(``LoopCloser``); each capture synchronizes once
 (``LoopCloser.capture_waits``).
 
 With ``torch.distributed`` initialized over more than one rank, the global
@@ -69,16 +77,24 @@ from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.optim.ba import bundle_adjust
 from cubemapslam_tpu_torch.optim.pose_graph import optimize_essential_graph
 from cubemapslam_tpu_torch.optim.sim3_opt import optimize_sim3
+from cubemapslam_tpu_torch.runtime.fused_loop import pack_detection
 from cubemapslam_tpu_torch.runtime.fused_step import (CAPTURE_WAITS,
                                                       CapturedLoop)
 from cubemapslam_tpu_torch.runtime.kernels import _members
-from cubemapslam_tpu_torch.runtime.mapping import _kf_keypoints, _top
+from cubemapslam_tpu_torch.runtime.mapping import (Slot, _at, _index,
+                                                   _kf_keypoints, _top)
 from cubemapslam_tpu_torch.solvers import sim3 as S3
+from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
 MAX_PREV_LOOPS = 16      # past loop edges in the essential graph
+# scw_project's landmarks a block of the (L, N) distance and gate matrices
+# (matching.search_by_projection's query_chunk): at L = 65536, N = 2000 the
+# unblocked matrices held about 2 GiB of graph S's pool for the system's life
+SCW_QUERY_CHUNK = 8192
 MAX_NEIGH = 16           # corrected keyframes that SearchAndFuse visits
 MAX_LOOP_LANDMARKS = 4096
 POSE_GRAPH_ITERS = 12
+N_CANDIDATES = 8         # DetectLoop's candidates (PL.detect_candidates)
 
 
 def _ones_like(x: torch.Tensor) -> torch.Tensor:
@@ -117,13 +133,13 @@ class LoopKernels:
         self.log_scale = math.log(cfg.scale_factor)
 
     def _neighbours(self, arena: SM.MapArena, covis: torch.Tensor,
-                    k: int) -> torch.Tensor:
+                    k: Slot) -> torch.Tensor:
         """(K,) bool: keyframe k and its covisible set."""
-        nb = (covis[k] >= self.cfg.covisibility_weight_th) & arena.kf_valid
-        nb[k].fill_(True)
-        return nb
+        nb = (_at(covis, k) >= self.cfg.covisibility_weight_th) \
+            & arena.kf_valid
+        return nb.index_fill_(0, _index(k, nb.device), True)
 
-    def _member_landmarks(self, arena: SM.MapArena, covis, k: int):
+    def _member_landmarks(self, arena: SM.MapArena, covis, k: Slot):
         """(L,) bool: the landmarks keyframe k and its covisible set observe
         (mvpLoopMapPoints)."""
         nb = self._neighbours(arena, covis, k)
@@ -133,48 +149,48 @@ class LoopKernels:
                         arena.n_lm_cap) & arena.lm_valid
 
     def detect_candidates_fused(self, arena: SM.MapArena,
-                                bow_table: torch.Tensor, slot: int):
+                                bow_table: torch.Tensor, slot: Slot):
         """DetectLoop phase 1 (``loop_closing.py:43-64``): the covisible
         exclusion set, minScore from the covisible BoW scores, candidate
         selection. Returns (cand_idx (8,), cand_ok (8,), cand_groups (8, K)
         the candidates' covisibility groups, each with itself)."""
         covis = SM.covisibility_matrix(arena)
-        nb = (covis[slot] >= self.cfg.covisibility_weight_th) \
+        nb = (_at(covis, slot) >= self.cfg.covisibility_weight_th) \
             & arena.kf_valid
-        exclude = nb.clone()
-        exclude[slot].fill_(True)
-        scores = PL.bow_scores(bow_table[slot], bow_table)
+        exclude = nb.clone().index_fill_(0, _index(slot, nb.device), True)
+        query = _at(bow_table, slot)
+        scores = PL.bow_scores(query, bow_table)
         min_score = torch.where(
             nb.any(), torch.where(nb, scores,
                                   torch.full_like(scores, math.inf)).min(),
             torch.zeros_like(scores[0]))
         cand_idx, cand_ok = PL.detect_candidates(
-            bow_table[slot], bow_table, arena.kf_valid, exclude, covis,
-            min_score)
+            query, bow_table, arena.kf_valid, exclude, covis, min_score)
         groups = (covis[cand_idx] > 0).scatter_(1, cand_idx[:, None], True)
         return cand_idx, cand_ok, groups
 
-    def match_kf_pair(self, arena: SM.MapArena, k1: int, k2: int):
+    def match_kf_pair(self, arena: SM.MapArena, k1: Slot, k2: Slot):
         """Landmark-feature matching between two keyframes (the SearchByBoW
         keyframe pair as a full gated product, ``loop_closing.py:66-90``).
         Returns (per-k1-feature index into k2, ok)."""
-        lm1, lm2 = arena.kf_obs_lm[k1], arena.kf_obs_lm[k2]
-        has1 = (lm1 >= 0) & arena.kf_kp_valid[k1] \
+        lm1, lm2 = _at(arena.kf_obs_lm, k1), _at(arena.kf_obs_lm, k2)
+        has1 = (lm1 >= 0) & _at(arena.kf_kp_valid, k1) \
             & arena.lm_valid[lm1.clamp(min=0)]
-        has2 = (lm2 >= 0) & arena.kf_kp_valid[k2] \
+        has2 = (lm2 >= 0) & _at(arena.kf_kp_valid, k2) \
             & arena.lm_valid[lm2.clamp(min=0)]
-        dist = M.hamming_matrix(M.unpack_descriptors(arena.kf_desc[k1]),
-                                M.unpack_descriptors(arena.kf_desc[k2]))
+        dist = M.hamming_matrix(
+            M.unpack_descriptors(_at(arena.kf_desc, k1)),
+            M.unpack_descriptors(_at(arena.kf_desc, k2)))
         gate = has1[:, None] & has2[None, :]
         best_idx, best, _, second = M._masked_top2(dist, gate)
         ok = (best <= self.cfg.th_low) & (best < 0.75 * second)
-        ok = M.rotation_consistency(arena.kf_angle[k1],
-                                    arena.kf_angle[k2][best_idx], ok,
+        ok = M.rotation_consistency(_at(arena.kf_angle, k1),
+                                    _at(arena.kf_angle, k2)[best_idx], ok,
                                     bin_deg=float(self.cfg.histo_length))
         ok = M.resolve_one_to_one(best_idx, best, ok, arena.n_feat)
         return best_idx, ok
 
-    def search_by_sim3(self, arena: SM.MapArena, k1: int, k2: int,
+    def search_by_sim3(self, arena: SM.MapArena, k1: Slot, k2: Slot,
                        s12, R12, t12, idx2_in, ok_in):
         """Widen the keyframe-pair matches with a Sim3 (SearchBySim3,
         ``loop_closing.py:92-153``): each keyframe's landmarks projected
@@ -183,15 +199,15 @@ class LoopKernels:
         existing matches, whose features both directions exclude."""
         N = arena.n_feat
         kp1, kp2 = _kf_keypoints(arena, k1), _kf_keypoints(arena, k2)
-        lm1, lm2 = arena.kf_obs_lm[k1], arena.kf_obs_lm[k2]
+        lm1, lm2 = _at(arena.kf_obs_lm, k1), _at(arena.kf_obs_lm, k2)
         lm1s, lm2s = lm1.clamp(min=0), lm2.clamp(min=0)
-        has1 = (lm1 >= 0) & arena.kf_kp_valid[k1] & arena.lm_valid[lm1s]
-        has2 = (lm2 >= 0) & arena.kf_kp_valid[k2] & arena.lm_valid[lm2s]
+        has1 = (lm1 >= 0) & kp1.valid & arena.lm_valid[lm1s]
+        has2 = (lm2 >= 0) & kp2.valid & arena.lm_valid[lm2s]
         am1 = ok_in
         am2 = _members(torch.where(ok_in, idx2_in,
                                    torch.full_like(idx2_in, -1)), N)
         # direction A: KF2 landmarks -> KF1 features
-        X2c2 = G.se3_apply(arena.kf_R[k2], arena.kf_t[k2],
+        X2c2 = G.se3_apply(_at(arena.kf_R, k2), _at(arena.kf_t, k2),
                            arena.lm_pos[lm2s])
         X2c1 = G.sim3_apply(s12, R12, t12, X2c2)
         lvl_a = SM.predict_scale(torch.linalg.norm(X2c1, dim=-1),
@@ -203,7 +219,7 @@ class LoopKernels:
             th=float(self.cfg.th_high))
         # direction B: KF1 landmarks -> KF2 features
         S21 = G.sim3_inverse(s12, R12, t12)
-        X1c1 = G.se3_apply(arena.kf_R[k1], arena.kf_t[k1],
+        X1c1 = G.se3_apply(_at(arena.kf_R, k1), _at(arena.kf_t, k1),
                            arena.lm_pos[lm1s])
         X1c2 = G.sim3_apply(*S21, X1c1)
         lvl_b = SM.predict_scale(torch.linalg.norm(X1c2, dim=-1),
@@ -223,22 +239,37 @@ class LoopKernels:
             agree, resB.idx, torch.zeros_like(resB.idx)))
         return idx2_out, ok_in | agree
 
-    def sim3_candidates(self, arena: SM.MapArena, k1: int, k2: int, idx2,
+    def sim3_candidates(self, arena: SM.MapArena, k1: Slot, k2: Slot, idx2,
                         ok):
         """Matched landmark pairs in each keyframe's camera frame for the
         Sim3 solver (``loop_closing.py:155-171``)."""
         n_lev = self.cfg.n_levels
-        lm1 = arena.kf_obs_lm[k1].clamp(min=0)
-        lm2 = arena.kf_obs_lm[k2][idx2].clamp(min=0)
-        p1 = G.se3_apply(arena.kf_R[k1], arena.kf_t[k1], arena.lm_pos[lm1])
-        p2 = G.se3_apply(arena.kf_R[k2], arena.kf_t[k2], arena.lm_pos[lm2])
-        uv1 = arena.kf_uv[k1]
-        uv2 = arena.kf_uv[k2][idx2]
-        s1 = self.level_sigma2[arena.kf_level[k1].clamp(0, n_lev - 1)]
-        s2 = self.level_sigma2[arena.kf_level[k2][idx2].clamp(0, n_lev - 1)]
+        lm1 = _at(arena.kf_obs_lm, k1).clamp(min=0)
+        lm2 = _at(arena.kf_obs_lm, k2)[idx2].clamp(min=0)
+        p1 = G.se3_apply(_at(arena.kf_R, k1), _at(arena.kf_t, k1),
+                         arena.lm_pos[lm1])
+        p2 = G.se3_apply(_at(arena.kf_R, k2), _at(arena.kf_t, k2),
+                         arena.lm_pos[lm2])
+        uv1 = _at(arena.kf_uv, k1)
+        uv2 = _at(arena.kf_uv, k2)[idx2]
+        s1 = self.level_sigma2[_at(arena.kf_level, k1).clamp(0, n_lev - 1)]
+        s2 = self.level_sigma2[
+            _at(arena.kf_level, k2)[idx2].clamp(0, n_lev - 1)]
         return p1, p2, uv1, uv2, s1, s2
 
-    def refine_sim3(self, arena: SM.MapArena, k1: int, k2: int, idx2, ok,
+    def sim3_ransac(self, arena: SM.MapArena, k1: Slot, k2: Slot, idx2, ok,
+                    generator, scores=None) -> S3.Sim3Result:
+        """The Sim3 RANSAC of the matched pairs (``loop_closing.py:585-
+        592``): ``sim3_candidates``, then ``solvers.sim3.sim3_ransac``
+        (its Horn solves on ``sym_eig``) with its minimal sets from
+        ``scores`` if given, else drawn from ``generator``."""
+        p1, p2, uv1, uv2, s1, s2 = self.sim3_candidates(arena, k1, k2, idx2,
+                                                        ok)
+        return S3.sim3_ransac(self.cam, generator, p1, p2, uv1, uv2, s1, s2,
+                              ok, n_iters=self.cfg.sim3_ransac_iters,
+                              fix_scale=False, min_inliers=20, scores=scores)
+
+    def refine_sim3(self, arena: SM.MapArena, k1: Slot, k2: Slot, idx2, ok,
                     s12, R12, t12):
         """OptimizeSim3 over the matched pairs (``loop_closing.py:173-185``).
         Returns (s, R, t, inliers, n_inliers)."""
@@ -246,11 +277,12 @@ class LoopKernels:
                                                         ok)
         return optimize_sim3(
             self.cam, s12, R12, t12, p1, p2,
-            C.cubemap_uv_to_in_face(self.cam, uv1), arena.kf_face[k1],
-            C.cubemap_uv_to_in_face(self.cam, uv2), arena.kf_face[k2][idx2],
+            C.cubemap_uv_to_in_face(self.cam, uv1), _at(arena.kf_face, k1),
+            C.cubemap_uv_to_in_face(self.cam, uv2),
+            _at(arena.kf_face, k2)[idx2],
             1.0 / s1, 1.0 / s2, ok, th2=10.0, fix_scale=False)
 
-    def scw_project(self, arena: SM.MapArena, k_cur: int, k_loop: int,
+    def scw_project(self, arena: SM.MapArena, k_cur: Slot, k_loop: Slot,
                     s_cl, R_cl, t_cl, idx2, ok, covis=None):
         """The loop neighbourhood's landmarks projected into the current
         keyframe through the corrected S_cw (radius 10 x scale at the
@@ -262,14 +294,15 @@ class LoopKernels:
         member = self._member_landmarks(arena, covis, k_loop)
         # the refined matches: current feature i -> loop feature idx2[i] ->
         # its landmark
-        cur_match = torch.where(ok, arena.kf_obs_lm[k_loop][idx2],
+        cur_match = torch.where(ok, _at(arena.kf_obs_lm, k_loop)[idx2],
                                 torch.full_like(idx2, SM.NO_LM))
         cur_match = torch.where(
             (cur_match >= 0) & arena.lm_valid[cur_match.clamp(min=0)],
             cur_match, torch.full_like(cur_match, SM.NO_LM))
         already = _members(cur_match, L)
         S_cw = G.sim3_compose(s_cl, R_cl, t_cl, _ones_like(s_cl),
-                              arena.kf_R[k_loop], arena.kf_t[k_loop])
+                              _at(arena.kf_R, k_loop),
+                              _at(arena.kf_t, k_loop))
         Xc = G.sim3_apply(*S_cw, arena.lm_pos)          # (L,3)
         lvl = SM.predict_scale(torch.linalg.norm(Xc, dim=-1),
                                arena.lm_max_dist, self.log_scale,
@@ -278,13 +311,26 @@ class LoopKernels:
             Xc, arena.lm_desc, lvl, member & ~already,
             _kf_keypoints(arena, k_cur), self.cam, self.scale_factors, 10.0,
             level_lo_off=-1, level_hi_off=0, th=float(self.cfg.th_low),
-            target_free=cur_match < 0)
+            target_free=cur_match < 0, query_chunk=SCW_QUERY_CHUNK)
         lm_ids = torch.arange(L, device=Xc.device)
         loop_assoc = cur_match.scatter_reduce(
             0, res.idx, torch.where(res.ok, lm_ids,
                                     torch.full_like(lm_ids, SM.NO_LM)),
             reduce="amax", include_self=True)
         return loop_assoc, (loop_assoc >= 0).sum()
+
+    def scw_gate(self, arena: SM.MapArena, k_cur: Slot, k_loop: Slot, sim3,
+                 idx2, ok):
+        """``scw_project`` of the refined S_cl on the covisibility matrix,
+        with the current keyframe's covisible set before fusion
+        (mvpCurrentConnectedKFs, ``loop_closing.py:620-623``). Returns
+        (loop_assoc, the total match count, that set (K,) bool)."""
+        covis = SM.covisibility_matrix(arena)
+        loop_assoc, total = self.scw_project(arena, k_cur, k_loop, *sim3,
+                                             idx2, ok, covis=covis)
+        neigh_pre = (_at(covis, k_cur) >= self.cfg.covisibility_weight_th) \
+            & arena.kf_valid
+        return loop_assoc, total, neigh_pre
 
     def loop_member_landmarks(self, arena: SM.MapArena, max_sel: int,
                               k_loop: int):
@@ -496,23 +542,34 @@ class LoopCloser:
     """The host state machine of loop closing (``loop_closing.py:489-712``):
     ``process(system, slot)`` on each new keyframe. ``system`` has the
     ``arena``, the keyframe counter ``n_kf``, the ``bow_table`` and the
-    RANSAC ``generator``. ``reads`` and ``eigh_waits`` are the last call's
-    host reads and eigen-solve waits; ``timings`` the wall seconds of each
-    event by stage (detect, sim3, correct, gba).
+    RANSAC ``generator``, and may hand out loop graphs
+    (``fused_loop_for``, ``runtime/fused_loop.py::LoopGraphOwner``).
+    ``reads`` and ``eigh_waits`` are the last call's host reads and
+    eigen-solve waits; ``timings`` the wall seconds of each event by stage
+    (detect, sim3, correct, gba); ``sim3_trace`` the last ComputeSim3's
+    device tensors as far as it got (the RANSAC's s, R, t, its inlier
+    count, the widened match count, the refinement's s, R, t, inliers and
+    count), read by nothing here.
 
-    The closure's two iterative solves, the essential graph's 12
-    Gauss-Newton iterations and the global BA's 15 LM steps, each run
-    through a ``CapturedLoop`` made for that solve and dropped after it:
-    on the card the first iteration runs eagerly, is captured as one CUDA
-    graph and is replayed for the others, with the same bits as the eager
-    iterations (the live-edge counts fix the shapes only within one
-    closure, so each closure captures anew). ``graphs = False``, or a
-    ``system`` whose ``stage_times`` is set (``CubemapSLAM``'s eager
-    switch), runs them as Python loops of eager launches; so does the
-    sharded global BA. ``graph_counts`` holds the last call's captures,
-    replays, capture ms and pool MiB, and ``capture_waits`` the host waits
-    of its captures (``fused_step.CAPTURE_WAITS`` each); a failed capture
-    or replay raises."""
+    On the card DetectLoop and ComputeSim3 replay the captured graphs D, M
+    and S of the ``FusedLoop`` that the system owns and hands out
+    (``system.fused_loop_for``), each captured on its first call and
+    replayed on every later one, across keyframes and closures; a system
+    that hands out none (one without ``fused_loop_for``, or any off the
+    card) runs them eagerly. The closure's two iterative
+    solves, the essential graph's 12 Gauss-Newton iterations and the
+    global BA's 15 LM steps, each run through a ``CapturedLoop`` made for
+    that solve and dropped after it: on the card the first iteration runs
+    eagerly, is captured as one CUDA graph and is replayed for the others,
+    with the same bits as the eager iterations (the live-edge counts fix
+    the shapes only within one closure, so each closure captures anew).
+    ``graphs = False``, or a ``system`` whose ``stage_times`` is set
+    (``CubemapSLAM``'s eager switch), runs all of them as eager launches;
+    so does the sharded global BA. ``graph_counts`` holds the last call's
+    captures, replays, capture ms and pool MiB of all these graphs, and
+    ``capture_waits`` the host waits of its captures
+    (``fused_step.CAPTURE_WAITS`` each); a failed capture or replay
+    raises."""
 
     def __init__(self, cfg: SlamConfig, cam: CubemapCamera):
         self.cfg, self.cam = cfg, cam
@@ -522,6 +579,7 @@ class LoopCloser:
         self.last_loop_counter = -100  # keyframe counter at the last loop
         self.loop_edges: List[Tuple[int, int]] = []
         self.timings: dict = {}
+        self.sim3_trace: dict = {}
         self.graphs = True
         self._reset_counts()
 
@@ -530,25 +588,49 @@ class LoopCloser:
         self.graph_counts = dict(captures=0, replays=0, capture_ms=0.0,
                                  capture_mib=0.0)
 
+    def _eager(self, system) -> bool:
+        """Whether every loop stage runs eagerly: ``graphs`` off, or a
+        ``system`` that times its stages."""
+        return not self.graphs \
+            or getattr(system, "stage_times", None) is not None
+
     def _loop(self, system):
         """The runner of one solve's iterations: a new ``CapturedLoop``,
-        or None (eager) when ``graphs`` is off or ``system`` times its
-        stages."""
-        if not self.graphs or getattr(system, "stage_times", None) is not None:
+        or None (eager)."""
+        if self._eager(system):
             return None
         return CapturedLoop(self.cam.device)
+
+    def _fused_loop(self, system):
+        """The ``FusedLoop`` that the system hands this closer
+        (``system.fused_loop_for``), or None: eagerly (``_eager``), or where
+        the system hands out none."""
+        if self._eager(system):
+            return None
+        ask = getattr(system, "fused_loop_for", None)
+        return None if ask is None else ask(self.k)
+
+    @staticmethod
+    def _fused_counts(fl):
+        if fl is None:
+            return (0, 0, 0.0, 0.0)
+        return (fl.captures, fl.replays, fl.capture_ms, fl.capture_mib)
 
     def _count(self, loop) -> None:
         """Add one solve's captures, replays, capture ms, pool MiB and
         capture waits to the call's counts."""
         if loop is None:
             return
+        self._add_counts(loop.captures, loop.replays, loop.capture_ms,
+                         loop.capture_mib)
+
+    def _add_counts(self, captures, replays, ms, mib) -> None:
         c = self.graph_counts
-        c["captures"] += loop.captures
-        c["replays"] += loop.replays
-        c["capture_ms"] += loop.capture_ms
-        c["capture_mib"] += loop.capture_mib
-        self.capture_waits += loop.captures * CAPTURE_WAITS
+        c["captures"] += captures
+        c["replays"] += replays
+        c["capture_ms"] += ms
+        c["capture_mib"] += mib
+        self.capture_waits += captures * CAPTURE_WAITS
 
     def _sync(self) -> None:
         if self.cam.device.type == "cuda":
@@ -569,20 +651,30 @@ class LoopCloser:
         """DetectLoop + ComputeSim3 + CorrectLoop for a new keyframe in
         ``slot``. Returns True if a loop was closed."""
         self._reset_counts()
+        fl = self._fused_loop(system)
+        before = self._fused_counts(fl)
+        try:
+            return self._process(system, slot, fl)
+        finally:
+            self._add_counts(*(b - a for a, b in
+                               zip(before, self._fused_counts(fl))))
+
+    def _process(self, system, slot: int, fl) -> bool:
         # >= 10 keyframes in all and since the last loop, on the monotonic
         # counter (slots are recycled)
         if system.n_kf < 10 or system.n_kf - self.last_loop_counter < 10:
             return False
         t0 = time.perf_counter()
         with record_function("loop.detect"):
-            cand_idx, cand_ok, groups = self.k.detect_candidates_fused(
-                system.arena, system.bow_table, slot)
-            n = cand_idx.shape[0]
-            host = torch.cat([cand_ok.to(torch.int64), cand_idx,
-                              groups.reshape(-1).to(torch.int64)]).tolist()
+            if fl is None:
+                host = pack_detection(*self.k.detect_candidates_fused(
+                    system.arena, system.bow_table, slot)).tolist()
+            else:
+                host = fl.detect(system, slot)
             self.reads += 1
         self._lap("detect", t0)
-        K = groups.shape[1]
+        n = N_CANDIDATES
+        K = len(host) // n - 2
         ok = host[:n]
         if not any(ok):
             self.consistent_groups = []
@@ -636,47 +728,77 @@ class LoopCloser:
     def _compute_sim3(self, system, k_cur: int, k_loop: int):
         """ComputeSim3 (``loop_closing.py:577-619``): the keyframe-pair
         match, RANSAC, the widening, the refinement and the S_cw gate, each
-        gate on one read. Returns (S_cl, loop_assoc, the current keyframe's
-        covisible set as host slots) or None."""
-        cfg, k = self.cfg, self.k
-        arena = system.arena
-        idx2, ok = k.match_kf_pair(arena, k_cur, k_loop)
+        gate on one read (through the system's ``FusedLoop``'s graphs M and
+        S, two reads in all). Returns (S_cl, loop_assoc, the current
+        keyframe's covisible set, the same as host slots) or None."""
+        self.sim3_trace = {}
+        fl = self._fused_loop(system)
+        if fl is not None:
+            return self._compute_sim3_graphs(fl, system, k_cur, k_loop)
+        k, arena, trace = self.k, system.arena, self.sim3_trace
+        with record_function("loop.sim3.match"):
+            idx2, ok = k.match_kf_pair(arena, k_cur, k_loop)
+            n_match = int(ok.sum())
         self.reads += 1
-        if int(ok.sum()) < 20:
+        if n_match < 20:
             return None
-        p1, p2, uv1, uv2, s1, s2 = k.sim3_candidates(arena, k_cur, k_loop,
-                                                     idx2, ok)
-        res = S3.sim3_ransac(self.cam, system.generator, p1, p2, uv1, uv2,
-                             s1, s2, ok, n_iters=cfg.sim3_ransac_iters,
-                             fix_scale=False, min_inliers=20)
+        with record_function("loop.sim3.ransac"):
+            res = k.sim3_ransac(arena, k_cur, k_loop, idx2, ok,
+                                system.generator)
+            success = bool(res.success)
         self.reads += 1
         self.eigh_waits += S3.EIGH_WAITS
-        if not bool(res.success):
+        if not success:
             return None
         # widen the match set with the RANSAC Sim3 before the refinement
-        idx2, ok_wide = k.search_by_sim3(arena, k_cur, k_loop, res.s12,
-                                         res.R12, res.t12, idx2,
-                                         ok & res.inliers)
-        s, R, t, inl, n_inl = k.refine_sim3(arena, k_cur, k_loop, idx2,
-                                            ok_wide, res.s12, res.R12,
-                                            res.t12)
+        kept = ok & res.inliers
+        with record_function("loop.sim3.widen"):
+            idx2, ok_wide = k.search_by_sim3(arena, k_cur, k_loop, res.s12,
+                                             res.R12, res.t12, idx2, kept)
+        trace.update(ransac=(res.s12, res.R12, res.t12),
+                     ransac_inliers=kept.sum(), widened=ok_wide.sum())
+        with record_function("loop.sim3.refine"):
+            s, R, t, inl, n_inl = trace["refined"] = k.refine_sim3(
+                arena, k_cur, k_loop, idx2, ok_wide, res.s12, res.R12,
+                res.t12)
+            n_inl = int(n_inl)
         self.reads += 1
-        if int(n_inl) < 20:
+        if n_inl < 20:
             return None
         # the S_cw projection gate, read with the current keyframe's
         # covisible set before fusion (mvpCurrentConnectedKFs)
-        covis = SM.covisibility_matrix(arena)
-        loop_assoc, total = k.scw_project(arena, k_cur, k_loop, s, R, t,
-                                          idx2, ok_wide & inl, covis=covis)
-        neigh_pre = (covis[k_cur] >= cfg.covisibility_weight_th) \
-            & arena.kf_valid
-        host = torch.cat([total.reshape(1),
-                          neigh_pre.to(torch.int64)]).tolist()
+        with record_function("loop.sim3.scw"):
+            loop_assoc, total, neigh_pre = k.scw_gate(
+                arena, k_cur, k_loop, (s, R, t), idx2, ok_wide & inl)
+            host = torch.cat([total.reshape(1),
+                              neigh_pre.to(torch.int64)]).tolist()
         self.reads += 1
         if host[0] < 40:
             return None
         neigh_np = [i for i, v in enumerate(host[1:]) if v]
         return (s, R, t), loop_assoc, neigh_pre, neigh_np
+
+    def _compute_sim3_graphs(self, fl, system, k_cur: int, k_loop: int):
+        """``_compute_sim3`` through ``FusedLoop``: graph M and its read,
+        the gate of 20 matches, the RANSAC's scores drawn from
+        ``system.generator`` (as the eager RANSAC draws them), graph S and
+        its read, then the three gates in the eager order."""
+        n_match = fl.match(system, k_cur, k_loop)
+        self.reads += 1
+        if n_match < 20:
+            return None
+        scores = draw_scores(system.generator, self.cfg.sim3_ransac_iters,
+                             system.arena.n_feat, self.cam.device)
+        (success, n_inl, total), neigh, (sim3, loop_assoc, neigh_pre), \
+            trace = fl.sim3(system, scores)
+        self.reads += 1
+        if success:
+            self.sim3_trace = trace
+        self.eigh_waits += S3.EIGH_WAITS
+        if not success or n_inl < 20 or total < 40:
+            return None
+        neigh_np = [i for i, v in enumerate(neigh) if v]
+        return sim3, loop_assoc, neigh_pre, neigh_np
 
     def _correct(self, system, k_cur: int, k_loop: int, sim3, loop_assoc,
                  neigh_pre, neigh_np) -> None:

@@ -29,7 +29,9 @@ BoW row, its mapping step and a deferred BA add none, because the mapping
 kernels mask where the JAX package branches on the device. Loop closing adds
 its own (``runtime/loop_closing.py``): from the tenth keyframe on, the loop
 detector reads its candidates once a keyframe; a consistent candidate adds
-the reads of ComputeSim3 and the eigen-solve waits of Sim3 RANSAC, and a
+the reads of ComputeSim3 (2 on the card, where DetectLoop and ComputeSim3
+replay ``FusedLoop``'s graphs, ``runtime/fused_loop.py``; up to 4 eagerly;
+the Sim3 RANSAC's eigen-solves wait ``sim3.EIGH_WAITS`` = 0 times), and a
 closure those of the correction and the global BA. An
 initialization attempt reads its keypoint count, its match count and the
 RANSAC verdict, and the SVDs of the essential solver wait 6 times more
@@ -63,6 +65,7 @@ from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import (Keypoints,
                                                        build_extractor)
+from cubemapslam_tpu_torch.runtime.fused_loop import LoopGraphOwner
 from cubemapslam_tpu_torch.runtime.fused_mapping import FusedMapping
 from cubemapslam_tpu_torch.runtime.fused_reloc import FusedReloc
 from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES
@@ -96,7 +99,7 @@ class InitRef(NamedTuple):
     timestamp: float
 
 
-class CubemapSLAM(MapTracker):
+class CubemapSLAM(MapTracker, LoopGraphOwner):
     """Monocular cubemap SLAM from the first frame of a sequence
     (``system.py:65-160``), on ``device`` (the card by default; without one
     it raises; pass ``"cpu"`` for the plain versions). RANSAC draws from a
@@ -111,10 +114,12 @@ class CubemapSLAM(MapTracker):
     and its keyframe insertion with the mapping step, or its deferred BA,
     replays ``FusedMapping``'s (``runtime/fused_mapping.py``; rows carry
     ``graph_mapping_captures``, ``graph_mapping_replays``).
-    A loop closure on the card runs its two solves' iterations through
-    captured CUDA graphs (``LoopCloser``; rows carry
-    ``graph_loop_captures``, ``graph_loop_replays`` and
-    ``graph_loop_capture_waits``).
+    Loop closing on the card replays the graphs of the ``FusedLoop`` that
+    the system owns and hands its loop closer (``LoopGraphOwner``,
+    ``runtime/fused_loop.py``) for DetectLoop and ComputeSim3, and runs a
+    closure's two solves' iterations through captured CUDA graphs
+    (``LoopCloser``; rows carry ``graph_loop_captures``,
+    ``graph_loop_replays`` and ``graph_loop_capture_waits``).
     With ``stage_times`` set to a dict every frame, its loop closure
     included, runs eagerly, and each
     stage (``extract``, ``init``, ``track``, ``insert+mapping``,
@@ -183,11 +188,13 @@ class CubemapSLAM(MapTracker):
     # ------------------------------------------------------------------
 
     def drop_graphs(self) -> None:
-        """Forget the captured tracked frame and the captured mapping and
-        relocalization graphs; the next graph frame captures anew."""
+        """Forget the captured tracked frame and the captured mapping,
+        relocalization and loop graphs; the next graph frame captures
+        anew."""
         super().drop_graphs()
         self._fused_mapping = None
         self._fused_reloc = None
+        self.drop_loop_graphs()
 
     @property
     def fused_mapping(self) -> Optional[FusedMapping]:
@@ -705,8 +712,8 @@ class CubemapSLAM(MapTracker):
         descriptors when ``vocab_retrain_keyframes`` are live, then
         recompute every BoW row. ``live_kf`` is the count after the
         insertion (the JAX package reads ``kf_valid`` for it). The new
-        vocabulary and BoW table are new tensors, so the mapping graphs,
-        which read them, are dropped."""
+        vocabulary and BoW table are new tensors, so the mapping and loop
+        graphs, which read them, are dropped."""
         if not self._retrain_due(live_kf):
             return
         a = self.arena
@@ -720,6 +727,7 @@ class CubemapSLAM(MapTracker):
         self._vocab_is_bootstrap = False
         self.bow_table = self._recompute_bow_table()
         self._fused_mapping = None
+        self.drop_loop_graphs()
 
     def _recompute_bow_table(self) -> torch.Tensor:
         """Every slot's BoW row, in batches of ``BOW_CHUNK_SLOTS`` slots;

@@ -2,9 +2,9 @@
 (``cubemapslam_tpu/solvers/horn.py:18``): the optimal rotation is the
 eigenvector of the largest eigenvalue of the 4x4 quaternion N-matrix built
 from the cross-covariance of the demeaned point sets. The eigen-solve is
-``eigh``: ``torch.linalg.eigh`` by default (the Sim3 RANSAC of loop
-closing and the trajectory alignment), which waits for the card on a CUDA
-tensor; the bearing EPnP passes ``solvers.sym_eig``'s solve, which does
+``eigh``: ``torch.linalg.eigh`` by default (the trajectory alignment),
+which waits for the card on a CUDA tensor; the bearing EPnP and the Sim3
+RANSAC of loop closing pass ``solvers.sym_eig``'s solve, which does
 not."""
 
 from __future__ import annotations

@@ -12,33 +12,41 @@ dimension here. A hypothesis gathers its 3 points before Horn's alignment
 the result is the same up to summation order); the refit uses all N points
 weighted by the inlier mask.
 
-Horn's eigen-solves are ``torch.linalg.eigh`` (``horn_alignment``'s
-default), which reads its error flag back to the host on a CUDA tensor:
-on the card the batch of hypotheses' 4x4 Horn matrices waits once and the
-refit's single 4x4 twice, so ``sim3_ransac`` makes the host wait
-``EIGH_WAITS`` = 3 times (``scripts/torch_eigh_waits.py`` reads it on a
-card); on CPU tensors the solves run on the host, with no device to wait
-for. (The bearing EPnP's Horn uses the ``sym_eig`` kernel, which waits for
-nothing; moving this one to it would move the loop closure's bits.) For 3
-points that are not collinear the top eigenvalue of Horn's matrix is
-simple, so each hypothesis is the same rotation in every backend.
+Horn's eigen-solves (``jnp.linalg.eigh`` in the JAX package,
+``solvers/horn.py:46``) go through ``eigh``, by default
+``solvers.sym_eig.sym_eig``: the hypotheses' (n_iters, 4, 4) batch and the
+refit's single 4x4. On CUDA tensors each is one launch of the hand-written
+batched Jacobi kernel (``csrc/sym_eig.cu``), which reads nothing back, so
+``sim3_ransac`` makes the host wait ``EIGH_WAITS`` = 0 times and a CUDA
+graph can hold it (``runtime/fused_loop.py``); on CPU tensors they are
+``torch.linalg.eigh`` on the host (``eigh_nan``), where nothing waits on a
+device. (With ``torch.linalg.eigh`` on the card one call waited 3 times:
+the batch once, the refit twice; ``scripts/torch_eigh_waits.py`` reads both
+solvers on a card.) The minimal sets are selected from (n_iters, N) uniform
+scores (``solvers/sampling.py``), which the caller may draw itself and
+hand in, so that the draw stays outside a graph. For 3 points that are not
+collinear the top eigenvalue of Horn's matrix is simple, so each
+hypothesis is the same rotation in every backend.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from cubemapslam_tpu_torch import camera as C
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.solvers.horn import horn_alignment
-from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
+from cubemapslam_tpu_torch.solvers.sampling import (draw_scores,
+                                                    select_minimal_sets)
+from cubemapslam_tpu_torch.solvers.sym_eig import sym_eig
 
 MIN_SET = 3
-# host waits of one sim3_ransac on CUDA tensors: the batched Horn eigh once,
-# the refit's single 4x4 eigh twice (on CPU tensors: no device to wait for)
-EIGH_WAITS = 3
+# host waits of one sim3_ransac on CUDA tensors, in its 2 eigen-solves (the
+# sym_eig kernel reads nothing back; torch.linalg.eigh waited 3 times
+# there). On CPU tensors the solves run on the host: no device to wait for.
+EIGH_WAITS = 0
 
 
 class Sim3Result(NamedTuple):
@@ -77,12 +85,13 @@ def _check_inliers(cam: CubemapCamera, s12, R12, t12, p1, p2, uv1, uv2,
 
 
 def sim3_hypotheses(p1: torch.Tensor, p2: torch.Tensor, valid: torch.Tensor,
-                    sets: torch.Tensor, fix_scale: bool = False):
+                    sets: torch.Tensor, fix_scale: bool = False,
+                    eigh: Callable = sym_eig):
     """Horn's Sim3 of each minimal set (n_iters, 3): (s, R, t) batched, the
     scale floored at 1e-6 (``sim3.py:64-67``)."""
     s, R, t = horn_alignment(p1[sets], p2[sets],
                              weights=valid[sets].to(p1.dtype),
-                             fix_scale=fix_scale)
+                             fix_scale=fix_scale, eigh=eigh)
     return torch.clamp(s, min=1e-6), R, t
 
 
@@ -93,18 +102,26 @@ def sim3_ransac(cam: CubemapCamera, generator: Optional[torch.Generator],
                 valid: torch.Tensor, n_iters: int = 300,
                 fix_scale: bool = False, chi2_th: float = 9.21,
                 min_inliers: int = 20,
-                sets: Optional[torch.Tensor] = None) -> Sim3Result:
+                sets: Optional[torch.Tensor] = None,
+                scores: Optional[torch.Tensor] = None,
+                eigh: Callable = sym_eig) -> Sim3Result:
     """p1/p2: (N, 3) matched map points in the KF1/KF2 camera frames; uv1/uv2
     their observed cubemap pixels; the per-point chi2 gates scale with the
-    keypoint level sigma (``sim3.py:50-88``). The minimal sets come from
-    ``generator`` unless ``sets`` (n_iters, 3) is given. No host read is
-    made but the eigen-solves' own."""
+    keypoint level sigma (``sim3.py:50-88``). The minimal sets are ``sets``
+    (n_iters, 3) if given, else selected from ``scores`` (n_iters, N)
+    uniform draws if given, else from scores drawn from ``generator``
+    (``solvers/sampling.py``). ``eigh`` solves Horn's 4x4 matrices
+    (``sym_eig``; the tests pass ``sym_eig_ordered``). On CUDA tensors the
+    call reads nothing back to the host."""
     max_err1 = chi2_th * level_sigma2_1
     max_err2 = chi2_th * level_sigma2_2
     if sets is None:
-        sets = sample_minimal_sets(generator, valid, n_iters, MIN_SET)
+        if scores is None:
+            scores = draw_scores(generator, n_iters, valid.shape[0],
+                                 valid.device)
+        sets = select_minimal_sets(scores, valid, MIN_SET)
     sets = sets.to(p1.device, torch.int64)
-    ss, Rs, ts = sim3_hypotheses(p1, p2, valid, sets, fix_scale)
+    ss, Rs, ts = sim3_hypotheses(p1, p2, valid, sets, fix_scale, eigh)
     inls, ns = _check_inliers(cam, ss, Rs, ts, p1, p2, uv1, uv2,
                               max_err1, max_err2, valid)
     best = torch.argmax(ns)                            # the first maximum
@@ -112,7 +129,7 @@ def sim3_ransac(cam: CubemapCamera, generator: Optional[torch.Generator],
                                  for x in (ss, Rs, ts, inls, ns))
     # polish with all inliers of the best hypothesis
     s_r, R_r, t_r = horn_alignment(p1, p2, weights=inl_b.to(p1.dtype),
-                                   fix_scale=fix_scale)
+                                   fix_scale=fix_scale, eigh=eigh)
     s_r = torch.clamp(s_r, min=1e-6)
     inl_r, n_r = _check_inliers(cam, s_r, R_r, t_r, p1, p2, uv1, uv2,
                                 max_err1, max_err2, valid)

@@ -1,11 +1,15 @@
 """Batched symmetric eigen-solves without a host read.
 
 The counterpart of ``jnp.linalg.eigh`` at the call sites of the bearing EPnP
-(``cubemapslam_tpu/solvers/pnp.py:51, :133``) and of its Horn alignment
-(``cubemapslam_tpu/solvers/horn.py:46``), which the JAX package runs inside
-its compiled relocalization program. ``torch.linalg.eigh`` reads cuSOLVER's
-error flag back to the host on a CUDA tensor, so the card waits at every
-call and no CUDA graph can hold one.
+(``cubemapslam_tpu/solvers/pnp.py:51, :133``) and of Horn's alignment
+(``cubemapslam_tpu/solvers/horn.py:46``) in the EPnP of the JAX package's
+compiled relocalization program and in the Sim3 RANSAC of loop closing
+(``cubemapslam_tpu/solvers/sim3.py:66, :76``): ``solvers/pnp.py``'s six solves
+a call and ``solvers/sim3.py``'s two (the hypotheses' (n_iters, 4, 4) and
+the refit's 4x4), which ``runtime/fused_reloc.py`` and
+``runtime/fused_loop.py`` capture in CUDA graphs. ``torch.linalg.eigh``
+reads cuSOLVER's error flag back to the host on a CUDA tensor, so the card
+waits at every call and no CUDA graph can hold one.
 
 - ``sym_eig``: (..., n, n) float32 symmetric (the lower triangle is read)
   -> ascending eigenvalues (..., n) and the eigenvectors as columns (..., n,

@@ -2,7 +2,7 @@
 solver: per call shape for ``torch.linalg.eigh`` (cuSOLVER) and for
 ``solvers.sym_eig.sym_eig`` (the hand-written kernel), and per call site of
 one ``pnp_ransac`` (its six solves on the kernel) and of one
-``sim3_ransac`` (its Horn solves on ``torch.linalg.eigh``).
+``sim3_ransac`` (its two Horn solves on the kernel).
 
     python3 scripts/torch_eigh_waits.py
 
@@ -15,8 +15,8 @@ shape (its waits and their event names), then one per call site of
 ``pnp_ransac`` (the ``pnp._eigh`` calls labelled in call order, with their
 shapes and waits) for each of a few hypothesis counts and point counts,
 with the whole call's waits beside ``pnp.EIGH_WAITS`` (0); then the same
-for ``sim3_ransac`` (its ``torch.linalg.eigh`` calls) beside
-``sim3.EIGH_WAITS`` (3). Exits 1 if a total differs from its constant.
+for ``sim3_ransac`` (its ``sym_eig`` calls, passed as its ``eigh``) beside
+``sim3.EIGH_WAITS`` (0). Exits 1 if a total differs from its constant.
 """
 
 from __future__ import annotations
@@ -42,7 +42,8 @@ from cubemapslam_tpu_torch.solvers import sym_eig as SE
 from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
 
 SHAPES = ((3, 3), (1, 3, 3), (2, 3, 3), (300, 3, 3), (4, 4), (3, 4, 4),
-          (300, 3, 4, 4), (12, 12), (2, 12, 12), (300, 12, 12))
+          (300, 4, 4), (300, 3, 4, 4), (12, 12), (2, 12, 12),
+          (300, 12, 12))
 SOLVERS = {"torch.linalg.eigh": torch.linalg.eigh, "sym_eig": SE.sym_eig}
 
 
@@ -116,7 +117,8 @@ def pnp_case(n_iters, n_points, dev):
 
 def sim3_case(n_iters, n_points, dev):
     """One ``sim3_ransac`` (its own generator on the card) on two point
-    sets related by a Sim3, every eigh call labelled as in ``pnp_case``."""
+    sets related by a Sim3, every ``sym_eig`` call labelled as in
+    ``pnp_case``."""
     cfg = SlamConfig()
     cam_c = CubemapCamera.from_config(cfg, "cpu")
     p2, _, _, _ = pnp_scene(cam_c, np.random.default_rng(2), n_points)
@@ -130,8 +132,8 @@ def sim3_case(n_iters, n_points, dev):
     cam = CubemapCamera.from_config(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     return site_case("sim3", lambda: S3.sim3_ransac(
-        cam, gen, *args, n_iters=n_iters), n_iters, n_points,
-        S3.EIGH_WAITS, torch.linalg, "eigh")
+        cam, gen, *args, n_iters=n_iters, eigh=lambda A: SE.sym_eig(A)),
+        n_iters, n_points, S3.EIGH_WAITS, SE, "sym_eig")
 
 
 def site_case(tag, run, n_iters, n_points, expected, owner, attr):

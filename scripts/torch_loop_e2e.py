@@ -30,7 +30,9 @@ rendering. The summary's ``rotation_orthonormality_error`` says how far the
 returned rotations left SO(3); ``--project-rotations`` keeps the tracked
 ones on it (a diagnostic), and ``--dump`` records every frame for
 ``scripts/torch_e2e_divergence.py``. On the card a closure replays its
-solves' iterations from CUDA graphs; ``--eager-loop`` runs them eagerly.
+solves' iterations from CUDA graphs, and DetectLoop and ComputeSim3
+replay ``FusedLoop``'s; ``--eager-loop`` runs them all eagerly, and so
+does ``--dump``, which reads the refinement's inputs inside its stage.
 """
 
 from __future__ import annotations
@@ -133,20 +135,18 @@ def render_frames(cfg, world, poses):
 def record_scales(lc):
     """Keep, for each ComputeSim3 that reaches the refinement, the scale of
     the RANSAC Sim3 (as the widening receives it) and of the refined one,
-    as device tensors read at the end."""
-    recs, k = [], lc.k
-    widen, refine = k.search_by_sim3, k.refine_sim3
+    from ``LoopCloser.sim3_trace``, as device tensors read at the end."""
+    recs, compute = [], lc._compute_sim3
 
-    def widen_rec(arena, k1, k2, s12, *rest):
-        recs.append({"ransac": s12})
-        return widen(arena, k1, k2, s12, *rest)
-
-    def refine_rec(*args):
-        out = refine(*args)
-        recs[-1]["refined"] = out[0]
+    def compute_rec(*args):
+        out = compute(*args)
+        trace = lc.sim3_trace
+        if "refined" in trace:
+            recs.append({"ransac": trace["ransac"][0],
+                         "refined": trace["refined"][0]})
         return out
 
-    k.search_by_sim3, k.refine_sim3 = widen_rec, refine_rec
+    lc._compute_sim3 = compute_rec
     return recs
 
 
@@ -161,8 +161,11 @@ def record_closures(slam):
     ``loop.correct`` (with the pose graph's optimized scales) and after
     ``loop.gba``; each with the live keyframes' slots, frame ids and
     rotations, read to the host. Returns (the list of records, the list of
-    the refinements' inputs)."""
+    the refinements' inputs). The loop closer then runs eagerly
+    (``LoopCloser.graphs`` off; its graphs give the same bits): the
+    records are read inside its stages."""
     lc = slam.loop_closer
+    lc.graphs = False
     recs, sim3_in, pg_scales = [], [], []
 
     def live(point, scales=None, **extra):
@@ -355,9 +358,9 @@ def run_circuit(voc, frames, centres, args, draws, on_card) -> bool:
     slam.loop_closer.graphs = not args.eager_loop
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     ate_pre, ate_pre_frame, walls, closed_at = None, None, [], []
-    ate_at_close, scales = [], record_scales(slam.loop_closer)
     dump = collections.defaultdict(list)
     closures, sim3_in = record_closures(slam) if args.dump else ([], [])
+    ate_at_close, scales = [], record_scales(slam.loop_closer)
     for k, img in enumerate(frames):
         cross = torch.as_tensor(img, device=slam.device)
         sync()
@@ -393,7 +396,7 @@ def run_circuit(voc, frames, centres, args, draws, on_card) -> bool:
     det = slam.loop_closer.timings.get("detect", [])
     summary = dict(
         device=(torch.cuda.get_device_name(0) if on_card else "cpu"),
-        seed=args.seed, draws=draws, loop_graphs=not args.eager_loop,
+        seed=args.seed, draws=draws, loop_graphs=slam.loop_closer.graphs,
         project_rotations=args.project_rotations,
         frames=N_FRAMES, tracked=slam.tracked_frames,
         state=slam.state.name, keyframes=slam.n_kf,

@@ -25,7 +25,13 @@ each other when no match is scrambled. ``prefetch_image``'s tensor tracks
 to the same pose as the host frame (1e-5). The constructed-drift loop
 closure on the card against the CPU, with the bounds of ``chip_smoke.py``
 (ComputeSim3, the correction from the CPU's refined Sim3, the global BA);
-and ``sim3_ransac`` waits ``sim3.EIGH_WAITS`` times. The segmented-sum
+``sim3_ransac`` waits ``sim3.EIGH_WAITS`` = 0 times (two ``sym_eig``
+launches); DetectLoop and ComputeSim3 through ``FusedLoop``'s graphs D, M
+and S bitwise the eager closure (the same generator state, two reads
+fewer), a second closure on the restored arena replaying them without a
+capture, a replaced arena or BoW table raising, and the kernel bitwise
+against ``sym_eig_ordered`` on the Sim3 RANSAC's recorded (300,4,4) and
+(1,4,4) solves. The segmented-sum
 kernel at the main path's shapes (the global BA's camera and point sums,
 the local BA's coupling and point sums, the pose graph's normal matrix, the
 landmark normals with their dump row) and at the edge shapes of
@@ -547,20 +553,21 @@ def test_loop_closure_card_against_cpu(cuda):
     observation table equal on 99.5%) and the global BA from the CPU's
     corrected arena (poses within 1e-5, landmarks within 1e-3 / 5e-3); the
     reasons are in ``chip_smoke.py``. On the card the closing call reads 7
-    times (detection among them), waits 3 times in eigh and synchronizes
+    times (detection, ComputeSim3's two reads through ``FusedLoop``, the
+    pose graph's and the landmark statistics' counts) and synchronizes
     twice to time its last stages (the global BA, held back here, reads
-    once more)."""
+    once more); its Sim3 RANSAC waits 0 times (the ``sym_eig`` kernel)."""
     chip_smoke.small_loop_reference_check(card=cuda)
     cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
     closed, _, _, lc = chip_smoke.small_loop_closure(cfg, cuda)
     assert closed == [False, True]
-    assert (lc.reads, lc.eigh_waits) == (9, 3)
+    assert (lc.reads, lc.eigh_waits) == (7, 0)
 
 
 def test_sim3_ransac_eigh_waits(cuda):
-    """One ``sim3_ransac`` on the card waits ``sim3.EIGH_WAITS`` times (its
-    Horn eigen-solves: the batch once, the single refit twice), counted as
-    ``chip_smoke.py`` counts host waits."""
+    """One ``sim3_ransac`` on the card waits ``sim3.EIGH_WAITS`` = 0 times
+    (its two Horn eigen-solves are launches of the ``sym_eig`` kernel),
+    counted as ``chip_smoke.py`` counts host waits."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from cubemapslam_tpu_torch import camera as TC
@@ -580,20 +587,23 @@ def test_sim3_ransac_eigh_waits(cuda):
                                  torch.ones(500), valid)]
     cam = CubemapCamera.from_config(cfg, cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
+    from cubemapslam_tpu_torch.solvers import sym_eig as SE
     S3.sim3_ransac(cam, gen, *args)
     torch.cuda.synchronize()
+    n0 = SE.SYM_EIG.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("sim3"):
             res = S3.sim3_ransac(cam, gen, *args)
         torch.cuda.synchronize()
+    assert SE.SYM_EIG.launches == n0 + 2
     ev = prof.events()
     span = [(e.time_range.start, e.time_range.end) for e in ev
             if e.name == "sim3" and e.device_type == DeviceType.CPU]
     waits = [e for e in ev if e.device_type == DeviceType.CPU
              and ("Synchronize" in e.name or e.name == "cudaMemcpy")
              and any(a <= e.time_range.start < b for a, b in span)]
-    assert len(waits) == S3.EIGH_WAITS, [e.name for e in waits]
+    assert len(waits) == S3.EIGH_WAITS == 0, [e.name for e in waits]
     assert bool(res.success) and abs(float(res.s12) - 1.3) < 1e-3
 
 
@@ -971,8 +981,11 @@ def test_loop_correction_and_global_ba_twice_bitwise(cuda):
     assert _arena_equal(*corrected[:2]) == []
     assert _arena_equal(corrected[0], corrected[2]) == []
     assert counts[0]["captures"] == 0
+    # the closing call through the graphs: graphs M and S captured and
+    # graph D replayed (FusedLoop), the pose graph captured once and
+    # replayed for every iteration after the first
     assert (counts[2]["captures"], counts[2]["replays"]) == (
-        1, POSE_GRAPH_ITERS - 1)
+        1 + 2, POSE_GRAPH_ITERS - 1 + 1)
     solved, launches = [], []
     for graphs in (False, False, True):
         system = types.SimpleNamespace(arena=c.to(cuda))
@@ -1467,12 +1480,114 @@ def test_graph_frames_after_loop_closure(cuda, slam_frames):
     assert len(closed) == 1 and e_slam.n_loops_closed == 1
     assert [i for i, (_, r, _) in enumerate(e_states)
             if r.get("loop_closed")] == closed
+    # ComputeSim3 reads twice through FusedLoop's graphs M and S, 4 times
+    # eagerly
+    e_row, g_row = e_states[closed[0]][1], g_states[closed[0]][1]
+    assert g_row["host_reads"] == e_row["host_reads"] - 2
+    g_row["host_reads"] = e_row["host_reads"]
     _same_frames(e_states, g_states)
     after = g_slam.metrics[closed[0] + 1:]
     assert after and all(r["state"] == "OK" and r["graph_replays"] == 2
                          for r in after)
     assert any(r["graph_mapping_replays"] for r in after)
     assert g_slam.loop_closer.timings["gba"]
+    assert e_slam.fused_loop is None
+    assert g_slam.fused_loop.captures == 2          # graphs M and S
+
+
+# ---------------------------------------------------------------------------
+# DetectLoop and ComputeSim3 as captured CUDA graphs (runtime/fused_loop.py)
+# ---------------------------------------------------------------------------
+
+def _loop_closure(cuda, system, graphs):
+    """``process`` on slots 12 and 13 of the small constructed-drift system
+    at consistency_th = 1, through the graphs or eagerly: (what each call
+    returned, the closer, the closed tables and their digest, the
+    generator's state, the eigen-solve kernel's launches)."""
+    from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
+    from cubemapslam_tpu_torch.solvers import sym_eig as SE
+    cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
+    lc = LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))
+    lc.consistency_th = 1
+    lc.graphs = graphs
+    n0 = SE.SYM_EIG.launches
+    closed = [lc.process(system, slot) for slot in (12, 13)]
+    torch.cuda.synchronize()
+    return (closed, lc, chip_smoke.loop_arena_tables(system.arena),
+            system.generator.get_state(), SE.SYM_EIG.launches - n0)
+
+
+def _small_loop_system(cuda):
+    cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
+    return chip_smoke.loop_system(cfg, cuda, None, 500, chip_smoke.SEED + 8)
+
+
+def test_loop_graphs_bitwise_eager(cuda):
+    """The small constructed-drift closure eagerly and through
+    ``FusedLoop``'s graphs D, M and S (and the solves' loop graphs): both
+    close, every table bitwise equal, the generator in the same state, two
+    eigen-solve launches (one Sim3 RANSAC) each, 0 eigen-solve waits and
+    two reads fewer through the graphs. The graph system's arena restored
+    in place and closed again (a second ComputeSim3 on the same system)
+    replays D twice, M and S, captures none of them and gives the same
+    tables."""
+    e_sys, g_sys = _small_loop_system(cuda), _small_loop_system(cuda)
+    initial = chip_smoke.loop_arena_tables(g_sys.arena)[0]
+    e_closed, e_lc, (_, e_dig), e_gen, e_eig = _loop_closure(cuda, e_sys,
+                                                             False)
+    g_closed, g_lc, (_, g_dig), g_gen, g_eig = _loop_closure(cuda, g_sys,
+                                                             True)
+    assert e_closed == g_closed == [False, True]
+    assert e_dig == g_dig and torch.equal(e_gen, g_gen)
+    assert e_eig == g_eig == 2
+    assert e_lc.eigh_waits == g_lc.eigh_waits == 0
+    assert g_lc.reads == e_lc.reads - 2
+    assert e_sys.fused_loop is None
+    fl = g_sys.fused_loop
+    assert (fl.captures, fl.replays) == (3, 1)
+    assert g_lc.graph_counts["captures"] == 4        # M, S and two solves
+    chip_smoke.restore_loop_system(g_sys, initial)
+    r_closed, r_lc, (_, r_dig), r_gen, r_eig = _loop_closure(cuda, g_sys,
+                                                             True)
+    assert r_closed == [False, True] and r_dig == g_dig
+    assert torch.equal(r_gen, g_gen) and r_eig == 2
+    assert (fl.captures, fl.replays) == (3, 5)
+    assert r_lc.graph_counts["captures"] == 2        # the two solves
+    assert r_lc.reads == g_lc.reads
+
+
+def test_loop_graphs_moved_tables_raise(cuda):
+    """After ``FusedLoop``'s graph D was captured, a replaced arena or BoW
+    table raises on the next call."""
+    from cubemapslam_tpu_torch import slam_map as SM
+    from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
+    cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
+    for field in ("arena", "bow_table"):
+        system = _small_loop_system(cuda)
+        lc = LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))
+        lc.process(system, 12)
+        assert system.fused_loop.captures == 1
+        if field == "arena":
+            system.arena = SM.MapArena(*(x.clone() for x in system.arena))
+        else:
+            system.bow_table = system.bow_table.clone()
+        with pytest.raises(RuntimeError, match="moved"):
+            lc.process(system, 13)
+
+
+@pytest.mark.parametrize("site", chip_smoke.SIM3_EIG_SITES)
+def test_sym_eig_sim3_bitwise(cuda, site):
+    """The kernel bitwise against ``sym_eig_ordered`` (eagerly and from a
+    CUDA graph, one launch) on the Sim3 RANSAC's Horn solves recorded from
+    the small closure: the hypotheses' (300,4,4) and the refit's
+    (1,4,4)."""
+    store = []
+    with chip_smoke.recording_sim3_eigh(store):
+        _loop_closure(cuda, _small_loop_system(cuda), False)
+    A = store[chip_smoke.SIM3_EIG_SITES.index(site)]
+    assert A.shape == ((300, 4, 4) if site == "sim3.horn" else (1, 4, 4))
+    c = chip_smoke.eig_case(site, A)
+    assert c["bitwise"] and c["graph_bitwise"] and c["rotations"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -25,9 +25,17 @@ value before. The same closure with the solvers' iterations through
 ``CapturedLoop`` (the default), with ``LoopCloser.graphs`` off and with a
 system's ``stage_times`` set: every arena table bitwise the closure with
 the loops as they were (``tests/torch_parent_loops.py``), and no
-``CapturedLoop`` made under the eager switch.
+``CapturedLoop`` made under the eager switch. The stages of DetectLoop and
+ComputeSim3 with each slot as a 0-d tensor (what ``FusedLoop``'s graphs
+pass) bitwise equal to the calls with Python ints. The closure and
+``_compute_sim3`` through ``FusedLoop`` (its card condition lifted, so its
+graphs D, M and S run eagerly on their static buffers): bitwise equal to
+the eager path, with the generator in the same state and two reads fewer;
+a replaced arena or BoW table raises; ``CubemapSLAM.drop_graphs`` and
+``reset`` forget the ``FusedLoop``.
 """
 
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -46,6 +54,7 @@ from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.camera import CubemapCamera as TCam
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
 from cubemapslam_tpu_torch.optim import ba as TB
+from cubemapslam_tpu_torch.runtime import fused_loop as FL
 from cubemapslam_tpu_torch.runtime import loop_closing as TL
 from cubemapslam_tpu_torch.runtime import synthetic as S
 
@@ -132,9 +141,33 @@ def matched(case):
     return (ti, tok), (ji, jok)
 
 
-def test_detect_candidates_fused(case):
+SLOT_KINDS = ("int", "tensor")
+
+
+def slot(kind, k):
+    """A keyframe slot as a Python int or as a 0-d tensor (what
+    ``FusedLoop``'s graphs pass)."""
+    return k if kind == "int" else torch.tensor(k)
+
+
+def same_bits(a, b):
+    """Two stage outputs (tensors or tuples of them) bitwise equal."""
+    if torch.is_tensor(a):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+        return
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        same_bits(x, y)
+
+
+@pytest.mark.parametrize("kind", SLOT_KINDS)
+def test_detect_candidates_fused(case, kind):
     ti, tok, tg = case["tk"].detect_candidates_fused(
-        case["arena"], case["bow"], K_CUR)
+        case["arena"], case["bow"], slot(kind, K_CUR))
+    if kind == "tensor":
+        same_bits((ti, tok, tg), case["tk"].detect_candidates_fused(
+            case["arena"], case["bow"], K_CUR))
     ji, jok, jg = case["jk"].detect_candidates_fused(
         jarena(case["f"]), jnp.asarray(case["bow"].numpy()),
         jnp.int32(K_CUR))
@@ -147,13 +180,27 @@ def test_detect_candidates_fused(case):
     assert set(ti.numpy()[ok].tolist()) <= set(range(10))
 
 
-def test_match_and_sim3_candidates(case, matched):
+@pytest.mark.parametrize("kind", SLOT_KINDS)
+def test_match_and_sim3_candidates(case, matched, kind):
+    """With 0-d tensor slots each stage (and ``LoopKernels.sim3_ransac`` on
+    given scores) is bitwise the int call."""
     (ti, tok), (ji, jok) = matched
+    kc, kl = slot(kind, K_CUR), slot(kind, K_LOOP)
+    if kind == "tensor":
+        same_bits(case["tk"].match_kf_pair(case["arena"], kc, kl), (ti, tok))
+        scores = torch.rand((case["tcfg"].sim3_ransac_iters, ti.shape[0]),
+                            generator=torch.Generator().manual_seed(3))
+        same_bits(*(case["tk"].sim3_ransac(case["arena"], a, b, ti, tok,
+                                           None, scores=scores)
+                    for a, b in ((kc, kl), (K_CUR, K_LOOP))))
     ok = tok.numpy()
     np.testing.assert_array_equal(ok, np.asarray(jok))
     assert ok.sum() >= 20
     np.testing.assert_array_equal(ti.numpy()[ok], np.asarray(ji)[ok])
-    tc = case["tk"].sim3_candidates(case["arena"], K_CUR, K_LOOP, ti, tok)
+    tc = case["tk"].sim3_candidates(case["arena"], kc, kl, ti, tok)
+    if kind == "tensor":
+        same_bits(tc, case["tk"].sim3_candidates(case["arena"], K_CUR,
+                                                 K_LOOP, ti, tok))
     jc = case["jk"].sim3_candidates(jarena(case["f"]), jnp.int32(K_CUR),
                                     jnp.int32(K_LOOP), ji, jok)
     for a, b in zip(tc, jc):
@@ -180,8 +227,17 @@ def refined(case, matched):
     return (ti2, tok2, tr), (ji2, jok2, jr), keep
 
 
-def test_search_by_sim3_and_refine(refined):
+@pytest.mark.parametrize("kind", SLOT_KINDS)
+def test_search_by_sim3_and_refine(case, matched, refined, kind):
     (ti, tok, tr), (ji, jok, jr), keep = refined
+    if kind == "tensor":
+        (t0, tok0), _ = matched
+        kc, kl = slot(kind, K_CUR), slot(kind, K_LOOP)
+        wide = case["tk"].search_by_sim3(case["arena"], kc, kl,
+                                         *case["sim3"], t0, tok0 & keep)
+        same_bits(wide, (ti, tok))
+        same_bits(case["tk"].refine_sim3(case["arena"], kc, kl, ti, tok,
+                                         *case["sim3"]), tr)
     ok = tok.numpy()
     np.testing.assert_array_equal(ok, np.asarray(jok))
     np.testing.assert_array_equal(ti.numpy()[ok], np.asarray(ji)[ok])
@@ -216,8 +272,23 @@ def projected(case, refined):
     return ta, ja
 
 
-def test_scw_project(projected):
+@pytest.mark.parametrize("kind", SLOT_KINDS)
+def test_scw_project(case, refined, projected, kind):
+    """Also ``LoopKernels.scw_gate`` (the covisibility matrix and the
+    current keyframe's covisible set around it) against the stage and the
+    eager loop closer's set."""
     (ta, tn), (ja, jn) = projected
+    (ti, tok, tr), (_, _, jr), _ = refined
+    kc, kl = slot(kind, K_CUR), slot(kind, K_LOOP)
+    args = (case["arena"], kc, kl, jax_sim3(jr), ti, tok & tr[3])
+    ga, gn, neigh = case["tk"].scw_gate(*args)
+    same_bits((ga, gn), (ta, tn))
+    covis = SM.covisibility_matrix(case["arena"])
+    same_bits(neigh, (covis[K_CUR] >= case["tcfg"].covisibility_weight_th)
+              & case["arena"].kf_valid)
+    if kind == "tensor":
+        same_bits(case["tk"].scw_project(*args[:3], *args[3], *args[4:]),
+                  (ta, tn))
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
     assert int(tn) == int(jn) >= 40
 
@@ -376,7 +447,8 @@ def test_closes_constructed_drift():
     value before. The closure's host reads on the CPU: detection, the match
     count, the RANSAC verdict, the refined count, the S_cw count, the pose
     graph's edge count, the landmark statistics' live count and the global
-    BA's live-edge count."""
+    BA's live-edge count; the Sim3 RANSAC's eigen-solves wait for nothing
+    (``sim3.EIGH_WAITS`` = 0)."""
     cfg = TConfig(**SMALL)
     arena, W, desc, _ = S.build_drifted_loop_arena(
         cfg, np.random.default_rng(42))
@@ -393,7 +465,7 @@ def test_closes_constructed_drift():
     t_before = arena.kf_t.clone().numpy()
     closed = [lc.process(system, slot) for slot in (12, 13)]
     assert closed == [False, True], closed
-    assert (lc.reads, lc.eigh_waits) == (8, 3)
+    assert (lc.reads, lc.eigh_waits) == (8, 0)
     assert set(lc.timings) == {"detect", "sim3", "correct", "gba"}
     t_after = system.arena.kf_t.numpy()
     gt = [S.loop_gt_pose(i - 10)[1] for i in range(10, 14)]
@@ -500,3 +572,155 @@ def test_eager_switch_runs_no_capture(closures, mode):
     else:
         assert made == []
 
+
+
+# ---------------------------------------------------------------------------
+# DetectLoop and ComputeSim3 through FusedLoop (eagerly on the CPU)
+# ---------------------------------------------------------------------------
+
+class CPUGraphSystem(FL.LoopGraphOwner):
+    """A loop-closing system that hands its loop closer a ``FusedLoop`` on
+    the CPU too, whose parts then run eagerly on their static buffers."""
+
+    fused_loop_for = FL.LoopGraphOwner.own_fused_loop
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+
+@pytest.fixture(scope="module")
+def drift():
+    """The constructed-drift arena with its BoW rows, and a maker of
+    systems on copies of it, each with a generator seeded 0: with
+    ``fused`` one that hands out a ``FusedLoop`` (``CPUGraphSystem``), else
+    one that hands out none."""
+    cfg = TConfig(**SMALL)
+    arena, _, desc, _ = S.build_drifted_loop_arena(
+        cfg, np.random.default_rng(42))
+    voc = PL.train_vocabulary(desc, k=8, depth=3, device="cpu")
+    bow = torch.zeros(cfg.max_keyframes, voc.n_words)
+    for i in range(S.LOOP_KEYFRAMES):
+        bow[i] = PL.bow_vector(voc, arena.kf_desc[i], arena.kf_kp_valid[i])
+
+    def system(fused):
+        return (CPUGraphSystem if fused else types.SimpleNamespace)(
+            arena=SM.MapArena(*(x.clone() for x in arena)),
+            n_kf=S.LOOP_KEYFRAMES, bow_table=bow.clone(),
+            generator=torch.Generator().manual_seed(0))
+    return cfg, system
+
+
+def closer(cfg):
+    """A ``LoopCloser`` at consistency_th = 1."""
+    lc = TL.LoopCloser(cfg, TCam.from_config(cfg, "cpu"))
+    lc.consistency_th = 1
+    return lc
+
+
+def test_fused_loop_closure_bitwise_eager(drift):
+    """The constructed-drift closure with DetectLoop and ComputeSim3 through
+    ``FusedLoop`` (graphs D, M and S run eagerly on their static buffers
+    on the CPU): it closes, every arena table is bitwise the eager
+    closure's, the generator is left in the same state, and ComputeSim3
+    reads twice where the eager path reads 4 times."""
+    cfg, make = drift
+    out = {}
+    for fused in (False, True):
+        system, lc = make(fused), closer(cfg)
+        closed = [lc.process(system, slot) for slot in (12, 13)]
+        out[fused] = (closed, snapshot(system.arena),
+                      system.generator.get_state(), lc, system)
+    (e_closed, e_arena, e_gen, e_lc, e_sys), \
+        (g_closed, g_arena, g_gen, g_lc, g_sys) = out[False], out[True]
+    assert e_closed == g_closed == [False, True]
+    for name, a in e_arena.items():
+        assert a.tobytes() == g_arena[name].tobytes(), name
+    assert torch.equal(e_gen, g_gen)
+    assert not hasattr(e_sys, "fused_loop")
+    fl = g_sys.fused_loop
+    assert isinstance(fl, FL.FusedLoop)
+    assert set(fl.outputs) == {"d", "m", "s"}
+    assert fl.captures == fl.replays == 0
+    assert (e_lc.reads, g_lc.reads) == (8, 6)
+    assert e_lc.eigh_waits == g_lc.eigh_waits == 0
+    assert g_lc.loop_edges == e_lc.loop_edges
+
+
+@pytest.mark.parametrize("k_loop", [K_LOOP, 40])
+def test_fused_compute_sim3_bitwise_eager(drift, k_loop):
+    """``_compute_sim3`` of the current keyframe against the loop keyframe
+    (which passes every gate) and against an empty slot (no match, so no
+    draw): through ``FusedLoop`` the same S_cl, loop associations and
+    covisible set, and the same ``sim3_trace`` (the RANSAC's Sim3 and
+    counts, the refinement), bitwise, and the generator in the same
+    state."""
+    cfg, make = drift
+    res = {}
+    for fused in (False, True):
+        system, lc = make(fused), closer(cfg)
+        res[fused] = (lc._compute_sim3(system, K_CUR, k_loop),
+                      system.generator.get_state(), lc.sim3_trace)
+    (e, e_gen, e_tr), (g, g_gen, g_tr) = res[False], res[True]
+    assert torch.equal(e_gen, g_gen)
+    if k_loop != K_LOOP:
+        assert e is None and g is None and e_tr == g_tr == {}
+        assert torch.equal(e_gen, torch.Generator().manual_seed(0)
+                           .get_state())
+        return
+    assert e is not None and g is not None
+    same_bits(e[:3], g[:3])
+    assert e[3] == g[3] and len(e[3]) > 0
+    assert set(e_tr) == set(g_tr) == {"ransac", "ransac_inliers", "widened",
+                                      "refined"}
+    for key in e_tr:
+        same_bits(e_tr[key], g_tr[key])
+
+
+def test_fused_loop_moved_tables_raise(drift):
+    """After ``FusedLoop`` ran, a replaced arena or BoW table raises."""
+    cfg, make = drift
+    for field in ("arena", "bow_table"):
+        system, lc = make(True), closer(cfg)
+        lc.process(system, 12)
+        if field == "arena":
+            system.arena = SM.MapArena(*(x.clone() for x in system.arena))
+        else:
+            system.bow_table = system.bow_table.clone()
+        with pytest.raises(RuntimeError, match="moved"):
+            lc.process(system, 13)
+
+
+def test_drop_graphs_forgets_fused_loop():
+    """``CubemapSLAM`` owns its ``FusedLoop``: ``drop_graphs`` and ``reset``
+    forget it."""
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    slam = CubemapSLAM(TConfig(**SMALL), device="cpu")
+    assert slam.fused_loop is None
+    assert slam.fused_loop_for(slam.loop_closer.k) is None    # on the CPU
+    for drop in (slam.drop_graphs, slam.reset):
+        fl = slam.own_fused_loop(slam.loop_closer.k)
+        assert slam.fused_loop is fl
+        drop()
+        assert slam.fused_loop is None
+
+
+def test_fused_loop_serves_closers_of_one_configuration(drift):
+    """The system's ``FusedLoop`` keeps the ``LoopKernels`` it was made with
+    (its graphs read their tensors): a later closer of the same
+    configuration runs on it and closes bitwise as one closer does; a
+    closer of another configuration raises."""
+    cfg, make = drift
+    one, two = make(True), make(True)
+    lc = closer(cfg)
+    for slot in (12, 13):
+        lc.process(one, slot)
+    first = closer(cfg)
+    first.process(two, 12)
+    later = closer(cfg)
+    later.consistent_groups = first.consistent_groups
+    assert later.process(two, 13)
+    assert two.fused_loop.k is first.k
+    same_bits(tuple(one.arena), tuple(two.arena))
+    other = closer(dataclasses.replace(cfg, th_low=cfg.th_low - 1))
+    with pytest.raises(RuntimeError, match="configuration"):
+        other.process(two, 13)

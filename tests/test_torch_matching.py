@@ -88,11 +88,11 @@ def test_window_cos():
         rtol=0, atol=1e-7)
 
 
-@pytest.mark.parametrize("nn_ratio,extras", [
-    (None, False), (0.8, False), (0.8, True)])
-def test_search_by_projection(nn_ratio, extras):
-    """extras: a target_free mask, per-query radii, and the rotation
-    check on query angles."""
+def projection_case(nn_ratio, extras):
+    """A projection search's arguments for JAX and for the port: (JAX
+    positional, JAX keywords, port positional, port keywords). extras: a
+    target_free mask, per-query radii, and the rotation check on query
+    angles."""
     cfg = SlamConfig(cube_face_w=128, cube_face_h=128, n_features=256,
                      n_levels=4)
     jcam = JCam.from_config(cfg)
@@ -134,21 +134,43 @@ def test_search_by_projection(nn_ratio, extras):
         opts_t.update(target_free=torch.as_tensor(free),
                       query_angles=torch.as_tensor(qang),
                       check_orientation=True)
-    jres = JM.search_by_projection(
-        jnp.asarray(q), jnp.asarray(qdesc), jnp.asarray(qlevel),
-        jnp.asarray(qvalid), JKp(**{k: jnp.asarray(v) for k, v in kp.items()}),
-        jcam, jnp.asarray(sf), jnp.asarray(radius), -1, 1, **opts_j)
+    jargs = (jnp.asarray(q), jnp.asarray(qdesc), jnp.asarray(qlevel),
+             jnp.asarray(qvalid),
+             JKp(**{k: jnp.asarray(v) for k, v in kp.items()}), jcam,
+             jnp.asarray(sf), jnp.asarray(radius), -1, 1)
     tkp = interop.keypoints_from_numpy(kp)
     tpos, tdesc, tlev, tval = interop.landmarks_from_numpy(q, qdesc, qlevel,
                                                            qvalid)
-    tres = TM.search_by_projection(tpos, tdesc, tlev, tval, tkp, tcam,
-                                   torch.as_tensor(sf),
-                                   torch.as_tensor(radius), -1, 1, **opts_t)
+    targs = (tpos, tdesc, tlev, tval, tkp, tcam, torch.as_tensor(sf),
+             torch.as_tensor(radius), -1, 1)
+    return jargs, opts_j, targs, opts_t
+
+
+@pytest.mark.parametrize("nn_ratio,extras", [
+    (None, False), (0.8, False), (0.8, True)])
+def test_search_by_projection(nn_ratio, extras):
+    """extras: a target_free mask, per-query radii, and the rotation
+    check on query angles."""
+    jargs, opts_j, targs, opts_t = projection_case(nn_ratio, extras)
+    jres = JM.search_by_projection(*jargs, **opts_j)
+    tres = TM.search_by_projection(*targs, **opts_t)
     assert int(np.asarray(jres.ok).sum()) > 100
     eq(tres.ok, jres.ok)
     eq(tres.idx, jres.idx)
     eq(tres.dist, jres.dist)
     assert int(tres.count) == int(jres.count)
+
+
+@pytest.mark.parametrize("chunk", [7, 64, 299])
+def test_search_by_projection_query_chunk(chunk):
+    """``query_chunk`` (blocks of 7, 64 and 299 of the 300 queries) gives
+    the unblocked search's result bitwise, with every option on."""
+    _, _, targs, opts = projection_case(0.8, True)
+    whole = TM.search_by_projection(*targs, **opts)
+    blocked = TM.search_by_projection(*targs, **opts, query_chunk=chunk)
+    assert int(whole.count) > 100
+    for a, b in zip(whole, blocked):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def two_view_keypoints(rng, n=220, noise=0.002):

@@ -8,8 +8,15 @@ exactly equal; each 3-point Horn hypothesis (s, R, t) within 1e-4 of JAX's
 on the same minimal set, t within 1e-3 (t = c1 - s R c2, with centroids
 about 5 from the cameras; Horn's top eigenvalue is simple for every set, so
 the hypothesis is the same rotation in every backend; the gap is checked);
-``sim3_ransac`` on JAX-drawn sets and ``optimize_sim3`` from the same start
-within 1e-4 of JAX in s, R and t with the inlier masks equal. The outcome
+``sim3_ransac`` on JAX-drawn sets (with Horn's eigen-solves as on the
+CPU and in the order of the card's ``sym_eig`` kernel, ``sym_eig_ordered``)
+and ``optimize_sim3`` from the same start within 1e-4 of JAX in s, R and t
+with the inlier masks equal; ``sim3_ransac`` on scores drawn outside it
+bitwise the call that draws them; OptimizeSim3's ``edge_jacobians``
+(float32) against JAX's ``jacfwd`` of the same residuals in float64, on
+that scene and on the exact revisit of ``chip_smoke.py``'s closure as the
+card recorded it (``torch_exact_revisit_sim3.npz``): each column within
+1e-5 of its largest entry, the scale columns within 1e-7 px more. The outcome
 tests are those of the JAX package (``tests/test_solvers.py:132-164``,
 ``tests/test_optim.py:223-252``): the scale within 0.02 / 1e-3, the
 rotation within 1 / 0.1 degree, the translation within 0.05.
@@ -43,9 +50,12 @@ from cubemapslam_tpu.optim import sim3_opt as JO
 from cubemapslam_tpu.solvers import horn as JH
 from cubemapslam_tpu.solvers import sampling as JSmp
 from cubemapslam_tpu.solvers import sim3 as JS
+from cubemapslam_tpu_torch import geometry as TG
 from cubemapslam_tpu_torch.camera import CubemapCamera as TCam
 from cubemapslam_tpu_torch.optim import sim3_opt as TO
 from cubemapslam_tpu_torch.solvers import sim3 as TS
+from cubemapslam_tpu_torch.solvers import sym_eig as SE
+from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
 CFG = SlamConfig()
 N_PTS, N_OUT = 80, 16
@@ -154,7 +164,11 @@ def test_hypotheses_one_by_one(scene):
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=1e-3)
 
 
-def test_sim3_ransac_on_jax_sets(cams, scene):
+@pytest.mark.parametrize("eigh", ["sym_eig", "sym_eig_ordered"])
+def test_sim3_ransac_on_jax_sets(cams, scene, eigh):
+    """On JAX's sets, with the default eigen-solve (on CPU tensors
+    ``torch.linalg.eigh``) and with the card kernel's order in plain
+    PyTorch (``sym_eig_ordered``)."""
     jcam, tcam = cams
     p1, p2, uv1, uv2, valid, _ = scene
     sig = np.ones(N_PTS, np.float32)
@@ -164,13 +178,33 @@ def test_sim3_ransac_on_jax_sets(cams, scene):
         p1, p2, uv1, uv2, sig, sig, valid)), n_iters=200, min_inliers=20)
     tr = TS.sim3_ransac(tcam, None, *map(t_, (p1, p2, uv1, uv2, sig, sig,
                                               valid)),
-                        n_iters=200, min_inliers=20, sets=t_(sets))
+                        n_iters=200, min_inliers=20, sets=t_(sets),
+                        eigh=getattr(SE, eigh))
     assert bool(tr.success) and bool(jr.success)
     np.testing.assert_array_equal(tr.inliers.numpy(), np.asarray(jr.inliers))
     assert int(tr.n_inliers) == int(jr.n_inliers)
     np.testing.assert_allclose(float(tr.s12), float(jr.s12), atol=1e-4)
     np.testing.assert_allclose(tr.R12.numpy(), np.asarray(jr.R12), atol=1e-4)
     np.testing.assert_allclose(tr.t12.numpy(), np.asarray(jr.t12), atol=1e-4)
+
+
+def test_sim3_ransac_scores_bitwise_generator(cams, scene):
+    """``sim3_ransac`` on (n_iters, N) scores drawn outside it is bitwise
+    the call that draws them from the same generator, which both leave in
+    the same state."""
+    tcam = cams[1]
+    p1, p2, uv1, uv2, valid, _ = scene
+    args = [t_(x) for x in (p1, p2, uv1, uv2, np.ones(N_PTS, np.float32),
+                            np.ones(N_PTS, np.float32), valid)]
+    g_own, g_out = (torch.Generator().manual_seed(5) for _ in range(2))
+    a = TS.sim3_ransac(tcam, g_own, *args, n_iters=200, min_inliers=20)
+    scores = draw_scores(g_out, 200, N_PTS, "cpu")
+    b = TS.sim3_ransac(tcam, None, *args, n_iters=200, min_inliers=20,
+                       scores=scores)
+    assert bool(a.success)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert torch.equal(g_own.get_state(), g_out.get_state())
 
 
 def test_recovers_similarity(cams, scene):
@@ -283,3 +317,62 @@ def test_e2e_refinements_against_jax(case):
     assert abs(card_s - s_j) <= 5e-3 * s_j
     np.testing.assert_allclose(t[1].numpy(), np.asarray(j[1]), atol=1e-5)
     np.testing.assert_allclose(t[2].numpy(), np.asarray(j[2]), atol=1e-5)
+
+
+def _jax64_edge_jacobians(cfg, s, R, t, p1, p2, face1, face2):
+    """(J1, J2), each (n, 2, 7), of JAX's OptimizeSim3 residuals
+    (``sim3_opt.py:38-46``, the observations left out: they do not enter a
+    derivative) by ``jax.jacfwd`` at xi = 0, in float64."""
+    from cubemapslam_tpu.optim.residuals import project_to_face
+    with jax.enable_x64(True):
+        cam = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64),
+                                     JCam.from_config(cfg))
+        s, R, t, p1, p2 = (jnp.asarray(np.asarray(x, np.float64))
+                           for x in (s, R, t, p1, p2))
+        face1, face2 = jnp.asarray(face1), jnp.asarray(face2)
+
+        def res(xi):
+            ds, dR, dt = JG.sim3_exp(xi)
+            s_, R_, t_ = JG.sim3_compose(ds, dR, dt, s, R, t)
+            r1 = -project_to_face(cam, JG.sim3_apply(s_, R_, t_, p2), face1)
+            si, Ri, ti = JG.sim3_inverse(s_, R_, t_)
+            r2 = -project_to_face(cam, JG.sim3_apply(si, Ri, ti, p1), face2)
+            return r1, r2
+
+        J1, J2 = jax.jacfwd(res)(jnp.zeros(7, jnp.float64))
+        return np.asarray(J1), np.asarray(J2)
+
+
+def _exact_revisit():
+    """The arguments of OptimizeSim3 in ``chip_smoke.py``'s constructed-drift
+    closure at ``SlamConfig()`` (its loop keyframes share a viewpoint), as
+    the card recorded them with ``scripts/torch_loop_sim3_eigh.py --dump``
+    (``torch_exact_revisit_sim3.npz`` beside this file)."""
+    data = np.load(pathlib.Path(__file__).with_name(
+        "torch_exact_revisit_sim3.npz"))
+    return [data[f"sym_eig/{k}"] for k in SIM3_ARGS]
+
+
+@pytest.mark.parametrize("case", ["refine_case", "exact_revisit"])
+def test_edge_jacobians_against_jax64(cams, refine_case, case):
+    """``edge_jacobians`` in float32 against JAX's ``jacfwd`` of the same
+    residuals in float64: every column within 1e-5 of its own largest
+    entry, the scale columns within 1e-7 px more. On the exact revisit the
+    true scale columns are at most 2.6e-5 px, and the float32 products
+    J_proj(q) q that ``jacfwd`` forms in JAX's float32 code miss them by
+    4.7e-5 and 5.5e-5 px."""
+    if case == "refine_case":
+        (s, R, t), (p1, p2, _, face1, _, face2, _, _, _), _ = refine_case
+    else:
+        s, R, t, p1, p2, _, face1, _, face2, _, _, _ = _exact_revisit()
+    J1j, J2j = _jax64_edge_jacobians(CFG, s, R, t, p1, p2, face1, face2)
+    st, Rt, tt, p1t, p2t = map(t_, (s, R, t, p1, p2))
+    q1 = TG.sim3_apply(st, Rt, tt, p2t)
+    q2 = TG.sim3_apply(*TG.sim3_inverse(st, Rt, tt), p1t)
+    J1, J2 = TO.edge_jacobians(cams[1], st, Rt, tt, TO._point_tangent(p1t),
+                               q1, t_(face1), q2, t_(face2))
+    for Jt, Jj in ((J1.numpy(), J1j), (J2.numpy(), J2j)):
+        gap = np.abs(Jt - Jj).max(axis=(0, 1))
+        bound = 1e-5 * np.abs(Jj).max(axis=(0, 1))
+        bound[6] += 1e-7
+        assert (gap <= bound).all(), (gap, bound)
