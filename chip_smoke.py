@@ -147,22 +147,25 @@ and the landmark normals, and timed beside ``index_add_``;
 ``LoopCloser.process`` on slots 12 and 13 closes a fresh copy of the
 arena once eagerly (``LoopCloser.graphs`` off) and once through the CUDA
 graphs (DetectLoop and ComputeSim3 through ``FusedLoop``'s graphs D, M and
-S, ``runtime/fused_loop.py``; the pose graph's Gauss-Newton iterations and
-the global BA's LM steps each replayed from a graph captured in the
-closure): each must close the loop, cut the segment-B error to the stated
-share (a miss is raised after the last phase), launch the segmented sum
-the stated number of times by stage and the eigen-solve kernel twice (one
-Sim3 RANSAC), and every table of the two closed arenas must be bitwise
-equal (the digest is printed); the graph copy's arena, restored in place
-and closed again, must replay graphs D, M and S and give the same
-tables. A warm closure eagerly, capturing (a fresh copy) and replaying
+S, ``runtime/fused_loop.py``; CorrectLoop through its ``FusedCorrect``'s
+graph C, the Gauss-Newton step at the closure's edge capacity and graph F,
+captured once a system; the global BA's LM steps replayed from a graph
+captured in the closure): each must close the loop, cut the segment-B
+error to the stated share (a miss is raised after the last phase), launch
+the segmented sum the stated number of times by stage and the eigen-solve
+kernel twice (one Sim3 RANSAC), and every table of the two closed arenas
+must be bitwise equal (the digest is printed); the graph copy's arena,
+restored in place and closed again, must replay graphs D, M and S and the
+correction's graphs, capture none of them and give the same tables. A
+warm closure eagerly, capturing (a fresh copy) and replaying
 (that copy restored) prints the wall time of each stage (detect, sim3,
 correct, gba), the host reads, the eigen-solve waits, the captures,
 replays, capture ms, pool MiB and capture waits, and the peak memory; the
 same three are closed under the profiler (``process(12)`` alone for
 ``loop.detect``, then the closure) by stage and by ComputeSim3's eager,
 the correction's and the global BA's sub-ranges (whose host waits may not
-exceed the stated reads, eigen-solve waits and capture waits), printed
+exceed the stated reads, eigen-solve waits and capture waits; the
+replaying closure's ``loop.correct`` at most LOOP_CORRECT_WAITS), printed
 side by side; the eigen-solve kernel is held bitwise on the eager
 closure's two Sim3 RANSAC solves and timed beside ``torch.linalg.eigh``;
 and it holds the closure on the card against the CPU at the tier-1 test's
@@ -245,6 +248,7 @@ from cubemapslam_tpu_torch.runtime import mapping as TMAP
 from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.synthetic import (
     landmarks_from_keypoints, perturbed_pose, synthetic_fisheye)
+from cubemapslam_tpu_torch.runtime import loop_closing as LC
 from cubemapslam_tpu_torch.runtime.fused_loop import LoopGraphOwner
 from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
@@ -362,15 +366,23 @@ LOOP_SIM3_SUBRANGES = ("loop.sim3.match", "loop.sim3.ransac",
                        "loop.sim3.widen", "loop.sim3.refine",
                        "loop.sim3.scw")
 # the loop closer's graphs on a fresh system (runtime/fused_loop.py): D on
-# the first keyframe it sees, M and S on its first ComputeSim3; and a
-# closure's captures: M, S and its two solves' loops
+# the first keyframe it sees, M and S on its first ComputeSim3; C, the
+# Gauss-Newton step at the closure's edge capacity and F on its first
+# CorrectLoop; and a closure's captures: M, S, C, the step, F and the
+# global BA's loop. On a system whose graphs are captured, loop.correct
+# waits for the edge count's read and the timing sync only.
 LOOP_FUSED_GRAPHS = 3
-LOOP_CLOSURE_CAPTURES = 4
+LOOP_CORRECT_GRAPHS = 3
+LOOP_CLOSURE_CAPTURES = 6
+LOOP_CORRECT_WAITS = 2
 # the Sim3 RANSAC's eigen-solves (its Horn 4x4s), in call order: the
 # hypotheses' batch and the refit's single matrix
 SIM3_EIG_SITES = ("sim3.horn", "sim3.refit.horn")
 # the correction's and the global BA's sub-ranges (runtime/loop_closing.py,
-# optim/ba.py)
+# optim/ba.py); through the correction's graphs .fuse holds the static
+# inputs' fills and copies, .propagate graph C (the fusion with it) and the
+# edge count's read, .pose_graph the problem's build and the 12 steps,
+# .remap graph F (SearchAndFuse and the statistics with it)
 LOOP_SUBRANGES = ("loop.correct.fuse", "loop.correct.propagate",
                   "loop.correct.pose_graph", "loop.correct.remap",
                   "loop.correct.search_and_fuse", "loop.correct.stats",
@@ -3891,9 +3903,21 @@ def fused_loop_line(system):
     fl = system.fused_loop
     if fl is None:
         return "no FusedLoop"
+    fc = fl.correction
     return (f"FusedLoop: {fl.captures} graphs captured, {fl.replays} "
             f"replays, {fl.capture_ms:.3f} ms in torch.cuda.graph, pool "
-            f"{fl.capture_mib:.1f} MiB")
+            f"{fl.capture_mib:.1f} MiB; FusedCorrect: {fc.captures} "
+            f"captured (edge capacities {fc.capacities}), {fc.replays} "
+            f"replays, {fc.capture_ms:.3f} ms in torch.cuda.graph, pool "
+            f"{fc.capture_mib:.1f} MiB")
+
+
+def correct_counts(system):
+    """(captures, pool MiB) of the system's ``FusedCorrect`` so far."""
+    fl = system.fused_loop
+    if fl is None:
+        return (0, 0.0)
+    return (fl.correction.captures, fl.correction.capture_mib)
 
 
 def loop_phase(cfg):
@@ -3966,9 +3990,11 @@ def loop_phase(cfg):
                                  "segment-B drift enough")
         fl = system.fused_loop
         if graphs and (lc.graph_counts["captures"] != LOOP_CLOSURE_CAPTURES
-                       or fl.captures != LOOP_FUSED_GRAPHS):
+                       or fl.captures != LOOP_FUSED_GRAPHS
+                       or fl.correction.captures != LOOP_CORRECT_GRAPHS):
             raise AssertionError("the graph closure did not capture graphs "
-                                 "D, M and S and its two solves")
+                                 "D, M, S, C, a step and F and the global "
+                                 "BA's loop")
         if not graphs and (lc.graph_counts["captures"] or fl is not None):
             raise AssertionError("the eager closure captured a graph")
         closed_tables[mode] = loop_arena_tables(system.arena)
@@ -3988,7 +4014,9 @@ def loop_phase(cfg):
         raise AssertionError(f"the graph closure's tables {differ} differ "
                              f"from the eager closure's")
     fl = captured.fused_loop
+    fc = fl.correction
     n_cap, n_rep = fl.captures, fl.replays
+    c_cap, c_rep = fc.captures, fc.replays
     restore_loop_system(captured, initial)
     lc, wall, closed = close_constructed_loop(cfg, captured, None, True)
     r_tab, r_dig = loop_arena_tables(captured.arena)
@@ -3996,10 +4024,11 @@ def loop_phase(cfg):
         f"closed again: {closed}; sha256 {r_dig}; {graph_counts_line(lc)}; "
         f"{fused_loop_line(captured)}")
     if (closed != [False, True] or r_dig != g_dig or fl.captures != n_cap
-            or fl.replays != n_rep + 4):
+            or fl.replays != n_rep + 4 or fc.captures != c_cap
+            or fc.replays != c_rep + 2 + LC.POSE_GRAPH_ITERS):
         raise AssertionError("the closure on the restored arena did not "
-                             "replay graphs D (twice), M and S to the same "
-                             "tables")
+                             "replay graphs D (twice), M, S, C, the step "
+                             "and F to the same tables")
     del captured, lc
     walls, pools = {}, {}
     modes = (("eager", False), ("capturing", True), ("replaying", True))
@@ -4009,9 +4038,16 @@ def loop_phase(cfg):
         else:
             restore_loop_system(system, initial)
         torch.cuda.reset_peak_memory_stats()
+        c0 = correct_counts(system)
         lc, wall, closed = close_constructed_loop(cfg, system, None, graphs)
         peak = peak_memory()
         walls[mode] = wall
+        c_new = correct_counts(system)[0] - c0[0]
+        want = {"eager": 0, "capturing": LOOP_CORRECT_GRAPHS,
+                "replaying": 0}[mode]
+        if c_new != want:
+            raise AssertionError(f"the warm {mode} closure captured {c_new} "
+                                 f"correction graphs; expected {want}")
         times = {k: [round(x * 1e3, 3) for x in v]
                  for k, v in lc.timings.items()}
         log(f"[loop] warm {mode} closure: {closed}; wall {wall:.3f} ms; "
@@ -4030,6 +4066,7 @@ def loop_phase(cfg):
         else:
             restore_loop_system(fresh, initial)
         pool0 = getattr(fresh.fused_loop, "capture_mib", 0.0)
+        cpool0 = correct_counts(fresh)[1]
         lc2 = LoopCloser(cfg, CubemapCamera.from_config(cfg, "cuda"))
         lc2.consistency_th = 1
         lc2.graphs = graphs
@@ -4039,7 +4076,8 @@ def loop_phase(cfg):
         pool1 = getattr(fresh.fused_loop, "capture_mib", 0.0)
         prof = profile_stages(lambda: lc2.process(fresh, 13), stages, 1)
         pools[mode] = (pool1 - pool0,
-                       getattr(fresh.fused_loop, "capture_mib", 0.0) - pool1)
+                       getattr(fresh.fused_loop, "capture_mib", 0.0) - pool1,
+                       correct_counts(fresh)[1] - cpool0)
         tag = f"loop-profile-{mode}"
         log_profile(tag, prof, [walls[mode]])
         allowed = lc2.reads + lc2.eigh_waits + lc2.capture_waits
@@ -4059,14 +4097,21 @@ def loop_phase(cfg):
                     f"[{tag_}] waited {p_['host_waits']:.0f} times; its "
                     f"stated reads, eigen-solve waits and capture waits are "
                     f"{allowed_}")
+        c_waits = prof["stages"]["loop.correct"]["host_waits"]
+        if mode == "replaying" and c_waits > LOOP_CORRECT_WAITS:
+            raise AssertionError(f"the replaying closure's loop.correct "
+                                 f"waited {c_waits:.0f} times; at most "
+                                 f"{LOOP_CORRECT_WAITS}")
         profs[mode] = prof
         del lc2
     del fresh
-    for st, src in (("loop.detect", "detect"), ("loop.sim3", "closure")):
+    for st, src, k in (("loop.detect", "detect", 0),
+                       ("loop.sim3", "closure", 1),
+                       ("loop.correct", "closure", 2)):
         for mode, _ in modes:
             v = (detects[mode][0] if src == "detect"
                  else profs[mode])["stages"][st]
-            pool = pools[mode][0 if src == "detect" else 1]
+            pool = pools[mode][k]
             log(f"[loop-{st[5:]}] {mode:10s}: host {v['host_ms']:.3f} ms, "
                 f"device busy {v['device_busy_ms']:.3f} ms, "
                 f"{v['device_ops']:.0f} device operations, "

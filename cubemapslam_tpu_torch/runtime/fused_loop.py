@@ -1,4 +1,5 @@
-"""Loop closing's DetectLoop and ComputeSim3 as captured CUDA graphs.
+"""Loop closing's DetectLoop, ComputeSim3 and CorrectLoop as captured CUDA
+graphs.
 
 ``FusedLoop`` is the port's counterpart of the JAX package's jitted loop
 stages (``cubemapslam_tpu/runtime/loop_closing.py``:
@@ -43,8 +44,40 @@ eager ``sim3_ransac`` draws them, and copied into a static buffer, so the
 generator advances as it does eagerly and the graphs give the eager bits.
 Graph S reads graph M's outputs, so M is always replayed before S.
 
-The graphs read the arena and ``system.bow_table`` and write neither: each
-table is checked by ``data_ptr`` before a call and a moved one raises. They
+``FusedCorrect`` (``FusedLoop.correction``, its own pool) holds the
+counterparts of CorrectLoop's jitted programs (``loop_fuse`` :311,
+``propagate_and_pose_graph`` :334, one program there over all K + K^2 + 17
+masked edges, ``loop_member_landmarks`` :238, ``search_and_fuse`` :258, a
+``lax.fori_loop`` over 16 masked slots, and ``slam_map.
+update_landmark_stats``), driven there by ``_try_close`` (:621-661):
+
+* graph C: ``loop_fuse``, the seeded Sim3s, the neighbourhood's landmark
+  remap, the essential graph's masked edges with their measurements, the
+  vertices' constants of the solve and the valid-edge count;
+* one host read of that count, which picks the edge capacity
+  (``LoopKernels.edge_capacity``: the next power of two, at least 256);
+* the solve's edges at that capacity (the valid ones compacted in order,
+  masked rows after them, which the pose graph's plans drop) and their
+  segment plans, built eagerly into that capacity's static buffers (about
+  60 launches, no read);
+* the Gauss-Newton step of that capacity, run 12 times: the first run
+  captures it (its first iteration eagerly, then the capture), every later
+  one, in this closure and the next, replays it; one step graph a
+  capacity met, all in this object's pool;
+* graph F: the SE3 recovery and the remap of every landmark,
+  ``loop_member_landmarks``, ``search_and_fuse`` over the 16 masked slots
+  (``LoopKernels.corrected_slots``) and the landmark statistics over every
+  slot of the observation table (``slam_map.update_landmark_stats_all``,
+  the descriptor bits unpacked in blocks of rows), with no read.
+
+Its static inputs: the slots and the past loop edges by fills, S_cl,
+loop_assoc and neigh_pre (graph S's outputs, as ``sim3`` returns them)
+copied on the device. The eager path pads the edges to the same capacity,
+so both give the same bits.
+
+Graphs D, M and S read the arena and ``system.bow_table`` and write
+neither; C, the steps and F write the arena in place. Each table is
+checked by ``data_ptr`` before a call and a moved one raises. They
 also read the ``LoopKernels``' own tensors (the level sigmas, the scale
 factors, the camera's), so this object holds the ``LoopKernels`` it was made
 with and runs every part on them. The system owns it (``LoopGraphOwner``,
@@ -65,7 +98,9 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+from torch.profiler import record_function
 
+from cubemapslam_tpu_torch._build import cusolver
 from cubemapslam_tpu_torch.runtime.fused_step import CapturedFrame
 
 
@@ -87,6 +122,7 @@ class FusedLoop(CapturedFrame):
     def __init__(self, k):
         super().__init__(k.cam.device)
         self.k = k
+        self.correction = FusedCorrect(k)
 
     def check_system(self, system) -> None:
         """``check`` on the arena's tables and the BoW table."""
@@ -157,10 +193,78 @@ class FusedLoop(CapturedFrame):
                 trace)
 
 
+class FusedCorrect(CapturedFrame):
+    """Static buffers, graphs C, F and a Gauss-Newton step a capacity, and
+    their pool, for one system's CorrectLoop on the ``LoopKernels`` ``k``:
+    ``correct(system, ...)``."""
+
+    label = "fused correct"
+
+    def __init__(self, k):
+        super().__init__(k.cam.device)
+        self.k = k
+
+    def check_system(self, system) -> None:
+        """``check`` on the arena's tables."""
+        self.check([(f"arena.{f}", getattr(system.arena, f))
+                    for f in system.arena._fields])
+
+    def _load(self, k_cur, k_loop, sim3, loop_assoc, neigh_pre,
+              loop_edges) -> None:
+        """The closure's inputs into the static buffers: the slots and the
+        past loop edges by fills, S_cl, loop_assoc and neigh_pre by copies
+        on the device."""
+        self._fill("k_cur", k_cur, torch.int64)
+        self._fill("k_loop", k_loop, torch.int64)
+        for name, x in zip(("s_cl", "R_cl", "t_cl"), sim3):
+            self._copy(name, x)
+        self._copy("loop_assoc", loop_assoc)
+        self._copy("neigh_pre", neigh_pre)
+        if "loop_i" not in self.inputs:
+            self.inputs.update(zip(("loop_i", "loop_j", "loop_ok"),
+                                   self.k.loop_edge_buffers(self.device)))
+        self.k.fill_loop_edges(loop_edges, tuple(
+            self.inputs[n] for n in ("loop_i", "loop_j", "loop_ok")))
+
+    def correct(self, system, k_cur, k_loop, sim3, loop_assoc, neigh_pre,
+                loop_edges, n_iters: int) -> int:
+        """CorrectLoop on the system's arena, in place: graph C, the one
+        read of the valid-edge count, the problem at its capacity built
+        into that capacity's static buffers, ``n_iters`` runs of the step
+        graph of that capacity (the first captures it, once a system), then
+        graph F. Returns the count."""
+        self.check_system(system)
+        arena, s = system.arena, self.inputs
+        with record_function("loop.correct.fuse"):
+            self._load(k_cur, k_loop, sim3, loop_assoc, neigh_pre,
+                       loop_edges)
+        with record_function("loop.correct.propagate"):
+            c = self.run("c", lambda: self.k.correct_c(arena, s))
+            count = int(c[-1])                          # the one host read
+        cap = self.k.edge_capacity(count, c[-2].shape[0])
+        with record_function("loop.correct.pose_graph"), \
+                cusolver(self.device):
+            names = []
+            for i, x in enumerate(self.k.correct_problem(c, cap)):
+                names.append(f"p{cap}.{i}")
+                self._copy(names[-1], x)
+            p = [s[n] for n in names]
+            for _ in range(n_iters):
+                self.run(f"g{cap}", lambda: self.k.correct_step(c, p))
+        with record_function("loop.correct.remap"):
+            self.run("f", lambda: self.k.correct_f(arena, s, c))
+        return count
+
+    @property
+    def capacities(self) -> List[int]:
+        """The edge capacities whose step graph this object holds."""
+        return sorted(int(n[1:]) for n in self.outputs if n[0] == "g")
+
+
 class LoopGraphOwner:
-    """A system's side of its loop graphs: it holds one ``FusedLoop`` and
-    hands it to its loop closer. ``CubemapSLAM`` is one; so is
-    ``chip_smoke.py``'s loop-closing system."""
+    """A system's side of its loop graphs: it holds one ``FusedLoop`` (with
+    its ``FusedCorrect``) and hands it to its loop closer. ``CubemapSLAM``
+    is one; so is ``chip_smoke.py``'s loop-closing system."""
 
     _fused_loop: Optional[FusedLoop] = None
 
@@ -192,5 +296,6 @@ class LoopGraphOwner:
         return fl
 
     def drop_loop_graphs(self) -> None:
-        """Forget the ``FusedLoop``; the next request makes a new one."""
+        """Forget the ``FusedLoop`` and its ``FusedCorrect``; the next
+        request makes new ones."""
         self._fused_loop = None

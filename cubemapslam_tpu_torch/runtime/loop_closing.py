@@ -11,16 +11,19 @@ landmark statistics and the post-loop global BA on the CG solver).
 ``LoopCloser`` is the host state machine.
 
 PyTorch idiom: the arena is updated in place, so ``LoopCloser`` always
-works on ``system.arena`` and keeps no reference across a stage. The
-stages of DetectLoop and ComputeSim3 take each keyframe slot as a Python
-int or a 0-d tensor on the arena's device, with the same bits (rows through
-``mapping._at``, writes through ``index_fill_``: ``t[s]`` with a 0-d CUDA
-``s`` would read it to the host), so that ``FusedLoop``'s graphs bake in
-no slot; the correction's stages take host ints. The JAX
-``lax.top_k`` becomes a stable descending sort and ``jnp.argsort`` a stable
-sort. ``search_and_fuse`` is a Python loop over the corrected keyframes (a
-slot the host knows to be unused is skipped: its masked JAX iteration
-changes nothing).
+works on ``system.arena`` and keeps no reference across a stage. Every
+stage takes each keyframe slot as a Python int or a 0-d tensor on the
+arena's device, with the same bits (rows through ``mapping._at``, writes
+through ``_put`` / ``index_fill_``: ``t[s]`` with a 0-d CUDA ``s`` would
+read it to the host), so that ``FusedLoop``'s and ``FusedCorrect``'s graphs
+bake in no slot; the past loop edges go in as (16,) i / j / ok tensors
+written by fills. The JAX ``lax.top_k`` becomes a stable descending sort
+and ``jnp.argsort`` a stable sort. ``search_and_fuse`` is a Python loop
+over the corrected keyframes: the host's list eagerly, or JAX's 16 masked
+slots (``corrected_slots``), a masked one changing nothing. The essential
+graph's valid edges are padded to a capacity (``edge_capacity``) on both
+paths, so that the captured step's shapes stay fixed and its bits are the
+eager ones.
 
 Two rules differ from the JAX package, whose result there depends on the
 order of a scatter with duplicate indices (``loop_closing.py:301-304,
@@ -40,10 +43,13 @@ read. The RANSAC's Horn eigen-solves are ``sym_eig`` launches and wait
 ``sim3.EIGH_WAITS`` = 0 more times (counted in ``LoopCloser.eigh_waits``).
 A closure then reads the pose graph's valid-edge count once and the global
 BA's live-observation count once (each solves on its live edges only: a
-masked edge adds exact zeros), the landmark statistics' live count once,
-and synchronizes twice to time the correction and the global BA. On the
-card DetectLoop and ComputeSim3 replay graphs captured once a system, and
-the two solves' iterations replay CUDA graphs captured in the closure
+masked edge adds nothing), eagerly the landmark statistics' live count
+once, and synchronizes twice to time the correction and the global BA. On
+the card DetectLoop, ComputeSim3 and CorrectLoop replay graphs captured
+once a system (``runtime/fused_loop.py``: CorrectLoop as graph C, the one
+read of the edge count, the Gauss-Newton step of that count's capacity
+replayed 12 times and graph F, whose statistics read nothing), and the
+global BA's LM steps replay a CUDA graph captured in the closure
 (``LoopCloser``); each capture synchronizes once
 (``LoopCloser.capture_waits``).
 
@@ -75,6 +81,7 @@ from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.optim.ba import bundle_adjust
+from cubemapslam_tpu_torch.optim import pose_graph as PG
 from cubemapslam_tpu_torch.optim.pose_graph import optimize_essential_graph
 from cubemapslam_tpu_torch.optim.sim3_opt import optimize_sim3
 from cubemapslam_tpu_torch.runtime.fused_loop import pack_detection
@@ -82,7 +89,7 @@ from cubemapslam_tpu_torch.runtime.fused_step import (CAPTURE_WAITS,
                                                       CapturedLoop)
 from cubemapslam_tpu_torch.runtime.kernels import _members
 from cubemapslam_tpu_torch.runtime.mapping import (Slot, _at, _index,
-                                                   _kf_keypoints, _top)
+                                                   _kf_keypoints, _put, _top)
 from cubemapslam_tpu_torch.solvers import sim3 as S3
 from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
@@ -94,6 +101,7 @@ SCW_QUERY_CHUNK = 8192
 MAX_NEIGH = 16           # corrected keyframes that SearchAndFuse visits
 MAX_LOOP_LANDMARKS = 4096
 POSE_GRAPH_ITERS = 12
+MIN_EDGE_CAPACITY = 256  # the essential graph's smallest padded edge count
 N_CANDIDATES = 8         # DetectLoop's candidates (PL.detect_candidates)
 
 
@@ -333,7 +341,7 @@ class LoopKernels:
         return loop_assoc, total, neigh_pre
 
     def loop_member_landmarks(self, arena: SM.MapArena, max_sel: int,
-                              k_loop: int):
+                              k_loop: Slot):
         """The loop neighbourhood's landmark set compacted to ``max_sel``
         ids, lowest first (``loop_closing.py:238-256``). Returns (sel,
         sel_ok)."""
@@ -343,18 +351,41 @@ class LoopKernels:
         val, sel = _top(score, min(max_sel, arena.n_lm_cap))
         return sel, val > 0
 
-    def search_and_fuse(self, arena: SM.MapArena, neigh: List[int],
-                        sel: torch.Tensor, sel_ok: torch.Tensor
+    def corrected_slots(self, arena: SM.MapArena, k_cur: Slot,
+                        neigh_pre: torch.Tensor):
+        """SearchAndFuse's ``MAX_NEIGH`` keyframe slots on the device, as the
+        JAX package lists them (``loop_closing.py:644-650``): the current
+        keyframe, then the first ``MAX_NEIGH`` - 1 of its pre-fusion
+        covisible set ``neigh_pre``, each masked where it is the current
+        one, and masked slots after them. Returns (slots, ok), each
+        (MAX_NEIGH,)."""
+        K = arena.n_kf_cap
+        dev = neigh_pre.device
+        kc = _index(k_cur, dev)
+        rest = SM.compact_mask(neigh_pre, MAX_NEIGH - 1, K)
+        slots = torch.cat([kc, rest.clamp(max=K - 1)])
+        ok = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                        (rest < K) & (rest != kc)])
+        return slots, ok
+
+    def search_and_fuse(self, arena: SM.MapArena, neigh, sel: torch.Tensor,
+                        sel_ok: torch.Tensor, neigh_ok=None
                         ) -> SM.MapArena:
         """Project the loop landmark set into each corrected keyframe of
-        ``neigh`` (host slots) and fuse duplicates, the loop landmark winning
+        ``neigh`` and fuse duplicates, the loop landmark winning
         (SearchAndFuse, radius 4), in place (``loop_closing.py:258-309``): a
         matched feature holding another landmark has it replaced, a free one
-        gains the observation."""
+        gains the observation. ``neigh``: host slots, or a tensor of slots
+        (``corrected_slots``) masked by ``neigh_ok``; a masked slot, as in
+        the JAX ``fori_loop``, queries nothing, so it adds, merges and
+        redirects nothing and writes back its row unchanged."""
         L, N = arena.n_lm_cap, arena.n_feat
-        for k in neigh:
-            ok_q = sel_ok & arena.lm_valid[sel] & arena.kf_valid[k]
-            Xc = G.se3_apply(arena.kf_R[k], arena.kf_t[k], arena.lm_pos[sel])
+        for n, k in enumerate(neigh):
+            ok_q = sel_ok & arena.lm_valid[sel] & _at(arena.kf_valid, k)
+            if neigh_ok is not None:
+                ok_q = ok_q & neigh_ok[n]
+            Xc = G.se3_apply(_at(arena.kf_R, k), _at(arena.kf_t, k),
+                             arena.lm_pos[sel])
             d = torch.linalg.norm(Xc, dim=-1)
             lvl = SM.predict_scale(d, arena.lm_max_dist[sel], self.log_scale,
                                    self.cfg.n_levels)
@@ -365,7 +396,7 @@ class LoopKernels:
                 _kf_keypoints(arena, k), self.cam, self.scale_factors, 4.0,
                 level_lo_off=-1, level_hi_off=1, th=float(self.cfg.th_low))
             j = res.idx
-            row = arena.kf_obs_lm[k]
+            row = _at(arena.kf_obs_lm, k)
             tgt = row[j]
             # a query whose landmark is already in this row is not fused
             add = res.ok & (tgt < 0)
@@ -374,35 +405,36 @@ class LoopKernels:
                 0, torch.where(add, j, torch.full_like(j, N - 1)),
                 torch.where(add, sel, torch.full_like(sel, SM.NO_LM)),
                 reduce="amax", include_self=True)
-            arena.kf_obs_lm[k] = row_new
+            _put(arena.kf_obs_lm, k, row_new)
             redirect, dead = _redirect_merges(merge, tgt.clamp(min=0), sel, L)
             arena.lm_valid.copy_(arena.lm_valid & ~dead)
             SM.apply_redirect(arena, redirect)
         return arena
 
-    def loop_fuse(self, arena: SM.MapArena, k_cur: int,
+    def loop_fuse(self, arena: SM.MapArena, k_cur: Slot,
                   loop_assoc: torch.Tensor) -> SM.MapArena:
         """Fuse the matched loop landmarks into the current keyframe, in
         place (``loop_closing.py:311-332``): a current feature holding
         another landmark has it replaced by the loop landmark, a free one
         gains the observation."""
         L = arena.n_lm_cap
-        row = arena.kf_obs_lm[k_cur].clone()
+        row = _at(arena.kf_obs_lm, k_cur).clone()
         has_loop = loop_assoc >= 0
-        arena.kf_obs_lm[k_cur] = torch.where(has_loop, loop_assoc, row)
+        _put(arena.kf_obs_lm, k_cur, torch.where(has_loop, loop_assoc, row))
         merge = has_loop & (row >= 0) & (row != loop_assoc)
         redirect, dead = _redirect_merges(merge, row.clamp(min=0),
                                           loop_assoc.clamp(min=0), L)
         arena.lm_valid.copy_(arena.lm_valid & ~dead)
         return SM.apply_redirect(arena, redirect)
 
-    def essential_graph_edges(self, arena: SM.MapArena, covis, k_cur: int,
-                              k_loop: int, s_cl, R_cl, t_cl, neigh,
-                              s_v, R_v, t_v, loop_edges):
+    def essential_graph_edges(self, arena: SM.MapArena, covis, k_cur: Slot,
+                              k_loop: Slot, s_cl, R_cl, t_cl, neigh,
+                              s_v, R_v, t_v, loop_i, loop_j, loop_ok):
         """The essential graph (``loop_closing.py:397-465``): the temporal
         chain, every covisibility pair of weight >= 100, the past loop edges
-        and the new one, with their measurements. Returns (e_i, e_j, m_s,
-        m_R, m_t, e_ok), masked, in the JAX package's order."""
+        (``fill_loop_edges``) and the new one, with their measurements.
+        Returns (e_i, e_j, m_s, m_R, m_t, e_ok), masked, in the JAX
+        package's order."""
         K = arena.n_kf_cap
         dev = arena.device
         idx = torch.arange(K, device=dev)
@@ -417,17 +449,8 @@ class LoopKernels:
         cov_ok = ((covis.reshape(-1) >= self.cfg.essential_graph_min_weight)
                   & arena.kf_valid[cov_i] & arena.kf_valid[cov_j]
                   & (cov_i < cov_j))
-        loop_i = torch.zeros(MAX_PREV_LOOPS, dtype=torch.int64, device=dev)
-        loop_j = torch.zeros_like(loop_i)
-        loop_ok = torch.zeros(MAX_PREV_LOOPS, dtype=torch.bool, device=dev)
-        for n, (a, b) in enumerate(loop_edges[:MAX_PREV_LOOPS]):
-            loop_i[n].fill_(a)
-            loop_j[n].fill_(b)
-            loop_ok[n].fill_(True)
-        new_i = torch.full((1,), k_cur, dtype=torch.int64, device=dev)
-        new_j = torch.full((1,), k_loop, dtype=torch.int64, device=dev)
-        e_i = torch.cat([chain_i, cov_i, loop_i, new_i])
-        e_j = torch.cat([chain_j, cov_j, loop_j, new_j])
+        e_i = torch.cat([chain_i, cov_i, loop_i, _index(k_cur, dev)])
+        e_j = torch.cat([chain_j, cov_j, loop_j, _index(k_loop, dev)])
         e_ok = torch.cat([chain_ok, cov_ok, loop_ok,
                           torch.ones(1, dtype=torch.bool, device=dev)])
         # edges within the corrected neighbourhood or within the untouched
@@ -451,8 +474,22 @@ class LoopKernels:
         ms[-1], mR[-1], mt[-1] = S_lc
         return e_i, e_j, ms, mR, mt, e_ok
 
-    def propagate_and_pose_graph(self, arena: SM.MapArena, k_cur: int,
-                                 k_loop: int, s_cl, R_cl, t_cl,
+    @staticmethod
+    def padded_edges(edges, cap: int):
+        """The valid edges of (e_i, e_j, m_s, m_R, m_t, e_ok) in their
+        order, compacted on the device into ``cap`` rows, masked rows after
+        them (they gather the last edge): the edge arguments of
+        ``optimize_essential_graph``, which leaves the masked rows out of
+        its sums."""
+        e_ok = edges[-1]
+        E = e_ok.shape[0]
+        keep = SM.compact_mask(e_ok, cap, E)
+        ok = keep < E
+        keep = keep.clamp(max=E - 1)
+        return (*(x[keep] for x in edges[:-1]), ok)
+
+    def propagate_and_pose_graph(self, arena: SM.MapArena, k_cur: Slot,
+                                 k_loop: Slot, s_cl, R_cl, t_cl,
                                  neigh_pre: torch.Tensor,
                                  loop_edges: List[Tuple[int, int]],
                                  loop=None) -> SM.MapArena:
@@ -461,51 +498,62 @@ class LoopKernels:
         ``neigh_pre`` (its covisible set measured before loop fusion),
         optimize the essential graph with the loop keyframe fixed, recover
         the SE3 poses and remap every landmark through its reference
-        keyframe. The masked edges are compacted first (one host read).
-        ``loop``: the runner of the Gauss-Newton iterations
-        (``optimize_essential_graph``)."""
+        keyframe. The valid edges are counted (one host read) and padded to
+        that count's capacity (``edge_capacity``), as the system's captured
+        step takes them (``runtime/fused_loop.py``). ``loop``: the runner
+        of the Gauss-Newton iterations (``optimize_essential_graph``)."""
         with record_function("loop.correct.propagate"):
-            own, lm_pos, graph = self._propagate(arena, k_cur, k_loop, s_cl,
-                                                 R_cl, t_cl, neigh_pre,
-                                                 loop_edges)
+            own, lm_pos, state, fixed, edges = self._propagate(
+                arena, k_cur, k_loop, s_cl, R_cl, t_cl, neigh_pre,
+                *self.fill_loop_edges(
+                    loop_edges, self.loop_edge_buffers(arena.device)))
+            cap = self.edge_capacity(int(edges[-1].sum()),  # the host read
+                                     edges[-1].shape[0])
+            padded = self.padded_edges(edges, cap)
         with record_function("loop.correct.pose_graph"):
             s_o, R_o, t_o = optimize_essential_graph(
-                *graph, n_iters=POSE_GRAPH_ITERS, loop=loop)
+                *state, arena.kf_valid, fixed, *padded,
+                n_iters=POSE_GRAPH_ITERS, loop=loop)
         with record_function("loop.correct.remap"):
-            # SE3 back (t / s) and every landmark remapped old -> new
-            p_cam_all = G.se3_apply(arena.kf_R[own], arena.kf_t[own], lm_pos)
-            lm_final = torch.where(
-                arena.lm_valid[:, None],
-                G.sim3_apply(*G.sim3_inverse(s_o[own], R_o[own], t_o[own]),
-                             p_cam_all), lm_pos)
-            kf_t_new = t_o / torch.clamp(s_o[:, None], min=1e-12)
-            valid = arena.kf_valid
-            arena.kf_R.copy_(torch.where(valid[:, None, None], R_o,
-                                         arena.kf_R))
-            arena.kf_t.copy_(torch.where(valid[:, None], kf_t_new,
-                                         arena.kf_t))
-            arena.lm_pos.copy_(lm_final)
+            self.remap(arena, own, lm_pos, s_o, R_o, t_o)
         return arena
 
-    def _propagate(self, arena: SM.MapArena, k_cur: int, k_loop: int, s_cl,
-                   R_cl, t_cl, neigh_pre: torch.Tensor,
-                   loop_edges: List[Tuple[int, int]]):
-        """``propagate_and_pose_graph`` up to the solve: the seeded Sim3s,
-        the landmarks of the corrected neighbourhood remapped, the
-        essential graph's live edges. Returns (each landmark's owning
-        keyframe, the remapped landmarks, the arguments of
-        ``optimize_essential_graph``)."""
+    def remap(self, arena: SM.MapArena, own, lm_pos, s_o, R_o, t_o
+              ) -> SM.MapArena:
+        """The pose graph's Sim3s back to SE3 (t / s) and every landmark
+        remapped old -> new through its owning keyframe, in place
+        (``loop_closing.py:474-487``)."""
+        p_cam_all = G.se3_apply(arena.kf_R[own], arena.kf_t[own], lm_pos)
+        lm_final = torch.where(
+            arena.lm_valid[:, None],
+            G.sim3_apply(*G.sim3_inverse(s_o[own], R_o[own], t_o[own]),
+                         p_cam_all), lm_pos)
+        kf_t_new = t_o / torch.clamp(s_o[:, None], min=1e-12)
+        valid = arena.kf_valid
+        arena.kf_R.copy_(torch.where(valid[:, None, None], R_o, arena.kf_R))
+        arena.kf_t.copy_(torch.where(valid[:, None], kf_t_new, arena.kf_t))
+        arena.lm_pos.copy_(lm_final)
+        return arena
+
+    def _propagate(self, arena: SM.MapArena, k_cur: Slot, k_loop: Slot, s_cl,
+                   R_cl, t_cl, neigh_pre: torch.Tensor, loop_i, loop_j,
+                   loop_ok):
+        """``propagate_and_pose_graph`` up to the edge mask: the seeded
+        Sim3s, the landmarks of the corrected neighbourhood remapped, the
+        essential graph's masked edges. Returns (each landmark's owning
+        keyframe, the remapped landmarks, the seeded (s, R, t), the fixed
+        vertices, the edges of ``essential_graph_edges``); no host read."""
         K = arena.n_kf_cap
         dev = arena.device
         covis = SM.covisibility_matrix(arena)
         ones = torch.ones(K, device=dev)
         s_v, R_v, t_v = ones, arena.kf_R, arena.kf_t
         S_cw = G.sim3_compose(s_cl, R_cl, t_cl, _ones_like(s_cl),
-                              arena.kf_R[k_loop], arena.kf_t[k_loop])
-        neigh = neigh_pre & arena.kf_valid
-        neigh[k_cur].fill_(True)
-        R_cw_inv, t_cw_inv = G.se3_inverse(arena.kf_R[k_cur],
-                                           arena.kf_t[k_cur])
+                              _at(arena.kf_R, k_loop), _at(arena.kf_t, k_loop))
+        neigh = (neigh_pre & arena.kf_valid).index_fill_(
+            0, _index(k_cur, dev), True)
+        R_cw_inv, t_cw_inv = G.se3_inverse(_at(arena.kf_R, k_cur),
+                                           _at(arena.kf_t, k_cur))
         R_ic = torch.einsum("kij,jl->kil", arena.kf_R, R_cw_inv)
         t_ic = torch.einsum("kij,j->ki", arena.kf_R, t_cw_inv) + arena.kf_t
         S_iw = G.sim3_compose(ones, R_ic, t_ic, S_cw[0].expand(K),
@@ -526,16 +574,91 @@ class LoopKernels:
                                               S_iw[2][own]), p_cam)
         lm_pos = torch.where(owned[:, None], lm_new, arena.lm_pos)
 
-        e_i, e_j, ms, mR, mt, e_ok = self.essential_graph_edges(
+        edges = self.essential_graph_edges(
             arena, covis, k_cur, k_loop, s_cl, R_cl, t_cl, neigh, s_v, R_v,
-            t_v, loop_edges)
-        keep = e_ok.nonzero()[:, 0]                     # the one host read
-        fixed = torch.zeros(K, dtype=torch.bool, device=dev)
-        fixed[k_loop].fill_(True)
-        return own, lm_pos, (
-            s_v, R_v, t_v, arena.kf_valid, fixed, e_i[keep], e_j[keep],
-            ms[keep], mR[keep], mt[keep],
-            torch.ones(keep.shape[0], dtype=torch.bool, device=dev))
+            t_v, loop_i, loop_j, loop_ok)
+        fixed = torch.zeros(K, dtype=torch.bool, device=dev).index_fill_(
+            0, _index(k_loop, dev), True)
+        return own, lm_pos, (s_v, R_v, t_v), fixed, edges
+
+    @staticmethod
+    def loop_edge_buffers(device) -> Tuple[torch.Tensor, ...]:
+        """The past loop edges' (MAX_PREV_LOOPS,) i, j and ok tensors,
+        zero."""
+        return tuple(torch.zeros(MAX_PREV_LOOPS, dtype=dt, device=device)
+                     for dt in (torch.int64, torch.int64, torch.bool))
+
+    @staticmethod
+    def fill_loop_edges(loop_edges: List[Tuple[int, int]], out):
+        """Write the first MAX_PREV_LOOPS of the host's ``loop_edges`` into
+        the i, j and ok tensors ``out`` (``loop_edge_buffers``, or the
+        system's static buffers) by fills, with no copy from the host;
+        returns ``out``."""
+        for buf in out:
+            buf.zero_()
+        for n, (a, b) in enumerate(loop_edges[:MAX_PREV_LOOPS]):
+            out[0][n].fill_(a)
+            out[1][n].fill_(b)
+            out[2][n].fill_(True)
+        return out
+
+    @staticmethod
+    def edge_capacity(count: int, n_edges: int) -> int:
+        """The essential graph's padded edge count for ``count`` valid
+        edges of ``n_edges``: the next power of two at or above the count,
+        at least ``MIN_EDGE_CAPACITY``, at most ``n_edges``. One captured
+        step serves every closure whose count falls in its capacity."""
+        return min(n_edges, max(MIN_EDGE_CAPACITY,
+                                1 << max(count - 1, 0).bit_length()))
+
+    # ------------------------------------------------------------------
+    # CorrectLoop as the system's captured graphs (runtime/fused_loop.py)
+    # ------------------------------------------------------------------
+
+    def correct_c(self, arena: SM.MapArena, s: dict) -> List[torch.Tensor]:
+        """Graph C on the static inputs ``s`` (the slots, S_cl, loop_assoc,
+        neigh_pre, the past loop edges): ``loop_fuse``, then ``_propagate``
+        and the vertices' constants of the solve. Returns [own, lm_pos, s,
+        R, t (the solve's state), free, free7, keep, diag, the six masked
+        edge tensors, the valid-edge count]."""
+        self.loop_fuse(arena, s["k_cur"], s["loop_assoc"])
+        own, lm_pos, state, fixed, edges = self._propagate(
+            arena, s["k_cur"], s["k_loop"], s["s_cl"], s["R_cl"], s["t_cl"],
+            s["neigh_pre"], s["loop_i"], s["loop_j"], s["loop_ok"])
+        verts = PG.vertex_terms(arena.kf_valid, fixed, state[0].dtype)
+        return [own, lm_pos, *state, *verts, *edges, edges[-1].sum()]
+
+    @staticmethod
+    def correct_problem(c: List[torch.Tensor], cap: int
+                        ) -> List[torch.Tensor]:
+        """The solve's edges at capacity ``cap`` from graph C's outputs
+        ``c``: the five padded edge tensors, then ``PG.edge_terms``."""
+        padded = LoopKernels.padded_edges(c[9:15], cap)
+        return [*padded[:-1], *PG.edge_terms(padded[0], padded[1],
+                                             padded[-1], c[2].shape[0],
+                                             c[2].dtype)]
+
+    @staticmethod
+    def correct_step(c: List[torch.Tensor], p: List[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """One Gauss-Newton iteration on graph C's state (``c``, updated in
+        place) and the problem ``p`` of ``correct_problem``; no output."""
+        PG.gauss_newton_step(*c[2:5], c[5:9], *p[:5], p[5:])
+        return []
+
+    def correct_f(self, arena: SM.MapArena, s: dict,
+                  c: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Graph F: the remap from the solved state of graph C's outputs
+        ``c``, ``loop_member_landmarks``, ``search_and_fuse`` over the
+        ``MAX_NEIGH`` masked slots and the landmark statistics over every
+        slot of the observation table (no read)."""
+        self.remap(arena, *c[:5])
+        sel, sel_ok = self.loop_member_landmarks(
+            arena, min(MAX_LOOP_LANDMARKS, arena.n_lm_cap), s["k_loop"])
+        slots, ok = self.corrected_slots(arena, s["k_cur"], s["neigh_pre"])
+        self.search_and_fuse(arena, slots, sel, sel_ok, ok)
+        SM.update_landmark_stats_all(arena, self.scale_factors)
+        return []
 
 
 class LoopCloser:
@@ -553,16 +676,18 @@ class LoopCloser:
 
     On the card DetectLoop and ComputeSim3 replay the captured graphs D, M
     and S of the ``FusedLoop`` that the system owns and hands out
-    (``system.fused_loop_for``), each captured on its first call and
-    replayed on every later one, across keyframes and closures; a system
-    that hands out none (one without ``fused_loop_for``, or any off the
-    card) runs them eagerly. The closure's two iterative
-    solves, the essential graph's 12 Gauss-Newton iterations and the
-    global BA's 15 LM steps, each run through a ``CapturedLoop`` made for
-    that solve and dropped after it: on the card the first iteration runs
-    eagerly, is captured as one CUDA graph and is replayed for the others,
-    with the same bits as the eager iterations (the live-edge counts fix
-    the shapes only within one closure, so each closure captures anew).
+    (``system.fused_loop_for``), and CorrectLoop the graphs C, the
+    Gauss-Newton step at the closure's edge capacity and F of its
+    ``FusedCorrect`` (``FusedLoop.correction``), each captured on its first
+    call and replayed on every later one, across keyframes and closures; a
+    system that hands out none (one without ``fused_loop_for``, or any off
+    the card) runs them eagerly. The global BA's 15 LM steps run through a
+    ``CapturedLoop`` made for that solve and dropped after it (its
+    live-edge count fixes its shapes only within one closure): on the card
+    the first step runs eagerly, is captured as one CUDA graph and is
+    replayed for the others, with the same bits as the eager steps; so do
+    the pose graph's iterations where the system hands out no
+    ``FusedLoop``.
     ``graphs = False``, or a ``system`` whose ``stage_times`` is set
     (``CubemapSLAM``'s eager switch), runs all of them as eager launches;
     so does the sharded global BA. ``graph_counts`` holds the last call's
@@ -612,9 +737,13 @@ class LoopCloser:
 
     @staticmethod
     def _fused_counts(fl):
+        """Captures, replays, capture ms and pool MiB so far of the
+        ``FusedLoop`` and its ``FusedCorrect``."""
         if fl is None:
             return (0, 0, 0.0, 0.0)
-        return (fl.captures, fl.replays, fl.capture_ms, fl.capture_mib)
+        return tuple(a + b for a, b in zip(*(
+            (g.captures, g.replays, g.capture_ms, g.capture_mib)
+            for g in (fl, fl.correction))))
 
     def _count(self, loop) -> None:
         """Add one solve's captures, replays, capture ms, pool MiB and
@@ -804,7 +933,17 @@ class LoopCloser:
                  neigh_pre, neigh_np) -> None:
         """CorrectLoop (``loop_closing.py:621-661``), in place: loop fusion,
         the propagation and pose graph, SearchAndFuse over the corrected
-        neighbourhood, the landmark statistics."""
+        neighbourhood, the landmark statistics. Through the system's
+        ``FusedCorrect`` (graphs C, a Gauss-Newton step and F) where it
+        hands out a ``FusedLoop``, else eagerly."""
+        fl = self._fused_loop(system)
+        if fl is not None:
+            fl.correction.correct(system, k_cur, k_loop, sim3, loop_assoc,
+                                  neigh_pre, self.loop_edges,
+                                  POSE_GRAPH_ITERS)
+            self.reads += 1
+            self.loop_edges.append((k_cur, k_loop))
+            return
         k, arena = self.k, system.arena
         # fuse the loop landmarks into the current keyframe before the pose
         # graph, so that the covisibility edges it makes take part

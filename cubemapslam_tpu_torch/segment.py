@@ -90,6 +90,24 @@ class SegmentPlan:
         if idx.device.type == "cuda":
             self.schedule()
 
+    N_PARTS = 6
+
+    def parts(self):
+        """The plan's tensors, flat: (idx, perm, off, long_seg, long_count,
+        long_done); ``from_parts`` makes the plan again from them."""
+        return [self.idx, *self.order(), *self.schedule()]
+
+    @classmethod
+    def from_parts(cls, parts, n: int) -> "SegmentPlan":
+        """The plan of ``parts`` (``parts()``) over ``n`` segments, on those
+        tensors (a captured graph's outputs, say), with no launch."""
+        plan = cls.__new__(cls)
+        plan.idx, plan.n = parts[0], int(n)
+        plan.long_bound = min(plan.idx.shape[0] // (WARP + 1), plan.n)
+        plan._perm, plan._off = parts[1], parts[2]
+        plan._sched = tuple(parts[3:cls.N_PARTS])
+        return plan
+
     def order(self):
         """(perm, off) of the plan, built on first use."""
         if self._perm is None:

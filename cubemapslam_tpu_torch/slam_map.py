@@ -10,8 +10,9 @@ segment reduction over that table, and the covisibility graph is the product
 
 PyTorch idiom: the arena is a NamedTuple of tensors on one device, and the
 functions that change it (``update_landmark_stats``,
-``update_landmark_stats_touched``) write its tensors in place, where the JAX
-package returns a new arena from donated buffers. Descriptors are (.., 8)
+``update_landmark_stats_all``, ``update_landmark_stats_touched``) write
+its tensors in place, where the JAX package returns a new arena from
+donated buffers. Descriptors are (.., 8)
 int64 words (the 8 uint32 words of the 256-bit descriptor) and every int32
 table of the JAX arena is int64 here. A JAX scatter into an ``L+1`` (or
 ``T+1``) buffer whose last entry is dropped becomes the same scatter here:
@@ -191,7 +192,7 @@ def covisibility_matrix(arena: MapArena, O=None) -> torch.Tensor:
 
 
 def _stats_core(kf_frame_id, Ow, scale_factors, seg, live, kf_idx, desc,
-                lev, pos_seg, first_kf_seg, S):
+                lev, pos_seg, first_kf_seg, S, block=None):
     """Per-segment landmark statistics from an observation list
     (``slam_map.py:183-246``): normals, depth bands from the reference
     keyframe, and the observation descriptor closest to the bitwise
@@ -199,11 +200,21 @@ def _stats_core(kf_frame_id, Ow, scale_factors, seg, live, kf_idx, desc,
 
     seg: (E,) in [0, S] (S = dump); live: (E,) bool; kf_idx: (E,) slot;
     desc: (E, 8) int64 words; lev: (E,); pos_seg: (S, 3); first_kf_seg:
-    (S,). Returns (normal, min_dist, max_dist, desc, has_obs), each (S, ..).
+    (S,). ``block``: the descriptors' (E, 256) bit matrix is unpacked that
+    many rows at a time (all at once if None); its sums are integer counts,
+    exact in any order, so the result is the same. Returns (normal,
+    min_dist, max_dist, desc, has_obs), each (S, ..).
+
+    The scatters send a dead row's value, the reduction's identity (0 to a
+    sum of counts, the fill to a min or max), to a segment picked by its
+    index rather than to the dump: the result is the same, and the dead
+    rows of a whole observation table do not all meet on the dump's
+    atomics.
     """
     K = Ow.shape[0]
     E = seg.shape[0]
     seg_s = seg.clamp(max=S - 1)
+    tgt = torch.where(live, seg, torch.arange(E, device=seg.device) % S)
     d = pos_seg[seg_s] - Ow[kf_idx]
     dist = torch.linalg.norm(d, dim=-1)
     dir_n = d / dist.clamp(min=1e-12)[:, None]
@@ -211,18 +222,18 @@ def _stats_core(kf_frame_id, Ow, scale_factors, seg, live, kf_idx, desc,
     # the float sum in the plan's fixed order; the 0/1 counts are exact in
     # any order
     normal_sum = segment_sum(SegmentPlan(seg, S), dir_n * w[:, None])
-    cnt = _scatter(S + 1, 0.0, seg, w, "sum")
+    cnt = _scatter(S + 1, 0.0, tgt, w, "sum")
     normal = normal_sum / cnt[:-1, None].clamp(min=1.0)
     nn = torch.linalg.norm(normal, dim=-1, keepdim=True)
     normal = normal / nn.clamp(min=1e-12)
 
     key = kf_frame_id[kf_idx] * K + kf_idx
-    best = _scatter(S + 1, _BIG, seg,
+    best = _scatter(S + 1, _BIG, tgt,
                     torch.where(live, key, torch.full_like(key, _BIG)),
                     "amin")[:-1]
     ref_kf = torch.where(best < _BIG, best % K, first_kf_seg.clamp(0, K - 1))
     d_ref = torch.linalg.norm(pos_seg - Ow[ref_kf], dim=-1)
-    lev_ref = _scatter(S + 1, 0, seg, torch.where(
+    lev_ref = _scatter(S + 1, 0, tgt, torch.where(
         live & (kf_idx == ref_kf[seg_s]), lev, torch.zeros_like(lev)),
         "amax")
     n_levels = scale_factors.shape[0]
@@ -230,23 +241,60 @@ def _stats_core(kf_frame_id, Ow, scale_factors, seg, live, kf_idx, desc,
     max_dist = d_ref * sf
     min_dist = max_dist / scale_factors[n_levels - 1]
 
-    bits = M.unpack_descriptors(desc)                        # (E, 256)
-    bit_sum = _scatter(S + 1, 0.0, seg, bits * w[:, None], "sum")
+    step = max(block or E, 1)
+    rows = [slice(b, b + step) for b in range(0, E, step)]
+    bit_sum = torch.zeros((S + 1, 256), dtype=torch.float32,
+                          device=seg.device)
+    for r in rows:
+        bit_sum.index_add_(0, tgt[r],
+                           M.unpack_descriptors(desc[r]) * w[r, None])
     majority = bit_sum[:-1] > 0.5 * cnt[:-1, None].clamp(min=1.0)
-    ham = (bits != majority[seg_s].float()).sum(dim=-1).float()
+    # the majority packed into words as the descriptors are, so that each
+    # row's distance to it is a popcount of 8 words; a word at a time, so
+    # that no (S, 256) int64 tensor is made
+    shifts = torch.arange(32, dtype=torch.int64, device=seg.device)
+    maj_words = torch.stack([
+        (majority[:, 32 * i:32 * (i + 1)].to(torch.int64) << shifts).sum(-1)
+        for i in range(8)], 1)
+    ham = torch.empty(E, dtype=torch.float32, device=seg.device)
+    for r in rows:
+        ham[r] = _popcount32(desc[r] ^ maj_words[seg_s[r]]).sum(-1).float()
     ham = torch.where(live, ham, torch.full_like(ham, 1e9))
-    best_val = _scatter(S + 1, 1e9, seg, ham, "amin")
+    best_val = _scatter(S + 1, 1e9, tgt, ham, "amin")
     is_best = live & (ham <= best_val[seg])
     flat_idx = torch.arange(E, dtype=torch.int64, device=seg.device)
-    best_idx = _scatter(S + 1, E, seg, torch.where(
+    best_idx = _scatter(S + 1, E, tgt, torch.where(
         is_best, flat_idx, torch.full_like(flat_idx, E)), "amin")
     safe_best = best_idx[:-1].clamp(max=E - 1)
     return normal, min_dist, max_dist, desc[safe_best], cnt[:-1] > 0
 
 
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """The set bits of each entry of ``x``, int64 entries below 2^32 (a
+    SWAR count)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
 def _camera_centres(arena: MapArena) -> torch.Tensor:
     """(K, 3) keyframe centres in the world, -Rᵀ t."""
     return -torch.einsum("kij,ki->kj", arena.kf_R, arena.kf_t)
+
+
+def _write_stats(arena: MapArena, stats) -> MapArena:
+    """Write ``_stats_core``'s (L, ..) statistics into the arena, in place,
+    for the landmarks with observations."""
+    normal, min_dist, max_dist, desc, has_obs = stats
+    arena.lm_normal.copy_(torch.where(has_obs[:, None], normal,
+                                      arena.lm_normal))
+    arena.lm_min_dist.copy_(torch.where(has_obs, min_dist,
+                                        arena.lm_min_dist))
+    arena.lm_max_dist.copy_(torch.where(has_obs, max_dist,
+                                        arena.lm_max_dist))
+    arena.lm_desc.copy_(torch.where(has_obs[:, None], desc, arena.lm_desc))
+    return arena
 
 
 def update_landmark_stats(arena: MapArena,
@@ -257,25 +305,42 @@ def update_landmark_stats(arena: MapArena,
 
     Only the live observations are reduced: the dead ones fall into the
     dump slot and change nothing, and keeping the flat order keeps the
-    descriptor tie-break. This costs one host read (the live count)."""
-    K, N, L = arena.n_kf_cap, arena.n_feat, arena.n_lm_cap
+    descriptor tie-break. This costs one host read (the live count);
+    ``update_landmark_stats_all`` gives the same bits with none."""
+    N, L = arena.n_feat, arena.n_lm_cap
     seg, live = _flat_obs(arena)
     rows = live.nonzero()[:, 0]
     if rows.numel() == 0:
         return arena
     kf_idx = rows // N
-    normal, min_dist, max_dist, desc, has_obs = _stats_core(
+    return _write_stats(arena, _stats_core(
         arena.kf_frame_id, _camera_centres(arena), scale_factors, seg[rows],
         live[rows], kf_idx, arena.kf_desc.reshape(-1, 8)[rows],
-        arena.kf_level.reshape(-1)[rows], arena.lm_pos, arena.lm_first_kf, L)
-    arena.lm_normal.copy_(torch.where(has_obs[:, None], normal,
-                                      arena.lm_normal))
-    arena.lm_min_dist.copy_(torch.where(has_obs, min_dist,
-                                        arena.lm_min_dist))
-    arena.lm_max_dist.copy_(torch.where(has_obs, max_dist,
-                                        arena.lm_max_dist))
-    arena.lm_desc.copy_(torch.where(has_obs[:, None], desc, arena.lm_desc))
-    return arena
+        arena.kf_level.reshape(-1)[rows], arena.lm_pos, arena.lm_first_kf, L))
+
+
+# rows of the observation table whose descriptor bits are unpacked at a
+# time by update_landmark_stats_all: at K*N = 1,024,000 the whole (E, 256)
+# float32 matrix would be 1 GiB, kept for the life of a graph's pool
+STATS_ROW_BLOCK = 32768
+
+
+def update_landmark_stats_all(arena: MapArena,
+                              scale_factors: torch.Tensor) -> MapArena:
+    """``update_landmark_stats`` in the JAX package's form
+    (``slam_map.py:249-272``): every slot of the observation table is
+    reduced, so no host read and fixed shapes, for a captured graph. The
+    live rows keep their flat order and the dead ones add nothing (the
+    normals' plan drops them, the other scatters take their identities),
+    so the result is ``update_landmark_stats``'s, bit for bit. The descriptor bits are
+    unpacked ``STATS_ROW_BLOCK`` rows at a time."""
+    K, N, L = arena.n_kf_cap, arena.n_feat, arena.n_lm_cap
+    seg, live = _flat_obs(arena)
+    kf_idx = torch.arange(K, device=seg.device).repeat_interleave(N)
+    return _write_stats(arena, _stats_core(
+        arena.kf_frame_id, _camera_centres(arena), scale_factors, seg, live,
+        kf_idx, arena.kf_desc.reshape(-1, 8), arena.kf_level.reshape(-1),
+        arena.lm_pos, arena.lm_first_kf, L, block=STATS_ROW_BLOCK))
 
 
 def compact_mask(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:

@@ -29,9 +29,10 @@ when the two devices disagree; ``--draws device,cpu`` runs both over one
 rendering. The summary's ``rotation_orthonormality_error`` says how far the
 returned rotations left SO(3); ``--project-rotations`` keeps the tracked
 ones on it (a diagnostic), and ``--dump`` records every frame for
-``scripts/torch_e2e_divergence.py``. On the card a closure replays its
-solves' iterations from CUDA graphs, and DetectLoop and ComputeSim3
-replay ``FusedLoop``'s; ``--eager-loop`` runs them all eagerly, and so
+``scripts/torch_e2e_divergence.py``. On the card DetectLoop, ComputeSim3
+and CorrectLoop replay the system's loop graphs (``FusedLoop`` and its
+``FusedCorrect``) and the global BA replays its LM step from a graph
+captured in the closure; ``--eager-loop`` runs them all eagerly, and so
 does ``--dump``, which reads the refinement's inputs inside its stage.
 """
 

@@ -2,6 +2,7 @@
 the CUDA graphs.
 
     python3 scripts/torch_loop_profile.py [--modes eager,graph] [--profile]
+                                          [--replays N]
 
 Needs one CUDA card. The constructed-drift arena of ``chip_smoke.py``'s
 ``loop`` phase (``SlamConfig()``: K=512 x N=2000, L=65536, the repo's
@@ -14,7 +15,10 @@ memory and the sha256 digest of the closed arena (every table, in field
 order: bitwise equal closures print the same digest); with ``--profile``
 one more closure of each mode under ``torch.profiler``, printed by stage
 and by ``chip_smoke.LOOP_SUBRANGES`` (host ms, device busy ms, device
-operations, host waits).
+operations, host waits). ``--replays N`` then closes one graph system N
+times more, its arena restored in place each time
+(``chip_smoke.restore_loop_system``), so that every later closure replays
+the system's loop graphs: each printed like a warm closure.
 
 It uses only ``chip_smoke.loop_system``, ``profile_stages``,
 ``log_profile`` and ``LoopCloser``, so a copy in another checkout's
@@ -109,12 +113,37 @@ def profiled(cfg, vocab, mode, wall):
           f"{prof['host_waits']:.0f}", flush=True)
 
 
+def replayed(cfg, vocab, n):
+    """One graph system closed, then ``n`` times more on its restored
+    arena."""
+    system = CS.loop_system(cfg, "cuda", vocab, CS.LOOP_POINTS, CS.SEED + 7)
+    initial, _ = CS.loop_arena_tables(system.arena)
+    for i in range(n + 1):
+        if i:
+            CS.restore_loop_system(system, initial)
+        lc = closer(cfg, "graph")
+        closed = [lc.process(system, 12)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        closed.append(lc.process(system, 13))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        times = {k: [round(x * 1e3, 3) for x in v]
+                 for k, v in lc.timings.items()}
+        print(f"[loop-profile] graph closure {i} on one system: {closed}; "
+              f"wall {wall:.3f} ms; stage wall ms {times}; host reads "
+              f"{lc.reads}; {counts(lc)}; sha256 {digest(system.arena)}",
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--modes", default="eager,graph",
                     help="a comma list of eager, graph, run in that order")
     ap.add_argument("--profile", action="store_true",
                     help="also close once in each mode under the profiler")
+    ap.add_argument("--replays", type=int, default=0,
+                    help="then close one graph system this many times more")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -128,6 +157,8 @@ def main() -> int:
         wall = closure(cfg, vocab, mode, "warm")
         if args.profile:
             profiled(cfg, vocab, mode, wall)
+    if args.replays:
+        replayed(cfg, vocab, args.replays)
     print(CS.nvidia_smi_line())
     return 0
 

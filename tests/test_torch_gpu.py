@@ -28,8 +28,11 @@ closure on the card against the CPU, with the bounds of ``chip_smoke.py``
 ``sim3_ransac`` waits ``sim3.EIGH_WAITS`` = 0 times (two ``sym_eig``
 launches); DetectLoop and ComputeSim3 through ``FusedLoop``'s graphs D, M
 and S bitwise the eager closure (the same generator state, two reads
-fewer), a second closure on the restored arena replaying them without a
-capture, a replaced arena or BoW table raising, and the kernel bitwise
+fewer; CorrectLoop through ``FusedCorrect``'s graphs C, the padded step
+and F too, one read fewer), a second closure on the restored arena
+replaying them without a capture, a count that crosses into another edge
+capacity capturing that step only, a replaced arena or BoW table raising,
+``drop_loop_graphs`` forgetting the correction's graphs, and the kernel bitwise
 against ``sym_eig_ordered`` on the Sim3 RANSAC's recorded (300,4,4) and
 (1,4,4) solves. The segmented-sum
 kernel at the main path's shapes (the global BA's camera and point sums,
@@ -552,16 +555,17 @@ def test_loop_closure_card_against_cpu(cuda):
     (poses within 1e-4, landmarks within 1e-3 for 99% and 1e-2 for all, the
     observation table equal on 99.5%) and the global BA from the CPU's
     corrected arena (poses within 1e-5, landmarks within 1e-3 / 5e-3); the
-    reasons are in ``chip_smoke.py``. On the card the closing call reads 7
+    reasons are in ``chip_smoke.py``. On the card the closing call reads 6
     times (detection, ComputeSim3's two reads through ``FusedLoop``, the
-    pose graph's and the landmark statistics' counts) and synchronizes
-    twice to time its last stages (the global BA, held back here, reads
-    once more); its Sim3 RANSAC waits 0 times (the ``sym_eig`` kernel)."""
+    pose graph's edge count through ``FusedCorrect``, whose statistics read
+    nothing) and synchronizes twice to time its last stages (the global
+    BA, held back here, reads once more); its Sim3 RANSAC waits 0 times
+    (the ``sym_eig`` kernel)."""
     chip_smoke.small_loop_reference_check(card=cuda)
     cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
     closed, _, _, lc = chip_smoke.small_loop_closure(cfg, cuda)
     assert closed == [False, True]
-    assert (lc.reads, lc.eigh_waits) == (7, 0)
+    assert (lc.reads, lc.eigh_waits) == (6, 0)
 
 
 def test_sim3_ransac_eigh_waits(cuda):
@@ -960,12 +964,14 @@ def test_mapping_twice_bitwise(cuda, stage):
 
 def test_loop_correction_and_global_ba_twice_bitwise(cuda):
     """The tier-1-size constructed-drift closure on the card twice eagerly
-    (``LoopCloser.graphs`` off) and once with the pose graph's iterations
-    replayed from a CUDA graph, from the CPU's refined Sim3 (loop fusion,
-    the pose graph, SearchAndFuse); then the global BA likewise from the
-    CPU's corrected arena, its LM steps replayed from a CUDA graph: each
-    triple bitwise equal, with the same segmented-sum launches, one capture
-    a solve and a replay for every iteration after the first."""
+    (``LoopCloser.graphs`` off) and once through the system's loop graphs
+    (the correction as ``FusedCorrect``'s graphs C, the Gauss-Newton step
+    replayed for its iterations, and F), from the CPU's refined Sim3 (loop
+    fusion, the pose graph, SearchAndFuse); then the global BA likewise
+    from the CPU's corrected arena, its LM steps replayed from a CUDA
+    graph: each triple bitwise equal, with the same segmented-sum
+    launches, one capture a solve and a replay for every iteration after
+    the first."""
     import types
     from cubemapslam_tpu_torch import segment as SG
     from cubemapslam_tpu_torch.runtime.loop_closing import (
@@ -982,10 +988,11 @@ def test_loop_correction_and_global_ba_twice_bitwise(cuda):
     assert _arena_equal(corrected[0], corrected[2]) == []
     assert counts[0]["captures"] == 0
     # the closing call through the graphs: graphs M and S captured and
-    # graph D replayed (FusedLoop), the pose graph captured once and
-    # replayed for every iteration after the first
+    # graph D replayed (FusedLoop), graphs C, the Gauss-Newton step and F
+    # captured (FusedCorrect), the step replayed for every iteration after
+    # the first
     assert (counts[2]["captures"], counts[2]["replays"]) == (
-        1 + 2, POSE_GRAPH_ITERS - 1 + 1)
+        2 + 3, POSE_GRAPH_ITERS - 1 + 1)
     solved, launches = [], []
     for graphs in (False, False, True):
         system = types.SimpleNamespace(arena=c.to(cuda))
@@ -1481,9 +1488,9 @@ def test_graph_frames_after_loop_closure(cuda, slam_frames):
     assert [i for i, (_, r, _) in enumerate(e_states)
             if r.get("loop_closed")] == closed
     # ComputeSim3 reads twice through FusedLoop's graphs M and S, 4 times
-    # eagerly
+    # eagerly; CorrectLoop once through FusedCorrect, twice eagerly
     e_row, g_row = e_states[closed[0]][1], g_states[closed[0]][1]
-    assert g_row["host_reads"] == e_row["host_reads"] - 2
+    assert g_row["host_reads"] == e_row["host_reads"] - 3
     g_row["host_reads"] = e_row["host_reads"]
     _same_frames(e_states, g_states)
     after = g_slam.metrics[closed[0] + 1:]
@@ -1493,23 +1500,26 @@ def test_graph_frames_after_loop_closure(cuda, slam_frames):
     assert g_slam.loop_closer.timings["gba"]
     assert e_slam.fused_loop is None
     assert g_slam.fused_loop.captures == 2          # graphs M and S
+    assert g_slam.fused_loop.correction.captures == 3   # C, a step, F
 
 
 # ---------------------------------------------------------------------------
 # DetectLoop and ComputeSim3 as captured CUDA graphs (runtime/fused_loop.py)
 # ---------------------------------------------------------------------------
 
-def _loop_closure(cuda, system, graphs):
+def _loop_closure(cuda, system, graphs, past=()):
     """``process`` on slots 12 and 13 of the small constructed-drift system
-    at consistency_th = 1, through the graphs or eagerly: (what each call
-    returned, the closer, the closed tables and their digest, the
-    generator's state, the eigen-solve kernel's launches)."""
+    at consistency_th = 1, through the graphs or eagerly, with the past
+    loop edges ``past``: (what each call returned, the closer, the closed
+    tables and their digest, the generator's state, the eigen-solve
+    kernel's launches)."""
     from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
     from cubemapslam_tpu_torch.solvers import sym_eig as SE
     cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
     lc = LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))
     lc.consistency_th = 1
     lc.graphs = graphs
+    lc.loop_edges = list(past)
     n0 = SE.SYM_EIG.launches
     closed = [lc.process(system, slot) for slot in (12, 13)]
     torch.cuda.synchronize()
@@ -1524,12 +1534,14 @@ def _small_loop_system(cuda):
 
 def test_loop_graphs_bitwise_eager(cuda):
     """The small constructed-drift closure eagerly and through
-    ``FusedLoop``'s graphs D, M and S (and the solves' loop graphs): both
-    close, every table bitwise equal, the generator in the same state, two
-    eigen-solve launches (one Sim3 RANSAC) each, 0 eigen-solve waits and
-    two reads fewer through the graphs. The graph system's arena restored
-    in place and closed again (a second ComputeSim3 on the same system)
-    replays D twice, M and S, captures none of them and gives the same
+    ``FusedLoop``'s graphs D, M and S, its ``FusedCorrect``'s graphs C, the
+    Gauss-Newton step at the edge capacity (256) and F, and the global BA's
+    loop graph: both close, every table bitwise equal, the generator in the
+    same state, two eigen-solve launches (one Sim3 RANSAC) each, 0
+    eigen-solve waits and three reads fewer through the graphs. The graph
+    system's arena restored in place and closed again (a second closure on
+    the same system) replays D twice, M, S, C, the step 12 times and F,
+    captures none of them (only the global BA's loop) and gives the same
     tables."""
     e_sys, g_sys = _small_loop_system(cuda), _small_loop_system(cuda)
     initial = chip_smoke.loop_arena_tables(g_sys.arena)[0]
@@ -1541,19 +1553,74 @@ def test_loop_graphs_bitwise_eager(cuda):
     assert e_dig == g_dig and torch.equal(e_gen, g_gen)
     assert e_eig == g_eig == 2
     assert e_lc.eigh_waits == g_lc.eigh_waits == 0
-    assert g_lc.reads == e_lc.reads - 2
+    assert g_lc.reads == e_lc.reads - 3
     assert e_sys.fused_loop is None
-    fl = g_sys.fused_loop
+    fl, fc = g_sys.fused_loop, g_sys.fused_loop.correction
     assert (fl.captures, fl.replays) == (3, 1)
-    assert g_lc.graph_counts["captures"] == 4        # M, S and two solves
+    assert (fc.captures, fc.replays, fc.capacities) == (3, 11, [256])
+    assert g_lc.graph_counts["captures"] == 6   # M, S, C, step, F, the BA
     chip_smoke.restore_loop_system(g_sys, initial)
     r_closed, r_lc, (_, r_dig), r_gen, r_eig = _loop_closure(cuda, g_sys,
                                                              True)
     assert r_closed == [False, True] and r_dig == g_dig
     assert torch.equal(r_gen, g_gen) and r_eig == 2
     assert (fl.captures, fl.replays) == (3, 5)
-    assert r_lc.graph_counts["captures"] == 2        # the two solves
+    assert (fc.captures, fc.replays) == (3, 25)
+    assert r_lc.graph_counts["captures"] == 1        # the global BA's loop
     assert r_lc.reads == g_lc.reads
+
+
+def test_loop_correction_new_capacity(cuda, monkeypatch):
+    """A closure whose live-edge count crosses into another capacity
+    captures that capacity's Gauss-Newton step and nothing else, bitwise
+    the eager closure with the same past loop edges. The smallest capacity
+    is lowered to 64, which the 59 live edges of the first closure fill; the
+    arena restored and closed again with 6 past loop edges has 65 (128)."""
+    from cubemapslam_tpu_torch.runtime import loop_closing as LC
+    monkeypatch.setattr(LC, "MIN_EDGE_CAPACITY", 64)
+    g_sys = _small_loop_system(cuda)
+    initial = chip_smoke.loop_arena_tables(g_sys.arena)[0]
+    closed, _, _, _, _ = _loop_closure(cuda, g_sys, True)
+    fl, fc = g_sys.fused_loop, g_sys.fused_loop.correction
+    count = int(fc.outputs["c"][-1])
+    assert closed == [False, True] and fc.capacities == [64] and count <= 64
+    past = [(10 + n % 4, n % 6) for n in range(65 - count)]
+    chip_smoke.restore_loop_system(g_sys, initial)
+    before = (fl.captures, fc.captures)
+    closed, lc, (_, g_dig), _, _ = _loop_closure(cuda, g_sys, True, past)
+    assert closed == [False, True] and int(fc.outputs["c"][-1]) == 65
+    assert (fl.captures, fc.captures) == (before[0], before[1] + 1)
+    assert fc.capacities == [64, 128]
+    assert lc.graph_counts["captures"] == 2      # the step and the BA's
+    e_closed, _, (_, e_dig), _, _ = _loop_closure(
+        cuda, _small_loop_system(cuda), False, past)
+    assert e_closed == closed and e_dig == g_dig
+
+
+def test_loop_correction_moved_arena_and_drop(cuda):
+    """After a graph closure, a replaced arena raises in ``FusedCorrect``
+    before any graph runs; ``drop_loop_graphs`` forgets the correction's
+    graphs with ``FusedLoop``'s, and the next closure on the restored arena
+    captures C, a step and F anew, to the same tables."""
+    from cubemapslam_tpu_torch import slam_map as SM
+    system = _small_loop_system(cuda)
+    initial = chip_smoke.loop_arena_tables(system.arena)[0]
+    _, _, (_, dig), _, _ = _loop_closure(cuda, system, True)
+    fc = system.fused_loop.correction
+    arena = system.arena
+    system.arena = SM.MapArena(*(x.clone() for x in arena))
+    with pytest.raises(RuntimeError, match="moved"):
+        fc.correct(system, 13, 3, [fc.inputs[n] for n in
+                                   ("s_cl", "R_cl", "t_cl")],
+                   fc.inputs["loop_assoc"], fc.inputs["neigh_pre"], [], 12)
+    system.arena = arena
+    system.drop_loop_graphs()
+    assert system.fused_loop is None
+    chip_smoke.restore_loop_system(system, initial)
+    closed, _, (_, again), _, _ = _loop_closure(cuda, system, True)
+    assert closed == [False, True] and again == dig
+    assert system.fused_loop.correction is not fc
+    assert system.fused_loop.correction.captures == 3
 
 
 def test_loop_graphs_moved_tables_raise(cuda):

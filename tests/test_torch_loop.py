@@ -32,7 +32,16 @@ pass) bitwise equal to the calls with Python ints. The closure and
 graphs D, M and S run eagerly on their static buffers): bitwise equal to
 the eager path, with the generator in the same state and two reads fewer;
 a replaced arena or BoW table raises; ``CubemapSLAM.drop_graphs`` and
-``reset`` forget the ``FusedLoop``.
+``reset`` forget the ``FusedLoop``. CorrectLoop's stages (``loop_fuse``,
+``_propagate`` with past loop edges in its buffers,
+``loop_member_landmarks``, ``search_and_fuse``) with 0-d tensor slots
+bitwise equal to the int calls; ``search_and_fuse`` over
+``corrected_slots``' 16 masked slots bitwise the host list; the edge
+capacity; the closure through the system's ``FusedCorrect`` (graphs C, the
+padded Gauss-Newton step and F, eagerly on their static buffers) bitwise
+equal to ``LoopCloser.graphs`` off, with no and with two past loop edges,
+again on the restored arena with the other list (the static buffers
+rewritten), and raising on a replaced arena.
 """
 
 import dataclasses
@@ -641,7 +650,11 @@ def test_fused_loop_closure_bitwise_eager(drift):
     assert isinstance(fl, FL.FusedLoop)
     assert set(fl.outputs) == {"d", "m", "s"}
     assert fl.captures == fl.replays == 0
-    assert (e_lc.reads, g_lc.reads) == (8, 6)
+    fc = fl.correction
+    assert set(fc.outputs) == {"c", "g256", "f"} and fc.capacities == [256]
+    assert fc.captures == fc.replays == 0
+    # ComputeSim3 2 reads fewer, CorrectLoop 1 (the statistics' live count)
+    assert (e_lc.reads, g_lc.reads) == (8, 5)
     assert e_lc.eigh_waits == g_lc.eigh_waits == 0
     assert g_lc.loop_edges == e_lc.loop_edges
 
@@ -724,3 +737,178 @@ def test_fused_loop_serves_closers_of_one_configuration(drift):
     other = closer(dataclasses.replace(cfg, th_low=cfg.th_low - 1))
     with pytest.raises(RuntimeError, match="configuration"):
         other.process(two, 13)
+
+
+# ---------------------------------------------------------------------------
+# CorrectLoop's stages with device slots, and through FusedCorrect
+# ---------------------------------------------------------------------------
+
+PAST_LOOPS = [(12, 2), (11, 1)]
+
+
+def arena_copy(arena):
+    return SM.MapArena(*(x.clone() for x in arena))
+
+
+@pytest.fixture(scope="module")
+def before_correct(case, refined, projected):
+    """The parity arena, the refined S_cl of JAX, loop_assoc and the current
+    keyframe's pre-fusion covisible set: the inputs of the correction."""
+    (_, _, _), (_, _, jr), _ = refined
+    (ta, _), _ = projected
+    arena = interop.arena_from_numpy(case["f"])
+    covis = SM.covisibility_matrix(arena)
+    neigh_pre = (covis[K_CUR] >= case["tcfg"].covisibility_weight_th) \
+        & arena.kf_valid
+    return arena, jax_sim3(jr), ta, neigh_pre
+
+
+def _stage(case, before, stage, kc, kl):
+    """Run one correction stage on a copy of the arena with the slots kc,
+    kl: (its outputs, the arena after it)."""
+    tk = case["tk"]
+    arena, sim3, assoc, neigh_pre = before
+    a = arena_copy(arena)
+    if stage == "loop_fuse":
+        out = ()
+        tk.loop_fuse(a, kc, assoc)
+    elif stage == "propagate":
+        tk.loop_fuse(a, K_CUR, assoc)
+        own, lm_pos, state, fixed, edges = tk._propagate(
+            a, kc, kl, *sim3, neigh_pre, *tk.fill_loop_edges(
+                PAST_LOOPS, tk.loop_edge_buffers("cpu")))
+        out = (own, lm_pos, *state, fixed, *edges)
+    elif stage == "loop_member_landmarks":
+        out = tk.loop_member_landmarks(a, 4096, kl)
+    else:
+        tk.loop_fuse(a, K_CUR, assoc)
+        tk.propagate_and_pose_graph(a, K_CUR, K_LOOP, *sim3, neigh_pre, [])
+        sel, sel_ok = tk.loop_member_landmarks(a, 4096, K_LOOP)
+        neigh = [K_CUR] + np.nonzero(neigh_pre.numpy())[0][:15].tolist()
+        kind = "tensor" if torch.is_tensor(kc) else "int"
+        tk.search_and_fuse(a, [slot(kind, k) for k in neigh], sel, sel_ok)
+        out = ()
+    return out, a
+
+
+@pytest.mark.parametrize("stage", ["loop_fuse", "propagate",
+                                   "loop_member_landmarks",
+                                   "search_and_fuse"])
+def test_correction_stage_tensor_slots(case, before_correct, stage):
+    """Each correction stage with its slots as 0-d tensors (what graphs C
+    and F pass) bitwise the stage with Python ints: its outputs and every
+    arena table after it (``_propagate`` with two past loop edges in its
+    buffers, ``search_and_fuse`` over the slots as tensors)."""
+    out_i, a_i = _stage(case, before_correct, stage, K_CUR, K_LOOP)
+    out_t, a_t = _stage(case, before_correct, stage, torch.tensor(K_CUR),
+                        torch.tensor(K_LOOP))
+    same_bits(out_t, out_i)
+    same_bits(tuple(a_t), tuple(a_i))
+    if stage != "loop_member_landmarks":
+        assert not all(torch.equal(x, y) for x, y in
+                       zip(a_i, before_correct[0]))
+
+
+def test_search_and_fuse_masked_slots(case, before_correct):
+    """``corrected_slots`` gives JAX's 16 slots (the current keyframe, its
+    pre-fusion covisible set, masked slots after them), and
+    ``search_and_fuse`` over them, masked slots included, is bitwise the
+    call on the host list; a masked slot writes back its row unchanged."""
+    tk = case["tk"]
+    arena, sim3, assoc, neigh_pre = before_correct
+    a = arena_copy(arena)
+    tk.loop_fuse(a, K_CUR, assoc)
+    tk.propagate_and_pose_graph(a, K_CUR, K_LOOP, *sim3, neigh_pre, [])
+    sel, sel_ok = tk.loop_member_landmarks(a, 4096, K_LOOP)
+    host = [K_CUR] + [int(i) for i in np.nonzero(neigh_pre.numpy())[0][:15]
+                      if i != K_CUR]
+    slots, ok = tk.corrected_slots(a, torch.tensor(K_CUR), neigh_pre)
+    assert slots.shape == ok.shape == (TL.MAX_NEIGH,)
+    assert slots[ok].tolist() == host and 1 < len(host) < TL.MAX_NEIGH
+    assert not ok[len(host):].any()
+    by_host, by_slots = arena_copy(a), arena_copy(a)
+    tk.search_and_fuse(by_host, host, sel, sel_ok)
+    tk.search_and_fuse(by_slots, slots, sel, sel_ok, ok)
+    same_bits(tuple(by_slots), tuple(by_host))
+    assert not torch.equal(by_host.kf_obs_lm, a.kf_obs_lm)
+    # every slot masked: nothing changes
+    masked = arena_copy(a)
+    tk.search_and_fuse(masked, slots, sel, sel_ok, torch.zeros_like(ok))
+    same_bits(tuple(masked), tuple(a))
+
+
+@pytest.mark.parametrize("count,cap", [(0, 256), (59, 256), (256, 256),
+                                       (257, 512), (3000, 4096),
+                                       (4177, 4177)])
+def test_edge_capacity(count, cap):
+    """The pose graph's padded edge count: the next power of two at or
+    above the live count, at least 256, at most every edge (4177 at
+    K = 64)."""
+    assert TL.LoopKernels.edge_capacity(count, 64 + 64 * 64 + 17) == cap
+
+
+def fused_closure(cfg, system, past, graphs=True):
+    """``process`` on slots 12 and 13 with the past loop edges ``past``
+    (``LoopCloser.graphs`` as given): (what each call returned, the
+    closer)."""
+    lc = closer(cfg)
+    lc.graphs = graphs
+    lc.loop_edges = list(past)
+    return [lc.process(system, s) for s in (12, 13)], lc
+
+
+@pytest.mark.parametrize("past", [[], PAST_LOOPS])
+def test_fused_correct_bitwise_eager(drift, past):
+    """CorrectLoop through the system's ``FusedCorrect`` (graph C, the
+    problem at the edge capacity in static buffers, the Gauss-Newton step
+    12 times, graph F; eagerly on their static buffers on the CPU) against
+    ``LoopCloser.graphs`` off, with no or two past loop edges: every arena
+    table bitwise, the same loop edges, one read for the correction where
+    the eager path makes two; the same system's arena restored in place
+    and closed again with the other list of past edges (the static buffers
+    written anew) bitwise the eager closure of that list."""
+    cfg, make = drift
+    out = {}
+    for fused in (False, True):
+        system = make(fused)
+        closed, lc = fused_closure(cfg, system, past, graphs=fused)
+        out[fused] = (closed, snapshot(system.arena), lc, system)
+    (e_closed, e_arena, e_lc, _), (g_closed, g_arena, g_lc, g_sys) = \
+        out[False], out[True]
+    assert e_closed == g_closed == [False, True]
+    for name, a in e_arena.items():
+        assert a.tobytes() == g_arena[name].tobytes(), name
+    assert g_lc.loop_edges == e_lc.loop_edges == past + [(13, K_LOOP)]
+    assert e_lc.reads - g_lc.reads == 3           # 2 in ComputeSim3
+    fc = g_sys.fused_loop.correction
+    assert fc.capacities == [256]
+    assert [fc.inputs[n].tolist() for n in ("loop_i", "loop_j")] == [
+        [a for a, _ in past] + [0] * (16 - len(past)),
+        [b for _, b in past] + [0] * (16 - len(past))]
+    # the other list of past edges on the restored arena
+    other = PAST_LOOPS if not past else []
+    fresh = make(False)
+    for a, b in zip(g_sys.arena, fresh.arena):
+        a.copy_(b)
+    g_sys.generator.manual_seed(0)
+    closed, _ = fused_closure(cfg, g_sys, other)
+    e_sys = make(False)
+    e_closed, _ = fused_closure(cfg, e_sys, other, graphs=False)
+    assert closed == e_closed == [False, True]
+    same_bits(tuple(g_sys.arena), tuple(e_sys.arena))
+    assert int(fc.inputs["loop_ok"].sum()) == len(other)
+
+
+def test_fused_correct_moved_arena_raises(drift):
+    """After ``FusedCorrect`` ran, a replaced arena raises before any of its
+    graphs runs."""
+    cfg, make = drift
+    system = make(True)
+    closed, lc = fused_closure(cfg, system, [])
+    assert closed == [False, True]
+    fc = system.fused_loop.correction
+    system.arena = SM.MapArena(*(x.clone() for x in system.arena))
+    inputs = [fc.inputs[n] for n in ("s_cl", "R_cl", "t_cl")]
+    with pytest.raises(RuntimeError, match="moved"):
+        fc.correct(system, K_CUR, K_LOOP, inputs, fc.inputs["loop_assoc"],
+                   fc.inputs["neigh_pre"], [], TL.POSE_GRAPH_ITERS)

@@ -10,7 +10,9 @@ Tolerances: the incidence, observation counts, covisibility, reference
 keyframes, ``predict_scale`` and the redundancy scores are integers and
 must be exactly equal;
 the statistics updates give normals and depth bands within 1e-5 (float
-sums in another order) and descriptors bitwise equal.
+sums in another order) and descriptors bitwise equal. The read-free
+statistics over every slot of the observation table (at three block sizes
+of the descriptor bits) are bitwise the compacted ones.
 """
 
 import numpy as np
@@ -116,6 +118,38 @@ def test_update_landmark_stats(arena_np):
     assert out is ta                      # in place
     _check_stats(ta, ref)
     assert not np.array_equal(np.asarray(ref.lm_desc), arena_np["lm_desc"])
+
+
+@pytest.mark.parametrize("block", [None, 1000, SM.STATS_ROW_BLOCK])
+def test_update_landmark_stats_all_bitwise(arena_np, block, monkeypatch):
+    """The read-free form over every slot of the observation table, its
+    descriptor bits unpacked ``block`` rows at a time (all at once for
+    None), bitwise equal to ``update_landmark_stats`` (the live rows
+    compacted by a host read), from cleared statistics and with a fifth of
+    the observations dead; it calls no ``nonzero``."""
+    sf = torch.as_tensor(np.asarray(JConfig(**SMALL).scale_factors,
+                                    np.float32))
+    base = interop.arena_from_numpy(arena_np)
+    dead = torch.as_tensor(np.random.default_rng(6).random(
+        base.kf_obs_lm.shape) < 0.2)
+    base.kf_obs_lm.masked_fill_(dead, SM.NO_LM)
+    for t in (base.lm_normal, base.lm_min_dist, base.lm_max_dist,
+              base.lm_desc):
+        t.zero_()
+    ref = SM.MapArena(*(x.clone() for x in base))
+    SM.update_landmark_stats(ref, sf)
+
+    def no_read(*args, **kwargs):
+        raise AssertionError("nonzero reads the host")
+
+    monkeypatch.setattr(torch.Tensor, "nonzero", no_read)
+    monkeypatch.setattr(SM, "STATS_ROW_BLOCK", block)
+    out = SM.update_landmark_stats_all(base, sf)
+    assert out is base
+    for name in ("lm_normal", "lm_min_dist", "lm_max_dist", "lm_desc"):
+        a, b = getattr(base, name), getattr(ref, name)
+        assert a.numpy().tobytes() == b.numpy().tobytes(), name
+    assert (ref.lm_desc != 0).any()
 
 
 @pytest.mark.parametrize("max_touched,max_obs",
