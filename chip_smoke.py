@@ -149,14 +149,16 @@ arena once eagerly (``LoopCloser.graphs`` off) and once through the CUDA
 graphs (DetectLoop and ComputeSim3 through ``FusedLoop``'s graphs D, M and
 S, ``runtime/fused_loop.py``; CorrectLoop through its ``FusedCorrect``'s
 graph C, the Gauss-Newton step at the closure's edge capacity and graph F,
-captured once a system; the global BA's LM steps replayed from a graph
-captured in the closure): each must close the loop, cut the segment-B
+captured once a system; the global BA through its ``FusedGlobalBA``'s
+graphs B, P, L, X and W at the live count's edge capacity, captured once a
+system too): each must close the loop, cut the segment-B
 error to the stated share (a miss is raised after the last phase), launch
 the segmented sum the stated number of times by stage and the eigen-solve
 kernel twice (one Sim3 RANSAC), and every table of the two closed arenas
 must be bitwise equal (the digest is printed); the graph copy's arena,
-restored in place and closed again, must replay graphs D, M and S and the
-correction's graphs, capture none of them and give the same tables. A
+restored in place and closed again, must replay graphs D, M and S, the
+correction's and the global BA's graphs, capture none of them and give the
+same tables. A
 warm closure eagerly, capturing (a fresh copy) and replaying
 (that copy restored) prints the wall time of each stage (detect, sim3,
 correct, gba), the host reads, the eigen-solve waits, the captures,
@@ -165,8 +167,9 @@ same three are closed under the profiler (``process(12)`` alone for
 ``loop.detect``, then the closure) by stage and by ComputeSim3's eager,
 the correction's and the global BA's sub-ranges (whose host waits may not
 exceed the stated reads, eigen-solve waits and capture waits; the
-replaying closure's ``loop.correct`` at most LOOP_CORRECT_WAITS), printed
-side by side; the eigen-solve kernel is held bitwise on the eager
+replaying closure's ``loop.correct`` at most LOOP_CORRECT_WAITS and
+``loop.gba`` at most LOOP_GBA_WAITS), printed side by side, with each
+stage's and the global BA's parts' device busy ms and pool MiB; the eigen-solve kernel is held bitwise on the eager
 closure's two Sim3 RANSAC solves and timed beside ``torch.linalg.eigh``;
 and it holds the closure on the card against the CPU at the tier-1 test's
 size, the correction and the global BA each within its stated bounds.
@@ -250,6 +253,7 @@ from cubemapslam_tpu_torch.runtime.synthetic import (
     landmarks_from_keypoints, perturbed_pose, synthetic_fisheye)
 from cubemapslam_tpu_torch.runtime import loop_closing as LC
 from cubemapslam_tpu_torch.runtime.fused_loop import LoopGraphOwner
+from cubemapslam_tpu_torch.runtime.fused_step import CAPTURE_WAITS
 from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
 from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
@@ -368,13 +372,19 @@ LOOP_SIM3_SUBRANGES = ("loop.sim3.match", "loop.sim3.ransac",
 # the loop closer's graphs on a fresh system (runtime/fused_loop.py): D on
 # the first keyframe it sees, M and S on its first ComputeSim3; C, the
 # Gauss-Newton step at the closure's edge capacity and F on its first
-# CorrectLoop; and a closure's captures: M, S, C, the step, F and the
-# global BA's loop. On a system whose graphs are captured, loop.correct
-# waits for the edge count's read and the timing sync only.
+# CorrectLoop; B, P, L, X and W (at the live count's edge capacity) on its
+# first global BA; and a closure's captures: M, S, C, the step, F, B, P, L,
+# X and W. A global BA on a system whose graphs are captured replays B, P,
+# L 15 times, X twice and W. On such a system loop.correct waits for the
+# edge count's read and the timing sync only, and so does loop.gba for the
+# live count's read.
 LOOP_FUSED_GRAPHS = 3
 LOOP_CORRECT_GRAPHS = 3
-LOOP_CLOSURE_CAPTURES = 6
+LOOP_GBA_GRAPHS = 5
+LOOP_GBA_REPLAYS = 1 + 1 + 15 + 2 + 1
+LOOP_CLOSURE_CAPTURES = 10
 LOOP_CORRECT_WAITS = 2
+LOOP_GBA_WAITS = 2
 # the Sim3 RANSAC's eigen-solves (its Horn 4x4s), in call order: the
 # hypotheses' batch and the refit's single matrix
 SIM3_EIG_SITES = ("sim3.horn", "sim3.refit.horn")
@@ -390,8 +400,11 @@ LOOP_SUBRANGES = ("loop.correct.fuse", "loop.correct.propagate",
                   "loop.gba.write")
 # the closure's segmented sums by LoopCloser stage: the correction's 12
 # Gauss-Newton iterations x 2 and the landmark normals; the global BA's 15
-# LM steps x (4 + 2 x 50 CG iterations + 2)
-LOOP_SEG_LAUNCHES = {"_correct": 25, "_global_ba": 1590}
+# LM steps x (4 + 2 x 50 CG iterations + 2 + 2): the normal blocks, the CG,
+# the rhs and the back-substitution, and the step's two costs, summed
+# through a one-segment plan so that padding to an edge capacity moves no
+# bit of them (1590 before)
+LOOP_SEG_LAUNCHES = {"_correct": 25, "_global_ba": 1620}
 # the card-against-CPU closure at the tier-1 test's size, and its bounds:
 # the RANSAC Sim3 and the refined rotation and translation (largest entry);
 # (pose difference, 99% and largest landmark difference, share of the
@@ -419,15 +432,18 @@ PORT_KERNELS = ("warp_remap_kernel", "fast_levels_kernel",
 # the segmented-sum kernel at the shapes the main path gives it (full width):
 # (rows, segments, lanes, live segments or None for all, share of rows on
 # the dump id). The CG global BA of the loop arena (20,160 live edges over 14
-# of 512 cameras, about 1,440 rows a camera, and 4,167 of 65,536 points; the
-# smoke takes these two from the arena itself, the tests seed them), the
+# of 512 cameras, about 1,440 rows a camera, and 4,167 of 65,536 points,
+# padded to the edge capacity of 20,480 rows, the padding on the dump id;
+# and its cost, one segment of those rows; the smoke takes these three from
+# the arena itself, the tests seed them), the
 # direct local BA at SlamConfig() capacities (48 free of 96 cameras, 1280 row
 # slots a camera, 8192 points), the pose graph's normal matrix over 512
 # keyframe slots, and the landmark normals of update_landmark_stats_touched
 # (16384 landmarks, 131072 observation slots).
 SEG_SHAPES = {
-    "gba_cameras": (20160, 512, (6, 6), 14, 0.0),
-    "gba_points": (20160, 65536, (3, 3), 4167, 0.0),
+    "gba_cameras": (20480, 512, (6, 6), 14, 320 / 20480),
+    "gba_points": (20480, 65536, (3, 3), 4167, 320 / 20480),
+    "gba_cost": (20480, 1, (), None, 320 / 20480),
     "local_ba_coupling": (48 * 1280, 48 * 8192, (18,), None, 0.0),
     "local_ba_points": (96 * 1280, 8192, (9,), None, 0.0),
     "pose_graph_H": (4 * 300, 512 * 512, (7, 7), 700, 0.0),
@@ -1895,17 +1911,22 @@ def check_sym_eig(real):
 
 def seg_sum_cases(cam, arena, inv_s2):
     """The segmented-sum kernel's inputs at the main path's shapes: the
-    loop arena's global BA on its live edges (by camera, the 36 lanes of
-    Hcc, 1,440 rows a live camera on average and 2,000 at most; by point,
-    the 9 of Hpp; the values of a first LM step) and ``seg_case`` at the
-    other SEG_SHAPES. {name: (plan, values)}."""
+    loop arena's global BA on its live edges padded to their edge capacity
+    (``LoopKernels.padded_ba_problem``; by camera, the 36 lanes of Hcc,
+    1,440 rows a live camera on average and 2,000 at most; by point, the 9
+    of Hpp; the cost, one segment of the robust chi2; the values of a first
+    LM step) and ``seg_case`` at the other SEG_SHAPES. {name: (plan,
+    values)}."""
     prob = D.global_ba_problem_from_arena(cam, arena, inv_s2)
-    keep = prob.obs_valid.nonzero()[:, 0]
-    live = prob._replace(**{f: getattr(prob, f)[keep] for f in D.EDGE_FIELDS})
-    cam_plan, pt_plan = TBA._cg_plans(live)
-    _, Hcc_e, Hpp_e, _, _, _ = TBA._edge_terms(cam, live,
-                                               live.obs_inv_sigma2)
-    cases = {"gba_cameras": (cam_plan, Hcc_e), "gba_points": (pt_plan, Hpp_e)}
+    cap = LC.LoopKernels.ba_edge_capacity(int(prob.obs_valid.sum()),
+                                          prob.obs_valid.shape[0])
+    padded, _ = LC.LoopKernels.padded_ba_problem(prob, cap)
+    cam_plan, pt_plan = TBA._cg_plans(padded)
+    w = torch.where(padded.obs_valid, padded.obs_inv_sigma2, 0.0)
+    _, Hcc_e, Hpp_e, _, _, _ = TBA._edge_terms(cam, padded, w)
+    rho = torch.where(padded.obs_valid, TBA._chi2(cam, padded), 0.0)
+    cases = {"gba_cameras": (cam_plan, Hcc_e), "gba_points": (pt_plan, Hpp_e),
+             "gba_cost": (TBA._cost_plan(padded), rho)}
     for name in SEG_SHAPES:
         if name not in cases:
             cases[name] = seg_case(name, "cuda")
@@ -2942,22 +2963,23 @@ def profiled_slam(slam, frames, walls, graph_walls, tag, replays):
                     f"{1 - prof['device_busy_ms'] / mid:.4f} of the median "
                     f"unprofiled wall of the repeat run's {kind} frames that "
                     f"replayed their graphs ({mid:.3f} ms)")
-            # torch.cuda.graph synchronises once for each graph it captures
-            # (the loop closer's counted in its capture waits)
-            captured = (row.get("graph_captures", 0)
-                        + row.get("graph_mapping_captures", 0)
+            # each graph captured may wait CAPTURE_WAITS times (the loop
+            # closer's counted in its capture waits)
+            captured = (CAPTURE_WAITS * (row.get("graph_captures", 0)
+                                         + row.get("graph_mapping_captures",
+                                                   0))
                         + row.get("graph_loop_capture_waits", 0))
             allowed = (row["host_reads"] + row.get("eigh_waits", 0) + 1
                        + captured)
             log(f"[{tag}-{kind}] host waits {prof['host_waits']:.0f} "
                 f"against {allowed} allowed: {row['host_reads']} reads, "
                 f"{row.get('eigh_waits', 0)} eigen-solve waits, the "
-                f"upload, {captured} captures")
+                f"upload, {captured} capture waits")
             if prof["host_waits"] > allowed:
                 raise AssertionError(
                     f"the {kind} frame waited {prof['host_waits']:.0f} "
                     f"times; its stated reads, eigen-solve waits, the "
-                    f"upload and its captures are {allowed}")
+                    f"upload and its capture waits are {allowed}")
         if all(want.values()):
             return want
     raise AssertionError(f"no keyframe frame and deferred-BA frame "
@@ -3903,28 +3925,35 @@ def fused_loop_line(system):
     fl = system.fused_loop
     if fl is None:
         return "no FusedLoop"
-    fc = fl.correction
+    fc, fg = fl.correction, fl.global_ba
     return (f"FusedLoop: {fl.captures} graphs captured, {fl.replays} "
             f"replays, {fl.capture_ms:.3f} ms in torch.cuda.graph, pool "
             f"{fl.capture_mib:.1f} MiB; FusedCorrect: {fc.captures} "
             f"captured (edge capacities {fc.capacities}), {fc.replays} "
             f"replays, {fc.capture_ms:.3f} ms in torch.cuda.graph, pool "
-            f"{fc.capture_mib:.1f} MiB")
+            f"{fc.capture_mib:.1f} MiB; FusedGlobalBA: {fg.captures} "
+            f"captured (edge capacities {fg.capacities}), {fg.replays} "
+            f"replays, {fg.capture_ms:.3f} ms in torch.cuda.graph, pool "
+            f"{fg.capture_mib:.1f} MiB")
 
 
-def correct_counts(system):
-    """(captures, pool MiB) of the system's ``FusedCorrect`` so far."""
+def part_counts(system, part):
+    """(captures, pool MiB) so far of the system's ``FusedLoop`` part
+    ``part`` (``correction``: its ``FusedCorrect``; ``global_ba``: its
+    ``FusedGlobalBA``)."""
     fl = system.fused_loop
     if fl is None:
         return (0, 0.0)
-    return (fl.correction.captures, fl.correction.capture_mib)
+    g = getattr(fl, part)
+    return (g.captures, g.capture_mib)
 
 
 def loop_phase(cfg):
     """The constructed-drift closure at SlamConfig() capacities, once
     eagerly (``LoopCloser.graphs`` off) and once through the CUDA graphs
     (DetectLoop and ComputeSim3 through ``FusedLoop``'s graphs D, M and S,
-    the solves' iterations through ``CapturedLoop``), each on a fresh copy
+    CorrectLoop through its ``FusedCorrect``, the global BA through its
+    ``FusedGlobalBA``), each on a fresh copy
     of the arena: both must close the loop, cut the segment-B error to
     LOOP_ERR_FRAC, launch the segmented sum LOOP_SEG_LAUNCHES times by
     stage and the eigen-solve kernel twice (one Sim3 RANSAC; its inputs
@@ -3991,10 +4020,11 @@ def loop_phase(cfg):
         fl = system.fused_loop
         if graphs and (lc.graph_counts["captures"] != LOOP_CLOSURE_CAPTURES
                        or fl.captures != LOOP_FUSED_GRAPHS
-                       or fl.correction.captures != LOOP_CORRECT_GRAPHS):
+                       or fl.correction.captures != LOOP_CORRECT_GRAPHS
+                       or fl.global_ba.captures != LOOP_GBA_GRAPHS):
             raise AssertionError("the graph closure did not capture graphs "
-                                 "D, M, S, C, a step and F and the global "
-                                 "BA's loop")
+                                 "D, M, S, C, a step, F and the global "
+                                 "BA's B, P, L, X and W")
         if not graphs and (lc.graph_counts["captures"] or fl is not None):
             raise AssertionError("the eager closure captured a graph")
         closed_tables[mode] = loop_arena_tables(system.arena)
@@ -4014,9 +4044,10 @@ def loop_phase(cfg):
         raise AssertionError(f"the graph closure's tables {differ} differ "
                              f"from the eager closure's")
     fl = captured.fused_loop
-    fc = fl.correction
+    fc, fg = fl.correction, fl.global_ba
     n_cap, n_rep = fl.captures, fl.replays
     c_cap, c_rep = fc.captures, fc.replays
+    g_cap, g_rep = fg.captures, fg.replays
     restore_loop_system(captured, initial)
     lc, wall, closed = close_constructed_loop(cfg, captured, None, True)
     r_tab, r_dig = loop_arena_tables(captured.arena)
@@ -4025,10 +4056,13 @@ def loop_phase(cfg):
         f"{fused_loop_line(captured)}")
     if (closed != [False, True] or r_dig != g_dig or fl.captures != n_cap
             or fl.replays != n_rep + 4 or fc.captures != c_cap
-            or fc.replays != c_rep + 2 + LC.POSE_GRAPH_ITERS):
+            or fc.replays != c_rep + 2 + LC.POSE_GRAPH_ITERS
+            or fg.captures != g_cap or fg.replays != g_rep + LOOP_GBA_REPLAYS
+            or lc.graph_counts["captures"]):
         raise AssertionError("the closure on the restored arena did not "
-                             "replay graphs D (twice), M, S, C, the step "
-                             "and F to the same tables")
+                             "replay graphs D (twice), M, S, C, the step, "
+                             "F, B, P, L, X and W, capturing none, to the "
+                             "same tables")
     del captured, lc
     walls, pools = {}, {}
     modes = (("eager", False), ("capturing", True), ("replaying", True))
@@ -4038,16 +4072,18 @@ def loop_phase(cfg):
         else:
             restore_loop_system(system, initial)
         torch.cuda.reset_peak_memory_stats()
-        c0 = correct_counts(system)
+        parts = ("correction", "global_ba")
+        before = [part_counts(system, p)[0] for p in parts]
         lc, wall, closed = close_constructed_loop(cfg, system, None, graphs)
         peak = peak_memory()
         walls[mode] = wall
-        c_new = correct_counts(system)[0] - c0[0]
-        want = {"eager": 0, "capturing": LOOP_CORRECT_GRAPHS,
-                "replaying": 0}[mode]
-        if c_new != want:
+        c_new, b_new = (part_counts(system, p)[0] - n
+                        for p, n in zip(parts, before))
+        first = mode == "capturing"
+        if (c_new, b_new) != (LOOP_CORRECT_GRAPHS * first,
+                              LOOP_GBA_GRAPHS * first):
             raise AssertionError(f"the warm {mode} closure captured {c_new} "
-                                 f"correction graphs; expected {want}")
+                                 f"correction and {b_new} global BA graphs")
         times = {k: [round(x * 1e3, 3) for x in v]
                  for k, v in lc.timings.items()}
         log(f"[loop] warm {mode} closure: {closed}; wall {wall:.3f} ms; "
@@ -4066,7 +4102,8 @@ def loop_phase(cfg):
         else:
             restore_loop_system(fresh, initial)
         pool0 = getattr(fresh.fused_loop, "capture_mib", 0.0)
-        cpool0 = correct_counts(fresh)[1]
+        cpool0 = part_counts(fresh, "correction")[1]
+        gpool0 = part_counts(fresh, "global_ba")[1]
         lc2 = LoopCloser(cfg, CubemapCamera.from_config(cfg, "cuda"))
         lc2.consistency_th = 1
         lc2.graphs = graphs
@@ -4077,7 +4114,8 @@ def loop_phase(cfg):
         prof = profile_stages(lambda: lc2.process(fresh, 13), stages, 1)
         pools[mode] = (pool1 - pool0,
                        getattr(fresh.fused_loop, "capture_mib", 0.0) - pool1,
-                       correct_counts(fresh)[1] - cpool0)
+                       part_counts(fresh, "correction")[1] - cpool0,
+                       part_counts(fresh, "global_ba")[1] - gpool0)
         tag = f"loop-profile-{mode}"
         log_profile(tag, prof, [walls[mode]])
         allowed = lc2.reads + lc2.eigh_waits + lc2.capture_waits
@@ -4097,17 +4135,19 @@ def loop_phase(cfg):
                     f"[{tag_}] waited {p_['host_waits']:.0f} times; its "
                     f"stated reads, eigen-solve waits and capture waits are "
                     f"{allowed_}")
-        c_waits = prof["stages"]["loop.correct"]["host_waits"]
-        if mode == "replaying" and c_waits > LOOP_CORRECT_WAITS:
-            raise AssertionError(f"the replaying closure's loop.correct "
-                                 f"waited {c_waits:.0f} times; at most "
-                                 f"{LOOP_CORRECT_WAITS}")
+        for st, most in (("loop.correct", LOOP_CORRECT_WAITS),
+                         ("loop.gba", LOOP_GBA_WAITS)):
+            waits = prof["stages"][st]["host_waits"]
+            if mode == "replaying" and waits > most:
+                raise AssertionError(f"the replaying closure's {st} waited "
+                                     f"{waits:.0f} times; at most {most}")
         profs[mode] = prof
         del lc2
     del fresh
     for st, src, k in (("loop.detect", "detect", 0),
                        ("loop.sim3", "closure", 1),
-                       ("loop.correct", "closure", 2)):
+                       ("loop.correct", "closure", 2),
+                       ("loop.gba", "closure", 3)):
         for mode, _ in modes:
             v = (detects[mode][0] if src == "detect"
                  else profs[mode])["stages"][st]
@@ -4229,9 +4269,10 @@ def small_loop_reference_check(card="cuda"):
     close, keyframe poses within LOOP_REF_CORRECT[0], the landmarks live in
     both within [1] for 99% and [2] for all, the live observation table
     equal on [3] of its entries. Then the global BA from the CPU's
-    corrected arena on each device, within LOOP_REF_GBA: the card's
-    scatter-adds sum in their own order, and LM and CG carry the
-    difference along."""
+    corrected arena on each device, within LOOP_REF_GBA (on the card
+    through a ``FusedGlobalBA`` made for the solve, its graphs captured,
+    as the main path's are): the card's scatter-adds sum in their own
+    order, and LM and CG carry the difference along."""
     cfg = SlamConfig(**LOOP_SMALL)
     c_closed, c, c_rec, _ = small_loop_closure(cfg, "cpu")
     _, _, g_rec, _ = small_loop_closure(cfg, card)

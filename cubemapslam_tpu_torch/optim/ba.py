@@ -37,7 +37,10 @@ Every scatter-add over the edges (the JAX ``.at[idx].add``) is a
 ``segment.segment_sum`` on a plan built once a solve: the edge indices do not
 change across its LM steps and CG iterations. On the card the plan fixes the
 order of the additions, so a solve returns the same bits on every run; on the
-CPU it is ``index_add_``.
+CPU it is ``index_add_``. The CG path sums its cost the same way, as one
+segment with the masked edges dropped (``_cost_plan``), so that a problem
+padded with masked rows to a capacity solves to the bits of the compacted
+one; the direct path keeps ``.sum()``.
 """
 
 from __future__ import annotations
@@ -81,10 +84,12 @@ def _chi2(cam: CubemapCamera, prob: BAProblem) -> torch.Tensor:
 
 
 def _robust_cost(chi2: torch.Tensor, active: torch.Tensor,
-                 robust) -> torch.Tensor:
+                 robust, plan: SegmentPlan = None) -> torch.Tensor:
     """The (Huber when ``robust``) cost of the active edges. ``robust`` is
     a bool, or a 0-d bool tensor that selects the same bits on the device
-    (the CG path, whose one captured LM step serves both phases)."""
+    (the CG path, whose one captured LM step serves both phases).
+    ``plan``: the CG path's one-segment plan of the sum (``_cost_plan``),
+    else ``.sum()`` (the direct path)."""
     flag = isinstance(robust, torch.Tensor)
     if flag or robust:
         over = (chi2 > CHI2_TH) & robust if flag else chi2 > CHI2_TH
@@ -93,7 +98,8 @@ def _robust_cost(chi2: torch.Tensor, active: torch.Tensor,
                               torch.clamp(chi2, min=1e-20)) - CHI2_TH, chi2)
     else:
         rho = chi2
-    return torch.where(active, rho, torch.zeros_like(rho)).sum()
+    rho = torch.where(active, rho, torch.zeros_like(rho))
+    return rho.sum() if plan is None else segment_sum(plan, rho)[0]
 
 
 def _apply_updates(prob: BAProblem, dc: torch.Tensor, dp: torch.Tensor):
@@ -459,6 +465,14 @@ def _cg_plans(prob: BAProblem):
             SegmentPlan(torch.where(ok, prob.obs_pt, P), P))
 
 
+def _cost_plan(prob: BAProblem) -> SegmentPlan:
+    """The CG path's cost sum as one segment of the edges, a masked edge
+    dropped: a CUDA ``.sum()`` reduces in an order set by the length, so
+    masked rows that pad the problem to a capacity would move the cost's
+    bits; through the plan it is the same sum at every padding."""
+    return SegmentPlan((~prob.obs_valid).to(torch.int64), 1)
+
+
 def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust,
              lm_lambda, cg_iters: int, group=None, n_boundary=None,
              plans=None):
@@ -552,6 +566,104 @@ def _lm_step(cam: CubemapCamera, prob: BAProblem, active, robust,
     return R_new, t_new, prob.X + dp
 
 
+class CGSolve(NamedTuple):
+    """One CG solve's state and constants: ``prob`` with its own R, t and X,
+    which its LM steps update in place, the active edges (the cuts clear
+    them in place), the damping and the robust flag (0-d tensors, which
+    ``cg_phases`` fills), and the plans of the camera, point and cost
+    sums. Only the state changes during a solve, so a captured step or
+    cut replays on it."""
+
+    prob: BAProblem
+    active: torch.Tensor
+    lm_lambda: torch.Tensor
+    robust: torch.Tensor
+    plans: Tuple[SegmentPlan, SegmentPlan, SegmentPlan]
+
+
+def cg_solve(prob: BAProblem) -> CGSolve:
+    """A ``CGSolve`` of ``prob``: copies of its poses and points, its valid
+    edges active, the plans built (the damping and flag unset)."""
+    dev, f32 = prob.X.device, prob.X.dtype
+    return CGSolve(prob._replace(R=prob.R.clone(), t=prob.t.clone(),
+                                 X=prob.X.clone()),
+                   prob.obs_valid.clone(),
+                   torch.empty((), dtype=f32, device=dev),
+                   torch.empty((), dtype=torch.bool, device=dev),
+                   (*_cg_plans(prob), _cost_plan(prob)))
+
+
+def cg_lm_step(cam: CubemapCamera, st: CGSolve, cg_iters: int, group=None,
+               n_boundary=None) -> None:
+    """One LM step of the CG path on ``st``, in place: the cost,
+    ``_lm_step``, the candidate's cost, the accept and the damping's
+    update. Reads nothing on the host."""
+    state, active, robust, lm_lambda = st.prob, st.active, st.robust, \
+        st.lm_lambda
+    cost_plan = st.plans[2]
+    cost = _psum(_robust_cost(_chi2(cam, state), active, robust, cost_plan),
+                 group)
+    R_n, t_n, X_n = _lm_step(cam, state, active, robust, lm_lambda,
+                             cg_iters, group, n_boundary, st.plans[:2])
+    cand = state._replace(R=R_n, t=t_n, X=X_n)
+    cost_n = _psum(_robust_cost(_chi2(cam, cand), active, robust, cost_plan),
+                   group)
+    improved = cost_n < cost
+    for old, new in ((state.R, R_n), (state.t, t_n), (state.X, X_n)):
+        old.copy_(_select(improved, new, old))
+    # lambda floor 1e-6: the damping bounds the motion along near-null
+    # gauge directions in the CG solve
+    lm_lambda.copy_(torch.clamp(torch.where(
+        improved, lm_lambda * 0.5, lm_lambda * 4.0), 1e-6, 1e4))
+
+
+def cg_cut(cam: CubemapCamera, st: CGSolve, chi2_cut: float) -> None:
+    """The chi2 outlier cut and the FOV cheirality cut (behind-camera
+    points) between the phases, on ``st.active`` in place."""
+    state = st.prob
+    chi2 = _chi2(cam, state)
+    Xc = mat3_apply(state.R[state.obs_cam], state.X[state.obs_pt]) \
+        + state.t[state.obs_cam]
+    d = torch.linalg.norm(Xc, dim=-1)
+    in_fov = Xc[..., 2] / torch.clamp(d, min=1e-12) > cam.cos_fov_th
+    st.active.copy_(st.active & (chi2 <= chi2_cut) & in_fov)
+
+
+def cg_phases(cam: CubemapCamera, st: CGSolve, phase_iters,
+              chi2_cut: float, cg_iters: int, run=None, group=None,
+              n_boundary=None) -> None:
+    """The LM phases of the CG path on ``st``, in place: for each phase
+    the flag and the damping filled (robust, the Huber cost, in the first;
+    damping 1e-4), its LM steps
+    (``cg_lm_step``) and the cut (``cg_cut``). ``run(name, part)`` runs
+    each step (``name`` ``"l"``) and cut (``"x"``), a part that takes no
+    argument and returns an empty list: ``CapturedFrame.run``, which on
+    the card captures a part once and replays it (``FusedGlobalBA``), or
+    by default a direct call."""
+    if run is None:
+        def run(name, part):
+            return part()
+
+    def step() -> List[torch.Tensor]:
+        cg_lm_step(cam, st, cg_iters, group, n_boundary)
+        return []
+
+    def cut() -> List[torch.Tensor]:
+        cg_cut(cam, st, chi2_cut)
+        return []
+
+    for phase, n in enumerate(phase_iters):
+        st.robust.fill_(phase == 0)
+        st.lm_lambda.fill_(1e-4)
+        # the CG path's caller is loop closing's global BA, whose profile
+        # reads these ranges
+        with record_function("loop.gba.lm"):
+            for _ in range(n):
+                run("l", step)
+        with record_function("loop.gba.cut"):
+            run("x", cut)
+
+
 def _bundle_adjust_cg(cam: CubemapCamera, prob: BAProblem, phase_iters,
                       chi2_cut: float, cg_iters: int, group=None,
                       n_boundary=None, loop=None):
@@ -559,68 +671,23 @@ def _bundle_adjust_cg(cam: CubemapCamera, prob: BAProblem, phase_iters,
     solve when ``group`` is set. Returns (updated problem, per-edge inlier
     mask).
 
-    Each LM step (the cost, ``_lm_step``, the candidate's cost, the
-    accept and the damping's update) reads and writes a fixed set of
-    state tensors in place: R, t, X, the damping, the active edges and the
-    robust flag, a 0-d device tensor, so that one step's body serves both
-    phases and reads nothing on the host. The segment plans and the
-    problem's other fields are built once and only read. ``loop``, when
-    given, runs the steps (``runtime.fused_step.CapturedLoop.repeat``:
-    on the card the first step eagerly and then captured as one CUDA
-    graph, replayed for the other steps of both phases); else a Python
-    loop runs them. The chi2/FOV cut between the phases and the gauge stay
-    eager. A solve with a ``group`` stays eager: its collectives do not go
-    into a graph."""
+    The gauge's entry, the phases (``cg_phases``, whose LM step reads and
+    writes the fixed state of a ``CGSolve`` in place, so that one step's
+    body serves both phases and reads nothing on the host) and the gauge's
+    retraction. ``loop``, a ``runtime.fused_step.CapturedFrame``, runs the
+    steps and cuts by its ``run``; else they run as called. A solve with a
+    ``group`` stays eager: its collectives do not go into a graph."""
     if group is not None and loop is not None:
         raise ValueError("the sharded CG solve runs eagerly: its "
                          "collectives are not captured")
-    dev, f32 = prob.X.device, prob.X.dtype
-    plans = _cg_plans(prob)
-    state = prob._replace(R=prob.R.clone(), t=prob.t.clone(),
-                          X=prob.X.clone())
-    active = prob.obs_valid.clone()
-    lm_lambda = torch.empty((), dtype=f32, device=dev)
-    robust = torch.empty((), dtype=torch.bool, device=dev)
-
-    def lm_step():
-        cost = _psum(_robust_cost(_chi2(cam, state), active, robust), group)
-        R_n, t_n, X_n = _lm_step(cam, state, active, robust, lm_lambda,
-                                 cg_iters, group, n_boundary, plans)
-        cand = state._replace(R=R_n, t=t_n, X=X_n)
-        cost_n = _psum(_robust_cost(_chi2(cam, cand), active, robust),
-                       group)
-        improved = cost_n < cost
-        for old, new in ((state.R, R_n), (state.t, t_n), (state.X, X_n)):
-            old.copy_(_select(improved, new, old))
-        # lambda floor 1e-6: the damping bounds the motion along
-        # near-null gauge directions in the CG solve
-        lm_lambda.copy_(torch.clamp(torch.where(
-            improved, lm_lambda * 0.5, lm_lambda * 4.0), 1e-6, 1e4))
-
+    st = cg_solve(prob)
     with record_function("loop.gba.cut"):
         anchor_state = _gauge_entry(prob)
-    for phase, n in enumerate(phase_iters):
-        robust.fill_(phase == 0)
-        lm_lambda.fill_(1e-4)
-        # the CG path's caller is loop closing's global BA, whose profile
-        # reads these ranges
-        with record_function("loop.gba.lm"):
-            if loop is None:
-                for _ in range(n):
-                    lm_step()
-            else:
-                loop.repeat("lm", lm_step, n)
-        with record_function("loop.gba.cut"):
-            chi2 = _chi2(cam, state)
-            # outlier cut + FOV cheirality (behind-camera points)
-            Xc = mat3_apply(state.R[state.obs_cam], state.X[state.obs_pt]) \
-                + state.t[state.obs_cam]
-            d = torch.linalg.norm(Xc, dim=-1)
-            in_fov = Xc[..., 2] / torch.clamp(d, min=1e-12) > cam.cos_fov_th
-            active.copy_(active & (chi2 <= chi2_cut) & in_fov)
+    cg_phases(cam, st, phase_iters, chi2_cut, cg_iters,
+              None if loop is None else loop.run, group, n_boundary)
     with record_function("loop.gba.cut"):
-        prob = _gauge_retract(state, anchor_state)
-    return prob, active
+        prob = _gauge_retract(st.prob, anchor_state)
+    return prob, st.active
 
 
 # ---------------------------------------------------------------------------
@@ -691,10 +758,9 @@ def bundle_adjust(cam: CubemapCamera, prob: BAProblem,
     is this rank's part of the SPMD solve: ``prob`` holds the full camera
     and point tables and this rank's edges, and ``n_boundary`` limits the
     point-table exchange to the boundary prefix (``_psum_pts``). ``loop``
-    (``solver="cg"``, no ``group``): the runner of its LM steps, a
-    ``runtime.fused_step.CapturedLoop`` that replays them from one captured
-    CUDA graph on the card (``_bundle_adjust_cg``); the same bits as the
-    eager steps.
+    (``solver="cg"``, no ``group``): a ``runtime.fused_step.CapturedFrame``
+    whose ``run`` runs its LM steps and cuts (``cg_phases``), on the card
+    captured once and replayed; the same bits as the eager steps.
 
     Returns (updated problem, per-edge inlier mask)."""
     assert solver in ("cg", "direct"), solver

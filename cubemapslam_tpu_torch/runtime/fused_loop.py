@@ -1,5 +1,5 @@
-"""Loop closing's DetectLoop, ComputeSim3 and CorrectLoop as captured CUDA
-graphs.
+"""Loop closing's DetectLoop, ComputeSim3, CorrectLoop and global BA as
+captured CUDA graphs.
 
 ``FusedLoop`` is the port's counterpart of the JAX package's jitted loop
 stages (``cubemapslam_tpu/runtime/loop_closing.py``:
@@ -75,8 +75,45 @@ loop_assoc and neigh_pre (graph S's outputs, as ``sim3`` returns them)
 copied on the device. The eager path pads the edges to the same capacity,
 so both give the same bits.
 
+``FusedGlobalBA`` (``FusedLoop.global_ba``, its own pool) holds the
+counterpart of the post-loop global BA (``_global_ba`` :672-712, whose
+``bundle_adjust`` runs all K*N masked observation slots through one
+compiled program, a ``lax.fori_loop`` a phase, ``optim/ba.py:624``):
+
+* graph B: ``dist.global_ba_problem_from_arena`` over all K*N slots, the
+  solve's copies of the poses and points, the scale gauge's entry state
+  (fixed (K,) shapes, rows by ``index_select``) and the live count;
+* one host read of that count, which picks the edge capacity
+  (``LoopKernels.ba_edge_capacity``: the count rounded up to a multiple of
+  2^(bit_length - 4), at least 4096);
+* graph P at that capacity: the live edges compacted in order on the
+  device, masked rows after them (``padded_ba_problem``), the active edges
+  and the camera, point and cost plans, which drop the masked rows, so
+  every sum of the solve keeps the compacted order;
+* the LM phases of ``optim.ba.cg_phases``, the loop that the eager solve
+  (``bundle_adjust``) runs too, with its parts as graphs: graph L at that
+  capacity, one LM step (``cg_lm_step``), run 15 times: the first run
+  ever captures it (an eager step, then the capture), every later one
+  replays it, in this closure and the next; the robust flag and the
+  damping are filled between the phases, outside the graph; graph X at
+  that capacity, the chi2 and FOV cut (``cg_cut``), after each phase;
+* graph W at that capacity: the gauge's retraction and the write-back
+  (``LoopKernels.write_global_ba``): the inlier verdicts put back on their
+  slots, a padded row's on a dump slot past the last, and the arena's
+  ``kf_R``, ``kf_t``, ``lm_pos`` and ``kf_obs_lm`` written in place.
+
+One instance serves every closure of the system; a count in another
+capacity captures that capacity's P, L, X and W (B is shared), and holds
+the graphs of the two capacities used last (``FusedGlobalBA.kept``): a
+third drops the older's, whose blocks the pool reuses, so a map that grows
+closure by closure holds a bounded pool. A capture synchronizes nothing
+and keeps the allocator's cache (``fused_step.CapturedFrame.run``). Every
+single-process global BA runs through a ``FusedGlobalBA``: the system's,
+one made for the solve where the system hands out none, or one that runs
+its parts eagerly (``graphs=False``), so every path gives the same bits.
+
 Graphs D, M and S read the arena and ``system.bow_table`` and write
-neither; C, the steps and F write the arena in place. Each table is
+neither; C, the steps, F and W write the arena in place. Each table is
 checked by ``data_ptr`` before a call and a moved one raises. They
 also read the ``LoopKernels``' own tensors (the level sigmas, the scale
 factors, the camera's), so this object holds the ``LoopKernels`` it was made
@@ -101,6 +138,7 @@ import torch
 from torch.profiler import record_function
 
 from cubemapslam_tpu_torch._build import cusolver
+from cubemapslam_tpu_torch.optim.ba import CHI2_TH, cg_phases
 from cubemapslam_tpu_torch.runtime.fused_step import CapturedFrame
 
 
@@ -123,6 +161,7 @@ class FusedLoop(CapturedFrame):
         super().__init__(k.cam.device)
         self.k = k
         self.correction = FusedCorrect(k)
+        self.global_ba = FusedGlobalBA(k)
 
     def check_system(self, system) -> None:
         """``check`` on the arena's tables and the BoW table."""
@@ -261,9 +300,77 @@ class FusedCorrect(CapturedFrame):
         return sorted(int(n[1:]) for n in self.outputs if n[0] == "g")
 
 
+class FusedGlobalBA(CapturedFrame):
+    """Static buffers, graphs B, P, L, X and W at the edge capacities met
+    last, and their pool, for the post-loop global BA on the
+    ``LoopKernels`` ``k``: ``solve(system, phase_iters, cg_iters)``. A
+    system holds one for every closure; ``LoopCloser`` makes one for a
+    single solve where the system hands out none, and one with
+    ``graphs=False`` for the eager path, whose parts run as called."""
+
+    label = "fused global BA"
+    # the edge capacities whose graphs P, L, X and W are held: a growing
+    # map meets a new capacity every few keyframes, so a new one drops the
+    # least recently used beyond these, and the pool takes its blocks back
+    kept = 2
+
+    def __init__(self, k, graphs: bool = True):
+        super().__init__(k.cam.device, graphs)
+        self.k = k
+        self._recent: List[int] = []
+        # the damping and the robust flag, which cg_phases fills and graph
+        # L updates
+        self.inputs.update(
+            lm_lambda=torch.empty((), dtype=torch.float32, device=self.device),
+            robust=torch.empty((), dtype=torch.bool, device=self.device))
+
+    def check_system(self, system) -> None:
+        """``check`` on the arena's tables."""
+        self.check([(f"arena.{f}", getattr(system.arena, f))
+                    for f in system.arena._fields])
+
+    def solve(self, system, phase_iters, cg_iters: int) -> int:
+        """The global BA on the system's arena, in place: graph B, the one
+        read of the live count, graph P of that count's capacity, the LM
+        phases (``optim.ba.cg_phases``: graph L a step, graph X a cut),
+        then graph W. Returns the count."""
+        self.check_system(system)
+        arena, k = system.arena, self.k
+        with record_function("loop.gba.build"):
+            b = self.run("b", lambda: k.gba_b(arena))
+            count = int(b[-1])                          # the one host read
+            cap = k.ba_edge_capacity(count, arena.n_kf_cap * arena.n_feat)
+            self._hold(cap)
+            p = self.run(f"p{cap}", lambda: k.gba_p(b, cap))
+        st = k.gba_solve(b, p, self.inputs["lm_lambda"],
+                         self.inputs["robust"])
+        cg_phases(k.cam, st, phase_iters, CHI2_TH, cg_iters,
+                  lambda name, part: self.run(f"{name}{cap}", part))
+        with record_function("loop.gba.write"):
+            self.run(f"w{cap}", lambda: k.gba_w(arena, b, p, st))
+        return count
+
+    def _hold(self, cap: int) -> None:
+        """Mark capacity ``cap`` the most recently used; one not held drops
+        the least recently used capacity's P, L, X and W where ``kept`` are
+        held."""
+        if cap in self._recent:
+            self._recent.remove(cap)
+        elif len(self._recent) == self.kept:
+            old = self._recent.pop(0)
+            self.drop([f"{g}{old}" for g in "plxw"])
+        self._recent.append(cap)
+
+    @property
+    def capacities(self) -> List[int]:
+        """The edge capacities whose graphs this object holds."""
+        return sorted(self._recent)
+
+
 class LoopGraphOwner:
     """A system's side of its loop graphs: it holds one ``FusedLoop`` (with
-    its ``FusedCorrect``) and hands it to its loop closer. ``CubemapSLAM``
+    its ``FusedCorrect`` and ``FusedGlobalBA``) and hands it to its loop
+    closer. ``CubemapSLAM``
     is one; so is ``chip_smoke.py``'s loop-closing system."""
 
     _fused_loop: Optional[FusedLoop] = None
@@ -282,7 +389,8 @@ class LoopGraphOwner:
         return self.own_fused_loop(k)
 
     def own_fused_loop(self, k) -> FusedLoop:
-        """The ``FusedLoop``, made on ``k`` on first use. One made on other
+        """The ``FusedLoop`` (with its ``FusedCorrect`` and
+        ``FusedGlobalBA``), made on ``k`` on first use. One made on other
         ``LoopKernels`` of the same configuration serves (it runs on its
         own, which its graphs read); another configuration raises. On the
         CPU its parts run eagerly on its static buffers."""
@@ -296,6 +404,6 @@ class LoopGraphOwner:
         return fl
 
     def drop_loop_graphs(self) -> None:
-        """Forget the ``FusedLoop`` and its ``FusedCorrect``; the next
-        request makes new ones."""
+        """Forget the ``FusedLoop``, its ``FusedCorrect`` and its
+        ``FusedGlobalBA``; the next request makes new ones."""
         self._fused_loop = None

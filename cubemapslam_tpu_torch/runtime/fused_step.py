@@ -49,7 +49,9 @@ Capture (``CapturedFrame``, which ``runtime/fused_mapping.py`` shares). The
 first frame that needs a graph runs its part eagerly on a side stream
 (which warms every library handle and workspace on that stream, and is that
 frame's own work, so the arena's counters are updated once), then captures
-the same part on that stream with ``torch.cuda.graph`` into the pool, and
+the same part on that stream into the pool (``CUDAGraph.capture_begin``
+/ ``capture_end``: no synchronization and the allocator's cache kept,
+where ``torch.cuda.graph`` would empty it first), and
 copies the eager outputs into the graph's outputs. A hand-written kernel's
 wrapper counts a Python call, and a replay makes none, so each capture
 records every ``CudaKernel``'s launches during it, takes them back, and
@@ -73,9 +75,9 @@ from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.runtime.kernels import FrameTrack
 
 N_KP = len(Keypoints._fields)
-# host waits of one capture: torch.cuda.graph synchronizes the device on
-# entry
-CAPTURE_WAITS = 1
+# host waits of one capture: capture_begin / capture_end synchronize
+# nothing (a capturing loop closure waits only for its reads)
+CAPTURE_WAITS = 0
 
 
 class CapturedFrame:
@@ -85,13 +87,14 @@ class CapturedFrame:
     ``run(name, part)`` runs ``part()`` (which returns a list of tensors)
     and keeps its outputs in ``outputs[name]``: the first time on the card
     eagerly on a side stream and then captured (see the module docstring),
-    every later time by replaying the graph; on the CPU eagerly every time.
+    every later time by replaying the graph; on the CPU, or made with
+    ``graphs=False``, eagerly every time.
     ``check(named)`` records the data pointers of the (name, tensor) pairs
     the parts read the first time it is called and raises on a later call
     if one moved. ``captures`` and ``replays`` count the graphs captured
     and replayed so far, ``frame_captures`` / ``frame_replays`` those since
     ``new_frame()``, ``capture_ms`` the host's wall time in
-    ``torch.cuda.graph`` and ``capture_mib`` the device memory the
+    the capture and ``capture_mib`` the device memory the
     captures' pool reserved.
 
     One pool serves every part of an instance. A graph writes its
@@ -102,9 +105,9 @@ class CapturedFrame:
 
     label = "captured frame"
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, graphs: bool = True):
         self.device = device
-        self.graphs = device.type == "cuda"
+        self.graphs = graphs and device.type == "cuda"
         self.inputs: Dict[str, torch.Tensor] = {}
         self.outputs: Dict[str, List[torch.Tensor]] = {}
         self._graph: Dict[str, torch.cuda.CUDAGraph] = {}
@@ -202,14 +205,19 @@ class CapturedFrame:
             eager = part()
             before = [(k, k.launches) for k in CudaKernel.instances]
             graph = torch.cuda.CUDAGraph()
-            # as torch.cuda.graph does first, so that the growth of the
-            # reserved memory is the pool's
-            torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             t0 = time.perf_counter()
+            # capture_begin / capture_end, not torch.cuda.graph, which
+            # synchronizes and empties the allocator's cache first: the
+            # cache stays, so the eager work after a capture allocates no
+            # memory anew (cudaMalloc / cudaFree that can stall for tens of
+            # ms), and the pool takes new blocks only for what it holds
             try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                graph.capture_begin(pool=self._pool)
+                try:
                     static = part()
+                finally:
+                    graph.capture_end()
             except Exception as e:
                 raise RuntimeError(f"{self.label}: the capture of graph "
                                    f"{name.upper()} failed: {e}") from e
@@ -230,6 +238,14 @@ class CapturedFrame:
         self.captures += 1
         self.frame_captures += 1
         return static
+
+    def drop(self, names: Sequence[str]) -> None:
+        """Forget the parts ``names``: their graphs and outputs. What they
+        held goes back to the pool, where later captures take it."""
+        for name in names:
+            self._graph.pop(name, None)
+            self._launch_delta.pop(name, None)
+            self.outputs.pop(name, None)
 
 
 class CapturedLoop(CapturedFrame):

@@ -22,8 +22,9 @@ and ``jnp.argsort`` a stable sort. ``search_and_fuse`` is a Python loop
 over the corrected keyframes: the host's list eagerly, or JAX's 16 masked
 slots (``corrected_slots``), a masked one changing nothing. The essential
 graph's valid edges are padded to a capacity (``edge_capacity``) on both
-paths, so that the captured step's shapes stay fixed and its bits are the
-eager ones.
+paths, and so are the global BA's live observations (``ba_edge_capacity``,
+``padded_ba_problem``), so that the captured steps' shapes stay fixed and
+their bits are the eager ones.
 
 Two rules differ from the JAX package, whose result there depends on the
 order of a scatter with duplicate indices (``loop_closing.py:301-304,
@@ -48,10 +49,12 @@ once, and synchronizes twice to time the correction and the global BA. On
 the card DetectLoop, ComputeSim3 and CorrectLoop replay graphs captured
 once a system (``runtime/fused_loop.py``: CorrectLoop as graph C, the one
 read of the edge count, the Gauss-Newton step of that count's capacity
-replayed 12 times and graph F, whose statistics read nothing), and the
-global BA's LM steps replay a CUDA graph captured in the closure
-(``LoopCloser``); each capture synchronizes once
-(``LoopCloser.capture_waits``).
+replayed 12 times and graph F, whose statistics read nothing), and so does
+the global BA (``FusedGlobalBA``: graph B, the one read of the live count,
+graph P at that count's edge capacity (``ba_edge_capacity``), graph L for
+each of its 15 LM steps, graph X for each cut and graph W, those of the
+two capacities used last held); a capture makes no host wait
+(``LoopCloser.capture_waits``, ``fused_step.CAPTURE_WAITS``).
 
 With ``torch.distributed`` initialized over more than one rank, the global
 BA is one SPMD solve over keyframe-block shards (``loop_closing.py:684-700``,
@@ -80,16 +83,20 @@ from cubemapslam_tpu_torch import place as PL
 from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.config import SlamConfig
-from cubemapslam_tpu_torch.optim.ba import bundle_adjust
+from cubemapslam_tpu_torch.optim.ba import (BAProblem, CGSolve, _cg_plans,
+                                            _cost_plan, _gauge_entry,
+                                            _gauge_retract)
 from cubemapslam_tpu_torch.optim import pose_graph as PG
 from cubemapslam_tpu_torch.optim.pose_graph import optimize_essential_graph
 from cubemapslam_tpu_torch.optim.sim3_opt import optimize_sim3
-from cubemapslam_tpu_torch.runtime.fused_loop import pack_detection
+from cubemapslam_tpu_torch.runtime.fused_loop import (FusedGlobalBA,
+                                                      pack_detection)
 from cubemapslam_tpu_torch.runtime.fused_step import (CAPTURE_WAITS,
                                                       CapturedLoop)
 from cubemapslam_tpu_torch.runtime.kernels import _members
 from cubemapslam_tpu_torch.runtime.mapping import (Slot, _at, _index,
                                                    _kf_keypoints, _put, _top)
+from cubemapslam_tpu_torch.segment import SegmentPlan
 from cubemapslam_tpu_torch.solvers import sim3 as S3
 from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
@@ -102,6 +109,11 @@ MAX_NEIGH = 16           # corrected keyframes that SearchAndFuse visits
 MAX_LOOP_LANDMARKS = 4096
 POSE_GRAPH_ITERS = 12
 MIN_EDGE_CAPACITY = 256  # the essential graph's smallest padded edge count
+# the global BA: its LM phases and CG iterations a step (loop_closing.py:
+# 701-703), and its smallest padded edge count
+GBA_PHASES, GBA_CG_ITERS = (5, 10), 50
+MIN_BA_EDGE_CAPACITY = 4096
+_NP = len(BAProblem._fields)   # graph B's outputs start with the problem
 N_CANDIDATES = 8         # DetectLoop's candidates (PL.detect_candidates)
 
 
@@ -612,6 +624,110 @@ class LoopKernels:
                                 1 << max(count - 1, 0).bit_length()))
 
     # ------------------------------------------------------------------
+    # The global BA at a padded edge capacity (runtime/fused_loop.py
+    # captures its parts)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def ba_edge_capacity(count: int, n_slots: int) -> int:
+        """The global BA's padded edge count for ``count`` live
+        observations of ``n_slots``: the count rounded up to a multiple of
+        2^(bit_length(count) - 4), so 8 capacities an octave and at most
+        12.5% padding, at least ``MIN_BA_EDGE_CAPACITY``, at most
+        ``n_slots``. Finer than ``edge_capacity``'s powers of two: the
+        padding costs every CG iteration, a capacity one capture a
+        system."""
+        step = 1 << max(count.bit_length() - 4, 0)
+        return min(n_slots, max(MIN_BA_EDGE_CAPACITY,
+                                -(-count // step) * step))
+
+    @staticmethod
+    def padded_ba_problem(prob: BAProblem, cap: int):
+        """The live observations of the global BA problem ``prob`` (every
+        slot of the observation table, masked) in their order, compacted on
+        the device into ``cap`` rows, masked rows after them (they gather
+        the last slot; the solve's plans drop them). Returns (the padded
+        problem, each row's slot: the slot count for a padded row, which
+        ``write_global_ba`` routes to a dump slot)."""
+        E = prob.obs_valid.shape[0]
+        keep = SM.compact_mask(prob.obs_valid, cap, E)
+        rows = keep.clamp(max=E - 1)
+        edges = {f: getattr(prob, f)[rows] for f in D.EDGE_FIELDS[:-1]}
+        return prob._replace(**edges, obs_valid=keep < E), keep
+
+    @staticmethod
+    def write_global_ba(arena: SM.MapArena, out: BAProblem,
+                        active: torch.Tensor, keep: torch.Tensor,
+                        obs_valid: torch.Tensor) -> SM.MapArena:
+        """The solved global BA into the arena, in place: the poses and
+        points of ``out``, and every observation slot that was live
+        (``obs_valid``, all K*N) and is no inlier (``active`` of the solve's
+        rows, put back on their slots ``keep``) unlinked. A padded row's
+        slot is the slot count: it lands on a dump slot past the last,
+        which is dropped, so no padded row writes over a live verdict."""
+        K, N = arena.n_kf_cap, arena.n_feat
+        inl = torch.zeros(K * N + 1, dtype=torch.bool,
+                          device=active.device).index_copy_(0, keep,
+                                                            active)[:-1]
+        kill = (obs_valid & ~inl).reshape(K, N)
+        obs = torch.where(kill, torch.full_like(arena.kf_obs_lm, SM.NO_LM),
+                          arena.kf_obs_lm)
+        arena.kf_R.copy_(out.R)
+        arena.kf_t.copy_(out.t)
+        arena.lm_pos.copy_(out.X)
+        arena.kf_obs_lm.copy_(obs)
+        return arena
+
+    def gba_b(self, arena: SM.MapArena) -> List[torch.Tensor]:
+        """Graph B: the global BA problem over every slot of the
+        observation table (``dist.global_ba_problem_from_arena``), the
+        solve's copies of the poses and points, the scale gauge's entry
+        state and the live count. Returns [the problem's fields, R, t, X,
+        the 4 gauge tensors, the count]."""
+        prob = D.global_ba_problem_from_arena(self.cam, arena,
+                                              self.inv_level_sigma2)
+        return [*prob, prob.R.clone(), prob.t.clone(), prob.X.clone(),
+                *_gauge_entry(prob), prob.obs_valid.sum()]
+
+    @staticmethod
+    def gba_p(b: List[torch.Tensor], cap: int) -> List[torch.Tensor]:
+        """Graph P at capacity ``cap`` from graph B's outputs ``b``: the
+        padded problem's edges (``padded_ba_problem``), their slots, the
+        active edges and the camera, point and cost plans, flat."""
+        padded, keep = LoopKernels.padded_ba_problem(BAProblem(*b[:_NP]),
+                                                     cap)
+        plans = (*_cg_plans(padded), _cost_plan(padded))
+        return [*(getattr(padded, f) for f in D.EDGE_FIELDS), keep,
+                padded.obs_valid.clone(),
+                *(x for plan in plans for x in plan.parts())]
+
+    @staticmethod
+    def gba_solve(b: List[torch.Tensor], p: List[torch.Tensor],
+                  lm_lambda: torch.Tensor, robust: torch.Tensor) -> CGSolve:
+        """The ``CGSolve`` on graph B's and P's outputs and the damping and
+        flag buffers: no launch."""
+        E, n = len(D.EDGE_FIELDS), SegmentPlan.N_PARTS
+        prob = BAProblem(*b[:_NP])._replace(
+            R=b[_NP], t=b[_NP + 1], X=b[_NP + 2],
+            **dict(zip(D.EDGE_FIELDS, p[:E])))
+        parts = p[E + 2:]
+        plans = tuple(SegmentPlan.from_parts(parts[i * n:(i + 1) * n], m)
+                      for i, m in enumerate((prob.R.shape[0],
+                                             prob.X.shape[0], 1)))
+        return CGSolve(prob, p[E + 1], lm_lambda, robust, plans)
+
+    @staticmethod
+    def gba_w(arena: SM.MapArena, b: List[torch.Tensor],
+              p: List[torch.Tensor], st: CGSolve) -> List[torch.Tensor]:
+        """Graph W: the scale gauge's retraction of the solved ``st`` and
+        ``write_global_ba``; no output."""
+        out = _gauge_retract(st.prob, b[_NP + 3:_NP + 7])
+        LoopKernels.write_global_ba(arena, out, st.active,
+                                    p[len(D.EDGE_FIELDS)],
+                                    BAProblem(*b[:_NP]).obs_valid)
+        return []
+
+    # ------------------------------------------------------------------
     # CorrectLoop as the system's captured graphs (runtime/fused_loop.py)
     # ------------------------------------------------------------------
 
@@ -676,18 +792,19 @@ class LoopCloser:
 
     On the card DetectLoop and ComputeSim3 replay the captured graphs D, M
     and S of the ``FusedLoop`` that the system owns and hands out
-    (``system.fused_loop_for``), and CorrectLoop the graphs C, the
+    (``system.fused_loop_for``), CorrectLoop the graphs C, the
     Gauss-Newton step at the closure's edge capacity and F of its
-    ``FusedCorrect`` (``FusedLoop.correction``), each captured on its first
+    ``FusedCorrect`` (``FusedLoop.correction``), and the global BA the
+    graphs B, P, L, X and W at the live count's edge capacity of its
+    ``FusedGlobalBA`` (``FusedLoop.global_ba``), each captured on its first
     call and replayed on every later one, across keyframes and closures; a
     system that hands out none (one without ``fused_loop_for``, or any off
-    the card) runs them eagerly. The global BA's 15 LM steps run through a
-    ``CapturedLoop`` made for that solve and dropped after it (its
-    live-edge count fixes its shapes only within one closure): on the card
-    the first step runs eagerly, is captured as one CUDA graph and is
-    replayed for the others, with the same bits as the eager steps; so do
-    the pose graph's iterations where the system hands out no
-    ``FusedLoop``.
+    the card) runs them eagerly, but for the two solves: on the card the
+    pose graph's iterations run through a ``CapturedLoop`` made for that
+    solve and dropped after it (the first iteration eagerly, then captured
+    as one CUDA graph and replayed for the others, with the same bits as
+    the eager iterations), and the global BA through a ``FusedGlobalBA``
+    made for it.
     ``graphs = False``, or a ``system`` whose ``stage_times`` is set
     (``CubemapSLAM``'s eager switch), runs all of them as eager launches;
     so does the sharded global BA. ``graph_counts`` holds the last call's
@@ -738,12 +855,12 @@ class LoopCloser:
     @staticmethod
     def _fused_counts(fl):
         """Captures, replays, capture ms and pool MiB so far of the
-        ``FusedLoop`` and its ``FusedCorrect``."""
+        ``FusedLoop``, its ``FusedCorrect`` and its ``FusedGlobalBA``."""
         if fl is None:
             return (0, 0, 0.0, 0.0)
-        return tuple(a + b for a, b in zip(*(
+        return tuple(sum(x) for x in zip(*(
             (g.captures, g.replays, g.capture_ms, g.capture_mib)
-            for g in (fl, fl.correction))))
+            for g in (fl, fl.correction, fl.global_ba))))
 
     def _count(self, loop) -> None:
         """Add one solve's captures, replays, capture ms, pool MiB and
@@ -973,47 +1090,42 @@ class LoopCloser:
         phases (5 robust iterations, the chi2 cut, 10 more) of 50 CG
         iterations each step, then the outlier observations removed, in
         place. The problem spans every slot of the observation table (K*N);
-        the solve takes its live edges only (one read), whose segment sums
-        are those of the masked problem with its zeros left out. With
+        its live count is read once and picks a capacity
+        (``LoopKernels.ba_edge_capacity``), and the solve takes the live
+        edges padded to it (``padded_ba_problem``), whose segment sums,
+        the cost's among them, are those of the masked problem with its
+        zeros left out. It runs through a ``FusedGlobalBA``: the system's
+        (``FusedLoop.global_ba``) where it hands out a ``FusedLoop``, else
+        one made for this solve and dropped after it, its parts captured
+        on the card unless ``_eager``; every way gives the same bits. With
         ``torch.distributed`` initialized over more than one rank, rank 0's
-        problem is broadcast and the live edges are solved sharded
-        (``_global_ba_sharded``), where the JAX package shards all K*N
-        slots. The single-process solve runs its LM steps through
-        ``_loop`` (one CUDA graph a closure on the card); the sharded one
-        stays eager, since its collectives do not go into a graph."""
+        problem is broadcast and its live edges, compacted, are solved
+        sharded (``_global_ba_sharded``), where the JAX package shards all
+        K*N slots; that branch stays eager, since its collectives do not go
+        into a graph."""
         arena = system.arena
-        K, N = arena.n_kf_cap, arena.n_feat
+        if not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            fl = self._fused_loop(system)
+            gba = fl.global_ba if fl is not None else FusedGlobalBA(
+                self.k, graphs=not self._eager(system))
+            gba.solve(system, GBA_PHASES, GBA_CG_ITERS)
+            self.reads += 1
+            if fl is None:
+                self._count(gba)    # its graphs and pool go with it
+            return
         with record_function("loop.gba.build"):
-            prob = D.global_ba_problem_from_arena(self.cam, arena,
-                                                  self.k.inv_level_sigma2)
-            sharded = dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1
-            if sharded:
-                prob = D.broadcast_problem(prob, D.make_mesh())
+            prob = D.broadcast_problem(
+                D.global_ba_problem_from_arena(self.cam, arena,
+                                               self.k.inv_level_sigma2),
+                D.make_mesh())
             keep = prob.obs_valid.nonzero()[:, 0]
             self.reads += 1
             live = prob._replace(**{f: getattr(prob, f)[keep]
                                     for f in D.EDGE_FIELDS})
-        if sharded:
-            out, inl_live = self._global_ba_sharded(live)
-        else:
-            loop = self._loop(system)
-            out, inl_live = bundle_adjust(self.cam, live,
-                                          phase_iters=(5, 10), solver="cg",
-                                          cg_iters=50, loop=loop)
-            self._count(loop)
-            del loop            # its graph and pool with it
+        out, active = self._global_ba_sharded(live)
         with record_function("loop.gba.write"):
-            inl = torch.zeros_like(prob.obs_valid).index_copy_(0, keep,
-                                                               inl_live)
-            kill = (prob.obs_valid & ~inl).reshape(K, N)
-            obs = torch.where(kill,
-                              torch.full_like(arena.kf_obs_lm, SM.NO_LM),
-                              arena.kf_obs_lm)
-            arena.kf_R.copy_(out.R)
-            arena.kf_t.copy_(out.t)
-            arena.lm_pos.copy_(out.X)
-            arena.kf_obs_lm.copy_(obs)
+            self.k.write_global_ba(arena, out, active, keep, prob.obs_valid)
 
     def _global_ba_sharded(self, live):
         """The multi-rank branch of the global BA (``loop_closing.py:684-
@@ -1026,7 +1138,8 @@ class LoopCloser:
                                      shard_points=True)
         self.reads += D.SHARD_READS
         out, inl_s = D.distributed_bundle_adjust(
-            self.cam, sharded, mesh, phase_iters=(5, 10), cg_iters=50)
+            self.cam, sharded, mesh, phase_iters=GBA_PHASES,
+            cg_iters=GBA_CG_ITERS)
         dev = inl_s.device
         real = np.nonzero(sharded.edge_perm >= 0)[0]
         inl = torch.zeros_like(live.obs_valid).index_copy_(

@@ -22,7 +22,11 @@ The global problem's fields equal (floats within 1e-6). The CG path's LM
 steps on fixed state tensors, through ``CapturedLoop`` or a Python loop,
 bitwise the loop as it was before (``tests/torch_parent_loops.py``), on
 the small problem after n = 1, 2, 5 robust steps and on the global BA of
-the constructed-drift arena at ``chip_smoke.LOOP_SMALL``.
+the constructed-drift arena at ``chip_smoke.LOOP_SMALL``. That global BA
+padded to its edge capacity and to all K*N slots
+(``LoopKernels.padded_ba_problem``): within 1e-5 relative of the compacted
+solve with the same inlier verdicts, and against the JAX CG solve of all
+K*N masked slots within the tolerances stated in the test.
 """
 
 import jax.numpy as jnp
@@ -546,11 +550,11 @@ def test_captured_loop_runs_n_steps(n):
 
 
 @pytest.fixture(scope="module")
-def loop_ba():
-    """The global BA's live-edge problem of the constructed-drift arena at
-    ``chip_smoke.LOOP_SMALL`` (``LoopCloser._global_ba`` before its
-    solve), and the parent loop's solve of it (5 robust and 10 plain LM
-    steps of 50 CG iterations)."""
+def loop_ba_problem():
+    """The global BA problem of the constructed-drift arena at
+    ``chip_smoke.LOOP_SMALL`` over all its K*N observation slots, masked,
+    and its live edges compacted (``LoopCloser._global_ba``'s sharded
+    branch solves these): (camera, all slots, live edges, their slots)."""
     from cubemapslam_tpu_torch import dist as TD
     from cubemapslam_tpu_torch.config import SlamConfig as TConfig
     from cubemapslam_tpu_torch.runtime import synthetic as S
@@ -563,6 +567,15 @@ def loop_ba():
     keep = prob.obs_valid.nonzero()[:, 0]
     live = prob._replace(**{k: getattr(prob, k)[keep]
                             for k in TD.EDGE_FIELDS})
+    return tcam, prob, live, keep
+
+
+@pytest.fixture(scope="module")
+def loop_ba(loop_ba_problem):
+    """The global BA's live-edge problem of ``loop_ba_problem`` and the
+    parent loop's solve of it (5 robust and 10 plain LM steps of 50 CG
+    iterations)."""
+    tcam, _, live, _ = loop_ba_problem
     return tcam, live, PARENT.bundle_adjust_cg(tcam, live, (5, 10),
                                                TB.CHI2_TH, 50)
 
@@ -590,3 +603,85 @@ def test_cg_sharded_solve_stays_eager():
                              TB.CHI2_TH, 2, group=object(),
                              loop=CapturedLoop(torch.device("cpu")))
 
+
+
+# ---------------------------------------------------------------------------
+# The global BA padded to an edge capacity (runtime/loop_closing.py)
+# ---------------------------------------------------------------------------
+
+PAD_CAPS = ("capacity", "all_slots")
+
+
+@pytest.fixture(scope="module")
+def padded_solves(loop_ba_problem):
+    """The global BA of ``loop_ba_problem`` (5 + 10 LM steps of 50 CG
+    iterations): on its compacted live edges, and on the problem padded by
+    ``LoopKernels.padded_ba_problem`` to ``ba_edge_capacity`` of the live
+    count and to all K*N slots (the JAX package's shape). Each: (solved
+    problem, the inlier verdicts put back on the K*N slots)."""
+    from cubemapslam_tpu_torch.runtime.loop_closing import LoopKernels
+    tcam, prob, live, keep = loop_ba_problem
+    E = prob.obs_valid.shape[0]
+
+    def on_slots(slots, inl):
+        out = torch.zeros(E + 1, dtype=torch.bool)
+        return out.index_copy_(0, slots, inl)[:-1]
+
+    out, inl = TB.bundle_adjust(tcam, live, solver="cg", cg_iters=50)
+    solves = {"compacted": (out, on_slots(keep, inl))}
+    count = int(prob.obs_valid.sum())
+    for name, cap in zip(PAD_CAPS, (LoopKernels.ba_edge_capacity(count, E),
+                                    E)):
+        padded, slots = LoopKernels.padded_ba_problem(prob, cap)
+        assert padded.obs_valid.shape == (cap,)
+        assert int(padded.obs_valid.sum()) == count
+        out, inl = TB.bundle_adjust(tcam, padded, solver="cg", cg_iters=50)
+        assert not inl[count:].any()
+        solves[name] = (out, on_slots(slots, inl))
+    return solves
+
+
+def max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest difference of ``a`` and ``b`` over the largest entry of
+    ``b``."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("cap", PAD_CAPS)
+def test_padded_cg_solve_against_compacted(padded_solves, cap):
+    """The loop arena's global BA on its live edges padded to the edge
+    capacity (4608 rows for 4294 live edges) and to all 38,400 slots,
+    against the compacted solve: poses and points within 1e-5 relative,
+    the inlier verdicts equal on every slot. The padded rows are dropped
+    by the plans, the cost's sum among them (``_cost_plan``); on this
+    problem the CPU gave the same bits."""
+    (out, inl), (ref, ref_inl) = padded_solves[cap], padded_solves[
+        "compacted"]
+    for name in ("R", "t", "X"):
+        assert max_rel(getattr(out, name), getattr(ref, name)) <= 1e-5, name
+    assert torch.equal(inl, ref_inl)
+    assert 0 < int(inl.sum()) < int(ref_inl.numel())
+
+
+def test_padded_cg_solve_against_jax(loop_ba_problem, padded_solves):
+    """The padded solve at the edge capacity against the JAX
+    ``bundle_adjust(solver="cg")`` on all K*N masked slots of the same
+    problem, both on the CPU: valid poses within 1e-5 (seen: 1.8e-7), the
+    valid points within 5e-4 (seen: 5.2e-5 at depths up to 7.3), the
+    inlier verdicts equal on every slot (seen: equal). The margins are
+    about 10x: LM carries float32 rounding differences along (ROADMAP
+    Queue 3, "Float32 BA rounding")."""
+    tcam, prob, _, _ = loop_ba_problem
+    jp = JB.BAProblem(**{k: jnp.asarray(getattr(prob, k).numpy())
+                         for k in TB.BAProblem._fields})
+    jout, jinl = JB.bundle_adjust(
+        JCam.from_config(SlamConfig(**chip_smoke.LOOP_SMALL)), jp,
+        phase_iters=(5, 10), solver="cg", cg_iters=50)
+    out, inl = padded_solves["capacity"]
+    cv, pv = prob.cam_valid.numpy(), prob.pt_valid.numpy()
+    for name, mask, tol in (("R", cv, 1e-5), ("t", cv, 1e-5),
+                            ("X", pv, 5e-4)):
+        d = np.abs(getattr(out, name).numpy() - np.asarray(
+            getattr(jout, name)))[mask]
+        assert d.max() <= tol, (name, d.max())
+    np.testing.assert_array_equal(inl.numpy(), np.asarray(jinl))

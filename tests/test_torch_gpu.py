@@ -29,9 +29,13 @@ closure on the card against the CPU, with the bounds of ``chip_smoke.py``
 launches); DetectLoop and ComputeSim3 through ``FusedLoop``'s graphs D, M
 and S bitwise the eager closure (the same generator state, two reads
 fewer; CorrectLoop through ``FusedCorrect``'s graphs C, the padded step
-and F too, one read fewer), a second closure on the restored arena
-replaying them without a capture, a count that crosses into another edge
-capacity capturing that step only, a replaced arena or BoW table raising,
+and F too, one read fewer; the global BA through ``FusedGlobalBA``'s
+graphs B, P, L, X and W, the same reads; the global BA padded to its
+edge capacity and to all K*N slots bitwise its compacted solve), a second
+closure on the restored arena replaying them without a capture, a count that crosses into another
+edge capacity capturing that step only (and a global BA whose live count
+crosses into another capacity capturing that capacity's P, L, X and W
+only), a replaced arena or BoW table raising,
 ``drop_loop_graphs`` forgetting the correction's graphs, and the kernel bitwise
 against ``sym_eig_ordered`` on the Sim3 RANSAC's recorded (300,4,4) and
 (1,4,4) solves. The segmented-sum
@@ -968,10 +972,15 @@ def test_loop_correction_and_global_ba_twice_bitwise(cuda):
     (the correction as ``FusedCorrect``'s graphs C, the Gauss-Newton step
     replayed for its iterations, and F), from the CPU's refined Sim3 (loop
     fusion, the pose graph, SearchAndFuse); then the global BA likewise
-    from the CPU's corrected arena, its LM steps replayed from a CUDA
-    graph: each triple bitwise equal, with the same segmented-sum
-    launches, one capture a solve and a replay for every iteration after
-    the first."""
+    from the CPU's corrected arena: twice eagerly, through the system's
+    ``FusedGlobalBA`` (graphs B, P, L, X and W captured on the first
+    solve, L replayed for the other 14 LM steps and X for the second cut)
+    and on a system that hands out no ``FusedLoop`` (through a
+    ``FusedGlobalBA`` made for the solve, which captures its five graphs
+    and replays L and X as the system's does): each bitwise equal, with
+    the same segmented-sum launches. A second ``_global_ba`` on the ``FusedGlobalBA`` system, its
+    arena restored, captures nothing and replays B, P, L 15 times, X twice
+    and W, to the same tables."""
     import types
     from cubemapslam_tpu_torch import segment as SG
     from cubemapslam_tpu_torch.runtime.loop_closing import (
@@ -994,20 +1003,139 @@ def test_loop_correction_and_global_ba_twice_bitwise(cuda):
     assert (counts[2]["captures"], counts[2]["replays"]) == (
         2 + 3, POSE_GRAPH_ITERS - 1 + 1)
     solved, launches = [], []
-    for graphs in (False, False, True):
-        system = types.SimpleNamespace(arena=c.to(cuda))
+    for mode in ("eager", "eager", "fused", "made"):
+        arena = c.to(cuda)
+        system = (types.SimpleNamespace(arena=arena) if mode == "made" else
+                  chip_smoke.LoopSystem(arena, 0, None, None))
         lc = LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))
-        lc.graphs = graphs
+        lc.graphs = mode != "eager"
         n0 = SG.SEG_SUM.launches
         lc._global_ba(system)
         torch.cuda.synchronize()
         launches.append(SG.SEG_SUM.launches - n0)
         solved.append(system.arena.to("cpu"))
+        assert lc.reads == 1
         assert (lc.graph_counts["captures"], lc.graph_counts["replays"]) == (
-            (1, 14) if graphs else (0, 0))
+            (5, 14 + 1) if mode == "made" else (0, 0))
+        if mode == "fused":
+            fused = system
+        else:
+            assert getattr(system, "fused_loop", None) is None
     assert _arena_equal(*solved[:2]) == []
     assert _arena_equal(solved[0], solved[2]) == []
-    assert launches[0] == launches[1] == launches[2] > 0
+    assert _arena_equal(solved[0], solved[3]) == []
+    assert len(set(launches)) == 1 and launches[0] > 0
+    fg = fused.fused_loop.global_ba
+    assert (fg.captures, fg.replays) == (5, 14 + 1)
+    assert len(fg.capacities) == 1
+    for a, b in zip(fused.arena, c.to(cuda)):
+        a.copy_(b)
+    n0 = SG.SEG_SUM.launches
+    LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))._global_ba(fused)
+    torch.cuda.synchronize()
+    assert SG.SEG_SUM.launches - n0 == launches[0]
+    assert _arena_equal(solved[0], fused.arena.to("cpu")) == []
+    assert (fg.captures, fg.replays) == (5, 15 + 1 + 1 + 15 + 2 + 1)
+
+
+def test_loop_global_ba_padded_bitwise_compacted(cuda):
+    """The global BA of the CPU's corrected tier-1 arena on the card, on its
+    live edges compacted and padded (``LoopKernels.padded_ba_problem``) to
+    their edge capacity and to all K*N slots: poses, points and the inlier
+    verdicts on the live edges bitwise equal. The plans drop the padded
+    rows, the cost's one-segment plan among them, so padding moves no bit
+    of a sum, and the card's elementwise kernels round a row alike at any
+    length."""
+    from cubemapslam_tpu_torch import dist as TD
+    from cubemapslam_tpu_torch.optim.ba import bundle_adjust
+    from cubemapslam_tpu_torch.runtime.loop_closing import LoopKernels
+    cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
+    _, c, _, _ = chip_smoke.small_loop_closure(cfg, "cpu")
+    cam = CubemapCamera.from_config(cfg, cuda)
+    inv_s2 = 1.0 / torch.tensor(cfg.level_sigma2, device=cuda)
+    prob = TD.global_ba_problem_from_arena(cam, c.to(cuda), inv_s2)
+    keep = prob.obs_valid.nonzero()[:, 0]
+    live = prob._replace(**{f: getattr(prob, f)[keep]
+                            for f in TD.EDGE_FIELDS})
+    E = prob.obs_valid.shape[0]
+    ref, ref_inl = bundle_adjust(cam, live, solver="cg", cg_iters=50)
+    for cap in (LoopKernels.ba_edge_capacity(keep.numel(), E), E):
+        padded, slots = LoopKernels.padded_ba_problem(prob, cap)
+        out, inl = bundle_adjust(cam, padded, solver="cg", cg_iters=50)
+        torch.cuda.synchronize()
+        for name in ("R", "t", "X"):
+            assert torch.equal(getattr(out, name), getattr(ref, name)), (
+                cap, name)
+        assert torch.equal(slots[:keep.numel()], keep)
+        assert torch.equal(inl[:keep.numel()], ref_inl)
+        assert not inl[keep.numel():].any()
+
+
+def test_loop_global_ba_new_capacity(cuda, monkeypatch):
+    """A global BA whose live count falls in another edge capacity: on the
+    ``FusedGlobalBA`` of a system that solved the CPU's corrected arena once,
+    the same arena with every other live observation unlinked (half the
+    count, another capacity; the smallest capacity lowered to 256 so that
+    the tier-1 arena's counts are not both at the floor) captures that
+    capacity's P, L, X and W and replays B, bitwise the eager solve of the
+    same arena; the original arena solved again captures nothing and
+    replays the first capacity's graphs, to the first solve's tables. The
+    arena with three of four live observations unlinked, a third capacity,
+    captures its P, L, X and W and drops the halved arena's, the least
+    recently used (``FusedGlobalBA.kept`` = 2); the halved arena solved
+    again captures its four anew, to the bits of its first solve."""
+    import types
+    from cubemapslam_tpu_torch.runtime import loop_closing as LC
+    monkeypatch.setattr(LC, "MIN_BA_EDGE_CAPACITY", 256)
+    cfg = SlamConfig(**chip_smoke.LOOP_SMALL)
+    _, c, _, _ = chip_smoke.small_loop_closure(cfg, "cpu")
+    halved, quarter = c.to("cpu"), c.to("cpu")
+    obs = halved.kf_obs_lm.reshape(-1)
+    live = (obs >= 0).nonzero()[:, 0]
+    obs[live[::2]] = -1
+    quarter.kf_obs_lm.reshape(-1)[live[torch.arange(len(live)) % 4 != 0]] \
+        = -1
+
+    def solve(system, graphs=True):
+        lc = LC.LoopCloser(cfg, CubemapCamera.from_config(cfg, cuda))
+        lc.graphs = graphs
+        lc._global_ba(system)
+        torch.cuda.synchronize()
+        return system.arena.to("cpu")
+
+    system = chip_smoke.LoopSystem(c.to(cuda), 0, None, None)
+    first = solve(system)
+    fg = system.fused_loop.global_ba
+    (cap1,) = fg.capacities
+    assert (fg.captures, fg.replays) == (5, 15)
+    for a, b in zip(system.arena, halved.to(cuda)):
+        a.copy_(b)
+    second = solve(system)
+    assert int(fg.outputs["b"][-1]) == len(live) - len(live[::2])
+    assert len(fg.capacities) == 2 and cap1 in fg.capacities
+    assert (fg.captures, fg.replays) == (5 + 4, 15 + 1 + 14 + 1)
+    eager = solve(types.SimpleNamespace(arena=halved.to(cuda)), False)
+    assert _arena_equal(second, eager) == []
+    for a, b in zip(system.arena, c.to(cuda)):
+        a.copy_(b)
+    again = solve(system)
+    assert _arena_equal(first, again) == []
+    assert (fg.captures, fg.replays) == (9, 31 + 1 + 1 + 15 + 2 + 1)
+    (cap2,) = set(fg.capacities) - {cap1}
+    for a, b in zip(system.arena, quarter.to(cuda)):
+        a.copy_(b)
+    third = solve(system)
+    (cap3,) = set(fg.capacities) - {cap1}
+    assert cap3 not in (cap1, cap2) and len(fg.capacities) == 2
+    assert not any(n.endswith(str(cap2)) for n in fg.outputs)
+    assert (fg.captures, fg.replays) == (13, 51 + 1 + 14 + 1)
+    eager = solve(types.SimpleNamespace(arena=quarter.to(cuda)), False)
+    assert _arena_equal(third, eager) == []
+    for a, b in zip(system.arena, halved.to(cuda)):
+        a.copy_(b)
+    assert _arena_equal(second, solve(system)) == []
+    assert sorted(fg.capacities) == sorted([cap2, cap3])
+    assert (fg.captures, fg.replays) == (17, 67 + 1 + 14 + 1)
 
 
 def test_pose_graph_twice_bitwise(cuda):
@@ -1501,6 +1629,7 @@ def test_graph_frames_after_loop_closure(cuda, slam_frames):
     assert e_slam.fused_loop is None
     assert g_slam.fused_loop.captures == 2          # graphs M and S
     assert g_slam.fused_loop.correction.captures == 3   # C, a step, F
+    assert g_slam.fused_loop.global_ba.captures == 5    # B, P, L, X, W
 
 
 # ---------------------------------------------------------------------------
@@ -1535,14 +1664,14 @@ def _small_loop_system(cuda):
 def test_loop_graphs_bitwise_eager(cuda):
     """The small constructed-drift closure eagerly and through
     ``FusedLoop``'s graphs D, M and S, its ``FusedCorrect``'s graphs C, the
-    Gauss-Newton step at the edge capacity (256) and F, and the global BA's
-    loop graph: both close, every table bitwise equal, the generator in the
-    same state, two eigen-solve launches (one Sim3 RANSAC) each, 0
-    eigen-solve waits and three reads fewer through the graphs. The graph
-    system's arena restored in place and closed again (a second closure on
-    the same system) replays D twice, M, S, C, the step 12 times and F,
-    captures none of them (only the global BA's loop) and gives the same
-    tables."""
+    Gauss-Newton step at the edge capacity (256) and F, and its
+    ``FusedGlobalBA``'s graphs B, P, L, X and W: both close, every table
+    bitwise equal, the generator in the same state, two eigen-solve
+    launches (one Sim3 RANSAC) each, 0 eigen-solve waits and three reads
+    fewer through the graphs. The graph system's arena restored in place
+    and closed again (a second closure on the same system) replays D
+    twice, M, S, C, the step 12 times, F, B, P, L 15 times, X twice and W,
+    captures none of them and gives the same tables."""
     e_sys, g_sys = _small_loop_system(cuda), _small_loop_system(cuda)
     initial = chip_smoke.loop_arena_tables(g_sys.arena)[0]
     e_closed, e_lc, (_, e_dig), e_gen, e_eig = _loop_closure(cuda, e_sys,
@@ -1558,7 +1687,10 @@ def test_loop_graphs_bitwise_eager(cuda):
     fl, fc = g_sys.fused_loop, g_sys.fused_loop.correction
     assert (fl.captures, fl.replays) == (3, 1)
     assert (fc.captures, fc.replays, fc.capacities) == (3, 11, [256])
-    assert g_lc.graph_counts["captures"] == 6   # M, S, C, step, F, the BA
+    fg = g_sys.fused_loop.global_ba
+    assert (fg.captures, fg.replays) == (5, 15)
+    # M, S, C, the step, F, and B, P, L, X, W
+    assert g_lc.graph_counts["captures"] == 10
     chip_smoke.restore_loop_system(g_sys, initial)
     r_closed, r_lc, (_, r_dig), r_gen, r_eig = _loop_closure(cuda, g_sys,
                                                              True)
@@ -1566,7 +1698,11 @@ def test_loop_graphs_bitwise_eager(cuda):
     assert torch.equal(r_gen, g_gen) and r_eig == 2
     assert (fl.captures, fl.replays) == (3, 5)
     assert (fc.captures, fc.replays) == (3, 25)
-    assert r_lc.graph_counts["captures"] == 1        # the global BA's loop
+    assert (fg.captures, fg.replays) == (5, 35)
+    assert r_lc.graph_counts["captures"] == 0
+    # the closing call: D, M, S; C, the step 12 times, F; B, P, L 15
+    # times, X twice, W
+    assert r_lc.graph_counts["replays"] == 3 + 14 + 20
     assert r_lc.reads == g_lc.reads
 
 
@@ -1575,7 +1711,9 @@ def test_loop_correction_new_capacity(cuda, monkeypatch):
     captures that capacity's Gauss-Newton step and nothing else, bitwise
     the eager closure with the same past loop edges. The smallest capacity
     is lowered to 64, which the 59 live edges of the first closure fill; the
-    arena restored and closed again with 6 past loop edges has 65 (128)."""
+    arena restored and closed again with 6 past loop edges has 65 (128).
+    The global BA's live count stays in its capacity: it captures
+    nothing."""
     from cubemapslam_tpu_torch.runtime import loop_closing as LC
     monkeypatch.setattr(LC, "MIN_EDGE_CAPACITY", 64)
     g_sys = _small_loop_system(cuda)
@@ -1587,11 +1725,18 @@ def test_loop_correction_new_capacity(cuda, monkeypatch):
     past = [(10 + n % 4, n % 6) for n in range(65 - count)]
     chip_smoke.restore_loop_system(g_sys, initial)
     before = (fl.captures, fc.captures)
+    fg = g_sys.fused_loop.global_ba
+    ba_before = fg.captures
     closed, lc, (_, g_dig), _, _ = _loop_closure(cuda, g_sys, True, past)
     assert closed == [False, True] and int(fc.outputs["c"][-1]) == 65
     assert (fl.captures, fc.captures) == (before[0], before[1] + 1)
     assert fc.capacities == [64, 128]
-    assert lc.graph_counts["captures"] == 2      # the step and the BA's
+    # the global BA's live count (4230 in both closures, as on the CPU)
+    # stays in its capacity, 4608: its graphs replay, and the step is the
+    # one capture
+    assert int(fg.outputs["b"][-1]) == 4230 and fg.capacities == [4608]
+    assert fg.captures == ba_before
+    assert lc.graph_counts["captures"] == 1
     e_closed, _, (_, e_dig), _, _ = _loop_closure(
         cuda, _small_loop_system(cuda), False, past)
     assert e_closed == closed and e_dig == g_dig

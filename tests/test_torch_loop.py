@@ -41,7 +41,12 @@ capacity; the closure through the system's ``FusedCorrect`` (graphs C, the
 padded Gauss-Newton step and F, eagerly on their static buffers) bitwise
 equal to ``LoopCloser.graphs`` off, with no and with two past loop edges,
 again on the restored arena with the other list (the static buffers
-rewritten), and raising on a replaced arena.
+rewritten), and raising on a replaced arena. The global BA: its edge
+capacity, the write-back with padded rows (their verdicts land on a dump
+slot, so the last live edge keeps its own), and ``FusedGlobalBA`` (graphs
+B, P, L, X and W, eagerly on their static buffers) bitwise equal to the
+eager ``_global_ba`` at the capacity and at all K*N slots, again on the
+restored arena.
 """
 
 import dataclasses
@@ -56,6 +61,7 @@ from cubemapslam_tpu import slam_map as JSM
 from cubemapslam_tpu.camera import CubemapCamera as JCam
 from cubemapslam_tpu.config import SlamConfig as JConfig
 from cubemapslam_tpu.runtime import loop_closing as JL
+from cubemapslam_tpu_torch import dist as TD
 from cubemapslam_tpu_torch import geometry as TG
 from cubemapslam_tpu_torch import interop
 from cubemapslam_tpu_torch import place as PL
@@ -498,9 +504,28 @@ def _parent_pose_graph(*args, n_iters, loop):
     return PARENT.optimize_essential_graph(*args, n_iters=n_iters)
 
 
-def _parent_bundle_adjust(cam, prob, phase_iters, solver, cg_iters, loop):
-    return PARENT.bundle_adjust_cg(cam, prob, phase_iters, TB.CHI2_TH,
-                                   cg_iters)
+class _ParentGlobalBA:
+    """The global BA as the loop closer ran it before its solve took a
+    ``FusedGlobalBA``: the K*N problem's live edges compacted, solved by
+    the parent loop, and written back. Captures nothing."""
+
+    captures = replays = 0
+    capture_ms = capture_mib = 0.0
+
+    def __init__(self, k, graphs=True):
+        self.k = k
+
+    def solve(self, system, phase_iters, cg_iters):
+        arena, k = system.arena, self.k
+        prob = TD.global_ba_problem_from_arena(k.cam, arena,
+                                               k.inv_level_sigma2)
+        keep = prob.obs_valid.nonzero()[:, 0]
+        live = prob._replace(**{f: getattr(prob, f)[keep]
+                                for f in TD.EDGE_FIELDS})
+        out, inl = PARENT.bundle_adjust_cg(k.cam, live, phase_iters,
+                                           TB.CHI2_TH, cg_iters)
+        TL.LoopKernels.write_global_ba(arena, out, inl, keep,
+                                       prob.obs_valid)
 
 
 @pytest.fixture(scope="module")
@@ -508,9 +533,11 @@ def closures():
     """The constructed-drift closure (``process`` on slots 12 then 13 at
     consistency_th = 1) four times from one arena: with the solvers' loops
     as they were (``torch_parent_loops`` patched into the loop module),
-    through ``CapturedLoop`` (the default), with ``LoopCloser.graphs`` off
-    and with a system whose ``stage_times`` is set. Each mode's arena, the
-    closer and the ``CapturedLoop`` objects made (with their iterations)."""
+    through ``CapturedLoop`` and a ``FusedGlobalBA`` made for the solve
+    (the default), with ``LoopCloser.graphs`` off and with a system whose
+    ``stage_times`` is set. Each mode's arena, the closer and the
+    ``CapturedLoop`` objects made (with their iterations) and the
+    ``graphs`` asked of each ``FusedGlobalBA`` made."""
     cfg = TConfig(**SMALL)
     arena, W, desc, _ = S.build_drifted_loop_arena(
         cfg, np.random.default_rng(42))
@@ -520,7 +547,7 @@ def closures():
         bow[i] = PL.bow_vector(voc, arena.kf_desc[i], arena.kf_kp_valid[i])
     out = {}
     for mode in CLOSURE_MODES:
-        made = []
+        made, asked = [], []
 
         class Recorded(TL.CapturedLoop):
             def __init__(self, device):
@@ -531,6 +558,11 @@ def closures():
             def repeat(self, name, body, n):
                 self.iterations += n
                 super().repeat(name, body, n)
+
+        class RecordedGBA(FL.FusedGlobalBA):
+            def __init__(self, k, graphs=True):
+                super().__init__(k, graphs)
+                asked.append(graphs)
 
         system = types.SimpleNamespace(
             arena=SM.MapArena(*(x.clone() for x in arena)),
@@ -543,19 +575,21 @@ def closures():
         lc.graphs = mode != "graphs_off"
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(TL, "CapturedLoop", Recorded)
+            mp.setattr(TL, "FusedGlobalBA", RecordedGBA)
             if mode == "parent_loops":
                 mp.setattr(TL, "optimize_essential_graph", _parent_pose_graph)
-                mp.setattr(TL, "bundle_adjust", _parent_bundle_adjust)
+                mp.setattr(TL, "FusedGlobalBA", _ParentGlobalBA)
             closed = [lc.process(system, slot) for slot in (12, 13)]
-        out[mode] = (closed, snapshot(system.arena), lc, made)
+        out[mode] = (closed, snapshot(system.arena), lc, (made, asked))
     return out
 
 
 @pytest.mark.parametrize("mode", CLOSURE_MODES[1:])
 def test_closure_loops_bitwise_parent_loops(closures, mode):
-    """The tier-1-size closure with the pose graph's and the global BA's
-    iterations on fixed state tensors (through ``CapturedLoop``, eager on
-    the CPU, or as Python loops): it closes, and every arena table is
+    """The tier-1-size closure with the pose graph's iterations on fixed
+    state tensors (through ``CapturedLoop``, eager on the CPU, or as a
+    Python loop) and the global BA through a ``FusedGlobalBA`` (its parts
+    eager on the CPU, or as called): it closes, and every arena table is
     bitwise the closure with the loops as they were, with the same host
     reads and eigen-solve waits and no capture."""
     closed, arena, lc, _ = closures[mode]
@@ -570,16 +604,19 @@ def test_closure_loops_bitwise_parent_loops(closures, mode):
 
 @pytest.mark.parametrize("mode", CLOSURE_MODES[1:])
 def test_eager_switch_runs_no_capture(closures, mode):
-    """The closure makes one ``CapturedLoop`` a solve (the pose graph's 12
-    iterations, the global BA's 15 steps) by default; with
+    """On a system that hands out no ``FusedLoop`` the closure makes one
+    ``CapturedLoop`` for the pose graph's 12 iterations and one
+    ``FusedGlobalBA`` that may capture for the global BA by default; with
     ``LoopCloser.graphs`` off, or a system that times its stages, it makes
-    none, so nothing can be captured."""
-    _, _, _, made = closures[mode]
+    no ``CapturedLoop`` and a ``FusedGlobalBA`` with ``graphs=False``, so
+    nothing can be captured."""
+    _, _, _, (made, asked) = closures[mode]
     if mode == "graphs":
-        assert [m.iterations for m in made] == [TL.POSE_GRAPH_ITERS, 15]
+        assert [m.iterations for m in made] == [TL.POSE_GRAPH_ITERS]
         assert all(m.captures == m.replays == 0 for m in made)
+        assert asked == [True]
     else:
-        assert made == []
+        assert made == [] and asked == [False]
 
 
 
@@ -653,6 +690,12 @@ def test_fused_loop_closure_bitwise_eager(drift):
     fc = fl.correction
     assert set(fc.outputs) == {"c", "g256", "f"} and fc.capacities == [256]
     assert fc.captures == fc.replays == 0
+    fg = fl.global_ba
+    cap = TL.LoopKernels.ba_edge_capacity(int(fg.outputs["b"][-1]),
+                                          64 * 600)
+    assert fg.capacities == [cap]
+    assert set(fg.outputs) == {"b"} | {f"{g}{cap}" for g in "plxw"}
+    assert fg.captures == fg.replays == 0
     # ComputeSim3 2 reads fewer, CorrectLoop 1 (the statistics' live count)
     assert (e_lc.reads, g_lc.reads) == (8, 5)
     assert e_lc.eigh_waits == g_lc.eigh_waits == 0
@@ -912,3 +955,155 @@ def test_fused_correct_moved_arena_raises(drift):
     with pytest.raises(RuntimeError, match="moved"):
         fc.correct(system, K_CUR, K_LOOP, inputs, fc.inputs["loop_assoc"],
                    fc.inputs["neigh_pre"], [], TL.POSE_GRAPH_ITERS)
+
+
+# ---------------------------------------------------------------------------
+# The global BA at an edge capacity, and through FusedGlobalBA
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("count,cap", [
+    (0, 4096), (1, 4096), (4095, 4096), (4096, 4096), (4097, 4608),
+    (8192, 8192), (8193, 9216), (20160, 20480), (32768, 32768),
+    (32769, 36864), (38000, 38400), (38400, 38400)])
+def test_ba_edge_capacity(count, cap):
+    """The global BA's padded edge count: the live count rounded up to a
+    multiple of 2^(bit_length - 4) (exact powers of two stay, one past
+    them rounds up by an eighth), at least 4096, at most every slot (38,400
+    at K = 64, N = 600); never more than 12.5% over a count past the
+    minimum."""
+    assert TL.LoopKernels.ba_edge_capacity(count, 64 * 600) == cap
+    if TL.MIN_BA_EDGE_CAPACITY < count <= cap < 64 * 600:
+        assert cap - count <= count / 8
+
+
+@pytest.mark.parametrize("verdict", ["outlier", "inlier"])
+def test_write_global_ba_padded_rows(verdict):
+    """``write_global_ba`` after a solve padded past its live edges, whose
+    last live edge sits in the table's last slot: that edge is unlinked
+    when it is an outlier and kept when it is an inlier, whatever the
+    padded rows (inactive, routed to the dump slot past the last) say;
+    the other slots as their verdicts say, the poses and points written."""
+    rng = np.random.default_rng(5)
+    K, N, L = 3, 8, 20
+    obs = torch.as_tensor(rng.integers(-1, L, (K, N)))
+    obs[-1, -1] = 7
+    valid = (obs >= 0).reshape(-1)
+    E, count = K * N, int(valid.sum())
+    z = torch.zeros(E, dtype=torch.int64)
+    prob = TB.BAProblem(
+        R=torch.eye(3).expand(K, 3, 3).clone(), t=torch.zeros(K, 3),
+        cam_fixed=torch.zeros(K, dtype=torch.bool),
+        cam_valid=torch.ones(K, dtype=torch.bool), X=torch.zeros(L, 3),
+        pt_valid=torch.ones(L, dtype=torch.bool),
+        obs_cam=torch.arange(K).repeat_interleave(N),
+        obs_pt=obs.reshape(-1).clamp(min=0), obs_face=z,
+        obs_uv=torch.zeros(E, 2), obs_inv_sigma2=torch.ones(E),
+        obs_valid=valid)
+    padded, keep = TL.LoopKernels.padded_ba_problem(prob, count + 5)
+    assert keep[:count].tolist() == valid.nonzero()[:, 0].tolist()
+    assert (keep[count:] == E).all() and keep[count - 1] == E - 1
+    assert padded.obs_valid.tolist() == [True] * count + [False] * 5
+    active = padded.obs_valid.clone()
+    active[count - 1] = verdict == "inlier"
+    active[0] = False
+    arena = types.SimpleNamespace(
+        n_kf_cap=K, n_feat=N, kf_R=torch.zeros(K, 3, 3),
+        kf_t=torch.zeros(K, 3), lm_pos=torch.zeros(L, 3),
+        kf_obs_lm=obs.clone())
+    out = prob._replace(R=torch.full((K, 3, 3), 2.0),
+                        t=torch.full((K, 3), 3.0), X=torch.full((L, 3), 4.0))
+    TL.LoopKernels.write_global_ba(arena, out, active, keep, valid)
+    want = obs.clone().reshape(-1)
+    want[keep[0]] = SM.NO_LM
+    if verdict == "outlier":
+        want[E - 1] = SM.NO_LM
+    assert arena.kf_obs_lm.reshape(-1).tolist() == want.tolist()
+    assert int(arena.kf_obs_lm[-1, -1]) == (7 if verdict == "inlier"
+                                            else SM.NO_LM)
+    for name, v in (("kf_R", 2.0), ("kf_t", 3.0), ("lm_pos", 4.0)):
+        assert (getattr(arena, name) == v).all(), name
+
+
+def composed_global_ba(cfg, arena) -> None:
+    """The global BA of ``arena`` in place, composed of the module's pieces
+    as a plain reference: the K*N problem, the live count's capacity, the
+    padded problem, ``bundle_adjust(solver="cg")`` and the write-back."""
+    cam = TCam.from_config(cfg, "cpu")
+    k = TL.LoopKernels(cfg, cam)
+    prob = TD.global_ba_problem_from_arena(cam, arena, k.inv_level_sigma2)
+    E = prob.obs_valid.shape[0]
+    cap = TL.LoopKernels.ba_edge_capacity(int(prob.obs_valid.sum()), E)
+    padded, keep = TL.LoopKernels.padded_ba_problem(prob, cap)
+    out, active = TB.bundle_adjust(cam, padded, phase_iters=TL.GBA_PHASES,
+                                   solver="cg", cg_iters=TL.GBA_CG_ITERS)
+    TL.LoopKernels.write_global_ba(arena, out, active, keep, prob.obs_valid)
+
+
+@pytest.mark.parametrize("cap_rule", ["capacity", "all_slots"])
+def test_fused_global_ba_bitwise_eager(drift, monkeypatch, cap_rule):
+    """The global BA of the constructed-drift arena through the system's
+    ``FusedGlobalBA`` (graphs B, P, L, X and W, eagerly on their static
+    buffers on the CPU), eagerly (``LoopCloser.graphs`` off: a
+    ``FusedGlobalBA`` that runs its parts as called) and composed of the
+    module's pieces (``composed_global_ba``): every arena table bitwise
+    equal, one read each; the parts held at the capacity of the live count
+    (4294 -> 4608) or, with the rule patched, at all 38,400 slots; the
+    arena restored in place and solved again through the same object,
+    bitwise the first solve."""
+    if cap_rule == "all_slots":
+        monkeypatch.setattr(TL.LoopKernels, "ba_edge_capacity",
+                            staticmethod(lambda count, n_slots: n_slots))
+    cfg, make = drift
+    e_sys, g_sys, r_sys = make(False), make(True), make(False)
+    initial = [x.clone() for x in g_sys.arena]
+    e_lc, g_lc = closer(cfg), closer(cfg)
+    e_lc.graphs = False
+    e_lc._global_ba(e_sys)
+    g_lc._global_ba(g_sys)
+    composed_global_ba(cfg, r_sys.arena)
+    same_bits(tuple(g_sys.arena), tuple(e_sys.arena))
+    same_bits(tuple(g_sys.arena), tuple(r_sys.arena))
+    assert not torch.equal(g_sys.arena.kf_t, initial[
+        SM.MapArena._fields.index("kf_t")])
+    assert e_lc.reads == g_lc.reads == 1
+    assert e_lc.graph_counts["captures"] == g_lc.graph_counts["captures"] == 0
+    fg = g_sys.fused_loop.global_ba
+    count = int(fg.outputs["b"][-1])
+    cap = 4608 if cap_rule == "capacity" else 64 * 600
+    assert count == 4294 and fg.capacities == [cap]
+    assert set(fg.outputs) == {"b"} | {f"{g}{cap}" for g in "plxw"}
+    assert fg.captures == fg.replays == 0
+    solved = [x.clone() for x in g_sys.arena]
+    for a, b in zip(g_sys.arena, initial):
+        a.copy_(b)
+    g_lc._global_ba(g_sys)
+    same_bits(tuple(g_sys.arena), tuple(solved))
+
+
+def test_fused_global_ba_holds_two_capacities(drift, monkeypatch):
+    """A system's ``FusedGlobalBA`` solving the constructed-drift arena,
+    restored in place each time, at the edge capacities 4608, 5120, 6144
+    and 5120 again (the rule patched): it holds the parts of the two
+    capacities used last, so the third drops 4608's P, L, X and W, and
+    the capacity used again keeps its parts and gives the bits of its
+    first solve."""
+    cap = [0]
+    monkeypatch.setattr(TL.LoopKernels, "ba_edge_capacity",
+                        staticmethod(lambda count, n_slots: cap[0]))
+    cfg, make = drift
+    system, lc = make(True), closer(cfg)
+    initial = [x.clone() for x in system.arena]
+    held, solved = [], {}
+    for c in (4608, 5120, 6144, 5120):
+        for a, b in zip(system.arena, initial):
+            a.copy_(b)
+        cap[0] = c
+        lc._global_ba(system)
+        fg = system.fused_loop.global_ba
+        held.append(fg.capacities)
+        if c in solved:
+            same_bits(tuple(system.arena), solved[c])
+        solved[c] = tuple(x.clone() for x in system.arena)
+    assert held == [[4608], [4608, 5120], [5120, 6144], [5120, 6144]]
+    assert set(fg.outputs) == {"b"} | {f"{g}{c}" for g in "plxw"
+                                       for c in (5120, 6144)}
