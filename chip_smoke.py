@@ -113,9 +113,11 @@ runner, the sharded BA), and each of those must launch it.
 Then, on the ``slam`` phase's map: the ``reloc`` phase (2 blank frames make
 the system LOST without a reset; from that state the frame at the
 ground-truth pose of a mid-sequence frame relocalizes three times: eagerly
-(``reloc_graphs`` off), through ``FusedReloc`` capturing its graphs R (a
-candidate: match, PnP, LM) and W (the widening pass) and replaying them
-(``runtime/fused_reloc.py``), the graph frames bitwise equal to the eager
+(``reloc_graphs`` off), through ``FusedLocalization``'s graph X (the
+front end, ``runtime/fused_localization.py``) and ``FusedReloc``'s graphs
+R (a candidate: match, PnP, LM) and W (the widening pass), capturing them
+and replaying them (``runtime/fused_reloc.py``), the graph frames bitwise
+equal to the eager
 one, each within the stated bound of the ground truth through the ATE's
 Sim3 alignment, the wall ms of each kind and the capture's ms and pool MiB
 printed; twice more under the profiler, eagerly and replaying, whose host
@@ -128,9 +130,16 @@ those of a seeded 2000-point scene and on special matrices at n = 3, 4 and
 12, eagerly and from a CUDA graph; timed on the recorded solves beside
 ``torch.linalg.eigh``, the bound and the serial floor: a solve's most steps
 a matrix times one step's measured latency); the ``localization`` phase (6
-frames tracked in localization mode with the map unchanged, each within the
-bound, the worst frame and its margin to the bound printed; perturbed landmarks
-engage mbVO, restored ones relocalize and clear it); a save/load check
+frames tracked in localization mode with the map unchanged through
+``FusedLocalization``'s graphs L1 (front end and 15 px search) and L3
+(TrackLocalMap), each within the bound, the worst frame and its margin to
+the bound printed; the arena and tracker restored and the 6 frames run
+eagerly, bitwise equal; a frame with its last association emptied through
+graph L2 (30 px), the eager reference-keyframe fallback and L3, bitwise
+its eager twin; 2 graph and 2 eager frames under the profiler (busy ms,
+operations, host waits against the stated reads and the upload); perturbed
+landmarks engage mbVO, restored ones relocalize and clear it); a save/load
+check
 (``save_map``, ``load_map`` into a fresh ``CubemapSLAM``, whose next frame
 relocalizes); and ``word_ids`` / ``bow_vector``, ``detect_candidates`` and
 ``pnp_ransac`` on the card against the CPU on seeded inputs. The ``slam`` phase runs with loop closing on: its
@@ -3488,7 +3497,8 @@ def reloc_phase(slam, poses, frames, ate, counters):
     RELOC_FRAME relocalizes three times: eagerly (``reloc_graphs`` off, as
     for the blank frames before; the inputs of its first PnP's six
     eigen-solves are recorded for ``check_sym_eig``), through
-    ``FusedReloc`` capturing graphs R and W,
+    ``FusedLocalization``'s graph X (the front end) and ``FusedReloc``
+    capturing graphs X, R and W,
     and replaying them with the launch counters set to 0 just before it;
     the graph frames bitwise equal to the eager one, each within the bound.
     A blank frame again, and the same frame relocalizes under the profiler,
@@ -3535,6 +3545,12 @@ def reloc_phase(slam, poses, frames, ate, counters):
                 or not row.get("graph_reloc_replays", 0) + captured:
             raise AssertionError(f"the {kind} reloc frame captured "
                                  f"{captured} graphs")
+        x = loc_graph_counts(row)
+        log(f"[reloc] frame {RELOC_FRAME} {kind}: graph X (the front end) "
+            f"captured, replayed {x}")
+        if x != ((1, 0) if kind == "capturing" else (0, 1)):
+            raise AssertionError(f"the {kind} LOST frame's front end did not "
+                                 f"run through graph X: {x}")
         same_reloc(kind, reloc_record(slam, T, row), eager)
         if T is None or slam.state != TrackState.OK \
                 or not row["relocalized"]:
@@ -3581,27 +3597,191 @@ def map_counts(slam):
     return slam.n_kf, int(a.kf_valid.sum()), int(a.lm_valid.sum())
 
 
-def localization_phase(slam, poses, frames, ate, counters):
-    """LOC_FRAMES frames after RELOC_FRAME in localization mode, with the
-    launch counters set to 0 just before: each tracked within the bound, no
-    mbVO, the map's keyframe and landmark counts unchanged. Then landmarks
-    perturbed by LOC_SIGMA engage mbVO (a ``vo`` row), and restored, the
-    next frame relocalizes and clears it. Returns the launches."""
+LOC_STAGES = ("warp", "extract", "localization")
+
+
+def loc_state(slam):
+    """What localization-mode frames change: the arena's tables (copies;
+    the counters move), the tracking state, the last frame, the reference
+    keyframe, the motion model, mbVO, the frame counter and the
+    generator's state."""
+    return ({k: getattr(slam.arena, k).clone() for k in slam.arena._fields},
+            slam.state, slam.last, slam.ref_kf, slam.velocity, slam.mb_vo,
+            slam.frame_id, slam.generator.get_state())
+
+
+def restore_loc(slam, st):
+    """``loc_state``'s state back, the arena written in place (the graphs
+    check its tensors by ``data_ptr``)."""
+    (tables, slam.state, slam.last, slam.ref_kf, slam.velocity, slam.mb_vo,
+     slam.frame_id, gen) = st
+    for k, v in tables.items():
+        getattr(slam.arena, k).copy_(v)
+    slam.generator.set_state(gen)
+
+
+def loc_record(slam, T):
+    """A localization-mode frame's outcome on the host: ``frame_record``
+    without the graph counts, with mbVO and the arena's counters."""
+    rec = frame_record(slam, T)
+    rec["row"] = {k: v for k, v in slam.metrics[-1].items()
+                  if not k.startswith("graph_") and not k.endswith("_ms")}
+    rec["row"]["mb_vo"] = slam.mb_vo
+    rec["tensors"].update(lm_visible=slam.arena.lm_visible.cpu().clone(),
+                          lm_found=slam.arena.lm_found.cpu().clone())
+    return rec
+
+
+def loc_graph_counts(row):
+    return (row.get("graph_localization_captures", 0),
+            row.get("graph_localization_replays", 0))
+
+
+def drive_localization(slam, poses, frames, idx, ate, tag):
+    """``idx``'s frames in localization mode, each tracked within the
+    bound: (walls, records, errors by frame)."""
     align, path = ate
-    slam.activate_localization_mode()
-    before = map_counts(slam)
-    zero_launches(counters)
-    walls, errs = [], {}
-    first = RELOC_FRAME + 1
-    for i in range(first, first + LOC_FRAMES):
+    walls, recs, errs = [], [], {}
+    for i in idx:
         T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
         walls.append(wall)
-        log(f"[localization] frame {i}: " + reloc_row_line(row, wall))
+        recs.append(loc_record(slam, T))
+        log(f"[localization-{tag}] frame {i}: " + reloc_row_line(row, wall)
+            + f"; graphs captured, replayed {loc_graph_counts(row)}")
         if T is None or row.get("stage") != "localization" or row["vo"]:
             raise AssertionError(f"localization frame {i} was not tracked "
                                  f"against the map")
         errs[i] = check_near_truth("localization", T, poses[i], align, path)
+    return walls, recs, errs
+
+
+def forced_localization(slam, poses, frames, i, ate, graphs):
+    """Frame ``i`` after the last association was emptied: no match at 15
+    px nor 30 px (graph L2 on the card), the reference-keyframe fallback,
+    then TrackLocalMap (graph L3 on the stage tuple the fallback copied);
+    tracked within the bound."""
+    slam.localization_graphs = graphs
+    slam.last = slam.last._replace(assoc=torch.full_like(slam.last.assoc,
+                                                         -1))
+    T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
+    tag = "graph" if graphs else "eager"
+    log(f"[localization-{tag}] frame {i}, last association emptied: "
+        + reloc_row_line(row, wall)
+        + f"; graphs captured, replayed {loc_graph_counts(row)}")
+    if T is None or row["vo"] or row["host_reads"] != 4:
+        raise AssertionError("the emptied frame did not widen, fall back to "
+                             "the reference keyframe and track the map")
+    if graphs and sum(loc_graph_counts(row)) != 3:
+        raise AssertionError("the emptied frame did not run graphs L1, L2 "
+                             "and L3")
+    check_near_truth("localization", T, poses[i], ate[0], ate[1])
+    slam.localization_graphs = True
+    return loc_record(slam, T)
+
+
+def profiled_localization(slam, frames, idx, graphs, walls):
+    """``idx``'s frames under ``profile_stages``, through the graphs or
+    eagerly; logged with their host waits against the stated reads and the
+    upload. Returns the profile."""
+    slam.localization_graphs = graphs
+    it = iter(idx)
+
+    def step():
+        i = next(it)
+        slam.track_fisheye(frames[i], 200.0 + i)
+
+    tag = "localization-profile-" + ("graph" if graphs else "eager")
+    prof = profile_stages(step, LOC_STAGES, len(idx))
+    slam.localization_graphs = True
+    log_profile(tag, prof, walls)
+    rows = slam.metrics[-len(idx):]
+    reads = max(r["host_reads"] for r in rows)
+    log(f"[{tag}] device busy {prof['device_busy_ms']:.3f} ms a frame in "
+        f"{prof['device_ops']:.0f} operations; host reads {reads}, host "
+        f"waits {prof['host_waits']:.2f} a frame (the reads and the upload: "
+        f"{reads + 1}); graphs captured, replayed "
+        f"{[loc_graph_counts(r) for r in rows]}")
+    if prof["host_waits"] > reads + 1:
+        raise AssertionError(f"a {tag} frame waited {prof['host_waits']:.2f}"
+                             f" times; its reads and the upload are "
+                             f"{reads + 1}")
+    if graphs and (not prof["device_ops"] < GRAPH_MAX_OPS or any(
+            loc_graph_counts(r) != (0, 2) for r in rows)):
+        raise AssertionError(f"a localization graph frame ran "
+                             f"{prof['device_ops']:.0f} device operations "
+                             f"(at most {GRAPH_MAX_OPS}) or did not replay "
+                             f"L1 and L3 alone")
+    return prof
+
+
+def localization_phase(slam, poses, frames, ate, counters):
+    """LOC_FRAMES frames after RELOC_FRAME in localization mode through
+    ``FusedLocalization``'s graphs (L1 and L3 captured on the first, then
+    replayed), with the launch counters set to 0 just before: each tracked
+    within the bound, no mbVO, the map's keyframe and landmark counts
+    unchanged. Then, from the arena and tracker state restored, the same
+    frames eagerly (``localization_graphs`` off): bitwise equal frame by
+    frame, the arena's counters too. A frame with the last association
+    emptied (graph L2, the eager reference-keyframe fallback, graph L3)
+    through the graphs and eagerly, bitwise equal; two frames of each kind
+    under the profiler, whose host waits may not exceed the stated reads
+    and the upload. Last, landmarks perturbed by LOC_SIGMA engage mbVO (a
+    ``vo`` row), and restored, the next frame relocalizes (``FusedReloc``
+    on graph L1's keypoints) and clears it. Returns the launches of the
+    graph run and of the eager run."""
+    align, path = ate
+    slam.activate_localization_mode()
+    slam.localization_graphs = True
+    before = map_counts(slam)
+    start = loc_state(slam)
+    first = RELOC_FRAME + 1
+    idx = list(range(first, first + LOC_FRAMES))
+    zero_launches(counters)
+    g_walls, g_rec, errs = drive_localization(slam, poses, frames, idx, ate,
+                                              "graph")
     launches = read_launches(counters, "localization", LOC_FRAMES)
+    counts = [loc_graph_counts(r) for r in slam.metrics[-LOC_FRAMES:]]
+    if counts[0][0] < 2 or counts[0][1] or any(
+            c[1] < 2 for c in counts[1:]):
+        raise AssertionError(f"the localization frames captured and "
+                             f"replayed {counts}: L1 and L3 captured on the "
+                             f"first, replayed after")
+    fl = slam.fused_localization
+    log(f"[localization] graphs captured, replayed a frame {counts}; "
+        f"{fl.captures} captures in {fl.capture_ms:.3f} ms (graph X's in "
+        f"the reloc phase included), pool {fl.capture_mib:.1f} MiB")
+    end = loc_state(slam)
+    restore_loc(slam, start)
+    slam.localization_graphs = False
+    zero_launches(counters)
+    e_walls, e_rec, _ = drive_localization(slam, poses, frames, idx, ate,
+                                           "eager")
+    e_launches = read_launches(counters, "localization_eager", LOC_FRAMES)
+    slam.localization_graphs = True
+    n = sum(same_bits(f"localization frame {i}", e, g)
+            for i, e, g in zip(idx, e_rec, g_rec))
+    n += same_bits("the arena after the localization frames",
+                   {k: v.cpu() for k, v in end[0].items()},
+                   {k: getattr(slam.arena, k).cpu() for k in end[0]})
+    log(f"[localization] graph frames against eager frames: {LOC_FRAMES} "
+        f"frames and the arena bitwise equal ({n} tensors); wall ms eager "
+        f"median {float(np.median(e_walls)):.3f}, capturing "
+        f"{g_walls[0]:.3f}, replaying median "
+        f"{float(np.median(g_walls[1:])):.3f}")
+    i = first + LOC_FRAMES
+    forced = []
+    for graphs in (True, False):
+        restore_loc(slam, end)
+        forced.append(forced_localization(slam, poses, frames, i, ate,
+                                          graphs))
+    same_bits("the emptied localization frame", forced[1], forced[0])
+    log("[localization] the emptied frame through graphs L1, L2, L3 is "
+        "bitwise the eager one")
+    for graphs, walls in ((True, g_walls[1:]), (False, e_walls)):
+        restore_loc(slam, start)
+        profiled_localization(slam, frames, idx[:GRAPH_PROFILE_FRAMES],
+                              graphs, walls)
+    restore_loc(slam, end)
     worst = max(errs, key=lambda i: errs[i][1])
     frac = errs[worst][1] / path
     log(f"[localization] worst frame {worst}: {frac:.5f} of the path, "
@@ -3610,8 +3790,7 @@ def localization_phase(slam, poses, frames, ate, counters):
         f"it); by frame "
         f"{ {i: round(e[1] / path, 5) for i, e in errs.items()} }")
     after = map_counts(slam)
-    log(f"[localization] {LOC_FRAMES} frames: wall ms median "
-        f"{float(np.median(walls)):.3f}; (keyframes created, live, live "
+    log(f"[localization] {LOC_FRAMES} frames: (keyframes created, live, live "
         f"landmarks) before {before}, after {after}")
     if after != before:
         raise AssertionError("localization mode changed the map")
@@ -3620,17 +3799,19 @@ def localization_phase(slam, poses, frames, ate, counters):
     gen = torch.Generator(device=a.lm_pos.device).manual_seed(SEED)
     a.lm_pos.add_(LOC_SIGMA * torch.randn(clean.shape, generator=gen,
                                           device=clean.device))
-    i = first + LOC_FRAMES
+    zero_launches(counters)
     T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
     log(f"[localization] frame {i}, landmarks perturbed by sigma "
-        f"{LOC_SIGMA}: mbVO {slam.mb_vo}; " + reloc_row_line(row, wall))
+        f"{LOC_SIGMA}: mbVO {slam.mb_vo}; " + reloc_row_line(row, wall)
+        + f"; graphs captured, replayed {loc_graph_counts(row)}")
     if not (slam.mb_vo and row.get("vo")):
         raise AssertionError("mbVO did not engage on perturbed landmarks")
     a.lm_pos.copy_(clean)
     i += 1
     T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
     log(f"[localization] frame {i}, landmarks restored: mbVO {slam.mb_vo}; "
-        + reloc_row_line(row, wall))
+        + reloc_row_line(row, wall)
+        + f"; graphs captured, replayed {loc_graph_counts(row)}")
     if T is None or slam.mb_vo or not row.get("relocalized"):
         raise AssertionError("the restored map did not relocalize and clear "
                              "mbVO")
@@ -3638,10 +3819,10 @@ def localization_phase(slam, poses, frames, ate, counters):
     if map_counts(slam) != before:
         raise AssertionError("localization mode changed the map")
     # the eigen-solves run where a frame relocalizes: the mbVO frame's try
-    # and the restored frame's, counted from the phase's start
+    # and the restored frame's
     eig_launches("localization")
     slam.deactivate_localization_mode()
-    return launches
+    return launches, e_launches
 
 
 def save_load_check(slam, poses, frames, ate):
@@ -4643,7 +4824,8 @@ def main() -> int:
         raise AssertionError("the reloc frame's PnP made no six eigen-solves")
     eig_row = check_sym_eig(EIG_INPUTS)
     done("sym_eig")
-    l_launches = localization_phase(slam, s_poses, s_frames, ate, counters)
+    l_launches, le_launches = localization_phase(slam, s_poses, s_frames, ate,
+                                                 counters)
     done("localization")
     save_load_check(slam, s_poses, s_frames, ate)
     del slam
@@ -4670,6 +4852,8 @@ def main() -> int:
         r["launches_repeat"] = sum(g_launches[r["name"]].values())
         r["launches_reloc"] = sum(r_launches[r["name"]].values())
         r["launches_localization"] = sum(l_launches[r["name"]].values())
+        r["launches_localization_eager"] = sum(
+            le_launches[r["name"]].values())
         r["launches_app"] = sum(a_launches[r["name"]].values())
     # the segmented sum runs a data-dependent number of times: on the slam
     # path (mapping and local BA), the loop closure, the runner and the

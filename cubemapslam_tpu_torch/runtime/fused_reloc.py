@@ -22,17 +22,19 @@ The host loops over the candidates as the eager path does: a candidate
 that is not ok gets its row eagerly, and the host reads the candidates
 once, the scores once and each widened candidate's count and pose once.
 
-Static inputs. The frame's keypoints (a LOST frame is tracked eagerly, so
-they are new tensors every frame) are copied into buffers that do not move
-once a frame; before each replay of graph R the candidate's slot is written
-by a fill and its RANSAC draws are copied in, and before each replay of
-graph W the candidate's associations, outliers and pose, and the
-covisibility view (only when it is not the tensor, at the same version,
-that was copied last: ``refresh_graph_cache`` replaces it). The draws come
-from ``CubemapSLAM.generator`` outside the graph, one (n_iters, N) draw an
-ok candidate in candidate order, as the eager path draws them, so the
-generator advances as it does eagerly and the graph gives the eager bits;
-a generator on the host gives the card its draws through the upload, as
+Static inputs. The frame's keypoints (on the card, a clone of the outputs
+of ``FusedLocalization``'s graph X for a LOST frame or of its graph L1 for
+an mbVO frame, ``runtime/fused_localization.py``: new tensors every frame)
+are copied into buffers that do not move once a frame; before each replay
+of graph R the candidate's slot is written by a fill and its RANSAC draws
+are copied in, and before each replay of graph W the candidate's
+associations, outliers and pose, and the covisibility view (only when it is
+not the tensor, at the same version, that was copied last:
+``refresh_graph_cache`` replaces it). The draws come from
+``CubemapSLAM.generator`` outside the graph, one (n_iters, N) draw an ok
+candidate in candidate order, as the eager path draws them, so the
+generator advances as it does eagerly and the graph gives the eager bits; a
+generator on the host gives the card its draws through the upload, as
 eagerly.
 
 The graphs read the arena (not written by either) and the system's
@@ -48,7 +50,7 @@ on the CPU each part runs eagerly on the same static buffers.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
 import torch
 
@@ -65,13 +67,6 @@ class FusedReloc(CapturedFrame):
 
     def __init__(self, system):
         super().__init__(system.device)
-
-    def check_system(self, system) -> None:
-        """``check`` on the arena's tables and the system's buffers."""
-        named: List[Tuple[str, torch.Tensor]] = [
-            (f"arena.{k}", getattr(system.arena, k))
-            for k in system.arena._fields]
-        self.check(named + list(system.named_buffers()))
 
     def _kp(self) -> Keypoints:
         return Keypoints(*(self.inputs[f"kp.{f}"] for f in Keypoints._fields))
@@ -95,7 +90,7 @@ class FusedReloc(CapturedFrame):
         Returns the stacked (assoc, R, t, outlier, score), clones, on the
         device."""
         self.new_frame()
-        self.check_system(system)
+        self.check_tracker(system)
         for f, x in zip(Keypoints._fields, kp):
             self._copy(f"kp.{f}", x)
         k = system.kernels
@@ -115,7 +110,7 @@ class FusedReloc(CapturedFrame):
         given to ``candidates`` from one candidate's (assoc, outlier, R, t),
         with the system's covisibility view. Returns (assoc, R, t, outlier,
         n_inliers), clones, on the device."""
-        self.check_system(system)
+        self.check_tracker(system)
         self._copy("w.assoc", assoc)
         self._copy("w.outlier", outlier)
         self._copy("w.R", R)

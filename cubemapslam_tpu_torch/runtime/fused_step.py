@@ -7,11 +7,13 @@ steady-state frame (``CubemapSLAM._build_fused_step``,
 frame branches on the host twice (``runtime/kernels.py``), so it is two
 graphs, captured once and replayed on every later frame:
 
-* graph A: the static fisheye buffer through kernel W (``warp_to_cross``),
-  ``extract`` (the pyramid products, kernel D's two launches, the top-k and
-  the describe kernel), then ``TrackingKernels.frame_motion`` (the
-  re-anchoring, the velocity gate and the prediction, the 15 px projection
-  search and the pose-only LM) and the counts [matches, inliers];
+* graph A: the front end (``CapturedFrame.front_end``, which
+  ``runtime/fused_localization.py`` records too: the static fisheye buffer
+  through kernel W (``warp_to_cross``), ``extract`` (the pyramid products,
+  kernel D's two launches, the top-k and the describe kernel)), then
+  ``TrackingKernels.frame_motion`` (the re-anchoring, the velocity gate and
+  the prediction, the 15 px projection search and the pose-only LM) and
+  the counts [matches, inliers];
 * host read 1 of those counts; the fallbacks (widen, zero velocity,
   reference keyframe) run eagerly, and their stage tuple is copied into
   graph A's outputs, which are graph B's inputs;
@@ -161,6 +163,30 @@ class CapturedFrame:
         buf.fill_(value)
 
     # ------------------------------------------------------------------
+    # The front end: warp and extract
+    # ------------------------------------------------------------------
+
+    def load_front_end(self, tracker, fisheye, mask) -> None:
+        """Copy a frame's (H, W) uint8 fisheye image (an array or a tensor)
+        into the static ``fisheye`` buffer, and ``tracker.as_mask(mask)``
+        into ``mask`` when it is not the tensor, at the same version, that
+        was copied last."""
+        W, H = tracker.src_wh
+        img = torch.as_tensor(fisheye)
+        if img.shape != (H, W) or img.dtype != torch.uint8:
+            raise ValueError(f"fisheye must be ({H}, {W}) uint8, got "
+                             f"{tuple(img.shape)} {img.dtype}")
+        self._copy("fisheye", img)
+        self._copy_if_new("mask", tracker.as_mask(mask))
+
+    def front_end(self, tracker) -> Keypoints:
+        """Kernel W on the static fisheye buffer, then ``extract`` with the
+        static mask: the keypoints of the frame that ``load_front_end``
+        loaded, as a part records them."""
+        s = self.inputs
+        return tracker.extract(tracker.warp(s["fisheye"]), s["mask"])
+
+    # ------------------------------------------------------------------
     # Capture and replay
     # ------------------------------------------------------------------
 
@@ -182,6 +208,13 @@ class CapturedFrame:
                 f"{' ...' if len(moved) > 4 else ''} moved since the graphs "
                 f"were captured; drop the graphs (MapTracker.drop_graphs) "
                 f"where the arena is replaced")
+
+    def check_tracker(self, tracker) -> None:
+        """``check`` on every tensor the parts read that the tracker owns:
+        the arena's tables and the tracker's buffers."""
+        named = [(f"arena.{k}", getattr(tracker.arena, k))
+                 for k in tracker.arena._fields]
+        self.check(named + list(tracker.named_buffers()))
 
     def run(self, name: str, part: Callable[[], List[torch.Tensor]]
             ) -> List[torch.Tensor]:
@@ -293,13 +326,7 @@ class FusedStep(CapturedFrame):
         docstring). ``fisheye`` is an (H, W) uint8 array or tensor,
         ``mask`` what ``FrameFrontend.as_mask`` takes, ``last`` the
         tracker's ``LastFrame`` and ``velocity`` (R, t)."""
-        W, H = tracker.src_wh
-        img = torch.as_tensor(fisheye)
-        if img.shape != (H, W) or img.dtype != torch.uint8:
-            raise ValueError(f"fisheye must be ({H}, {W}) uint8, got "
-                             f"{tuple(img.shape)} {img.dtype}")
-        self._copy("fisheye", img)
-        self._copy_if_new("mask", tracker.as_mask(mask))
+        self.load_front_end(tracker, fisheye, mask)
         self._copy("last_assoc", last.assoc)
         self._copy("last_outlier", last.outlier)
         self._copy("last_level", last.kp.level)
@@ -323,8 +350,7 @@ class FusedStep(CapturedFrame):
         the stage tuple (assoc, n, R, t, outlier, n_inl), (R_last, t_last,
         R_pred, t_pred) and the counts."""
         s = self.inputs
-        cube = tracker.warp(s["fisheye"])
-        kp = tracker.extract(cube, s["mask"])
+        kp = self.front_end(tracker)
         st, pose, counts = tracker.kernels.frame_motion(
             tracker.arena, kp, s["last_assoc"], s["last_outlier"],
             s["last_level"], s["last_angle"], s["rel_R"], s["rel_t"],
@@ -341,13 +367,6 @@ class FusedStep(CapturedFrame):
         return list(tracker.kernels.frame_local(
             tracker.arena, kp, st, R_last, t_last, self.inputs["ref_kf"],
             self.inputs["covis"], self.inputs["cnt"]))
-
-    def check_tracker(self, tracker) -> None:
-        """``check`` on every tensor the parts read that the tracker owns:
-        the arena's tables and the tracker's buffers."""
-        named = [(f"arena.{k}", getattr(tracker.arena, k))
-                 for k in tracker.arena._fields]
-        self.check(named + list(tracker.named_buffers()))
 
     # ------------------------------------------------------------------
     # One frame

@@ -18,7 +18,9 @@ The stages between those reads (``frame_motion``, then ``frame_local`` or
 ``frame_skip``) read nothing to the host and take the keyframe slots, the
 motion model's gain and the radius scale as device tensors, so that
 ``runtime/fused_step.py`` can capture them as CUDA graphs; in the JAX
-package they are one jitted program.
+package they are one jitted program. A localization-mode frame's stages
+(``localization_motion``, ``localization_local``) likewise read nothing,
+and ``runtime/fused_localization.py`` captures them.
 """
 
 from __future__ import annotations
@@ -67,6 +69,13 @@ class FrameTrack(NamedTuple):
 def _row(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` for a 0-d device index, without a host read."""
     return table.index_select(0, idx.reshape(1))[0]
+
+
+def pack(counts: Sequence[torch.Tensor], R, t) -> torch.Tensor:
+    """0-d ``counts`` and a pose as one float32 vector for one read:
+    [counts, R.ravel(9), t(3)]."""
+    return torch.cat([torch.stack([c.to(torch.float32) for c in counts]),
+                      R.reshape(-1), t])
 
 
 def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -322,6 +331,63 @@ class TrackingKernels:
                                                vis_add)
         return (arena, assoc, outlier, R, t, n_final, pkf_max, pkf_votes,
                 diag)
+
+    # ------------------------------------------------------------------
+    # Localization-mode stages (system.py:528-550, 620-707)
+    # ------------------------------------------------------------------
+
+    def localization_motion(self, arena: SM.MapArena, kp_cur: Keypoints,
+                            last_assoc, last_outlier, last_kp_level,
+                            last_kp_angle, rel_R, rel_t, last_ref, vel_R,
+                            vel_t, has_vel, radius: float = 15.0):
+        """A localization-mode frame's motion-model match, which reads
+        nothing to the host: the last pose re-anchored on keyframe
+        ``last_ref`` (a 0-d device index), the prediction by the velocity
+        ``(vel_R, vel_t)``'s twist scaled by ``motion_model_damping`` where
+        the 0-d bool ``has_vel`` is set (else the last pose), both
+        rotations projected onto SO(3) (``CubemapSLAM``'s localization
+        mode), then ``track_motion_fused`` at ``radius``. Returns (stage
+        tuple, R_last, t_last, packed (11,) float32 [matches, inliers,
+        R.ravel(9), t(3)])."""
+        R_last, t_last = G.se3_compose(rel_R, rel_t,
+                                       _row(arena.kf_R, last_ref),
+                                       _row(arena.kf_t, last_ref))
+        R_last = G.so3_project(R_last)
+        R_pred, t_pred = R_last, t_last
+        a = float(self.cfg.motion_model_damping)
+        if a > 0.0:
+            Rv, tv = vel_R, vel_t
+            if a < 1.0:
+                Rv, tv = G.se3_exp(a * G.se3_log(Rv, tv))
+            R_v, t_v = G.se3_compose(Rv, tv, R_last, t_last)
+            R_pred = torch.where(has_vel, G.so3_project(R_v), R_last)
+            t_pred = torch.where(has_vel, t_v, t_last)
+        st = self.track_motion_fused(arena, kp_cur, last_assoc, last_outlier,
+                                     last_kp_level, last_kp_angle, R_pred,
+                                     t_pred, radius=radius)
+        return st, R_last, t_last, pack((st[1], st[5]), st[2], st[3])
+
+    def localization_local(self, arena: SM.MapArena, kp_cur: Keypoints,
+                           assoc, outlier, R, t, covis, R_last, t_last,
+                           ref_kf):
+        """TrackLocalMap of a localization-mode frame (``track_local_fused``,
+        the visible/found counters updated in place), then what the frame
+        keeps, which reads nothing to the host: the velocity from the last
+        pose (R_last, t_last) and the pose relative to the new reference
+        keyframe (``pkf_max`` where it has votes, else ``ref_kf``, a 0-d
+        device index). Returns (assoc, outlier, R, t, packed (14,) float32
+        [n_final, pkf_max, pkf_votes, R.ravel(9), t(3)], vel_R, vel_t,
+        rel_R, rel_t)."""
+        (_, assoc, outlier, R, t, n_final, pkf_max, pkf_votes,
+         _) = self.track_local_fused(arena, kp_cur, assoc, outlier, R, t,
+                                     covis=covis)
+        new_ref = torch.where(pkf_votes > 0, pkf_max, ref_kf)
+        vel_R, vel_t = G.se3_compose(R, t, *G.se3_inverse(R_last, t_last))
+        rel_R, rel_t = G.se3_compose(R, t, *G.se3_inverse(
+            _row(arena.kf_R, new_ref), _row(arena.kf_t, new_ref)))
+        return (assoc, outlier, R, t,
+                pack((n_final, pkf_max, pkf_votes), R, t), vel_R, vel_t,
+                rel_R, rel_t)
 
     def predict_pose(self, arena: SM.MapArena, rel_R, rel_t, last_ref,
                      vel_R, vel_t, vel_gain):

@@ -24,29 +24,33 @@ the two initialization frames, and trained once more when
 
 Host reads. A tracked frame reads the card twice, as ``MapTracker``'s does
 (the motion-match counts and the packed result), whether it replays the
-captured graphs or runs eagerly; a keyframe insertion, its
-BoW row, its mapping step and a deferred BA add none, because the mapping
-kernels mask where the JAX package branches on the device. Loop closing adds
-its own (``runtime/loop_closing.py``): from the tenth keyframe on, the loop
+captured graphs or runs eagerly; a keyframe insertion, its BoW row, its
+mapping step and a deferred BA add none, because the mapping kernels mask
+where the JAX package branches on the device. Loop closing adds its own
+(``runtime/loop_closing.py``): from the tenth keyframe on, the loop
 detector reads its candidates once a keyframe; a consistent candidate adds
 the reads of ComputeSim3 (2 on the card, where DetectLoop and ComputeSim3
 replay ``FusedLoop``'s graphs, ``runtime/fused_loop.py``; up to 4 eagerly;
 the Sim3 RANSAC's eigen-solves wait ``sim3.EIGH_WAITS`` = 0 times), and a
-closure those of the correction and the global BA. An
-initialization attempt reads its keypoint count, its match count and the
-RANSAC verdict, and the SVDs of the essential solver wait 6 times more
+closure those of the correction and the global BA. An initialization
+attempt reads its keypoint count, its match count and the RANSAC verdict,
+and the SVDs of the essential solver wait 6 times more
 (``essential.SVD_WAITS``); building the initial map reads the triangulated
 points once, the landmark statistics once, the first pose once and, to
 train a vocabulary, the descriptors once. A relocalization reads the
 candidates once, their scores once and each widened candidate's count and
-pose once; its PnP makes the card wait ``pnp.EIGH_WAITS`` = 0 times more (the
-eigen-solves are the ``sym_eig`` kernel). On the card its candidates and
-widening passes replay ``FusedReloc``'s graphs R and W
+pose once; its PnP makes the card wait ``pnp.EIGH_WAITS`` = 0 times more
+(the eigen-solves are the ``sym_eig`` kernel). On the card its candidates
+and widening passes replay ``FusedReloc``'s graphs R and W
 (``runtime/fused_reloc.py``), unless ``reloc_graphs`` is False or
 ``stage_times`` is set. A localization-mode frame reads each stage's counts
-with its pose. Each frame's count is in ``metrics`` (``host_reads``;
-``svd_waits`` on initialization attempts, ``eigh_waits`` where PnP or Sim3
-RANSAC ran).
+with its pose (2 reads on the steady path); on the card it replays
+``FusedLocalization``'s graphs L1, L2 and L3
+(``runtime/fused_localization.py``), unless ``localization_graphs`` is
+False or ``stage_times`` is set, and a LOST frame's warp and extract replay
+its graph X where ``_relocalize`` replays ``FusedReloc``'s. Each frame's
+count is in ``metrics`` (``host_reads``; ``svd_waits`` on initialization
+attempts, ``eigh_waits`` where PnP or Sim3 RANSAC ran).
 """
 
 from __future__ import annotations
@@ -65,10 +69,13 @@ from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import (Keypoints,
                                                        build_extractor)
+from cubemapslam_tpu_torch.runtime.fused_localization import (
+    FusedLocalization)
 from cubemapslam_tpu_torch.runtime.fused_loop import LoopGraphOwner
 from cubemapslam_tpu_torch.runtime.fused_mapping import FusedMapping
 from cubemapslam_tpu_torch.runtime.fused_reloc import FusedReloc
-from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES
+from cubemapslam_tpu_torch.runtime.kernels import (MIN_MATCHES,
+                                                   device_scalar, pack)
 from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels, _index
 from cubemapslam_tpu_torch.runtime.tracking import LastFrame, MapTracker
@@ -119,7 +126,10 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
     ``runtime/fused_loop.py``) for DetectLoop and ComputeSim3, and runs a
     closure's two solves' iterations through captured CUDA graphs
     (``LoopCloser``; rows carry ``graph_loop_captures``,
-    ``graph_loop_replays`` and ``graph_loop_capture_waits``).
+    ``graph_loop_replays`` and ``graph_loop_capture_waits``). A
+    localization-mode frame and a LOST frame's front end on the card
+    replay ``FusedLocalization``'s graphs (rows carry
+    ``graph_localization_captures``, ``graph_localization_replays``).
     With ``stage_times`` set to a dict every frame, its loop closure
     included, runs eagerly, and each
     stage (``extract``, ``init``, ``track``, ``insert+mapping``,
@@ -175,6 +185,8 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         self._fused_mapping: Optional[FusedMapping] = None
         self.reloc_graphs = True
         self._fused_reloc: Optional[FusedReloc] = None
+        self.localization_graphs = True
+        self._fused_localization: Optional[FusedLocalization] = None
 
     def _stage(self, name: str) -> Optional[float]:
         """``MapTracker._stage``, with the ms also in the frame's row."""
@@ -189,11 +201,12 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
 
     def drop_graphs(self) -> None:
         """Forget the captured tracked frame and the captured mapping,
-        relocalization and loop graphs; the next graph frame captures
-        anew."""
+        relocalization, localization and loop graphs; the next graph frame
+        captures anew."""
         super().drop_graphs()
         self._fused_mapping = None
         self._fused_reloc = None
+        self._fused_localization = None
         self.drop_loop_graphs()
 
     @property
@@ -207,10 +220,28 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         """The relocalization's ``FusedReloc``, if one was made."""
         return self._fused_reloc
 
+    @property
+    def fused_localization(self) -> Optional[FusedLocalization]:
+        """The localization-mode and LOST frames' ``FusedLocalization``, if
+        one was made."""
+        return self._fused_localization
+
     def _reloc_graph(self) -> bool:
         """Whether ``_relocalize`` runs through ``FusedReloc``: on a CUDA
         device, with ``reloc_graphs`` on and ``stage_times`` unset."""
         return (self.device.type == "cuda" and self.reloc_graphs
+                and self.stage_times is None)
+
+    def _localization_graph(self) -> bool:
+        """Whether ``track_fisheye`` runs a frame through
+        ``FusedLocalization``'s graphs: a localization-mode frame (state
+        OK) with ``localization_graphs`` on, or a LOST frame's front end
+        (graph X) with ``_reloc_graph``'s conditions; on a CUDA device,
+        with ``stage_times`` unset."""
+        if self.state == TrackState.LOST:
+            return self._reloc_graph()
+        return (self.localization_only and self.state == TrackState.OK
+                and self.localization_graphs and self.device.type == "cuda"
                 and self.stage_times is None)
 
     def shutdown(self) -> None:
@@ -229,8 +260,12 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
                       ) -> Optional[np.ndarray]:
         """Track one (H, W) uint8 fisheye frame (an array, or a tensor such
         as ``prefetch_image`` returns). A steady-state frame on the card
-        replays the captured graphs (``MapTracker``); every other frame
-        warps and goes through ``track_cubemap``."""
+        replays the captured graphs (``MapTracker``), a localization-mode
+        or LOST frame those of ``FusedLocalization``
+        (``_localization_frame``); every other frame warps and goes through
+        ``track_cubemap``."""
+        if self._localization_graph():
+            return self._localization_frame(fisheye_u8, timestamp, mask)
         if not self._graph_frame():
             return super().track_fisheye(fisheye_u8, timestamp, mask)
         self.total_frames += 1
@@ -242,6 +277,31 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             kp, fid, timestamp, *self._consume(kp, out, fid, timestamp,
                                                self._graph_counts()),
             fused=True)
+        return self._finish_frame(timestamp, pose_np)
+
+    def _localization_frame(self, fisheye_u8, timestamp: float, mask):
+        """A frame through ``FusedLocalization``: a LOST frame's front end
+        as graph X, then ``_relocalize``; a localization-mode frame's front
+        end and 15 px motion search as graph L1, then
+        ``_track_frame_localization`` on its stages (graphs L2 and L3)."""
+        self.total_frames += 1
+        self._row = {}
+        fid = self.frame_id
+        self.frame_id += 1
+        if self._fused_localization is None:
+            self._fused_localization = FusedLocalization(self)
+        fl = self._fused_localization
+        if self.state == TrackState.LOST:
+            pose_np = self._reloc_frame(fl.front_end_frame(self, fisheye_u8,
+                                                           mask), fid,
+                                        timestamp)
+        else:
+            kp = fl.start(self, fisheye_u8, mask)
+            with record_function("localization"):
+                pose_np = self._track_frame_localization(kp, fid, timestamp,
+                                                         fl)
+        self._row.update(graph_localization_captures=fl.frame_captures,
+                         graph_localization_replays=fl.frame_replays)
         return self._finish_frame(timestamp, pose_np)
 
     def track_cubemap(self, cube: torch.Tensor, timestamp: float,
@@ -269,14 +329,19 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
                 pose_np = self._try_initialize(kp, fid, timestamp)
             self._stage("init")
         elif self.state == TrackState.LOST:
-            self._row.update(frame=fid, stage="reloc", host_reads=0)
-            self.metrics.append(self._row)
-            with record_function("reloc"):
-                pose_np = self._relocalize(kp, fid, timestamp)
-            self._stage("reloc")
+            pose_np = self._reloc_frame(kp, fid, timestamp)
         else:
             pose_np = self._track_frame(kp, fid, timestamp)
         return self._finish_frame(timestamp, pose_np)
+
+    def _reloc_frame(self, kp: Keypoints, fid: int, ts: float):
+        """A LOST frame: its row, then ``_relocalize``."""
+        self._row.update(frame=fid, stage="reloc", host_reads=0)
+        self.metrics.append(self._row)
+        with record_function("reloc"):
+            pose_np = self._relocalize(kp, fid, ts)
+        self._stage("reloc")
+        return pose_np
 
     def _finish_frame(self, timestamp: float, pose_np):
         """The frame's state in its row, and its pose (4x4, also appended to
@@ -498,13 +563,12 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
     # Localization mode (system.py:497-557, 620-707)
     # ------------------------------------------------------------------
 
-    def _read(self, counts, R, t):
-        """One read of 0-d ``counts`` and the pose (R, t): (the counts as
-        ints, (R, t) as float64 numpy)."""
+    def _read(self, packed: torch.Tensor, k: int):
+        """One read of a packed vector of ``k`` counts and a pose
+        (``kernels.pack``): (the counts as ints, (R, t) as float64
+        numpy)."""
         self._row["host_reads"] += 1
-        k = len(counts)
-        h = torch.cat([torch.stack([c.to(torch.float32) for c in counts]),
-                       R.reshape(-1), t]).tolist()
+        h = packed.tolist()
         return ([int(x) for x in h[:k]],
                 (np.asarray(h[k:k + 9]).reshape(3, 3), np.asarray(h[k + 9:])))
 
@@ -517,30 +581,26 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         self.last = LastFrame(kp, assoc, outlier, R, t, rel_R, rel_t,
                               self.ref_kf, fid, ts)
 
-    def _predicted_pose(self):
-        """The last pose re-anchored on its keyframe, and the motion-model
-        prediction (``system.py:528-550``): the velocity's twist scaled by
-        ``motion_model_damping``. Returns (R_last, t_last, R_pred,
-        t_pred).
+    def _localization_inputs(self):
+        """The inputs of ``TrackingKernels.localization_motion`` after the
+        keypoints: the last frame's associations, outliers, keypoint levels
+        and angles, its pose relative to its keyframe, that keyframe's slot
+        (0-d), the velocity and whether there is one (0-d). The prediction
+        (``system.py:528-550``) re-anchors the last pose on its keyframe
+        and moves it by the velocity's twist scaled by
+        ``motion_model_damping``.
 
         Both rotations are projected onto SO(3), where the JAX package
         keeps them as composed. With the map frozen no keyframe re-anchors
         the chain, and each frame's composition, with transposes taken as
         inverses, about triples the distance from SO(3) that pose-only LM
         then keeps (ROADMAP Queue 3, "Rotation drift")."""
-        last = self.last
-        R_last, t_last = G.se3_compose(last.rel_R, last.rel_t,
-                                       self.arena.kf_R[last.ref_kf],
-                                       self.arena.kf_t[last.ref_kf])
-        R_last = G.so3_project(R_last)
-        a = float(self.cfg.motion_model_damping)
-        if self.velocity is None or a <= 0.0:
-            return R_last, t_last, R_last, t_last
-        Rv, tv = self.velocity
-        if a < 1.0:
-            Rv, tv = G.se3_exp(a * G.se3_log(Rv, tv))
-        R_pred, t_pred = G.se3_compose(Rv, tv, R_last, t_last)
-        return R_last, t_last, G.so3_project(R_pred), t_pred
+        last, dev = self.last, self.device
+        vel_R, vel_t, _ = self._velocity_args()
+        return (last.assoc, last.outlier, last.kp.level, last.kp.angle,
+                last.rel_R, last.rel_t,
+                device_scalar(last.ref_kf, torch.int64, dev), vel_R, vel_t,
+                device_scalar(self.velocity is not None, torch.bool, dev))
 
     def _vo_frame(self, kp, assoc, outlier, R, t, R_last, t_last, fid, ts,
                   n: int, n_inl: int) -> None:
@@ -549,29 +609,48 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         self._record_frame(kp, assoc, outlier, R, t, fid, ts)
         self._row.update(inliers=n_inl, matches=n, vo=True)
 
-    def _track_frame_localization(self, kp: Keypoints, fid: int, ts: float):
+    def _track_frame_localization(self, kp: Keypoints, fid: int, ts: float,
+                                  fused: Optional[FusedLocalization] = None):
         """A frame against the frozen map (``system.py:620-707``): the
         motion-model match (widened below 20 matches), the mbVO dual
         hypothesis, the reference-keyframe fallback, then TrackLocalMap. No
-        keyframe is inserted and no BA runs. Returns the host pose or
-        None."""
-        k, cfg, last = self.kernels, self.cfg, self.last
+        keyframe is inserted and no BA runs. The motion searches and
+        TrackLocalMap run eagerly, or, with ``fused`` (the frame's
+        ``FusedLocalization``, whose graph L1 made ``kp``), as its graphs;
+        the reference-keyframe fallback runs eagerly. Returns the host pose
+        or None."""
+        k, cfg = self.kernels, self.cfg
         row = self._row
         row.update(frame=fid, stage="localization", host_reads=0, vo=False)
         self.metrics.append(row)
-        R_last, t_last, R_pred, t_pred = self._predicted_pose()
+        if fused is None:
+            args = self._localization_inputs()
 
-        def motion(radius):
-            st = k.track_motion_fused(self.arena, kp, last.assoc,
-                                      last.outlier, last.kp.level,
-                                      last.kp.angle, R_pred, t_pred,
-                                      radius=radius)
-            (n, n_inl), pose = self._read((st[1], st[5]), st[2], st[3])
-            return st, n, n_inl, pose
+            def motion(radius):
+                return k.localization_motion(self.arena, kp, *args,
+                                             radius=radius)
 
-        (assoc, _, R, t, outlier, _), n, n_inl, pose = motion(15.0)
+            def local(*st):
+                return k.localization_local(
+                    self.arena, kp, *st, self.covis, R_last, t_last,
+                    device_scalar(self.ref_kf, torch.int64, self.device))
+
+            def keep(*x):
+                return x
+        else:
+            def motion(radius):
+                return fused.motion(self, radius)
+
+            def local(*st):
+                return fused.local(self, *st)
+
+            keep = fused.keep
+
+        (assoc, _, R, t, outlier, _), R_last, t_last, packed = motion(15.0)
+        (n, n_inl), pose = self._read(packed, 2)
         if n < MIN_MATCHES:
-            (assoc, _, R, t, outlier, _), n, n_inl, pose = motion(30.0)
+            (assoc, _, R, t, outlier, _), _, _, packed = motion(30.0)
+            (n, n_inl), pose = self._read(packed, 2)
         if self.mb_vo:
             # the VO hypothesis is kept while relocalization is tried; the
             # relocalized pose wins when both succeed
@@ -581,15 +660,15 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             if n < MIN_MATCHES:
                 self._set_lost()
                 return None
-            self._vo_frame(kp, assoc, outlier, R, t, R_last, t_last, fid, ts,
-                           n, n_inl)
+            self._vo_frame(kp, *keep(assoc, outlier, R, t), R_last, t_last,
+                           fid, ts, n, n_inl)
             self.mb_vo = n_inl < 10
             return pose
         if n < MIN_MATCHES:                # the reference keyframe
             assoc, n_t = k.track_reference_kf(self.arena, kp, self.ref_kf)
             R, t, outlier, n_inl_t = k.optimize_pose(self.arena, kp, assoc,
                                                      R_last, t_last)
-            (n, n_inl), pose = self._read((n_t, n_inl_t), R, t)
+            (n, n_inl), pose = self._read(pack((n_t, n_inl_t), R, t), 2)
             if n < 15:
                 self._set_lost()
                 return None
@@ -597,25 +676,27 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             if n >= MIN_MATCHES:
                 # weak map support, live frame-to-frame tracking: VO mode
                 self.mb_vo = True
-                self._vo_frame(kp, assoc, outlier, R, t, R_last, t_last, fid,
-                               ts, n, n_inl)
+                self._vo_frame(kp, *keep(assoc, outlier, R, t), R_last,
+                               t_last, fid, ts, n, n_inl)
                 return pose
             self._set_lost()
             return None
         self.mb_vo = False
-        (self.arena, assoc, outlier, R, t, n_final, pkf_max, pkf_votes,
-         _) = k.track_local_fused(self.arena, kp, assoc, outlier, R, t,
-                                  covis=self.covis)
-        (n_final, pkf_max, pkf_votes), pose = self._read(
-            (n_final, pkf_max, pkf_votes), R, t)
+        if self.covis is None:
+            self.refresh_graph_cache()
+        assoc, outlier, R, t, packed, *kept = local(assoc, outlier, R, t)
+        (n_final, pkf_max, pkf_votes), pose = self._read(packed, 3)
         row.update(inliers=n_final, matches=n)
         if n_final < cfg.min_track_inliers:
             self._set_lost()
             return None
         if pkf_votes > 0:
             self.ref_kf = pkf_max
-        self.velocity = G.se3_compose(R, t, *G.se3_inverse(R_last, t_last))
-        self._record_frame(kp, assoc, outlier, R, t, fid, ts)
+        assoc, outlier, R, t, vel_R, vel_t, rel_R, rel_t = keep(
+            assoc, outlier, R, t, *kept)
+        self.velocity = (vel_R, vel_t)
+        self.last = LastFrame(kp, assoc, outlier, R, t, rel_R, rel_t,
+                              self.ref_kf, fid, ts)
         return pose
 
     # ------------------------------------------------------------------
@@ -675,7 +756,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
                         a, kp, *args, covis=self.covis)
                 else:
                     assoc, R, t, outlier, n3 = fr.widen(self, *args)
-                (n3,), pose = self._read((n3,), R, t)
+                (n3,), pose = self._read(pack((n3,), R, t), 1)
             if n3 < self.cfg.min_track_inliers_after_reloc:
                 continue
             self.ref_kf = idx[i]

@@ -102,7 +102,11 @@ dtype or shape and launching nothing for an empty batch. ``pnp_ransac``
 on the card making 0 host waits (6 launches of the kernel) and captured
 in a CUDA graph bitwise equal to its eager calls; relocalization through
 ``FusedReloc``'s graphs R and W bitwise equal to the eager path on a map
-loaded on the card, over relocalizing and blank frames.
+loaded on the card, over relocalizing and blank frames; localization-mode
+and LOST frames through ``FusedLocalization``'s graphs L1, L2, L3 and X
+bitwise equal to the eager path on that map (plain, emptied-association,
+perturbed and restored-landmark, blank and LOST frames), with the same
+launches a frame.
 """
 
 import faulthandler
@@ -2025,3 +2029,81 @@ def test_reloc_graphs_bitwise_eager(cuda, reloc_map):
     fr = g_slam.fused_reloc
     assert (fr.captures, fr.replays) == (2, sum(
         r["graph_reloc_replays"] for r in relocs))
+
+
+def _localization_run(cuda, reloc_map, graphs):
+    """The saved map loaded on the card (LOST) and relocalized, then in
+    localization mode: two frames, a frame with the last association
+    emptied (no match at 15 px nor 30 px, the reference-keyframe fallback,
+    TrackLocalMap), a frame on landmarks perturbed by sigma 0.12 and one on
+    the restored landmarks, a blank frame and the first frame again (LOST),
+    with ``localization_graphs`` and ``reloc_graphs`` as given: (system,
+    per-frame ``_slam_state`` with mbVO, per-frame launches of every kernel
+    entry of the frame)."""
+    from cubemapslam_tpu_torch import serialize
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    cfg, frames, path = reloc_map
+    slam = CubemapSLAM(cfg, device=cuda)
+    serialize.load_map(slam, path)
+    slam.reloc_graphs = slam.localization_graphs = graphs
+    kernels = (warp_cuda.WARP_REMAP, TE.ORB_FAST, TE.ORB_SELECT,
+               TE.ORB_DESCRIBE, PO.POSE_LM)
+    noise = 0.12 * torch.randn(slam.arena.lm_pos.shape,
+                               generator=torch.Generator().manual_seed(0))
+    clean = None
+    states, launches = [], []
+
+    def track(img, ts):
+        for k in kernels:
+            k.launches = 0
+        T = slam.track_fisheye(img, ts)
+        states.append((*_slam_state(slam, T), slam.mb_vo))
+        launches.append(tuple(k.launches for k in kernels))
+
+    track(frames[6], 20.0)
+    slam.activate_localization_mode()
+    for k in (7, 8):
+        track(frames[k], 20.0 + k)
+    slam.last = slam.last._replace(assoc=torch.full_like(slam.last.assoc,
+                                                         -1))
+    track(frames[9], 29.0)
+    clean = slam.arena.lm_pos.clone()
+    slam.arena.lm_pos.add_(noise.to(cuda))
+    track(frames[10], 30.0)
+    slam.arena.lm_pos.copy_(clean)
+    track(frames[11], 31.0)
+    track(np.full(frames[0].shape, 20, np.uint8), 32.0)
+    track(frames[6], 33.0)
+    torch.cuda.synchronize()
+    return slam, states, launches
+
+
+def test_localization_graphs_bitwise_eager(cuda, reloc_map):
+    """Localization-mode and LOST frames through ``FusedLocalization``'s
+    graphs (L1: the front end and the 15 px search; L2: 30 px; L3:
+    TrackLocalMap; X: a LOST frame's front end) against the eager path on
+    the same loaded map: every pose, row, last frame, velocity, arena table
+    (the visible/found counters), the BoW table and mbVO bitwise equal at
+    every frame, the same launches of every kernel entry (W, D and describe
+    once a frame, from the replays); L1, L3 and X captured once and
+    replayed, L2 on the emptied frame."""
+    (e_slam, e_states, e_launch), (g_slam, g_states, g_launch) = (
+        _localization_run(cuda, reloc_map, graphs)
+        for graphs in (False, True))
+    _same_frames([s[:3] for s in e_states], [s[:3] for s in g_states])
+    assert [s[3] for s in e_states] == [s[3] for s in g_states]
+    assert e_launch == g_launch
+    assert all(n[:4] == (1, 1, 1, 1) for n in g_launch)
+    assert e_slam.fused_localization is None
+    fl = g_slam.fused_localization
+    assert set(fl.outputs) == {"l1", "l2", "l3", "x"}
+    assert fl.captures == 4 and fl.replays > 4
+    rows = [r for r in g_slam.metrics if "frame" in r]
+    assert rows[0]["graph_localization_captures"] == 1      # X
+    assert rows[-1]["stage"] == "reloc"
+    assert rows[-1]["graph_localization_replays"] == 1      # X again
+    emptied = rows[3]
+    assert emptied["host_reads"] == 4
+    assert (emptied["graph_localization_captures"],
+            emptied["graph_localization_replays"]) == (1, 2)
