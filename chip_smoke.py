@@ -79,8 +79,18 @@ frame beside the eager drive's); and ``mapping_step`` / ``local_ba`` on
 the card against the CPU on a small arena. Each profiled keyframe frame
 launches the triangulation kernel once (graph K's replays included), and
 one that replays graph K runs at most ``KEYFRAME_MAX_OPS`` device
-operations. A fresh eager ``CubemapSLAM`` over the same frames counts the
-init path's triangulation launches and profiles the drive's first mapping
+operations. Initialization through ``FusedInit``
+(``runtime/fused_init.py``: graph I0, the front end; I1, the front end and
+the bootstrap match; I2, the RANSAC with the essential's three eigen-solves
+on the ``sym_eig`` kernel and the reconstruction; ``[init-graph]`` /
+``[init-profile]`` lines): two systems of the drive's seed over its frames
+up to the initializing one, ``INIT_CYCLES`` times with a reset between,
+one through the graphs and one eagerly, every frame and attempt bitwise
+equal; the first cycle captures, the middle ones give the replaying walls,
+the first and the last are profiled (no wait in ``torch.linalg.svd``; a
+graph frame's waits at most its reads and the upload; at least
+``INIT_MIN_REPLAYS`` attempts replay). A fresh eager ``CubemapSLAM`` over
+the same frames counts the init path's triangulation launches and profiles the drive's first mapping
 step with a range around each call graph K makes (the insertion and BoW
 row, culling, the pairs' geometry, the 6 epipolar searches, the one
 launch that triangulates and gates all 6 pairs, the commit, the 8 fuses,
@@ -126,10 +136,14 @@ waits may not exceed the frame's stated reads and the upload); the
 eigen-solve kernel ``csrc/sym_eig.cu``, a round-robin Jacobi, one warp a
 matrix, bitwise against its kernel-order plain version ``sym_eig_ordered``
 on the six solves of the reloc frame's first PnP, recorded as it ran, on
-those of a seeded 2000-point scene and on special matrices at n = 3, 4 and
-12, eagerly and from a CUDA graph; timed on the recorded solves beside
+those of a seeded 2000-point scene and on special matrices at n = 3, 4, 9
+and 12, eagerly and from a CUDA graph; timed on the recorded solves beside
 ``torch.linalg.eigh``, the bound and the serial floor: a solve's most steps
-a matrix times one step's measured latency); the ``localization`` phase (6
+a matrix times one step's measured latency; and on the essential solver's
+three solves of the slam drive's first two-view attempt, the (200,9,9)
+float64 normal matrices, the (200,3,3) and (1,3,3) EᵀE, and float64
+specials at n = 9, timed beside the ``torch.linalg.svd`` each replaced,
+with its host waits); the ``localization`` phase (6
 frames tracked in localization mode with the map unchanged through
 ``FusedLocalization``'s graphs L1 (front end and 15 px search) and L3
 (TrackLocalMap), each within the bound, the worst frame and its margin to
@@ -217,6 +231,7 @@ import bisect
 import contextlib
 import dataclasses
 import datetime
+import gc
 import hashlib
 import io
 import json
@@ -268,6 +283,7 @@ from cubemapslam_tpu_torch.runtime.mapping import MappingKernels
 from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
 from cubemapslam_tpu_torch.runtime.tracking import MapTracker
 from cubemapslam_tpu_torch.solvers import horn_alignment
+from cubemapslam_tpu_torch.solvers import essential as ES
 from cubemapslam_tpu_torch.solvers import pnp as PNP
 from cubemapslam_tpu_torch.solvers import sim3 as S3
 from cubemapslam_tpu_torch.solvers import sym_eig as SE
@@ -1800,8 +1816,8 @@ def eig_case(name, A):
 def eig_bound(A, rotations, sweeps):
     """The kernel's bound (ms, what bounds it) on ``A`` (B, n, n), from the
     ordered version's count of each matrix's rotations applied and sweeps
-    begun: the input read and the outputs written once; the float64
-    operations the solve needs whatever its schedule or its lanes: the sum
+    begun: the input read (in its dtype) and the float32 outputs written
+    once; the float64 operations the solve needs whatever its schedule or its lanes: the sum
     of squares (2 n^2), each convergence test (2 a pair above the diagonal,
     one a sweep begun and one more where the matrix converged), each skip
     test (2 a pair a sweep begun), each rotation applied (14 for the angle,
@@ -1816,7 +1832,8 @@ def eig_bound(A, rotations, sweeps):
     tests = sweeps + (sweeps < SE.MAX_SWEEPS).double()
     ops = float((2 * n * n + 2 * pairs * tests + 2 * pairs * sweeps
                  + (12 * n + 6) * rotations.double() + 4 * n * n).sum())
-    return bound(B * (8 * n * n + 4 * n), ops, H100_F64_OPS_PER_S)
+    return bound(B * ((A.element_size() + 4) * n * n + 4 * n), ops,
+                 H100_F64_OPS_PER_S)
 
 
 def eig_step_ms(n):
@@ -1916,6 +1933,122 @@ def check_sym_eig(real):
         f"ms, serial floor {row['serial_floor_ms']:.5f} ms; bitwise on "
         f"{len(cases)} cases {row['bitwise']}")
     return row
+
+
+# the inputs of the slam drive's first two-view attempt, recorded for
+# check_sym_eig_init: its 8-point sets' rays ("rays") and the best E that
+# decompose_e took ("E")
+INIT_EIG_INPUTS = {}
+# the essential solver's three eigen-solves, in call order, and the
+# torch.linalg.svd each replaced
+INIT_EIG_SITES = ("normal", "rank2", "decompose")
+
+
+@contextlib.contextmanager
+def recording_essential(store):
+    """Record clones of the first ``essential.compute_e21`` call's rays and
+    of the first ``essential.decompose_e`` call's E into ``store`` while
+    the context is open."""
+    e21, dec = ES.compute_e21, ES.decompose_e
+
+    def rec_e21(rays1, rays2):
+        store.setdefault("rays", (rays1.clone(), rays2.clone()))
+        return e21(rays1, rays2)
+
+    def rec_dec(E):
+        store.setdefault("E", E.clone())
+        return dec(E)
+
+    ES.compute_e21, ES.decompose_e = rec_e21, rec_dec
+    try:
+        yield store
+    finally:
+        ES.compute_e21, ES.decompose_e = e21, dec
+
+
+def init_eig_cases(rec):
+    """The essential solver's three eigen-solve inputs from a
+    ``recording_essential`` record, by site, each with the input of the
+    ``torch.linalg.svd`` it replaced: the 8-point sets' float64 normal
+    matrices (the (B,8,9) float32 systems), the EᵀE of their null vectors
+    (those (B,3,3) E) and the best E's (1,3,3) EᵀE (that E)."""
+    r1, r2 = rec["rays"]
+    A8 = (r2[..., :, None] * r1[..., None, :]).reshape(-1, 8, 9)
+    N = ES.normal_matrix(r1, r2)
+    E0 = SE.sym_eig(N)[1][..., :, 0].reshape(-1, 3, 3)
+    Ed = rec["E"].reshape(1, 3, 3)
+    return {"normal": (N, A8), "rank2": (ES._gram(E0), E0),
+            "decompose": (ES._gram(Ed), Ed)}
+
+
+def host_waits_of(fn):
+    """Host waits (synchronisations and blocking copies) that start inside
+    one call of ``fn`` (a range around it; the profiler's own stop
+    synchronises outside it), after a warm-up, under torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("call"):
+            fn()
+    cpu = [e for e in raw_events(prof) if not e[1]]
+    spans = [(e[2], e[3]) for e in cpu if e[0] == "call"]
+    return sum(1 for e in cpu
+               if ("Synchronize" in e[0] or e[0] == "cudaMemcpy")
+               and any(a <= e[2] < b for a, b in spans))
+
+
+def check_sym_eig_init(rec):
+    """The eigen-solve kernel on the essential solver's three solves of the
+    slam drive's first two-view attempt (``rec``, from
+    ``recording_essential``): the (200,9,9) float64 normal matrices of its
+    8-point sets, the (200,3,3) EᵀE of their null vectors and the best E's
+    (1,3,3) EᵀE, each bitwise against ``sym_eig_ordered`` eagerly and from
+    a CUDA graph (``eig_case``), and ``eig_specials`` at n = 9 in float64.
+    Timed as ``check_sym_eig`` times the PnP's, beside the
+    ``torch.linalg.svd`` each replaced (of the (200,8,9) systems, of the
+    (200,3,3) null vectors and of the (3,3) E, with the host waits of one
+    call). Returns the per-site dicts for the kernel's JSON row."""
+    inputs = init_eig_cases(rec)
+    cases = [eig_case(f"init, {site}", A)
+             for site, (A, _) in inputs.items()]
+    cases.append(eig_case("specials n=9 float64",
+                          eig_specials(9, "cuda").double()))
+    step = {n: eig_step_ms(n) for n in (3, 9)}
+    out = {}
+    for site, (A, L) in inputs.items():
+        n = A.shape[-1]
+        _, _, rot, sw, st = SE.sym_eig_ordered(A, counts=True)
+        b_ms, b_by = eig_bound(A, rot, sw)
+        out[site] = v = dict(
+            shape=list(A.shape), dtype=str(A.dtype).replace("torch.", ""),
+            ms=time_ms(lambda: SE.sym_eig_cuda(A)),
+            device_ms=graph_ms(lambda: SE.sym_eig_cuda(A)),
+            plain_ms=wall_ms(lambda: SE.sym_eig_ordered(A)),
+            library_call=f"torch.linalg.svd of {tuple(L.shape)} float32",
+            library_ms=time_ms(lambda: torch.linalg.svd(L)),
+            library_wall_ms=wall_ms(lambda: torch.linalg.svd(L)),
+            library_waits=host_waits_of(lambda: torch.linalg.svd(L)),
+            kernel_waits=host_waits_of(lambda: SE.sym_eig_cuda(A)),
+            bound_ms=b_ms, bound_by=b_by,
+            max_sweeps=int(sw.max()), mean_steps=float(st.double().mean()),
+            max_steps=int(st.max()), step_ms=step[n][0],
+            serial_floor_ms=int(st.max()) * step[n][0],
+            max_abs_err=next(c["max_abs_err"] for c in cases
+                             if c["name"] == f"init, {site}"))
+        log(f"[sym_eig] init {site} {tuple(A.shape)} {v['dtype']}: kernel "
+            f"{v['ms']:.5f} ms (device {v['device_ms']:.5f}, host waits "
+            f"{v['kernel_waits']}), plain {v['plain_ms']:.3f} ms, library "
+            f"({v['library_call']}) {v['library_ms']:.5f} ms (wall "
+            f"{v['library_wall_ms']:.5f}, host waits {v['library_waits']}); "
+            f"bound {b_ms:.6f} ms ({b_by}); serial floor "
+            f"{v['serial_floor_ms']:.5f} ms ({v['max_steps']} steps x "
+            f"{v['step_ms'] * 1e3:.4f} us); {v['mean_steps']:.1f} steps a "
+            f"matrix, at most {v['max_sweeps']} sweeps")
+        if v["kernel_waits"]:
+            raise AssertionError(f"the sym_eig kernel waited on the host on "
+                                 f"the init's {site} solve")
+    return out
 
 
 def seg_sum_cases(cam, arena, inv_s2):
@@ -2769,8 +2902,9 @@ def slam_sequence(cfg):
 
 
 def slam_row_line(i, row, wall):
-    keys = ("inliers", "matches", "init_matches", "host_reads", "svd_waits",
-            "eigh_waits", "loop_detect_ms")
+    keys = ("inliers", "matches", "init_matches", "host_reads",
+            "graph_init_captures", "graph_init_replays", "eigh_waits",
+            "loop_detect_ms")
     counts = {k: row[k] for k in keys if k in row}
     st = ", ".join(f"{k} {v:.3f}" for k, v in row.get("stage_ms", {}).items())
     return (f"frame {i}: {row['state']}; {counts}; keyframe "
@@ -2792,7 +2926,8 @@ def drive_slam(slam, poses, frames, counters):
     slam.stage_times = {}
     walls, n_new, first_ok = [], [], None
     with seg_tally(slam.mapping, ("mapping_step", "local_ba"), seg), \
-            recording_triangulation(TRI_INPUTS):
+            recording_triangulation(TRI_INPUTS), \
+            recording_essential(INIT_EIG_INPUTS):
         for i in range(SLAM_FRAMES):
             torch.cuda.synchronize()
             t_start = time.perf_counter()
@@ -2813,6 +2948,7 @@ def drive_slam(slam, poses, frames, counters):
     SEG_LAUNCHES["slam"] = dict(total=SG.SEG_SUM.launches, **seg)
     pose_launches("slam", SLAM_FRAMES)
     tri_launches("slam", SLAM_FRAMES)
+    eig_launches("slam")
     log(f"[slam] seg_sum: launches in {SLAM_FRAMES} frames "
         f"{SEG_LAUNCHES['slam']} (by MappingKernels method)")
     if not (seg.get("mapping_step") and seg.get("local_ba")):
@@ -2996,23 +3132,159 @@ def profiled_slam(slam, frames, walls, graph_walls, tag, replays):
                          f"among {SLAM_PROFILE_MAX} profiled frames: {want}")
 
 
+# bootstraps of the init profile, a reset between: the first captures
+# FusedInit's graphs, the middle ones replay them unprofiled (their walls),
+# the last replays them under the profiler
+INIT_CYCLES = 5
+INIT_MIN_REPLAYS = 3          # attempts that replay graphs I1 and I2
+INIT_TRACE = ("kp", "idx", "ok", "prev_rays", "E", "R21", "t21", "p3d",
+              "good")
+
+
+def init_record(slam, T):
+    """A pre-init frame of ``slam``: its row without the graph counts, its
+    pose and clones of the last attempt's ``init_trace`` fields."""
+    tr = slam.init_trace or {}
+    trace = {k: (tuple(x.clone() for x in tr[k]) if k == "kp"
+                 else tr[k].clone()) for k in INIT_TRACE if k in tr}
+    row = {k: v for k, v in slam.metrics[-1].items()
+           if not k.startswith("graph_")}
+    return dict(row=row, T=T, trace=trace)
+
+
+def same_init(tag, a, b):
+    """Two ``init_record``s bitwise equal, else raise."""
+    bad = [k for k in INIT_TRACE if (k in a["trace"]) != (k in b["trace"])
+           or (k in a["trace"] and not (
+               all(same_float_bits(x, y) for x, y in
+                   zip(a["trace"][k], b["trace"][k])) if k == "kp"
+               else same_float_bits(a["trace"][k], b["trace"][k])))]
+    if a["row"] != b["row"] or bad or (a["T"] is None) != (b["T"] is None) \
+            or (a["T"] is not None and not np.array_equal(a["T"], b["T"])):
+        raise AssertionError(f"{tag}: the graph frame differs from its eager "
+                             f"twin (fields {bad}; rows {a['row']} / "
+                             f"{b['row']})")
+
+
+def init_kind(row):
+    if row.get("state") == "OK":
+        return "success"
+    return "attempt" if "init_matches" in row else "reference"
+
+
+def check_init_profile(tag, kind, row, prof, walls):
+    """A profiled ``FusedInit`` frame: logged; no wait in
+    ``aten::linalg_svd``, and at most its reads, the upload and its
+    captures' CAPTURE_WAITS (the success frame's map creation, eager, is
+    not held to it)."""
+    caps = row["graph_init_captures"]
+    allowed = row["host_reads"] + 1 + CAPTURE_WAITS * caps
+    log_profile(f"init-profile-graph-{'capture' if caps else 'replay'}"
+                f"-{kind}", prof, walls)
+    log(f"[init-profile] {tag} ({kind}): host waits "
+        f"{prof['host_waits']:.0f} against {allowed} allowed "
+        f"({row['host_reads']} reads, the upload, {caps} captures); device "
+        f"busy {prof['device_busy_ms']:.3f} ms in {prof['device_ops']:.0f} "
+        f"operations")
+    if any("linalg_svd" in src for src, _ in prof["wait_sources"]):
+        raise AssertionError(f"{tag} waited in torch.linalg.svd")
+    if kind != "success" and prof["host_waits"] > allowed:
+        raise AssertionError(f"{tag} waited {prof['host_waits']:.0f} times; "
+                             f"its reads, the upload and its capture waits "
+                             f"are {allowed}")
+
+
 def profiled_init(cfg, frames, first_ok, walls):
-    """A second CubemapSLAM over the same frames up to the one that
-    initialized the first, that frame under profile_stages: its device
-    time, operations and host waits (reads, the SVDs' waits and the
-    upload), reported beside its stated reads."""
-    slam = CubemapSLAM(cfg, seed=SEED)
-    for i in range(first_ok):
-        slam.track_fisheye(frames[i], i / cfg.fps)
-    prof = profile_stages(
-        lambda: slam.track_fisheye(frames[first_ok], first_ok / cfg.fps),
-        ("warp", "extract", "init"), 1)
-    row = slam.metrics[-1]
-    if row["state"] != "OK":
-        raise AssertionError("the profiled initialization did not succeed")
-    log(f"[init-profile] frame {first_ok}: host reads {row['host_reads']}, "
-        f"SVD waits {row['svd_waits']}, host waits {prof['host_waits']:.0f}")
-    log_profile("init-profile", prof, walls)
+    """Initialization through ``FusedInit`` beside its eager twin: two
+    systems of the same seed over the slam drive's frames up to the one
+    that initialized it, INIT_CYCLES times with a reset between (which
+    keeps the graphs), one through the graphs and one with ``init_graphs``
+    off. Every frame's row, pose and attempt (keypoints, matches, window
+    centres, E21, R21, t21, p3d, good) bitwise equal between the two. The
+    first cycle's graph frames capture I0, I1 and I2 and are profiled
+    alone; the middle cycles replay them and give the unprofiled walls; the
+    last cycle's frames are profiled alone in both systems: wall, device
+    busy, operations and host waits by source. Held: no wait in
+    ``aten::linalg_svd``; each graph frame waits at most its reads, the
+    upload and its captures' CAPTURE_WAITS; at least INIT_MIN_REPLAYS
+    attempts replay I1 and I2 and capture nothing. ``walls`` are the
+    eager drive's (stage timing on) for the idle share."""
+    graph = CubemapSLAM(cfg, seed=SEED)
+    eager = CubemapSLAM(cfg, seed=SEED)
+    eager.init_graphs = False
+    walls_by = {}
+    replaying = 0
+    for cycle in range(INIT_CYCLES):
+        profiled = cycle in (0, INIT_CYCLES - 1)
+        for i in range(first_ok + 1):
+            ts = i / cfg.fps
+            tag = f"init-cycle{cycle}-frame{i}"
+            if profiled and cycle:
+                got = {}
+                prof_e = profile_stages(
+                    lambda: got.setdefault(
+                        "T", eager.track_fisheye(frames[i], ts)),
+                    ("warp", "extract", "init"), 1)
+                e = init_record(eager, got["T"])
+                log_profile(f"init-profile-eager-{init_kind(e['row'])}",
+                            prof_e, walls)
+                if any("linalg_svd" in src for src, _ in
+                       prof_e["wait_sources"]):
+                    raise AssertionError("an eager init frame waited in "
+                                         "torch.linalg.svd")
+            else:
+                T, _, wall_e = timed_frame(eager, frames[i], ts)
+                e = init_record(eager, T)
+                walls_by.setdefault(("eager", init_kind(e["row"])),
+                                    []).append(wall_e)
+            if profiled:
+                got = {}
+                prof = profile_stages(
+                    lambda: got.setdefault(
+                        "T", graph.track_fisheye(frames[i], ts)),
+                    ("init",), 1)
+                g = init_record(graph, got["T"])
+                wall = prof["wall_ms"]
+            else:
+                T, _, wall = timed_frame(graph, frames[i], ts)
+                g = init_record(graph, T)
+            row = graph.metrics[-1]
+            kind = init_kind(g["row"])
+            caps, reps = (row.get("graph_init_captures"),
+                          row.get("graph_init_replays"))
+            same_init(tag, g, e)
+            if kind != "reference" and not caps and reps == 2:
+                replaying += 1
+            log(f"[init-graph] cycle {cycle} frame {i}: {kind}; host reads "
+                f"{row['host_reads']}; init graphs captured {caps}, replayed "
+                f"{reps}; matches {row.get('init_matches')}; wall "
+                f"{wall:.3f} ms{' (profiled)' if profiled else ''}; bitwise "
+                f"its eager twin")
+            if caps is None:
+                raise AssertionError(f"{tag} did not run through FusedInit")
+            if profiled:
+                check_init_profile(tag, kind, row, prof, walls)
+            else:
+                walls_by.setdefault(("graph", kind), []).append(wall)
+            if graph.state == TrackState.OK:
+                break
+        for s in (graph, eager):
+            s.reset()
+        if graph.fused_init is None:
+            raise AssertionError("the reset dropped FusedInit")
+    log("[init-graph] unprofiled wall ms by path and kind of frame: "
+        + "; ".join(f"{p} {k} (x{len(v)}) median {float(np.median(v)):.3f}, "
+                    f"each {[round(w, 3) for w in v]}"
+                    for (p, k), v in sorted(walls_by.items())))
+    fi = graph.fused_init
+    log(f"[init-graph] FusedInit: {fi.captures} captures, {fi.replays} "
+        f"replays, {fi.capture_ms:.3f} ms of host time in the captures, "
+        f"{fi.capture_mib:.1f} MiB reserved by its pool; {replaying} "
+        f"attempts replayed I1 and I2")
+    if fi.captures != 3 or replaying < INIT_MIN_REPLAYS:
+        raise AssertionError(f"FusedInit captured {fi.captures} graphs (3) "
+                             f"and {replaying} attempts replayed (at least "
+                             f"{INIT_MIN_REPLAYS})")
 
 
 # graph K's parts, as ranges around the calls that make them (profiler
@@ -3246,11 +3518,21 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
     if tri_launches("repeat", SLAM_FRAMES) != TRI_LAUNCHES["slam"]:
         raise AssertionError("the repeat run's triangulation launches "
                              "differ from the eager drive's")
+    if eig_launches("repeat") != EIG_LAUNCHES["slam"]:
+        raise AssertionError("the repeat run's sym_eig launches differ from "
+                             "the eager drive's")
     rows = slam.metrics
     graph_frames = sum(1 for r in rows if r.get("graph_replays"))
     captures = sum(r.get("graph_captures", 0) for r in rows)
     log(f"[repeat] {graph_frames} of {SLAM_FRAMES} frames replayed graphs, "
         f"{captures} graphs captured")
+    init = [r for r in rows if r.get("stage") == "init"]
+    log(f"[repeat] init frames through FusedInit: captures "
+        f"{[r.get('graph_init_captures') for r in init]}, replays "
+        f"{[r.get('graph_init_replays') for r in init]}")
+    if not init or any("graph_init_captures" not in r for r in init):
+        raise AssertionError("the repeat run's init frames did not run "
+                             "through FusedInit")
     if graph_frames < SLAM_FRAMES - SLAM_INIT_BY:
         raise AssertionError("the repeat run's tracked frames did not "
                              "replay the graphs")
@@ -3281,7 +3563,8 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
                 if r.get("keyframe") else "ba" if r.get("ba") else "tracked")
         by_kind.setdefault(kind, []).append((e, g))
         if not (r.get("graph_captures") or r.get("graph_mapping_captures")
-                or r.get("graph_loop_captures")):
+                or r.get("graph_loop_captures")
+                or r.get("graph_init_captures")):
             replayed.setdefault(kind, []).append(g)
     log("[repeat] wall ms median by kind of frame, eager drive (stage "
         "timing on) -> graphs: " + "; ".join(
@@ -3339,6 +3622,24 @@ def repeat_check(cfg, frames, ref, counters, eager_walls):
     return replayed, slam, launches
 
 
+def init_pool_held(system):
+    """What ``FusedInit``'s pool holds of the card's reserved memory after
+    a whole run that kept it (a reset would replay it): the memory reserved
+    once the other graphs are dropped (``drop_graphs(keep_init=True)``),
+    then once ``FusedInit`` is dropped too, the allocator's cache emptied
+    each time."""
+    reserved = []
+    for keep in (True, False):
+        system.drop_graphs(keep_init=keep)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved() / 2 ** 20)
+    log(f"[init-graph] the run's end: {reserved[0]:.1f} MiB reserved with "
+        f"FusedInit kept, {reserved[1]:.1f} MiB without it: its pool held "
+        f"{reserved[0] - reserved[1]:.1f} MiB through the run")
+
+
 def slam_phase(cfg, counters):
     """The whole system at full width from its first frame, with the
     pretrained vocabulary: the driven frames, the profiled keyframe and
@@ -3368,6 +3669,7 @@ def slam_phase(cfg, counters):
     profiled_slam(slam, frames, walls, graph_walls, "slam-profile", False)
     profiled_slam(replay_slam, frames, walls, graph_walls, "slam-replay",
                   True)
+    init_pool_held(replay_slam)
     del replay_slam
     profiled_init(cfg, frames, first_ok, walls)
     first_map = next(i for i, r in enumerate(slam.metrics[:SLAM_FRAMES])
@@ -4823,6 +5125,9 @@ def main() -> int:
     if len(EIG_INPUTS) != len(EIG_SITES):
         raise AssertionError("the reloc frame's PnP made no six eigen-solves")
     eig_row = check_sym_eig(EIG_INPUTS)
+    if set(INIT_EIG_INPUTS) != {"rays", "E"}:
+        raise AssertionError("the slam drive made no two-view RANSAC")
+    eig_row["init_sites"] = check_sym_eig_init(INIT_EIG_INPUTS)
     done("sym_eig")
     l_launches, le_launches = localization_phase(slam, s_poses, s_frames, ate,
                                                  counters)
@@ -4870,8 +5175,9 @@ def main() -> int:
     tri_row["launches"] = TRI_LAUNCHES["slam"]
     tri_row["launches_by_path"] = TRI_LAUNCHES
     rows.append(tri_row)
-    # the eigen-solve kernel: 6 launches a relocalization candidate's PnP,
-    # counted on each path (reloc: one replaying frame)
+    # the eigen-solve kernel: 6 launches a relocalization candidate's PnP
+    # and 3 a two-view attempt, counted on each path (reloc: one replaying
+    # frame)
     eig_row["launches"] = EIG_LAUNCHES["reloc"]
     eig_row["launches_by_path"] = EIG_LAUNCHES
     rows.append(eig_row)

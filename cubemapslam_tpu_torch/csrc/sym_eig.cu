@@ -1,21 +1,30 @@
-// Batched symmetric eigen-solve of B small float32 matrices, one warp a
-// matrix: the eigenvalues in ascending order and the eigenvectors as
-// columns, as torch.linalg.eigh gives them, with no read back to the host.
+// Batched symmetric eigen-solve of B small float32 or float64 matrices,
+// one warp a matrix: the eigenvalues in ascending order and the
+// eigenvectors as columns, as torch.linalg.eigh gives them, in float32,
+// with no read back to the host.
 //
 // Replaces no Pallas kernel. The JAX package calls jnp.linalg.eigh inside
 // its compiled relocalization program (cubemapslam_tpu/solvers/pnp.py:51
 // the control points' PCA, :133 the null space of M^T M; solvers/horn.py:46
-// Horn's 4x4). The port's torch.linalg.eigh reads cuSOLVER's error flag
-// back to the host, so each pnp_ransac waited 8 times and could not be
-// captured in a CUDA graph. This kernel is its counterpart at those call
-// sites (solvers/sym_eig.py sym_eig).
+// Horn's 4x4), and jnp.linalg.svd inside its compiled two-view
+// initialization (cubemapslam_tpu/solvers/essential.py:42 the 8-point null
+// vector, :44 the rank-2 projection, :100 the decomposition). The port's
+// torch.linalg.eigh and torch.linalg.svd read cuSOLVER's error flag back
+// to the host, so each pnp_ransac waited 8 times, each two-view attempt 6
+// times, and neither could be captured in a CUDA graph. This kernel is
+// their counterpart at those call sites (solvers/sym_eig.py sym_eig): the
+// essential solver takes its null vector from the 9 x 9 normal matrix
+// A^T A, formed in float64 (formed in float32 it squares A's condition
+// number into float32's precision) and read here as it is, and its SVDs of
+// E from E^T E (3 x 3).
 //
 // The method: Jacobi rotations in a parallel (round-robin) order, in this
 // order for one matrix (repeated by solvers/sym_eig.py sym_eig_ordered,
-// which holds this kernel bitwise). NP is n rounded up to even; at n = 3
-// the index 3 is a dummy with a zero row and column.
+// which holds this kernel bitwise). NP is n rounded up to even; at odd n
+// (3, 9) the index n is a dummy with a zero row and column.
 //   - A is the input's lower triangle mirrored (A[i][j] = in[max(i,j)]
-//     [min(i,j)]), in float64, zero padded to NP x NP; V = I; d = the
+//     [min(i,j)]), in float64 (a float32 input widened exactly), zero
+//     padded to NP x NP; V = I; d = the
 //     diagonal. A matrix with any non-finite entry (either triangle) gives
 //     NaN eigenvalues and eigenvectors;
 //   - the sums of squares are shuffle trees: lane r < n forms its row's
@@ -69,8 +78,8 @@
 // rotations only). No shared memory and no __syncwarp in the sweeps;
 // shared memory holds d and V once, for the final order. Lanes >= NP hold
 // zero rows and pair with themselves. n = 3 and 4 run the same program
-// with NP = 4 (28 idle lanes), so one program and one plain version serve
-// every size. At n = 3 that costs time: a step holds one real pair, so the
+// with NP = 4 (28 idle lanes), n = 9 with NP = 10, so one program and one
+// plain version serve every size. At n = 3 that costs time: a step holds one real pair, so the
 // order adds no parallelism, and a step (0.55 us on an H100) is dearer
 // than a rotation of the cyclic order this replaced. The slowest of 300
 // PCA matrices takes 12 steps, as many links as its (at most) 12 cyclic
@@ -81,12 +90,12 @@
 // pair's shuffles (3 of a step's 9, the same bits) saved 2% of a step and
 // nothing of the solve, so the program keeps them.
 //
-// Bound on an H100: neither bytes (8 n^2 + 4 n bytes a matrix) nor the
-// float64 operations the solve needs (12 n + 6 a rotation applied, the
-// sums, the order and the sign: chip_smoke.py eig_bound, which does not
-// count the program's redundant work: both lanes of a pair compute its
-// angle, each entry of A is computed in both triangles, a skipped pair
-// rotates by the identity) but the serial chain of a matrix's steps: the
+// Bound on an H100: neither bytes (8 n^2 + 4 n bytes a float32 matrix,
+// 12 n^2 + 4 n a float64 one) nor the float64 operations the solve needs
+// (12 n + 6 a rotation applied, the sums, the order and the sign:
+// chip_smoke.py eig_bound, which does not count the program's redundant
+// work: both lanes of a pair compute its angle, each entry of A is
+// computed in both triangles, a skipped pair rotates by the identity) but the serial chain of a matrix's steps: the
 // pivot, two float64 square roots and three divisions (software sequences
 // on this card), the shuffles of c and s, and the update, NP - 1 steps a
 // sweep (66 rotations in the cyclic order this replaced). The batch runs
@@ -140,9 +149,9 @@ __device__ __forceinline__ double tree_sum(double x) {
   return x;
 }
 
-template <int N>
+template <int N, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-sym_eig_kernel(const float* __restrict__ in, float* __restrict__ evals,
+sym_eig_kernel(const T* __restrict__ in, float* __restrict__ evals,
                float* __restrict__ evecs, int batch, int max_sweeps,
                double eps2) {
   constexpr int NP = N + (N & 1);
@@ -153,7 +162,7 @@ sym_eig_kernel(const float* __restrict__ in, float* __restrict__ evals,
   const int lane = threadIdx.x & 31;
   const long long b = (long long)blockIdx.x * kWarps + warp;
   if (b >= batch) return;                  // the whole warp
-  const float* src = in + b * N * N;
+  const T* src = in + b * N * N;
   float* val = evals + b * N;
   float* vec = evecs + b * N * N;
 
@@ -164,7 +173,7 @@ sym_eig_kernel(const float* __restrict__ in, float* __restrict__ evals,
   for (int j = 0; j < NP; ++j) {
     double x = 0.0;
     if (j < N && lane < N) {
-      const float f = src[lane * N + j];
+      const T f = src[lane * N + j];
       finite = finite && isfinite(f);
       x = (double)(j <= lane ? f : src[j * N + lane]);  // lower, mirrored
     }
@@ -281,29 +290,44 @@ sym_eig_kernel(const float* __restrict__ in, float* __restrict__ evals,
   }
 }
 
-}  // namespace
-
-// One launch for B = batch matrices of size n (3, 4 or 12): in (B, n, n),
-// evals (B, n) and evecs (B, n, n), float32, contiguous. Returns
-// cudaGetLastError() after the launch; an unsupported n launches nothing
-// and returns cudaErrorInvalidValue.
-extern "C" int sym_eig_launch(const float* in, float* evals, float* evecs,
-                              int batch, int n, int max_sweeps, double eps2,
-                              cudaStream_t stream) {
+template <int N>
+void launch(const void* in, bool in_f64, float* evals, float* evecs,
+            int batch, int max_sweeps, double eps2, cudaStream_t stream) {
   const int blocks = (batch + kWarps - 1) / kWarps;
   const int threads = kWarps * 32;
+  if (in_f64)
+    sym_eig_kernel<N, double><<<blocks, threads, 0, stream>>>(
+        static_cast<const double*>(in), evals, evecs, batch, max_sweeps,
+        eps2);
+  else
+    sym_eig_kernel<N, float><<<blocks, threads, 0, stream>>>(
+        static_cast<const float*>(in), evals, evecs, batch, max_sweeps,
+        eps2);
+}
+
+}  // namespace
+
+// One launch for B = batch matrices of size n (3, 4, 9 or 12): in (B, n, n)
+// float32, or float64 where in_f64 is set (read as it is: the method is
+// float64 throughout, so a float64 input skips the rounding to float32),
+// evals (B, n) and evecs (B, n, n) float32, all contiguous. Returns
+// cudaGetLastError() after the launch; an unsupported n launches nothing
+// and returns cudaErrorInvalidValue.
+extern "C" int sym_eig_launch(const void* in, float* evals, float* evecs,
+                              int batch, int n, int in_f64, int max_sweeps,
+                              double eps2, cudaStream_t stream) {
   switch (n) {
     case 3:
-      sym_eig_kernel<3><<<blocks, threads, 0, stream>>>(
-          in, evals, evecs, batch, max_sweeps, eps2);
+      launch<3>(in, in_f64, evals, evecs, batch, max_sweeps, eps2, stream);
       break;
     case 4:
-      sym_eig_kernel<4><<<blocks, threads, 0, stream>>>(
-          in, evals, evecs, batch, max_sweeps, eps2);
+      launch<4>(in, in_f64, evals, evecs, batch, max_sweeps, eps2, stream);
+      break;
+    case 9:
+      launch<9>(in, in_f64, evals, evecs, batch, max_sweeps, eps2, stream);
       break;
     case 12:
-      sym_eig_kernel<12><<<blocks, threads, 0, stream>>>(
-          in, evals, evecs, batch, max_sweeps, eps2);
+      launch<12>(in, in_f64, evals, evecs, batch, max_sweeps, eps2, stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;

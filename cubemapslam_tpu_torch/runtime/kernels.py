@@ -20,7 +20,10 @@ motion model's gain and the radius scale as device tensors, so that
 ``runtime/fused_step.py`` can capture them as CUDA graphs; in the JAX
 package they are one jitted program. A localization-mode frame's stages
 (``localization_motion``, ``localization_local``) likewise read nothing,
-and ``runtime/fused_localization.py`` captures them.
+and ``runtime/fused_localization.py`` captures them; so do an
+initialization attempt's (``init_count`` / ``init_match``, then
+``init_two_view`` on RANSAC scores drawn outside), which
+``runtime/fused_init.py`` captures.
 """
 
 from __future__ import annotations
@@ -78,6 +81,24 @@ def pack(counts: Sequence[torch.Tensor], R, t) -> torch.Tensor:
                       R.reshape(-1), t])
 
 
+def pack_two_view(res: TwoViewResult) -> torch.Tensor:
+    """A two-view result as one float32 vector for one read: [success,
+    n_good, (p3d, good) of each match (N, 4) flat]."""
+    head = torch.stack([res.success.to(torch.float32),
+                        res.n_good.to(torch.float32)])
+    return torch.cat([head, torch.cat([res.p3d, res.good[:, None].to(
+        torch.float32)], 1).reshape(-1)])
+
+
+class InitMatch(NamedTuple):
+    """What ``TrackingKernels.init_match`` returns."""
+
+    idx: torch.Tensor        # (N_ref,) current keypoint of each reference
+    ok: torch.Tensor         # (N_ref,) bool
+    prev_rays: torch.Tensor  # (N_ref, 3) the window centres, updated
+    counts: torch.Tensor     # (2,) float32 [n_valid, n_matches]
+
+
 def device_scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
     """``x`` as a 0-d tensor on ``device``: a tensor is taken as it is, a
     Python number is written by a fill (no copy from the host, so no
@@ -124,16 +145,36 @@ class TrackingKernels:
                                prev_rays)
         return res.idx, res.ok, res.count, new_prev
 
-    def two_view_init(self, generator: torch.Generator, kp_ref: Keypoints,
-                      kp_cur: Keypoints, m_idx, m_ok) -> TwoViewResult:
-        """Ray RANSAC initialization over the matched pairs
-        (``kernels.py:61-75``); the samples come from ``generator``."""
-        return initialize_two_view(
-            self.cam, generator, kp_ref.rays, kp_cur.rays[m_idx], kp_ref.uv,
-            kp_cur.uv[m_idx], m_ok, n_iters=self.cfg.init_ransac_iters,
-            min_parallax=self.cfg.init_min_parallax_deg,
-            min_triangulated=self.cfg.init_min_triangulated,
-            good_ratio=self.cfg.init_good_ratio)
+    @staticmethod
+    def init_count(kp_cur: Keypoints) -> torch.Tensor:
+        """(1,) float32 [n_valid]: a frame without a reference reads its
+        count of valid keypoints."""
+        return kp_cur.valid.sum().to(torch.float32).reshape(1)
+
+    def init_match(self, kp_ref: Keypoints, kp_cur: Keypoints,
+                   prev_rays) -> InitMatch:
+        """An attempt's first stage (``match_for_initialization``, JAX
+        ``kernels.py:48``) with the counts the host reads once: [the
+        current frame's valid keypoints, the matches]."""
+        idx, ok, n, new_prev = self.match_for_initialization(
+            kp_ref, kp_cur, prev_rays)
+        counts = torch.cat([self.init_count(kp_cur),
+                            n.to(torch.float32).reshape(1)])
+        return InitMatch(idx, ok, new_prev, counts)
+
+    def init_two_view(self, kp_ref: Keypoints, kp_cur: Keypoints, m_idx,
+                      m_ok, scores):
+        """An attempt's second stage: ray RANSAC initialization over the
+        matched pairs (JAX ``kernels.py:61-75``) on the (n_iters, N_ref)
+        uniform ``scores`` drawn outside. Returns (``TwoViewResult``, the
+        RANSAC's best E21, ``pack_two_view`` of the result)."""
+        cfg = self.cfg
+        res, E = initialize_two_view(
+            self.cam, scores, kp_ref.rays, kp_cur.rays[m_idx], kp_ref.uv,
+            kp_cur.uv[m_idx], m_ok, min_parallax=cfg.init_min_parallax_deg,
+            min_triangulated=cfg.init_min_triangulated,
+            good_ratio=cfg.init_good_ratio)
+        return res, E, pack_two_view(res)
 
     def downselect_keypoints(self, kp: Keypoints, priority, n_keep: int):
         """Reduce an init-extractor keypoint set to the arena's feature

@@ -32,12 +32,15 @@ detector reads its candidates once a keyframe; a consistent candidate adds
 the reads of ComputeSim3 (2 on the card, where DetectLoop and ComputeSim3
 replay ``FusedLoop``'s graphs, ``runtime/fused_loop.py``; up to 4 eagerly;
 the Sim3 RANSAC's eigen-solves wait ``sim3.EIGH_WAITS`` = 0 times), and a
-closure those of the correction and the global BA. An initialization
-attempt reads its keypoint count, its match count and the RANSAC verdict,
-and the SVDs of the essential solver wait 6 times more
-(``essential.SVD_WAITS``); building the initial map reads the triangulated
-points once, the landmark statistics once, the first pose once and, to
-train a vocabulary, the descriptors once. A relocalization reads the
+closure those of the correction and the global BA. A pre-initialization
+frame reads its counts once (valid keypoints and, with a reference, the
+matches) and an attempt reads its packed RANSAC verdict, with the
+triangulated points, once more; the essential solver's eigen-solves (the
+``sym_eig`` kernel) make no wait. On the card such a frame replays
+``FusedInit``'s graphs I0, or I1 and I2 (``runtime/fused_init.py``),
+unless ``init_graphs`` is False or ``stage_times`` is set. Building the
+initial map reads the first pose once and, to train a vocabulary, the
+descriptors once. A relocalization reads the
 candidates once, their scores once and each widened candidate's count and
 pose once; its PnP makes the card wait ``pnp.EIGH_WAITS`` = 0 times more
 (the eigen-solves are the ``sym_eig`` kernel). On the card its candidates
@@ -49,8 +52,8 @@ with its pose (2 reads on the steady path); on the card it replays
 (``runtime/fused_localization.py``), unless ``localization_graphs`` is
 False or ``stage_times`` is set, and a LOST frame's warp and extract replay
 its graph X where ``_relocalize`` replays ``FusedReloc``'s. Each frame's
-count is in ``metrics`` (``host_reads``; ``svd_waits`` on initialization
-attempts, ``eigh_waits`` where PnP or Sim3 RANSAC ran).
+count is in ``metrics`` (``host_reads``; ``eigh_waits`` where PnP or
+Sim3 RANSAC ran).
 """
 
 from __future__ import annotations
@@ -69,18 +72,21 @@ from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.config import SlamConfig
 from cubemapslam_tpu_torch.features.extractor import (Keypoints,
                                                        build_extractor)
+from cubemapslam_tpu_torch.runtime.fused_init import FusedInit
 from cubemapslam_tpu_torch.runtime.fused_localization import (
     FusedLocalization)
 from cubemapslam_tpu_torch.runtime.fused_loop import LoopGraphOwner
 from cubemapslam_tpu_torch.runtime.fused_mapping import FusedMapping
 from cubemapslam_tpu_torch.runtime.fused_reloc import FusedReloc
 from cubemapslam_tpu_torch.runtime.kernels import (MIN_MATCHES,
-                                                   device_scalar, pack)
+                                                   device_scalar, pack,
+                                                   pack_two_view)
 from cubemapslam_tpu_torch.runtime.loop_closing import LoopCloser
 from cubemapslam_tpu_torch.runtime.mapping import MappingKernels, _index
 from cubemapslam_tpu_torch.runtime.tracking import LastFrame, MapTracker
-from cubemapslam_tpu_torch.solvers.essential import SVD_WAITS, TwoViewResult
+from cubemapslam_tpu_torch.solvers.essential import TwoViewResult
 from cubemapslam_tpu_torch.solvers.pnp import EIGH_WAITS
+from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
 RELOC_CANDIDATES = 5     # BoW candidates tried per relocalization
 # keyframe slots per batch when all BoW rows are recomputed: a word_ids
@@ -129,7 +135,12 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
     ``graph_loop_replays`` and ``graph_loop_capture_waits``). A
     localization-mode frame and a LOST frame's front end on the card
     replay ``FusedLocalization``'s graphs (rows carry
-    ``graph_localization_captures``, ``graph_localization_replays``).
+    ``graph_localization_captures``, ``graph_localization_replays``), and a
+    pre-initialization ``track_fisheye`` frame ``FusedInit``'s (rows carry
+    ``graph_init_captures``, ``graph_init_replays``; ``init_graphs =
+    False`` keeps it eager). ``init_trace`` holds the last attempt's stage
+    outputs (keypoints, matches, window centres, E21 and the result) until
+    the next frame.
     With ``stage_times`` set to a dict every frame, its loop closure
     included, runs eagerly, and each
     stage (``extract``, ``init``, ``track``, ``insert+mapping``,
@@ -158,6 +169,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         self.arena_full_refusals = 0
         self.init_ref: Optional[InitRef] = None
         self.init_prev_rays = None
+        self.init_trace: Optional[dict] = None
         self.last_kf_frame_id = 0
         # deferred local BA: dispatched on the first frame after a keyframe
         # that inserts none, superseded by a newer keyframe (at most twice)
@@ -187,6 +199,8 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         self._fused_reloc: Optional[FusedReloc] = None
         self.localization_graphs = True
         self._fused_localization: Optional[FusedLocalization] = None
+        self.init_graphs = True
+        self._fused_init: Optional[FusedInit] = None
 
     def _stage(self, name: str) -> Optional[float]:
         """``MapTracker._stage``, with the ms also in the frame's row."""
@@ -199,14 +213,17 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
     # Public API
     # ------------------------------------------------------------------
 
-    def drop_graphs(self) -> None:
+    def drop_graphs(self, keep_init: bool = False) -> None:
         """Forget the captured tracked frame and the captured mapping,
-        relocalization, localization and loop graphs; the next graph frame
+        relocalization, localization and loop graphs, and the
+        initialization's unless ``keep_init``; the next graph frame
         captures anew."""
         super().drop_graphs()
         self._fused_mapping = None
         self._fused_reloc = None
         self._fused_localization = None
+        if not keep_init:
+            self._fused_init = None
         self.drop_loop_graphs()
 
     @property
@@ -221,6 +238,12 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         return self._fused_reloc
 
     @property
+    def fused_init(self) -> Optional[FusedInit]:
+        """The pre-initialization frames' ``FusedInit``, if one was
+        made."""
+        return self._fused_init
+
+    @property
     def fused_localization(self) -> Optional[FusedLocalization]:
         """The localization-mode and LOST frames' ``FusedLocalization``, if
         one was made."""
@@ -231,6 +254,17 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         device, with ``reloc_graphs`` on and ``stage_times`` unset."""
         return (self.device.type == "cuda" and self.reloc_graphs
                 and self.stage_times is None)
+
+    def _pre_init(self) -> bool:
+        return self.state in (TrackState.NO_IMAGES_YET,
+                              TrackState.NOT_INITIALIZED)
+
+    def _init_graph(self) -> bool:
+        """Whether ``track_fisheye`` runs a pre-initialization frame through
+        ``FusedInit``'s graphs: with ``init_graphs`` on, on a CUDA device,
+        with ``stage_times`` unset."""
+        return (self._pre_init() and self.init_graphs
+                and self.device.type == "cuda" and self.stage_times is None)
 
     def _localization_graph(self) -> bool:
         """Whether ``track_fisheye`` runs a frame through
@@ -262,8 +296,11 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         as ``prefetch_image`` returns). A steady-state frame on the card
         replays the captured graphs (``MapTracker``), a localization-mode
         or LOST frame those of ``FusedLocalization``
-        (``_localization_frame``); every other frame warps and goes through
-        ``track_cubemap``."""
+        (``_localization_frame``), a pre-initialization frame those of
+        ``FusedInit`` (``_init_frame``); every other frame warps and goes
+        through ``track_cubemap``."""
+        if self._init_graph():
+            return self._init_frame(fisheye_u8, timestamp, mask)
         if self._localization_graph():
             return self._localization_frame(fisheye_u8, timestamp, mask)
         if not self._graph_frame():
@@ -277,6 +314,25 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             kp, fid, timestamp, *self._consume(kp, out, fid, timestamp,
                                                self._graph_counts()),
             fused=True)
+        return self._finish_frame(timestamp, pose_np)
+
+    def _init_frame(self, fisheye_u8, timestamp: float, mask):
+        """A pre-initialization frame through ``FusedInit``: its front end,
+        with the bootstrap match when there is a reference (graph I1), else
+        alone (graph I0), then ``_try_initialize`` on its stages (graph
+        I2)."""
+        self.total_frames += 1
+        self._row = {}
+        fid = self.frame_id
+        self.frame_id += 1
+        if self._fused_init is None:
+            self._fused_init = FusedInit(self)
+        fi = self._fused_init
+        kp = fi.start(self, fisheye_u8, mask, self._has_init_ref())
+        with record_function("init"):
+            pose_np = self._try_initialize(kp, fid, timestamp, fi)
+        self._row.update(graph_init_captures=fi.frame_captures,
+                         graph_init_replays=fi.frame_replays)
         return self._finish_frame(timestamp, pose_np)
 
     def _localization_frame(self, fisheye_u8, timestamp: float, mask):
@@ -312,8 +368,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         in place of the FOV mask; ``None`` keeps the FOV mask, where the JAX
         package's ``None`` means no mask."""
         self.total_frames += 1
-        pre_init = self.state in (TrackState.NO_IMAGES_YET,
-                                  TrackState.NOT_INITIALIZED)
+        pre_init = self._pre_init()
         self._row = {}
         self._stage_start()
         with record_function("extract"):
@@ -369,51 +424,81 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
     # Initialization (Tracking.cpp:391-565)
     # ------------------------------------------------------------------
 
-    def _enough_kp(self, kp: Keypoints) -> bool:
-        self._row["host_reads"] += 1
-        return int(kp.valid.sum()) > self.cfg.min_init_keypoints
+    def _has_init_ref(self) -> bool:
+        return (self.state != TrackState.NO_IMAGES_YET
+                and self.init_ref is not None)
 
-    def _try_initialize(self, kp: Keypoints, fid: int, ts: float):
-        """``system.py:387-410``. Returns the host pose (R, t) when the
-        initial map was made, else None."""
-        row = self._row
-        row.update(frame=fid, stage="init", host_reads=0, svd_waits=0)
+    def _try_initialize(self, kp: Keypoints, fid: int, ts: float,
+                        fi: Optional[FusedInit] = None):
+        """``system.py:387-410``: the frame's counts (valid keypoints and,
+        with a reference, the bootstrap matches) read once; a frame
+        without a reference becomes it, a frame with too few keypoints or
+        matches drops it; else the RANSAC scores drawn from ``generator``,
+        the two-view stage and its packed verdict read once, and on success
+        ``_create_initial_map``. ``fi`` is the frame's ``FusedInit``, whose
+        graph I0 or I1 ran the first stage and whose graph I2 runs the
+        second; without it both run eagerly (``TrackingKernels.init_count``
+        / ``init_match``, ``init_two_view``). Returns the host pose (R, t)
+        when the initial map was made, else None."""
+        row, k, cfg = self._row, self.kernels, self.cfg
+        row.update(frame=fid, stage="init", host_reads=0)
         self.metrics.append(row)
-        if self.state == TrackState.NO_IMAGES_YET or self.init_ref is None:
-            if self._enough_kp(kp):
+        self.init_trace = None
+        has_ref = self._has_init_ref()
+        if fi is not None:
+            counts, m = fi.counts, fi.match
+        elif has_ref:
+            m = k.init_match(self.init_ref.kp, kp, self.init_prev_rays)
+            counts = m.counts
+        else:
+            counts = k.init_count(kp)
+        counts = [int(x) for x in counts.tolist()]
+        row["host_reads"] += 1
+        enough = counts[0] > cfg.min_init_keypoints
+        if not has_ref:
+            if enough:
                 self.init_ref = InitRef(kp, fid, ts)
                 self.init_prev_rays = kp.rays
                 self.state = TrackState.NOT_INITIALIZED
             return None
-        if not self._enough_kp(kp):
+        if not enough:
             self.init_ref = None
             return None
-        m_idx, m_ok, n, self.init_prev_rays = \
-            self.kernels.match_for_initialization(self.init_ref.kp, kp,
-                                                  self.init_prev_rays)
-        row["host_reads"] += 1
-        row["init_matches"] = int(n)
-        if row["init_matches"] < self.cfg.min_init_matches:
+        self.init_prev_rays = m.prev_rays
+        row["init_matches"] = counts[1]
+        self.init_trace = dict(kp=kp, idx=m.idx, ok=m.ok,
+                               prev_rays=m.prev_rays)
+        if row["init_matches"] < cfg.min_init_matches:
             self.init_ref = None          # retry with a new reference
             return None
-        res = self.kernels.two_view_init(self.generator, self.init_ref.kp,
-                                         kp, m_idx, m_ok)
-        row["svd_waits"] += SVD_WAITS
+        scores = draw_scores(self.generator, cfg.init_ransac_iters,
+                             m.ok.shape[0], self.device)
+        if fi is not None:
+            res, E, packed = fi.two_view(self, scores)
+        else:
+            res, E, packed = k.init_two_view(self.init_ref.kp, kp, m.idx,
+                                             m.ok, scores)
+        self.init_trace.update(E=E, **res._asdict())
+        host = packed.cpu()
         row["host_reads"] += 1
-        if not bool(res.success):
+        if not host[0] > 0:
             return None
-        return self._create_initial_map(kp, fid, ts, m_idx, res)
+        return self._create_initial_map(kp, fid, ts, m.idx, res, host)
 
     def _create_initial_map(self, kp: Keypoints, fid: int, ts: float,
-                            m_idx: torch.Tensor, res: TwoViewResult):
+                            m_idx: torch.Tensor, res: TwoViewResult,
+                            host: Optional[torch.Tensor] = None):
         """CreateInitialMapCubemap (``system.py:412-491``): two keyframes,
         landmarks from the triangulated inliers, the scale normalized to a
-        median depth of 1, then a local BA around the second keyframe."""
+        median depth of 1, then a local BA around the second keyframe.
+        ``host`` is ``pack_two_view(res)`` read to the host (read here when
+        not given)."""
         row, dev = self._row, self.device
-        host = torch.cat([res.p3d, res.good[:, None].float()], 1).cpu()
-        row["host_reads"] += 1
-        p3d = host[:, :3].numpy()
-        good = host[:, 3].numpy() > 0
+        if host is None:
+            host = pack_two_view(res).cpu()
+            row["host_reads"] += 1
+        pg = host[2:].reshape(-1, 4).numpy()
+        p3d, good = pg[:, :3], pg[:, 3] > 0
         if good.sum() < self.cfg.min_init_matches:
             return None
         # median-depth normalization (KeyFrame::ComputeSceneMedianDepth)
@@ -451,8 +536,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         self.mapping.commit_new_landmarks(a, 0, 1, Xw[sel_ref], good_red,
                                           idx2_red.clamp(min=0), 0,
                                           ref.frame_id)
-        SM.update_landmark_stats(a, k.scale_factors)
-        row["host_reads"] += 1
+        SM.update_landmark_stats_all(a, k.scale_factors)
         self.mapping.local_ba(a, 1, self.ba_cams)
         self.ref_kf = 1
         R, t = a.kf_R[1].clone(), a.kf_t[1].clone()
@@ -539,7 +623,9 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             self.reset()
 
     def reset(self) -> None:
-        """System reset (``system.py:720-738``)."""
+        """System reset (``system.py:720-738``). The graphs are dropped but
+        ``FusedInit``'s, which read no arena, as the JAX package's compiled
+        programs outlive a reset: the next attempts replay them."""
         cfg = self.cfg
         self.arena = SM.make_arena(cfg.max_keyframes, cfg.n_features,
                                    cfg.max_landmarks, self.device)
@@ -557,7 +643,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         self.bow_table = None
         self.mb_vo = False
         self.loop_closer.reset()
-        self.drop_graphs()
+        self.drop_graphs(keep_init=True)
 
     # ------------------------------------------------------------------
     # Localization mode (system.py:497-557, 620-707)

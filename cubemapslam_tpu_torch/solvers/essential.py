@@ -8,30 +8,46 @@ parallax. The JAX ``vmap``s over hypotheses are batch dimensions here; the
 4 hypotheses keep the JAX order (R1, R2, R1, R2) / (t, t, -t, -t) and
 ``argmax`` takes the first maximum.
 
-``torch.linalg.svd`` waits for the card twice a call on a CUDA tensor (the
-profiler reads 6 waits for the 3 calls): ``compute_e21`` makes two calls
-and ``decompose_e`` one (``SVD_WAITS``). They run only on the
-initialization frames.
+No SVD: where the JAX package takes three (``essential.py:42, :44, :100``),
+the port solves symmetric eigenproblems with ``solvers.sym_eig.sym_eig``,
+one launch of the hand-written Jacobi kernel each on the card, which reads
+nothing back (``torch.linalg.svd`` waited for the card twice a call), so
+that a CUDA graph holds the whole attempt (``runtime/fused_init.py``):
+
+* ``compute_e21``: the null vector of each 8x9 system A is the eigenvector
+  of the smallest eigenvalue of the 9x9 normal matrix AᵀA, formed in
+  float64 from the float32 rays (each product exact; in float32 the normal
+  matrix squares A's condition number into float32's precision and the
+  null vector is lost); the rank-2 projection is ``E - (E v3) v3ᵀ`` with v3
+  the eigenvector of the smallest eigenvalue of EᵀE: U diag(s1, s2, 0) Vᵀ
+  without U.
+* ``decompose_e``: V from EᵀE, largest first; ``u_i = E v_i / s_i`` (s_i =
+  |E v_i|) for i = 1, 2, ``u3 = u1 x u2``, ``v3 = v1 x v2``. ``R = U W Vᵀ``
+  does not change under a rotation of (v1, v2) inside a repeated singular
+  value, so an essential matrix's equal pair needs no special case.
+
+The normal and Gram matrices are sums of elementwise products (no matrix
+product library call, exactly symmetric). The RANSAC's uniform scores are
+drawn by the caller (``sampling.draw_scores``), so a graph holds no
+generator.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from cubemapslam_tpu_torch import camera as C
 from cubemapslam_tpu_torch.camera import CubemapCamera
-from cubemapslam_tpu_torch.solvers.sampling import sample_minimal_sets
+from cubemapslam_tpu_torch.solvers.sampling import select_minimal_sets
+from cubemapslam_tpu_torch.solvers.sym_eig import sym_eig
 from cubemapslam_tpu_torch.solvers.triangulate import (triangulate_pairs,
                                                        triangulate_rays)
 
 CHI2_TH = 3.841
 SCORE_TH = 5.991
 PARALLAX_COS_TH = 0.99998
-# host waits of one initialize_two_view call on a CUDA tensor: two for each
-# SVD, of compute_e21 (2 calls) and decompose_e (1)
-SVD_WAITS = 6
 
 
 def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -49,19 +65,37 @@ def _det3(R: torch.Tensor) -> torch.Tensor:
                               - R[..., 1, 1] * R[..., 2, 0]))
 
 
+def _gram(A: torch.Tensor) -> torch.Tensor:
+    """AᵀA of (..., r, c) as a sum over the rows of elementwise products:
+    (..., c, c), exactly symmetric, in A's dtype."""
+    return (A[..., :, :, None] * A[..., :, None, :]).sum(dim=-3)
+
+
+def _apply(E: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """E v of (..., 3, 3) and (..., 3), elementwise."""
+    return (E * v[..., None, :]).sum(dim=-1)
+
+
+def normal_matrix(rays1: torch.Tensor, rays2: torch.Tensor) -> torch.Tensor:
+    """The 8-point systems' normal matrices AᵀA, (B,9,9) float64: A's rows
+    are kron(ray2, ray1) of the (B,8,3) rays, widened to float64 first, so
+    each entry of A is the exact product."""
+    x1 = rays1.to(torch.float64)[..., None, :]       # (B,8,1,3)
+    x2 = rays2.to(torch.float64)[..., :, None]       # (B,8,3,1)
+    return _gram((x2 * x1).reshape(*rays1.shape[:-2], 8, 9))
+
+
 def compute_e21(rays1: torch.Tensor, rays2: torch.Tensor) -> torch.Tensor:
     """8-point essential on rays, batched over hypothesis sets.
 
-    rays1/rays2: (B,8,3). Returns (B,3,3) with the rank-2 projection of a
-    second SVD. Constraint: ray2ᵀ E21 ray1 = 0."""
-    x1 = rays1[..., None, :]                   # (B,8,1,3)
-    x2 = rays2[..., :, None]                   # (B,8,3,1)
-    A = (x2 * x1).reshape(*rays1.shape[:-2], 8, 9)   # kron(ray2, ray1)
-    vt = torch.linalg.svd(A, full_matrices=True)[2]
-    E = vt[..., 8, :].reshape(*rays1.shape[:-2], 3, 3)
-    U, S, Vt = torch.linalg.svd(E)
-    S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
-    return U @ (S[..., :, None] * Vt)
+    rays1/rays2: (B,8,3). Returns (B,3,3): the null vector of each system
+    (the eigenvector of the smallest eigenvalue of its float64 normal
+    matrix), projected to rank 2 as E - (E v3) v3ᵀ, v3 the eigenvector of
+    the smallest eigenvalue of EᵀE. Constraint: ray2ᵀ E21 ray1 = 0."""
+    e = sym_eig(normal_matrix(rays1, rays2))[1][..., :, 0]
+    E = e.reshape(*rays1.shape[:-2], 3, 3)
+    v3 = sym_eig(_gram(E))[1][..., :, 0]
+    return E - _apply(E, v3)[..., :, None] * v3[..., None, :]
 
 
 def check_essential(cam: CubemapCamera, E21: torch.Tensor,
@@ -94,14 +128,14 @@ def check_essential(cam: CubemapCamera, E21: torch.Tensor,
     return inl, score.sum(dim=-1)
 
 
-def find_essential(cam: CubemapCamera, generator: torch.Generator,
+def find_essential(cam: CubemapCamera, scores: torch.Tensor,
                    rays1: torch.Tensor, rays2: torch.Tensor,
                    uv1: torch.Tensor, uv2: torch.Tensor,
-                   valid: torch.Tensor, n_iters: int = 200,
-                   sigma: float = 1.0):
-    """RANSAC over all iterations at once. Returns (E21 (3,3), inliers
-    (N,), score)."""
-    sets = sample_minimal_sets(generator, valid, n_iters, 8)
+                   valid: torch.Tensor, sigma: float = 1.0):
+    """RANSAC over all iterations at once, one hypothesis a row of the
+    (n_iters, N) uniform ``scores`` (``sampling.draw_scores``). Returns
+    (E21 (3,3), inliers (N,), score)."""
+    sets = select_minimal_sets(scores, valid, 8)
     E = compute_e21(rays1[sets], rays2[sets])
     inl, score = check_essential(cam, E, rays1, rays2, uv1, uv2, valid,
                                  sigma)
@@ -109,15 +143,24 @@ def find_essential(cam: CubemapCamera, generator: torch.Generator,
     return _take(E, best), _take(inl, best), _take(score, best)
 
 
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.norm(x), min=1e-30)
+
+
 def decompose_e(E: torch.Tensor):
-    """E -> (R1, R2, t unit)."""
-    U, _, Vt = torch.linalg.svd(E)
-    t = U[:, 2]
-    t = t / torch.linalg.norm(t)
+    """E -> (R1, R2, t unit), from E's SVD U diag(s1, s2, 0) Vᵀ written as
+    V from EᵀE (largest first), u_i = E v_i / s_i, u3 = u1 x u2 and
+    v3 = v1 x v2."""
+    V = sym_eig(_gram(E))[1]                           # ascending
+    v1, v2 = V[:, 2], V[:, 1]
+    u1, u2 = _unit(_apply(E, v1)), _unit(_apply(E, v2))
+    u3 = torch.linalg.cross(u1, u2)
+    Vt = torch.stack([v1, v2, torch.linalg.cross(v1, v2)])
+    t = _unit(u3)
     # U W and U Wᵀ for W = [[0,-1,0],[1,0,0],[0,0,1]]: column moves, which
     # is what the products compute (without a copy of W from the host)
-    UW = torch.stack([U[:, 1], -U[:, 0], U[:, 2]], dim=1)
-    UWt = torch.stack([-U[:, 1], U[:, 0], U[:, 2]], dim=1)
+    UW = torch.stack([u2, -u1, u3], dim=1)
+    UWt = torch.stack([-u2, u1, u3], dim=1)
     R1 = UW @ Vt
     R1 = torch.where(_det3(R1) < 0, -R1, R1)
     R2 = UWt @ Vt
@@ -208,17 +251,17 @@ def reconstruct_e(cam: CubemapCamera, E: torch.Tensor,
                          n_good=_take(n_good, best), inliers=inliers)
 
 
-def initialize_two_view(cam: CubemapCamera, generator: torch.Generator,
-                        rays1, rays2, uv1, uv2, valid,
-                        n_iters: int = 200, sigma: float = 1.0,
+def initialize_two_view(cam: CubemapCamera, scores: torch.Tensor,
+                        rays1, rays2, uv1, uv2, valid, sigma: float = 1.0,
                         min_parallax: float = 1.0,
                         min_triangulated: int = 50,
-                        good_ratio: float = 0.9) -> TwoViewResult:
+                        good_ratio: float = 0.9
+                        ) -> Tuple[TwoViewResult, torch.Tensor]:
     """The whole two-view bootstrap on aligned match pairs (fixed length,
-    with validity)."""
-    E, inl, _ = find_essential(cam, generator, rays1, rays2, uv1, uv2, valid,
-                               n_iters, sigma)
+    with validity), one RANSAC hypothesis a row of ``scores``. Returns the
+    result and the RANSAC's best E21."""
+    E, inl, _ = find_essential(cam, scores, rays1, rays2, uv1, uv2, valid,
+                               sigma)
     return reconstruct_e(cam, E, rays1, rays2, uv1, uv2, inl,
                          sigma * sigma, min_parallax, min_triangulated,
-                         good_ratio)
-
+                         good_ratio), E

@@ -7,21 +7,28 @@ compiled relocalization program and in the Sim3 RANSAC of loop closing
 (``cubemapslam_tpu/solvers/sim3.py:66, :76``): ``solvers/pnp.py``'s six solves
 a call and ``solvers/sim3.py``'s two (the hypotheses' (n_iters, 4, 4) and
 the refit's 4x4), which ``runtime/fused_reloc.py`` and
-``runtime/fused_loop.py`` capture in CUDA graphs. ``torch.linalg.eigh``
-reads cuSOLVER's error flag back to the host on a CUDA tensor, so the card
-waits at every call and no CUDA graph can hold one.
+``runtime/fused_loop.py`` capture in CUDA graphs; and of ``jnp.linalg.svd``
+in the two-view initialization (``cubemapslam_tpu/solvers/essential.py:42,
+:44, :100``): ``solvers/essential.py``'s three solves an attempt (the
+(n_iters, 9, 9) float64 normal matrices of the 8-point sets, the
+(n_iters, 3, 3) EᵀE of their rank-2 projection and the best E's 3x3),
+which ``runtime/fused_init.py`` captures. ``torch.linalg.eigh`` and
+``torch.linalg.svd`` read cuSOLVER's error flag back to the host on a CUDA
+tensor, so the card waits at every call and no CUDA graph can hold one.
 
-- ``sym_eig``: (..., n, n) float32 symmetric (the lower triangle is read)
-  -> ascending eigenvalues (..., n) and the eigenvectors as columns (..., n,
-  n). On a CUDA tensor one launch of ``csrc/sym_eig.cu`` (n in
-  ``SYM_EIG_SIZES``; ``SYM_EIG.launches`` counts them), or it raises; on a
-  CPU tensor ``eigh_nan``. A matrix with a non-finite entry gives NaN
-  results and raises nothing on either device.
+- ``sym_eig``: (..., n, n) float32 or float64 symmetric (the lower
+  triangle is read) -> ascending eigenvalues (..., n) and the eigenvectors
+  as columns (..., n, n), float32. On a CUDA tensor one launch of
+  ``csrc/sym_eig.cu`` (n in ``SYM_EIG_SIZES``; ``SYM_EIG.launches`` counts
+  them), or it raises; on a CPU tensor ``eigh_nan`` in the input's dtype,
+  rounded to float32. A matrix with a non-finite entry gives NaN results
+  and raises nothing on either device.
 - ``eigh_nan``: ``torch.linalg.eigh`` where a non-finite matrix is solved
   as the identity and its results replaced by NaN, as JAX's are (LAPACK and
   cuSOLVER would raise); the CPU's path.
 - ``sym_eig_ordered``: the kernel's Jacobi in float64 (the source has the
-  method) in plain PyTorch, in the kernel's order, on any device: the
+  method; a float32 input is widened exactly, a float64 one read as it is)
+  in plain PyTorch, in the kernel's order, on any device: the
   round-robin ``schedule`` (n/2 disjoint rotations a step, n - 1 steps a
   sweep, n rounded up to even), each step's angles from the pivots as the
   step found them, ``JᵀAJ`` by an entry formula symmetric in (i, j) so A
@@ -50,14 +57,16 @@ import torch
 
 from cubemapslam_tpu_torch._build import CudaKernel, require_cuda
 
-SYM_EIG_SIZES = (3, 4, 12)
+SYM_EIG_SIZES = (3, 4, 9, 12)
+# the input types the kernel reads
+SYM_EIG_DTYPES = (torch.float32, torch.float64)
 MAX_SWEEPS = 20
 EPS = 1e-12
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 SYM_EIG = CudaKernel("sym_eig.cu", "sym_eig_launch",
-                     [_P, _P, _P, _I, _I, _I, ctypes.c_double])
+                     [_P, _P, _P, _I, _I, _I, _I, ctypes.c_double])
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -91,35 +100,37 @@ def eigh_nan(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def sym_eig(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eigenvalues (ascending) and eigenvectors (columns) of symmetric
-    (..., n, n) float32 ``A``: a CPU tensor takes ``eigh_nan``, a CUDA
-    tensor the kernel."""
+    """Eigenvalues (ascending) and eigenvectors (columns), float32, of
+    symmetric (..., n, n) float32 or float64 ``A``: a CPU tensor takes
+    ``eigh_nan`` in its dtype, a CUDA tensor the kernel."""
     if A.device.type == "cpu":
-        return eigh_nan(A)
+        return tuple(x.to(torch.float32) for x in eigh_nan(A))
     return sym_eig_cuda(A)
 
 
 def sym_eig_cuda(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the kernel over the matrices of (..., n, n) float32
-    ``A`` on a CUDA device (n in ``SYM_EIG_SIZES``; a strided input is made
-    contiguous). Allocates the outputs, makes no other device operation
-    and reads nothing to the host; an empty batch launches nothing."""
+    """One launch of the kernel over the matrices of (..., n, n) float32 or
+    float64 ``A`` on a CUDA device (n in ``SYM_EIG_SIZES``; a strided input
+    is made contiguous), float32 results. Allocates the outputs, makes no
+    other device operation and reads nothing to the host; an empty batch
+    launches nothing."""
     n = A.shape[-1] if A.dim() >= 2 else -1
     if A.dim() < 2 or A.shape[-2] != n or n not in SYM_EIG_SIZES \
-            or A.dtype != torch.float32:
-        raise ValueError(f"sym_eig takes (..., n, n) float32 with n in "
-                         f"{SYM_EIG_SIZES}, got {tuple(A.shape)} {A.dtype}")
+            or A.dtype not in SYM_EIG_DTYPES:
+        raise ValueError(f"sym_eig takes (..., n, n) float32 or float64 "
+                         f"with n in {SYM_EIG_SIZES}, got {tuple(A.shape)} "
+                         f"{A.dtype}")
     lead = A.shape[:-2]
     A = A.reshape(-1, n, n).contiguous()
     require_cuda("sym_eig", A)
     B = A.shape[0]
     if B >= 2 ** 31:
         raise ValueError(f"sym_eig takes fewer than 2^31 matrices, got {B}")
-    evals = torch.empty((B, n), dtype=A.dtype, device=A.device)
-    evecs = torch.empty((B, n, n), dtype=A.dtype, device=A.device)
+    evals = torch.empty((B, n), dtype=torch.float32, device=A.device)
+    evecs = torch.empty((B, n, n), dtype=torch.float32, device=A.device)
     if B:
         SYM_EIG(A.data_ptr(), evals.data_ptr(), evecs.data_ptr(), B, n,
-                MAX_SWEEPS, EPS * EPS)
+                int(A.dtype == torch.float64), MAX_SWEEPS, EPS * EPS)
     return evals.reshape(*lead, n), evecs.reshape(*lead, n, n)
 
 
@@ -149,8 +160,8 @@ def _tree(x: torch.Tensor) -> torch.Tensor:
 
 def sym_eig_ordered(A: torch.Tensor, counts: bool = False):
     """The kernel's arithmetic in plain PyTorch, in its order, on any device
-    (float32 in and out, float64 inside): the lower triangle mirrored into
-    an NP x NP matrix (zero padded at odd n), the sums of squares a row
+    (float32 or float64 in, float64 inside, float32 out): the lower
+    triangle mirrored into an NP x NP matrix (zero padded at odd n), the sums of squares a row
     added left to right and the rows by ``_tree``, each step of each sweep
     (``schedule``) applied to a matrix that is not done: every pair's angle
     from the pivots as the step found them, then ``JᵀAJ`` entry by entry
@@ -242,9 +253,10 @@ def sym_eig_ordered(A: torch.Tensor, counts: bool = False):
         best = torch.where(take, V[:, r, :].abs(), best)
         piv = torch.where(take, V[:, r, :], piv)
     V = torch.where((piv < 0)[:, None, :], -V, V)
-    nan = torch.full((), float("nan"), dtype=A.dtype, device=dev)
-    evals = torch.where(bad[:, None], nan, evals.to(A.dtype))
-    evecs = torch.where(bad[:, None, None], nan, V.to(A.dtype))
+    f32 = torch.float32
+    nan = torch.full((), float("nan"), dtype=f32, device=dev)
+    evals = torch.where(bad[:, None], nan, evals.to(f32))
+    evecs = torch.where(bad[:, None, None], nan, V.to(f32))
     out = (evals.reshape(*lead, n), evecs.reshape(*lead, n, n))
     if counts:
         out += (rotations.reshape(lead), sweeps.reshape(lead),

@@ -106,7 +106,14 @@ loaded on the card, over relocalizing and blank frames; localization-mode
 and LOST frames through ``FusedLocalization``'s graphs L1, L2, L3 and X
 bitwise equal to the eager path on that map (plain, emptied-association,
 perturbed and restored-landmark, blank and LOST frames), with the same
-launches a frame.
+launches a frame. The eigen-solve kernel on a card two-view attempt's
+solves ((200,9,9) float64 normal matrices, (200,3,3) and (1,3,3) EᵀE)
+and float64 specials at n = 9, bitwise its ordered version, the null
+vectors within 1e-4 of cuSOLVER's SVD of the 8x9 systems;
+pre-initialization frames through ``FusedInit``'s graphs I0, I1 and I2
+bitwise equal to the eager path across a reset that keeps them, with the
+same ``sym_eig`` launches; a replaying attempt waiting only for its 2
+reads and the upload, with ``torch.linalg.svd`` patched to raise.
 """
 
 import faulthandler
@@ -1829,7 +1836,7 @@ def test_sym_eig_kernel_bitwise(cuda, eig_inputs, site):
     assert c["bitwise"] and c["graph_bitwise"] and c["rotations"] > 0
 
 
-@pytest.mark.parametrize("n", [3, 4, 12])
+@pytest.mark.parametrize("n", [3, 4, 9, 12])
 @pytest.mark.parametrize("batch", [1, 5, 8])
 def test_sym_eig_kernel_specials(cuda, n, batch):
     """Ties, the identity, zero, rank one, indefinite, badly scaled, NaN and
@@ -1873,7 +1880,7 @@ def test_sym_eig_wrapper_raises(cuda):
     from cubemapslam_tpu_torch.solvers import sym_eig as SE
     n0 = SE.SYM_EIG.launches
     for A in (torch.eye(5, device=cuda)[None],
-              torch.eye(4, device=cuda, dtype=torch.float64)[None],
+              torch.eye(4, device=cuda, dtype=torch.float16)[None],
               torch.zeros(3, 4, 5, device=cuda)):
         with pytest.raises(ValueError):
             SE.sym_eig_cuda(A)
@@ -1887,6 +1894,93 @@ def test_sym_eig_wrapper_raises(cuda):
     w2, V2 = SE.sym_eig_cuda(A.transpose(-1, -2).contiguous())
     assert chip_smoke.same_float_bits(w1, w2)
     assert chip_smoke.same_float_bits(V1, V2)
+
+
+def two_view_scene(rng, n=300, noise=5e-4, n_out=45, device="cpu"):
+    """Rays and cross uv of ``n`` seeded points seen from the identity and
+    from a pose 0.8 map units away, with angular noise and ``n_out``
+    scrambled matches: (rays1, rays2, uv1, uv2, valid, R21, t21) on
+    ``device``, the camera of ``SlamConfig()``."""
+    from cubemapslam_tpu_torch import camera as TC
+    cam = CubemapCamera.from_config(SlamConfig(), "cpu")
+    pts = rng.uniform(-4.0, 4.0, (n, 3)).astype(np.float32)
+    pts[:, 2] += 6.0
+    R21 = so3_exp(torch.tensor([0.03, -0.08, 0.01])).numpy()
+    t21 = np.array([0.8, 0.15, -0.1], np.float32)
+    out = []
+    for P in (pts, pts @ R21.T + t21):
+        r = P / np.linalg.norm(P, axis=1, keepdims=True)
+        r = r + rng.normal(0, noise, r.shape)
+        r = torch.as_tensor((r / np.linalg.norm(r, axis=1, keepdims=True))
+                            .astype(np.float32))
+        uv, face = TC.ray_to_cubemap(cam, r)
+        out.append((r, uv, face >= 0))
+    (r1, uv1, v1), (r2, uv2, v2) = out
+    valid = v1 & v2
+    if n_out:
+        idx = rng.choice(np.nonzero(valid.numpy())[0], n_out, replace=False)
+        perm = torch.as_tensor(rng.permutation(idx))
+        idx = torch.as_tensor(idx)
+        r2[idx], uv2[idx] = r2[perm], uv2[perm]
+    return tuple(x.to(device) for x in (r1, r2, uv1, uv2, valid)) + (
+        torch.as_tensor(R21), torch.as_tensor(t21))
+
+
+def init_eig_inputs(device, seed=15, n_iters=200):
+    """A ``recording_essential`` record of one ``initialize_two_view`` on a
+    seeded ``two_view_scene`` on ``device`` (its scores drawn by a host
+    generator), and the result."""
+    from cubemapslam_tpu_torch.solvers import essential as ES
+    from cubemapslam_tpu_torch.solvers.sampling import draw_scores
+    r1, r2, uv1, uv2, valid, _, _ = two_view_scene(
+        np.random.default_rng(seed), device=device)
+    scores = draw_scores(torch.Generator().manual_seed(seed), n_iters,
+                         valid.shape[0], device)
+    rec = {}
+    with chip_smoke.recording_essential(rec):
+        res, _ = ES.initialize_two_view(
+            CubemapCamera.from_config(SlamConfig(), device), scores, r1, r2,
+            uv1, uv2, valid)
+    return rec, res
+
+
+@pytest.fixture(scope="module")
+def init_eig(cuda):
+    """The essential solver's three eigen-solve inputs of one
+    ``initialize_two_view`` on the card (``init_eig_inputs``),
+    by site, and its result."""
+    rec, res = init_eig_inputs(cuda)
+    return chip_smoke.init_eig_cases(rec), res
+
+
+@pytest.mark.parametrize("site", chip_smoke.INIT_EIG_SITES)
+def test_sym_eig_kernel_init_bitwise(cuda, init_eig, site):
+    """The kernel bitwise against ``sym_eig_ordered`` (eagerly and from a
+    CUDA graph, one launch) on the two-view attempt's solves: the
+    (200,9,9) float64 normal matrices, read without a rounding to float32,
+    the (200,3,3) and the (1,3,3) EᵀE; and float64 specials at n = 9."""
+    cases, res = init_eig
+    assert bool(res.success)
+    A = cases[site][0]
+    assert A.dtype == (torch.float64 if site == "normal" else torch.float32)
+    c = chip_smoke.eig_case(site, A)
+    assert c["bitwise"] and c["graph_bitwise"] and c["rotations"] > 0
+    if site == "normal":
+        sp = chip_smoke.eig_case("specials n=9 float64",
+                                 chip_smoke.eig_specials(9, cuda).double())
+        assert sp["bitwise"] and sp["graph_bitwise"]
+
+
+def test_essential_null_vector_against_svd(cuda, init_eig):
+    """The normal matrices' smallest eigenvector on the card against the
+    null vector of cuSOLVER's float32 SVD of the 8x9 systems, up to its
+    sign, within 1e-4."""
+    from cubemapslam_tpu_torch.solvers import sym_eig as SE
+    N, A8 = init_eig[0]["normal"]
+    e = SE.sym_eig(N)[1][..., :, 0]
+    v = torch.linalg.svd(A8)[2][..., 8, :]
+    d = torch.minimum((e - v).abs().amax(-1), (e + v).abs().amax(-1))
+    assert d.max() <= 1e-4, float(d.max())
 
 
 def _pnp_args(cuda, seed=3):
@@ -2107,3 +2201,92 @@ def test_localization_graphs_bitwise_eager(cuda, reloc_map):
     assert emptied["host_reads"] == 4
     assert (emptied["graph_localization_captures"],
             emptied["graph_localization_replays"]) == (1, 2)
+
+
+# a pre-initialization sequence of ``slam_frames`` (-1: a blank frame): the
+# reference, an attempt without parallax (I1, I2 captured), a blank frame
+# that drops the reference, the reference again (I0 replayed), attempts
+# until the map is made; then a reset, which keeps the graphs, and the
+# bootstrap again, replaying them
+INIT_SEQUENCE = (0, 0, -1, 0, 1, 2, 3, 4)
+INIT_AFTER_RESET = (0, 0, 1, 2, 3, 4)
+
+
+def _init_run(cuda, cfg, frames, graphs):
+    """``CubemapSLAM`` on the card over INIT_SEQUENCE (until the map is
+    made), a reset, then INIT_AFTER_RESET (likewise), through
+    ``FusedInit`` or eagerly (``init_graphs`` off): per frame the row
+    without its graph counts, the pose, clones of ``init_trace``, the
+    sym_eig launches, the whole row and the sequence (0 or 1); the
+    system."""
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
+    from cubemapslam_tpu_torch.solvers import sym_eig as SE
+    slam = CubemapSLAM(cfg, device=cuda)
+    slam.init_graphs = graphs
+    out = []
+    for cycle, seq in enumerate((INIT_SEQUENCE, INIT_AFTER_RESET)):
+        for k in seq:
+            img = (np.zeros_like(frames[0]) if k < 0 else frames[k])
+            n0 = SE.SYM_EIG.launches
+            T = slam.track_fisheye(img, len(out) / cfg.fps)
+            out.append((chip_smoke.init_record(slam, T),
+                        SE.SYM_EIG.launches - n0, dict(slam.metrics[-1]),
+                        cycle))
+            if slam.state == TrackState.OK:
+                break
+        slam.reset()
+    torch.cuda.synchronize()
+    return slam, out
+
+
+def test_init_graphs_bitwise_eager(cuda, slam_frames):
+    """Pre-initialization frames through ``FusedInit``'s graphs I0, I1 and
+    I2 against the eager path (``init_graphs`` off) on the card: every row,
+    pose and attempt (keypoints, matches, window centres, E21, R21, t21,
+    p3d, good) bitwise equal, the same sym_eig launches (3 an attempt that
+    reaches the RANSAC); I0, I1 and I2 captured once, on the first frames
+    that need them, and replayed after, across the reset that keeps
+    them."""
+    cfg, frames = slam_frames
+    (e_slam, e), (g_slam, g) = (_init_run(cuda, cfg, frames, graphs)
+                                for graphs in (False, True))
+    assert len(e) == len(g)
+    for i, (a, b) in enumerate(zip(e, g)):
+        chip_smoke.same_init(f"frame {i}", b[0], a[0])
+        assert a[1] == b[1], (i, a[1], b[1])
+    assert any(r[0]["T"] is not None for r in g)
+    attempts = [r for r in g if "E" in r[0]["trace"]]
+    assert len(attempts) >= 3 and all(r[1] == 3 for r in attempts)
+    fi = g_slam.fused_init
+    assert e_slam.fused_init is None and set(fi.outputs) == {"i0", "i1",
+                                                             "i2"}
+    assert fi.captures == 3 and fi.replays >= 5
+    rows = [r[2] for r in g]
+    assert sum(r["graph_init_captures"] for r in rows) == 3
+    later = [r[2] for r in g if r[3] == 1]
+    assert len(later) >= 2 and all(r["graph_init_captures"] == 0
+                                   and r["graph_init_replays"] > 0
+                                   for r in later)
+
+
+def test_init_attempt_waits(cuda, slam_frames, monkeypatch):
+    """A replaying attempt on the card waits for the host only for its 2
+    reads and the frame's upload, and never in ``torch.linalg.svd`` (patched
+    to raise here: the essential solver takes none)."""
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    cfg, frames = slam_frames
+
+    def no_svd(*a, **k):
+        raise AssertionError("an init frame called torch.linalg.svd")
+
+    monkeypatch.setattr(torch.linalg, "svd", no_svd)
+    slam = CubemapSLAM(cfg, device=cuda)
+    for k in (0, 0, 0):                 # capture I0, then I1 and I2
+        slam.track_fisheye(frames[k], 0.0)
+    prof = chip_smoke.profile_stages(
+        lambda: slam.track_fisheye(frames[0], 0.1), ("init",), 1)
+    row = slam.metrics[-1]
+    assert row["graph_init_captures"] == 0 and row["graph_init_replays"] == 2
+    assert row["host_reads"] == 2 and "init_matches" in row
+    assert prof["host_waits"] <= row["host_reads"] + 1, prof["wait_sources"]
+    assert not any("svd" in src for src, _ in prof["wait_sources"])

@@ -16,6 +16,14 @@ masks of check_essential exactly equal, its scores within 1e-5 relative;
 the 4 hypotheses of decompose_e as a set within 1e-5; reconstruct_e's pose
 within 1e-4, its count of good points within 1 and its good mask equal on
 >= 99.5% of the matches.
+
+The port's essential solver takes no SVD (its eigen-solves are
+``sym_eig``'s): a run with ``torch.linalg.svd`` patched to raise witnesses
+it, and a near-degenerate 8-point set holds the float64 normal matrix's
+null vector within 1e-6 of numpy's float64 SVD, where the float32 normal
+matrix misses by more than 1e-5. ``find_essential`` and
+``initialize_two_view`` take the RANSAC's scores, drawn by
+``sampling.draw_scores``.
 """
 
 import jax
@@ -36,6 +44,7 @@ from cubemapslam_tpu_torch.camera import CubemapCamera as TCam
 from cubemapslam_tpu_torch.solvers import essential as TE
 from cubemapslam_tpu_torch.solvers import horn_alignment, sample_minimal_sets
 from cubemapslam_tpu_torch.solvers import triangulate_rays
+from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
 CFG = SlamConfig()
 
@@ -205,10 +214,15 @@ def test_initialize_two_view_recovers_pose(cams):
     _, tcam = cams
     rng = np.random.default_rng(42)
     s = scene(rng, 300, n_out=45)
-    gen = torch.Generator().manual_seed(0)
-    res = TE.initialize_two_view(tcam, gen, t(s["r1"]), t(s["r2"]),
-                                 t(s["uv1"]), t(s["uv2"]), t(s["valid"]))
+    scores = draw_scores(torch.Generator().manual_seed(0), 200,
+                         len(s["valid"]), "cpu")
+    res, E = TE.initialize_two_view(tcam, scores, t(s["r1"]), t(s["r2"]),
+                                    t(s["uv1"]), t(s["uv2"]), t(s["valid"]))
     assert bool(res.success)
+    # the E returned is the one the pose was taken from: the good pairs
+    # (exact rays) satisfy its epipolar constraint
+    resid = np.einsum("ni,ij,nj->n", s["r2"], E.numpy(), s["r1"])
+    assert np.abs(resid[res.good.numpy()]).max() < 1e-3
     dR = res.R21.numpy() @ s["R21"].T
     ang = np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))
     assert ang < 0.5
@@ -228,8 +242,9 @@ def test_find_essential_outcome(cams):
     _, tcam = cams
     rng = np.random.default_rng(5)
     s = scene(rng, 300, noise=5e-4, n_out=45)
-    gen = torch.Generator().manual_seed(1)
-    E, inl, score = TE.find_essential(tcam, gen, t(s["r1"]), t(s["r2"]),
+    scores = draw_scores(torch.Generator().manual_seed(1), 200,
+                         len(s["valid"]), "cpu")
+    E, inl, score = TE.find_essential(tcam, scores, t(s["r1"]), t(s["r2"]),
                                       t(s["uv1"]), t(s["uv2"]),
                                       t(s["valid"]))
     inl = inl.numpy()
@@ -269,3 +284,59 @@ def test_check_rt(ransac_case, cams):
         assert abs(int(tr[0]) - int(jr[0])) <= 1
         assert (tr[2].numpy() == np.asarray(jr[2])).mean() >= 0.995
         assert abs(float(tr[3]) - float(jr[3])) < 1e-3
+
+
+def test_essential_makes_no_svd(cams, monkeypatch):
+    """The essential solver takes no SVD (each would wait for the card):
+    ``torch.linalg.svd`` patched to raise, the whole bootstrap still runs
+    and succeeds."""
+    _, tcam = cams
+
+    def no_svd(*a, **k):
+        raise AssertionError("essential.py called torch.linalg.svd")
+
+    monkeypatch.setattr(torch.linalg, "svd", no_svd)
+    s = scene(np.random.default_rng(42), 300, n_out=45)
+    scores = draw_scores(torch.Generator().manual_seed(0), 200,
+                         len(s["valid"]), "cpu")
+    res, _ = TE.initialize_two_view(tcam, scores, t(s["r1"]), t(s["r2"]),
+                                    t(s["uv1"]), t(s["uv2"]), t(s["valid"]))
+    assert bool(res.success)
+
+
+def test_null_vector_near_degenerate():
+    """An 8-point set of rays within a 17-degree cone (A's two smallest
+    nonzero singular values 1e-3 of its largest apart from the null one):
+    the null vector from the float64 normal matrix within 1e-6 of numpy's
+    float64 SVD of A (up to sign), and ``compute_e21`` within 1e-6 of the
+    float64 double SVD's rank-2 E. Formed in float32, the same normal
+    matrix misses it by more than 1e-5: this set tells the two apart."""
+    rng = np.random.default_rng(0)
+    R = np.asarray(JG.so3_exp(jnp.asarray([0.02, -0.05, 0.01])),
+                   np.float64)
+    tr = np.array([0.3, 0.05, -0.02])
+    P = np.c_[rng.uniform(-0.3, 0.3, (8, 2)), np.ones(8)] \
+        * rng.uniform(4.0, 6.0, 8)[:, None]
+    P2 = P @ R.T + tr
+    r1 = (P / np.linalg.norm(P, axis=1, keepdims=True)).astype(np.float32)
+    r2 = (P2 / np.linalg.norm(P2, axis=1, keepdims=True)).astype(np.float32)
+    A = np.einsum("ri,rj->rij", r2.astype(np.float64),
+                  r1.astype(np.float64)).reshape(8, 9)
+    sv = np.linalg.svd(A, compute_uv=False)
+    assert sv[7] < 2e-3 * sv[0]
+    v = np.linalg.svd(A)[2][8]
+
+    def err(x):
+        x = x.double().numpy()
+        return min(np.abs(x - v).max(), np.abs(x + v).max())
+
+    N = TE.normal_matrix(t(r1)[None], t(r2)[None])
+    assert N.dtype == torch.float64
+    assert err(TE.sym_eig(N)[1][0, :, 0]) < 1e-6
+    A32 = torch.as_tensor(A.astype(np.float32))
+    N32 = (A32[:, :, None] * A32[:, None, :]).sum(dim=0)[None]
+    assert err(TE.sym_eig(N32)[1][0, :, 0]) > 1e-5
+    U, S, Vt = np.linalg.svd(v.reshape(3, 3))
+    E_ref = U @ np.diag([S[0], S[1], 0.0]) @ Vt
+    E = TE.compute_e21(t(r1)[None], t(r2)[None])[0].double().numpy()
+    assert min(np.abs(E - E_ref).max(), np.abs(E + E_ref).max()) < 1e-6

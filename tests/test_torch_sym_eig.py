@@ -9,30 +9,37 @@ kernel is held to it bitwise by ``tests/test_torch_gpu.py`` and
 * ``sym_eig_ordered`` against a scalar emulation of the kernel written from
   its source (one matrix at a time, lane by lane, Python floats, which
   round as IEEE float64 like the kernel's and PyTorch's operations):
-  bitwise, at n = 3, 4 and 12, on random, diagonal (ties), zero and EPnP
-  matrices.
+  bitwise, at n = 3, 4, 9 and 12, on random, diagonal (ties), zero, EPnP
+  and essential matrices (the float64 9x9 normal matrices of the 8-point
+  sets rounded to float32, EᵀE), and on float64 inputs, read as they are
+  (random, and the essential's normal matrices).
 * The schedule: n - 1 steps (n rounded up to even) of disjoint pairs, every
   pair once a sweep, the kernel's lane partners its pairs. On the recorded
-  PnP solves no matrix runs out of sweeps; against the cyclic order the
+  PnP and essential solves no matrix runs out of sweeps; against the
+  cyclic order the
   kernel had before (``emulate_cyclic``), the most sweeps of a batch at
   most one more, each matrix at most two more (at most 12% of a batch),
   the mean at most 0.75 more.
-* ``sym_eig_ordered`` against ``jnp.linalg.eigh`` (float32) at n = 3, 4 and
-  12 on seeded symmetric matrices (positive and indefinite) and on the
-  matrices of one ``pnp_ransac`` call: eigenvalues within 1e-6 of the
+* ``sym_eig_ordered`` against ``jnp.linalg.eigh`` (float32) at n = 3, 4, 9
+  and 12 on seeded symmetric matrices (positive and indefinite) and on the
+  matrices of one ``pnp_ransac`` call and of one ``initialize_two_view``
+  call (the float64 normal matrices through float32): eigenvalues within 1e-6 of the
   largest |eigenvalue|, V diag(w) Vᵀ within 1e-6 of A and VᵀV within 1e-6
   of I (relative to the largest |eigenvalue|); each eigenvector of a simple
   eigenvalue equal to JAX's up to its sign within 1e-3; the projector onto
   the 4-dimensional null space of a minimal set's MᵀM within 1e-3 of JAX's
   (the basis itself differs between solvers), and that space annihilated
-  by MᵀM within 1e-6 of its norm.
+  by MᵀM within 1e-6 of its norm; the normal matrices' smallest
+  eigenvector within 1e-4 of the null vector of JAX's float32 SVD of the
+  8x9 system, up to its sign.
 * The stable order of equal eigenvalues and the sign rule.
 * A non-finite matrix gives NaN results without raising, and leaves the
   other matrices of its batch as they are, in ``sym_eig_ordered`` and in
   ``sym_eig`` on the CPU.
 * ``sym_eig`` on CPU tensors is ``eigh_nan`` (``torch.linalg.eigh``, the
-  bits the CPU had before) and builds nothing; ``sym_eig_cuda`` raises on
-  a CPU tensor, a wrong size or dtype, before any launch.
+  bits the CPU had before) in the input's dtype, rounded to float32, and
+  builds nothing; ``sym_eig_cuda`` raises on a CPU tensor, a wrong size or
+  dtype, before any launch.
 """
 
 import math
@@ -46,10 +53,12 @@ from cubemapslam_tpu import geometry as JG
 from cubemapslam_tpu.solvers import pnp as JP
 from cubemapslam_tpu_torch.camera import CubemapCamera as TCam
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
+from cubemapslam_tpu_torch.solvers import essential as TE
 from cubemapslam_tpu_torch.solvers import pnp as TP
 from cubemapslam_tpu_torch.solvers import sym_eig as SE
+from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
-SIZES = (3, 4, 12)
+SIZES = (3, 4, 9, 12)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -270,6 +279,50 @@ def pnp_matrices():
     return seen
 
 
+@pytest.fixture(scope="module")
+def essential_case():
+    """One CPU ``initialize_two_view`` (200 hypotheses on
+    ``test_torch_solvers.py``'s noisy scene with 45 scrambled matches): its
+    eigen-solves' inputs in call order, (200,9,9) float64, (200,3,3) and
+    (3,3), and the 8-point systems A (200,8,9) of its minimal sets."""
+    from test_torch_solvers import scene
+    s = scene(np.random.default_rng(2), 300, noise=5e-4, n_out=45)
+    r1, r2, uv1, uv2, valid = (torch.as_tensor(np.array(s[k])) for k in
+                               ("r1", "r2", "uv1", "uv2", "valid"))
+    scores = draw_scores(torch.Generator().manual_seed(0), 200, 300, "cpu")
+    seen = []
+    inner = TE.sym_eig
+
+    def recorded(A):
+        seen.append(A.clone())
+        return inner(A)
+
+    TE.sym_eig = recorded
+    try:
+        res, _ = TE.initialize_two_view(TCam.from_config(TConfig(), "cpu"),
+                                        scores, r1, r2, uv1, uv2, valid)
+    finally:
+        TE.sym_eig = inner
+    assert bool(res.success)
+    from cubemapslam_tpu_torch.solvers.sampling import select_minimal_sets
+    sets = select_minimal_sets(scores, valid, 8)
+    A = (r2[sets][..., :, None] * r1[sets][..., None, :]).reshape(-1, 8, 9)
+    return seen, A.numpy()
+
+
+@pytest.fixture(scope="module")
+def recorded(pnp_matrices, essential_case):
+    """The recorded solves: one PnP's six and one two-view attempt's
+    three."""
+    return list(pnp_matrices) + list(essential_case[0])
+
+
+def test_essential_matrices_shapes(essential_case):
+    assert [(tuple(A.shape), A.dtype) for A in essential_case[0]] == [
+        ((200, 9, 9), torch.float64), ((200, 3, 3), torch.float32),
+        ((3, 3), torch.float32)]
+
+
 def test_pnp_matrices_shapes(pnp_matrices):
     assert [tuple(A.shape) for A in pnp_matrices] == [
         (300, 3, 3), (300, 12, 12), (300, 3, 4, 4), (3, 3), (12, 12),
@@ -277,15 +330,17 @@ def test_pnp_matrices_shapes(pnp_matrices):
 
 
 @pytest.mark.parametrize("n", SIZES)
-def test_ordered_against_kernel_emulation(n, pnp_matrices):
+def test_ordered_against_kernel_emulation(n, pnp_matrices, essential_case):
     rng = np.random.default_rng(n)
     mats = [random_sym(rng, 2, n, "psd"), random_sym(rng, 2, n, "sym"),
             np.diag(np.array([2.0, 1.0, 1.0] + [0.5] * (n - 3),
                              np.float32))[None],
             np.zeros((1, n, n), np.float32)]
-    pnp = {3: pnp_matrices[0][:3], 4: pnp_matrices[2][:1].reshape(-1, 4, 4),
-           12: pnp_matrices[1][:3]}[n]
-    mats.append(pnp.numpy())
+    ess = essential_case[0]
+    real = {3: torch.cat([pnp_matrices[0][:2], ess[1][:2]]),
+            4: pnp_matrices[2][:1].reshape(-1, 4, 4),
+            9: ess[0][:3].float(), 12: pnp_matrices[1][:3]}[n]
+    mats.append(real.numpy())
     nan = random_sym(rng, 1, n, "psd")
     nan[0, n - 1, 0] = np.nan
     mats.append(nan)
@@ -295,6 +350,33 @@ def test_ordered_against_kernel_emulation(n, pnp_matrices):
         we, Ve = emulate(a)
         np.testing.assert_array_equal(w[i].numpy(), we, err_msg=str(i))
         np.testing.assert_array_equal(V[i].numpy(), Ve, err_msg=str(i))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_ordered_against_kernel_emulation_float64(n, essential_case):
+    """A float64 input is read as it is (no rounding to float32), by the
+    ordered version as by the emulation: bitwise, on seeded matrices with
+    entries float32 cannot hold, and at n = 9 on the essential's normal
+    matrices."""
+    rng = np.random.default_rng(40 + n)
+    X = rng.standard_normal((3, n, n))
+    mats = [X @ X.transpose(0, 2, 1), X + X.transpose(0, 2, 1)]
+    if n == 9:
+        mats.append(essential_case[0][0][:3].numpy())
+    nan = X[:1] @ X[:1].transpose(0, 2, 1)
+    nan[0, 0, n - 1] = np.inf
+    mats.append(nan)
+    A = np.concatenate(mats)
+    assert A.dtype == np.float64
+    w, V = SE.sym_eig_ordered(torch.as_tensor(A))
+    assert w.dtype == V.dtype == torch.float32
+    for i, a in enumerate(A):
+        we, Ve = emulate(a)
+        np.testing.assert_array_equal(w[i].numpy(), we, err_msg=str(i))
+        np.testing.assert_array_equal(V[i].numpy(), Ve, err_msg=str(i))
+    # not the float32 input's result
+    w32 = SE.sym_eig_ordered(torch.as_tensor(A[:6].astype(np.float32)))[0]
+    assert not torch.equal(w32, w[:6])
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -326,16 +408,18 @@ MEAN_MORE = 0.75
 SHARE_TWO_MORE = 0.12
 
 
-def _sized(pnp_matrices, n):
-    """The recorded PnP solves of size n, each as a (B, n, n) batch."""
-    return [A.reshape(-1, n, n) for A in pnp_matrices if A.shape[-1] == n]
+def _sized(recorded, n):
+    """The recorded solves of size n, each as a (B, n, n) batch."""
+    return [A.reshape(-1, n, n) for A in recorded if A.shape[-1] == n]
 
 
 @pytest.mark.parametrize("n", SIZES)
-def test_pnp_matrices_within_max_sweeps(n, pnp_matrices):
-    """No recorded PnP matrix runs out of sweeps, and each sweep begun is
-    NP - 1 steps."""
-    for A in _sized(pnp_matrices, n):
+def test_pnp_matrices_within_max_sweeps(n, recorded):
+    """No recorded PnP or essential matrix runs out of sweeps, and each
+    sweep begun is NP - 1 steps."""
+    batches = _sized(recorded, n)
+    assert batches
+    for A in batches:
         _, _, rot, sw, st = SE.sym_eig_ordered(A, counts=True)
         assert int(sw.max()) < SE.MAX_SWEEPS
         assert torch.equal(st, sw * (n + n % 2 - 1))
@@ -343,18 +427,19 @@ def test_pnp_matrices_within_max_sweeps(n, pnp_matrices):
 
 
 @pytest.mark.parametrize("n", SIZES)
-def test_sweeps_against_cyclic(n, pnp_matrices):
+def test_sweeps_against_cyclic(n, recorded):
     """The round-robin order against the cyclic order it replaced
-    (``emulate_cyclic``) on the recorded PnP solves of size n and on seeded
-    positive and indefinite matrices. In each batch: the most sweeps (its
+    (``emulate_cyclic``) on the recorded PnP and essential solves of size n
+    and on seeded positive and indefinite matrices. In each batch: the most sweeps (its
     slowest matrix, which sets the launch's time) at most one more; every
     matrix at most two more, and at most ``SHARE_TWO_MORE`` of the batch
     two more; the mean at most ``MEAN_MORE`` more. Measured: the recorded
     MᵀM (300,12,12) 0.56 more on average, 27 of its 300 matrices two more
     (clustered near-null eigenvalues); every other batch at most 0.0 on
-    average and at most 1 of 300 two more."""
+    average and at most 1 of 300 two more (the essential's normal
+    matrices 0.545 fewer)."""
     rng = np.random.default_rng(20 + n)
-    batches = _sized(pnp_matrices, n) + [
+    batches = _sized(recorded, n) + [
         torch.as_tensor(random_sym(rng, 64, n, kind))
         for kind in ("psd", "sym")]
     for A in batches:
@@ -407,6 +492,23 @@ def test_ordered_against_jax_on_pnp(pnp_matrices):
         A = A.reshape(-1, n, n).numpy()
         w, V = SE.sym_eig_ordered(torch.as_tensor(A))
         check_against_jax(A, w, V)
+
+
+def test_ordered_against_jax_on_essential(essential_case):
+    """The two-view attempt's solves against ``jnp.linalg.eigh`` (float32:
+    the normal matrices rounded), and each normal matrix's smallest
+    eigenvector (from float64) against the null vector of JAX's float32 SVD
+    of its 8x9 system (``essential.py:42``), up to its sign."""
+    seen, A8 = essential_case
+    for A in seen:
+        n = A.shape[-1]
+        A = A.reshape(-1, n, n)
+        w, V = SE.sym_eig_ordered(A)
+        check_against_jax(A.float().numpy(), w, V)
+    e = SE.sym_eig_ordered(seen[0])[1][..., :, 0].numpy()
+    vj = np.asarray(jnp.linalg.svd(jnp.asarray(A8))[2])[..., 8, :]
+    d = np.minimum(np.abs(e - vj).max(axis=-1), np.abs(e + vj).max(axis=-1))
+    assert d.max() <= 1e-4, d.max()
 
 
 def test_null_space_projector_against_jax():
@@ -470,8 +572,9 @@ def test_nonfinite_gives_nan():
 
 def test_cpu_path_is_eigh_and_builds_nothing(monkeypatch):
     """On CPU tensors ``sym_eig`` is ``torch.linalg.eigh`` (with
-    ``eigh_nan``'s NaN rows), the CPU's bits before the kernel, and never
-    builds or launches the kernel."""
+    ``eigh_nan``'s NaN rows), the CPU's bits before the kernel, in the
+    input's dtype with float32 results, and never builds or launches the
+    kernel."""
     from cubemapslam_tpu_torch import _build
 
     def no_build(*a, **k):
@@ -486,13 +589,18 @@ def test_cpu_path_is_eigh_and_builds_nothing(monkeypatch):
         we, Ve = torch.linalg.eigh(B)
         assert torch.equal(w, we) and torch.equal(V, Ve)
         assert w.shape == B.shape[:-1] and V.shape == B.shape
+        # a float64 input is solved in float64, its results rounded
+        w, V = SE.sym_eig(B.double())
+        we, Ve = torch.linalg.eigh(B.double())
+        assert w.dtype == V.dtype == torch.float32
+        assert torch.equal(w, we.float()) and torch.equal(V, Ve.float())
     assert SE.SYM_EIG.launches == n0 and SE.SYM_EIG._fn is None
 
 
 @pytest.mark.parametrize("bad", ["cpu", "size", "dtype", "shape"])
 def test_cuda_wrapper_raises_before_a_launch(bad):
     A = torch.eye(4)[None].expand(3, 4, 4)
-    A = {"cpu": A, "size": torch.eye(5)[None], "dtype": A.double(),
+    A = {"cpu": A, "size": torch.eye(5)[None], "dtype": A.half(),
          "shape": torch.zeros(3, 4, 5)}[bad]
     n0 = SE.SYM_EIG.launches
     with pytest.raises(ValueError):

@@ -40,6 +40,7 @@ from cubemapslam_tpu_torch.config import SlamConfig as TConfig
 from cubemapslam_tpu_torch.runtime.system import (CubemapSLAM, InitRef,
                                                   TrackState)
 from cubemapslam_tpu_torch.solvers import TwoViewResult, horn_alignment
+from cubemapslam_tpu_torch.solvers.sampling import draw_scores
 
 E2E = dict(cube_face_w=160, cube_face_h=160, n_features=600, n_levels=3,
            max_keyframes=24, max_landmarks=4096, min_init_keypoints=80,
@@ -304,8 +305,9 @@ def test_two_view_init_outcome(init_case, frames):
     t21 = t1 - R21 @ t0
     idx_t, ok_t, _, _ = ts.kernels.match_for_initialization(kp0, kp1,
                                                              kp0.rays)
-    res_t = ts.kernels.two_view_init(torch.Generator().manual_seed(0), kp0,
-                                     kp1, idx_t, ok_t)
+    scores = draw_scores(torch.Generator().manual_seed(0),
+                         ts.cfg.init_ransac_iters, kp0.n, "cpu")
+    res_t = ts.kernels.init_two_view(kp0, kp1, idx_t, ok_t, scores)[0]
     idx_j, ok_j, _, _ = js.kernels.match_for_initialization(
         jkp(kp0), jkp(kp1), jnp.asarray(kp0.rays.numpy()))
     res_j = js.kernels.two_view_init(jax.random.PRNGKey(0), jkp(kp0),
