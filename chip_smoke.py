@@ -264,7 +264,7 @@ from cubemapslam_tpu_torch import warp as TW
 from cubemapslam_tpu_torch import warp_cuda
 from cubemapslam_tpu_torch.apps import run_sequence
 from cubemapslam_tpu_torch.features import extractor as TE
-from cubemapslam_tpu_torch.geometry import se3_log, so3_exp, so3_log
+from cubemapslam_tpu_torch.geometry import so3_exp, so3_log
 from cubemapslam_tpu_torch.optim import ba as TBA
 from cubemapslam_tpu_torch.optim import pose_opt as PO
 from cubemapslam_tpu_torch.optim import residuals as TR
@@ -337,6 +337,16 @@ MAP_MIN_COVIS = 50
 POSE_BOUND_DEG, POSE_BOUND_M = 0.1, 0.015
 LOCAL_MIN_FRAMES = 6          # of TRACK_FRAMES with local_matched > 0
 GATE_ROT_RAD = 0.3            # a velocity above the 0.2 rad gate
+FORCED_REPEATS = 3            # frames of a forced path after its first
+# the forced paths of the tracked frame: the branches taken and the graphs
+# a repeat replays
+FORCED = {
+    "emptied": (("motion", "widen", "zero_velocity", "reference_kf",
+                 "local"), ("A", "W", "Z", "R", "B")),
+    "gate": (("motion", "local"), ("A", "B")),
+    "blank": (("motion", "widen", "zero_velocity", "reference_kf",
+               "skip_local"), ("A", "W", "Z", "R", "S")),
+}
 GRAPH_MAX_OPS = 1500          # device operations of a graph frame: its two
                               # pose solves are one launch each (the masked
                               # eager LM was about 11k a solve); the other
@@ -2195,12 +2205,13 @@ def seg_tally(obj, names, tally):
             setattr(obj, name, fn)
 
 
-def drive_main_path(tracker, frame_u8, lms, rng):
-    """The frame step at full width from perturbed start poses. Per frame:
-    the synchronised wall time and the host thread's CPU time (ms)."""
+def drive_main_path(tracker, frame_u8, lms, starts):
+    """The frame step at full width from the perturbed start poses
+    ``starts``, through graph F (``tracker.graphs`` on: the first frame
+    captures it) or eagerly. Per frame: the synchronised wall time and the
+    host thread's CPU time (ms), and the outputs."""
     walls, cpus, results = [], [], []
-    for _ in range(N_FRAMES):
-        R0, t0 = perturbed_pose(rng, tracker.device)
+    for k, (R0, t0) in enumerate(starts):
         torch.cuda.synchronize()
         t_start, c_start = time.perf_counter(), time.thread_time()
         out = tracker(frame_u8, *lms, R0, t0)
@@ -2208,7 +2219,67 @@ def drive_main_path(tracker, frame_u8, lms, rng):
         walls.append((time.perf_counter() - t_start) * 1e3)
         cpus.append((time.thread_time() - c_start) * 1e3)
         results.append(out)
+        cf = tracker.step_graph
+        if tracker.graphs and (cf.frame_captures, cf.frame_replayed) != (
+                (1, []) if k == 0 else (0, ["F"])):
+            raise AssertionError(f"frame step {k} captured "
+                                 f"{cf.frame_captures} graphs and replayed "
+                                 f"{cf.frame_replayed}")
     return walls, cpus, results
+
+
+def frame_step_twins(tracker, frame_u8, lms, starts, results, walls):
+    """The frame step's eager twin (``tracker.graphs`` off) over the same
+    frames and start poses as the graph F run: every output bitwise equal;
+    the walls side by side; then 2 replaying graph F frames fed from a host
+    copy of the frame and 2 eager frames under the profiler: device busy,
+    operations and host waits (graph F's at most 1: the upload)."""
+    PO.POSE_LM.launches = 0
+    tracker.graphs = False
+    try:
+        e_walls, _, e_results = drive_main_path(tracker, frame_u8, lms,
+                                                starts)
+    finally:
+        tracker.graphs = True
+    pose_launches("frame_step_eager", N_FRAMES)
+    for k, (g, e) in enumerate(zip(results, e_results)):
+        same = (all(torch.equal(x, y) for x, y in zip(g[0], e[0]))
+                and all(torch.equal(x, y) for x, y in zip(g[1:], e[1:])))
+        if not same:
+            raise AssertionError(f"frame step {k}: graph F differs from its "
+                                 f"eager twin")
+    cf = tracker.step_graph
+    log(f"[frame-step-graph] {N_FRAMES} frames through graph F bitwise the "
+        f"eager twin's; wall ms graph {', '.join(f'{w:.3f}' for w in walls)}"
+        f" (capturing {walls[0]:.3f}, replaying median "
+        f"{float(np.median(walls[1:])):.3f}), eager "
+        f"{', '.join(f'{w:.3f}' for w in e_walls)} (median of the last "
+        f"{N_FRAMES - 1} {float(np.median(e_walls[1:])):.3f}); capture "
+        f"{cf.capture_ms:.3f} ms of host time, pool {cf.capture_mib:.1f} MiB")
+    R0, t0 = starts[-1]
+    host = frame_u8.cpu()
+    profs = {}
+    for graphs, img in ((True, host), (False, frame_u8)):
+        tracker.graphs = graphs
+        try:
+            profs[graphs] = profile_stages(
+                lambda: tracker(img, *lms, R0, t0), (), GRAPH_PROFILE_FRAMES)
+        finally:
+            tracker.graphs = True
+    for graphs, prof in profs.items():
+        tag = "frame-step-graph" if graphs else "frame-step-eager"
+        log_profile(tag, prof, walls[1:] if graphs else e_walls[1:])
+        log(f"[{tag}] device busy {prof['device_busy_ms']:.3f} ms a frame "
+            f"in {prof['device_ops']:.0f} operations; host waits "
+            f"{prof['host_waits']:.2f} a frame ("
+            + ("fed from the host: the upload alone may wait)" if graphs
+               else "the frame on the card)"))
+    if profs[True]["host_waits"] > 1:
+        raise AssertionError(f"a graph F frame waited "
+                             f"{profs[True]['host_waits']:.2f} times; only "
+                             f"the upload may")
+    if cf.frame_replayed != ["F"]:
+        raise AssertionError("the profiled frame step did not replay graph F")
 
 
 def check_results(results, cfg):
@@ -2322,9 +2393,10 @@ def device_gaps(kernels, spans):
     return span / 1e6, short / 1e6, long_ / 1e6
 
 
-def profile_stages(step, stages, n):
+def profile_stages(step, stages, n, before=None):
     """``n`` calls of ``step`` under torch.profiler, each in a ``frame``
-    range and synchronised after it, with one range per stage
+    range (after ``before()``, if given, outside it; what it launches is
+    not counted) and synchronised after it, with one range per stage
     (``record_function``) inside. Returns the per-frame medians of the wall
     time (profiler on), the device's busy time (summed kernel and copy time)
     and the device operations (also those that start in each frame's host
@@ -2341,6 +2413,8 @@ def profile_stages(step, stages, n):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         for _ in range(n):
+            if before is not None:
+                before()
             torch.cuda.synchronize()
             a = time.perf_counter()
             with record_function("frame"):
@@ -2351,6 +2425,10 @@ def profile_stages(step, stages, n):
     cpu = [e for e in events if not e[1]]
     dev = [e for e in events if e[1]]
     kernels = [e for e in dev if e[0] not in stages and e[0] != "frame"]
+    if before is not None:
+        # what before() launched is not the frames'
+        kernels = launched_in(kernels, launch_times(cpu),
+                              [(e[2], e[3]) for e in cpu if e[0] == "frame"])
     if not kernels:
         raise AssertionError("the profiler recorded no device operation")
     busy = sum(e[3] - e[2] for e in kernels) / 1e6 / n
@@ -2565,7 +2643,7 @@ def frame_record(mt, T):
     the row's counts and branches, the last frame's tensors and the
     velocity."""
     row = {k: v for k, v in mt.metrics[-1].items()
-           if k not in ("graph_captures", "graph_replays")}
+           if k not in ("graph_captures", "graph_replays", "graph_replayed")}
     last = mt.last
     tensors = dict(zip(("kp." + f for f in last.kp._fields), last.kp))
     tensors.update(assoc=last.assoc, outlier=last.outlier, R=last.R,
@@ -2736,57 +2814,153 @@ def profiled_tracking(mt, poses, frames, start, graphs):
     return prof
 
 
-def forced_branches(mt, poses, frames, first, built, seed, graphs):
-    """Three frames that force the fallbacks, from the map as built again
-    (``built``, ``seed``): an emptied last association (widen -> zero
-    velocity -> reference keyframe, and still tracks), a velocity above the
-    0.2 rad gate (predicts from the last pose, so the 15 px match
-    suffices), and a blank frame (lost, None, no exception); eagerly or
-    through the graphs. Returns the frame records."""
+def restore_tracked(mt, arena, seed, assoc=None):
+    """The state ``reseed`` gives (the map as built, the last frame
+    ``seed`` with its association replaced by ``assoc`` if given, no motion
+    model), with the map written into the tracker's arena in place, so
+    that its graphs stay and replay."""
+    for t, b in zip(mt.arena, arena):
+        t.copy_(b)
+    mt.last = seed if assoc is None else seed._replace(assoc=assoc)
+    mt.ref_kf, mt.velocity = seed.ref_kf, None
+    mt.frame_id = seed.frame_id + 1
+    mt.refresh_graph_cache()
+
+
+def forced_input(mt, frames, first, built, seed, name):
+    """Restore the map as built and return forced path ``name``'s frame:
+    ``emptied`` the next frame after the last association was emptied,
+    ``gate`` the next frame with a velocity above the 0.2 rad gate,
+    ``blank`` a blank frame."""
+    empty = torch.full_like(seed.assoc, -1) if name == "emptied" else None
+    restore_tracked(mt, built, seed, assoc=empty)
+    if name == "gate":
+        mt.velocity = (so3_exp(torch.tensor([0.0, GATE_ROT_RAD, 0.0],
+                                            device=mt.device)),
+                       torch.zeros(3, device=mt.device))
+    return np.zeros_like(frames[first]) if name == "blank" else frames[first]
+
+
+def forced_branches(mt, poses, frames, first, built, seed, counters, graphs):
+    """The forced paths of ``FORCED``, each 1 + FORCED_REPEATS times from
+    the map as built (restored in place): an emptied last association
+    (widen -> zero velocity -> reference keyframe, and still tracks), a
+    velocity above the 0.2 rad gate (predicts from the last pose, so the 15
+    px match suffices) and a blank frame (every fallback, then lost, None,
+    no exception); eagerly (``stage_times`` set) or through the graphs,
+    which the first frame of each path captures where it runs one for the
+    first time (A and B were captured by the steady graph frames, so the
+    pool's growth is W's, Z's, R's and S's) and every repeat replays: the
+    graphs named in ``FORCED``, none captured. Every repeat is bitwise
+    its path's first frame. Then GRAPH_PROFILE_FRAMES frames of each path
+    under the profiler. Returns (the first frame's record by path, the
+    report by path: walls, pose-LM launches a frame, profile, the pool's
+    MiB before and after) and the launches of the whole pass."""
     tag = "graph" if graphs else "eager"
     mt.stage_times = None if graphs else {}
     fps = mt.cfg.fps
-    i = first
-    reseed(mt, built, seed, assoc=torch.full_like(seed.assoc, -1))
-    T = mt.track_fisheye(frames[i], i / fps)
-    row, err = check_tracked(mt, T, i, poses)
-    records = [frame_record(mt, T)]
-    log(f"[branch-{tag}] emptied last association: "
-        + track_row_line(i, row, err))
-    if row["path"] != ("motion", "widen", "zero_velocity", "reference_kf",
-                       "local"):
-        raise AssertionError(f"frame {i} took {row['path']}")
-    i += 1
-    vel = (so3_exp(torch.tensor([0.0, GATE_ROT_RAD, 0.0], device=mt.device)),
-           torch.zeros(3, device=mt.device))
-    rot = float(torch.linalg.norm(se3_log(*vel)[3:])) \
-        * mt.cfg.motion_model_damping
-    mt.velocity = vel
-    T = mt.track_fisheye(frames[i], i / fps)
-    row, err = check_tracked(mt, T, i, poses)
-    records.append(frame_record(mt, T))
-    log(f"[branch-{tag}] velocity of {rot:.3f} rad (gate 0.2): "
-        + track_row_line(i, row, err))
-    if not (rot >= 0.2 and row["path"] == ("motion", "local")):
-        raise AssertionError(f"the velocity gate did not hold: {row['path']}")
-    blank = np.zeros_like(frames[i])
-    T = mt.track_fisheye(blank, (i + 1) / fps)
-    row = mt.metrics[-1]
-    records.append(frame_record(mt, T))
-    log(f"[branch-{tag}] blank frame: " + track_row_line("blank", row, None)
-        + f"; returned {T}")
-    if T is not None or row["track_ok"] or row["path"][-1] != "skip_local":
-        raise AssertionError("the blank frame was not lost")
-    if graphs and mt.metrics[-1]["graph_replays"] != 1:
-        raise AssertionError("the blank frame did not replay graph A alone")
+    zero_launches(counters)
+    records, report = {}, {}
+    for name, (branches, replayed) in FORCED.items():
+        pool = mt.fused_step.capture_mib if graphs else 0.0
+        walls, lm_launches = [], []
+        for rep in range(1 + FORCED_REPEATS):
+            img = forced_input(mt, frames, first, built, seed, name)
+            n0 = PO.POSE_LM.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T = mt.track_fisheye(img, first / fps)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            lm_launches.append(PO.POSE_LM.launches - n0)
+            row = mt.metrics[-1]
+            rec = frame_record(mt, T)
+            if name == "blank":
+                err = None
+                if T is not None or row["track_ok"]:
+                    raise AssertionError("the blank frame was not lost")
+            else:
+                row, err = check_tracked(mt, T, first, poses)
+            log(f"[branch-{tag}] {name} {rep}: "
+                + track_row_line(first, row, err)
+                + f"; graphs captured {row['graph_captures']}, replayed "
+                f"{'>'.join(row['graph_replayed']) or 'none'}; pose_lm "
+                f"launches {lm_launches[-1]}; wall {walls[-1]:.3f} ms")
+            if row["path"] != branches:
+                raise AssertionError(f"forced {name} took {row['path']}")
+            if rep == 0:
+                records[name] = rec
+            else:
+                same_bits(f"forced {name}, repeat {rep}", records[name], rec)
+                if graphs and (row["graph_captures"]
+                               or row["graph_replayed"] != replayed):
+                    raise AssertionError(
+                        f"forced {name} repeat {rep} captured "
+                        f"{row['graph_captures']} graphs and replayed "
+                        f"{row['graph_replayed']}, not {replayed}")
+        after = mt.fused_step.capture_mib if graphs else 0.0
+        prof = profile_stages(
+            lambda: mt.track_fisheye(img, first / fps), (),
+            GRAPH_PROFILE_FRAMES,
+            before=lambda: forced_input(mt, frames, first, built, seed,
+                                        name))
+        rows = mt.metrics[-GRAPH_PROFILE_FRAMES:]
+        reads = max(r["host_reads"] for r in rows)
+        log(f"[branch-{tag}] {name}: wall ms first {walls[0]:.3f}, repeats' "
+            f"median {float(np.median(walls[1:])):.3f} (all "
+            f"{float(np.median(walls)):.3f}); profiled: wall "
+            f"{prof['wall_ms']:.3f}, device busy "
+            f"{prof['device_busy_ms']:.3f} ms in {prof['device_ops']:.0f} "
+            f"operations, host waits {prof['host_waits']:.2f} a frame "
+            f"(reads {reads} + the upload"
+            f"{'' if graphs else ' + 2 stage synchronisations'}), by source "
+            f"{[(k, round(v, 2)) for k, v in prof['wait_sources']]}; pool "
+            f"{pool:.1f} -> {after:.1f} MiB")
+        if graphs and (prof["host_waits"] > reads + 1 or any(
+                r["graph_replayed"] != replayed for r in rows)):
+            raise AssertionError(f"a profiled forced {name} frame waited "
+                                 f"more than its reads and the upload, or "
+                                 f"did not replay {replayed}")
+        report[name] = dict(walls=walls, pose_lm=lm_launches, prof=prof,
+                            reads=reads, pool=(pool, after))
     mt.stage_times = None
-    return records
+    n = len(FORCED) * (1 + FORCED_REPEATS)
+    launches = {k: {c.symbol: c.launches for c in g}
+                for k, g in counters.items()}
+    log(f"[branch-{tag}] launches in {n} forced frames and "
+        f"{len(FORCED) * GRAPH_PROFILE_FRAMES} profiled: {launches}")
+    pose_launches(f"forced_{tag}", n)
+    return records, report, launches
+
+
+def check_forced(e_rec, e_rep, g_rec, g_rep):
+    """The forced paths through the graphs against their eager twins: the
+    first frames bitwise equal, the same pose-LM launches a frame; the
+    walls, busy time, operations and waits side by side."""
+    for name in FORCED:
+        same_bits(f"forced {name}", e_rec[name], g_rec[name])
+        e, g = e_rep[name], g_rep[name]
+        if e["pose_lm"] != g["pose_lm"]:
+            raise AssertionError(f"forced {name}: pose_lm launches eager "
+                                 f"{e['pose_lm']}, graph {g['pose_lm']}")
+        log(f"[branch] {name} ({'>'.join(FORCED[name][1])}): graph bitwise "
+            f"eager; wall ms eager median {float(np.median(e['walls'])):.3f}"
+            f", graph capturing {g['walls'][0]:.3f}, replaying median "
+            f"{float(np.median(g['walls'][1:])):.3f}; device busy eager "
+            f"{e['prof']['device_busy_ms']:.3f} / graph "
+            f"{g['prof']['device_busy_ms']:.3f} ms; operations "
+            f"{e['prof']['device_ops']:.0f} / {g['prof']['device_ops']:.0f}"
+            f"; host waits {e['prof']['host_waits']:.2f} / "
+            f"{g['prof']['host_waits']:.2f} (reads {g['reads']}); pose_lm "
+            f"{g['pose_lm'][0]} a frame; pool MiB {g['pool'][0]:.1f} -> "
+            f"{g['pool'][1]:.1f}")
 
 
 def map_tracking_phase(cfg, counters):
     """The map, the tracking path eagerly and through the graphs, the
     profiled frames of each, the forced branches both ways and the small
-    card-against-CPU check. Returns the graph run's launches."""
+    card-against-CPU check. Returns the graph run's launches, the forced
+    graph pass's and the pose-LM kernel's row."""
     mt, poses, frames, first = build_map_phase(cfg)
     t_walls, t_launches, e_walls, built, seed = eager_and_graph_tracking(
         mt, poses, frames, first, counters)
@@ -2820,18 +2994,16 @@ def map_tracking_phase(cfg, counters):
     if not g_prof["device_ops"] < GRAPH_MAX_OPS:
         raise AssertionError(f"a graph frame ran {g_prof['device_ops']:.0f} "
                              f"device operations (at most {GRAPH_MAX_OPS})")
-    e_rec = forced_branches(mt, poses, frames, first, built, seed,
-                            graphs=False)
-    g_rec = forced_branches(mt, poses, frames, first, built, seed,
-                            graphs=True)
-    for k, (e, g) in enumerate(zip(e_rec, g_rec)):
-        same_bits(f"forced branch {k}", e, g)
-    log("[branch] the three forced frames through the graphs are bitwise "
-        "the eager ones")
+    e_rec, e_rep, _ = forced_branches(mt, poses, frames, first, built, seed,
+                                      counters, graphs=False)
+    g_rec, g_rep, f_launches = forced_branches(mt, poses, frames, first,
+                                               built, seed, counters,
+                                               graphs=True)
+    check_forced(e_rec, e_rep, g_rec, g_rep)
     del mt
     small_map_reference_check()
     pose_row = check_pose_lm(cfg, LM_INPUTS[0])
-    return t_launches, pose_row
+    return t_launches, f_launches, pose_row
 
 
 def small_map_reference_check():
@@ -3957,28 +4129,82 @@ def drive_localization(slam, poses, frames, idx, ate, tag):
     return walls, recs, errs
 
 
-def forced_localization(slam, poses, frames, i, ate, graphs):
-    """Frame ``i`` after the last association was emptied: no match at 15
-    px nor 30 px (graph L2 on the card), the reference-keyframe fallback,
-    then TrackLocalMap (graph L3 on the stage tuple the fallback copied);
-    tracked within the bound."""
+LOC_FORCED_GRAPHS = ("L1", "L2", "LR", "L3")
+
+
+def forced_localization(slam, poses, frames, i, ate, graphs, end):
+    """Frame ``i`` after the last association was emptied, 1 +
+    FORCED_REPEATS times from the state ``end`` (``restore_loc``): no match
+    at 15 px nor 30 px (graph L2 on the card), the reference-keyframe
+    fallback (graph LR), then TrackLocalMap (graph L3 on the stage tuple
+    LR's was copied into); tracked within the bound, every repeat bitwise
+    the first, and through the graphs every repeat replays L1, L2, LR and
+    L3 and captures none. Then GRAPH_PROFILE_FRAMES such frames under the
+    profiler. Returns (the first frame's record, the report: walls, pose-LM
+    launches a frame, profile, reads, the pool's MiB before and after)."""
     slam.localization_graphs = graphs
-    slam.last = slam.last._replace(assoc=torch.full_like(slam.last.assoc,
-                                                         -1))
-    T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
     tag = "graph" if graphs else "eager"
-    log(f"[localization-{tag}] frame {i}, last association emptied: "
-        + reloc_row_line(row, wall)
-        + f"; graphs captured, replayed {loc_graph_counts(row)}")
-    if T is None or row["vo"] or row["host_reads"] != 4:
-        raise AssertionError("the emptied frame did not widen, fall back to "
-                             "the reference keyframe and track the map")
-    if graphs and sum(loc_graph_counts(row)) != 3:
-        raise AssertionError("the emptied frame did not run graphs L1, L2 "
-                             "and L3")
-    check_near_truth("localization", T, poses[i], ate[0], ate[1])
+    fl = slam.fused_localization
+    pool = fl.capture_mib if graphs and fl else 0.0
+
+    def emptied():
+        restore_loc(slam, end)
+        slam.last = slam.last._replace(
+            assoc=torch.full_like(slam.last.assoc, -1))
+
+    walls, lm_launches, first = [], [], None
+    for rep in range(1 + FORCED_REPEATS):
+        emptied()
+        n0 = PO.POSE_LM.launches
+        T, row, wall = timed_frame(slam, frames[i], 200.0 + i)
+        walls.append(wall)
+        lm_launches.append(PO.POSE_LM.launches - n0)
+        names = row.get("graph_localization_replayed", ())
+        log(f"[localization-{tag}] frame {i}, last association emptied, "
+            f"{rep}: " + reloc_row_line(row, wall)
+            + f"; graphs captured, replayed {loc_graph_counts(row)} "
+            f"({'>'.join(names) or 'none'}); pose_lm launches "
+            f"{lm_launches[-1]}")
+        if T is None or row["vo"] or row["host_reads"] != 4:
+            raise AssertionError("the emptied frame did not widen, fall back "
+                                 "to the reference keyframe and track the "
+                                 "map")
+        check_near_truth("localization", T, poses[i], ate[0], ate[1])
+        rec = loc_record(slam, T)
+        if rep == 0:
+            first = rec
+            if graphs and sum(loc_graph_counts(row)) != 4:
+                raise AssertionError("the emptied frame did not run graphs "
+                                     "L1, L2, LR and L3")
+        else:
+            same_bits(f"the emptied localization frame, repeat {rep}", first,
+                      rec)
+            if graphs and (row["graph_localization_captures"]
+                           or names != LOC_FORCED_GRAPHS):
+                raise AssertionError(f"the emptied frame's repeat {rep} "
+                                     f"captured or replayed {names}, not "
+                                     f"{LOC_FORCED_GRAPHS}")
+    after = slam.fused_localization.capture_mib if graphs else 0.0
+    prof = profile_stages(lambda: slam.track_fisheye(frames[i], 200.0 + i),
+                          (), GRAPH_PROFILE_FRAMES, before=emptied)
+    rows = slam.metrics[-GRAPH_PROFILE_FRAMES:]
+    reads = max(r["host_reads"] for r in rows)
+    log(f"[localization-{tag}] the emptied frame: wall ms first "
+        f"{walls[0]:.3f}, repeats' median {float(np.median(walls[1:])):.3f} "
+        f"(all {float(np.median(walls)):.3f}); profiled: device busy "
+        f"{prof['device_busy_ms']:.3f} ms in {prof['device_ops']:.0f} "
+        f"operations, host waits {prof['host_waits']:.2f} a frame (reads "
+        f"{reads} + the upload: {reads + 1}); pool {pool:.1f} -> "
+        f"{after:.1f} MiB")
+    if graphs and (prof["host_waits"] > reads + 1 or any(
+            r.get("graph_localization_replayed") != LOC_FORCED_GRAPHS
+            for r in rows)):
+        raise AssertionError("a profiled emptied localization frame waited "
+                             "more than its reads and the upload, or did not "
+                             "replay L1, L2, LR and L3")
     slam.localization_graphs = True
-    return loc_record(slam, T)
+    return first, dict(walls=walls, pose_lm=lm_launches, prof=prof,
+                       reads=reads, pool=(pool, after))
 
 
 def profiled_localization(slam, frames, idx, graphs, walls):
@@ -4024,13 +4250,14 @@ def localization_phase(slam, poses, frames, ate, counters):
     unchanged. Then, from the arena and tracker state restored, the same
     frames eagerly (``localization_graphs`` off): bitwise equal frame by
     frame, the arena's counters too. A frame with the last association
-    emptied (graph L2, the eager reference-keyframe fallback, graph L3)
-    through the graphs and eagerly, bitwise equal; two frames of each kind
-    under the profiler, whose host waits may not exceed the stated reads
-    and the upload. Last, landmarks perturbed by LOC_SIGMA engage mbVO (a
-    ``vo`` row), and restored, the next frame relocalizes (``FusedReloc``
-    on graph L1's keypoints) and clears it. Returns the launches of the
-    graph run and of the eager run."""
+    emptied (graphs L1, L2, LR: the reference-keyframe fallback, and L3)
+    through the graphs and eagerly, each 1 + FORCED_REPEATS times from the
+    same state and profiled (``forced_localization``), bitwise equal; two
+    frames of each kind under the profiler, whose host waits may not
+    exceed the stated reads and the upload. Last, landmarks perturbed by
+    LOC_SIGMA engage mbVO (a ``vo`` row), and restored, the next frame
+    relocalizes (``FusedReloc`` on graph L1's keypoints) and clears it.
+    Returns the launches of the graph run and of the eager run."""
     align, path = ate
     slam.activate_localization_mode()
     slam.localization_graphs = True
@@ -4071,14 +4298,31 @@ def localization_phase(slam, poses, frames, ate, counters):
         f"{g_walls[0]:.3f}, replaying median "
         f"{float(np.median(g_walls[1:])):.3f}")
     i = first + LOC_FRAMES
-    forced = []
+    forced = {}
     for graphs in (True, False):
-        restore_loc(slam, end)
-        forced.append(forced_localization(slam, poses, frames, i, ate,
-                                          graphs))
-    same_bits("the emptied localization frame", forced[1], forced[0])
-    log("[localization] the emptied frame through graphs L1, L2, L3 is "
-        "bitwise the eager one")
+        zero_launches(counters)
+        forced[graphs] = forced_localization(slam, poses, frames, i, ate,
+                                             graphs, end)
+        pose_launches(f"localization_forced_{'graph' if graphs else 'eager'}",
+                      1 + FORCED_REPEATS + GRAPH_PROFILE_FRAMES)
+    (g_first, g), (e_first, e) = forced[True], forced[False]
+    same_bits("the emptied localization frame", e_first, g_first)
+    if e["pose_lm"] != g["pose_lm"]:
+        raise AssertionError(f"the emptied localization frame launched "
+                             f"pose_lm {g['pose_lm']} through the graphs, "
+                             f"{e['pose_lm']} eagerly")
+    log(f"[localization] the emptied frame through graphs "
+        f"{', '.join(LOC_FORCED_GRAPHS)} is bitwise the eager one; wall ms "
+        f"eager median {float(np.median(e['walls'])):.3f}, graph capturing "
+        f"{g['walls'][0]:.3f}, replaying median "
+        f"{float(np.median(g['walls'][1:])):.3f}; device busy eager "
+        f"{e['prof']['device_busy_ms']:.3f} / graph "
+        f"{g['prof']['device_busy_ms']:.3f} ms; operations "
+        f"{e['prof']['device_ops']:.0f} / {g['prof']['device_ops']:.0f}; "
+        f"host waits {e['prof']['host_waits']:.2f} / "
+        f"{g['prof']['host_waits']:.2f} (reads {g['reads']}); pose_lm "
+        f"{g['pose_lm'][0]} a frame; pool MiB {g['pool'][0]:.1f} -> "
+        f"{g['pool'][1]:.1f}")
     for graphs, walls in ((True, g_walls[1:]), (False, e_walls)):
         restore_loc(slam, start)
         profiled_localization(slam, frames, idx[:GRAPH_PROFILE_FRAMES],
@@ -5084,9 +5328,10 @@ def main() -> int:
     lms = landmarks_from_keypoints(kp0, N_LANDMARKS, rng, cfg.n_levels)
     log(f"[path] {int(kp0.valid.sum())} valid keypoints on frame 0; "
         f"{N_LANDMARKS} landmarks")
+    starts = [perturbed_pose(rng, tracker.device) for _ in range(N_FRAMES)]
     zero_launches(counters)
     torch.cuda.reset_peak_memory_stats()
-    walls, cpus, results = drive_main_path(tracker, frame, lms, rng)
+    walls, cpus, results = drive_main_path(tracker, frame, lms, starts)
     launches = {name: {c.symbol: c.launches for c in group}
                 for name, group in counters.items()}
     if pose_launches("frame_step", N_FRAMES) != N_FRAMES:
@@ -5094,7 +5339,8 @@ def main() -> int:
                              "kernel once a frame")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     check_results(results, cfg)
-    log(f"[path] frame step wall ms (synchronised): "
+    log(f"[path] frame step wall ms (synchronised; graph F, captured on "
+        f"the first): "
         f"{', '.join(f'{w:.3f}' for w in walls)}; median of the last "
         f"{N_FRAMES - 1} {float(np.median(walls[1:])):.3f}; host thread CPU "
         f"ms: {', '.join(f'{c:.3f}' for c in cpus)}; peak memory "
@@ -5105,13 +5351,14 @@ def main() -> int:
             if n != LAUNCHES_PER_FRAME * N_FRAMES:
                 raise AssertionError(f"{name} ({sym}) was launched {n} times "
                                      f"in {N_FRAMES} frames on the main path")
+    frame_step_twins(tracker, frame, lms, starts, results, walls)
     prof = profiled_frames(tracker, frame, lms, rng)
     log_profile("profile", prof, walls[1:])
 
     small_reference_check()
     done("frame step")
 
-    t_launches, pose_row = map_tracking_phase(cfg, counters)
+    t_launches, f_launches, pose_row = map_tracking_phase(cfg, counters)
     done("map tracking")
     slam, s_poses, s_frames, s_launches, g_launches, ate = slam_phase(
         cfg, counters)
@@ -5152,6 +5399,7 @@ def main() -> int:
         r["launches_by_kernel"] = launches[r["name"]]
         r["launches_tracking"] = sum(t_launches[r["name"]].values())
         r["launches_tracking_by_kernel"] = t_launches[r["name"]]
+        r["launches_forced"] = sum(f_launches[r["name"]].values())
         r["launches_slam"] = sum(s_launches[r["name"]].values())
         r["launches_slam_by_kernel"] = s_launches[r["name"]]
         r["launches_repeat"] = sum(g_launches[r["name"]].values())

@@ -9,11 +9,21 @@ landmark set with radius 15 px and level offsets -1/+1, the scatter-max
 association, then ``pose_optimization``). Everything static — camera, warp
 map, FOV mask, pyramid and descriptor operators — is built once on the
 device.
+
+As the JAX package runs ``frame_step`` under one ``jax.jit``, a call on the
+card replays one CUDA graph F (``runtime/fused_step.py::CapturedFrame``),
+captured on the first call: the frame, the landmark set and the start pose
+are copied into static buffers, graph F runs warp, extract, ``match`` and
+``optimize`` on them, and its outputs are cloned. The JAX program has no
+branch, so the frame reads nothing to the host; a frame that arrives as a
+host array waits once, for its upload. ``FrameTracker(graphs=False)`` runs
+the same stages eagerly on the caller's tensors; on the CPU the static
+buffers are used all the same, eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +36,7 @@ from cubemapslam_tpu_torch.features.extractor import (
     Keypoints, build_extractor)
 from cubemapslam_tpu_torch.matching import search_by_projection
 from cubemapslam_tpu_torch.optim.pose_opt import pose_optimization
+from cubemapslam_tpu_torch.runtime.fused_step import N_KP, CapturedFrame
 from cubemapslam_tpu_torch.warp import WarpMap, build_warp_map, fov_mask
 from cubemapslam_tpu_torch.warp_cuda import warp_to_cross
 
@@ -113,6 +124,10 @@ class FrameFrontend(nn.Module):
         return host.pin_memory().to(self.device, non_blocking=True)
 
 
+# the static inputs of graph F after the fisheye frame, in forward's order
+STEP_INPUTS = ("lm_pos", "lm_desc", "lm_level", "lm_valid", "R0", "t0")
+
+
 class FrameTracker(FrameFrontend):
     """One tracking step per call, for one calibration and landmark set.
 
@@ -121,7 +136,18 @@ class FrameTracker(FrameFrontend):
     keypoints, the landmark associated with each keypoint (-1 if none), the
     optimised world->camera pose, the inlier mask over keypoints and its
     count. ``warp``, ``extract``, ``match`` and ``optimize`` are its stages.
+    With ``graphs`` on (the default) a call runs them as graph F on static
+    buffers (see the module docstring; eagerly on the CPU), and a landmark
+    set of another shape or type than the first call's raises;
+    ``step_graph`` is that ``CapturedFrame``, once made. With ``graphs``
+    off they run eagerly on the arguments.
     """
+
+    def __init__(self, cfg: Optional[SlamConfig] = None, device=None,
+                 graphs: bool = True):
+        super().__init__(cfg, device)
+        self.graphs = graphs
+        self.step_graph: Optional[CapturedFrame] = None
 
     def match(self, kp: Keypoints, lm_pos: torch.Tensor,
               lm_desc: torch.Tensor, lm_level: torch.Tensor,
@@ -152,8 +178,34 @@ class FrameTracker(FrameFrontend):
         return pose_optimization(self.cam, R0, t0, Xw, kp.face, uv_face,
                                  inv_s2, assoc >= 0)
 
-    def forward(self, fisheye_u8, lm_pos, lm_desc, lm_level, lm_valid, R0,
-                t0):
-        kp = self.extract(self.warp(fisheye_u8))
+    def step(self, kp: Keypoints, lm_pos, lm_desc, lm_level, lm_valid, R0,
+             t0) -> Tuple:
+        """``match`` and ``optimize`` on a frame's keypoints: (kp, assoc,
+        R, t, inliers, n_inliers)."""
         assoc = self.match(kp, lm_pos, lm_desc, lm_level, lm_valid, R0, t0)
         return (kp, assoc) + self.optimize(kp, assoc, lm_pos, R0, t0)
+
+    def _part_f(self) -> List[torch.Tensor]:
+        """Graph F: the front end on the static frame, then ``step`` on the
+        static landmarks and start pose, flat."""
+        cf = self.step_graph
+        kp, *rest = self.step(cf.front_end(self),
+                              *(cf.inputs[k] for k in STEP_INPUTS))
+        return [*kp, *rest]
+
+    def forward(self, fisheye_u8, lm_pos, lm_desc, lm_level, lm_valid, R0,
+                t0):
+        args = (lm_pos, lm_desc, lm_level, lm_valid, R0, t0)
+        if not self.graphs:
+            return self.step(self.extract(self.warp(fisheye_u8)), *args)
+        if self.step_graph is None:
+            self.step_graph = CapturedFrame(self.device)
+            self.step_graph.label = "frame step"
+        cf = self.step_graph
+        cf.new_frame()
+        cf.check(list(self.named_buffers()))
+        cf.load_front_end(self, fisheye_u8, None)
+        for name, x in zip(STEP_INPUTS, args):
+            cf._copy(name, x)
+        out = [x.clone() for x in cf.run("f", self._part_f)]
+        return (Keypoints(*out[:N_KP]), *out[N_KP:])

@@ -1,11 +1,13 @@
-"""The steady-state tracked frame as two captured CUDA graphs.
+"""The tracked frame as captured CUDA graphs.
 
 ``FusedStep`` is the port's counterpart of the JAX package's one-program
-steady-state frame (``CubemapSLAM._build_fused_step``,
+tracked frame (``CubemapSLAM._build_fused_step``,
 ``cubemapslam_tpu/runtime/system.py:278-303``: warp, cross assembly,
-``extract`` and ``track_frame_full`` under one ``jax.jit``). The port's
-frame branches on the host twice (``runtime/kernels.py``), so it is two
-graphs, captured once and replayed on every later frame:
+``extract`` and ``track_frame_full`` under one ``jax.jit``, whose
+fallbacks are ``lax.cond`` branches on the device). The port's frame
+branches on the host (``runtime/kernels.py``), so it is a graph for each
+part between two reads, each captured on the first frame that runs it and
+replayed on every later one:
 
 * graph A: the front end (``CapturedFrame.front_end``, which
   ``runtime/fused_localization.py`` records too: the static fisheye buffer
@@ -14,14 +16,17 @@ graphs, captured once and replayed on every later frame:
   ``TrackingKernels.frame_motion`` (the re-anchoring, the velocity gate and
   the prediction, the 15 px projection search and the pose-only LM) and
   the counts [matches, inliers];
-* host read 1 of those counts; the fallbacks (widen, zero velocity,
-  reference keyframe) run eagerly, and their stage tuple is copied into
-  graph A's outputs, which are graph B's inputs;
+* host read 1 of those counts; then the fallbacks that the counts call
+  for, in the JAX order (``TrackingKernels.motion_fallbacks``), each a
+  graph on graph A's outputs followed by one read of its counts: graph W
+  (30 px from the prediction), graph Z (30 px from the last pose) and
+  graph R (the reference keyframe and a pose solve); the stage tuple the
+  host keeps is copied into graph A's outputs, which graph B or S reads;
 * graph B, when the frame tracks: ``TrackingKernels.frame_local``
   (TrackLocalMap, with the arena's visible/found counters updated in place,
-  then the epilogue); a frame that does not track runs ``frame_skip``
-  eagerly;
-* host read 2, of the packed result, by the caller.
+  then the epilogue); graph S, when it does not: ``frame_skip`` (the
+  epilogue alone);
+* the last host read, of the packed result, by the caller.
 
 Static inputs. Before a replay the frame's inputs are copied into buffers
 that do not move: the fisheye frame, the mask (only when it is not the
@@ -44,8 +49,12 @@ Outputs. A graph's outputs live in its memory pool and the next replay
 writes over them, so everything that outlives the frame (the keypoints,
 the associations, outliers, pose, the pose relative to the new reference,
 the velocity and the packed result) is cloned after the frame; the clones
-are what the caller keeps. Both graphs share one private pool and are
-always replayed in the order they were captured (A, then B).
+are what the caller keeps. The graphs share one private pool. Within a
+frame they replay as A, then any of W, Z and R, then B or S; a graph
+captured later than another may have put its outputs where the earlier
+one keeps its temporaries, so every output is consumed (read, copied into
+graph A's outputs or cloned) before a graph captured earlier replays: W's,
+Z's and R's before B or S, which each frame replays last.
 
 Capture (``CapturedFrame``, which ``runtime/fused_mapping.py`` shares). The
 first frame that needs a graph runs its part eagerly on a side stream
@@ -95,7 +104,8 @@ class CapturedFrame:
     the parts read the first time it is called and raises on a later call
     if one moved. ``captures`` and ``replays`` count the graphs captured
     and replayed so far, ``frame_captures`` / ``frame_replays`` those since
-    ``new_frame()``, ``capture_ms`` the host's wall time in
+    ``new_frame()`` and ``frame_replayed`` their names (upper case, in
+    replay order), ``capture_ms`` the host's wall time in
     the capture and ``capture_mib`` the device memory the
     captures' pool reserved.
 
@@ -121,6 +131,7 @@ class CapturedFrame:
         self._stream = torch.cuda.Stream(device) if self.graphs else None
         self.captures = self.replays = 0
         self.frame_captures = self.frame_replays = 0
+        self.frame_replayed: List[str] = []
         self.capture_ms = 0.0
         self.capture_mib = 0.0
 
@@ -192,6 +203,7 @@ class CapturedFrame:
 
     def new_frame(self) -> None:
         self.frame_captures = self.frame_replays = 0
+        self.frame_replayed = []
 
     def check(self, named: Sequence[Tuple[str, torch.Tensor]]) -> None:
         """Record where the tensors of ``named`` lie the first time; later,
@@ -231,6 +243,7 @@ class CapturedFrame:
                 k.launches += d
             self.replays += 1
             self.frame_replays += 1
+            self.frame_replayed.append(name.upper())
             return self.outputs[name]
         main, side = torch.cuda.current_stream(self.device), self._stream
         side.wait_stream(main)
@@ -310,10 +323,11 @@ class CapturedLoop(CapturedFrame):
 
 
 class FusedStep(CapturedFrame):
-    """Static buffers, the two graphs and their pool for one tracker's
-    steady-state frame. Call it as ``step(tracker, fisheye, mask, last,
-    velocity, gain, ref_kf)``; it returns (keypoints, ``FrameTrack``).
-    Graphs A and B share the pool and are replayed in that order."""
+    """Static buffers, the graphs and their pool for one tracker's frame.
+    Call it as ``step(tracker, fisheye, mask, last, velocity, gain,
+    ref_kf)``; it returns (keypoints, ``FrameTrack``). Graph A and B or S
+    run every frame, W, Z and R when the counts call for them, in that
+    order."""
 
     label = "fused step"
 
@@ -342,8 +356,13 @@ class FusedStep(CapturedFrame):
         self._copy_if_new("cnt", tracker.cnt)
 
     # ------------------------------------------------------------------
-    # The two parts
+    # The parts
     # ------------------------------------------------------------------
+
+    def _last(self) -> Tuple[torch.Tensor, ...]:
+        s = self.inputs
+        return (s["last_assoc"], s["last_outlier"], s["last_level"],
+                s["last_angle"])
 
     def _part_a(self, tracker) -> List[torch.Tensor]:
         """Warp, extract and ``frame_motion``, flat: the keypoints' fields,
@@ -352,21 +371,32 @@ class FusedStep(CapturedFrame):
         s = self.inputs
         kp = self.front_end(tracker)
         st, pose, counts = tracker.kernels.frame_motion(
-            tracker.arena, kp, s["last_assoc"], s["last_outlier"],
-            s["last_level"], s["last_angle"], s["rel_R"], s["rel_t"],
+            tracker.arena, kp, *self._last(), s["rel_R"], s["rel_t"],
             s["last_ref"], s["vel_R"], s["vel_t"], s["gain"])
         return [*kp, *st, *pose, counts]
+
+    def _a(self):
+        """Graph A's outputs: (keypoints, stage tuple, (R_last, t_last,
+        R_pred, t_pred)); the stage tuple is the one graph B or S reads."""
+        a = self.outputs["a"]
+        return (Keypoints(*a[:N_KP]), a[N_KP:N_KP + 6],
+                tuple(a[N_KP + 6:N_KP + 10]))
 
     def _part_b(self, tracker) -> List[torch.Tensor]:
         """``frame_local`` on graph A's outputs (the stage tuple possibly
         overwritten by a fallback's)."""
-        a = self.outputs["a"]
-        kp = Keypoints(*a[:N_KP])
-        st = a[N_KP:N_KP + 6]
-        R_last, t_last = a[N_KP + 6:N_KP + 8]
+        kp, st, pose = self._a()
         return list(tracker.kernels.frame_local(
-            tracker.arena, kp, st, R_last, t_last, self.inputs["ref_kf"],
+            tracker.arena, kp, st, *pose[:2], self.inputs["ref_kf"],
             self.inputs["covis"], self.inputs["cnt"]))
+
+    def _part_s(self, tracker) -> List[torch.Tensor]:
+        """``frame_skip`` on graph A's outputs (the stage tuple possibly
+        overwritten by a fallback's)."""
+        _, st, pose = self._a()
+        return list(tracker.kernels.frame_skip(
+            tracker.arena, st, *pose[:2], self.inputs["ref_kf"],
+            self.inputs["cnt"]))
 
     # ------------------------------------------------------------------
     # One frame
@@ -378,27 +408,23 @@ class FusedStep(CapturedFrame):
         self.check_tracker(tracker)
         self.load_inputs(tracker, fisheye, mask, last, velocity, gain, ref_kf)
         k = tracker.kernels
-        a = self.run("a", lambda: self._part_a(tracker))
-        kp = Keypoints(*a[:N_KP])
-        st = a[N_KP:N_KP + 6]
-        R_last, t_last = a[N_KP + 6:N_KP + 8]
-        pose = tuple(a[N_KP + 6:N_KP + 10])
-        n, n_inl = a[-1].tolist()
+        counts = self.run("a", lambda: self._part_a(tracker))[-1]
+        kp, st, pose = self._a()
+        n, n_inl = counts.tolist()
         path = ["motion"]
-        s = self.inputs
+        parts = k.fallback_parts(tracker.arena, kp, self._last(), pose,
+                                 self.inputs["ref_kf"])
         st_f, n, n_inl, reads = k.motion_fallbacks(
-            tracker.arena, kp, (s["last_assoc"], s["last_outlier"],
-                                s["last_level"], s["last_angle"]),
-            tuple(st), n, n_inl, pose, s["ref_kf"], path)
+            lambda name: self.run(name, parts[name]), tuple(st), n, n_inl,
+            path)
+        for dst, src in zip(st, st_f):
+            if dst is not src:
+                dst.copy_(src)
         if n >= 15 and n_inl >= 10:
-            for dst, src in zip(st, st_f):
-                if dst is not src:
-                    dst.copy_(src)
             out = self.run("b", lambda: self._part_b(tracker))
             path.append("local")
         else:
-            out = k.frame_skip(tracker.arena, st_f, R_last, t_last,
-                               s["ref_kf"], s["cnt"])
+            out = self.run("s", lambda: self._part_s(tracker))
             path.append("skip_local")
         kp = Keypoints(*(x.clone() for x in kp))
         return kp, FrameTrack(tracker.arena, *(x.clone() for x in out),

@@ -14,12 +14,13 @@ packed result once more. A 0-d device tensor is never used as an index
 (PyTorch would read it to the host): such indices go in as 1-element
 tensors.
 
-The stages between those reads (``frame_motion``, then ``frame_local`` or
-``frame_skip``) read nothing to the host and take the keyframe slots, the
-motion model's gain and the radius scale as device tensors, so that
-``runtime/fused_step.py`` can capture them as CUDA graphs; in the JAX
-package they are one jitted program. A localization-mode frame's stages
-(``localization_motion``, ``localization_local``) likewise read nothing,
+The stages between those reads (``frame_motion``, the fallbacks' parts of
+``fallback_parts``, then ``frame_local`` or ``frame_skip``) read nothing to
+the host and take the keyframe slots, the motion model's gain and the
+radius scale as device tensors, so that ``runtime/fused_step.py`` can
+capture them as CUDA graphs; in the JAX package they are one jitted
+program. A localization-mode frame's stages (``localization_motion``,
+``localization_reference``, ``localization_local``) likewise read nothing,
 and ``runtime/fused_localization.py`` captures them; so do an
 initialization attempt's (``init_count`` / ``init_match``, then
 ``init_two_view`` on RANSAC scores drawn outside), which
@@ -408,6 +409,16 @@ class TrackingKernels:
                                      t_pred, radius=radius)
         return st, R_last, t_last, pack((st[1], st[5]), st[2], st[3])
 
+    def localization_reference(self, arena: SM.MapArena, kp_cur: Keypoints,
+                               ref_kf, R_last, t_last):
+        """A localization-mode frame's reference-keyframe fallback
+        (``reference_fallback`` against keyframe ``ref_kf`` from the last
+        pose), which reads nothing to the host. Returns the stage tuple and
+        its packed (11,) float32 [matches, inliers, R.ravel(9), t(3)],
+        flat."""
+        st = self.reference_fallback(arena, kp_cur, ref_kf, R_last, t_last)
+        return [*st, pack((st[1], st[5]), st[2], st[3])]
+
     def localization_local(self, arena: SM.MapArena, kp_cur: Keypoints,
                            assoc, outlier, R, t, covis, R_last, t_last,
                            ref_kf):
@@ -462,41 +473,79 @@ class TrackingKernels:
                                      radius=15.0)
         return st, pose, torch.stack([st[1], st[5]])
 
-    def motion_fallbacks(self, arena: SM.MapArena, kp_cur: Keypoints, last,
-                         st, n: int, n_inl: int, pose, ref_kf, path):
-        """The fallbacks after the 15 px match, in the JAX order
-        (``kernels.py:389-426``), branching on counts read to the host:
-        widened to 30 px below 20 matches, a zero-velocity retry, then the
-        reference keyframe ``ref_kf`` (a 0-d device index). ``last`` is the
-        last frame's (assoc, outlier, kp level, kp angle), ``n`` / ``n_inl``
-        the 15 px match's counts as read. Returns (stage tuple, n, n_inl,
-        reads made here)."""
+    def widened_motion(self, arena: SM.MapArena, kp_cur: Keypoints, last,
+                       R0, t0):
+        """A fallback's motion-model match at 30 px from ``(R0, t0)``
+        (``kernels.py:394-416``), which reads nothing to the host: the
+        widened search from the prediction, or the zero-velocity retry from
+        the last pose. ``last`` is the last frame's (assoc, outlier, kp
+        level, kp angle). Returns the stage tuple of ``track_motion_fused``
+        and its counts (2,) int64 [matches, inliers], flat."""
+        st = self.track_motion_fused(arena, kp_cur, *last, R0, t0,
+                                     radius=30.0)
+        return [*st, torch.stack([st[1], st[5]])]
+
+    def reference_fallback(self, arena: SM.MapArena, kp_cur: Keypoints,
+                           ref_kf, R_last, t_last):
+        """The reference-keyframe fallback (``kernels.py:418-426``), which
+        reads nothing to the host: ``track_reference_kf`` against keyframe
+        ``ref_kf`` (an int or a 0-d device index), then ``optimize_pose``
+        from the last pose. Returns the stage tuple (assoc, n, R, t,
+        outlier, n_inl)."""
+        assoc, n = self.track_reference_kf(arena, kp_cur, ref_kf)
+        R, t, outlier, n_inl = self.optimize_pose(arena, kp_cur, assoc,
+                                                  R_last, t_last)
+        return assoc, n, R, t, outlier, n_inl
+
+    def fallback_parts(self, arena: SM.MapArena, kp_cur: Keypoints, last,
+                       pose, ref_kf):
+        """The fallbacks of a tracked frame as parts that read nothing to
+        the host, by name: ``"w"`` widens to 30 px from the prediction,
+        ``"z"`` retries from the last pose, ``"r"`` falls back to keyframe
+        ``ref_kf``; each takes no argument and returns the stage tuple and
+        its counts (2,) int64 [matches, inliers], flat. ``pose`` is
+        ``frame_motion``'s (R_last, t_last, R_pred, t_pred).
+        ``runtime/fused_step.py`` captures each as a graph."""
         R_last, t_last, R_pred, t_pred = pose
 
-        def motion(R0, t0, radius):
-            st = self.track_motion_fused(arena, kp_cur, *last, R0, t0,
-                                         radius=radius)
-            n, n_inl = torch.stack([st[1], st[5]]).tolist()
-            return st, n, n_inl
+        def reference():
+            st = self.reference_fallback(arena, kp_cur, ref_kf, R_last,
+                                         t_last)
+            return [*st, torch.stack([st[1], st[5]])]
+
+        return {"w": lambda: self.widened_motion(arena, kp_cur, last, R_pred,
+                                                 t_pred),
+                "z": lambda: self.widened_motion(arena, kp_cur, last, R_last,
+                                                 t_last),
+                "r": reference}
+
+    @staticmethod
+    def motion_fallbacks(run, st, n: int, n_inl: int, path):
+        """The fallbacks after the 15 px match, in the JAX order
+        (``kernels.py:389-426``), branching on counts read to the host:
+        widened to 30 px below 20 matches, a zero-velocity retry kept when
+        it has more inliers, then the reference keyframe. ``run(name)``
+        runs the part ``name`` of ``fallback_parts`` (eagerly, or as its
+        graph) and returns its outputs; each part's counts are read once.
+        ``st`` is the 15 px stage tuple and ``n`` / ``n_inl`` its counts as
+        read. Returns (stage tuple, n, n_inl, reads made here)."""
+
+        def part(name, step):
+            out = run(name)
+            path.append(step)
+            return tuple(out[:6]), *out[6].tolist()
 
         reads = 0
         if n < MIN_MATCHES:
-            st, n, n_inl = motion(R_pred, t_pred, 30.0)
-            path.append("widen")
+            st, n, n_inl = part("w", "widen")
             reads += 1
             if n < MIN_MATCHES:
-                st2, n2, n_inl2 = motion(R_last, t_last, 30.0)
-                path.append("zero_velocity")
+                st2, n2, n_inl2 = part("z", "zero_velocity")
                 reads += 1
                 if n_inl2 > n_inl:
                     st, n, n_inl = st2, n2, n_inl2
         if n < MIN_MATCHES:
-            assoc2, n2 = self.track_reference_kf(arena, kp_cur, ref_kf)
-            R2, t2, out2, ni2 = self.optimize_pose(arena, kp_cur, assoc2,
-                                                   R_last, t_last)
-            st = (assoc2, n2, R2, t2, out2, ni2)
-            n, n_inl = torch.stack([n2, ni2]).tolist()
-            path.append("reference_kf")
+            st, n, n_inl = part("r", "reference_kf")
             reads += 1
         return st, n, n_inl, reads
 
@@ -582,9 +631,10 @@ class TrackingKernels:
         new_ref_kf, local_frustum, local_queried, local_matched,
         R.ravel(9), t(3)].
 
-        The stages are ``frame_motion``, ``motion_fallbacks`` and
-        ``frame_local`` or ``frame_skip``; ``runtime/fused_step.py``
-        captures the first and the third as CUDA graphs.
+        The stages are ``frame_motion``, ``motion_fallbacks`` over the
+        parts of ``fallback_parts``, and ``frame_local`` or ``frame_skip``;
+        ``runtime/fused_step.py`` captures each stage and each part as a
+        CUDA graph and runs the same sequence.
         """
         dev = arena.device
         last_ref = device_scalar(last_ref, torch.int64, dev)
@@ -597,8 +647,9 @@ class TrackingKernels:
                 arena, kp_cur, *last, rel_R, rel_t, last_ref, vel_R, vel_t,
                 vel_gain)
             n, n_inl = counts.tolist()
+            parts = self.fallback_parts(arena, kp_cur, last, pose, ref_kf)
             st, n, n_inl, reads = self.motion_fallbacks(
-                arena, kp_cur, last, st, n, n_inl, pose, ref_kf, path)
+                lambda name: parts[name](), st, n, n_inl, path)
         if n >= 15 and n_inl >= 10:
             out = self.frame_local(arena, kp_cur, st, *pose[:2], ref_kf,
                                    covis, cnt)

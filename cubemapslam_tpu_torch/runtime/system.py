@@ -23,9 +23,10 @@ the two initialization frames, and trained once more when
 ``vocab_retrain_keyframes`` keyframes are live.
 
 Host reads. A tracked frame reads the card twice, as ``MapTracker``'s does
-(the motion-match counts and the packed result), whether it replays the
-captured graphs or runs eagerly; a keyframe insertion, its BoW row, its
-mapping step and a deferred BA add none, because the mapping kernels mask
+(the motion-match counts and the packed result; one more for each
+fallback), whether it replays the captured graphs or runs eagerly; a
+keyframe insertion, its BoW row, its mapping step and a deferred BA add
+none, because the mapping kernels mask
 where the JAX package branches on the device. Loop closing adds its own
 (``runtime/loop_closing.py``): from the tenth keyframe on, the loop
 detector reads its candidates once a keyframe; a consistent candidate adds
@@ -48,7 +49,7 @@ and widening passes replay ``FusedReloc``'s graphs R and W
 (``runtime/fused_reloc.py``), unless ``reloc_graphs`` is False or
 ``stage_times`` is set. A localization-mode frame reads each stage's counts
 with its pose (2 reads on the steady path); on the card it replays
-``FusedLocalization``'s graphs L1, L2 and L3
+``FusedLocalization``'s graphs L1, L2, LR and L3
 (``runtime/fused_localization.py``), unless ``localization_graphs`` is
 False or ``stage_times`` is set, and a LOST frame's warp and extract replay
 its graph X where ``_relocalize`` replays ``FusedReloc``'s. Each frame's
@@ -357,7 +358,8 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
                 pose_np = self._track_frame_localization(kp, fid, timestamp,
                                                          fl)
         self._row.update(graph_localization_captures=fl.frame_captures,
-                         graph_localization_replays=fl.frame_replays)
+                         graph_localization_replays=fl.frame_replays,
+                         graph_localization_replayed=tuple(fl.frame_replayed))
         return self._finish_frame(timestamp, pose_np)
 
     def track_cubemap(self, cube: torch.Tensor, timestamp: float,
@@ -702,8 +704,8 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         hypothesis, the reference-keyframe fallback, then TrackLocalMap. No
         keyframe is inserted and no BA runs. The motion searches and
         TrackLocalMap run eagerly, or, with ``fused`` (the frame's
-        ``FusedLocalization``, whose graph L1 made ``kp``), as its graphs;
-        the reference-keyframe fallback runs eagerly. Returns the host pose
+        ``FusedLocalization``, whose graph L1 made ``kp``), as its graphs,
+        the reference-keyframe fallback as graph LR. Returns the host pose
         or None."""
         k, cfg = self.kernels, self.cfg
         row = self._row
@@ -716,6 +718,11 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
                 return k.localization_motion(self.arena, kp, *args,
                                              radius=radius)
 
+            def reference():
+                out = k.localization_reference(self.arena, kp, self.ref_kf,
+                                               R_last, t_last)
+                return tuple(out[:6]), out[6]
+
             def local(*st):
                 return k.localization_local(
                     self.arena, kp, *st, self.covis, R_last, t_last,
@@ -726,6 +733,9 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         else:
             def motion(radius):
                 return fused.motion(self, radius)
+
+            def reference():
+                return fused.reference(self)
 
             def local(*st):
                 return fused.local(self, *st)
@@ -751,10 +761,8 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             self.mb_vo = n_inl < 10
             return pose
         if n < MIN_MATCHES:                # the reference keyframe
-            assoc, n_t = k.track_reference_kf(self.arena, kp, self.ref_kf)
-            R, t, outlier, n_inl_t = k.optimize_pose(self.arena, kp, assoc,
-                                                     R_last, t_last)
-            (n, n_inl), pose = self._read(pack((n_t, n_inl_t), R, t), 2)
+            (assoc, _, R, t, outlier, _), packed = reference()
+            (n, n_inl), pose = self._read(packed, 2)
             if n < 15:
                 self._set_lost()
                 return None

@@ -10,12 +10,13 @@ observation-count views, the last frame and the motion model.
 
 On a CUDA device, once seeded, ``track_fisheye`` runs the frame as the
 JAX package dispatches its one jitted program: through ``FusedStep``
-(``runtime/fused_step.py``), two CUDA graphs captured on the first frame and
-replayed on every later one, with the same two host reads and the same
-bits as the eager frame. With ``stage_times`` set to a dict the frame runs
-eagerly, as in the JAX package, and each stage (``extract``, ``track``) is
-synchronised and its wall ms recorded there; ``track_cubemap`` and the CPU
-always run eagerly.
+(``runtime/fused_step.py``), CUDA graphs each captured on the first frame
+that runs it and replayed on every later one (A; W, Z and R for the
+fallbacks; B, or S for a frame that does not track), with the same host
+reads and the same bits as the eager frame. With ``stage_times`` set to a
+dict the frame runs eagerly, as in the JAX package, and each stage
+(``extract``, ``track``) is synchronised and its wall ms recorded there;
+``track_cubemap`` and the CPU always run eagerly.
 
 The keyframe decision, keyframe creation, deferred BA and the reset of a
 small map are ``CubemapSLAM``'s (``runtime/system.py``), which builds on
@@ -68,9 +69,10 @@ class MapTracker(FrameFrontend):
     ``metrics`` holds a row per tracked frame: the packed counts
     (``PACKED_NAMES``), the branches taken, the host reads made and the
     CUDA graphs captured and replayed (``graph_captures``,
-    ``graph_replays``; both 0 on an eager frame). ``stage_times``, when a
-    dict, keeps every frame eager and records each stage's synchronised
-    wall ms."""
+    ``graph_replays``; both 0 on an eager frame) with the names of those
+    replayed (``graph_replayed``, e.g. ``("A", "W", "Z", "R", "B")``).
+    ``stage_times``, when a dict, keeps every frame eager and records each
+    stage's synchronised wall ms."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None, device=None):
         super().__init__(cfg, device)
@@ -131,8 +133,10 @@ class MapTracker(FrameFrontend):
                 and self.stage_times is None)
 
     def _graph_counts(self):
-        """(graphs captured, graphs replayed) by the last fused frame."""
-        return self._fused.frame_captures, self._fused.frame_replays
+        """(graphs captured, graphs replayed, the names of those replayed)
+        by the last fused frame."""
+        fs = self._fused
+        return fs.frame_captures, fs.frame_replays, tuple(fs.frame_replayed)
 
     def _fused_frame(self, fisheye_u8, mask):
         """Warp, extract and ``track_frame_full`` through ``FusedStep``.
@@ -231,16 +235,17 @@ class MapTracker(FrameFrontend):
         return self._consume(kp, out, fid, timestamp)
 
     def _consume(self, kp: Keypoints, out: FrameTrack, fid: int,
-                 timestamp: float, graphs=(0, 0)):
+                 timestamp: float, graphs=(0, 0, ())):
         """The one read of the packed result and the tracking half of
-        ``_consume_track_outputs``; ``graphs`` is (captures, replays) of the
-        frame. Returns (pose or None, ``out``, the frame's metrics row)."""
+        ``_consume_track_outputs``; ``graphs`` is ``_graph_counts()`` of
+        the frame. Returns (pose or None, ``out``, the frame's metrics row)."""
         with record_function("epilogue"):
             pk = out.packed.tolist()
             counts = dict(zip(PACKED_NAMES, (int(x) for x in pk[:11])))
             row = dict(frame=fid, **counts, path=out.path,
                        host_reads=out.host_reads + 1,
-                       graph_captures=graphs[0], graph_replays=graphs[1])
+                       graph_captures=graphs[0], graph_replays=graphs[1],
+                       graph_replayed=graphs[2])
             self.metrics.append(row)
             if (not counts["track_ok"]
                     or counts["inliers"] < self.cfg.min_track_inliers):

@@ -9,7 +9,10 @@ landmarks are a rendered frame's keypoints, back-projected at seeded
 depths, so that most of them match in the next frame (a pure rotation,
 which keeps any depth exact).
 Tolerances: pose within 1e-3, associations equal on >= 98% of matched
-landmarks, inlier counts within 2%.
+landmarks, inlier counts within 2%. Both of FrameTracker's paths are held
+so: its graph F path (static buffers, run eagerly on the CPU), which a call
+takes by default, and ``FrameTracker(graphs=False)``, which the graph path
+equals bit for bit over three calls.
 """
 
 import ast
@@ -73,7 +76,11 @@ def lm_to_uv(assoc, uv, n_lm):
     return out
 
 
-def test_frame_step_against_jax():
+@pytest.fixture(scope="module")
+def jax_step():
+    """The world, the landmarks and frame 1 with its start pose, the JAX
+    composition's outputs on them, and the port's inputs (the JAX warp map
+    carried across)."""
     cfg = JConfig(**SMALL)
     cam = JC.CubemapCamera.from_config(cfg)
     rng = np.random.default_rng(11)
@@ -89,7 +96,8 @@ def test_frame_step_against_jax():
     extract, _ = build_extractor(cfg, cam, cfg.n_features,
                                  (cfg.cube_h, cfg.cube_w))
     # landmarks: frame-0 keypoints at seeded depths, plus distractors
-    kp0 = extract(JW.warp_bilinear(jnp.asarray(frame(np.eye(3))), wm), mask)
+    fish0 = frame(np.eye(3))
+    kp0 = extract(JW.warp_bilinear(jnp.asarray(fish0), wm), mask)
     v0 = np.asarray(kp0.valid)
     n_lm = 1024
     depth = rng.uniform(3, 8, v0.sum()).astype(np.float32)
@@ -112,22 +120,32 @@ def test_frame_step_against_jax():
     R0 = R0.astype(np.float32)
     t0 = np.array([0.012, -0.01, 0.012], np.float32)
 
-    jkp, jassoc, jR, jt, jinl, jn = jax_frame_step(
+    out = jax_frame_step(
         cfg, cam, extract, wm, mask, fish1, jnp.asarray(lm_pos),
         jnp.asarray(lm_desc), jnp.asarray(lm_level), jnp.asarray(lm_valid),
         jnp.asarray(R0), jnp.asarray(t0))
-
-    tracker = FrameTracker(TConfig(**SMALL), device="cpu")
     uu, vv = jnp.meshgrid(jnp.arange(cfg.cube_w, dtype=jnp.float32),
                           jnp.arange(cfg.cube_h, dtype=jnp.float32))
     uv_f, valid = JC.cubemap_to_fisheye(cam, jnp.stack([uu, vv], axis=-1))
-    tracker.set_warp_map(interop.warp_map_from_numpy(
-        np.asarray(uv_f), np.asarray(valid), np.asarray(wm.src_wh)))
+    warp = interop.warp_map_from_numpy(np.asarray(uv_f), np.asarray(valid),
+                                       np.asarray(wm.src_wh))
     lms = interop.landmarks_from_numpy(lm_pos, lm_desc, lm_level, lm_valid)
-    tkp, tassoc, tR, tt, tinl, tn = tracker(
-        torch.as_tensor(fish1), *lms, torch.as_tensor(R0),
-        torch.as_tensor(t0))
+    return dict(cfg=cfg, jax=out, warp=warp, lms=lms, R1=R1,
+                fish=(torch.as_tensor(fish0), torch.as_tensor(fish1)),
+                pose=(torch.as_tensor(R0), torch.as_tensor(t0)))
 
+
+def port_tracker(jax_step, graphs=True):
+    tracker = FrameTracker(TConfig(**SMALL), device="cpu", graphs=graphs)
+    tracker.set_warp_map(jax_step["warp"])
+    return tracker
+
+
+def assert_close_to_jax(jax_step, port):
+    """The tolerances of the module docstring, and the pose recovered."""
+    jkp, jassoc, jR, jt, jinl, jn = jax_step["jax"]
+    tkp, tassoc, tR, tt, tinl, tn = port
+    n_lm = jax_step["lms"][0].shape[0]
     # keypoints with nearly tied responses may swap rows between the two
     # (the warped images differ by float32 rounding), so associations are
     # compared per landmark: the position of the keypoint it went to
@@ -146,9 +164,53 @@ def test_frame_step_against_jax():
     assert abs(int(tn) - int(jn)) <= 0.02 * int(jn)
     # the pose was recovered: 0.6 degree turn, no translation
     assert np.linalg.norm(np.asarray(JG.so3_log(
-        jnp.asarray(tR.numpy() @ R1.T)))) < 2e-3
+        jnp.asarray(tR.numpy() @ jax_step["R1"].T)))) < 2e-3
     assert np.abs(tt.numpy()).max() < 5e-3
-    assert tkp.uv.shape == (cfg.n_features, 2)
+    assert tkp.uv.shape == (jax_step["cfg"].n_features, 2)
+
+
+def test_frame_step_against_jax(jax_step):
+    """``FrameTracker`` as called by default (its graph F's part, eagerly
+    on the CPU's static buffers) against the JAX composition."""
+    tracker = port_tracker(jax_step)
+    out = tracker(jax_step["fish"][1], *jax_step["lms"], *jax_step["pose"])
+    assert tracker.step_graph is not None
+    assert_close_to_jax(jax_step, out)
+
+
+def test_frame_step_graph_path_bitwise_eager(jax_step):
+    """``FrameTracker``'s graph F path (static buffers; on the CPU each
+    call runs the part eagerly) against ``FrameTracker(graphs=False)`` on
+    the same calls: frame 1 from its start pose, frame 0 from the identity,
+    frame 1 again from a pose 2 degrees off: every output bitwise equal,
+    no graph captured or replayed, and the eager path against the JAX
+    composition within the module's tolerances. A landmark set of another
+    shape or type, and a frame that is not (H, W) uint8, raise."""
+    graph, eager = port_tracker(jax_step), port_tracker(jax_step, False)
+    lms = jax_step["lms"]
+    fish0, fish1 = jax_step["fish"]
+    R0, t0 = jax_step["pose"]
+    off = torch.tensor(np.array(JG.so3_exp(jnp.asarray(
+        [0.02, 0.025, -0.01], jnp.float32)))) @ R0
+    calls = ((fish1, R0, t0), (fish0, torch.eye(3), torch.zeros(3)),
+             (fish1, off, t0))
+    for k, (img, R, t) in enumerate(calls):
+        g = graph(img, *lms, R, t)
+        e = eager(img, *lms, R, t)
+        assert all(torch.equal(x, y) for x, y in zip(g[0], e[0]))
+        assert all(torch.equal(x, y) for x, y in zip(g[1:], e[1:]))
+        assert int(e[5]) > 100
+        if k == 0:
+            assert_close_to_jax(jax_step, e)
+    assert eager.step_graph is None
+    cf = graph.step_graph
+    assert cf.captures == cf.replays == 0 and list(cf.outputs) == ["f"]
+    with pytest.raises(ValueError, match="lm_pos"):
+        graph(fish1, lms[0][:-1], *lms[1:], R0, t0)
+    with pytest.raises(ValueError, match="lm_level"):
+        graph(fish1, lms[0], lms[1], lms[2].to(torch.int32), lms[3], R0, t0)
+    with pytest.raises(ValueError, match="uint8"):
+        graph(fish1.to(torch.float32), *lms, R0, t0)
 
 
 def test_default_device_is_the_card():

@@ -15,10 +15,12 @@ saved once and each test loads it.
   relocalization runs through ``FusedReloc``) against the parent's eager
   ``_track_frame_localization`` (a copy here) on the loaded map, in each
   branch: the plain 15 px frame, a frame widened to 30 px, the
-  reference-keyframe fallback, mbVO (a VO frame on perturbed landmarks,
-  then the relocalization that clears it) and a LOST frame (graph X, then
-  the relocalization). Poses, rows, the last frame's tensors, the velocity,
-  ``mb_vo``, every arena table and the generator state bitwise equal.
+  reference-keyframe fallback (graph LR), mbVO (a VO frame on perturbed
+  landmarks, then the relocalization that clears it) and a LOST frame
+  (graph X, then the relocalization). Poses, rows, the last frame's
+  tensors, the velocity, ``mb_vo``, every arena table and the generator
+  state bitwise equal; and graph LR's part alone bitwise the eager
+  fallback on the same keypoints and last pose.
 * ``TrackingKernels.localization_motion`` against the JAX package's
   ``_predicted_pose`` composition and ``track_motion_fused``
   (``system.py:528-550``, ``kernels.py:297``) on the same carried-over
@@ -47,7 +49,7 @@ from cubemapslam_tpu_torch import interop, serialize
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
 from cubemapslam_tpu_torch.runtime.fused_localization import (
     FusedLocalization)
-from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES
+from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES, pack
 from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
 
 VOCAB = str(pathlib.Path(__file__).resolve().parents[1] / "artifacts"
@@ -296,9 +298,10 @@ def test_fused_localization_on_cpu_equals_parent(mapped, monkeypatch, case):
         assert loc[1]["host_reads"] == 3 and "l2" in fl.outputs
         assert sg.state == TrackState.OK
     elif case == "reference":
-        # L1, L2, the eager fallback's read, then L3's
+        # L1's, L2's and LR's reads, then L3's
         assert loc[1]["host_reads"] == 4 and not loc[1]["vo"]
-        assert sg.state == TrackState.OK and "l3" in fl.outputs
+        assert sg.state == TrackState.OK
+        assert {"l2", "lr", "l3"} <= set(fl.outputs)
     elif case == "mbvo":
         assert loc[1]["vo"] and loc[2]["relocalized"]
         assert sg.state == TrackState.OK and not sg.mb_vo
@@ -306,6 +309,38 @@ def test_fused_localization_on_cpu_equals_parent(mapped, monkeypatch, case):
     elif case == "lost":
         assert rows[-1]["stage"] == "reloc" and rows[-1]["relocalized"]
         assert "x" in fl.outputs and sg.state == TrackState.OK
+
+
+def test_reference_part_bitwise_eager_fallback(mapped):
+    """Graph LR's part (``FusedLocalization.reference`` on the CPU, on
+    graph L1's keypoints and last pose, after graphs L1 and L2 on a frame
+    whose last association was emptied) against the eager
+    reference-keyframe fallback as the parent ran it: ``track_reference_kf``
+    against the system's reference keyframe, then ``optimize_pose`` from
+    the last pose, and the packed vector of its read; bit for bit, and the
+    arena untouched."""
+    frames = mapped["frames"]
+    s = fresh(mapped)
+    assert s.track_fisheye(frames[RELOC_AT], 0.0) is not None
+    s.activate_localization_mode()
+    assert s.track_fisheye(frames[RELOC_AT + 1], 1.0) is not None
+    s.last = s.last._replace(assoc=torch.full_like(s.last.assoc, -1))
+    tables = [t.clone() for t in s.arena]
+    fl = FusedLocalization(s)
+    kp = fl.start(s, frames[RELOC_AT + 2], None)
+    _, R_last, t_last, packed = fl.motion(s, 15.0)
+    assert packed[0] < MIN_MATCHES and fl.motion(s, 30.0)[3][0] < MIN_MATCHES
+    st, packed = fl.reference(s)
+    k = s.kernels
+    assoc, n = k.track_reference_kf(s.arena, kp, s.ref_kf)
+    R, t, outlier, n_inl = k.optimize_pose(s.arena, kp, assoc, R_last,
+                                           t_last)
+    assert int(n) >= 15
+    for x, y in zip(st, (assoc, n, R, t, outlier, n_inl)):
+        assert torch.equal(x, y)
+    assert torch.equal(packed, pack((n, n_inl), R, t))
+    assert list(fl.outputs) == ["l1", "l2", "lr"]
+    assert all(torch.equal(a, b) for a, b in zip(tables, s.arena))
 
 
 # ---------------------------------------------------------------------------

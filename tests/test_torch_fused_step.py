@@ -11,6 +11,10 @@ builds it, and the frames after it are rendered.
   radius scale chosen on the host; ``parent_track_frame_full`` below) on
   the steady frames and on the forced widen, zero-velocity,
   reference-keyframe, velocity-gate and skip-local branches.
+* ``FusedStep``'s fallback graphs' parts (W, Z and R over
+  ``fallback_parts``, S over ``frame_skip``; on the CPU parts of a
+  ``CapturedFrame`` without graphs) are bitwise the parent formulation in
+  each branch case, ``MIN_MATCHES`` set from the frame's own counts.
 * ``FusedStep``'s frames (warp, extract, ``frame_motion``, the fallbacks,
   ``frame_local`` / ``frame_skip``) are bitwise ``MapTracker``'s eager
   frames, and against the JAX composition that ``_build_fused_step``
@@ -365,6 +369,91 @@ def test_fused_frames_bitwise_eager(scene, branch):
     assert all(r["graph_captures"] == r["graph_replays"] == 0
                for r in f_mt.metrics)
     assert not f_mt._graph_frame()
+
+
+# the fallback cases of FusedStep's parts: the velocity (None, or a turn of
+# that many rad about y, inside the 0.2 rad gate, so that the prediction is
+# off: by 0.15 rad the 15 px match keeps 52 of its 99 matches and the 30 px
+# search 72; by 0.1 the last pose's search has more inliers than the
+# prediction's), whether the frame is blank, and the graphs the frame runs
+FALLBACK_CASES = {
+    "widen": (0.15, False, ("a", "w", "b")),
+    "zero_kept": (0.1, False, ("a", "w", "z", "b")),
+    "zero_not_kept": (None, False, ("a", "w", "z", "r", "b")),
+    "reference": (0.1, False, ("a", "w", "z", "r", "b")),
+    "skip": (None, True, ("a", "w", "z", "r", "s")),
+}
+
+
+def fallback_threshold(mt, kp, case):
+    """The ``MIN_MATCHES`` that makes the frame take ``case``'s branches,
+    from the counts of its motion searches (the 15 px match, W from the
+    prediction and Z from the last pose), and those counts."""
+    k, last = mt.kernels, mt.last
+    vel_R, vel_t, gain = mt._velocity_args()
+    pose = k.predict_pose(mt.arena, last.rel_R, last.rel_t,
+                          torch.tensor(last.ref_kf), vel_R, vel_t,
+                          torch.tensor(float(gain)))
+    lst = (last.assoc, last.outlier, last.kp.level, last.kp.angle)
+    counts = {}
+    for name, (R0, t0), radius in (("m", pose[2:], 15.0),
+                                   ("w", pose[2:], 30.0),
+                                   ("z", pose[:2], 30.0)):
+        st = k.track_motion_fused(mt.arena, kp, *lst, R0, t0, radius=radius)
+        counts[name] = (int(st[1]), int(st[5]))
+    (m, _), (w, w_inl), (z, z_inl) = counts["m"], counts["w"], counts["z"]
+    if case == "widen":
+        assert m < w, counts
+        return w, counts
+    if case == "zero_kept":
+        assert max(m, w) < z and z_inl > w_inl, counts
+        return z, counts
+    if case == "zero_not_kept":
+        assert z_inl <= w_inl, counts
+    if case == "reference":
+        assert z_inl > w_inl, counts
+    return 10 ** 6, counts
+
+
+@pytest.mark.parametrize("case", list(FALLBACK_CASES))
+def test_fallback_graphs_bitwise_parent(scene, monkeypatch, case):
+    """``FusedStep``'s fallbacks as it runs them on the CPU (graphs W, Z, R
+    and S as parts of a ``CapturedFrame`` without graphs, the stage tuple
+    copied into graph A's outputs) against ``parent_track_frame_full`` on
+    the same frame's keypoints and inputs: every output, the path, the
+    reads and the arena's counters bitwise equal. ``MIN_MATCHES`` is set
+    from the frame's own counts so that each case takes its branches:
+    widened only (a wrong velocity); widened and retried from the last
+    pose, the retry kept (more inliers) and the frame tracked; the retry
+    not kept (the same pose as the widened search: no velocity) and the
+    reference keyframe; a wrong velocity's kept retry and then the
+    reference keyframe; a blank frame through every fallback into graph
+    S."""
+    turn, blank, parts = FALLBACK_CASES[case]
+    img = np.zeros_like(scene["frames"][0]) if blank else scene["frames"][0]
+    mt = seeded(scene)
+    if turn is not None:
+        mt.velocity = (G.so3_exp(torch.tensor([0.0, turn, 0.0])),
+                       torch.zeros(3))
+    kp = mt.extract(mt.warp(torch.as_tensor(img)))
+    limit, counts = fallback_threshold(mt, kp, case)
+    monkeypatch.setattr(K, "MIN_MATCHES", limit)
+    last, (vel_R, vel_t, gain) = mt.last, mt._velocity_args()
+    a_old = interop.arena_from_numpy(scene["arena_np"])
+    ref, path, reads = parent_track_frame_full(
+        mt.kernels, a_old, kp, last.assoc, last.outlier, last.kp.level,
+        last.kp.angle, last.rel_R, last.rel_t, last.ref_kf, vel_R, vel_t,
+        gain, mt.ref_kf, mt.covis, mt.cnt)
+    kp_f, out = mt._fused_frame(img, None)
+    assert all(torch.equal(x, y) for x, y in zip(kp_f, kp))
+    assert out.path == path and out.host_reads == reads, counts
+    assert len(path) - 1 == len(parts) - 1 == reads
+    assert tuple(mt.fused_step.outputs) == parts
+    for name, x, y in zip(("assoc", "outlier", "R", "t", "packed", "vel_R",
+                           "vel_t", "rel_R", "rel_t"), out[1:10], ref):
+        assert torch.equal(x, y), name
+    for f in a_old._fields:
+        assert torch.equal(getattr(mt.arena, f), getattr(a_old, f)), f
 
 
 def jarena(f):

@@ -1290,9 +1290,10 @@ def test_graph_frames_bitwise_eager(cuda, graph_scene, branch):
     set) from one seed: ``steady`` over 8 frames; ``fallbacks`` with the
     last association emptied (widen, zero velocity, reference keyframe,
     then graph B on the fallback's stage tuple); ``gate`` a velocity above
-    the 0.2 rad gate; ``blank`` a blank frame after a tracked one (graph A,
-    then the eager skip). Every pose, row, last-frame tensor, velocity
-    and the arena after them bitwise equal; the graph frames replay."""
+    the 0.2 rad gate; ``blank`` a blank frame after a tracked one (graph A
+    replayed, then graphs W, Z, R and S captured). Every pose, row,
+    last-frame tensor, velocity and the arena after them bitwise equal;
+    the graph frames replay."""
     frames = graph_scene["frames"]
     if branch != "steady":
         frames = frames[:2]
@@ -1328,6 +1329,50 @@ def test_graph_frames_bitwise_eager(cuda, graph_scene, branch):
     if branch == "steady":
         assert all(r["graph_replays"] == 2 for r in rows[1:])
         assert all(r["path"] == ("motion", "local") for r in rows)
+
+
+@pytest.mark.parametrize("branch", ["emptied", "blank"])
+def test_fallback_graphs_replay_bitwise_eager(cuda, graph_scene, branch):
+    """The forced fallback frames 4 times each from the map as built,
+    restored in place (``chip_smoke.restore_tracked``): ``emptied`` (the
+    last association emptied: graphs A, W, Z, R and B) and ``blank``
+    (graphs A, W, Z, R and S), through the graphs and eagerly. Every frame bitwise its eager twin and the first;
+    the first graph frame captures the 5 graphs and every later one
+    replays them, by name, and captures none; the pose-LM kernel launches
+    once a solve on every frame, replays included (A, W, Z, R and B's: 5;
+    A, W, Z and R's: 4), as eagerly."""
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    frames = graph_scene["frames"]
+    img = np.zeros_like(frames[0]) if branch == "blank" else frames[0]
+    assoc = None
+    if branch == "emptied":
+        assoc = torch.full_like(graph_scene["ref"].last.assoc, -1)
+    names = ("A", "W", "Z", "R", "B" if branch == "emptied" else "S")
+    runs = []
+    for eager in (True, False):
+        tr = graph_scene["tracker"](eager, assoc)
+        built, seed = [t.clone() for t in tr.arena], tr.last
+        out, lm = [], []
+        for _ in range(4):
+            chip_smoke.restore_tracked(tr, built, seed)
+            PO.POSE_LM.launches = 0
+            out.append(_frame_state(tr, tr.track_fisheye(img, 1.0)))
+            lm.append(PO.POSE_LM.launches)
+        runs.append((out, lm, tr))
+    (e_out, e_lm, e_tr), (g_out, g_lm, g_tr) = runs
+    _same_frames(e_out, g_out)
+    _same_frames(e_out[:1] * 4, e_out)
+    assert e_lm == g_lm == [len(names) - (branch == "blank")] * 4
+    assert _arena_equal(e_tr.arena.to("cpu"), g_tr.arena.to("cpu")) == []
+    rows = g_tr.metrics
+    assert all(r["path"][1:4] == ("widen", "zero_velocity", "reference_kf")
+               for r in rows)
+    assert (rows[0]["graph_captures"], rows[0]["graph_replayed"]) == (5, ())
+    assert all(r["graph_captures"] == 0 and r["graph_replayed"] == names
+               for r in rows[1:])
+    fs = g_tr.fused_step
+    assert (fs.captures, fs.replays) == (5, 15)
+    assert set(fs.outputs) == {n.lower() for n in names}
 
 
 def test_graph_launch_counts(cuda, graph_scene):
@@ -2181,7 +2226,8 @@ def test_localization_graphs_bitwise_eager(cuda, reloc_map):
     (the visible/found counters), the BoW table and mbVO bitwise equal at
     every frame, the same launches of every kernel entry (W, D and describe
     once a frame, from the replays); L1, L3 and X captured once and
-    replayed, L2 on the emptied frame."""
+    replayed, L2 and LR (the reference-keyframe fallback) on the emptied
+    frame."""
     (e_slam, e_states, e_launch), (g_slam, g_states, g_launch) = (
         _localization_run(cuda, reloc_map, graphs)
         for graphs in (False, True))
@@ -2191,8 +2237,8 @@ def test_localization_graphs_bitwise_eager(cuda, reloc_map):
     assert all(n[:4] == (1, 1, 1, 1) for n in g_launch)
     assert e_slam.fused_localization is None
     fl = g_slam.fused_localization
-    assert set(fl.outputs) == {"l1", "l2", "l3", "x"}
-    assert fl.captures == 4 and fl.replays > 4
+    assert set(fl.outputs) == {"l1", "l2", "lr", "l3", "x"}
+    assert fl.captures == 5 and fl.replays > 5
     rows = [r for r in g_slam.metrics if "frame" in r]
     assert rows[0]["graph_localization_captures"] == 1      # X
     assert rows[-1]["stage"] == "reloc"
@@ -2200,7 +2246,95 @@ def test_localization_graphs_bitwise_eager(cuda, reloc_map):
     emptied = rows[3]
     assert emptied["host_reads"] == 4
     assert (emptied["graph_localization_captures"],
-            emptied["graph_localization_replays"]) == (1, 2)
+            emptied["graph_localization_replays"]) == (2, 2)
+
+
+def test_localization_reference_graph_replays(cuda, reloc_map):
+    """The localization frame with its last association emptied, 4 times
+    from one restored state (``chip_smoke.loc_state`` / ``restore_loc``),
+    through ``FusedLocalization``'s graphs and eagerly: every frame bitwise
+    its eager twin and the first; the first graph frame captures L2 and LR,
+    every later one replays L1, L2, LR and L3 by name and captures none;
+    the pose-LM kernel launches 4 times a frame both ways (L1, L2, LR,
+    L3)."""
+    from cubemapslam_tpu_torch import serialize
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
+    cfg, frames, path = reloc_map
+    runs = []
+    for graphs in (False, True):
+        slam = CubemapSLAM(cfg, device=cuda)
+        serialize.load_map(slam, path)
+        slam.reloc_graphs = slam.localization_graphs = graphs
+        assert slam.track_fisheye(frames[6], 20.0) is not None
+        slam.activate_localization_mode()
+        assert slam.track_fisheye(frames[7], 27.0) is not None
+        state = chip_smoke.loc_state(slam)
+        out, lm = [], []
+        for _ in range(4):
+            chip_smoke.restore_loc(slam, state)
+            slam.last = slam.last._replace(
+                assoc=torch.full_like(slam.last.assoc, -1))
+            PO.POSE_LM.launches = 0
+            T = slam.track_fisheye(frames[8], 28.0)
+            out.append((*_slam_state(slam, T), slam.mb_vo))
+            lm.append(PO.POSE_LM.launches)
+        runs.append((out, lm, slam))
+    (e_out, e_lm, _), (g_out, g_lm, g_slam) = runs
+    _same_frames([s[:3] for s in e_out], [s[:3] for s in g_out])
+    _same_frames([s[:3] for s in e_out[:1] * 4], [s[:3] for s in e_out])
+    assert [s[3] for s in e_out] == [s[3] for s in g_out]
+    assert e_lm == g_lm == [4] * 4
+    rows = g_slam.metrics[-4:]
+    assert all(r["host_reads"] == 4 and not r["vo"] for r in rows)
+    assert rows[0]["graph_localization_captures"] == 2
+    assert all(r["graph_localization_captures"] == 0
+               and r["graph_localization_replayed"] == ("L1", "L2", "LR",
+                                                        "L3")
+               for r in rows[1:])
+
+
+def test_frame_tracker_graph_bitwise_eager(cuda):
+    """``FrameTracker``'s graph F (captured on the first call, replayed on
+    every later one) against ``FrameTracker(graphs=False)`` over 4 calls
+    from different start poses, the frame on the card or, on the last,
+    as a host array: every output bitwise equal; kernels W, D (two
+    entries), describe and the pose LM launch once a frame, replays
+    included; a landmark set of another shape raises."""
+    from cubemapslam_tpu_torch.optim import pose_opt as PO
+    cfg = SlamConfig(**SMALL)
+    graph, eager = FrameTracker(cfg), FrameTracker(cfg, graphs=False)
+    eager.set_warp_map(graph.warp_map)
+    img = textured(cfg.fisheye_height, cfg.fisheye_width,
+                   seed=4).clip(0, 255).astype(np.uint8)
+    dev_img = torch.as_tensor(img, device=cuda)
+    kp0 = graph.extract(graph.warp(dev_img))
+    v = kp0.valid
+    n = int(v.sum())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lms = (kp0.rays[v] * (3 + 5 * torch.rand(n, 1, generator=gen,
+                                             device=cuda)),
+           kp0.desc[v], kp0.level[v],
+           torch.ones(n, dtype=torch.bool, device=cuda))
+    kernels = (warp_cuda.WARP_REMAP, TE.ORB_FAST, TE.ORB_SELECT,
+               TE.ORB_DESCRIBE, PO.POSE_LM)
+    for k, turn in enumerate((0.0, 0.01, -0.015, 0.02)):
+        R0 = so3_exp(torch.tensor([turn, 0.5 * turn, 0.0], device=cuda))
+        t0 = torch.tensor([0.01, 0.0, -0.01], device=cuda)
+        for c in kernels:
+            c.launches = 0
+        g = graph(img if k == 3 else dev_img, *lms, R0, t0)
+        assert [c.launches for c in kernels] == [1, 1, 1, 1, 1]
+        e = eager(dev_img, *lms, R0, t0)
+        assert all(torch.equal(x, y) for x, y in zip(g[0], e[0]))
+        assert all(torch.equal(x, y) for x, y in zip(g[1:], e[1:]))
+        cf = graph.step_graph
+        assert (cf.frame_captures, cf.frame_replayed) == \
+            ((1, []) if k == 0 else (0, ["F"]))
+    assert (cf.captures, cf.replays) == (1, 3)
+    assert eager.step_graph is None
+    with pytest.raises(ValueError, match="lm_pos"):
+        graph(dev_img, lms[0][:-1], *lms[1:], R0, t0)
 
 
 # a pre-initialization sequence of ``slam_frames`` (-1: a blank frame): the
