@@ -9,6 +9,9 @@ into ``build/torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``), under a name that carries a hash of the source, and loaded
 with ``ctypes``. No PyTorch header is compiled, so a build takes seconds.
 
+``csrc/graph_census.cu`` is the one source that launches no kernel: its
+``capture_ops`` counts a capture's device operations (``capture_ops``).
+
 There is no fallback: a missing ``nvcc``, a failed build or a non-zero launch
 status raises. ``--use_fast_math`` is deliberately not passed, so divisions
 and square roots round as IEEE float32, like the plain PyTorch versions.
@@ -165,6 +168,22 @@ def variant(kernel: CudaKernel, path: pathlib.Path) -> CudaKernel:
     fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
     k._fn = fn
     return k
+
+
+def capture_ops(stream: torch.cuda.Stream) -> int:
+    """The device operations (kernel, memcpy and memset nodes) captured so
+    far into the CUDA graph that ``stream`` is capturing
+    (``csrc/graph_census.cu``, which launches nothing). Raises when the
+    stream is not capturing or the runtime refuses the query."""
+    fn = load("graph_census.cu").capture_ops
+    fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_longlong(0)
+    status = fn(stream.cuda_stream, ctypes.byref(out))
+    if status != 0:
+        raise RuntimeError(f"capture_ops: status {status} (-1: the stream "
+                           f"is not capturing, else a cudaError)")
+    return out.value
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

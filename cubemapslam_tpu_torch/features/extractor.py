@@ -46,6 +46,7 @@ from cubemapslam_tpu_torch import camera as C
 from cubemapslam_tpu_torch._build import CudaKernel, require_cuda
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.features.pattern import orb_pattern
+from cubemapslam_tpu_torch.spans import span
 
 # FAST radius-3 Bresenham circle, circular order (dx, dy)
 _CIRCLE = np.array(
@@ -746,29 +747,38 @@ def extract_orb(params: OrbParams, cam: CubemapCamera, image: torch.Tensor,
 
     The pyramid first (it depends only on level 0), then kernel D over all
     levels, the per-level global top-k, and the describe kernel over all
-    keypoints; CPU tensors take the kernels' plain versions.
+    keypoints; CPU tensors take the kernels' plain versions. Each step is a
+    span (``extract.pyramid``, ``.detect``, ``.select``, ``.describe``,
+    ``.rays``: the coordinates, culls and rays), so a captured graph's
+    census names its operations.
     """
-    levels = [image] + [pyramid_level(image, A, Bt) for A, Bt in ops.pyr]
-    cands = detect_cells_levels(levels, params.cell, ini_th, min_th)
-    ys, xs, ys_f, xs_f, resp = _select_levels(cands, ops.sel_index,
-                                              ops.sel_take)
-    ang, desc = describe_keypoints(levels, ys, xs, params.level_k,
-                                   ops.desc_table)
-    uv = torch.stack([xs_f * ops.kp_scale, ys_f * ops.kp_scale], dim=-1)
-    lvl = ops.kp_level.clone()
+    with span("extract.pyramid"):
+        levels = [image] + [pyramid_level(image, A, Bt) for A, Bt in ops.pyr]
+    with span("extract.detect"):
+        cands = detect_cells_levels(levels, params.cell, ini_th, min_th)
+    with span("extract.select"):
+        ys, xs, ys_f, xs_f, resp = _select_levels(cands, ops.sel_index,
+                                                  ops.sel_take)
+    with span("extract.describe"):
+        ang, desc = describe_keypoints(levels, ys, xs, params.level_k,
+                                       ops.desc_table)
+    with span("extract.rays"):
+        uv = torch.stack([xs_f * ops.kp_scale, ys_f * ops.kp_scale], dim=-1)
+        lvl = ops.kp_level.clone()
 
-    valid = resp > 0
-    face = C.face_from_cubemap_uv(cam, uv)
-    valid = valid & (face != C.UNKNOWN_FACE)
-    if mask is not None:
-        mu = uv[:, 0].to(torch.int64).clamp(0, image.shape[1] - 1)
-        mv = uv[:, 1].to(torch.int64).clamp(0, image.shape[0] - 1)
-        valid = valid & (mask[mv, mu] > 0)
-    face = torch.where(valid, face, torch.full_like(face, C.UNKNOWN_FACE))
-    rays, _ = C.cubemap_to_ray(cam, uv)
-    rays = torch.where(valid[:, None], rays, torch.zeros_like(rays))
-    return Keypoints(uv=uv, response=resp, angle=ang, level=lvl, face=face,
-                     desc=desc, rays=rays, valid=valid)
+        valid = resp > 0
+        face = C.face_from_cubemap_uv(cam, uv)
+        valid = valid & (face != C.UNKNOWN_FACE)
+        if mask is not None:
+            mu = uv[:, 0].to(torch.int64).clamp(0, image.shape[1] - 1)
+            mv = uv[:, 1].to(torch.int64).clamp(0, image.shape[0] - 1)
+            valid = valid & (mask[mv, mu] > 0)
+        face = torch.where(valid, face,
+                           torch.full_like(face, C.UNKNOWN_FACE))
+        rays, _ = C.cubemap_to_ray(cam, uv)
+        rays = torch.where(valid[:, None], rays, torch.zeros_like(rays))
+        return Keypoints(uv=uv, response=resp, angle=ang, level=lvl,
+                         face=face, desc=desc, rays=rays, valid=valid)
 
 
 class OrbExtractor(nn.Module):

@@ -49,7 +49,6 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.geometry import mat3_apply, se3_compose, se3_exp
@@ -58,6 +57,7 @@ from cubemapslam_tpu_torch.optim.pose_opt import (CHI2_TH, HUBER_DELTA,
 from cubemapslam_tpu_torch.optim.residuals import (reproj_jacobians,
                                                    reproj_residual)
 from cubemapslam_tpu_torch.segment import SegmentPlan, segment_sum
+from cubemapslam_tpu_torch.spans import span
 
 
 class BAProblem(NamedTuple):
@@ -657,10 +657,10 @@ def cg_phases(cam: CubemapCamera, st: CGSolve, phase_iters,
         st.lm_lambda.fill_(1e-4)
         # the CG path's caller is loop closing's global BA, whose profile
         # reads these ranges
-        with record_function("loop.gba.lm"):
+        with span("loop.gba.lm"):
             for _ in range(n):
                 run("l", step)
-        with record_function("loop.gba.cut"):
+        with span("loop.gba.cut"):
             run("x", cut)
 
 
@@ -681,11 +681,11 @@ def _bundle_adjust_cg(cam: CubemapCamera, prob: BAProblem, phase_iters,
         raise ValueError("the sharded CG solve runs eagerly: its "
                          "collectives are not captured")
     st = cg_solve(prob)
-    with record_function("loop.gba.cut"):
+    with span("loop.gba.cut"):
         anchor_state = _gauge_entry(prob)
     cg_phases(cam, st, phase_iters, chi2_cut, cg_iters,
               None if loop is None else loop.run, group, n_boundary)
-    with record_function("loop.gba.cut"):
+    with span("loop.gba.cut"):
         prob = _gauge_retract(st.prob, anchor_state)
     return prob, st.active
 

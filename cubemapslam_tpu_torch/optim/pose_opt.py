@@ -34,6 +34,7 @@ from cubemapslam_tpu_torch.camera import CubemapCamera
 from cubemapslam_tpu_torch.geometry import se3_compose, se3_exp
 from cubemapslam_tpu_torch.optim.residuals import (eval_point,
                                                     pose_jac_from_state)
+from cubemapslam_tpu_torch.spans import span
 
 CHI2_TH = 5.991
 HUBER_DELTA = float(torch.sqrt(torch.tensor(CHI2_TH, dtype=torch.float32)))
@@ -81,11 +82,14 @@ def pose_optimization(cam: CubemapCamera, R0: torch.Tensor, t0: torch.Tensor,
 
     Returns (R, t, inliers, n_inliers). Edges with chi2 > 5.991 after a
     round are excluded from the next round and reported as outliers. CPU
-    tensors take ``pose_optimization_masked``; CUDA tensors the kernel."""
+    tensors take ``pose_optimization_masked``; CUDA tensors the kernel.
+    Either is the span ``pose_lm``."""
     args = (R0, t0, Xw, face, uv_face, inv_sigma2, valid)
-    if all(x.device.type == "cpu" for x in args + (cam.face_R, cam.fxycxy)):
-        return pose_optimization_masked(cam, *args, n_rounds, n_iters)
-    return pose_lm(cam, *args, n_rounds, n_iters)[:4]
+    with span("pose_lm"):
+        if all(x.device.type == "cpu"
+               for x in args + (cam.face_R, cam.fxycxy)):
+            return pose_optimization_masked(cam, *args, n_rounds, n_iters)
+        return pose_lm(cam, *args, n_rounds, n_iters)[:4]
 
 
 def pose_lm(cam: CubemapCamera, R0: torch.Tensor, t0: torch.Tensor,

@@ -75,6 +75,7 @@ class FusedInit(CapturedFrame):
     ``InitMatch``), then ``two_view(system, scores)``."""
 
     label = "fused init"
+    owner = "init"
 
     def __init__(self, system, graphs: bool = True):
         super().__init__(system.device, graphs)

@@ -73,6 +73,7 @@ import torch
 
 from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.runtime.fused_step import N_KP, CapturedFrame
+from cubemapslam_tpu_torch.spans import span
 
 # the static inputs of localization_motion after the keypoints, in
 # CubemapSLAM._localization_inputs' order
@@ -91,6 +92,7 @@ class FusedLocalization(CapturedFrame):
     ``front_end_frame(system, fisheye, mask)``."""
 
     label = "fused localization"
+    owner = "loc"
 
     def __init__(self, system):
         super().__init__(system.device)
@@ -138,16 +140,18 @@ class FusedLocalization(CapturedFrame):
         ``load_front_end`` takes) and the system's last frame and velocity;
         starts the frame's counts of captures and replays. Returns the
         keypoints, clones."""
-        self._start(system, fisheye, mask)
-        for name, x in zip(MOTION_INPUTS, system._localization_inputs()):
-            self._copy(name, x)
+        with span("host.inputs"):
+            self._start(system, fisheye, mask)
+            for name, x in zip(MOTION_INPUTS, system._localization_inputs()):
+                self._copy(name, x)
         l1 = self.run("l1", lambda: self._part_l1(system))
         return Keypoints(*(x.clone() for x in l1[:N_KP]))
 
     def front_end_frame(self, system, fisheye, mask) -> Keypoints:
         """A LOST frame's graph X; starts the frame's counts. Returns the
         keypoints, clones."""
-        self._start(system, fisheye, mask)
+        with span("host.inputs"):
+            self._start(system, fisheye, mask)
         x = self.run("x", lambda: list(self.front_end(system)))
         return Keypoints(*(t.clone() for t in x))
 
@@ -167,7 +171,8 @@ class FusedLocalization(CapturedFrame):
         """Graph LR: the reference-keyframe fallback against the system's
         reference keyframe from L1's (R_last, t_last). Returns
         ``localization_reference``'s (stage tuple, packed)."""
-        self._fill("ref_kf", system.ref_kf, torch.int64)
+        with span("host.inputs"):
+            self._fill("ref_kf", system.ref_kf, torch.int64)
         out = self.run("lr", lambda: self._part_lr(system))
         return tuple(out[:6]), out[6]
 
@@ -178,11 +183,12 @@ class FusedLocalization(CapturedFrame):
         ``localization_local``'s (assoc, outlier, R, t, packed, vel_R,
         vel_t, rel_R, rel_t)."""
         l1 = self.outputs["l1"]
-        for i, src in zip(L3_STAGE, (assoc, outlier, R, t)):
-            if l1[i] is not src:
-                l1[i].copy_(src)
-        self._copy_if_new("covis", system.covis)
-        self._fill("ref_kf", system.ref_kf, torch.int64)
+        with span("host.inputs"):
+            for i, src in zip(L3_STAGE, (assoc, outlier, R, t)):
+                if l1[i] is not src:
+                    l1[i].copy_(src)
+            self._copy_if_new("covis", system.covis)
+            self._fill("ref_kf", system.ref_kf, torch.int64)
         return tuple(self.run("l3", lambda: self._part_l3(system)))
 
     @staticmethod

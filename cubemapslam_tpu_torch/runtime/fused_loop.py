@@ -135,11 +135,11 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
-from torch.profiler import record_function
 
 from cubemapslam_tpu_torch._build import cusolver
 from cubemapslam_tpu_torch.optim.ba import CHI2_TH, cg_phases
 from cubemapslam_tpu_torch.runtime.fused_step import CapturedFrame
+from cubemapslam_tpu_torch.spans import span
 
 
 def pack_detection(cand_idx: torch.Tensor, cand_ok: torch.Tensor,
@@ -156,6 +156,7 @@ class FusedLoop(CapturedFrame):
     ``match(system, k_cur, k_loop)`` and ``sim3(system, scores)``."""
 
     label = "fused loop"
+    owner = "loop"
 
     def __init__(self, k):
         super().__init__(k.cam.device)
@@ -238,6 +239,7 @@ class FusedCorrect(CapturedFrame):
     ``correct(system, ...)``."""
 
     label = "fused correct"
+    owner = "correct"
 
     def __init__(self, k):
         super().__init__(k.cam.device)
@@ -274,15 +276,14 @@ class FusedCorrect(CapturedFrame):
         graph F. Returns the count."""
         self.check_system(system)
         arena, s = system.arena, self.inputs
-        with record_function("loop.correct.fuse"):
+        with span("loop.correct.fuse"):
             self._load(k_cur, k_loop, sim3, loop_assoc, neigh_pre,
                        loop_edges)
-        with record_function("loop.correct.propagate"):
+        with span("loop.correct.propagate"):
             c = self.run("c", lambda: self.k.correct_c(arena, s))
             count = int(c[-1])                          # the one host read
         cap = self.k.edge_capacity(count, c[-2].shape[0])
-        with record_function("loop.correct.pose_graph"), \
-                cusolver(self.device):
+        with span("loop.correct.pose_graph"), cusolver(self.device):
             names = []
             for i, x in enumerate(self.k.correct_problem(c, cap)):
                 names.append(f"p{cap}.{i}")
@@ -290,7 +291,7 @@ class FusedCorrect(CapturedFrame):
             p = [s[n] for n in names]
             for _ in range(n_iters):
                 self.run(f"g{cap}", lambda: self.k.correct_step(c, p))
-        with record_function("loop.correct.remap"):
+        with span("loop.correct.remap"):
             self.run("f", lambda: self.k.correct_f(arena, s, c))
         return count
 
@@ -309,6 +310,7 @@ class FusedGlobalBA(CapturedFrame):
     ``graphs=False`` for the eager path, whose parts run as called."""
 
     label = "fused global BA"
+    owner = "gba"
     # the edge capacities whose graphs P, L, X and W are held: a growing
     # map meets a new capacity every few keyframes, so a new one drops the
     # least recently used beyond these, and the pool takes its blocks back
@@ -336,7 +338,7 @@ class FusedGlobalBA(CapturedFrame):
         then graph W. Returns the count."""
         self.check_system(system)
         arena, k = system.arena, self.k
-        with record_function("loop.gba.build"):
+        with span("loop.gba.build"):
             b = self.run("b", lambda: k.gba_b(arena))
             count = int(b[-1])                          # the one host read
             cap = k.ba_edge_capacity(count, arena.n_kf_cap * arena.n_feat)
@@ -346,7 +348,7 @@ class FusedGlobalBA(CapturedFrame):
                          self.inputs["robust"])
         cg_phases(k.cam, st, phase_iters, CHI2_TH, cg_iters,
                   lambda name, part: self.run(f"{name}{cap}", part))
-        with record_function("loop.gba.write"):
+        with span("loop.gba.write"):
             self.run(f"w{cap}", lambda: k.gba_w(arena, b, p, st))
         return count
 

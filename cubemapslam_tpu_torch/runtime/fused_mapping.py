@@ -62,6 +62,7 @@ class FusedMapping(CapturedFrame):
     ``keyframe(system, ...)`` and ``deferred_ba(system, slot)``."""
 
     label = "fused mapping"
+    owner = "map"
 
     def __init__(self, system):
         super().__init__(system.device)

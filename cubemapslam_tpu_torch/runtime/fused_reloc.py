@@ -64,6 +64,7 @@ class FusedReloc(CapturedFrame):
     cand_ok)`` and ``widen(system, assoc, outlier, R, t)``."""
 
     label = "fused reloc"
+    owner = "reloc"
 
     def __init__(self, system):
         super().__init__(system.device)

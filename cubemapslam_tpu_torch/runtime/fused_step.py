@@ -81,9 +81,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from cubemapslam_tpu_torch._build import CudaKernel
+from cubemapslam_tpu_torch._build import CudaKernel, capture_ops
 from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.runtime.kernels import FrameTrack
+from cubemapslam_tpu_torch.spans import (Census, Table, host_read, replayed,
+                                         span)
 
 N_KP = len(Keypoints._fields)
 # host waits of one capture: capture_begin / capture_end synchronize
@@ -109,6 +111,13 @@ class CapturedFrame:
     the capture and ``capture_mib`` the device memory the
     captures' pool reserved.
 
+    Spans (``spans.py``): a replay is ``graph.<owner>.<NAME>`` (``owner``
+    names the subclass: ``graph.loc.L1``, ``graph.step.A``), a capture
+    ``graph.<owner>.<NAME>.capture``; ``census[name]`` is the census table
+    of the part's capture (``spans.Census``, the first entry the graph's
+    own span with its total of device operations), built once a capture;
+    a replay while a profiler records hands it to the open frame's row.
+
     One pool serves every part of an instance. A graph writes its
     temporaries into the pool on each replay, so a part that another part
     captured later reads (graph B reads graph A's outputs) must be replayed
@@ -116,6 +125,7 @@ class CapturedFrame:
     replay that wrote them."""
 
     label = "captured frame"
+    owner = "frame"
 
     def __init__(self, device: torch.device, graphs: bool = True):
         self.device = device
@@ -123,6 +133,7 @@ class CapturedFrame:
         self.inputs: Dict[str, torch.Tensor] = {}
         self.outputs: Dict[str, List[torch.Tensor]] = {}
         self._graph: Dict[str, torch.cuda.CUDAGraph] = {}
+        self.census: Dict[str, Table] = {}
         self._launch_delta: Dict[str, List[Tuple[CudaKernel, int]]] = {}
         self._sources: Dict[str, Tuple[int, int]] = {}
         self._held: Dict[str, torch.Tensor] = {}
@@ -195,7 +206,10 @@ class CapturedFrame:
         static mask: the keypoints of the frame that ``load_front_end``
         loaded, as a part records them."""
         s = self.inputs
-        return tracker.extract(tracker.warp(s["fisheye"]), s["mask"])
+        with span("warp"):
+            cube = tracker.warp(s["fisheye"])
+        with span("extract"):
+            return tracker.extract(cube, s["mask"])
 
     # ------------------------------------------------------------------
     # Capture and replay
@@ -238,13 +252,32 @@ class CapturedFrame:
             return self.outputs[name]
         graph = self._graph.get(name)
         if graph is not None:
-            graph.replay()
+            table = self.census[name]
+            with span(table[0][0]):
+                graph.replay()
+            replayed(table)
             for k, d in self._launch_delta[name]:
                 k.launches += d
             self.replays += 1
             self.frame_replays += 1
             self.frame_replayed.append(name.upper())
             return self.outputs[name]
+        label = f"graph.{self.owner}.{name.upper()}"
+        with span(label + ".capture"):
+            graph, delta, static, census = self._capture(name, label, part)
+        self._graph[name] = graph
+        self.census[name] = census.table()
+        self._launch_delta[name] = delta
+        self.outputs[name] = static
+        self.captures += 1
+        self.frame_captures += 1
+        return static
+
+    def _capture(self, name: str, label: str,
+                 part: Callable[[], List[torch.Tensor]]):
+        """Run part ``name`` eagerly on the side stream, then capture it
+        there under its census, named ``label``. Returns (graph, launch
+        deltas, the graph's outputs holding the eager outputs, census)."""
         main, side = torch.cuda.current_stream(self.device), self._stream
         side.wait_stream(main)
         with torch.cuda.stream(side):
@@ -261,7 +294,8 @@ class CapturedFrame:
             try:
                 graph.capture_begin(pool=self._pool)
                 try:
-                    static = part()
+                    with Census(label, lambda: capture_ops(side)) as census:
+                        static = part()
                 finally:
                     graph.capture_end()
             except Exception as e:
@@ -278,18 +312,14 @@ class CapturedFrame:
             for s, e in zip(static, eager):
                 s.copy_(e)
         main.wait_stream(side)
-        self._graph[name] = graph
-        self._launch_delta[name] = delta
-        self.outputs[name] = static
-        self.captures += 1
-        self.frame_captures += 1
-        return static
+        return graph, delta, static, census
 
     def drop(self, names: Sequence[str]) -> None:
         """Forget the parts ``names``: their graphs and outputs. What they
         held goes back to the pool, where later captures take it."""
         for name in names:
             self._graph.pop(name, None)
+            self.census.pop(name, None)
             self._launch_delta.pop(name, None)
             self.outputs.pop(name, None)
 
@@ -312,6 +342,7 @@ class CapturedLoop(CapturedFrame):
     may differ."""
 
     label = "captured loop"
+    owner = "iter"
 
     def repeat(self, name: str, body: Callable[[], None], n: int) -> None:
         def part() -> List[torch.Tensor]:
@@ -330,6 +361,7 @@ class FusedStep(CapturedFrame):
     order."""
 
     label = "fused step"
+    owner = "step"
 
     def __init__(self, tracker):
         super().__init__(tracker.device)
@@ -404,13 +436,15 @@ class FusedStep(CapturedFrame):
 
     def __call__(self, tracker, fisheye, mask, last, velocity, gain: float,
                  ref_kf: int) -> Tuple[Keypoints, FrameTrack]:
-        self.new_frame()
-        self.check_tracker(tracker)
-        self.load_inputs(tracker, fisheye, mask, last, velocity, gain, ref_kf)
+        with span("host.inputs"):
+            self.new_frame()
+            self.check_tracker(tracker)
+            self.load_inputs(tracker, fisheye, mask, last, velocity, gain,
+                             ref_kf)
         k = tracker.kernels
         counts = self.run("a", lambda: self._part_a(tracker))[-1]
         kp, st, pose = self._a()
-        n, n_inl = counts.tolist()
+        n, n_inl = host_read(counts)
         path = ["motion"]
         parts = k.fallback_parts(tracker.arena, kp, self._last(), pose,
                                  self.inputs["ref_kf"])
@@ -426,6 +460,7 @@ class FusedStep(CapturedFrame):
         else:
             out = self.run("s", lambda: self._part_s(tracker))
             path.append("skip_local")
-        kp = Keypoints(*(x.clone() for x in kp))
-        return kp, FrameTrack(tracker.arena, *(x.clone() for x in out),
-                              tuple(path), reads + 1)
+        with span("host.keep"):
+            kp = Keypoints(*(x.clone() for x in kp))
+            out = [x.clone() for x in out]
+        return kp, FrameTrack(tracker.arena, *out, tuple(path), reads + 1)

@@ -32,7 +32,6 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from cubemapslam_tpu_torch import camera as C
 from cubemapslam_tpu_torch import geometry as G
@@ -45,6 +44,7 @@ from cubemapslam_tpu_torch.optim.pose_opt import pose_optimization
 from cubemapslam_tpu_torch.solvers import TwoViewResult, initialize_two_view
 from cubemapslam_tpu_torch.solvers.pnp import pnp_ransac
 from cubemapslam_tpu_torch.solvers.sampling import draw_scores
+from cubemapslam_tpu_torch.spans import host_read, span
 
 MIN_MATCHES = 20             # widen / fall back below this (Tracking.cpp:641)
 VELOCITY_GATE_RAD = 0.2      # implausible rotations predict from the last pose
@@ -358,17 +358,17 @@ class TrackingKernels:
         the visible/found counters, which are updated in place
         (``kernels.py:322-339``)."""
         assoc = torch.where(outlier, torch.full_like(assoc, SM.NO_LM), assoc)
-        with record_function("local.select"):
+        with span("local.select"):
             sel, sel_ok, _, pkf_max, pkf_votes = self.select_local_landmarks(
                 arena, assoc, covis=covis)
-        with record_function("local.search"):
+        with span("local.search"):
             assoc, vis_add, diag = self.search_local_points(
                 arena, kp_cur, assoc, sel, sel_ok, R, t,
                 radius_scale=radius_scale)
-        with record_function("local.optimize"):
+        with span("local.optimize"):
             R, t, outlier, n_final = self.optimize_pose(arena, kp_cur, assoc,
                                                         R, t)
-        with record_function("local.counters"):
+        with span("local.counters"):
             arena = self.update_found_counters(arena, assoc, outlier,
                                                vis_add)
         return (arena, assoc, outlier, R, t, n_final, pkf_max, pkf_votes,
@@ -533,7 +533,7 @@ class TrackingKernels:
         def part(name, step):
             out = run(name)
             path.append(step)
-            return tuple(out[:6]), *out[6].tolist()
+            return tuple(out[:6]), *host_read(out[6])
 
         reads = 0
         if n < MIN_MATCHES:
@@ -585,7 +585,7 @@ class TrackingKernels:
         free slot, the velocity, the pose relative to the new reference and
         the packed (23,) result (``kernels.py:387-409``)."""
         n_t, n_inl_t = st[1], st[5]
-        with record_function("epilogue"):
+        with span("epilogue"):
             new_ref = torch.where(pkf_votes > 0, pkf_max, ref_kf)
             live_kf = arena.kf_valid.sum()
             row = _row(arena.kf_obs_lm, new_ref)
@@ -642,11 +642,11 @@ class TrackingKernels:
         vel_gain = device_scalar(vel_gain, torch.float32, dev)
         path = ["motion"]
         last = (last_assoc, last_outlier, last_kp_level, last_kp_angle)
-        with record_function("motion"):
+        with span("motion"):
             st, pose, counts = self.frame_motion(
                 arena, kp_cur, *last, rel_R, rel_t, last_ref, vel_R, vel_t,
                 vel_gain)
-            n, n_inl = counts.tolist()
+            n, n_inl = host_read(counts)
             parts = self.fallback_parts(arena, kp_cur, last, pose, ref_kf)
             st, n, n_inl, reads = self.motion_fallbacks(
                 lambda name: parts[name](), st, n, n_inl, path)

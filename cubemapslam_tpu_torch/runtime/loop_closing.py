@@ -73,7 +73,6 @@ from typing import List, Set, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from cubemapslam_tpu_torch import camera as C
 from cubemapslam_tpu_torch import dist as D
@@ -99,6 +98,7 @@ from cubemapslam_tpu_torch.runtime.mapping import (Slot, _at, _index,
 from cubemapslam_tpu_torch.segment import SegmentPlan
 from cubemapslam_tpu_torch.solvers import sim3 as S3
 from cubemapslam_tpu_torch.solvers.sampling import draw_scores
+from cubemapslam_tpu_torch.spans import span
 
 MAX_PREV_LOOPS = 16      # past loop edges in the essential graph
 # scw_project's landmarks a block of the (L, N) distance and gate matrices
@@ -514,7 +514,7 @@ class LoopKernels:
         that count's capacity (``edge_capacity``), as the system's captured
         step takes them (``runtime/fused_loop.py``). ``loop``: the runner
         of the Gauss-Newton iterations (``optimize_essential_graph``)."""
-        with record_function("loop.correct.propagate"):
+        with span("loop.correct.propagate"):
             own, lm_pos, state, fixed, edges = self._propagate(
                 arena, k_cur, k_loop, s_cl, R_cl, t_cl, neigh_pre,
                 *self.fill_loop_edges(
@@ -522,11 +522,11 @@ class LoopKernels:
             cap = self.edge_capacity(int(edges[-1].sum()),  # the host read
                                      edges[-1].shape[0])
             padded = self.padded_edges(edges, cap)
-        with record_function("loop.correct.pose_graph"):
+        with span("loop.correct.pose_graph"):
             s_o, R_o, t_o = optimize_essential_graph(
                 *state, arena.kf_valid, fixed, *padded,
                 n_iters=POSE_GRAPH_ITERS, loop=loop)
-        with record_function("loop.correct.remap"):
+        with span("loop.correct.remap"):
             self.remap(arena, own, lm_pos, s_o, R_o, t_o)
         return arena
 
@@ -911,7 +911,7 @@ class LoopCloser:
         if system.n_kf < 10 or system.n_kf - self.last_loop_counter < 10:
             return False
         t0 = time.perf_counter()
-        with record_function("loop.detect"):
+        with span("loop.detect"):
             if fl is None:
                 host = pack_detection(*self.k.detect_candidates_fused(
                     system.arena, system.bow_table, slot)).tolist()
@@ -956,16 +956,16 @@ class LoopCloser:
         """ComputeSim3 against one consistent candidate, then CorrectLoop
         and the global BA (``loop_closing.py:574-670``)."""
         t0 = time.perf_counter()
-        with record_function("loop.sim3"):
+        with span("loop.sim3"):
             found = self._compute_sim3(system, k_cur, k_loop)
         if found is None:
             return False
         t0 = self._lap("sim3", t0)
-        with record_function("loop.correct"):
+        with span("loop.correct"):
             self._correct(system, k_cur, k_loop, *found)
             self._sync()
         t0 = self._lap("correct", t0)
-        with record_function("loop.gba"):
+        with span("loop.gba"):
             self._global_ba(system)
             self._sync()
         self._lap("gba", t0)
@@ -982,13 +982,13 @@ class LoopCloser:
         if fl is not None:
             return self._compute_sim3_graphs(fl, system, k_cur, k_loop)
         k, arena, trace = self.k, system.arena, self.sim3_trace
-        with record_function("loop.sim3.match"):
+        with span("loop.sim3.match"):
             idx2, ok = k.match_kf_pair(arena, k_cur, k_loop)
             n_match = int(ok.sum())
         self.reads += 1
         if n_match < 20:
             return None
-        with record_function("loop.sim3.ransac"):
+        with span("loop.sim3.ransac"):
             res = k.sim3_ransac(arena, k_cur, k_loop, idx2, ok,
                                 system.generator)
             success = bool(res.success)
@@ -998,12 +998,12 @@ class LoopCloser:
             return None
         # widen the match set with the RANSAC Sim3 before the refinement
         kept = ok & res.inliers
-        with record_function("loop.sim3.widen"):
+        with span("loop.sim3.widen"):
             idx2, ok_wide = k.search_by_sim3(arena, k_cur, k_loop, res.s12,
                                              res.R12, res.t12, idx2, kept)
         trace.update(ransac=(res.s12, res.R12, res.t12),
                      ransac_inliers=kept.sum(), widened=ok_wide.sum())
-        with record_function("loop.sim3.refine"):
+        with span("loop.sim3.refine"):
             s, R, t, inl, n_inl = trace["refined"] = k.refine_sim3(
                 arena, k_cur, k_loop, idx2, ok_wide, res.s12, res.R12,
                 res.t12)
@@ -1013,7 +1013,7 @@ class LoopCloser:
             return None
         # the S_cw projection gate, read with the current keyframe's
         # covisible set before fusion (mvpCurrentConnectedKFs)
-        with record_function("loop.sim3.scw"):
+        with span("loop.sim3.scw"):
             loop_assoc, total, neigh_pre = k.scw_gate(
                 arena, k_cur, k_loop, (s, R, t), idx2, ok_wide & inl)
             host = torch.cat([total.reshape(1),
@@ -1064,7 +1064,7 @@ class LoopCloser:
         k, arena = self.k, system.arena
         # fuse the loop landmarks into the current keyframe before the pose
         # graph, so that the covisibility edges it makes take part
-        with record_function("loop.correct.fuse"):
+        with span("loop.correct.fuse"):
             k.loop_fuse(arena, k_cur, loop_assoc)
         loop = self._loop(system)
         k.propagate_and_pose_graph(arena, k_cur, k_loop, *sim3, neigh_pre,
@@ -1075,13 +1075,13 @@ class LoopCloser:
         self.loop_edges.append((k_cur, k_loop))
         # SearchAndFuse over the whole corrected neighbourhood: the current
         # keyframe and its pre-fusion covisible keyframes
-        with record_function("loop.correct.search_and_fuse"):
+        with span("loop.correct.search_and_fuse"):
             neigh = [k_cur] + [i for i in neigh_np[:MAX_NEIGH - 1]
                                if i != k_cur]
             sel, sel_ok = k.loop_member_landmarks(
                 arena, min(MAX_LOOP_LANDMARKS, arena.n_lm_cap), k_loop)
             k.search_and_fuse(arena, neigh, sel, sel_ok)
-        with record_function("loop.correct.stats"):
+        with span("loop.correct.stats"):
             SM.update_landmark_stats(arena, k.scale_factors)
             self.reads += 1
 
@@ -1114,7 +1114,7 @@ class LoopCloser:
             if fl is None:
                 self._count(gba)    # its graphs and pool go with it
             return
-        with record_function("loop.gba.build"):
+        with span("loop.gba.build"):
             prob = D.broadcast_problem(
                 D.global_ba_problem_from_arena(self.cam, arena,
                                                self.k.inv_level_sigma2),
@@ -1124,7 +1124,7 @@ class LoopCloser:
             live = prob._replace(**{f: getattr(prob, f)[keep]
                                     for f in D.EDGE_FIELDS})
         out, active = self._global_ba_sharded(live)
-        with record_function("loop.gba.write"):
+        with span("loop.gba.write"):
             self.k.write_global_ba(arena, out, active, keep, prob.obs_valid)
 
     def _global_ba_sharded(self, live):

@@ -65,7 +65,6 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cubemapslam_tpu_torch import geometry as G
 from cubemapslam_tpu_torch import place as PL
@@ -88,6 +87,7 @@ from cubemapslam_tpu_torch.runtime.tracking import LastFrame, MapTracker
 from cubemapslam_tpu_torch.solvers.essential import TwoViewResult
 from cubemapslam_tpu_torch.solvers.pnp import EIGH_WAITS
 from cubemapslam_tpu_torch.solvers.sampling import draw_scores
+from cubemapslam_tpu_torch.spans import frame, host_read, span
 
 RELOC_CANDIDATES = 5     # BoW candidates tried per relocalization
 # keyframe slots per batch when all BoW rows are recomputed: a word_ids
@@ -121,13 +121,15 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
 
     ``track_fisheye(img_u8, t)`` / ``track_cubemap(cross, t)`` return the
     4x4 world->camera pose of a tracked frame, else ``None``. ``metrics``
-    has a row per frame; ``trajectory`` holds (timestamp, R, t) of each
-    tracked frame; ``keyframe_trajectory()`` the live keyframes in time
-    order. A steady-state ``track_fisheye`` frame on the card (tracking,
-    not in localization mode) replays ``MapTracker``'s captured graphs,
-    and its keyframe insertion with the mapping step, or its deferred BA,
-    replays ``FusedMapping``'s (``runtime/fused_mapping.py``; rows carry
-    ``graph_mapping_captures``, ``graph_mapping_replays``).
+    has a row per frame (its ``kind`` one of ``tracking.FRAME_KINDS``, set
+    where the frame's branch is taken); ``trajectory`` holds (timestamp,
+    R, t) of each tracked frame; ``keyframe_trajectory()`` the live
+    keyframes in time order. A steady-state ``track_fisheye`` frame on
+    the card (tracking, not in localization mode) replays ``MapTracker``'s
+    captured graphs, and its keyframe insertion with the mapping step, or
+    its deferred BA, replays ``FusedMapping``'s
+    (``runtime/fused_mapping.py``; rows carry ``graph_mapping_captures``,
+    ``graph_mapping_replays``).
     Loop closing on the card replays the graphs of the ``FusedLoop`` that
     the system owns and hands its loop closer (``LoopGraphOwner``,
     ``runtime/fused_loop.py``) for DetectLoop and ComputeSim3, and runs a
@@ -291,6 +293,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         return (self.state == TrackState.OK and not self.localization_only
                 and super()._graph_frame())
 
+    @frame
     def track_fisheye(self, fisheye_u8, timestamp: float, mask=None
                       ) -> Optional[np.ndarray]:
         """Track one (H, W) uint8 fisheye frame (an array, or a tensor such
@@ -330,7 +333,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             self._fused_init = FusedInit(self)
         fi = self._fused_init
         kp = fi.start(self, fisheye_u8, mask, self._has_init_ref())
-        with record_function("init"):
+        with span("init"):
             pose_np = self._try_initialize(kp, fid, timestamp, fi)
         self._row.update(graph_init_captures=fi.frame_captures,
                          graph_init_replays=fi.frame_replays)
@@ -354,7 +357,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
                                         timestamp)
         else:
             kp = fl.start(self, fisheye_u8, mask)
-            with record_function("localization"):
+            with span("localization"):
                 pose_np = self._track_frame_localization(kp, fid, timestamp,
                                                          fl)
         self._row.update(graph_localization_captures=fl.frame_captures,
@@ -362,6 +365,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
                          graph_localization_replayed=tuple(fl.frame_replayed))
         return self._finish_frame(timestamp, pose_np)
 
+    @frame
     def track_cubemap(self, cube: torch.Tensor, timestamp: float,
                       mask=None) -> Optional[np.ndarray]:
         """Track one cubemap-cross frame, dispatching to initialization,
@@ -373,7 +377,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         pre_init = self._pre_init()
         self._row = {}
         self._stage_start()
-        with record_function("extract"):
+        with span("extract"):
             cube = torch.as_tensor(cube, device=self.device)
             extract = self.extractor_init if pre_init else self.extractor
             kp = extract(cube, self.as_mask(mask))
@@ -382,7 +386,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         self.frame_id += 1
         pose_np = None
         if pre_init:
-            with record_function("init"):
+            with span("init"):
                 pose_np = self._try_initialize(kp, fid, timestamp)
             self._stage("init")
         elif self.state == TrackState.LOST:
@@ -393,9 +397,10 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
 
     def _reloc_frame(self, kp: Keypoints, fid: int, ts: float):
         """A LOST frame: its row, then ``_relocalize``."""
-        self._row.update(frame=fid, stage="reloc", host_reads=0)
+        self._row.update(frame=fid, kind="reloc", stage="reloc",
+                         host_reads=0)
         self.metrics.append(self._row)
-        with record_function("reloc"):
+        with span("reloc"):
             pose_np = self._relocalize(kp, fid, ts)
         self._stage("reloc")
         return pose_np
@@ -403,15 +408,16 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
     def _finish_frame(self, timestamp: float, pose_np):
         """The frame's state in its row, and its pose (4x4, also appended to
         ``trajectory``) when tracking."""
-        self._row.update(state=self.state.name)
-        if self.state != TrackState.OK:
-            return None
-        self.tracked_frames += 1
-        T = np.eye(4)
-        T[:3, :3], T[:3, 3] = pose_np
-        self.trajectory.append((timestamp, T[:3, :3].copy(),
-                                T[:3, 3].copy()))
-        return T
+        with span("host.keep"):
+            self._row.update(state=self.state.name)
+            if self.state != TrackState.OK:
+                return None
+            self.tracked_frames += 1
+            T = np.eye(4)
+            T[:3, :3], T[:3, 3] = pose_np
+            self.trajectory.append((timestamp, T[:3, :3].copy(),
+                                    T[:3, 3].copy()))
+            return T
 
     def activate_localization_mode(self) -> None:
         """Freeze the map and track against it
@@ -443,7 +449,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         / ``init_match``, ``init_two_view``). Returns the host pose (R, t)
         when the initial map was made, else None."""
         row, k, cfg = self._row, self.kernels, self.cfg
-        row.update(frame=fid, stage="init", host_reads=0)
+        row.update(frame=fid, kind="init", stage="init", host_reads=0)
         self.metrics.append(row)
         self.init_trace = None
         has_ref = self._has_init_ref()
@@ -576,7 +582,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
 
     def _track_frame(self, kp: Keypoints, fid: int, ts: float):
         if self.localization_only:
-            with record_function("localization"):
+            with span("localization"):
                 pose_np = self._track_frame_localization(kp, fid, ts)
             self._stage("localization")
             return pose_np
@@ -600,17 +606,18 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         n_final = row["inliers"]
         self._kf_inlier_peak = max(self._kf_inlier_peak, n_final)
         if self._need_new_keyframe(n_final, row["n_ref"], row["first_free"]):
-            with record_function("insert+mapping"):
+            with span("insert+mapping"):
                 self._create_keyframe(kp, out.assoc, out.outlier, out.R,
                                       out.t, fid, ts, slot=row["first_free"],
                                       live_kf=row["live_kf"] + 1,
                                       fused=fused)
-            row["keyframe"] = True
+            row.update(keyframe=True, kind="keyframe")
             self._stage("insert+mapping")
         elif self._ba_pending_slot is not None:
             # no keyframe this frame: run the deferred local BA
-            with record_function("local_ba"):
+            with span("local_ba"):
                 self._dispatch_deferred_ba(fused)
+            row["kind"] = "ba"
             self._stage("local_ba")
         return T[:3, :3], T[:3, 3]
 
@@ -618,9 +625,10 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         """``system.py:709-718``: reset when 5 or fewer keyframes are
         live."""
         self.state = TrackState.LOST
+        self._row["kind"] = "lost"
         if live_kf is None:
             self._row["host_reads"] = self._row.get("host_reads", 0) + 1
-            live_kf = int(self.arena.kf_valid.sum())
+            live_kf = int(host_read(self.arena.kf_valid.sum()))
         if live_kf <= 5:
             self.reset()
 
@@ -656,7 +664,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         (``kernels.pack``): (the counts as ints, (R, t) as float64
         numpy)."""
         self._row["host_reads"] += 1
-        h = packed.tolist()
+        h = host_read(packed)
         return ([int(x) for x in h[:k]],
                 (np.asarray(h[k:k + 9]).reshape(3, 3), np.asarray(h[k + 9:])))
 
@@ -695,7 +703,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         """Keep a frame tracked on frame-to-frame matches only (mbVO)."""
         self.velocity = G.se3_compose(R, t, *G.se3_inverse(R_last, t_last))
         self._record_frame(kp, assoc, outlier, R, t, fid, ts)
-        self._row.update(inliers=n_inl, matches=n, vo=True)
+        self._row.update(inliers=n_inl, matches=n, vo=True, kind="vo")
 
     def _track_frame_localization(self, kp: Keypoints, fid: int, ts: float,
                                   fused: Optional[FusedLocalization] = None):
@@ -709,7 +717,8 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         or None."""
         k, cfg = self.kernels, self.cfg
         row = self._row
-        row.update(frame=fid, stage="localization", host_reads=0, vo=False)
+        row.update(frame=fid, kind="localization", stage="localization",
+                   host_reads=0, vo=False)
         self.metrics.append(row)
         if fused is None:
             args = self._localization_inputs()
@@ -756,8 +765,9 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             if n < MIN_MATCHES:
                 self._set_lost()
                 return None
-            self._vo_frame(kp, *keep(assoc, outlier, R, t), R_last, t_last,
-                           fid, ts, n, n_inl)
+            with span("host.keep"):
+                self._vo_frame(kp, *keep(assoc, outlier, R, t), R_last,
+                               t_last, fid, ts, n, n_inl)
             self.mb_vo = n_inl < 10
             return pose
         if n < MIN_MATCHES:                # the reference keyframe
@@ -770,8 +780,9 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             if n >= MIN_MATCHES:
                 # weak map support, live frame-to-frame tracking: VO mode
                 self.mb_vo = True
-                self._vo_frame(kp, *keep(assoc, outlier, R, t), R_last,
-                               t_last, fid, ts, n, n_inl)
+                with span("host.keep"):
+                    self._vo_frame(kp, *keep(assoc, outlier, R, t), R_last,
+                                   t_last, fid, ts, n, n_inl)
                 return pose
             self._set_lost()
             return None
@@ -784,13 +795,14 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         if n_final < cfg.min_track_inliers:
             self._set_lost()
             return None
-        if pkf_votes > 0:
-            self.ref_kf = pkf_max
-        assoc, outlier, R, t, vel_R, vel_t, rel_R, rel_t = keep(
-            assoc, outlier, R, t, *kept)
-        self.velocity = (vel_R, vel_t)
-        self.last = LastFrame(kp, assoc, outlier, R, t, rel_R, rel_t,
-                              self.ref_kf, fid, ts)
+        with span("host.keep"):
+            if pkf_votes > 0:
+                self.ref_kf = pkf_max
+            assoc, outlier, R, t, vel_R, vel_t, rel_R, rel_t = keep(
+                assoc, outlier, R, t, *kept)
+            self.velocity = (vel_R, vel_t)
+            self.last = LastFrame(kp, assoc, outlier, R, t, rel_R, rel_t,
+                                  self.ref_kf, fid, ts)
         return pose
 
     # ------------------------------------------------------------------
@@ -808,7 +820,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         if self.vocab is None or self.bow_table is None:
             return None
         k, a = self.kernels, self.arena
-        with record_function("reloc.detect"):
+        with span("reloc.detect"):
             qbow = PL.bow_vector(self.vocab, kp.desc, kp.valid)
             if self.covis is None:
                 self.refresh_graph_cache()
@@ -816,8 +828,8 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
                 qbow, self.bow_table, a.kf_valid,
                 torch.zeros_like(a.kf_valid), self.covis, 0.0)
             n_c = min(RELOC_CANDIDATES, cand_idx.shape[0])
-            host = torch.cat([cand_idx[:n_c],
-                              cand_ok[:n_c].to(torch.int64)]).tolist()
+            host = host_read(torch.cat([cand_idx[:n_c],
+                                        cand_ok[:n_c].to(torch.int64)]))
         row["host_reads"] += 1
         idx, ok = host[:n_c], [bool(x) for x in host[n_c:]]
         row["reloc_candidates"] = sum(ok)
@@ -828,14 +840,14 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             if self._fused_reloc is None:
                 self._fused_reloc = FusedReloc(self)
             fr = self._fused_reloc
-        with record_function("reloc.candidates"):
+        with span("reloc.candidates"):
             if fr is None:
                 assoc_c, R_c, t_c, out_c, score_c = k.reloc_candidates_fused(
                     a, kp, idx, ok, self.generator)
             else:
                 assoc_c, R_c, t_c, out_c, score_c = fr.candidates(self, kp,
                                                                   idx, ok)
-            scores = score_c.tolist()
+            scores = host_read(score_c)
         row["host_reads"] += 1
         row["eigh_waits"] = row.get("eigh_waits", 0) + EIGH_WAITS * sum(ok)
         row["reloc_scores"] = scores
@@ -843,7 +855,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         for i in sorted(range(n_c), key=lambda j: -scores[j]):   # stable
             if scores[i] < 0:
                 break
-            with record_function("reloc.widen"):
+            with span("reloc.widen"):
                 args = (assoc_c[i], out_c[i], R_c[i], t_c[i])
                 if fr is None:
                     assoc, R, t, outlier, n3 = k.reloc_widen_fused(
@@ -859,7 +871,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
             self.state = TrackState.OK
             self.mb_vo = False
             self._kf_inlier_peak = 0
-            row.update(relocalized=True, reloc_inliers=n3)
+            row.update(relocalized=True, reloc_inliers=n3, kind="reloc")
             pose_out = pose
             break
         if fr is not None:
@@ -1028,7 +1040,7 @@ class CubemapSLAM(MapTracker, LoopGraphOwner):
         its reads, waits and stage times go into the frame's row."""
         lc = self.loop_closer
         n_before = {k: len(v) for k, v in lc.timings.items()}
-        with record_function("loop"):
+        with span("loop"):
             closed = lc.process(self, slot)
         row = self._row
         row["host_reads"] = row.get("host_reads", 0) + lc.reads

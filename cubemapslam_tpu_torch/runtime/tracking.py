@@ -30,7 +30,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cubemapslam_tpu_torch import geometry as G
 from cubemapslam_tpu_torch import slam_map as SM
@@ -39,10 +38,19 @@ from cubemapslam_tpu_torch.features.extractor import Keypoints
 from cubemapslam_tpu_torch.runtime.frame_step import FrameFrontend
 from cubemapslam_tpu_torch.runtime.fused_step import FusedStep
 from cubemapslam_tpu_torch.runtime.kernels import FrameTrack, TrackingKernels
+from cubemapslam_tpu_torch.spans import frame, host_read, span
 
 PACKED_NAMES = ("matches", "inliers_mm", "inliers", "n_ref", "live_kf",
                 "first_free", "track_ok", "new_ref", "local_frustum",
                 "local_queried", "local_matched")
+# a metrics row's ``kind``, set in the branch that decides it: an
+# initialization attempt; a frame tracked against the map that inserts no
+# keyframe and runs no deferred BA, one that inserts a keyframe, one that
+# runs the deferred BA; a LOST frame's relocalization (or mbVO's, when it
+# wins); a frame that lost tracking; a localization-mode frame tracked
+# against the frozen map; one tracked as visual odometry (mbVO)
+FRAME_KINDS = ("init", "tracked", "keyframe", "ba", "reloc", "lost",
+               "localization", "vo")
 
 
 class LastFrame(NamedTuple):
@@ -66,11 +74,13 @@ class MapTracker(FrameFrontend):
     """Tracks fisheye frames against a map arena, one ``track_fisheye`` call
     a frame. Seed it with ``seed`` (an arena and a last frame) first.
 
-    ``metrics`` holds a row per tracked frame: the packed counts
+    ``metrics`` holds a row per tracked frame: its ``kind``
+    (``FRAME_KINDS``: ``tracked`` or ``lost`` here), the packed counts
     (``PACKED_NAMES``), the branches taken, the host reads made and the
     CUDA graphs captured and replayed (``graph_captures``,
     ``graph_replays``; both 0 on an eager frame) with the names of those
-    replayed (``graph_replayed``, e.g. ``("A", "W", "Z", "R", "B")``).
+    replayed (``graph_replayed``, e.g. ``("A", "W", "Z", "R", "B")``);
+    while a profiler records, ``graph_stages`` (``spans.frame``).
     ``stage_times``, when a dict, keeps every frame eager and records each
     stage's synchronised wall ms."""
 
@@ -184,6 +194,7 @@ class MapTracker(FrameFrontend):
         return (torch.eye(3, device=self.device),
                 torch.zeros(3, device=self.device), 0.0)
 
+    @frame
     def track_fisheye(self, fisheye_u8, timestamp: float, mask=None
                       ) -> Optional[np.ndarray]:
         """Track one (H, W) uint8 fisheye frame (an array, or a tensor such
@@ -196,11 +207,12 @@ class MapTracker(FrameFrontend):
             kp, out = self._fused_frame(fisheye_u8, mask)
             return self._consume(kp, out, fid, timestamp,
                                  self._graph_counts())[0]
-        with record_function("warp"):
+        with span("warp"):
             img = torch.as_tensor(fisheye_u8, device=self.device)
             cube = self.warp(img)
         return self.track_cubemap(cube, timestamp, mask)
 
+    @frame
     def track_cubemap(self, cube: torch.Tensor, timestamp: float, mask=None
                       ) -> Optional[np.ndarray]:
         """Track one cubemap cross. ``mask`` (3Hf, 3Wf), array or tensor,
@@ -214,7 +226,7 @@ class MapTracker(FrameFrontend):
         fid = self.frame_id
         self.frame_id += 1
         self._stage_start()
-        with record_function("extract"):
+        with span("extract"):
             kp = self.extract(cube, mask)
         self._stage("extract")
         T = self._track_steady(kp, fid, timestamp)[0]
@@ -239,23 +251,25 @@ class MapTracker(FrameFrontend):
         """The one read of the packed result and the tracking half of
         ``_consume_track_outputs``; ``graphs`` is ``_graph_counts()`` of
         the frame. Returns (pose or None, ``out``, the frame's metrics row)."""
-        with record_function("epilogue"):
-            pk = out.packed.tolist()
+        with span("epilogue"):
+            pk = host_read(out.packed)
             counts = dict(zip(PACKED_NAMES, (int(x) for x in pk[:11])))
-            row = dict(frame=fid, **counts, path=out.path,
+            row = dict(frame=fid, kind="tracked", **counts, path=out.path,
                        host_reads=out.host_reads + 1,
                        graph_captures=graphs[0], graph_replays=graphs[1],
                        graph_replayed=graphs[2])
             self.metrics.append(row)
             if (not counts["track_ok"]
                     or counts["inliers"] < self.cfg.min_track_inliers):
+                row["kind"] = "lost"
                 return None, out, row
-            self.ref_kf = counts["new_ref"]
-            self.velocity = (out.vel_R, out.vel_t)
-            self.last = LastFrame(kp, out.assoc, out.outlier, out.R, out.t,
-                                  out.rel_R, out.rel_t, self.ref_kf, fid,
-                                  timestamp)
-            T = np.eye(4)
-            T[:3, :3] = np.asarray(pk[11:20]).reshape(3, 3)
-            T[:3, 3] = pk[20:23]
+            with span("host.keep"):
+                self.ref_kf = counts["new_ref"]
+                self.velocity = (out.vel_R, out.vel_t)
+                self.last = LastFrame(kp, out.assoc, out.outlier, out.R,
+                                      out.t, out.rel_R, out.rel_t,
+                                      self.ref_kf, fid, timestamp)
+                T = np.eye(4)
+                T[:3, :3] = np.asarray(pk[11:20]).reshape(3, 3)
+                T[:3, 3] = pk[20:23]
             return T, out, row

@@ -36,6 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cubemapslam_tpu import geometry as JG
 from cubemapslam_tpu import slam_map as JSM
@@ -51,6 +52,8 @@ from cubemapslam_tpu_torch.runtime.fused_localization import (
     FusedLocalization)
 from cubemapslam_tpu_torch.runtime.kernels import MIN_MATCHES, pack
 from cubemapslam_tpu_torch.runtime.system import CubemapSLAM, TrackState
+from cubemapslam_tpu_torch.runtime.tracking import FRAME_KINDS
+from slambench.measure.window import plain_frame
 
 VOCAB = str(pathlib.Path(__file__).resolve().parents[1] / "artifacts"
             / "vocab_synth_10k.npz")
@@ -112,7 +115,8 @@ def parent_track_frame_localization(self, kp, fid, ts):
     through an int slot, each read's vector built where it is read."""
     k, cfg, last = self.kernels, self.cfg, self.last
     row = self._row
-    row.update(frame=fid, stage="localization", host_reads=0, vo=False)
+    row.update(frame=fid, kind="localization", stage="localization",
+               host_reads=0, vo=False)
     self.metrics.append(row)
 
     def read(counts, R, t):
@@ -274,11 +278,25 @@ def run_case(mapped, case, graphs, monkeypatch):
     return s, states
 
 
+# each case's frames' kinds after the relocalizing frame and the first
+# localization-mode frame
+CASE_KINDS = {"plain": ("localization", "localization"),
+              "widen": ("localization", "localization"),
+              "reference": ("localization", "localization"),
+              "mbvo": ("vo", "reloc"), "lost": ("lost", "reloc")}
+# kinds of the frames that only tracked, which the benchmark's plain_frame
+# picks from the rows' other fields
+PLAIN_KINDS = ("tracked", "localization", "vo")
+
+
 @pytest.mark.parametrize("case", ["plain", "widen", "reference", "mbvo",
                                   "lost"])
 def test_fused_localization_on_cpu_equals_parent(mapped, monkeypatch, case):
     """Each branch through ``FusedLocalization`` (on the CPU) bitwise equal
-    to the parent's eager frame; which parts ran shows the branch."""
+    to the parent's eager frame; which parts ran shows the branch, and each
+    row's ``kind`` names it. ``plain_frame`` agrees with the kind on every
+    frame but mbVO's relocalized one, which it counts as a plain frame
+    (its row reads stage ``localization``, state OK)."""
     se, e = run_case(mapped, case, False, monkeypatch)
     sg, g = run_case(mapped, case, True, monkeypatch)
     same_states(e, g)
@@ -309,6 +327,11 @@ def test_fused_localization_on_cpu_equals_parent(mapped, monkeypatch, case):
     elif case == "lost":
         assert rows[-1]["stage"] == "reloc" and rows[-1]["relocalized"]
         assert "x" in fl.outputs and sg.state == TrackState.OK
+    kinds = [r["kind"] for r in rows]
+    assert kinds == ["reloc", "localization", *CASE_KINDS[case]]
+    assert set(kinds) <= set(FRAME_KINDS)
+    agree = [plain_frame(r) == (r["kind"] in PLAIN_KINDS) for r in rows]
+    assert agree == [True, True, True, case != "mbvo"]
 
 
 def test_reference_part_bitwise_eager_fallback(mapped):
@@ -447,3 +470,51 @@ def test_moved_arena_raises_and_owners_drop_graphs(mapped, monkeypatch,
     s._fused_localization = FusedLocalization(s)
     s.reset()
     assert s.fused_localization is None
+
+
+LOCALIZATION_SPANS = ("slam.frame", "warp", "extract", "extract.pyramid",
+                      "extract.detect", "extract.select", "extract.describe",
+                      "extract.rays", "localization", "pose_lm",
+                      "local.select", "local.search", "local.optimize",
+                      "local.counters", "host.read", "host.keep")
+
+
+def test_eager_localization_frame_spans(mapped, monkeypatch):
+    """A localization-mode frame on the CPU (the eager path) with no
+    profiler calls no ``record_function``; under ``torch.profiler`` one
+    ``slam.frame`` holds every span of the frame: ``warp``, ``extract``
+    with its five steps, then ``localization`` with the 15 px search's pose
+    LM, both reads (one ``host.read`` for each read the row counts),
+    TrackLocalMap's ``local.*`` (the pose LM in ``local.optimize``) and the
+    ``host.keep`` of what the frame keeps; the row's ``host.keep`` after
+    it. The row's ``kind`` is ``localization``."""
+    from test_torch_spans import host_spans, inside, raise_on_span
+    from cubemapslam_tpu_torch import spans
+    frames = mapped["frames"]
+    s = fresh(mapped)
+    with monkeypatch.context() as m:
+        m.setattr(spans, "record_function", raise_on_span)
+        assert s.track_fisheye(frames[RELOC_AT], 0.0) is not None
+        s.activate_localization_mode()
+        assert s.track_fisheye(frames[RELOC_AT + 1], 1.0) is not None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert s.track_fisheye(frames[RELOC_AT + 2], 2.0) is not None
+    row = s.metrics[-1]
+    assert row["kind"] == "localization" and row["graph_stages"] == {}
+    ev = host_spans(prof, set(LOCALIZATION_SPANS))
+    assert {n for n, _, _ in ev} == set(LOCALIZATION_SPANS)
+    frame = [e for e in ev if e[0] == "slam.frame"]
+    assert len(frame) == 1 and all(inside(e, frame[0]) for e in ev)
+    (loc,) = [e for e in ev if e[0] == "localization"]
+    (extract,) = [e for e in ev if e[0] == "extract"]
+    assert all(inside(e, extract) for e in ev if e[0].startswith("extract."))
+    assert extract[2] <= loc[1]
+    reads = [e for e in ev if e[0] == "host.read"]
+    assert len(reads) == row["host_reads"] == 2
+    assert all(inside(e, loc) for e in reads)
+    (optimize,) = [e for e in ev if e[0] == "local.optimize"]
+    lm = [e for e in ev if e[0] == "pose_lm"]
+    assert len(lm) == 2 and inside(lm[1], optimize)
+    keep = [e for e in ev if e[0] == "host.keep"]
+    assert len(keep) == 2 and inside(keep[0], loc)
+    assert keep[1][1] >= loc[2]

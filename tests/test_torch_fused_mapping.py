@@ -48,7 +48,8 @@ from cubemapslam_tpu_torch.config import SlamConfig as TConfig
 from cubemapslam_tpu_torch.runtime import synthetic as S
 from cubemapslam_tpu_torch.runtime.fused_mapping import FusedMapping
 from cubemapslam_tpu_torch.runtime.system import CubemapSLAM
-from cubemapslam_tpu_torch.runtime.tracking import MapTracker
+from cubemapslam_tpu_torch.runtime.tracking import FRAME_KINDS, MapTracker
+from slambench.measure.window import plain_frame
 
 E2E = dict(cube_face_w=160, cube_face_h=160, n_features=600, n_levels=3,
            max_keyframes=24, max_landmarks=4096, min_init_keypoints=80,
@@ -202,6 +203,21 @@ def test_the_sequence_is_a_mapping_case(runs):
         list(BA_FRAMES)
     assert [r.get("first_free") for i, r in enumerate(rows)
             if i in KEYFRAMES] == list(KEYFRAMES.values())
+
+
+@pytest.mark.parametrize("run", ["eager", "graph"])
+def test_frame_kinds(runs, run):
+    """Each row's ``kind``, set where the frame's branch is taken: the two
+    initialization frames (the second makes the initial map), then the
+    keyframe frames and the deferred-BA frames between them; none is a
+    frame that only tracked, as the benchmark's ``plain_frame`` reads the
+    rows too."""
+    rows = [s["row"] for s in runs[run]["states"]]
+    kinds = [r["kind"] for r in rows]
+    assert kinds == ["init", "init"] + [
+        "keyframe" if k in KEYFRAMES else "ba" for k in range(2, N_FRAMES)]
+    assert set(kinds) <= set(FRAME_KINDS)
+    assert not any(plain_frame(r) for r in rows)
 
 
 @pytest.mark.parametrize("part", ["frames", "arena", "bow_and_mapping"])

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
+from torch.profiler import ProfilerActivity, profile
 
 from cubemapslam_tpu import camera as JC
 from cubemapslam_tpu import geometry as JG
@@ -632,3 +633,53 @@ def test_moved_arena_raises_and_owners_drop_graphs(scene, tmp_path):
     slam._fused = FusedStep(slam)
     serialize.load_map(slam, path)
     assert slam.fused_step is None
+
+
+# the spans of a tracked frame that reads nothing past its fallbacks
+TRACKED_SPANS = ("slam.frame", "warp", "extract", "extract.pyramid",
+                 "extract.detect", "extract.select", "extract.describe",
+                 "extract.rays", "motion", "pose_lm", "local.select",
+                 "local.search", "local.optimize", "local.counters",
+                 "epilogue", "host.read", "host.keep")
+
+
+def test_eager_tracked_frame_spans(scene, monkeypatch):
+    """``MapTracker``'s eager frame (the CPU's) with no profiler calls no
+    ``record_function``; under ``torch.profiler`` one ``slam.frame`` holds
+    every span of the frame: ``warp``, ``extract`` with its five steps,
+    ``motion`` (the first read and the 15 px pose LM), TrackLocalMap's
+    ``local.*`` (the pose LM in ``local.optimize``), the device
+    ``epilogue`` and the read's (the last read, then ``host.keep``); one
+    ``host.read`` for each read the row counts. The row's ``kind`` is
+    ``tracked``."""
+    from test_torch_spans import host_spans, inside, raise_on_span
+    from cubemapslam_tpu_torch import spans
+    mt = seeded(scene)
+    with monkeypatch.context() as m:
+        m.setattr(spans, "record_function", raise_on_span)
+        assert mt.track_fisheye(scene["frames"][0], 0.0) is not None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert mt.track_fisheye(scene["frames"][1], 0.1) is not None
+    row = mt.metrics[-1]
+    assert row["kind"] == "tracked" and "graph_stages" in row
+    ev = host_spans(prof, set(TRACKED_SPANS))
+    assert {n for n, _, _ in ev} == set(TRACKED_SPANS)
+    frame = [e for e in ev if e[0] == "slam.frame"]
+    assert len(frame) == 1 and all(inside(e, frame[0]) for e in ev)
+
+    def one(name):
+        (e,) = [e for e in ev if e[0] == name]
+        return e
+
+    assert all(inside(e, one("extract")) for e in ev
+               if e[0].startswith("extract."))
+    reads = [e for e in ev if e[0] == "host.read"]
+    assert len(reads) == row["host_reads"] == 2
+    assert inside(reads[0], one("motion"))
+    epilogue = [e for e in ev if e[0] == "epilogue"]
+    assert len(epilogue) == 2 and epilogue[0][2] <= reads[1][1]
+    assert inside(reads[1], epilogue[1])
+    assert inside(one("host.keep"), epilogue[1])
+    lm = [e for e in ev if e[0] == "pose_lm"]
+    assert len(lm) == 2 and inside(lm[0], one("motion"))
+    assert inside(lm[1], one("local.optimize"))

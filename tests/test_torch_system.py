@@ -39,8 +39,10 @@ from cubemapslam_tpu_torch import slam_map as SM
 from cubemapslam_tpu_torch.config import SlamConfig as TConfig
 from cubemapslam_tpu_torch.runtime.system import (CubemapSLAM, InitRef,
                                                   TrackState)
+from cubemapslam_tpu_torch.runtime.tracking import FRAME_KINDS
 from cubemapslam_tpu_torch.solvers import TwoViewResult, horn_alignment
 from cubemapslam_tpu_torch.solvers.sampling import draw_scores
+from slambench.measure.window import plain_frame
 
 E2E = dict(cube_face_w=160, cube_face_h=160, n_features=600, n_levels=3,
            max_keyframes=24, max_landmarks=4096, min_init_keypoints=80,
@@ -284,6 +286,11 @@ def test_whole_run_against_jax(frames, tmp_path):
     steady = [r for r in ts.metrics if "inliers" in r]
     assert steady and all(r["host_reads"] == 2 for r in steady)
     assert any(r["keyframe"] for r in steady)
+    # each row's kind, where the benchmark's plain_frame reads the rows too
+    kinds = [r["kind"] for r in ts.metrics]
+    assert set(kinds) <= set(FRAME_KINDS)
+    assert all(plain_frame(r) == (r["kind"] == "tracked")
+               for r in ts.metrics)
     out = tmp_path / "traj.txt"
     ts.save_keyframe_trajectory_tum(str(out))
     lines = out.read_text().strip().splitlines()
